@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives ``repro_torch``'s inference path at the bench field (penbased, 16
+trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
+0.3) through ``FogEngine.eval`` on all three backends and precisions, and:
+
+1. prints the card (``nvidia-smi`` name and power limit) and versions;
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
+   int8 on the card, checks that the card's packs equal the CPU's field for
+   field, and checks the packed table bytes;
+4. evaluates with the ``fused``, ``pallas`` and ``reference`` backends from
+   the same seeded start draws (launch counts zeroed just before and read
+   just after), checks that they agree with each other and with the plain
+   path on the CPU, and holds each kernel against its plain version;
+5. reports accuracy, mean hops and pJ per classification;
+6. times each kernel, its plain version and the end-to-end backends with
+   CUDA events (median of 20 warm runs) at B=1000 and B=65,536, works out
+   each kernel's bounds from these inputs (the bytes the data makes it
+   move, its operations, and for fused_fog the latency of its chain of
+   dependent loads, from a timed pointer chase), then reads each kernel's
+   device time and each eval's device idle share from ``torch.profiler``;
+7. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+
+Every number is also written to ``build/chip_smoke.json``.  Without
+a CUDA device it exits non-zero and prints no result.  Any failed check
+raises.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import (FogEngine, FogPolicy,  # noqa: E402
+                              GroveCollection, split)
+from repro_torch.core.engine import (confidence_margin,  # noqa: E402
+                                     sample_starts)
+from repro_torch.data import make_dataset  # noqa: E402
+from repro_torch.forest import (ForestPack, TrainConfig,  # noqa: E402
+                                train_random_forest)
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
+
+PRECISIONS = ("fp32", "bf16", "int8")
+BACKENDS = ("fused", "pallas", "reference")
+TABLE_BYTES = {"fp32": 196_608, "bf16": 106_528, "int8": 61_488}
+THRESH, MAX_HOPS, SEED = 0.3, 8, 0
+BIG_B = 65_536
+# the matching bar (tests/test_engine_conformance.py::_assert_conforms)
+RTOL, ATOL = 1e-6, 1e-7
+# NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
+# cores (the kernels do scalar fp32 and integer work)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SOURCE = "src/repro_torch/kernels/csrc/fog_kernels.cu"
+REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
+            "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
+            "top2_confidence": "src/repro/kernels/top2_confidence.py:16"}
+# where each kernel is launched on the main path
+CALLED_BY = {
+    "fused_fog": "FogEngine.eval, backend 'fused' (one launch per eval)",
+    "grove_aggregate": "FogEngine.eval, backend 'pallas' (one launch per "
+                       "hop)",
+    "top2_confidence": "engine.confidence_margin(backend='pallas'), the "
+                       "margin the LM gate reads; FogEngine.eval never "
+                       "launches it (grove_aggregate computes its own "
+                       "margin)"}
+
+
+def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless ``got`` meets the matching bar; the max abs error."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{what}: max abs err "
+                             f"{(got - want).abs().max().item()}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def check_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if not torch.equal(got.cpu(), want.cpu()):
+        n = int((got.cpu() != want.cpu()).sum())
+        raise AssertionError(f"{what}: {n} of {got.numel()} entries differ")
+
+
+def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Median milliseconds of ``fn`` between two CUDA events, warm."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_profile(fn, reps: int = 10) -> tuple[dict, float]:
+    """Profile ``reps`` warm calls of ``fn``: (device-busy ms per call by
+    kernel name, from CUPTI's kernel records; wall ms per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.name] = (busy.get(e.name, 0.0)
+                            + e.time_range.elapsed_us() / 1e3 / reps)
+    return busy, wall
+
+
+def kernel_ms(busy: dict, kernel: str) -> float | None:
+    """Device ms per call of the CUDA kernel named ``<kernel>_kernel``."""
+    hits = [v for k, v in busy.items() if f"{kernel}_kernel" in k]
+    return sum(hits) if hits else None
+
+
+def fmt(ms: float | None) -> str:
+    return "(no profiler record)" if ms is None else f"{ms:.4f}"
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time for the work: the larger of bytes over the memory rate
+    and operations over the fp32 rate."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def fused_work(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
+               hops: torch.Tensor) -> dict:
+    """The work of one fused evaluation of ``x`` from ``start`` that ran
+    ``hops`` hops per lane, counted from these inputs:
+
+    ``bytes``     each entry the walk reaches read once (the distinct tree
+                  nodes, leaf rows, per-tree scales and ``x`` entries the
+                  plain walk visits), the lane vectors read once and the
+                  outputs written once;
+    ``ops``       the arithmetic of every lane-hop;
+    ``chain``     the dependent loads of the slowest lane: per hop, head
+                  and tree, ``d`` levels of (node, then ``x[feature]``)
+                  and one leaf row, trees in order;
+    ``gathered``  the bytes the walk gathers counting every repeat.
+    """
+    feat, thr, leaf, ts, ls = pack.layout("fused")
+    thr = ref.dequantize_tables(thr, leaf, ts, ls)[0].reshape(-1)
+    feat = feat.reshape(-1)
+    O, G, t, N = pack.feature.shape
+    d, C, tb = pack.depth, pack.n_classes, pack.threshold.element_size()
+    B, F = x.shape
+    hops = hops.long()
+    trees, nodes, xs, leaves = [], [], [], []
+    for j in range(int(hops.max())):
+        lane = torch.nonzero(hops > j).squeeze(1)      # lanes that walked j
+        g = (start[lane].long() + j) % G
+        for o in range(O):
+            tree = ((o * G + g) * t)[:, None] + torch.arange(
+                t, device=x.device)[None, :]           # [n, t] tree ids
+            idx = torch.zeros_like(tree)
+            for _ in range(d):
+                node = tree * N + idx
+                f = feat[node].long()
+                nodes.append(node.reshape(-1))
+                xs.append((lane[:, None] * F + f).reshape(-1))
+                xv = x.reshape(-1)[lane[:, None] * F + f]
+                idx = 2 * idx + 1 + (xv > thr[node]).long()
+            trees.append(tree.reshape(-1))
+            leaves.append((tree * (N + 1) + idx - N).reshape(-1))
+    n = {k: int(torch.unique(torch.cat(v)).numel())
+         for k, v in (("trees", trees), ("nodes", nodes), ("x", xs),
+                      ("leaves", leaves))}
+    lane_hops = float(hops.sum())
+    n_bytes = (n["nodes"] * (4 + tb) + n["leaves"] * C * tb
+               + n["trees"] * 2 * 4 + n["x"] * 4
+               + 3 * B * 4                       # start, thresh, budget
+               + B * O * C * 4 + B * 4)          # proba, hops
+    # per lane-hop and head: t*d compares, t*C leaf adds (+ t*C dequantize
+    # multiplies at int8), C mean divides, C adds, 2C normalising divides,
+    # 2C max compares
+    per = O * (t * d + t * C * (2 if pack.precision == "int8" else 1)
+               + 6 * C)
+    return {"bytes": n_bytes, "ops": lane_hops * per, "distinct": n,
+            "chain": int(hops.max()) * O * t * (2 * d + 1),
+            "gathered": lane_hops * O * t * (d * (4 + tb + 4) + C * tb)}
+
+
+def load_latency_ns(dev: torch.device, n_bytes: int) -> float:
+    """Nanoseconds per dependent global load over a working set of
+    ``n_bytes``: a one-thread pointer chase (``fog_chase``) that visits
+    every 32-byte sector of the set in a random cycle, timed at two chain
+    lengths so that the launch cost cancels."""
+    stride = 8                                     # int32 per sector
+    n = max(n_bytes // 32, 2)
+    order = np.random.default_rng(SEED).permutation(n) * stride
+    nxt = np.zeros(n * stride, np.int32)
+    nxt[order] = np.roll(order, -1)
+    nxt = torch.as_tensor(nxt, device=dev)
+    out = torch.empty((1,), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def chase(steps: int) -> None:
+        rc = lib.fog_chase(nxt.data_ptr(), steps, out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"fog_chase launch failed: CUDA error {rc}")
+
+    short, long_ = 1 << 12, 1 << 15
+    ms = {s: cuda_ms(lambda s=s: chase(s), reps=7) for s in (short, long_)}
+    return (ms[long_] - ms[short]) * 1e6 / (long_ - short)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    out: dict = {}
+
+    # 1. device -------------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] {name}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    out["device"] = {"nvidia_smi": smi, "name": name,
+                     "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    # 2. build --------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    print(f"[build] {lib_path.name} in {build_s:.1f} s (nvcc "
+          f"{_build.build_info.get('seconds', 0.0):.1f} s)")
+    for line in _build.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[build]   {line.strip()}")
+    out["build_s"] = build_s
+
+    # 3. train and pack -----------------------------------------------------
+    t0 = time.perf_counter()
+    ds = make_dataset("penbased")
+    rf = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
+                             TrainConfig(n_trees=16, max_depth=8, seed=1))
+    gc = split(rf, 2)
+    gc_card = GroveCollection(*(a.to(dev) for a in (
+        gc.feature, gc.threshold, gc.leaf)))
+    packs = {p: ForestPack.from_groves(gc_card, p) for p in PRECISIONS}
+    for p, pack in packs.items():
+        cpu_pack = ForestPack.from_groves(gc, p)
+        for f in ("feature", "threshold", "leaf", "thr_scale", "leaf_scale"):
+            if getattr(pack, f).device.type != "cuda":
+                raise AssertionError(f"{p} {f} was not packed on the card")
+            check_equal(f"{p} {f} packed on the card vs the CPU",
+                        getattr(pack, f), getattr(cpu_pack, f))
+        if pack.table_bytes != TABLE_BYTES[p]:
+            raise AssertionError(f"{p} table_bytes {pack.table_bytes} != "
+                                 f"{TABLE_BYTES[p]}")
+    print(f"[train] penbased 16 trees depth 8 -> {gc.n_groves} groves x "
+          f"{gc.grove_size} in {time.perf_counter() - t0:.1f} s; table_bytes "
+          + ", ".join(f"{p} {packs[p].table_bytes}" for p in PRECISIONS)
+          + "; packed on the card == packed on the CPU")
+
+    # 4. evaluate: the main path ---------------------------------------------
+    x = torch.as_tensor(ds.x_test, device=dev)
+    y = torch.as_tensor(ds.y_test, device=dev)
+    B, F = x.shape
+    policy = FogPolicy(threshold=THRESH, max_hops=MAX_HOPS)
+    engines = {(p, b): FogEngine(packs[p], backend=b, device=dev)
+               for p in PRECISIONS for b in BACKENDS}
+    gen = torch.Generator(device=dev)
+    reports, margins = {}, {}
+    for k in ops.launches:
+        ops.launches[k] = 0
+    for p in PRECISIONS:
+        for b in BACKENDS:
+            gen.manual_seed(SEED)      # the same start draws for each run
+            reports[p, b] = engines[p, b].eval(x, gen, policy=policy)
+        # the final confidence of each classification (top-2 kernel)
+        margins[p] = confidence_margin(reports[p, "pallas"].proba,
+                                       backend="pallas")
+    torch.cuda.synchronize()
+    main_launches = dict(ops.launches)
+    print(f"[eval] kernel launches on the main path: {main_launches}")
+    for k, n in main_launches.items():
+        if n < 1:
+            raise AssertionError(f"kernel {k} was not launched on the main "
+                                 "path")
+
+    start = sample_starts(gen.manual_seed(SEED), B, gc.n_groves)
+    errs = {"fused_fog": 0.0, "grove_aggregate": 0.0, "top2_confidence": 0.0}
+    results = {}
+    for p in PRECISIONS:
+        want = reports[p, "reference"]
+        for b in ("fused", "pallas"):
+            got = reports[p, b]
+            check_equal(f"{p} {b} hops", got.hops, want.hops)
+            check_equal(f"{p} {b} labels", got.label, want.label)
+            e = check_close(f"{p} {b} proba", got.proba, want.proba)
+            errs["fused_fog" if b == "fused" else "grove_aggregate"] = max(
+                errs["fused_fog" if b == "fused" else "grove_aggregate"], e)
+        for b in BACKENDS:
+            r = reports[p, b]
+            check_equal(f"{p} {b} energy", r.energy_pj,
+                        r.model.lane_pj(r.hops))
+        errs["top2_confidence"] = max(errs["top2_confidence"], check_close(
+            f"{p} top2 margins", margins[p],
+            ref.top2_confidence_ref(reports[p, "pallas"].proba)))
+        # the plain path on the CPU, from the same start draws
+        cpu = FogEngine(packs[p].to("cpu"), device="cpu").eval(
+            ds.x_test, policy=policy, start=start.cpu())
+        check_equal(f"{p} cpu hops", reports[p, "fused"].hops, cpu.hops)
+        check_equal(f"{p} cpu labels", reports[p, "fused"].label, cpu.label)
+        check_close(f"{p} cpu proba", reports[p, "fused"].proba, cpu.proba)
+        r = reports[p, "fused"]
+        acc = float((r.label == y).float().mean())
+        results[p] = {"accuracy": acc, "mean_hops": float(r.hops.float().mean()),
+                      "pj_per_classification": r.mean_energy_pj}
+        print(f"[eval] {p}: accuracy {acc:.3f}, mean hops "
+              f"{results[p]['mean_hops']:.3f}, "
+              f"{results[p]['pj_per_classification']:.2f} pJ/classification;"
+              " fused == pallas == reference == cpu")
+        if acc < 0.93:
+            raise AssertionError(f"{p} accuracy {acc:.3f} < 0.93")
+    out["eval"] = results
+    out["main_launches"] = main_launches
+
+    # each kernel against its plain version, on the card --------------------
+    rng = np.random.default_rng(SEED)
+    lane_thr = torch.as_tensor(rng.random(B, dtype=np.float32), device=dev)
+    lane_bud = torch.as_tensor(rng.integers(1, MAX_HOPS + 1, B,
+                                            dtype=np.int32), device=dev)
+    rf2 = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
+                              TrainConfig(n_trees=16, max_depth=8, seed=2))
+    cases = [(p, packs[p]) for p in PRECISIONS] + [
+        ("int8 two heads",
+         ForestPack.from_groves((gc, split(rf2, 2)), "int8").to(dev))]
+    for label, pack in cases:
+        for thr, bud in ((torch.full((B,), THRESH, device=dev),
+                          torch.full((B,), MAX_HOPS, dtype=torch.int32,
+                                     device=dev)),
+                         (lane_thr, lane_bud)):
+            args = (*pack.layout("fused")[:3], x, start, thr, bud,
+                    *pack.layout("fused")[3:])
+            pk, hk = ops.fused_fog(*args, max_hops=MAX_HOPS)
+            pr, hr = fused_fog_ref(*args, max_hops=MAX_HOPS)
+            check_equal(f"fused_fog {label} hops", hk, hr)
+            errs["fused_fog"] = max(errs["fused_fog"],
+                                    check_close(f"fused_fog {label}", pk, pr))
+    # grove_aggregate at a mid-loop state: two plain hops, some lanes dead
+    pack = packs["fp32"]
+    prob = torch.zeros((B, ds.n_classes), device=dev)
+    live = torch.ones((B,), dtype=torch.bool, device=dev)
+    hops = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for j in range(3):
+        contrib = pack.predict_proba(0, (start.long() + j) % gc.n_groves, x)
+        args = (prob, contrib, live, hops, lane_thr)
+        if j == 2:
+            got = ops.grove_aggregate(*args)
+            want = ref.grove_aggregate_ref(*args)
+            for name_, g_, w_ in zip(("prob", "hops", "live", "margin"),
+                                     got, want):
+                check_equal(f"grove_aggregate {name_}", g_, w_)
+        prob, hops, live, _ = ref.grove_aggregate_ref(*args)
+    # top2 with ties at the max and below it
+    ties = reports["fp32", "fused"].proba.clone()
+    ties[:64, 3] = ties[:64, 7] = 2.0
+    ties[64:128] = 0.1
+    check_equal("top2 ties", ops.top2_confidence(ties),
+                ref.top2_confidence_ref(ties))
+    print(f"[kernels] each kernel equals its plain version on the card; "
+          f"max abs err {errs}")
+
+    # 6. time: CUDA events first, then the profiler (once CUPTI has traced
+    # the process, every launch costs the host more, so no event timing
+    # may follow a profile) -----------------------------------------------
+    timing, kernel_fns, eval_fns = {}, {}, {}
+    C = ds.n_classes
+    latency_ns = {p: load_latency_ns(dev, TABLE_BYTES[p]) for p in PRECISIONS}
+    print("[time] dependent-load latency (fog_chase over a working set of "
+          "the packed table): " + ", ".join(
+              f"{p} {TABLE_BYTES[p]} B {latency_ns[p]:.2f} ns"
+              for p in PRECISIONS))
+    out["load_latency_ns"] = latency_ns
+    for nb in (B, BIG_B):
+        xb = x.repeat((nb + B - 1) // B, 1)[:nb].contiguous()
+        sb = sample_starts(gen.manual_seed(SEED), nb, gc.n_groves)
+        thr_b = torch.full((nb,), THRESH, device=dev)
+        bud_b = torch.full((nb,), MAX_HOPS, dtype=torch.int32, device=dev)
+        for p in PRECISIONS:
+            pack = packs[p]
+            args = (*pack.layout("fused")[:3], xb, sb, thr_b, bud_b,
+                    *pack.layout("fused")[3:])
+            _, hk = ops.fused_fog(*args, max_hops=MAX_HOPS)
+            work = fused_work(pack, xb, sb, hk)
+            row = {"mean_hops": float(hk.float().mean()),
+                   "fused_fog_distinct": work["distinct"],
+                   "fused_fog_bytes": work["bytes"],
+                   "fused_fog_chain_loads": work["chain"],
+                   "fused_fog_gather_bound_ms":
+                       work["gathered"] / HBM_BYTES_PER_S * 1e3,
+                   "fused_fog_latency_bound_ms":
+                       work["chain"] * latency_ns[p] * 1e-6}
+            row["fused_fog_bound_ms"], row["fused_fog_bound_by"] = bound_ms(
+                work["bytes"], work["ops"])
+            fused = lambda a=args: ops.fused_fog(*a, max_hops=MAX_HOPS)
+            row["fused_fog_ms"] = cuda_ms(fused)
+            row["fused_fog_plain_ms"] = cuda_ms(
+                lambda a=args: fused_fog_ref(*a, max_hops=MAX_HOPS))
+            kernel_fns[nb, p, "fused_fog"] = fused
+            for b in BACKENDS:
+                ev = lambda e=engines[p, b], xx=xb: e.eval(
+                    xx, gen.manual_seed(SEED), policy=policy)
+                before = dict(ops.launches)
+                ev()
+                row[f"{b}_launches_per_eval"] = {
+                    k: ops.launches[k] - before[k] for k in ops.launches}
+                row[f"eval_{b}_ms"] = cuda_ms(ev)
+                row[f"eval_{b}_classifications_per_s"] = (
+                    nb / row[f"eval_{b}_ms"] * 1e3)
+                eval_fns[nb, p, b] = ev
+            timing[nb, p] = row
+        # the per-hop kernels at [nb, C]
+        prob = torch.rand((nb, C), device=dev)
+        contrib = torch.rand((nb, C), device=dev)
+        live = torch.rand((nb,), device=dev) < 0.5
+        hops = torch.randint(0, 4, (nb,), dtype=torch.int32, device=dev)
+        agg = (prob, contrib, live, hops, thr_b)
+        row = timing[nb, "fp32"]
+        kernel_fns[nb, "fp32", "grove_aggregate"] = (
+            lambda a=agg: ops.grove_aggregate(*a))
+        kernel_fns[nb, "fp32", "top2_confidence"] = (
+            lambda q=prob: ops.top2_confidence(q))
+        row["grove_aggregate_ms"] = cuda_ms(
+            kernel_fns[nb, "fp32", "grove_aggregate"])
+        row["grove_aggregate_plain_ms"] = cuda_ms(
+            lambda a=agg: ref.grove_aggregate_ref(*a))
+        # the kernel reads contrib only for live lanes, and adds it only
+        # there; every lane reads prob, live, hops and thresh and writes
+        # prob, hops, live and margin
+        n_live = int(live.sum())
+        row["grove_aggregate_live_lanes"] = n_live
+        row["grove_aggregate_bound_ms"], row["grove_aggregate_bound_by"] = (
+            bound_ms(nb * (2 * C * 4 + 2 * 1 + 4 * 4) + n_live * C * 4,
+                     nb * 5 * C + n_live * C))
+        row["top2_confidence_ms"] = cuda_ms(
+            kernel_fns[nb, "fp32", "top2_confidence"])
+        row["top2_confidence_plain_ms"] = cuda_ms(
+            lambda q=prob: ref.top2_confidence_ref(q))
+        row["top2_confidence_library_ms"] = cuda_ms(
+            lambda q=prob: torch.topk(q, 2, dim=-1))
+        row["top2_confidence_bound_ms"], row["top2_confidence_bound_by"] = (
+            bound_ms(nb * (C + 1) * 4, nb * 3 * C))
+    for (nb, p, k), fn in kernel_fns.items():
+        busy, _ = device_profile(fn)
+        timing[nb, p][f"{k}_device_ms"] = kernel_ms(busy, k)
+    for (nb, p, b), fn in eval_fns.items():
+        busy, wall = device_profile(fn)
+        timing[nb, p][f"eval_{b}_profile"] = {
+            "wall_ms": wall, "device_busy_ms": sum(busy.values()),
+            "device_idle_share": 1.0 - sum(busy.values()) / wall,
+            "device_kernels": len(busy)}
+    for (nb, p), row in timing.items():
+        print(f"[time] B={nb} {p}: fused_fog {row['fused_fog_ms']:.4f} ms per "
+              f"call, {fmt(row['fused_fog_device_ms'])} ms on the device "
+              f"(bound {row['fused_fog_bound_ms']:.6f} ms by "
+              f"{row['fused_fog_bound_by']}; latency bound "
+              f"{row['fused_fog_latency_bound_ms']:.5f} ms for "
+              f"{row['fused_fog_chain_loads']} dependent loads; gathered "
+              f"bytes with repeats {row['fused_fog_gather_bound_ms']:.5f} "
+              f"ms), plain {row['fused_fog_plain_ms']:.3f} ms; distinct "
+              f"entries {row['fused_fog_distinct']}")
+        for b in BACKENDS:
+            prof = row[f"eval_{b}_profile"]
+            print(f"[time] B={nb} {p}: eval {b} {row[f'eval_{b}_ms']:.3f} ms "
+                  f"({row[f'eval_{b}_classifications_per_s']:.4g} "
+                  f"classifications/s), kernel launches "
+                  f"{row[f'{b}_launches_per_eval']}, device idle "
+                  f"{prof['device_idle_share']:.3f} under the profiler")
+        if p == "fp32":
+            for k in ("grove_aggregate", "top2_confidence"):
+                print(f"[time] B={nb} [B,{C}]: {k} {row[f'{k}_ms']:.4f} ms "
+                      f"per call, {fmt(row[f'{k}_device_ms'])} ms on the "
+                      f"device (bound {row[f'{k}_bound_ms']:.5f} ms), plain "
+                      f"{row[f'{k}_plain_ms']:.4f} ms"
+                      + (f", torch.topk {row[f'{k}_library_ms']:.4f} ms"
+                         if f"{k}_library_ms" in row else ""))
+    out["timing"] = {f"B={nb} {p}": row for (nb, p), row in timing.items()}
+
+    # 7. the kernels line ------------------------------------------------------
+    row = timing[B, "fp32"]
+    kernels = []
+    for k in ("fused_fog", "grove_aggregate", "top2_confidence"):
+        lat = row.get(f"{k}_latency_bound_ms")
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[k], "launches": main_launches[k],
+            "max_abs_err": errs[k], "ms": row[f"{k}_ms"],
+            "device_ms": row[f"{k}_device_ms"],
+            "plain_ms": row[f"{k}_plain_ms"], "bound_ms": row[f"{k}_bound_ms"],
+            "bound_by": row[f"{k}_bound_by"],
+            "latency_bound_ms": lat,
+            "larger_bound": ("latency" if lat is not None
+                             and lat > row[f"{k}_bound_ms"]
+                             else row[f"{k}_bound_by"]),
+            "library_ms": row.get(f"{k}_library_ms"),
+            "called_by": CALLED_BY[k],
+            "matches_plain": True, "shape": f"B={B} fp32"})
+    out["kernels"] = kernels
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "chip_smoke.json").write_text(
+        json.dumps(out, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,414 @@
+"""FogEngine — Algorithm 2 with pluggable backends (port of
+``repro.core.engine``).
+
+==============  =============================================================
+backend         per-hop update implementation
+==============  =============================================================
+``reference``   plain PyTorch (``kernels.ref.grove_aggregate_ref``), the
+                oracle; runs on any device
+``pallas``      the per-hop kernel backend: the grove walk in PyTorch, then
+                the fused hop-update CUDA kernel (``kernels.ops
+                .grove_aggregate``) — one launch per hop.  The name is the
+                JAX package's, which saved artifacts carry
+``fused``       the ENTIRE Algorithm-2 loop in one CUDA launch
+                (``kernels.ops.fused_fog``)
+==============  =============================================================
+
+Every runtime knob lives in a :class:`~repro_torch.core.policy.FogPolicy`;
+the canonical call is
+
+    engine.eval(x, generator, policy=FogPolicy(threshold=0.3))
+
+where ``generator`` is a ``torch.Generator`` that draws each lane's start
+grove.  ``eval(x, start=...)`` takes the draws instead (the tests feed the
+JAX package's own draws through it).  Every backend runs the identical
+update math, so labels and per-lane hop counts are bit-identical across
+backends for the same starts.
+
+On a CPU engine (``device="cpu"``) the kernel backends run the kernels'
+plain versions; on a CUDA engine they launch the kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.confidence import maxdiff
+from repro_torch.core.energy import EnergyModel, EnergyReport
+from repro_torch.core.grove import GroveCollection
+from repro_torch.core.policy import PRECISIONS, FogPolicy, check_backend
+from repro_torch.forest.pack import ForestPack
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels._build import check_block
+
+# CUDA threads per block when nothing chooses one
+DEFAULT_BLOCK_B = 256     # per-hop kernels
+FUSED_BLOCK_B = 128       # the fused kernel
+
+
+@dataclasses.dataclass(frozen=True)
+class FogResult:
+    """The one result contract every backend returns.
+
+    proba: [B, C] (or [B, O, C] multi-output) final normalized probabilities
+    label: [B]    (or [B, O]) argmax labels
+    hops:  [B]    groves that processed each example, 1-based — the energy
+                  quantity
+    """
+    proba: torch.Tensor
+    label: torch.Tensor
+    hops: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalReport(FogResult):
+    """What ``FogEngine.eval`` returns: the FogResult contract plus energy.
+
+    energy_pj: [B] estimated pJ per example — ``model.lane_pj(hops)``,
+               computed on the evaluation's device
+    model:     the :class:`~repro_torch.core.energy.EnergyModel` it was
+               priced with (topology + the precision the evaluation ran at)
+    """
+    energy_pj: torch.Tensor = None
+    model: EnergyModel = None
+
+    @property
+    def precision(self) -> str:
+        return self.model.precision
+
+    @property
+    def mean_energy_pj(self) -> float:
+        return float(self.energy_pj.mean())
+
+    @property
+    def mean_energy_nj(self) -> float:
+        return self.mean_energy_pj * 1e-3
+
+    def energy_report(self) -> EnergyReport:
+        """Float64 post-hoc report over this evaluation's hops."""
+        return self.model.report(self.hops.cpu().numpy())
+
+
+def _as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A tensor on ``device``; host arrays are copied (they may be
+    read-only views, e.g. of JAX arrays)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def sample_starts(generator: torch.Generator, B: int, G: int,
+                  device=None) -> torch.Tensor:
+    """Random start grove per example (Algorithm 2 line 3): int32 [B],
+    uniform over [0, G), drawn on the generator's device."""
+    start = torch.randint(0, G, (B,), generator=generator,
+                          device=generator.device, dtype=torch.int32)
+    return start.to(device) if device is not None else start
+
+
+def hop_update(prob, contrib, live, hops, thresh, *, backend: str = "reference",
+               block_b: int = DEFAULT_BLOCK_B):
+    """One Algorithm-2 hop update (lines 7-11), dispatched by backend.
+
+    ``thresh`` is a scalar or per-lane ``[B]`` vector.  Returns
+    (prob, hops, live, margin).
+    """
+    _check_step_backend(backend)
+    if backend == "pallas":
+        return ops.grove_aggregate(prob, contrib, live, hops, thresh,
+                                   block_b=block_b)
+    return ref.grove_aggregate_ref(prob, contrib, live, hops, thresh)
+
+
+def confidence_margin(probs: torch.Tensor, *, backend: str = "reference",
+                      block_b: int = DEFAULT_BLOCK_B) -> torch.Tensor:
+    """MaxDiff margin [..., C] -> [...]; "pallas" routes the top-2 kernel."""
+    _check_step_backend(backend)
+    if backend == "pallas" and probs.ndim == 2:
+        return ops.top2_confidence(probs, block_b=block_b)
+    return maxdiff(probs)
+
+
+def _check_step_backend(backend: str) -> None:
+    if backend not in ("reference", "pallas"):
+        raise ValueError(f"unknown step backend {backend!r}; "
+                         "pick 'reference' or 'pallas'")
+
+
+# --------------------------------------------------------------------------
+# evaluation core.  Multi-output heads are flattened to [B*O, C] so the same
+# hop update serves both; the min-over-outputs rule is applied on margins.
+# --------------------------------------------------------------------------
+
+def _contrib(pack: ForestPack, g_idx, x):
+    """Per-hop grove contribution, flattened over output heads: [B*O, C]."""
+    if pack.n_heads == 1:
+        return pack.predict_proba(0, g_idx, x)
+    rows = [pack.predict_proba(o, g_idx, x) for o in range(pack.n_heads)]
+    return torch.stack(rows, dim=1).reshape(-1, pack.n_classes)
+
+
+def _repeat_lanes(v, n_out):
+    """[B] lane state -> [B*O] (each head shares its lane's liveness)."""
+    return v if n_out == 1 else torch.repeat_interleave(v, n_out)
+
+
+def _step(pack, x, start, thresh, budget, j, prob, live, hops, backend,
+          block_b):
+    """Shared hop body: returns updated (prob, live, hops) for [B*O, C]."""
+    O = pack.n_heads
+    g_idx = (start.to(torch.long) + j) % pack.n_groves
+    contrib = _contrib(pack, g_idx, x)
+    prob, hops_f, live_f, margin = hop_update(
+        prob, contrib, _repeat_lanes(live, O), _repeat_lanes(hops, O),
+        _repeat_lanes(thresh, O), backend=backend, block_b=block_b)
+    if O == 1:
+        return prob, live_f & (hops_f < budget), hops_f
+    # min-over-outputs rule: a lane stays live until EVERY head is confident
+    margin = margin.reshape(-1, O).amin(dim=1)
+    hops = hops_f.reshape(-1, O)[:, 0]
+    live = live & (margin < thresh) & (hops < budget)
+    return prob, live, hops
+
+
+def _eval_core(pack: ForestPack, x, start, thresh, budget, max_hops: int,
+               backend: str, block_b: int, lazy: bool) -> FogResult:
+    B = x.shape[0]
+    O = pack.n_heads
+    C = pack.n_classes
+    if backend == "fused":
+        # the whole early-exit state machine runs inside ONE kernel launch;
+        # `lazy` is moot (each lane's loop exits when the lane dies)
+        feat, thr, leaf, ts, ls = pack.layout("fused")
+        proba, hops = ops.fused_fog(feat, thr, leaf, x, start, thresh, budget,
+                                    ts, ls, max_hops=max_hops,
+                                    block_b=block_b)
+        if O == 1:
+            proba = proba[:, 0]
+        return FogResult(proba=proba,
+                         label=torch.argmax(proba, dim=-1).to(torch.int32),
+                         hops=hops)
+    dev = x.device
+    prob = torch.zeros((B * O, C), dtype=torch.float32, device=dev)
+    live = torch.ones((B,), dtype=torch.bool, device=dev)
+    hops = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for j in range(max_hops):
+        if lazy and not bool(live.any()):
+            break
+        prob, live, hops = _step(pack, x, start, thresh, budget, j, prob,
+                                 live, hops, backend, block_b)
+    denom = torch.clamp(_repeat_lanes(hops, O), min=1)[:, None]
+    prob_norm = prob / denom.to(torch.float32)
+    if O > 1:
+        prob_norm = prob_norm.reshape(B, O, C)
+    return FogResult(proba=prob_norm,
+                     label=torch.argmax(prob_norm, dim=-1).to(torch.int32),
+                     hops=hops)
+
+
+# --------------------------------------------------------------------------
+# packed-table ownership
+# --------------------------------------------------------------------------
+
+class TableCache:
+    """One :class:`ForestPack` per precision on the engine's device."""
+
+    def __init__(self, gcs_fn, device: torch.device):
+        # a zero-arg callable, not the groves themselves: an engine seeded
+        # with a loaded pack serves it without ever materializing fp32
+        # tables — groves are only realized if ANOTHER precision is asked
+        self._gcs_fn = gcs_fn
+        self.device = device
+        self._packs: dict[str, ForestPack] = {}
+
+    def seed(self, pack: ForestPack) -> None:
+        """Adopt an existing pack as the cached entry for its precision."""
+        self._packs[pack.precision] = pack.to(self.device)
+
+    def pack(self, precision: str) -> ForestPack:
+        """The packed tables at ``precision`` (built on first use)."""
+        if precision not in self._packs:
+            gcs = self._gcs_fn()
+            gc = gcs if len(gcs) > 1 else gcs[0]
+            self._packs[precision] = ForestPack.from_groves(
+                gc, precision).to(self.device)
+        return self._packs[precision]
+
+
+# --------------------------------------------------------------------------
+# the engine
+# --------------------------------------------------------------------------
+
+class FogEngine:
+    """Owns the Algorithm-2 state machine; backends plug in the hop update.
+
+    gc:        GroveCollection, a tuple of them (multi-output heads with
+               identical (n_groves, grove_size)), or a
+               :class:`~repro_torch.forest.pack.ForestPack` (adopted into
+               the table cache; its precision becomes the engine default).
+    device:    where tables live and evaluation runs; default ``"cuda"``,
+               which raises without a card — pass ``device="cpu"`` for the
+               plain PyTorch path.
+    policy:    default :class:`FogPolicy` for ``eval`` calls without one.
+               A per-call policy REPLACES it; only its None-valued knobs
+               fall back to the engine defaults below.
+    """
+
+    def __init__(self, gc, *, backend: str = "reference",
+                 block_b: int | None = None,
+                 chunk_b: int | str | None = None,
+                 lazy: bool = False, policy: FogPolicy | None = None,
+                 precision: str | None = None, device=None):
+        check_backend(backend)
+        self.device = resolve_device(device)
+        self._seed_pack = gc if isinstance(gc, ForestPack) else None
+        if self._seed_pack is not None:
+            self._gcs = None
+        else:
+            self._gcs = (tuple(gc) if isinstance(gc, (tuple, list))
+                         else (gc,))
+            g0 = self._gcs[0]
+            for g in self._gcs[1:]:
+                if (g.n_groves, g.grove_size) != (g0.n_groves,
+                                                  g0.grove_size):
+                    raise ValueError(
+                        "multi-output heads need identical (n_groves, "
+                        f"grove_size); got {(g.n_groves, g.grove_size)} vs "
+                        f"{(g0.n_groves, g0.grove_size)}")
+        if precision is None:
+            precision = (self._seed_pack.precision
+                         if self._seed_pack is not None else "fp32")
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r}; "
+                             f"pick from {PRECISIONS}")
+        self.backend = backend
+        self.block_b = block_b
+        self.chunk_b = chunk_b
+        self.precision = precision
+        self.lazy = lazy
+        self.policy = policy if policy is not None else FogPolicy()
+        self.tables = TableCache(lambda: self.gcs, self.device)
+        self._energy_models: dict[tuple[str, int], EnergyModel] = {}
+        self._n_features: int | None = None
+        self._checked: set[tuple[str, int]] = set()
+        if self._seed_pack is not None:
+            self.tables.seed(self._seed_pack)
+
+    # -- properties ------------------------------------------------------
+    @property
+    def gcs(self) -> tuple[GroveCollection, ...]:
+        """Per-head GroveCollections; for a pack-seeded engine these are
+        dequantized fp32 views, realized only on first access."""
+        if self._gcs is None:
+            self._gcs = self._seed_pack.to_groves()
+        return self._gcs
+
+    @property
+    def n_groves(self) -> int:
+        if self._seed_pack is not None:
+            return self._seed_pack.n_groves
+        return self._gcs[0].n_groves
+
+    # -- policy resolution ----------------------------------------------
+    def resolve(self, policy: FogPolicy | None = None) -> FogPolicy:
+        """Fill a policy's None knobs from the engine defaults."""
+        p = policy if policy is not None else self.policy
+        backend = p.backend if p.backend is not None else self.backend
+        block_b = p.block_b if p.block_b is not None else self.block_b
+        if block_b is None:
+            block_b = FUSED_BLOCK_B if backend == "fused" else DEFAULT_BLOCK_B
+        return p.replace(
+            max_hops=p.max_hops if p.max_hops is not None else self.n_groves,
+            backend=backend,
+            block_b=block_b,
+            chunk_b=p.chunk_b if p.chunk_b is not None else self.chunk_b,
+            lazy=p.lazy if p.lazy is not None else self.lazy,
+            precision=(p.precision if p.precision is not None
+                       else self.precision))
+
+    # -- evaluation ------------------------------------------------------
+    def eval(self, x, generator: torch.Generator | None = None, *,
+             policy: FogPolicy | None = None,
+             start=None) -> EvalReport:
+        """GCEval(X, policy) — Algorithm 2, any backend.
+
+        Start groves come from ``generator`` (a ``torch.Generator``), or
+        are given as ``start`` (int ``[B]``).
+        """
+        p = self.resolve(policy)
+        check_block(p.block_b)
+        x = _as_tensor(x, torch.float32, self.device)
+        B = x.shape[0]
+        thresh_v = p.lane_thresholds(B, self.device)
+        budget_v = p.lane_budgets(B, self.device)
+        if start is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator (or start=) to draw "
+                                 "the start groves")
+            start = sample_starts(generator, B, self.n_groves, self.device)
+        else:
+            start = _as_tensor(start, torch.int32, self.device)
+            if tuple(start.shape) != (B,):
+                raise ValueError(f"start has shape {tuple(start.shape)}, "
+                                 f"batch is {B}")
+        res = self._eval_chunked(x.contiguous(), start.contiguous(), thresh_v,
+                                 budget_v, p)
+        self._n_features = int(x.shape[1])
+        model = self.energy_model(p.precision, x.shape[1])
+        return EvalReport(proba=res.proba, label=res.label, hops=res.hops,
+                          energy_pj=model.lane_pj(res.hops), model=model)
+
+    def energy_model(self, precision: str | None = None,
+                     n_features: int | None = None) -> EnergyModel:
+        """The engine's :class:`EnergyModel` at ``precision`` (default: the
+        engine default precision).  ``n_features`` defaults to the last
+        evaluation's; pass it explicitly when pricing before any eval."""
+        precision = precision if precision is not None else self.precision
+        if n_features is None:
+            n_features = self._n_features
+            if n_features is None:
+                raise ValueError(
+                    "n_features unknown before the first eval; pass "
+                    "energy_model(precision, n_features=...) explicitly")
+        key = (precision, int(n_features))
+        model = self._energy_models.get(key)
+        if model is None:
+            model = EnergyModel.from_pack(
+                self.tables.pack(precision), n_features)
+            self._energy_models[key] = model
+        return model
+
+    def _eval_chunked(self, x, start, thresh, budget,
+                      p: FogPolicy) -> FogResult:
+        B, F = x.shape
+        pack = self.tables.pack(p.precision)
+        if (p.precision, F) not in self._checked:
+            # the kernels gather x[b, feature] unchecked: a pack (e.g. a
+            # loaded artifact) must only name features the input has
+            lo, hi = int(pack.feature.min()), int(pack.feature.max())
+            if lo < 0 or hi >= F:
+                raise ValueError(f"the forest tests features {lo}..{hi} but "
+                                 f"the input has {F}")
+            self._checked.add((p.precision, F))
+        core = lambda *a: _eval_core(pack, *a, p.max_hops, p.backend,
+                                     p.block_b, p.lazy)
+        # an explicit int chunks; "auto" never chunks yet (the shared-memory
+        # footprint model that would size chunks is ROADMAP A5)
+        cb = p.chunk_b if isinstance(p.chunk_b, int) else None
+        if cb is None or B <= cb:
+            return core(x, start, thresh, budget)
+        pad = (-B) % cb
+        if pad:  # dead-pad the tail chunk: padded lanes get thresh=-1 /
+            # budget=1, so any margin clears the gate and they die on hop 1
+            x = torch.cat([x, x[:1].expand(pad, -1)])
+            start = torch.cat([start, start.new_zeros((pad,))])
+            thresh = torch.cat([thresh, thresh.new_full((pad,), -1.0)])
+            budget = torch.cat([budget, budget.new_ones((pad,))])
+        chunks = [core(x[i:i + cb], start[i:i + cb], thresh[i:i + cb],
+                       budget[i:i + cb])
+                  for i in range(0, B + pad, cb)]
+        return FogResult(*(torch.cat([getattr(c, f) for c in chunks])[:B]
+                           for f in ("proba", "label", "hops")))

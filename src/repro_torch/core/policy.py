@@ -1,0 +1,149 @@
+"""FogPolicy — the runtime-knob contract for Algorithm-2 evaluation (port
+of ``repro.core.policy``).
+
+===============  ============================================================
+knob             meaning
+===============  ============================================================
+``threshold``    MaxDiff confidence gate — a scalar for the whole batch, or a
+                 per-lane ``[B]`` vector
+``max_hops``     global hop cap; None = n_groves
+``hop_budget``   per-lane hop cap — scalar or ``[B]`` int; a lane stops
+                 hopping once it has consumed its budget even if unconfident
+``backend``      "reference" | "pallas" | "fused"; None = engine default.
+                 "pallas" names the per-hop kernel backend (the name the
+                 JAX package writes into saved artifacts)
+``block_b``      CUDA threads per block (a multiple of 32, at most 1024);
+                 None = engine default
+``chunk_b``      batch chunking: an int, ``"auto"`` (never chunks in this
+                 port yet) or None
+``lazy``         stop the per-hop loop once every lane is dead, instead of
+                 running all ``max_hops`` hops; None = engine default
+``precision``    packed-table dtype: "fp32" | "bf16" | "int8"
+===============  ============================================================
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.forest.pack import PRECISIONS  # noqa: F401  (re-export)
+
+BACKENDS = ("reference", "pallas", "fused")
+
+# per-lane "no budget" sentinel: hops < NO_BUDGET is always true for any
+# reachable hop count, so unbudgeted lanes are capped by max_hops alone
+NO_BUDGET = 2**31 - 1
+
+# knobs of the JAX package's policy dicts that only steer its Pallas kernels
+_TPU_ONLY_KNOBS = ("interpret", "compact")
+
+
+def check_backend(backend: str) -> None:
+    if backend == "ring":
+        raise NotImplementedError(
+            "the ring backend is not ported yet: ROADMAP A11")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FogPolicy:
+    """Every runtime knob of one Algorithm-2 evaluation, in one object."""
+
+    threshold: float | torch.Tensor = 0.3
+    max_hops: int | None = None
+    hop_budget: int | torch.Tensor | None = None
+    backend: str | None = None
+    block_b: int | None = None
+    chunk_b: int | str | None = None
+    lazy: bool | None = None
+    precision: str | None = None
+
+    def __post_init__(self):
+        if self.backend is not None:
+            check_backend(self.backend)
+        if self.precision is not None and self.precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r}; "
+                             f"pick from {PRECISIONS} (or None)")
+        if self.max_hops is not None and self.max_hops < 1:
+            raise ValueError(f"max_hops must be >= 1, got {self.max_hops}")
+        if isinstance(self.chunk_b, str):
+            if self.chunk_b != "auto":
+                raise ValueError(f"chunk_b must be an int, 'auto' or None, "
+                                 f"got {self.chunk_b!r}")
+        elif self.chunk_b is not None and self.chunk_b < 1:
+            raise ValueError(f"chunk_b must be >= 1, got {self.chunk_b}")
+        # a lane always spends its first hop before any gate can fire, so a
+        # budget below 1 is unsatisfiable
+        if self.hop_budget is not None:
+            if bool((torch.as_tensor(self.hop_budget) < 1).any()):
+                raise ValueError(
+                    f"hop_budget must be >= 1 everywhere (the first hop is "
+                    f"always spent), got {self.hop_budget}")
+
+    def replace(self, **kw) -> "FogPolicy":
+        """A copy with some knobs changed (frozen dataclass idiom)."""
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def per_lane(self) -> bool:
+        """True when threshold or hop_budget carries a per-lane vector."""
+        return (getattr(self.threshold, "ndim", 0) > 0
+                or getattr(self.hop_budget, "ndim", 0) > 0)
+
+    # -- persistence -----------------------------------------------------
+    def to_dict(self) -> dict:
+        """JSON-safe scalar-knob dict.  Per-lane policies are batch-shaped
+        state and refuse to serialize."""
+        if self.per_lane:
+            raise ValueError(
+                "cannot serialize a per-lane policy (its threshold/"
+                "hop_budget vectors are batch-shaped)")
+
+        def scalar(v):
+            if isinstance(v, torch.Tensor):
+                return v.item()
+            return v if v is None else np.asarray(v).item()
+
+        return {"threshold": scalar(self.threshold),
+                "max_hops": self.max_hops,
+                "hop_budget": scalar(self.hop_budget),
+                "backend": self.backend, "block_b": self.block_b,
+                "chunk_b": self.chunk_b, "lazy": self.lazy,
+                "precision": self.precision}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "FogPolicy":
+        """Inverse of :meth:`to_dict`.  Also reads the JAX package's dicts,
+        whose TPU-only ``interpret`` and ``compact`` knobs have no meaning
+        here (one thread per lane already stops walking dead lanes)."""
+        return cls(**{k: v for k, v in d.items()
+                      if k not in _TPU_ONLY_KNOBS})
+
+    # -- lane-vector materialization (the engine's single entry) ---------
+    def lane_thresholds(self, B: int, device=None) -> torch.Tensor:
+        """``threshold`` as a per-lane float32 ``[B]`` tensor on ``device``."""
+        t = torch.as_tensor(self.threshold, dtype=torch.float32,
+                            device=device)
+        if t.ndim == 0:
+            return t.expand(B).contiguous()
+        if tuple(t.shape) != (B,):
+            raise ValueError(
+                f"per-lane threshold has shape {tuple(t.shape)}, batch is {B}")
+        return t.contiguous()
+
+    def lane_budgets(self, B: int, device=None) -> torch.Tensor:
+        """``hop_budget`` as a per-lane int32 ``[B]`` tensor (NO_BUDGET where
+        unset — the max_hops bound still applies)."""
+        if self.hop_budget is None:
+            return torch.full((B,), NO_BUDGET, dtype=torch.int32,
+                              device=device)
+        b = torch.as_tensor(self.hop_budget, dtype=torch.int32, device=device)
+        if b.ndim == 0:
+            return b.expand(B).contiguous()
+        if tuple(b.shape) != (B,):
+            raise ValueError(
+                f"per-lane hop_budget has shape {tuple(b.shape)}, batch is {B}")
+        return b.contiguous()

@@ -1,0 +1,142 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+``csrc/fog_kernels.cu`` is compiled by ``nvcc`` at first use into
+``build/repro_torch/libfog_<hash>.so`` under the repository root (the hash
+covers the sources and the flags, so an edit rebuilds), loaded with
+``ctypes`` and called through a plain C interface: every pointer and the
+stream as ``c_void_p``, every int as ``c_int``.  Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()``;
+:func:`launch` raises on anything but 0 and counts the launch.
+
+A failed build raises with nvcc's output.  Nothing here falls back to the
+plain PyTorch versions: a CUDA tensor either runs the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "fog_kernels.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+# -fmad=false: no multiply-add contraction, so the kernels round exactly
+# as the plain versions do (the sources also use explicit _rn intrinsics);
+# -Xptxas=-v reports registers and spills per kernel into the build log
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+# launches per kernel, counted where each kernel is launched and nowhere
+# else; kernels.ops re-exports this dict as ``ops.launches``
+launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0}
+
+P, I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fog_top2_confidence": (P, P, I, I, I, P),
+    "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
+    "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
+                      I, I, I, I, I, I, I, I, I, P),
+    # a latency probe, not an inference kernel: never counted in launches
+    "fog_chase": (P, I, P, P),
+}
+
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                           "need the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfog_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    shared library's path.  ``build_info`` records seconds and nvcc's log."""
+    out = library_path()
+    if out.exists():
+        build_info.setdefault("seconds", 0.0)
+        build_info.setdefault("log", "")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)   # atomic: concurrent builds race harmlessly
+    build_info.update(seconds=seconds, log=proc.stdout + proc.stderr)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.fog_error_string.argtypes = [ctypes.c_int]
+        lib.fog_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_block(block_b: int) -> None:
+    if block_b < 32 or block_b > 1024 or block_b % 32:
+        raise ValueError(f"block_b is the CUDA threads per block: a multiple "
+                         f"of 32 in [32, 1024], got {block_b}")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``ndim``."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def launch(kernel: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fog_<kernel>`` on ``device``'s current stream,
+    raise on a launch error, and count one launch of ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"fog_{kernel}")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"fog_{kernel} launch failed: CUDA error {rc} "
+                           f"({lib.fog_error_string(rc).decode()})")
+    launches[kernel] += 1

@@ -1,0 +1,306 @@
+// Field of Groves inference kernels for NVIDIA Hopper (sm_90a).
+//
+// Three kernels, each behind a plain C entry point that launches on the
+// caller's stream and returns cudaGetLastError() (loaded with ctypes by
+// repro_torch/kernels/_build.py; the wrappers allocate every output and
+// scratch buffer, the kernels allocate nothing):
+//
+//   fog_top2_confidence   replaces repro/kernels/top2_confidence.py::_top2_kernel
+//   fog_grove_aggregate   replaces repro/kernels/grove_aggregate.py::_aggregate_kernel
+//   fog_fused_fog         replaces repro/kernels/fused_fog.py::_fused_fog_kernel
+//
+// plus fog_chase, a one-thread pointer chase that only measures the
+// latency of a dependent load (it is not on the inference path).
+//
+// Exact arithmetic: the results must equal the plain PyTorch versions bit
+// for bit, so every float operation on the path is an explicitly rounded
+// intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn), which nvcc never contracts
+// into an FMA; the build also passes -fmad=false.  Means divide by t and
+// normalisations divide by max(hops, 1): no reciprocal multiplies.
+//
+// Design (deliberately simple; speed is later work):
+//   * one thread per row/lane, block_b threads per block;
+//   * top2/aggregate read each [B, C] row once and are bound by those
+//     bytes (C <= 26 floats per row);
+//   * fused_fog walks each lane's grove with d dependent gathers per tree,
+//     t trees per hop: it is bound by the latency of that chain, not by
+//     bytes.  Tables are read from global memory (the bench field's 192 KiB
+//     stays resident in the 50 MB L2).  Pinning them in shared memory needs
+//     the dynamic opt-in above 48 KB (the fp32 bench field leaves ~35 KB of
+//     the 227 KB for lane state), and a warp-cooperative walk would hide the
+//     gather latency; both are later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+// ---------------------------------------------------------------- MaxDiff
+// |max - second max| of a row whose elements sit `stride` floats apart,
+// with only the FIRST maximal element masked (a tie gives 0).
+__device__ __forceinline__ float maxdiff_row(const float* p, int stride, int C) {
+  float m1 = p[0];
+  int i1 = 0;
+  for (int c = 1; c < C; ++c) {
+    const float v = p[(size_t)c * stride];
+    if (v > m1) { m1 = v; i1 = c; }
+  }
+  float m2 = -CUDART_INF_F;
+  for (int c = 0; c < C; ++c) {
+    if (c == i1) continue;
+    const float v = p[(size_t)c * stride];
+    if (v > m2) m2 = v;
+  }
+  return fabsf(__fsub_rn(m1, m2));
+}
+
+__global__ void top2_confidence_kernel(const float* __restrict__ prob,
+                                       float* __restrict__ out, int B, int C) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  out[b] = maxdiff_row(prob + (size_t)b * C, 1, C);
+}
+
+// ------------------------------------------------------- one hop update
+// prob += contrib * live; hops += live; margin = MaxDiff(prob / max(hops,1));
+// live &= margin < thresh.
+__global__ void grove_aggregate_kernel(
+    const float* __restrict__ prob, const float* __restrict__ contrib,
+    const uint8_t* __restrict__ live, const int* __restrict__ hops,
+    const float* __restrict__ thresh, float* __restrict__ prob_out,
+    int* __restrict__ hops_out, uint8_t* __restrict__ live_out,
+    float* __restrict__ margin_out, int B, int C) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const bool lv = live[b] != 0;
+  const int h = hops[b] + (lv ? 1 : 0);
+  const float denom = (float)max(h, 1);
+  const float* p = prob + (size_t)b * C;
+  const float* q = contrib + (size_t)b * C;
+  float* po = prob_out + (size_t)b * C;
+  float m1 = 0.f;
+  int i1 = 0;
+  for (int c = 0; c < C; ++c) {
+    const float a = __fadd_rn(p[c], lv ? q[c] : 0.0f);
+    po[c] = a;
+    const float v = __fdiv_rn(a, denom);
+    if (c == 0 || v > m1) { m1 = v; i1 = c; }
+  }
+  float m2 = -CUDART_INF_F;
+  for (int c = 0; c < C; ++c) {
+    if (c == i1) continue;
+    const float v = __fdiv_rn(po[c], denom);
+    if (v > m2) m2 = v;
+  }
+  const float margin = fabsf(__fsub_rn(m1, m2));
+  hops_out[b] = h;
+  live_out[b] = (lv && margin < thresh[b]) ? 1 : 0;
+  margin_out[b] = margin;
+}
+
+// ------------------------------------------ dequantize after the gather
+// fp32 passes through, bf16 upcasts exactly, int8 multiplies by the tree's
+// scale; in thresholds the int8 codes ±127 stand for ±inf.
+struct TabF32 {
+  typedef float T;
+  static __device__ __forceinline__ float thr(T q, float) { return q; }
+  static __device__ __forceinline__ float leaf(T q, float) { return q; }
+};
+struct TabBF16 {
+  typedef uint16_t T;  // raw bfloat16 bits
+  static __device__ __forceinline__ float up(T q) {
+    return __uint_as_float((uint32_t)q << 16);
+  }
+  static __device__ __forceinline__ float thr(T q, float) { return up(q); }
+  static __device__ __forceinline__ float leaf(T q, float) { return up(q); }
+};
+struct TabI8 {
+  typedef int8_t T;
+  static __device__ __forceinline__ float thr(T q, float s) {
+    if (q == 127) return CUDART_INF_F;
+    if (q == -127) return -CUDART_INF_F;
+    return __fmul_rn((float)q, s);
+  }
+  static __device__ __forceinline__ float leaf(T q, float s) {
+    return __fmul_rn((float)q, s);
+  }
+};
+
+// ------------------------------------------------ the whole Algorithm 2
+// One thread per lane.  Lane state that is indexed by class lives in
+// `scratch`, laid out lane-minor so a warp's accesses are coalesced:
+//   acc[o][c][b] = scratch[(o * C + c) * B + b]       (O * C * B floats)
+//   con[c][b]    = scratch[(O * C + c) * B + b]       (C * B floats)
+template <class Tab>
+__global__ void fused_fog_kernel(
+    const int* __restrict__ feature, const typename Tab::T* __restrict__ threshold,
+    const typename Tab::T* __restrict__ leaf, const float* __restrict__ thr_scale,
+    const float* __restrict__ leaf_scale, const float* __restrict__ x,
+    const int* __restrict__ start, const float* __restrict__ thresh,
+    const int* __restrict__ budget, float* __restrict__ proba,
+    int* __restrict__ hops_out, float* __restrict__ scratch, int B, int F,
+    int O, int G, int t, int depth, int C, int max_hops) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;  // the dead-lane padding of the TPU kernel
+  const int N = (1 << depth) - 1;  // internal nodes per tree
+  const int L = N + 1;             // leaves per tree
+  float* acc = scratch;
+  float* con = scratch + (size_t)O * C * B;
+  for (int k = 0; k < O * C; ++k) acc[(size_t)k * B + b] = 0.f;
+
+  const float* xb = x + (size_t)b * F;
+  const int s = start[b];
+  const float th = thresh[b];
+  const int bud = budget[b];
+  const float tf = (float)t;
+  int hops = 0;
+  bool live = true;
+  for (int j = 0; j < max_hops && live; ++j) {
+    const int g = ((s + j) % G + G) % G;  // floor modulo, as jnp's %
+    ++hops;
+    const float denom = (float)hops;
+    float margin = CUDART_INF_F;
+    for (int o = 0; o < O; ++o) {
+      for (int c = 0; c < C; ++c) con[(size_t)c * B + b] = 0.f;
+      for (int tr = 0; tr < t; ++tr) {
+        const size_t tree = ((size_t)o * G + g) * t + tr;
+        const int* fe = feature + tree * N;
+        const typename Tab::T* thr = threshold + tree * N;
+        const float ts = thr_scale[tree];
+        int idx = 0;
+        for (int lvl = 0; lvl < depth; ++lvl) {
+          const float v = Tab::thr(thr[idx], ts);
+          idx = 2 * idx + 1 + (xb[fe[idx]] > v ? 1 : 0);
+        }
+        const typename Tab::T* lf = leaf + (tree * L + (idx - N)) * C;
+        const float ls = leaf_scale[tree];
+        for (int c = 0; c < C; ++c) {
+          float* cc = con + (size_t)c * B + b;
+          *cc = __fadd_rn(*cc, Tab::leaf(lf[c], ls));
+        }
+      }
+      // mean over trees, accumulate, normalise, first-max MaxDiff
+      float* ao = acc + (size_t)o * C * B + b;
+      float m1 = 0.f;
+      int i1 = 0;
+      for (int c = 0; c < C; ++c) {
+        const float a = __fadd_rn(ao[(size_t)c * B],
+                                  __fdiv_rn(con[(size_t)c * B + b], tf));
+        ao[(size_t)c * B] = a;
+        const float v = __fdiv_rn(a, denom);
+        if (c == 0 || v > m1) { m1 = v; i1 = c; }
+      }
+      float m2 = -CUDART_INF_F;
+      for (int c = 0; c < C; ++c) {
+        if (c == i1) continue;
+        const float v = __fdiv_rn(ao[(size_t)c * B], denom);
+        if (v > m2) m2 = v;
+      }
+      margin = fminf(margin, fabsf(__fsub_rn(m1, m2)));  // min over heads
+    }
+    live = (margin < th) && (hops < bud);
+  }
+  const float denom = (float)max(hops, 1);
+  for (int o = 0; o < O; ++o)
+    for (int c = 0; c < C; ++c)
+      proba[((size_t)b * O + o) * C + c] =
+          __fdiv_rn(acc[((size_t)o * C + c) * B + b], denom);
+  hops_out[b] = hops;
+}
+
+// --------------------------------------- measurement: dependent-load latency
+// Not on the inference path.  One thread follows the chain next[i] `steps`
+// times; every load waits for the one before, so the time per step is the
+// latency of one dependent global load over a working set of next[]'s size,
+// read through the same const __restrict__ path as fused_fog's gathers.
+// chip_smoke.py times it to turn fused_fog's dependent-gather chain into a
+// latency bound in milliseconds.
+__global__ void chase_kernel(const int* __restrict__ next, int steps,
+                             int* __restrict__ out) {
+  int i = 0;
+  for (int s = 0; s < steps; ++s) i = next[i];
+  *out = i;
+}
+
+inline int grid_for(int B, int block) { return (B + block - 1) / block; }
+
+template <class Tab>
+void launch_fused(const int* feature, const void* threshold, const void* leaf,
+                  const float* thr_scale, const float* leaf_scale,
+                  const float* x, const int* start, const float* thresh,
+                  const int* budget, float* proba, int* hops, float* scratch,
+                  int B, int F, int O, int G, int t, int depth, int C,
+                  int max_hops, int block, cudaStream_t stream) {
+  typedef typename Tab::T T;
+  fused_fog_kernel<Tab><<<grid_for(B, block), block, 0, stream>>>(
+      feature, static_cast<const T*>(threshold), static_cast<const T*>(leaf),
+      thr_scale, leaf_scale, x, start, thresh, budget, proba, hops, scratch,
+      B, F, O, G, t, depth, C, max_hops);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* fog_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+int fog_top2_confidence(const float* prob, float* out, int B, int C, int block,
+                        void* stream) {
+  top2_confidence_kernel<<<grid_for(B, block), block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(prob, out, B, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fog_grove_aggregate(const float* prob, const float* contrib,
+                        const uint8_t* live, const int* hops,
+                        const float* thresh, float* prob_out, int* hops_out,
+                        uint8_t* live_out, float* margin_out, int B, int C,
+                        int block, void* stream) {
+  grove_aggregate_kernel<<<grid_for(B, block), block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      prob, contrib, live, hops, thresh, prob_out, hops_out, live_out,
+      margin_out, B, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fog_chase(const int* next, int steps, int* out, void* stream) {
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(next, steps,
+                                                               out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: 0 = fp32, 1 = bf16 (raw bits), 2 = int8
+int fog_fused_fog(int dtype, const int* feature, const void* threshold,
+                  const void* leaf, const float* thr_scale,
+                  const float* leaf_scale, const float* x, const int* start,
+                  const float* thresh, const int* budget, float* proba,
+                  int* hops, float* scratch, int B, int F, int O, int G, int t,
+                  int depth, int C, int max_hops, int block, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      launch_fused<TabF32>(feature, threshold, leaf, thr_scale, leaf_scale, x,
+                           start, thresh, budget, proba, hops, scratch, B, F,
+                           O, G, t, depth, C, max_hops, block, s);
+      break;
+    case 1:
+      launch_fused<TabBF16>(feature, threshold, leaf, thr_scale, leaf_scale, x,
+                            start, thresh, budget, proba, hops, scratch, B, F,
+                            O, G, t, depth, C, max_hops, block, s);
+      break;
+    case 2:
+      launch_fused<TabI8>(feature, threshold, leaf, thr_scale, leaf_scale, x,
+                          start, thresh, budget, proba, hops, scratch, B, F,
+                          O, G, t, depth, C, max_hops, block, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,52 @@
+"""Public wrappers for the inference kernels.
+
+A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
+launches the hand-written CUDA kernel (built at first use) or raises —
+there is no fallback.  ``launches`` counts kernel launches per kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import launches
+from repro_torch.kernels.fused_fog import fused_fog_cuda, fused_fog_ref
+from repro_torch.kernels.grove_aggregate import (check_contrib,
+                                                 grove_aggregate_cuda)
+from repro_torch.kernels.top2_confidence import top2_confidence_cuda
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def top2_confidence(prob: torch.Tensor, *, block_b: int = 256) -> torch.Tensor:
+    """MaxDiff margin [B, C] -> [B] (plain: ref.top2_confidence_ref)."""
+    if _on_cpu(prob):
+        return ref.top2_confidence_ref(prob)
+    return top2_confidence_cuda(prob, block_b=block_b)
+
+
+def grove_aggregate(prob_acc, contrib, live, hops, thresh, *,
+                    block_b: int = 256):
+    """Fused Algorithm-2 hop update; thresh is a scalar or per-lane [B]
+    vector (plain: ref.grove_aggregate_ref)."""
+    check_contrib(contrib)
+    if _on_cpu(prob_acc):
+        return ref.grove_aggregate_ref(prob_acc, contrib, live, hops, thresh)
+    return grove_aggregate_cuda(prob_acc, contrib, live, hops, thresh,
+                                block_b=block_b)
+
+
+def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
+              thr_scale=None, leaf_scale=None, *, max_hops: int,
+              block_b: int = 128):
+    """Whole Algorithm-2 loop over head-stacked packed tables; returns
+    (proba [B, O, C], hops [B]) (plain: fused_fog.fused_fog_ref)."""
+    fn = fused_fog_ref if _on_cpu(x) else fused_fog_cuda
+    return fn(feature, threshold, leaf, x, start, thresh, budget, thr_scale,
+              leaf_scale, max_hops=max_hops, block_b=block_b)
+
+
+__all__ = ["top2_confidence", "grove_aggregate", "fused_fog", "launches",
+           "ref"]
