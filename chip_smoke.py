@@ -5,7 +5,10 @@
 
 Drives ``repro_torch``'s inference path at the bench field (penbased, 16
 trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
-0.3) through ``FogEngine.eval`` on all three backends and precisions, and:
+0.3) through ``FogEngine.eval`` on all three backends and precisions, then
+its training path (the device trainer at the gate config of
+``benchmarks/train_bench.py``) and the ``FogClassifier`` facade (train ->
+plan -> serve), and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -21,9 +24,25 @@ trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
    CUDA events (median of 20 warm runs) at B=1000 and B=65,536, works out
    each kernel's bounds from these inputs (the bytes the data makes it
    move, its operations, and for fused_fog the latency of its chain of
-   dependent loads, from a timed pointer chase), then reads each kernel's
-   device time and each eval's device idle share from ``torch.profiler``;
-7. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   dependent loads, from a timed pointer chase);
+7. trains with the device trainer at the gate config (penbased, 4000 rows,
+   16 features, depth 8, 16 thresholds, every feature with a linear
+   feature cost, seed 0) at 32 trees with the launch counts zeroed just
+   before and read just after (the histogram kernel runs once per level),
+   holds the kernel against its plain version and the scatter twin at
+   every level of that fit, checks that same-seed fits are bit-equal, that
+   an untied fit equals the host CART and that the device trainer's RF
+   accuracy is within 0.005 of the host CART's, and times both trainers at
+   8, 16 and 32 trees and the kernel, its plain version and
+   ``torch.bincount`` at every level;
+8. fits ``FogClassifier(n_trees=16, grove_size=2, max_depth=8,
+   trainer="device")`` on the card (counts zeroed and read around it),
+   pins an energy budget calibrated on the test set, checks ``profile()``
+   reports it met, quantizes to int8, saves, loads and checks the labels;
+9. reads each kernel's device time, each eval's and the gate fit's device
+   idle share from ``torch.profiler`` (after every event timing: once
+   CUPTI traces the process, every launch costs the host more);
+10. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -31,6 +50,7 @@ raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -50,9 +70,13 @@ from repro_torch.core.engine import (confidence_margin,  # noqa: E402
                                      sample_starts)
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.forest import (ForestPack, TrainConfig,  # noqa: E402
+                                bin_features, quantile_bin_edges, rf_predict,
                                 train_random_forest)
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.forest import grow  # noqa: E402
+from repro_torch.kernels import (_build, autotune, histogram,  # noqa: E402
+                                 ops, ref)
 from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
+from repro_torch.sklearn import FogClassifier  # noqa: E402
 
 PRECISIONS = ("fp32", "bf16", "int8")
 BACKENDS = ("fused", "pallas", "reference")
@@ -65,10 +89,21 @@ RTOL, ATOL = 1e-6, 1e-7
 # cores (the kernels do scalar fp32 and integer work)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-SOURCE = "src/repro_torch/kernels/csrc/fog_kernels.cu"
+INFERENCE_KERNELS = ("fused_fog", "grove_aggregate", "top2_confidence")
+SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
+          for k in INFERENCE_KERNELS}
+SOURCE["histogram"] = "src/repro_torch/kernels/csrc/histogram.cu"
 REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
             "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
-            "top2_confidence": "src/repro/kernels/top2_confidence.py:16"}
+            "top2_confidence": "src/repro/kernels/top2_confidence.py:16",
+            "histogram": "src/repro/kernels/histogram.py:60"}
+# the trainer's gate config (benchmarks/train_bench.py) and its bound
+GATE_TREES = (8, 16, 32)
+GATE_DEPTH = 8
+GATE_MAX_ACC_GAP = 0.005
+# the facade's energy budget: an operating point inside the frontier of
+# the 16-tree depth-8 field (its cheapest points cost ~0.2 nJ)
+BUDGET_NJ = 0.3
 # where each kernel is launched on the main path
 CALLED_BY = {
     "fused_fog": "FogEngine.eval, backend 'fused' (one launch per eval)",
@@ -77,7 +112,10 @@ CALLED_BY = {
     "top2_confidence": "engine.confidence_margin(backend='pallas'), the "
                        "margin the LM gate reads; FogEngine.eval never "
                        "launches it (grove_aggregate computes its own "
-                       "margin)"}
+                       "margin)",
+    "histogram": "forest.grow.grow_forest (train_random_forest / "
+                 "FogClassifier.fit with trainer='device'), one launch "
+                 "per tree level"}
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -233,6 +271,256 @@ def load_latency_ns(dev: torch.device, n_bytes: int) -> float:
     return (ms[long_] - ms[short]) * 1e6 / (long_ - short)
 
 
+def gate_cfg(n_trees: int, trainer: str = "device", **kw) -> TrainConfig:
+    """The trainer gate config of benchmarks/train_bench.py."""
+    return TrainConfig(n_trees=n_trees, max_depth=GATE_DEPTH, n_thresholds=16,
+                       max_features="all",
+                       feature_cost=np.linspace(1.0, 2.0, 16).astype(
+                           np.float32),
+                       cost_weight=0.01, seed=0, trainer=trainer, **kw)
+
+
+def captured_levels(fn):
+    """Run ``fn`` with the trainer's histogram call wrapped; returns (its
+    result, the ``(node, y, w, bins, kwargs)`` of every level)."""
+    levels = []
+    real = grow.histogram_level
+
+    def spy(node, y, w, bins, **kw):
+        levels.append((node.clone(), y, w, bins, kw))
+        return real(node, y, w, bins, **kw)
+
+    grow.histogram_level = spy
+    try:
+        return fn(), levels
+    finally:
+        grow.histogram_level = real
+
+
+def wall_s(fn, reps: int = 5) -> float:
+    """Median seconds of ``fn`` between two synchronizes, after one warm
+    call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def accuracy(forest, x, y) -> float:
+    return float((rf_predict(forest, x).cpu().numpy() == y).mean())
+
+
+def level_work(node, y, w, bins, n_nodes, n_bins, n_classes) -> tuple:
+    """The histogram's bytes (node, w, y and bins read once; the
+    ``[T, R, F*bins]`` output written once) and operations (one add per
+    weighted (tree, sample, feature)) for one level's inputs."""
+    T, N = node.shape
+    F = bins.shape[1]
+    n_bytes = (2 * T * N * 4 + N * 4 + N * F
+               + T * n_nodes * n_classes * F * n_bins * 4)
+    return n_bytes, int((w != 0).sum()) * F
+
+
+def bincount_call(node, y, w, bins, n_nodes, n_bins, n_classes):
+    """The one PyTorch call that computes the same counts, over flat
+    indices made beforehand: ``torch.bincount(index, weights=w,
+    minlength=T*R*F*bins)``."""
+    T, N = node.shape
+    F = bins.shape[1]
+    R = n_nodes * n_classes
+    dev = node.device
+    row = (torch.arange(T, device=dev)[:, None] * R
+           + node.long() * n_classes + y.long()[None, :])          # [T, N]
+    flat = ((row[:, :, None] * F + torch.arange(F, device=dev)) * n_bins
+            + bins.long()[None]).reshape(-1)
+    wf = w[:, :, None].expand(T, N, F).reshape(-1).contiguous()
+    size = T * R * F * n_bins
+    return lambda: torch.bincount(flat, weights=wf, minlength=size)
+
+
+def train_phase(dev: torch.device, ds) -> dict:
+    """Phase 7: the device trainer at the gate config."""
+    x, y, C = ds.x_train, ds.y_train, ds.n_classes
+    N = len(y)
+    # the main path: one gate fit, counts zeroed just before, read after
+    for k in ops.launches:
+        ops.launches[k] = 0
+    forest, levels = captured_levels(lambda: train_random_forest(
+        x, y, C, gate_cfg(GATE_TREES[-1]), device=dev))
+    torch.cuda.synchronize()
+    fit_launches = dict(ops.launches)
+    print(f"[train] device trainer, gate config at {GATE_TREES[-1]} trees: "
+          f"kernel launches {fit_launches}")
+    if fit_launches["histogram"] != GATE_DEPTH:
+        raise AssertionError(f"histogram launched {fit_launches['histogram']}"
+                             f" times in a depth-{GATE_DEPTH} fit")
+    if forest.feature.device.type != dev.type:
+        raise AssertionError(f"the device trainer trained on "
+                             f"{forest.feature.device}, not {dev}")
+
+    # the kernel against its plain version and the twin, at every level
+    max_err = 0.0
+    for lv, (node, yy, w, bins, kw) in enumerate(levels):
+        shape = dict(n_nodes=kw["n_nodes"], n_bins=kw["n_bins"],
+                     n_classes=kw["n_classes"])
+        got = histogram.histogram_level_cuda(node, yy, w, bins, **shape)
+        want = histogram.histogram_level_ref(node, yy, w, bins, **shape)
+        check_equal(f"histogram level {lv}: kernel vs plain", got, want)
+        check_equal(f"histogram level {lv}: kernel vs scatter twin", got,
+                    histogram.histogram_level_scatter(node, yy, w, bins,
+                                                      **shape))
+        max_err = max(max_err, float((got - want).abs().max()))
+    print(f"[train] histogram kernel == plain version == scatter twin at "
+          f"all {len(levels)} levels of the gate fit")
+
+    again = train_random_forest(x, y, C, gate_cfg(GATE_TREES[-1]),
+                                device=dev)
+    for f in ("feature", "threshold", "leaf"):
+        check_equal(f"same-seed card fits: {f}", getattr(again, f),
+                    getattr(forest, f))
+    untied = train_random_forest(x, y, C, gate_cfg(4, bootstrap=False),
+                                 device=dev)
+    host_untied = train_random_forest(x, y, C,
+                                      gate_cfg(4, "host", bootstrap=False))
+    check_equal("untied card fit vs host CART: feature", untied.feature,
+                host_untied.feature)
+    check_equal("untied card fit vs host CART: threshold", untied.threshold,
+                host_untied.threshold)
+    if not torch.allclose(untied.leaf.cpu(), host_untied.leaf, rtol=0,
+                          atol=1e-6):
+        raise AssertionError("untied card fit vs host CART: leaf")
+    print("[train] same-seed card fits bit-equal; untied card fit == host "
+          "CART (feature, threshold; leaf within 1e-6)")
+
+    # both trainers at 8, 16 and 32 trees
+    fits = []
+    for T in GATE_TREES:
+        dev_s = wall_s(lambda T=T: train_random_forest(
+            x, y, C, gate_cfg(T), device=dev))
+        t0 = time.perf_counter()
+        host_f = train_random_forest(x, y, C, gate_cfg(T, "host"))
+        host_s = time.perf_counter() - t0
+        dev_f = (forest if T == GATE_TREES[-1] else train_random_forest(
+            x, y, C, gate_cfg(T), device=dev))
+        row = {"n_trees": T, "device_s": dev_s, "host_s": host_s,
+               "tree_samples_per_s": {"device": N * T / dev_s,
+                                      "host": N * T / host_s},
+               "acc_device": accuracy(dev_f, ds.x_test, ds.y_test),
+               "acc_host": accuracy(host_f, ds.x_test, ds.y_test)}
+        fits.append(row)
+        print(f"[train] {T} trees: device {dev_s * 1e3:.2f} ms "
+              f"({row['tree_samples_per_s']['device']:.4g} tree*samples/s), "
+              f"host CART {host_s:.2f} s "
+              f"({row['tree_samples_per_s']['host']:.4g}); RF accuracy "
+              f"device {row['acc_device']:.3f}, host {row['acc_host']:.3f}")
+    gate = fits[-1]
+    gap = round(abs(gate["acc_host"] - gate["acc_device"]), 9)
+    # the host's share of a fit: quantile edges and binning in numpy
+    bin_s = wall_s(lambda: bin_features(x, quantile_bin_edges(x, 16)))
+    print(f"[train] host binning (quantile edges + bins, numpy): "
+          f"{bin_s * 1e3:.2f} ms per fit")
+    # how far the accuracy of a small forest moves with the draws alone
+    seeds = {T: [accuracy(train_random_forest(
+        x, y, C, dataclasses.replace(gate_cfg(T), seed=sd), device=dev),
+        ds.x_test, ds.y_test) for sd in range(8)] for T in GATE_TREES[:1]}
+    print(f"[train] device-trainer RF accuracy at {GATE_TREES[0]} trees over "
+          f"seeds 0..7: {seeds[GATE_TREES[0]]}")
+
+    # the kernel at each level of the gate fit: call, plain, library, bound
+    per_level, fns = [], {}
+    for lv, (node, yy, w, bins, kw) in enumerate(levels):
+        shape = dict(n_nodes=kw["n_nodes"], n_bins=kw["n_bins"],
+                     n_classes=kw["n_classes"])
+        call = lambda a=(node, yy, w, bins), k=shape: (
+            histogram.histogram_level_cuda(*a, **k))
+        lib = bincount_call(node, yy, w, bins, **shape)
+        check_equal(f"histogram level {lv}: bincount vs kernel",
+                    lib().to(torch.float32).view(
+                        node.shape[0], shape["n_nodes"], shape["n_classes"],
+                        bins.shape[1], shape["n_bins"]).permute(0, 1, 3, 4, 2),
+                    call())
+        n_bytes, n_ops = level_work(node, yy, w, bins, **shape)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        per_level.append({
+            "level": lv, "n_nodes": shape["n_nodes"], "ms": cuda_ms(call),
+            "plain_ms": cuda_ms(lambda a=(node, yy, w, bins), k=shape: (
+                histogram.histogram_level_ref(*a, **k))),
+            "library_ms": cuda_ms(lib), "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": b_ms, "bound_by": b_by})
+        fns[lv] = call
+    tuned = autotune.tune_histogram(
+        GATE_TREES[-1], GATE_DEPTH, x.shape[1], 17, C, n_samples=N,
+        persist=False, device=dev)
+    autotune.clear_cache()      # the gate fits above used the analytic seed
+    print(f"[train] tune_histogram at the gate signature (not used by the "
+          f"fits): {tuned.to_dict()}")
+    return {"launches": fit_launches, "max_abs_err": max_err, "fits": fits,
+            "acc_gap": gap, "acc_device_over_seeds": seeds,
+            "host_binning_s": bin_s,
+            "levels": per_level, "level_fns": fns,
+            "gate_fit": lambda: train_random_forest(
+                x, y, C, gate_cfg(GATE_TREES[-1]), device=dev),
+            "tuned": tuned.to_dict()}
+
+
+def facade_phase(dev: torch.device, ds) -> dict:
+    """Phase 8: train -> plan -> serve through ``FogClassifier``."""
+    for k in ops.launches:
+        ops.launches[k] = 0
+    t0 = time.perf_counter()
+    clf = FogClassifier(n_trees=16, grove_size=2, max_depth=8,
+                        trainer="device").fit(ds.x_train, ds.y_train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clf.set_energy_budget(BUDGET_NJ, ds.x_test, ds.y_test)
+    budget_s = time.perf_counter() - t0
+    acc = clf.score(ds.x_test, ds.y_test)
+    prof = clf.profile()
+    if prof["within_budget"] is not True:
+        raise AssertionError(f"facade profile not within budget: {prof}")
+    clf.quantize("int8")
+    want = clf.predict(ds.x_test)
+    path = ROOT / "build" / "chip_smoke_model.npz"
+    path.parent.mkdir(exist_ok=True)
+    clf.save(path)
+    loaded = FogClassifier.load(path)
+    got = loaded.predict(ds.x_test)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    check_equal("facade labels after save -> load", torch.as_tensor(got),
+                torch.as_tensor(want))
+    for k in ("histogram", "fused_fog"):
+        if launches[k] < 1:
+            raise AssertionError(f"kernel {k} was not launched by the facade")
+    if clf.engine_.device.type != dev.type or \
+            loaded.engine_.device.type != dev.type:
+        raise AssertionError(f"the facade did not run on {dev}")
+    predict_ms = cuda_ms(lambda: loaded.predict(ds.x_test))
+    res = {"fit_s": fit_s, "set_energy_budget_s": budget_s,
+           "predict_ms": predict_ms, "accuracy_pinned": acc,
+           "profile": prof, "pinned_policy": clf.frontier_.under_budget(
+               BUDGET_NJ).policy.to_dict(),
+           "frontier_points": len(clf.frontier_),
+           "accuracy_int8_loaded": float((got == ds.y_test).mean()),
+           "launches": launches}
+    print(f"[facade] FogClassifier(16 trees, 8 x 2, depth 8, device "
+          f"trainer): fit {fit_s * 1e3:.1f} ms, set_energy_budget("
+          f"{BUDGET_NJ} nJ) {budget_s * 1e3:.1f} ms over "
+          f"{len(clf.frontier_)} frontier points; pinned "
+          f"{res['pinned_policy']}, accuracy {acc:.3f}, "
+          f"{prof['energy_nj_per_classification']:.4f} nJ/classification, "
+          f"within budget; int8 save -> load labels identical (accuracy "
+          f"{res['accuracy_int8_loaded']:.3f}), loaded predict "
+          f"{predict_ms:.3f} ms; kernel launches {launches}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -308,7 +596,7 @@ def main() -> int:
         margins[p] = confidence_margin(reports[p, "pallas"].proba,
                                        backend="pallas")
     torch.cuda.synchronize()
-    main_launches = dict(ops.launches)
+    main_launches = {k: ops.launches[k] for k in INFERENCE_KERNELS}
     print(f"[eval] kernel launches on the main path: {main_launches}")
     for k, n in main_launches.items():
         if n < 1:
@@ -479,6 +767,49 @@ def main() -> int:
             lambda q=prob: torch.topk(q, 2, dim=-1))
         row["top2_confidence_bound_ms"], row["top2_confidence_bound_by"] = (
             bound_ms(nb * (C + 1) * 4, nb * 3 * C))
+
+    # 7. the device trainer, and 8. the facade (each its own main path) ----
+    (ROOT / "build").mkdir(exist_ok=True)
+    train = train_phase(dev, ds)
+    out["train"] = {k: v for k, v in train.items()
+                    if k not in ("level_fns", "gate_fit")}
+    out["facade"] = facade_phase(dev, ds)
+    main_launches["histogram"] = train["launches"]["histogram"]
+
+    # 9. the profiler, after every event timing -----------------------------
+    for lv, fn in train["level_fns"].items():
+        busy, _ = device_profile(fn)
+        row = train["levels"][lv]
+        row["device_ms"] = kernel_ms(busy, "histogram")
+        row["call_device_ms"] = sum(busy.values())    # the fill + the kernel
+    busy, wall = device_profile(train["gate_fit"], reps=3)
+    out["train"]["gate_fit_profile"] = {
+        "wall_ms": wall, "device_busy_ms": sum(busy.values()),
+        "device_idle_share": 1.0 - sum(busy.values()) / wall,
+        "device_kernels": len(busy),
+        "histogram_kernel_ms": kernel_ms(busy, "histogram"),
+        "top_device_ms": dict(sorted(busy.items(), key=lambda kv: -kv[1])[:8])}
+    for row in train["levels"]:
+        print(f"[time] histogram level {row['level']} ({row['n_nodes']} "
+              f"nodes): {row['ms']:.4f} ms per call, "
+              f"{fmt(row['device_ms'])} ms kernel + fill "
+              f"{row['call_device_ms']:.4f} ms on the device (bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}), plain "
+              f"{row['plain_ms']:.3f} ms, torch.bincount "
+              f"{row['library_ms']:.4f} ms")
+    gp = out["train"]["gate_fit_profile"]
+    print(f"[time] gate fit under the profiler: wall {gp['wall_ms']:.2f} ms, "
+          f"device busy {gp['device_busy_ms']:.3f} ms, idle share "
+          f"{gp['device_idle_share']:.3f}, {gp['device_kernels']} distinct "
+          f"device kernels")
+    if train["acc_gap"] > GATE_MAX_ACC_GAP:
+        raise AssertionError(
+            f"trainer gate: RF accuracy gap {train['acc_gap']:.4f} between "
+            f"the host CART and the device trainer exceeds "
+            f"{GATE_MAX_ACC_GAP} at {GATE_TREES[-1]} trees")
+    print(f"[train] RF accuracy gap at {GATE_TREES[-1]} trees: "
+          f"{train['acc_gap']:.4f} <= {GATE_MAX_ACC_GAP}")
+
     for (nb, p, k), fn in kernel_fns.items():
         busy, _ = device_profile(fn)
         timing[nb, p][f"{k}_device_ms"] = kernel_ms(busy, k)
@@ -515,13 +846,13 @@ def main() -> int:
                          if f"{k}_library_ms" in row else ""))
     out["timing"] = {f"B={nb} {p}": row for (nb, p), row in timing.items()}
 
-    # 7. the kernels line ------------------------------------------------------
+    # 10. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
     kernels = []
-    for k in ("fused_fog", "grove_aggregate", "top2_confidence"):
+    for k in INFERENCE_KERNELS:
         lat = row.get(f"{k}_latency_bound_ms")
         kernels.append({
-            "name": k, "route": "cuda", "source": SOURCE,
+            "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k], "launches": main_launches[k],
             "max_abs_err": errs[k], "ms": row[f"{k}_ms"],
             "device_ms": row[f"{k}_device_ms"],
@@ -534,8 +865,23 @@ def main() -> int:
             "library_ms": row.get(f"{k}_library_ms"),
             "called_by": CALLED_BY[k],
             "matches_plain": True, "shape": f"B={B} fp32"})
+    deep = train["levels"][-1]
+    fit_sum = {k: sum(lv[k] for lv in train["levels"])
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    kernels.append({
+        "name": "histogram", "route": "cuda", "source": SOURCE["histogram"],
+        "replaces": REPLACES["histogram"],
+        "launches": main_launches["histogram"],
+        "max_abs_err": train["max_abs_err"], "ms": deep["ms"],
+        "device_ms": deep["device_ms"], "plain_ms": deep["plain_ms"],
+        "bound_ms": deep["bound_ms"], "bound_by": deep["bound_by"],
+        "library_ms": deep["library_ms"], "called_by": CALLED_BY["histogram"],
+        "matches_plain": True,
+        "shape": (f"gate fit level {deep['level']}: T={GATE_TREES[-1]} "
+                  f"N={len(ds.y_train)} F=16 bins=17 C={ds.n_classes} "
+                  f"nodes={deep['n_nodes']}"),
+        "per_fit": {f"{k}_sum_over_levels": v for k, v in fit_sum.items()}})
     out["kernels"] = kernels
-    (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,14 @@ from repro_torch.core.energy import (
 from repro_torch.core.engine import (EvalReport, FogEngine, FogResult,
                                      TableCache, confidence_margin,
                                      hop_update, sample_starts)
+from repro_torch.core.budget import (
+    TopologyPoint, evaluate_topology, policy_sweep, topology_sweep,
+    select_min_edp, threshold_sweep, find_opt_threshold,
+)
+from repro_torch.core.frontier import (
+    Frontier, FrontierPoint, auto_policy, build_frontier, default_grid,
+    sweep_policies,
+)
 from repro_torch.forest.pack import ForestPack
 
 __all__ = [
@@ -22,4 +30,8 @@ __all__ = [
     "mlp_energy_pj", "cnn_energy_pj",
     "EvalReport", "FogEngine", "FogResult", "TableCache",
     "confidence_margin", "hop_update", "sample_starts", "ForestPack",
+    "TopologyPoint", "evaluate_topology", "policy_sweep", "topology_sweep",
+    "select_min_edp", "threshold_sweep", "find_opt_threshold",
+    "Frontier", "FrontierPoint", "auto_policy", "build_frontier",
+    "default_grid", "sweep_policies",
 ]

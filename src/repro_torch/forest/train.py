@@ -12,7 +12,9 @@ the split search vectorized across the whole ``[n, F_sub, q]`` (samples x
 subsampled features x candidate thresholds) grid per node.  It draws from
 ``np.random.default_rng(cfg.seed)`` in the same order as the JAX package's
 host CART, so both emit the same trees bit for bit.  ``trainer="device"``
-(the level-wise histogram trainer) is not ported yet.
+is the level-wise histogram trainer of :mod:`repro_torch.forest.grow`,
+which grows every tree at once on the device (by default the CUDA card)
+and runs the histogram kernel at every level.
 
 :func:`quantile_bin_edges` computes per-feature global quantile thresholds
 ONCE per fit (deduplicated — a low-cardinality column's repeated quantiles
@@ -46,7 +48,7 @@ class TrainConfig:
     feature_cost: np.ndarray | None = None  # [F] acquisition cost (budgeted RF)
     cost_weight: float = 0.0                 # lambda in gain - lambda*cost
     seed: int = 0
-    trainer: str = "host"         # "host" (numpy CART) | "device" (not ported)
+    trainer: str = "host"         # "host" (numpy CART) | "device" (grow.py)
 
 
 def resolve_max_features(max_features: str | int, n_features: int) -> int:
@@ -200,19 +202,22 @@ def _train_tree(x: np.ndarray, y: np.ndarray, n_classes: int,
 
 
 def train_random_forest(x: np.ndarray, y: np.ndarray, n_classes: int,
-                        cfg: TrainConfig) -> TensorForest:
+                        cfg: TrainConfig, *, device=None) -> TensorForest:
     """RandomForestTrain(n, X, y) — Algorithm 1 line 2.
 
-    ``cfg.trainer="host"`` is the numpy CART below; the device trainer is
-    not ported yet.  Returns CPU tensors.
+    ``cfg.trainer`` selects the implementation: ``"host"`` is the numpy
+    CART below and returns CPU tensors; ``"device"`` dispatches to the
+    level-wise histogram trainer (:func:`repro_torch.forest.grow.
+    grow_forest`), which runs on ``device`` (default ``"cuda"``) and
+    returns the forest there.  Both emit the same complete-tree
+    ``TensorForest`` padding/sentinel conventions.
     """
     if cfg.trainer not in TRAINERS:
         raise ValueError(f"unknown trainer {cfg.trainer!r}; "
                          f"pick from {TRAINERS}")
     if cfg.trainer == "device":
-        raise NotImplementedError(
-            'trainer="device" (the level-wise histogram trainer) is not '
-            "ported yet: ROADMAP A7")
+        from repro_torch.forest.grow import grow_forest
+        return grow_forest(x, y, n_classes, cfg, device=device)
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.int32)
     edges = quantile_bin_edges(x, cfg.n_thresholds)

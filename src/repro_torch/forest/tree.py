@@ -118,6 +118,17 @@ def forest_proba(forest: TensorForest, x: torch.Tensor) -> torch.Tensor:
         grove_traverse(forest.feature, forest.threshold, forest.leaf, x))
 
 
+def forest_votes(forest: TensorForest, x: torch.Tensor) -> torch.Tensor:
+    """Per-tree hard votes -> fp32 one-hot counts [B, C] (conventional RF).
+
+    Each tree votes for the first maximum of its leaf distribution."""
+    per_tree = grove_traverse(forest.feature, forest.threshold, forest.leaf,
+                              x)
+    votes = torch.argmax(per_tree, dim=-1)                     # [B, t]
+    return torch.nn.functional.one_hot(votes, forest.n_classes).sum(
+        dim=1).to(torch.float32)
+
+
 def pad_forest(forests: list[TensorForest]) -> TensorForest:
     """Stack single-tree forests (possibly different depths) to common depth."""
     max_depth = max(f.depth for f in forests)

@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels of the inference path, their plain PyTorch
-versions (``ref``) and the wrappers that pick between them (``ops``)."""
+"""Hand-written CUDA kernels of the inference path and of the device
+trainer, their plain PyTorch versions (``ref``, and beside each kernel)
+and the wrappers that pick between them (``ops``)."""

@@ -1,12 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-``csrc/fog_kernels.cu`` is compiled by ``nvcc`` at first use into
+The sources in ``csrc/`` (``SOURCES``) are compiled by ``nvcc`` at first
+use, one ``nvcc`` per source, all started together, and linked into
 ``build/repro_torch/libfog_<hash>.so`` under the repository root (the hash
-covers the sources and the flags, so an edit rebuilds), loaded with
-``ctypes`` and called through a plain C interface: every pointer and the
-stream as ``c_void_p``, every int as ``c_int``.  Each C entry point
-launches on the stream it is given and returns ``cudaGetLastError()``;
-:func:`launch` raises on anything but 0 and counts the launch.
+covers the sources and the flags, so an edit rebuilds).  The library is
+loaded with ``ctypes`` and called through a plain C interface: every
+pointer and the stream as ``c_void_p``, every int as ``c_int``.  Each C
+entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises on anything but 0 and counts
+the launch.
 
 A failed build raises with nvcc's output.  Nothing here falls back to the
 plain PyTorch versions: a CUDA tensor either runs the kernel or raises.
@@ -24,19 +26,20 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fog_kernels.cu",)
+SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
 # as the plain versions do (the sources also use explicit _rn intrinsics);
 # -Xptxas=-v reports registers and spills per kernel into the build log
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
               "-Xcompiler", "-fPIC")
 
 # launches per kernel, counted where each kernel is launched and nowhere
 # else; kernels.ops re-exports this dict as ``ops.launches``
-launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0}
+launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
+            "histogram": 0}
 
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -44,6 +47,7 @@ _SIGNATURES = {
     "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, I, P),
+    "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, P),
     # a latency probe, not an inference kernel: never counted in launches
     "fog_chase": (P, I, P, P),
 }
@@ -71,6 +75,21 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfog_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs: list) -> str:
+    """Wait for every ``(cmd, Popen)``; raise with nvcc's output on the
+    first failure; return the joined logs."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(out + err)
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed (exit {proc.returncode}): "
+                      f"{' '.join(cmd)}\n{out}{err}")
+    if failed is not None:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
     shared library's path.  ``build_info`` records seconds and nvcc's log."""
@@ -80,17 +99,24 @@ def build() -> Path:
         build_info.setdefault("log", "")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(SOURCES, objs)]
+    log = _run([(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+                for c in compiles])
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    log += _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True))])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)   # atomic: concurrent builds race harmlessly
-    build_info.update(seconds=seconds, log=proc.stdout + proc.stderr)
+    build_info.update(seconds=seconds, log=log)
     return out
 
 

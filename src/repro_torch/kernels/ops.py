@@ -1,4 +1,4 @@
-"""Public wrappers for the inference kernels.
+"""Public wrappers for the kernels.
 
 A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written CUDA kernel (built at first use) or raises —
@@ -13,6 +13,9 @@ from repro_torch.kernels._build import launches
 from repro_torch.kernels.fused_fog import fused_fog_cuda, fused_fog_ref
 from repro_torch.kernels.grove_aggregate import (check_contrib,
                                                  grove_aggregate_cuda)
+from repro_torch.kernels.histogram import (histogram_level,
+                                           histogram_level_scatter,
+                                           onehot_rows)
 from repro_torch.kernels.top2_confidence import top2_confidence_cuda
 
 
@@ -48,5 +51,6 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
               leaf_scale, max_hops=max_hops, block_b=block_b)
 
 
-__all__ = ["top2_confidence", "grove_aggregate", "fused_fog", "launches",
-           "ref"]
+__all__ = ["top2_confidence", "grove_aggregate", "fused_fog",
+           "histogram_level", "histogram_level_scatter", "onehot_rows",
+           "launches", "ref"]

@@ -156,3 +156,123 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                             device=cuda),
                             torch.zeros(64, dtype=torch.int32, device=cuda),
                             0.3)
+
+
+# ------------------------------------------------ the trainer's histogram
+
+# (T, N, F, n_bins, C, nodes): small, unaligned, and the gate signature's
+# deepest level (32 trees, 4000 rows, 16 features, 17 bins, 10 classes,
+# 128 nodes at level 7)
+HIST_SHAPES = [(2, 96, 3, 5, 3, 4), (3, 1001, 16, 17, 10, 8),
+               (32, 4000, 16, 17, 10, 128)]
+
+
+def hist_inputs(rng, device, T, N, F, n_bins, C, nodes):
+    return (torch.as_tensor(rng.integers(0, nodes, (T, N), dtype=np.int32),
+                            device=device),
+            torch.as_tensor(rng.integers(0, C, N, dtype=np.int32),
+                            device=device),
+            torch.as_tensor(rng.integers(0, 4, (T, N)).astype(np.float32),
+                            device=device),
+            torch.as_tensor(rng.integers(0, n_bins, (N, F), dtype=np.uint8),
+                            device=device))
+
+
+@pytest.mark.parametrize("shape", HIST_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_histogram_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels import histogram
+    T, N, F, n_bins, C, nodes = shape
+    args = hist_inputs(np.random.default_rng(sum(shape)), cuda, *shape)
+    kw = dict(n_nodes=nodes, n_bins=n_bins, n_classes=C)
+    before = ops.launches["histogram"]
+    got = ops.histogram_level(*args, matmul_max_r=nodes * C, **kw)
+    assert ops.launches["histogram"] == before + 1
+    assert got.shape == (T, nodes, F, n_bins, C)
+    # integer-valued sums: exact in any order, so equal, not close
+    assert torch.equal(got, histogram.histogram_level_ref(*args, **kw))
+    assert torch.equal(got, histogram.histogram_level_scatter(*args, **kw))
+    assert torch.equal(got.cpu(), histogram.histogram_level_ref(
+        *(a.cpu() for a in args), **kw))
+
+
+def test_histogram_kernel_ignores_out_of_range_like_the_one_hot(cuda):
+    from repro_torch.kernels import histogram
+    rng = np.random.default_rng(4)
+    node, y, w, bins = hist_inputs(rng, cuda, 2, 300, 4, 6, 3, 4)
+    node[0, :20] = 4                        # one past the last node
+    bins[20:40, 1] = 6                      # one past the last bin
+    kw = dict(n_nodes=4, n_bins=6, n_classes=3)
+    assert torch.equal(histogram.histogram_level_cuda(node, y, w, bins, **kw),
+                       histogram.histogram_level_ref(node, y, w, bins, **kw))
+
+
+@pytest.fixture(scope="module")
+def small_train():
+    from repro_torch.data import make_dataset
+    ds = make_dataset("penbased")
+    return ds.x_train[:2000], ds.y_train[:2000], ds.n_classes
+
+
+def test_card_fit_equals_cpu_fit_with_the_same_draws(cuda, small_train):
+    from repro_torch.forest import TrainConfig, grow_forest
+    x, y, C = small_train
+    T, depth, F = 4, 4, x.shape[1]
+    rng = np.random.default_rng(0)
+    w = rng.multinomial(len(y), np.full(len(y), 1 / len(y)),
+                        size=T).astype(np.float32)
+    masks = [rng.random((T, 1 << lv, F)) < 0.3 for lv in range(depth)]
+    cfg = TrainConfig(n_trees=T, max_depth=depth, seed=0,
+                      cost_weight=0.01,
+                      feature_cost=np.linspace(1, 2, F).astype(np.float32))
+    before = ops.launches["histogram"]
+    card = grow_forest(x, y, C, cfg, device=cuda, weights=w,
+                       feature_masks=masks)
+    assert ops.launches["histogram"] == before + depth   # one per level
+    cpu = grow_forest(x, y, C, cfg, device="cpu", weights=w,
+                      feature_masks=masks)
+    for f in ("feature", "threshold", "leaf"):
+        assert getattr(card, f).device.type == "cuda"
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+
+
+def test_untied_card_fit_equals_host_cart(cuda, small_train):
+    from repro_torch.forest import TrainConfig, train_random_forest
+    x, y, C = small_train
+    kw = dict(n_trees=3, max_depth=5, bootstrap=False, max_features="all")
+    card = train_random_forest(x, y, C, TrainConfig(trainer="device", **kw),
+                               device=cuda)
+    host = train_random_forest(x, y, C, TrainConfig(trainer="host", **kw))
+    assert torch.equal(card.feature.cpu(), host.feature)
+    assert torch.equal(card.threshold.cpu(), host.threshold)
+    torch.testing.assert_close(card.leaf.cpu(), host.leaf, rtol=0, atol=1e-6)
+
+
+def test_facade_on_card_save_load(cuda, small_train, tmp_path):
+    from repro_torch.sklearn import FogClassifier
+    x, y, _ = small_train
+    clf = FogClassifier(n_trees=8, grove_size=2, max_depth=6,
+                        trainer="device").fit(x, y)
+    assert clf.engine_.device.type == "cuda"
+    assert clf.forest_.feature.device.type == "cuda"
+    before = ops.launches["fused_fog"]
+    want = clf.predict(x[:500])
+    assert ops.launches["fused_fog"] == before + 1
+    clf.quantize("int8")
+    want8 = clf.predict(x[:500])
+    got = FogClassifier.load(clf.save(tmp_path / "m.npz")).predict(x[:500])
+    np.testing.assert_array_equal(got, want8)
+    assert (want == y[:500]).mean() > 0.85
+
+
+def test_tune_histogram_on_card(cuda):
+    from repro_torch.kernels import autotune
+    try:
+        cfg = autotune.tune_histogram(8, 4, 16, 17, 10, n_samples=2000,
+                                      persist=False, device=cuda)
+        assert cfg.source == "measured" and cfg.measured_s > 0
+        assert cfg.block in (128, 256, 512)
+        assert cfg.matmul_max_r % 10 == 0 and cfg.matmul_max_r <= 80
+        assert autotune.best_hist_config(8, 4, 16, 17, 10, cuda) == cfg
+    finally:
+        autotune.clear_cache()

@@ -1,0 +1,176 @@
+"""repro_torch's trainer histogram against the JAX package's two paths.
+
+The same random (node, y, w, bins) inputs, made with numpy, go through
+``repro.kernels.histogram.histogram_level_pallas`` (interpret mode, as
+tests/test_grow.py runs it) and ``histogram_level_scatter``, and through
+the port's plain version, its scatter twin and its dispatcher.  Counts are
+sums of integer-valued fp32 weights, exact in any order, so every
+comparison is bit-equal (``torch.equal``), never a tolerance.  The CUDA
+kernel itself is held against the plain version in tests/test_torch_cuda.py.
+"""
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro.kernels import histogram as jh  # noqa: E402
+from repro_torch.kernels import autotune, ops  # noqa: E402
+from repro_torch.kernels import histogram as th  # noqa: E402
+
+# (T, N, F, n_bins, C, nodes): the gate-free small shape of
+# tests/test_grow.py, the same with an N no block divides, and a third
+SHAPES = [(2, 96, 3, 5, 3, 4), (2, 97, 3, 5, 3, 4), (3, 61, 4, 7, 2, 8)]
+
+
+def make_inputs(seed, T, N, F, n_bins, C, nodes):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, nodes, size=(T, N)).astype(np.int32),
+            rng.integers(0, C, size=N).astype(np.int32),
+            rng.integers(0, 3, size=(T, N)).astype(np.float32),
+            rng.integers(0, n_bins, size=(N, F)).astype(np.uint8))
+
+
+def torch_inputs(node, y, w, bins):
+    return tuple(torch.tensor(a) for a in (node, y, w, bins))
+
+
+@pytest.fixture(scope="module", params=SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+def case(request):
+    T, N, F, n_bins, C, nodes = request.param
+    node, y, w, bins = make_inputs(sum(request.param), *request.param)
+    kw = dict(n_nodes=nodes, n_bins=n_bins, n_classes=C)
+    pallas = np.asarray(jh.histogram_level_pallas(
+        node, y, w, bins.astype(np.int32), block_n=32, block_r=8, block_f=2,
+        interpret=True, **kw))
+    scatter = np.asarray(jh.histogram_level_scatter(
+        node, y, w, bins.astype(np.int32), **kw))
+    return (node, y, w, bins), kw, pallas, scatter
+
+
+def test_jax_paths_agree(case):
+    _, kw, pallas, scatter = case
+    np.testing.assert_array_equal(pallas, scatter)
+
+
+def test_plain_version_equals_both_jax_paths(case):
+    args, kw, pallas, scatter = case
+    got = th.histogram_level_ref(*torch_inputs(*args), **kw)
+    T, nodes, C = args[0].shape[0], kw["n_nodes"], kw["n_classes"]
+    assert tuple(got.shape) == (T, nodes, args[3].shape[1], kw["n_bins"], C)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.tensor(pallas))
+    assert torch.equal(got, torch.tensor(scatter))
+
+
+def test_scatter_twin_equals_both_jax_paths(case):
+    args, kw, pallas, scatter = case
+    t = torch_inputs(*args)
+    wu = th.onehot_rows(t[3], t[2], kw["n_bins"])
+    for got in (th.histogram_level_scatter(*t, **kw),
+                th.histogram_level_scatter(*t, wu=wu, **kw)):
+        assert torch.equal(got, torch.tensor(pallas))
+        assert torch.equal(got, torch.tensor(scatter))
+
+
+def test_dispatcher_at_every_crossover(case):
+    """Below, at and above the level's row count, the dispatcher's pick
+    gives the same counts (on the CPU the kernel slot is the plain
+    version)."""
+    args, kw, pallas, _ = case
+    R = kw["n_nodes"] * kw["n_classes"]
+    before = dict(ops.launches)
+    for max_r in (0, R - 1, R, 10**6):
+        got = ops.histogram_level(*torch_inputs(*args), matmul_max_r=max_r,
+                                  **kw)
+        assert torch.equal(got, torch.tensor(pallas)), max_r
+    assert ops.launches == before          # CPU tensors launch no kernel
+
+
+def test_onehot_rows_equals_jax():
+    node, y, w, bins = make_inputs(3, *SHAPES[1])
+    want = np.asarray(jh.onehot_rows(bins.astype(np.int32), w, 5))
+    got = th.onehot_rows(torch.tensor(bins), torch.tensor(w), 5)
+    assert torch.equal(got, torch.tensor(want))
+
+
+def test_zero_weight_lane_adds_nothing():
+    """A w=0 sample (out of the bootstrap, or padding) contributes nothing,
+    whatever its node, label and bins."""
+    T, N, F, n_bins, C, nodes = SHAPES[0]
+    node, y, w, bins = make_inputs(11, *SHAPES[0])
+    w[:, 7] = 0.0
+    kw = dict(n_nodes=nodes, n_bins=n_bins, n_classes=C)
+    base = [th.histogram_level_ref(*torch_inputs(node, y, w, bins), **kw),
+            th.histogram_level_scatter(*torch_inputs(node, y, w, bins), **kw)]
+    node[:, 7] = (node[:, 7] + 1) % nodes
+    y[7] = (y[7] + 1) % C
+    bins[7] = (bins[7] + 1) % n_bins
+    moved = [th.histogram_level_ref(*torch_inputs(node, y, w, bins), **kw),
+             th.histogram_level_scatter(*torch_inputs(node, y, w, bins),
+                                        **kw)]
+    for a, b in zip(base, moved):
+        assert torch.equal(a, b)
+    # and every weighted sample lands in exactly one (node, bin, class) cell
+    # per feature
+    np.testing.assert_array_equal(
+        base[0][:, :, 0].sum(dim=(1, 2, 3)).numpy(), w.sum(axis=1))
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """No fallback: the kernel's wrapper raises on a tensor that is not on
+    the card instead of running the plain version."""
+    t = torch_inputs(*make_inputs(0, *SHAPES[0]))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        th.histogram_level_cuda(*t, n_nodes=4, n_bins=5, n_classes=3)
+
+
+# ------------------------------------------------------------- autotune
+
+def test_analytic_seed_per_device():
+    """On the card the seed sends every level of the bench signature to
+    the kernel (R = 128 * 10 at depth 8); on the CPU it is twin-everywhere,
+    like the JAX package's interpreted seed."""
+    card = autotune.analytic_hist_config(32, 8, 16, 17, 10, device="cuda")
+    assert card.matmul_max_r == 1280 and card.source == "analytic"
+    assert card.block % 32 == 0
+    cpu = autotune.analytic_hist_config(32, 8, 16, 17, 10, device="cpu")
+    assert cpu.matmul_max_r == 0
+
+
+def test_cache_file_round_trip_and_jax_cache_ignored(tmp_path, monkeypatch):
+    key = autotune.hist_key(32, 8, 16, 17, 10)
+    # the JAX package's cache holds TPU/CPU measurements: never read
+    jax_file = tmp_path / "jax.json"
+    jax_file.write_text(json.dumps({"/".join(map(str, key)): {
+        "block_n": 1024, "block_r": 512, "block_f": 16, "matmul_max_r": 7,
+        "measured_s": 1.0, "source": "measured"}}))
+    monkeypatch.setenv("FOG_AUTOTUNE_CACHE", str(jax_file))
+    monkeypatch.delenv(autotune.CACHE_ENV, raising=False)
+    autotune.clear_cache()
+    try:
+        got = autotune.best_hist_config(32, 8, 16, 17, 10, device="cuda")
+        assert got.source == "analytic" and got.matmul_max_r == 1280
+
+        path = tmp_path / "port.json"
+        monkeypatch.setenv(autotune.CACHE_ENV, str(path))
+        autotune._CACHE[key] = autotune.HistConfig(
+            block=128, matmul_max_r=320, measured_s=0.5, source="measured")
+        autotune._save_cache_file()
+        autotune.clear_cache()
+        got = autotune.best_hist_config(32, 8, 16, 17, 10, device="cuda")
+        assert (got.block, got.matmul_max_r, got.source) == (
+            128, 320, "cache-file")
+        # a measurement of the card never steers the CPU path
+        cpu = autotune.best_hist_config(32, 8, 16, 17, 10, device="cpu")
+        assert cpu.matmul_max_r == 0
+    finally:
+        autotune.clear_cache()
+
+
+def test_tune_histogram_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        autotune.tune_histogram(2, 3, 4, 5, 3, n_samples=64, device="cpu")

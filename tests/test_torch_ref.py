@@ -185,4 +185,4 @@ def test_ops_cpu_path_launches_no_kernel():
     ops.top2_confidence(torch.rand(5, 3))
     assert ops.launches == before
     assert set(ops.launches) == {"fused_fog", "grove_aggregate",
-                                 "top2_confidence"}
+                                 "top2_confidence", "histogram"}

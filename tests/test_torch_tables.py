@@ -60,11 +60,19 @@ def test_cart_same_seed_emits_same_trees(trained):
 
 
 def test_device_trainer_not_ported(trained):
+    """The device trainer is ported now (tests/test_torch_grow.py holds it
+    against the JAX package); what this check keeps is that it has no
+    silent fallback: it runs where it is told, and without a card its
+    default device raises."""
     ds, _ = trained
-    with pytest.raises(NotImplementedError, match="A7"):
-        tforest.train_random_forest(
-            ds.x_train[:50], ds.y_train[:50], ds.n_classes,
+    args = (ds.x_train[:50], ds.y_train[:50], ds.n_classes,
             tforest.TrainConfig(n_trees=1, max_depth=2, trainer="device"))
+    forest = tforest.train_random_forest(*args, device="cpu")
+    assert forest.feature.device.type == "cpu"
+    assert tuple(forest.feature.shape) == (1, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            tforest.train_random_forest(*args)
 
 
 def test_split_matches(jgc, tgc):
