@@ -39,10 +39,21 @@ plan -> serve), and:
    trainer="device")`` on the card (counts zeroed and read around it),
    pins an energy budget calibrated on the test set, checks ``profile()``
    reports it met, quantizes to int8, saves, loads and checks the labels;
-9. reads each kernel's device time, each eval's and the gate fit's device
+9. runs the grove ring (``FogEngine(backend="ring")``) on the bench field:
+   one eval on ``RingMesh(8)`` with ``use_kernels`` with the counts zeroed
+   just before and read just after (8 ``tree_traverse`` and 8
+   ``grove_aggregate`` launches), then at every precision and B=1000 and
+   B=65,536 the kernel path on ``RingMesh(8)`` and the gather path on
+   ``RingMesh(4)`` and ``RingMesh(1)`` against the ``reference`` backend
+   from the same stratified starts, and the kernel path against the same
+   ring on the CPU; holds ``tree_traverse`` against its plain version on
+   the ring's stacked inputs, on one grove and on an unaligned batch;
+   prints the per-hop occupancy; times the ring evals, the kernel and its
+   plain version, and works out the kernel's bounds;
+10. reads each kernel's device time, each eval's and the gate fit's device
    idle share from ``torch.profiler`` (after every event timing: once
    CUPTI traces the process, every launch costs the host more);
-10. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+11. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -65,9 +76,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import (FogEngine, FogPolicy,  # noqa: E402
-                              GroveCollection, split)
+                              GroveCollection, RingMesh, split)
 from repro_torch.core.engine import (confidence_margin,  # noqa: E402
                                      sample_starts)
+from repro_torch.core.fog_ring import TRAVERSE_BLOCK_B  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.forest import (ForestPack, TrainConfig,  # noqa: E402
                                 bin_features, quantile_bin_edges, rf_predict,
@@ -93,10 +105,12 @@ INFERENCE_KERNELS = ("fused_fog", "grove_aggregate", "top2_confidence")
 SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
           for k in INFERENCE_KERNELS}
 SOURCE["histogram"] = "src/repro_torch/kernels/csrc/histogram.cu"
+SOURCE["tree_traverse"] = "src/repro_torch/kernels/csrc/tree_traverse.cu"
 REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
             "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
             "top2_confidence": "src/repro/kernels/top2_confidence.py:16",
-            "histogram": "src/repro/kernels/histogram.py:60"}
+            "histogram": "src/repro/kernels/histogram.py:60",
+            "tree_traverse": "src/repro/kernels/tree_traverse.py:83"}
 # the trainer's gate config (benchmarks/train_bench.py) and its bound
 GATE_TREES = (8, 16, 32)
 GATE_DEPTH = 8
@@ -104,6 +118,11 @@ GATE_MAX_ACC_GAP = 0.005
 # the facade's energy budget: an operating point inside the frontier of
 # the 16-tree depth-8 field (its cheapest points cost ~0.2 nJ)
 BUDGET_NJ = 0.3
+# the ring's meshes: one grove per shard (the kernel path), then two and
+# eight groves per shard (the gather path)
+RING_MESHES = (8, 4, 1)
+# an unaligned per-shard batch for the kernel check
+RAGGED_B = 37
 # where each kernel is launched on the main path
 CALLED_BY = {
     "fused_fog": "FogEngine.eval, backend 'fused' (one launch per eval)",
@@ -115,7 +134,10 @@ CALLED_BY = {
                        "margin)",
     "histogram": "forest.grow.grow_forest (train_random_forest / "
                  "FogClassifier.fit with trainer='device'), one launch "
-                 "per tree level"}
+                 "per tree level",
+    "tree_traverse": "FogEngine.eval, backend 'ring' on RingMesh(8) with "
+                     "use_kernels (one launch per hop over all 8 stacked "
+                     "shards)"}
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -521,6 +543,172 @@ def facade_phase(dev: torch.device, ds) -> dict:
     return res
 
 
+def ring_inputs(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
+                n: int = 8) -> tuple:
+    """The tree_traverse inputs of one ring hop on ``RingMesh(n)`` with one
+    grove per shard: the ring layout's tables ``[n, t, ...]`` and the lanes
+    stably sorted onto their start grove's shard, ``[n, B/n, F]``."""
+    tables = pack.layout("ring", n)
+    perm = torch.argsort(start.long() % n, stable=True)
+    return (*tables[:3], x[perm].reshape(n, -1, x.shape[1]), *tables[3:])
+
+
+def traverse_work(pack: ForestPack, xs: torch.Tensor) -> dict:
+    """The work of one tree_traverse call over ``xs [S, b, F]``, from these
+    shapes: ``bytes`` each input read once (every shard's grove, x) and the
+    output written once; ``block_bytes`` the same with the grove read once
+    per block, as the kernel reads it; ``ops`` per lane ``t*d`` compares,
+    ``t*C`` leaf adds and ``C`` divides (int8 adds one multiply per
+    threshold and leaf value dequantized); ``chain`` the dependent loads of
+    one lane per tree: ``d`` levels of (node, then ``x[feature]``) and the
+    leaf row."""
+    S, b, F = xs.shape
+    t, d, C = pack.grove_size, pack.depth, pack.n_classes
+    grove = pack.table_bytes // pack.n_groves
+    blocks = S * -(-b // TRAVERSE_BLOCK_B)
+    io = S * b * (F + C) * 4
+    q = 2 if pack.precision == "int8" else 1
+    return {"bytes": S * grove + io, "block_bytes": blocks * grove + io,
+            "ops": S * b * (t * d * q + t * C * q + C),
+            "grove_bytes": grove, "x_bytes": S * b * F * 4,
+            "chain_per_tree": (d, d, 1), "trees": t}
+
+
+def ring_phase(dev: torch.device, ds, packs: dict, gen) -> dict:
+    """Phase 9: the grove ring on the bench field."""
+    G = packs["fp32"].n_groves
+    policy = FogPolicy(threshold=THRESH, max_hops=MAX_HOPS)
+    x0 = torch.as_tensor(ds.x_test, device=dev)
+    y = torch.as_tensor(ds.y_test, device=dev)
+    B = x0.shape[0]
+    xs = {nb: x0.repeat((nb + B - 1) // B, 1)[:nb].contiguous()
+          for nb in (B, BIG_B)}
+    starts = {nb: sample_starts(gen.manual_seed(SEED), nb, G, dev,
+                                n_shards=RING_MESHES[0]) for nb in xs}
+    engines = {(p, n): FogEngine(packs[p], backend="ring", mesh=RingMesh(n),
+                                 use_kernels=n == G, device=dev)
+               for p in PRECISIONS for n in RING_MESHES}
+    refs = {p: FogEngine(packs[p], device=dev) for p in PRECISIONS}
+
+    # the main path: one ring eval, counts zeroed just before, read after
+    for k in ops.launches:
+        ops.launches[k] = 0
+    engines["fp32", G].eval(xs[B], start=starts[B], policy=policy)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    print(f"[ring] one eval on RingMesh({G}) with use_kernels, B={B}: "
+          f"kernel launches {launches}")
+    for k in ("tree_traverse", "grove_aggregate"):
+        if launches[k] != MAX_HOPS:
+            raise AssertionError(f"{k} launched {launches[k]} times in a "
+                                 f"{MAX_HOPS}-hop ring eval")
+
+    # every mesh against the reference backend, and the card against the CPU
+    results, max_err = {}, 0.0
+    for nb, xb in xs.items():
+        for p in PRECISIONS:
+            want = refs[p].eval(xb, start=starts[nb], policy=policy)
+            cpu = FogEngine(packs[p].to("cpu"), backend="ring",
+                            mesh=RingMesh(G), use_kernels=True,
+                            device="cpu").eval(xb.cpu(),
+                                               start=starts[nb].cpu(),
+                                               policy=policy)
+            for n in RING_MESHES:
+                got = engines[p, n].eval(xb, start=starts[nb], policy=policy)
+                tag = f"ring B={nb} {p} RingMesh({n})"
+                check_equal(f"{tag} hops", got.hops, want.hops)
+                check_equal(f"{tag} labels", got.label, want.label)
+                max_err = max(max_err, check_close(f"{tag} proba", got.proba,
+                                                   want.proba))
+                check_equal(f"{tag} energy", got.energy_pj,
+                            got.model.lane_pj(got.hops))
+                if n == G:
+                    for f in ("hops", "label", "proba"):
+                        check_equal(f"{tag} card vs cpu {f}",
+                                    getattr(got, f), getattr(cpu, f))
+                    hops = got.hops
+            row = {"accuracy": float((want.label == y.repeat(
+                       nb // B + 1)[:nb]).float().mean()),
+                   "mean_hops": float(hops.float().mean()),
+                   "occupancy": [float((hops > j).float().mean())
+                                 for j in range(MAX_HOPS)]}
+            results[nb, p] = row
+            print(f"[ring] B={nb} {p}: RingMesh(8/4/1) == reference (hops, "
+                  f"labels; proba max abs err {max_err:.3g}), kernel path on "
+                  f"the card == on the CPU; accuracy {row['accuracy']:.3f}, "
+                  f"mean hops {row['mean_hops']:.3f}; occupancy "
+                  + " ".join(f"hop{j}:{v:.2f}"
+                             for j, v in enumerate(row["occupancy"])))
+
+    # the kernel against its plain version: the ring's stacked inputs,
+    # one grove (the TPU signature) and an unaligned batch
+    kernel_err = 0.0
+    for p in PRECISIONS:
+        for nb, xb in xs.items():
+            stacked = ring_inputs(packs[p], xb, starts[nb], G)
+            one = (*(a[0] for a in stacked[:3]), xb,
+                   *(a[0] for a in stacked[4:]))
+            ragged = (*stacked[:3], stacked[3][:, :RAGGED_B].contiguous(),
+                      *stacked[4:])
+            for what, args in (("stacked", stacked), ("one grove", one),
+                               (f"b={RAGGED_B}", ragged)):
+                got = ops.tree_traverse(*args, block_b=TRAVERSE_BLOCK_B)
+                want = ref.tree_traverse_ref(*args)
+                check_equal(f"tree_traverse {p} B={nb} {what}", got, want)
+                kernel_err = max(kernel_err,
+                                 float((got - want).abs().max()))
+    print("[ring] tree_traverse == its plain version (torch.equal) at every "
+          "precision: stacked [8, B/8], one grove [B], unaligned "
+          f"[8, {RAGGED_B}]")
+
+    # time: the ring evals, the kernel and its plain version, the bounds
+    timing, kernel_fns, eval_fns = {}, {}, {}
+    for nb, xb in xs.items():
+        for p in PRECISIONS:
+            row = results[nb, p]
+            for n in RING_MESHES:
+                ev = lambda e=engines[p, n], xx=xb: e.eval(
+                    xx, gen.manual_seed(SEED), policy=policy)
+                row[f"eval_ring{n}_ms"] = cuda_ms(ev)
+                row[f"eval_ring{n}_classifications_per_s"] = (
+                    nb / row[f"eval_ring{n}_ms"] * 1e3)
+                eval_fns[nb, p, n] = ev
+            args = ring_inputs(packs[p], xb, starts[nb], G)
+            call = lambda a=args: ops.tree_traverse(
+                *a, block_b=TRAVERSE_BLOCK_B)
+            row["tree_traverse_ms"] = cuda_ms(call)
+            row["tree_traverse_plain_ms"] = cuda_ms(
+                lambda a=args: ref.tree_traverse_ref(*a))
+            kernel_fns[nb, p] = call
+            work = traverse_work(packs[p], args[3])
+            row["tree_traverse_work"] = work
+            row["tree_traverse_bound_ms"], row["tree_traverse_bound_by"] = (
+                bound_ms(work["bytes"], work["ops"]))
+            row["tree_traverse_block_bytes_bound_ms"] = (
+                work["block_bytes"] / HBM_BYTES_PER_S * 1e3)
+            timing[nb, p] = row
+    return {"launches": launches, "max_abs_err": kernel_err,
+            "ring_max_abs_err_vs_reference": max_err, "timing": timing,
+            "kernel_fns": kernel_fns, "eval_fns": eval_fns}
+
+
+def ring_latency_bounds(dev: torch.device, timing: dict) -> None:
+    """tree_traverse's latency bound per row: one lane's chain, per tree
+    ``d`` levels of (node load, then ``x[feature]``) and the leaf row,
+    priced with ``load_latency_ns``: the node and leaf loads over a working
+    set of one grove's bytes (shared memory in the kernel; the chase over
+    so small a set hits L1, the nearest stand-in), the ``x`` gathers over
+    the stacked ``x``'s bytes."""
+    for row in timing.values():
+        w = row["tree_traverse_work"]
+        grove_ns = load_latency_ns(dev, w["grove_bytes"])
+        x_ns = load_latency_ns(dev, w["x_bytes"])
+        nodes, xs, leaf = w["chain_per_tree"]
+        row["tree_traverse_latency_ns"] = {"grove": grove_ns, "x": x_ns}
+        row["tree_traverse_latency_bound_ms"] = w["trees"] * (
+            (nodes + leaf) * grove_ns + xs * x_ns) * 1e-6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -776,7 +964,12 @@ def main() -> int:
     out["facade"] = facade_phase(dev, ds)
     main_launches["histogram"] = train["launches"]["histogram"]
 
-    # 9. the profiler, after every event timing -----------------------------
+    # 9. the grove ring (its own main path) --------------------------------
+    ring = ring_phase(dev, ds, packs, gen)
+    ring_latency_bounds(dev, ring["timing"])
+    main_launches["tree_traverse"] = ring["launches"]["tree_traverse"]
+
+    # 10. the profiler, after every event timing ----------------------------
     for lv, fn in train["level_fns"].items():
         busy, _ = device_profile(fn)
         row = train["levels"][lv]
@@ -846,7 +1039,41 @@ def main() -> int:
                          if f"{k}_library_ms" in row else ""))
     out["timing"] = {f"B={nb} {p}": row for (nb, p), row in timing.items()}
 
-    # 10. the kernels line -----------------------------------------------------
+    for (nb, p), fn in ring["kernel_fns"].items():
+        busy, _ = device_profile(fn)
+        ring["timing"][nb, p]["tree_traverse_device_ms"] = kernel_ms(
+            busy, "tree_traverse")
+    for (nb, p, n), fn in ring["eval_fns"].items():
+        busy, wall = device_profile(fn)
+        ring["timing"][nb, p][f"eval_ring{n}_profile"] = {
+            "wall_ms": wall, "device_busy_ms": sum(busy.values()),
+            "device_idle_share": 1.0 - sum(busy.values()) / wall,
+            "device_kernels": len(busy)}
+    for (nb, p), row in ring["timing"].items():
+        print(f"[time] B={nb} {p}: tree_traverse [8, {nb // 8}] "
+              f"{row['tree_traverse_ms']:.4f} ms per call, "
+              f"{fmt(row['tree_traverse_device_ms'])} ms on the device "
+              f"(bound {row['tree_traverse_bound_ms']:.6f} ms by "
+              f"{row['tree_traverse_bound_by']}; grove read per block "
+              f"{row['tree_traverse_block_bytes_bound_ms']:.6f} ms; latency "
+              f"bound {row['tree_traverse_latency_bound_ms']:.5f} ms at "
+              f"{row['tree_traverse_latency_ns']['grove']:.2f} / "
+              f"{row['tree_traverse_latency_ns']['x']:.2f} ns per grove / x "
+              f"load), plain {row['tree_traverse_plain_ms']:.3f} ms")
+        fused = timing[nb, p]["eval_fused_ms"]
+        print(f"[time] B={nb} {p}: eval ring " + ", ".join(
+            f"RingMesh({n}) {row[f'eval_ring{n}_ms']:.3f} ms (idle "
+            f"{row[f'eval_ring{n}_profile']['device_idle_share']:.3f})"
+            for n in RING_MESHES) + f"; fused {fused:.3f} ms")
+        row["eval_fused_ms"] = fused
+    out["ring"] = {
+        "launches": ring["launches"], "max_abs_err": ring["max_abs_err"],
+        "ring_max_abs_err_vs_reference":
+            ring["ring_max_abs_err_vs_reference"],
+        "timing": {f"B={nb} {p}": row
+                   for (nb, p), row in ring["timing"].items()}}
+
+    # 11. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -881,6 +1108,25 @@ def main() -> int:
                   f"N={len(ds.y_train)} F=16 bins=17 C={ds.n_classes} "
                   f"nodes={deep['n_nodes']}"),
         "per_fit": {f"{k}_sum_over_levels": v for k, v in fit_sum.items()}})
+    row = ring["timing"][B, "fp32"]
+    lat = row["tree_traverse_latency_bound_ms"]
+    kernels.append({
+        "name": "tree_traverse", "route": "cuda",
+        "source": SOURCE["tree_traverse"],
+        "replaces": REPLACES["tree_traverse"],
+        "launches": main_launches["tree_traverse"],
+        "max_abs_err": ring["max_abs_err"], "ms": row["tree_traverse_ms"],
+        "device_ms": row["tree_traverse_device_ms"],
+        "plain_ms": row["tree_traverse_plain_ms"],
+        "bound_ms": row["tree_traverse_bound_ms"],
+        "bound_by": row["tree_traverse_bound_by"],
+        "block_bytes_bound_ms": row["tree_traverse_block_bytes_bound_ms"],
+        "latency_bound_ms": lat,
+        "larger_bound": ("latency" if lat > row["tree_traverse_bound_ms"]
+                         else row["tree_traverse_bound_by"]),
+        "library_ms": None, "called_by": CALLED_BY["tree_traverse"],
+        "matches_plain": True,
+        "shape": f"B={B} fp32, stacked [8, {B // 8}] (the ring's hop)"})
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

@@ -7,6 +7,7 @@ from repro_torch.core.energy import (
     rf_report, dt_energy_pj, rf_energy_pj, grove_energy_pj,
     svm_lr_energy_pj, svm_rbf_energy_pj, mlp_energy_pj, cnn_energy_pj,
 )
+from repro_torch.core.fog_ring import RingMesh, ring_eval
 from repro_torch.core.engine import (EvalReport, FogEngine, FogResult,
                                      TableCache, confidence_margin,
                                      hop_update, sample_starts)
@@ -30,6 +31,7 @@ __all__ = [
     "mlp_energy_pj", "cnn_energy_pj",
     "EvalReport", "FogEngine", "FogResult", "TableCache",
     "confidence_margin", "hop_update", "sample_starts", "ForestPack",
+    "RingMesh", "ring_eval",
     "TopologyPoint", "evaluate_topology", "policy_sweep", "topology_sweep",
     "select_min_edp", "threshold_sweep", "find_opt_threshold",
     "Frontier", "FrontierPoint", "auto_policy", "build_frontier",

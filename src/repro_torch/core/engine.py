@@ -12,6 +12,10 @@ backend         per-hop update implementation
                 JAX package's, which saved artifacts carry
 ``fused``       the ENTIRE Algorithm-2 loop in one CUDA launch
                 (``kernels.ops.fused_fog``)
+``ring``        the grove ring (``core.fog_ring``) over a ``RingMesh``:
+                groves pinned to shards, lanes forwarded one shard per hop;
+                with ``use_kernels`` each hop is one ``tree_traverse``
+                launch over every stacked shard and one ``grove_aggregate``
 ==============  =============================================================
 
 Every runtime knob lives in a :class:`~repro_torch.core.policy.FogPolicy`;
@@ -38,6 +42,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.confidence import maxdiff
 from repro_torch.core.energy import EnergyModel, EnergyReport
+from repro_torch.core.fog_ring import RingMesh, ring_eval
 from repro_torch.core.grove import GroveCollection
 from repro_torch.core.policy import PRECISIONS, FogPolicy, check_backend
 from repro_torch.forest.pack import ForestPack
@@ -101,11 +106,30 @@ def _as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def sample_starts(generator: torch.Generator, B: int, G: int,
-                  device=None) -> torch.Tensor:
+                  device=None, *, n_shards: int = 1) -> torch.Tensor:
     """Random start grove per example (Algorithm 2 line 3): int32 [B],
-    uniform over [0, G), drawn on the generator's device."""
-    start = torch.randint(0, G, (B,), generator=generator,
-                          device=generator.device, dtype=torch.int32)
+    uniform over [0, G), drawn on the generator's device.
+
+    For an ``n_shards`` ring the draw is stratified: exactly B/n lanes
+    start in each residue class ``start % n``, so the shards' queues are
+    equal, while each lane stays uniform over all G groves.  ``n_shards=1``
+    is the plain draw.
+    """
+    gd = generator.device
+    if n_shards == 1:
+        start = torch.randint(0, G, (B,), generator=generator, device=gd,
+                              dtype=torch.int32)
+    else:
+        if B % n_shards or G % n_shards:
+            raise ValueError(
+                f"batch B={B} and n_groves G={G} must both divide over "
+                f"{n_shards} ring shards")
+        shard = torch.arange(n_shards, dtype=torch.int32, device=gd).repeat(
+            B // n_shards)
+        shard = shard[torch.randperm(B, generator=generator, device=gd)]
+        offset = torch.randint(0, G // n_shards, (B,), generator=generator,
+                               device=gd, dtype=torch.int32)
+        start = shard + n_shards * offset
     return start.to(device) if device is not None else start
 
 
@@ -255,11 +279,17 @@ class FogEngine:
     policy:    default :class:`FogPolicy` for ``eval`` calls without one.
                A per-call policy REPLACES it; only its None-valued knobs
                fall back to the engine defaults below.
+    mesh:      a :class:`~repro_torch.core.fog_ring.RingMesh`, required by
+               the ring backend; ``n_groves`` must divide over its shards.
+    use_kernels: ring only -- walk each shard's grove with the
+               tree_traverse kernel and update with the grove_aggregate
+               kernel (needs one grove per shard).
     """
 
     def __init__(self, gc, *, backend: str = "reference",
                  block_b: int | None = None,
                  chunk_b: int | str | None = None,
+                 mesh: RingMesh | None = None, use_kernels: bool = False,
                  lazy: bool = False, policy: FogPolicy | None = None,
                  precision: str | None = None, device=None):
         check_backend(backend)
@@ -288,6 +318,8 @@ class FogEngine:
         self.block_b = block_b
         self.chunk_b = chunk_b
         self.precision = precision
+        self.mesh = mesh
+        self.use_kernels = use_kernels
         self.lazy = lazy
         self.policy = policy if policy is not None else FogPolicy()
         self.tables = TableCache(lambda: self.gcs, self.device)
@@ -296,6 +328,30 @@ class FogEngine:
         self._checked: set[tuple[str, int]] = set()
         if self._seed_pack is not None:
             self.tables.seed(self._seed_pack)
+        if use_kernels and backend != "ring":
+            raise ValueError("use_kernels applies to the ring backend only "
+                             "(the pallas backend always runs the hop-"
+                             "update kernel)")
+        if backend == "ring":
+            self._check_ring_config(lazy=lazy, chunk_b=chunk_b)
+
+    def _check_ring_config(self, *, lazy: bool, chunk_b) -> None:
+        if self.mesh is None:
+            raise ValueError("ring backend needs a mesh (a RingMesh)")
+        if self.multi_output:
+            raise NotImplementedError("ring backend is single-output")
+        if lazy or chunk_b is not None:
+            raise ValueError("lazy/chunk_b are not supported on the ring "
+                             "backend (the ring always runs the fixed "
+                             "max_hops rotation schedule)")
+        n_shards = self.mesh.n_shards
+        if self.n_groves % n_shards:
+            raise ValueError(f"n_groves={self.n_groves} not divisible by "
+                             f"{n_shards} ring shards")
+        if self.use_kernels and self.n_groves != n_shards:
+            raise ValueError("use_kernels needs one grove per shard (the "
+                             "multi-grove gather path has no tree_traverse "
+                             "kernel)")
 
     # -- properties ------------------------------------------------------
     @property
@@ -311,6 +367,19 @@ class FogEngine:
         if self._seed_pack is not None:
             return self._seed_pack.n_groves
         return self._gcs[0].n_groves
+
+    @property
+    def n_shards(self) -> int:
+        """Ring shards the start draw is stratified over (1 off the ring)."""
+        if self.backend == "ring" and self.mesh is not None:
+            return self.mesh.n_shards
+        return 1
+
+    @property
+    def multi_output(self) -> bool:
+        if self._seed_pack is not None:
+            return self._seed_pack.n_heads > 1
+        return len(self._gcs) > 1
 
     # -- policy resolution ----------------------------------------------
     def resolve(self, policy: FogPolicy | None = None) -> FogPolicy:
@@ -336,10 +405,14 @@ class FogEngine:
         """GCEval(X, policy) — Algorithm 2, any backend.
 
         Start groves come from ``generator`` (a ``torch.Generator``), or
-        are given as ``start`` (int ``[B]``).
+        are given as ``start`` (int ``[B]``).  On the ring the draw is
+        stratified over the mesh's shards, and given starts must be.
         """
         p = self.resolve(policy)
         check_block(p.block_b)
+        ring = p.backend == "ring"
+        if ring:
+            self._check_ring_config(lazy=bool(p.lazy), chunk_b=p.chunk_b)
         x = _as_tensor(x, torch.float32, self.device)
         B = x.shape[0]
         thresh_v = p.lane_thresholds(B, self.device)
@@ -348,14 +421,20 @@ class FogEngine:
             if generator is None:
                 raise ValueError("pass a torch.Generator (or start=) to draw "
                                  "the start groves")
-            start = sample_starts(generator, B, self.n_groves, self.device)
+            start = sample_starts(generator, B, self.n_groves, self.device,
+                                  n_shards=self.mesh.n_shards if ring else 1)
         else:
             start = _as_tensor(start, torch.int32, self.device)
             if tuple(start.shape) != (B,):
                 raise ValueError(f"start has shape {tuple(start.shape)}, "
                                  f"batch is {B}")
-        res = self._eval_chunked(x.contiguous(), start.contiguous(), thresh_v,
-                                 budget_v, p)
+        pack = self._checked_pack(p.precision, x.shape[1])
+        if ring:
+            res = self._eval_ring(pack, x.contiguous(), start, thresh_v,
+                                  budget_v, p.max_hops)
+        else:
+            res = self._eval_chunked(pack, x.contiguous(), start.contiguous(),
+                                     thresh_v, budget_v, p)
         self._n_features = int(x.shape[1])
         model = self.energy_model(p.precision, x.shape[1])
         return EvalReport(proba=res.proba, label=res.label, hops=res.hops,
@@ -381,18 +460,32 @@ class FogEngine:
             self._energy_models[key] = model
         return model
 
-    def _eval_chunked(self, x, start, thresh, budget,
-                      p: FogPolicy) -> FogResult:
-        B, F = x.shape
-        pack = self.tables.pack(p.precision)
-        if (p.precision, F) not in self._checked:
+    def _checked_pack(self, precision: str, F: int) -> ForestPack:
+        """The pack at ``precision``, checked once per input width."""
+        pack = self.tables.pack(precision)
+        if (precision, F) not in self._checked:
             # the kernels gather x[b, feature] unchecked: a pack (e.g. a
             # loaded artifact) must only name features the input has
             lo, hi = int(pack.feature.min()), int(pack.feature.max())
             if lo < 0 or hi >= F:
                 raise ValueError(f"the forest tests features {lo}..{hi} but "
                                  f"the input has {F}")
-            self._checked.add((p.precision, F))
+            self._checked.add((precision, F))
+        return pack
+
+    def _eval_ring(self, pack: ForestPack, x, start, thresh, budget,
+                   max_hops: int) -> FogResult:
+        proba, hops = ring_eval(
+            pack, x, start, thresh, max_hops, self.mesh,
+            use_kernels=self.use_kernels,
+            tables=pack.layout("ring", self.mesh.n_shards), hop_budget=budget)
+        return FogResult(proba=proba,
+                         label=torch.argmax(proba, dim=-1).to(torch.int32),
+                         hops=hops)
+
+    def _eval_chunked(self, pack: ForestPack, x, start, thresh, budget,
+                      p: FogPolicy) -> FogResult:
+        B = x.shape[0]
         core = lambda *a: _eval_core(pack, *a, p.max_hops, p.backend,
                                      p.block_b, p.lazy)
         # an explicit int chunks; "auto" never chunks yet (the shared-memory

@@ -214,12 +214,13 @@ def _calibration_starts(engine, batch: int,
                        start=None) -> torch.Tensor:
     """The start groves every policy of a sweep shares: ``start`` as given,
     else one draw from ``generator`` (default: seeded with 0 on the
-    engine's device)."""
+    engine's device), stratified over a ring engine's shards."""
     if start is not None:
         return start
     if generator is None:
         generator = torch.Generator(device=engine.device).manual_seed(0)
-    return sample_starts(generator, batch, engine.n_groves, engine.device)
+    return sample_starts(generator, batch, engine.n_groves, engine.device,
+                         n_shards=engine.n_shards)
 
 
 def sweep_policies(engine, x_cal, y_cal, policies: Iterable[FogPolicy],

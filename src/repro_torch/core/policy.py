@@ -9,9 +9,10 @@ knob             meaning
 ``max_hops``     global hop cap; None = n_groves
 ``hop_budget``   per-lane hop cap — scalar or ``[B]`` int; a lane stops
                  hopping once it has consumed its budget even if unconfident
-``backend``      "reference" | "pallas" | "fused"; None = engine default.
-                 "pallas" names the per-hop kernel backend (the name the
-                 JAX package writes into saved artifacts)
+``backend``      "reference" | "pallas" | "fused" | "ring"; None = engine
+                 default.  "pallas" names the per-hop kernel backend (the
+                 name the JAX package writes into saved artifacts); "ring"
+                 needs an engine built with a ``RingMesh``
 ``block_b``      CUDA threads per block (a multiple of 32, at most 1024);
                  None = engine default
 ``chunk_b``      batch chunking: an int, ``"auto"`` (never chunks in this
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.forest.pack import PRECISIONS  # noqa: F401  (re-export)
 
-BACKENDS = ("reference", "pallas", "fused")
+BACKENDS = ("reference", "pallas", "fused", "ring")
 
 # per-lane "no budget" sentinel: hops < NO_BUDGET is always true for any
 # reachable hop count, so unbudgeted lanes are capped by max_hops alone
@@ -41,9 +42,6 @@ _TPU_ONLY_KNOBS = ("interpret", "compact")
 
 
 def check_backend(backend: str) -> None:
-    if backend == "ring":
-        raise NotImplementedError(
-            "the ring backend is not ported yet: ROADMAP A11")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
 

@@ -76,6 +76,15 @@ def _quantize_thr(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.int8)
 
 
+def _grove_order(G: int, n_shards: int) -> np.ndarray:
+    """The ring's strided grove placement: reorder groves so shard s's
+    contiguous block is {s, s+n, s+2n, ...}; grove g then sits on shard
+    g % n at local offset g // n (``core/fog_ring.py`` reads it from here,
+    so the pack needs no import of the ring)."""
+    m = G // n_shards
+    return np.arange(G).reshape(m, n_shards).T.reshape(-1)
+
+
 def _tensor(a, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(np.asarray(a)).to(dtype)
 
@@ -231,19 +240,36 @@ class ForestPack:
                      for o in range(self.n_heads))
 
     # -- layouts -----------------------------------------------------------
-    def layout(self, name: str):
+    def layout(self, name: str, n_shards: int = 1):
         """Table tuple for one evaluation layout.
 
-        ``"fused"`` is the canonical head-stacked ``[O, G, ...]`` storage
-        plus scales, served as-is.  The ring layout is not ported yet.
+        ``"fused"``  the canonical head-stacked ``[O, G, ...]`` storage plus
+                     scales, served as-is.
+        ``"ring"``   head-0 tables strided-reordered for ``n_shards`` ring
+                     shards (shard s hosts groves ``{s, s+n, ...}``), scales
+                     reordered alongside; computed once per
+                     ``(name, n_shards)``.
         """
         if name == "fused":
             return (self.feature, self.threshold, self.leaf,
                     self.thr_scale, self.leaf_scale)
-        if name == "ring":
-            raise NotImplementedError(
-                "the ring layout is not ported yet: ROADMAP A11")
-        raise ValueError(f"unknown layout {name!r}; pick 'fused' or 'ring'")
+        if name != "ring":
+            raise ValueError(f"unknown layout {name!r}; "
+                             "pick 'fused' or 'ring'")
+        key = (name, n_shards)
+        if key not in self._layouts:
+            if self.n_heads != 1:
+                raise NotImplementedError("ring layout is single-output")
+            if n_shards < 1 or self.n_groves % n_shards:
+                raise ValueError(f"n_groves={self.n_groves} does not divide "
+                                 f"over {n_shards} ring shards")
+            order = torch.as_tensor(_grove_order(self.n_groves, n_shards),
+                                    device=self.feature.device)
+            self._layouts[key] = tuple(
+                a[0][order] for a in (self.feature, self.threshold,
+                                      self.leaf, self.thr_scale,
+                                      self.leaf_scale))
+        return self._layouts[key]
 
     # -- per-lane gathered evaluation -------------------------------------
     def predict_proba(self, head: int, g_idx: torch.Tensor,

@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources in ``csrc/`` (``SOURCES``) are compiled by ``nvcc`` at first
-use, one ``nvcc`` per source, all started together, and linked into
-``build/repro_torch/libfog_<hash>.so`` under the repository root (the hash
-covers the sources and the flags, so an edit rebuilds).  The library is
+The sources in ``csrc/`` (``SOURCES``, which include ``HEADERS``) are
+compiled by ``nvcc`` at first use, one ``nvcc`` per source, all started
+together, and linked into ``build/repro_torch/libfog_<hash>.so`` under the
+repository root (the hash covers the sources, the headers and the flags,
+so an edit rebuilds).  The library is
 loaded with ``ctypes`` and called through a plain C interface: every
 pointer and the stream as ``c_void_p``, every int as ``c_int``.  Each C
 entry point launches on the stream it is given and returns
@@ -16,6 +17,7 @@ plain PyTorch versions: a CUDA tensor either runs the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,7 +28,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu")
+SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
+           CSRC / "tree_traverse.cu")
+HEADERS = (CSRC / "fog_tables.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
@@ -39,7 +43,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 # launches per kernel, counted where each kernel is launched and nowhere
 # else; kernels.ops re-exports this dict as ``ops.launches``
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
-            "histogram": 0}
+            "histogram": 0, "tree_traverse": 0}
 
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -48,6 +52,10 @@ _SIGNATURES = {
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, I, P),
     "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "fog_tree_traverse": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                          P),
+    # a device query, not a kernel
+    "fog_smem_optin": (I, P),
     # a latency probe, not an inference kernel: never counted in launches
     "fog_chase": (P, I, P, P),
 }
@@ -70,7 +78,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfog_{h.hexdigest()[:16]}.so"
 
@@ -166,3 +174,20 @@ def launch(kernel: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"fog_{kernel} launch failed: CUDA error {rc} "
                            f"({lib.fog_error_string(rc).decode()})")
     launches[kernel] += 1
+
+
+def smem_optin(device: torch.device) -> int:
+    """Bytes of shared memory one block of a kernel on ``device`` may opt
+    into (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _smem_optin(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    out = ctypes.c_int(0)
+    rc = library().fog_smem_optin(index, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"fog_smem_optin failed: CUDA error {rc}")
+    return out.value

@@ -35,7 +35,13 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "fog_tables.cuh"
+
 namespace {
+
+using fog::TabBF16;
+using fog::TabF32;
+using fog::TabI8;
 
 // ---------------------------------------------------------------- MaxDiff
 // |max - second max| of a row whose elements sit `stride` floats apart,
@@ -99,34 +105,6 @@ __global__ void grove_aggregate_kernel(
   live_out[b] = (lv && margin < thresh[b]) ? 1 : 0;
   margin_out[b] = margin;
 }
-
-// ------------------------------------------ dequantize after the gather
-// fp32 passes through, bf16 upcasts exactly, int8 multiplies by the tree's
-// scale; in thresholds the int8 codes ±127 stand for ±inf.
-struct TabF32 {
-  typedef float T;
-  static __device__ __forceinline__ float thr(T q, float) { return q; }
-  static __device__ __forceinline__ float leaf(T q, float) { return q; }
-};
-struct TabBF16 {
-  typedef uint16_t T;  // raw bfloat16 bits
-  static __device__ __forceinline__ float up(T q) {
-    return __uint_as_float((uint32_t)q << 16);
-  }
-  static __device__ __forceinline__ float thr(T q, float) { return up(q); }
-  static __device__ __forceinline__ float leaf(T q, float) { return up(q); }
-};
-struct TabI8 {
-  typedef int8_t T;
-  static __device__ __forceinline__ float thr(T q, float s) {
-    if (q == 127) return CUDART_INF_F;
-    if (q == -127) return -CUDART_INF_F;
-    return __fmul_rn((float)q, s);
-  }
-  static __device__ __forceinline__ float leaf(T q, float s) {
-    return __fmul_rn((float)q, s);
-  }
-};
 
 // ------------------------------------------------ the whole Algorithm 2
 // One thread per lane.  Lane state that is indexed by class lives in

@@ -17,10 +17,27 @@ from repro_torch.kernels.histogram import (histogram_level,
                                            histogram_level_scatter,
                                            onehot_rows)
 from repro_torch.kernels.top2_confidence import top2_confidence_cuda
+from repro_torch.kernels.tree_traverse import tree_traverse_cuda
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def tree_traverse(feature, threshold, leaf, x, thr_scale=None,
+                  leaf_scale=None, *, block_b: int = 128):
+    """Grove bundle walk [B, F] -> [B, C] over packed fp32/bf16/int8 tables,
+    or over ``S`` stacked ring shards ``[S, b, F] -> [S, b, C]`` (plain:
+    ref.tree_traverse_ref).  Omitted scales are ones."""
+    if _on_cpu(x):
+        if thr_scale is None:
+            thr_scale = torch.ones(feature.shape[:-1] + (1,))
+        if leaf_scale is None:
+            leaf_scale = torch.ones(leaf.shape[:-2] + (1, 1))
+        return ref.tree_traverse_ref(feature, threshold, leaf, x, thr_scale,
+                                     leaf_scale)
+    return tree_traverse_cuda(feature, threshold, leaf, x, thr_scale,
+                              leaf_scale, block_b=block_b)
 
 
 def top2_confidence(prob: torch.Tensor, *, block_b: int = 256) -> torch.Tensor:
@@ -51,6 +68,6 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
               leaf_scale, max_hops=max_hops, block_b=block_b)
 
 
-__all__ = ["top2_confidence", "grove_aggregate", "fused_fog",
+__all__ = ["tree_traverse", "top2_confidence", "grove_aggregate", "fused_fog",
            "histogram_level", "histogram_level_scatter", "onehot_rows",
            "launches", "ref"]

@@ -44,10 +44,20 @@ def tree_traverse_ref(feature: torch.Tensor, threshold: torch.Tensor,
     leaf      fp32|bf16|int8  [t, 2**d, C]
     x         float32         [B, F]
     returns   float32         [B, C]
+
+    Stacked ring shards take one more leading axis everywhere: tables
+    ``[S, t, ...]`` (scales ``[S, t, 1]`` / ``[S, t, 1, 1]``), ``x [S, b, F]``
+    -> ``[S, b, C]``, each shard's lanes walking its own grove.
     """
     threshold, leaf = dequantize_tables(threshold, leaf, thr_scale,
                                         leaf_scale)
-    return mean_over_trees(grove_traverse(feature, threshold, leaf, x))
+    if feature.ndim == 2:
+        return mean_over_trees(grove_traverse(feature, threshold, leaf, x))
+    S, b, F = x.shape
+    shard = torch.arange(S, device=x.device).repeat_interleave(b)
+    out = mean_over_trees(grove_traverse(feature, threshold, leaf,
+                                         x.reshape(S * b, F), shard))
+    return out.reshape(S, b, -1)
 
 
 def top2_confidence_ref(prob: torch.Tensor) -> torch.Tensor:

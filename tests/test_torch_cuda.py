@@ -276,3 +276,75 @@ def test_tune_histogram_on_card(cuda):
         assert autotune.best_hist_config(8, 4, 16, 17, 10, cuda) == cfg
     finally:
         autotune.clear_cache()
+
+
+# ------------------------------------------------- the ring's grove walk
+
+@pytest.mark.parametrize("stacked,b", [(1, 1000), (8, 125), (8, 37),
+                                       (1, 37)])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_tree_traverse_kernel_matches_plain(cuda, precision, stacked, b):
+    """The bench grove (2 trees of depth 8, 10 classes, 16 features): one
+    grove with 2-D tables, 8 stacked shards, and unaligned batches."""
+    from repro_torch.kernels.tree_traverse import tree_traverse_cuda
+    rng = np.random.default_rng(b + stacked)
+    pack = random_pack(rng, precision, G=stacked, t=2, depth=8, C=10,
+                       F=16).to(cuda)
+    tables = [getattr(pack, f)[0] for f in ("feature", "threshold", "leaf",
+                                            "thr_scale", "leaf_scale")]
+    if stacked == 1:
+        tables = [a[0] for a in tables]
+        x = rng.normal(size=(b, 16))
+    else:
+        x = rng.normal(size=(stacked, b, 16))
+    x = torch.as_tensor(x.astype(np.float32), device=cuda)
+    before = ops.launches["tree_traverse"]
+    got = ops.tree_traverse(*tables[:3], x, *tables[3:], block_b=128)
+    assert ops.launches["tree_traverse"] == before + 1
+    want = ref.tree_traverse_ref(*tables[:3], x, *tables[3:])
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(got.cpu(), ref.tree_traverse_ref(
+        *(a.cpu() for a in tables[:3]), x.cpu(),
+        *(a.cpu() for a in tables[3:])))
+    # a block size that is not the default serves the same lanes
+    assert torch.equal(tree_traverse_cuda(*tables[:3], x, *tables[3:],
+                                          block_b=64), got)
+
+
+def test_tree_traverse_rejects_a_grove_over_shared_memory(cuda):
+    t, depth, C = 32, 12, 30
+    feature = torch.zeros((t, 2**depth - 1), dtype=torch.int32, device=cuda)
+    threshold = torch.zeros((t, 2**depth - 1), device=cuda)
+    leaf = torch.zeros((t, 2**depth, C), device=cuda)
+    before = ops.launches["tree_traverse"]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.tree_traverse(feature, threshold, leaf,
+                          torch.zeros((128, 8), device=cuda))
+    assert ops.launches["tree_traverse"] == before
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_ring_on_card_equals_ring_on_cpu(cuda, trained_port, precision):
+    ds, gc = trained_port
+    B = 1000
+    x = ds.x_test[:B]
+    start = tcore.sample_starts(torch.Generator().manual_seed(1), B, 8,
+                                n_shards=8)
+    pol = tcore.FogPolicy(threshold=0.3, max_hops=8)
+    card = tcore.FogEngine(gc, backend="ring", mesh=tcore.RingMesh(8),
+                           use_kernels=True, precision=precision,
+                           device=cuda)
+    before = dict(ops.launches)
+    got = card.eval(x, start=start, policy=pol)
+    assert ops.launches["tree_traverse"] == before["tree_traverse"] + 8
+    assert ops.launches["grove_aggregate"] == before["grove_aggregate"] + 8
+    cpu = tcore.FogEngine(gc, backend="ring", mesh=tcore.RingMesh(8),
+                          use_kernels=True, precision=precision,
+                          device="cpu").eval(x, start=start, policy=pol)
+    for f in ("proba", "hops", "label"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(cpu, f)), f
+    want = tcore.FogEngine(gc, precision=precision, device=cuda).eval(
+        x, start=start, policy=pol)
+    assert torch.equal(got.hops, want.hops)
+    assert torch.equal(got.label, want.label)
+    torch.testing.assert_close(got.proba, want.proba, rtol=1e-6, atol=1e-7)

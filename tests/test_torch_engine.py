@@ -233,9 +233,10 @@ def test_device_rules(field):
 def test_policy_contract(field):
     *_, tgc = field
     P = tcore.FogPolicy
-    with pytest.raises(NotImplementedError, match="A11"):
-        P(backend="ring")
-    with pytest.raises(NotImplementedError, match="A11"):
+    # the ring is ported: the policy is accepted, and a ring engine needs
+    # a mesh (tests/test_torch_ring.py drives it)
+    assert P(backend="ring").backend == "ring"
+    with pytest.raises(ValueError, match="mesh"):
         tcore.FogEngine(tgc, backend="ring", device="cpu")
     for bad in (dict(backend="asic"), dict(precision="fp64"),
                 dict(max_hops=0), dict(chunk_b="sometimes"),
@@ -264,4 +265,8 @@ def test_policy_contract(field):
                                   [NO_BUDGET] * 3)
     with pytest.raises(ValueError, match="batch"):
         P(threshold=torch.rand(3)).lane_thresholds(4)
-    assert tcore.BACKENDS == ("reference", "pallas", "fused")
+    assert tcore.BACKENDS == ("reference", "pallas", "fused", "ring")
+    assert tcore.BACKENDS == jcore.BACKENDS
+    # a JAX-written ring policy reads back
+    jring = jcore.FogPolicy(threshold=0.3, backend="ring").to_dict()
+    assert P.from_dict(jring) == P(threshold=0.3, backend="ring")

@@ -183,6 +183,10 @@ def test_fused_fog_ref_matches_reference_backend(precision, heads):
 def test_ops_cpu_path_launches_no_kernel():
     before = dict(ops.launches)
     ops.top2_confidence(torch.rand(5, 3))
+    ops.tree_traverse(torch.zeros((2, 3), dtype=torch.int32),
+                      torch.zeros((2, 3)), torch.rand(2, 4, 5),
+                      torch.rand(7, 2))
     assert ops.launches == before
     assert set(ops.launches) == {"fused_fog", "grove_aggregate",
-                                 "top2_confidence", "histogram"}
+                                 "top2_confidence", "histogram",
+                                 "tree_traverse"}

@@ -200,8 +200,11 @@ def test_pack_rejects_bad_inputs(tgc, tmp_path):
     with pytest.raises(ValueError, match="precision"):
         tforest.ForestPack.from_groves(tgc, "fp16")
     pack = tforest.ForestPack.from_groves(tgc)
-    with pytest.raises(NotImplementedError, match="A11"):
-        pack.layout("ring")
+    # the ring layout is ported: one shard by default, the groves in order
+    ring = pack.layout("ring")
+    assert len(ring) == 5 and ring is pack.layout("ring", 1)
+    for f, a in zip(FIELDS, ring):
+        assert torch.equal(a, getattr(pack, f)[0]), f
     assert pack.layout("fused")[0] is pack.feature
     np.savez(tmp_path / "junk.npz", a=np.zeros(3))
     with pytest.raises(ValueError, match="not a ForestPack"):
