@@ -7,8 +7,9 @@ Drives ``repro_torch``'s inference path at the bench field (penbased, 16
 trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
 0.3) through ``FogEngine.eval`` on all three backends and precisions, then
 its training path (the device trainer at the gate config of
-``benchmarks/train_bench.py``) and the ``FogClassifier`` facade (train ->
-plan -> serve), and:
+``benchmarks/train_bench.py``), the ``FogClassifier`` facade (train ->
+plan -> serve), the grove ring and Mamba-2 LM serving with the FoG
+layer-grove exit, and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -50,10 +51,29 @@ plan -> serve), and:
    the ring's stacked inputs, on one grove and on an unaligned batch;
    prints the per-hop occupancy; times the ring evals, the kernel and its
    plain version, and works out the kernel's bounds;
-10. reads each kernel's device time, each eval's and the gate fit's device
-   idle share from ``torch.profiler`` (after every event timing: once
-   CUPTI traces the process, every launch costs the host more);
-11. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+10. serves ``mamba2-2.7b`` at full width and depth in bf16 (weights from a
+   seeded ``torch.Generator``): with the counts zeroed just before and read
+   just after, ``make_prefill_step`` prefills 4 prompts of 2048 tokens from
+   ``batch_at_step`` (64 ``ssd_chunk`` launches, one per layer), then
+   ``make_serve_step`` decodes 32 tokens greedily, then 32 with FoG at
+   per-lane thresholds (0.0, 2.0, t, 2.0) and 32 more under a hop budget
+   of 2 (3 ``top2_confidence`` launches per step), where t is set from the
+   third lane's margins at a first FoG step run before the counts are
+   zeroed; holds ``top2_confidence`` against its plain version on every
+   gate input of the main path and checks that the hops are those the
+   plain version's margins give, that the third lane both went on and
+   exited on its margin, and that the never-exit lanes equal the plain
+   decode; holds ``ssd_chunk``
+   against its plain version on layer 0's captured inputs and on random
+   fp32 and bf16 inputs at full width, a ragged chunk included; checks at
+   fp32 with all 64 layers that decode after prefill equals the forward
+   at every position; times prefill, decode, FoG decode, ``ssd_chunk``
+   and the gate's ``top2_confidence`` and works out ``ssd_chunk``'s bounds;
+11. reads each kernel's device time, each eval's, the gate fit's and each
+   LM step's device idle share from ``torch.profiler`` (after every event
+   timing: once CUPTI traces the process, every launch costs the host
+   more);
+12. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -75,12 +95,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_arch, param_count  # noqa: E402
 from repro_torch.core import (FogEngine, FogPolicy,  # noqa: E402
                               GroveCollection, RingMesh, split)
 from repro_torch.core.engine import (confidence_margin,  # noqa: E402
                                      sample_starts)
 from repro_torch.core.fog_ring import TRAVERSE_BLOCK_B  # noqa: E402
-from repro_torch.data import make_dataset  # noqa: E402
+from repro_torch.core.policy import NO_BUDGET  # noqa: E402
+from repro_torch.data import (DataConfig, batch_at_step,  # noqa: E402
+                              make_dataset)
 from repro_torch.forest import (ForestPack, TrainConfig,  # noqa: E402
                                 bin_features, quantile_bin_edges, rf_predict,
                                 train_random_forest)
@@ -88,6 +111,12 @@ from repro_torch.forest import grow  # noqa: E402
 from repro_torch.kernels import (_build, autotune, histogram,  # noqa: E402
                                  ops, ref)
 from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.fog_exit import (fog_flops_per_token,  # noqa: E402
+                                         grove_boundaries)
+from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
 from repro_torch.sklearn import FogClassifier  # noqa: E402
 
 PRECISIONS = ("fp32", "bf16", "int8")
@@ -101,16 +130,20 @@ RTOL, ATOL = 1e-6, 1e-7
 # cores (the kernels do scalar fp32 and integer work)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# and the bf16 dense tensor-core rate (the rate for bf16 inputs)
+BF16_OPS_PER_S = 989e12
 INFERENCE_KERNELS = ("fused_fog", "grove_aggregate", "top2_confidence")
 SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
           for k in INFERENCE_KERNELS}
 SOURCE["histogram"] = "src/repro_torch/kernels/csrc/histogram.cu"
 SOURCE["tree_traverse"] = "src/repro_torch/kernels/csrc/tree_traverse.cu"
+SOURCE["ssd_chunk"] = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
 REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
             "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
             "top2_confidence": "src/repro/kernels/top2_confidence.py:16",
             "histogram": "src/repro/kernels/histogram.py:60",
-            "tree_traverse": "src/repro/kernels/tree_traverse.py:83"}
+            "tree_traverse": "src/repro/kernels/tree_traverse.py:83",
+            "ssd_chunk": "src/repro/kernels/ssd_chunk.py:28"}
 # the trainer's gate config (benchmarks/train_bench.py) and its bound
 GATE_TREES = (8, 16, 32)
 GATE_DEPTH = 8
@@ -123,6 +156,23 @@ BUDGET_NJ = 0.3
 RING_MESHES = (8, 4, 1)
 # an unaligned per-shard batch for the kernel check
 RAGGED_B = 37
+# the LM slice: mamba2-2.7b at full width and depth in bf16, B prompts of
+# S tokens (8 chunks of 256), greedy decode; FoG lanes that exit after
+# one grove (0.0) or never exit (2.0), and lane LM_GATE_LANE, whose
+# threshold is set from the margins of a first FoG step (lm_gate_threshold)
+# so that the kernel's margins decide its hops; then a hop budget
+LM_ARCH = "mamba2-2.7b"
+LM_B, LM_S, LM_DECODE = 4, 2048, 32
+LM_THRESH = (0.0, 2.0, None, 2.0)
+LM_GATE_LANE = 2
+LM_BUDGET = 2
+# decode after prefill == forward at fp32 (tests/test_archs.py:72, rtol /
+# atol 2e-2); never-exit FoG lanes == plain decode (tests/test_fog_exit.py,
+# 1e-5)
+CONSIST_B, CONSIST_S, CONSIST_TOL = 2, 512, 2e-2
+FOG_TOL = 1e-5
+# a ragged chunk at full width for the kernel check
+SSD_RAGGED = (2, 3, 200, 80, 64, 128)
 # where each kernel is launched on the main path
 CALLED_BY = {
     "fused_fog": "FogEngine.eval, backend 'fused' (one launch per eval)",
@@ -137,7 +187,10 @@ CALLED_BY = {
                  "per tree level",
     "tree_traverse": "FogEngine.eval, backend 'ring' on RingMesh(8) with "
                      "use_kernels (one launch per hop over all 8 stacked "
-                     "shards)"}
+                     "shards)",
+    "ssd_chunk": "models.mamba2.ssd_chunked(use_kernels=True) in every "
+                 "Mamba-2 layer of serve.decode.make_prefill_step's prefill "
+                 "(one launch per layer, 64 per prefill)"}
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -204,10 +257,11 @@ def fmt(ms: float | None) -> str:
     return "(no profiler record)" if ms is None else f"{ms:.4f}"
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: the larger of bytes over the memory rate
-    and operations over the fp32 rate."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    and operations over the peak rate for their type (default fp32)."""
+    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -709,6 +763,459 @@ def ring_latency_bounds(dev: torch.device, timing: dict) -> None:
             (nodes + leaf) * grove_ns + xs * x_ns) * 1e-6
 
 
+def ssd_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless the kernel's output meets its bar against the plain
+    version's; returns the max abs error.  fp32: within 1e-4 of the
+    output's largest magnitude (the sums run over up to 256 x 128 terms in
+    another order).  bf16: within 2 bf16 ulps of the plain version's cast
+    (rtol 2**-6), plus the same fp32 allowance for values near a rounding
+    boundary."""
+    g, w = got.float(), want.float()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite output")
+    rtol = 0.0 if want.dtype == torch.float32 else 2.0**-6
+    scale = float(w.abs().max())
+    err = (g - w).abs()
+    bad = int((err > 1e-4 * scale + rtol * w.abs()).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} entries off, max abs err "
+                             f"{float(err.max())} at scale {scale}")
+    return float(err.max())
+
+
+def ssd_inputs(rng, shape, dtype, dev) -> list:
+    """Random x, a (negative log-decays), B, C for ssd_chunk."""
+    B, nc, Q, H, P, N = shape
+    arrays = (rng.normal(size=(B, nc, Q, H, P)),
+              -rng.uniform(0.01, 0.5, size=(B, nc, H, Q)),
+              rng.normal(size=(B, nc, Q, N)), rng.normal(size=(B, nc, Q, N)))
+    return [torch.as_tensor(a.astype(np.float32), device=dev).to(dtype)
+            for a in arrays]
+
+
+def ssd_work(B, nc, Q, H, P, N, itemsize) -> dict:
+    """ssd_chunk's work from its shapes: ``bytes`` x, a, B, C read once and
+    y, states written once; ``ops`` the products the causal block needs
+    (C.B^T and the weighted sum over j <= i, the state sum over all j);
+    ``ops_full`` the full [Q, Q] products, as the TPU kernel counts them."""
+    BC = B * nc
+    n_bytes = itemsize * BC * (2 * Q * H * P + H * Q + 2 * Q * N + H * P * N)
+    pairs = Q * (Q + 1) // 2
+    ops_ = BC * (2 * pairs * N + 2 * pairs * H * P + 2 * Q * N * H * P)
+    full = BC * (2 * Q * Q * N + 2 * Q * Q * H * P + 2 * Q * N * H * P)
+    return {"bytes": n_bytes, "ops": ops_, "ops_full": full}
+
+
+class GateSpy:
+    """Within ``with``, keeps each ``ops.top2_confidence`` call's input and
+    output (the wrapper itself still counts the launch)."""
+
+    def __init__(self):
+        self.calls, self.real = [], ops.top2_confidence
+
+    def __call__(self, prob, **kw):
+        margin = self.real(prob, **kw)
+        self.calls.append((prob.clone(), margin.clone()))
+        return margin
+
+    def __enter__(self):
+        ops.top2_confidence = self
+        return self
+
+    def __exit__(self, *exc):
+        ops.top2_confidence = self.real
+
+
+def gate_hops(margins: torch.Tensor, thresh: torch.Tensor,
+              budget: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hops ``decode_step_fog``'s gate gives from one step's margins
+    ``[G-1, B]`` at each grove boundary, per-lane ``thresh`` and ``budget``;
+    and per lane the live lanes' decisions to go on (``[0]``) and to exit
+    on the margin (``[1]``)."""
+    G, B = margins.shape[0] + 1, margins.shape[1]
+    live = torch.ones(B, dtype=torch.bool)
+    hops = torch.zeros(B, dtype=torch.int32)
+    decided = torch.zeros((2, B), dtype=torch.int64)
+    for g in range(G):
+        hops += live.to(torch.int32)
+        if g < G - 1:
+            stay = margins[g] < thresh
+            decided[0] += live & stay
+            decided[1] += live & ~stay
+            live = live & stay & (hops < budget)
+    return hops, decided
+
+
+def lm_gate_threshold(margins: torch.Tensor) -> float:
+    """A threshold for one lane from its margins at the grove boundaries of
+    one FoG step ``[G-1]``: halfway between the first boundary's and the
+    largest later one's, so the lane goes on at the first boundary and
+    exits at a later one when a later margin is larger, and exits at the
+    first otherwise; the next steps' margins fall on either side."""
+    m = margins.double()
+    return float((m[0] + m[1:].max()) / 2)
+
+
+def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
+             n_decode: int = LM_DECODE,
+             consist: tuple = (CONSIST_B, CONSIST_S)) -> dict:
+    """Phase 10: Mamba-2 serving at full width and depth (prefill, greedy
+    decode, FoG layer-grove decode) and the ssd_chunk kernel."""
+    cfg = cfg or get_arch(LM_ARCH)
+    G = len(grove_boundaries(cfg))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    res = {"arch": cfg.name, "n_params": n_params,
+           "param_count": param_count(cfg)[0], "init_s": init_s,
+           "weights_max_memory_allocated": torch.cuda.max_memory_allocated(
+               dev)}
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, vocab {cfg.vocab_size}: {n_params:,} parameters "
+          f"(param_count {res['param_count']:,}, which leaves out biases "
+          f"and norms) in bf16 on the card in {init_s:.1f} s; "
+          f"max_memory_allocated "
+          f"{res['weights_max_memory_allocated'] / 1e9:.3f} GB")
+    tokens = torch.as_tensor(batch_at_step(
+        DataConfig(cfg.vocab_size, S, B, seed=SEED), 0)["tokens"],
+        device=dev)
+    prefill_fn, _ = make_prefill_step(cfg, dev, batch=B, seq_len=S)
+    serve, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + n_decode)
+    fog, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + n_decode,
+                             fog=True, policy=FogPolicy(backend="pallas"))
+    no_budget = torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev)
+    budget = torch.full((B,), LM_BUDGET, dtype=torch.int32, device=dev)
+
+    # lane LM_GATE_LANE's threshold, from its margins at the grove
+    # boundaries of a first FoG step after a first prefill (before the
+    # counts are zeroed)
+    logits, cache = prefill_fn(params, tokens)
+    with GateSpy() as cal:
+        fog(params, cache, logits.argmax(-1).to(torch.int32), S,
+            torch.full((B,), 2.0, dtype=torch.float32, device=dev), no_budget)
+    del logits, cache
+    lanes = torch.tensor([lm_gate_threshold(torch.stack(
+        [m for _, m in cal.calls])[:, LM_GATE_LANE].cpu()) if t is None else t
+        for t in LM_THRESH[:B]], dtype=torch.float32)
+    thresh = lanes.to(dev)
+
+    # the main path: prefill, greedy decode and FoG decode, counts zeroed
+    # just before and read just after; layer 0's ssd_chunk inputs kept
+    captured, real = [], ops.ssd_chunk
+
+    def spy(*args):
+        if not captured:
+            captured.append(tuple(a.clone() for a in args))
+        return real(*args)
+
+    for k in ops.launches:
+        ops.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.ssd_chunk = spy
+    try:
+        logits, cache = prefill_fn(params, tokens)
+    finally:
+        ops.ssd_chunk = real
+    torch.cuda.synchronize()
+    prefill_launches = dict(ops.launches)
+    res["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+
+    def greedy(step, *knobs):
+        tok, c = logits.argmax(-1).to(torch.int32), cache
+        out, hops, gates = [], [], []
+        for t in range(n_decode):
+            before = ops.launches["top2_confidence"]
+            r = step(params, c, tok, S + t, *knobs)
+            gates.append(ops.launches["top2_confidence"] - before)
+            out.append(r[0])
+            c = r[1]
+            if knobs:
+                hops.append(r[2])
+            tok = r[0].argmax(-1).to(torch.int32)
+        return torch.stack(out), (torch.stack(hops) if hops else None), gates
+
+    plain, _, _ = greedy(serve)
+    with GateSpy() as gates:
+        fog_logits, fog_hops, fog_gates = greedy(fog, thresh, no_budget)
+        _, bud_hops, bud_gates = greedy(fog, thresh, budget)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    res.update(prefill_launches=prefill_launches, launches=launches)
+    print(f"[lm] main path (prefill B={B} x S={S}, {n_decode} greedy decode "
+          f"steps, {n_decode} FoG steps at per-lane thresholds "
+          f"{lanes.tolist()}, {n_decode} more under a hop budget of "
+          f"{LM_BUDGET}): kernel launches {launches}; the prefill alone "
+          f"{prefill_launches}; max_memory_allocated in the prefill "
+          f"{res['prefill_max_memory_allocated'] / 1e9:.3f} GB")
+    if prefill_launches["ssd_chunk"] != cfg.n_layers or \
+            launches["ssd_chunk"] != cfg.n_layers:
+        raise AssertionError(f"ssd_chunk launches {prefill_launches} in a "
+                             f"{cfg.n_layers}-layer prefill, {launches} in "
+                             "the whole path")
+    if any(n != G - 1 for n in fog_gates + bud_gates):
+        raise AssertionError(f"top2_confidence launches per FoG step "
+                             f"{fog_gates + bud_gates}, want {G - 1}")
+    for what, t in (("prefill logits", logits), ("decode logits", plain),
+                    ("FoG logits", fog_logits)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{what} are not finite")
+    if tuple(logits.shape) != (B, cfg.vocab_size):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+
+    # the gate's kernel against its plain version on every input the main
+    # path gave it, and the hops the plain version's margins give
+    gate_err = max(check_close(f"top2_confidence at the LM gate {i}", m,
+                               ref.top2_confidence_ref(p))
+                   for i, (p, m) in enumerate(gates.calls))
+    margins = torch.stack([m for _, m in gates.calls]).cpu().view(
+        2, n_decode, G - 1, B)
+    hops_cpu, bud_cpu = fog_hops.cpu(), bud_hops.cpu()
+    decided = torch.zeros((2, B), dtype=torch.int64)
+    for t in range(n_decode):
+        for run, got, cap in ((0, hops_cpu, no_budget), (1, bud_cpu, budget)):
+            want, d = gate_hops(margins[run, t], lanes, cap.cpu())
+            if not torch.equal(got[t], want):
+                raise AssertionError(
+                    f"FoG step {t} hops {got[t].tolist()}, the plain "
+                    f"version's margins {margins[run, t].tolist()} at "
+                    f"thresholds {lanes.tolist()} give {want.tolist()}")
+            if run == 0:
+                decided += d
+    if not (decided[:, LM_GATE_LANE] > 0).all():
+        raise AssertionError(f"lane {LM_GATE_LANE} at threshold "
+                             f"{float(lanes[LM_GATE_LANE])}: went on "
+                             f"{int(decided[0, LM_GATE_LANE])} times and "
+                             f"exited {int(decided[1, LM_GATE_LANE])} times "
+                             "on its margin; the kernel decided nothing")
+    never = lanes >= 1.0          # a margin never reaches 1
+    if not ((hops_cpu[:, lanes == 0.0] == 1).all()
+            and (hops_cpu[:, never] == G).all()
+            and (hops_cpu >= 1).all() and (hops_cpu <= G).all()):
+        raise AssertionError(f"FoG hops {hops_cpu.tolist()}")
+    if not ((bud_cpu[:, lanes == 0.0] == 1).all()
+            and (bud_cpu[:, never] == LM_BUDGET).all()
+            and (bud_cpu <= LM_BUDGET).all()):
+        raise AssertionError(f"FoG hops under a budget {bud_cpu.tolist()}")
+    print(f"[lm] top2_confidence == its plain version on all "
+          f"{len(gates.calls)} of the main path's gate inputs [{B}, "
+          f"{cfg.vocab_size}] (max abs err {gate_err:.3g}); hops == the "
+          f"plain version's margins through the gate at every step; lane "
+          f"{LM_GATE_LANE} (threshold {float(lanes[LM_GATE_LANE]):.6g}, "
+          f"set from its margins at a first step "
+          f"{[float(m[LM_GATE_LANE]) for _, m in cal.calls]}) went on "
+          f"{int(decided[0, LM_GATE_LANE])} times and exited "
+          f"{int(decided[1, LM_GATE_LANE])} times on its margin; "
+          f"margins seen: min {float(margins.min()):.4g}, max "
+          f"{float(margins.max()):.4g}")
+    del gates
+    keep = never.to(dev)
+    never_err = float((fog_logits[:, keep] - plain[:, keep]).abs().max())
+    if not torch.allclose(fog_logits[:, keep], plain[:, keep], rtol=FOG_TOL,
+                          atol=FOG_TOL):
+        raise AssertionError(f"never-exit lanes' FoG logits differ from the "
+                             f"plain decode's by {never_err}")
+    mean_hops = float(hops_cpu.float().mean())
+    res["fog"] = {
+        "thresholds": lanes.tolist(),
+        "gate_lane": LM_GATE_LANE,
+        "gate_lane_decisions": {"went_on": int(decided[0, LM_GATE_LANE]),
+                                "exited": int(decided[1, LM_GATE_LANE])},
+        "top2_max_abs_err_vs_plain": gate_err,
+        "margin_min": float(margins.min()),
+        "margin_max": float(margins.max()),
+        "hops_per_lane_mean": hops_cpu.float().mean(0).tolist(),
+        "mean_groves_per_token": mean_hops,
+        "fog_flops_per_token": fog_flops_per_token(cfg, mean_hops),
+        "full_flops_per_token": fog_flops_per_token(cfg, float(G)),
+        "budget": LM_BUDGET,
+        "budget_mean_groves_per_token": float(bud_cpu.float().mean()),
+        "top2_launches_per_step": G - 1,
+        "never_exit_max_abs_err_vs_plain": never_err}
+    f = res["fog"]
+    print(f"[lm] FoG decode: hops per lane (mean of {n_decode} steps) "
+          f"{[round(v, 3) for v in f['hops_per_lane_mean']]}; mean groves "
+          f"per token {mean_hops:.4f} of {G}; fog_flops_per_token "
+          f"{f['fog_flops_per_token']:.4g} (all groves "
+          f"{f['full_flops_per_token']:.4g}); under the budget of "
+          f"{LM_BUDGET}: {f['budget_mean_groves_per_token']:.4f} groves per "
+          f"token; top2_confidence {G - 1} launches per step; never-exit "
+          f"lanes == plain decode (max abs err {never_err:.3g})")
+
+    # the kernel against its plain version, on the card
+    xc = captured[0][0]
+    Bsz, nc, Q, H, P = xc.shape
+    N = captured[0][2].shape[-1]
+    rng = np.random.default_rng(SEED)
+    full = (Bsz, nc, Q, H, P, N)
+    cases = [("layer 0 of the prefill, bf16", captured[0]),
+             (f"random fp32 {full}",
+              ssd_inputs(rng, full, torch.float32, dev)),
+             (f"random fp32 ragged {SSD_RAGGED}",
+              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev)),
+             (f"random bf16 ragged {SSD_RAGGED}",
+              ssd_inputs(rng, SSD_RAGGED, torch.bfloat16, dev))]
+    errs = {}
+    for label, args in cases:
+        got, want = ops.ssd_chunk(*args), ssd_chunk_ref(*args)
+        errs[label] = {n: ssd_close(f"ssd_chunk {label} {n}", g, w)
+                       for n, g, w in zip(("y", "states"), got, want)}
+        del got, want
+    res["ssd_chunk_max_abs_err"] = errs
+    print(f"[lm] ssd_chunk == its plain version on the card (fp32 within "
+          f"1e-4 of the output's magnitude; bf16 within 2 ulps of the plain "
+          f"version's cast): max abs err {errs}")
+
+    # decode after prefill == forward at full width, fp32 weights
+    cb, cs = consist
+    p32 = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 1),
+                        torch.float32, device=dev)
+    toks = torch.as_tensor(batch_at_step(
+        DataConfig(cfg.vocab_size, cs, cb, seed=SEED), 1)["tokens"],
+        device=dev)
+    split = cs // 2
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:                  # fp32 products in fp32 for this check alone
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            h, _ = T.forward(p32, cfg, toks)
+            want = T.unembed(p32, cfg, h)
+            lg, c = T.prefill(p32, cfg, tokens=toks[:, :split])
+            pairs = [(lg, want[:, split - 1])]
+            for t in range(split, cs):
+                lg, c = T.decode_step(p32, cfg, toks[:, t], c, t)
+                pairs.append((lg, want[:, t]))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    ok = all(torch.allclose(a, b, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+             for a, b in pairs)
+    scale = float(want.abs().max())
+    del p32, h, want, c, pairs
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"fp32 decode after prefill differs from the "
+                             f"forward by {worst} (logit scale {scale})")
+    res["consistency"] = {"batch": cb, "seq": cs, "max_abs_err": worst,
+                          "logit_scale": scale, "tol": CONSIST_TOL}
+    print(f"[lm] fp32, all {cfg.n_layers} layers, B={cb}, S={cs}: prefill "
+          f"{split} + decode {cs - split} == forward at every position (max "
+          f"abs err {worst:.3g} at logit scale {scale:.3g}; rtol/atol "
+          f"{CONSIST_TOL})")
+
+    # time with CUDA events (the profiler comes after every event timing)
+    tok0 = logits.argmax(-1).to(torch.int32)
+    exit_all = torch.zeros((B,), dtype=torch.float32, device=dev)
+    probs = torch.softmax(logits, dim=-1)
+    fns = {"prefill": lambda: prefill_fn(params, tokens),
+           "decode": lambda: serve(params, cache, tok0, S),
+           "fog": lambda: fog(params, cache, tok0, S, thresh, no_budget),
+           "fog_all_exit": lambda: fog(params, cache, tok0, S, exit_all,
+                                       no_budget),
+           "ssd_chunk": lambda a=captured[0]: ops.ssd_chunk(*a),
+           "top2_confidence": lambda: ops.top2_confidence(probs)}
+    t = {"prefill_ms": cuda_ms(fns["prefill"], reps=5, warm=1)}
+    t["prefill_tokens_per_s"] = B * S / t["prefill_ms"] * 1e3
+    for k in ("decode", "fog", "fog_all_exit"):
+        t[f"{k}_ms_per_step"] = cuda_ms(fns[k], reps=10, warm=2)
+        t[f"{k}_tokens_per_s"] = B / t[f"{k}_ms_per_step"] * 1e3
+    t["ssd_chunk_ms"] = cuda_ms(fns["ssd_chunk"])
+    t["ssd_chunk_plain_ms"] = cuda_ms(
+        lambda a=captured[0]: ssd_chunk_ref(*a), reps=5, warm=1)
+    work = ssd_work(*full, xc.element_size())
+    t["ssd_chunk_work"] = work
+    t["ssd_chunk_bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ssd_chunk_bf16_tensor_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
+    t["ssd_chunk_fp32_core_bound_ms"] = (work["ops_full"] / FP32_OPS_PER_S
+                                         * 1e3)
+    t["ssd_chunk_bound_ms"], t["ssd_chunk_bound_by"] = bound_ms(
+        work["bytes"], work["ops"], BF16_OPS_PER_S)
+    V = cfg.vocab_size
+    t["top2_confidence_ms"] = cuda_ms(fns["top2_confidence"])
+    t["top2_confidence_plain_ms"] = cuda_ms(
+        lambda: ref.top2_confidence_ref(probs))
+    t["top2_confidence_library_ms"] = cuda_ms(
+        lambda: torch.topk(probs, 2, dim=-1))
+    t["top2_confidence_bound_ms"], t["top2_confidence_bound_by"] = bound_ms(
+        B * (V + 1) * 4, B * 3 * V)
+    res["timing"] = t
+    print(f"[time] lm prefill B={B} x S={S}: {t['prefill_ms']:.2f} ms "
+          f"({t['prefill_tokens_per_s']:.4g} tokens/s); decode "
+          f"{t['decode_ms_per_step']:.2f} ms per step of {B} tokens, FoG "
+          f"{t['fog_ms_per_step']:.2f} ms (every lane exits after one "
+          f"grove: {t['fog_all_exit_ms_per_step']:.2f} ms)")
+    print(f"[time] ssd_chunk {list(full)} bf16: {t['ssd_chunk_ms']:.4f} ms "
+          f"per call (bound {t['ssd_chunk_bound_ms']:.4f} ms by "
+          f"{t['ssd_chunk_bound_by']}: {work['bytes'] / 1e6:.1f} MB; "
+          f"{work['ops'] / 1e9:.2f} GFLOP causal, {work['ops_full'] / 1e9:.2f}"
+          f" full, {t['ssd_chunk_fp32_core_bound_ms']:.3f} ms at the fp32 "
+          f"CUDA-core rate), plain {t['ssd_chunk_plain_ms']:.3f} ms; "
+          f"top2_confidence [{B}, {V}] {t['top2_confidence_ms']:.4f} ms "
+          f"(bound {t['top2_confidence_bound_ms']:.5f} ms), plain "
+          f"{t['top2_confidence_plain_ms']:.4f} ms, torch.topk "
+          f"{t['top2_confidence_library_ms']:.4f} ms")
+    res["prof_fns"] = fns
+    return res
+
+
+def matmul_kernel(name: str) -> bool:
+    """Whether a device kernel's name is one of cuBLAS's products (on
+    Hopper cuBLAS names its own kernels ``nvjet_*``)."""
+    return any(k in name.lower() for k in ("nvjet", "gemm", "xmma",
+                                           "cutlass", "cublas", "gemv"))
+
+
+def lm_profile(lm: dict) -> None:
+    """Device times of the LM phase from torch.profiler: ssd_chunk's three
+    kernels, and each step's busy and idle shares with the products' and
+    ssd_chunk's parts of the busy time."""
+    fns, t = lm.pop("prof_fns"), lm["timing"]
+    busy, _ = device_profile(fns["ssd_chunk"])
+    ssd = {k: v for k, v in busy.items() if "ssd_chunk" in k}
+    t["ssd_chunk_device_ms"] = sum(ssd.values()) if ssd else None
+    t["ssd_chunk_device_ms_by_kernel"] = ssd
+    busy, _ = device_profile(fns["top2_confidence"])
+    t["top2_confidence_device_ms"] = kernel_ms(busy, "top2_confidence")
+    for k, reps in (("prefill", 3), ("decode", 5), ("fog", 5),
+                    ("fog_all_exit", 5)):
+        busy, wall = device_profile(fns[k], reps=reps)
+        total = sum(busy.values())
+        t[f"{k}_profile"] = {
+            "wall_ms": wall, "device_busy_ms": total,
+            "device_idle_share": 1.0 - total / wall,
+            "device_kernels": len(busy),
+            "ssd_chunk_ms": sum(v for n, v in busy.items()
+                                if "ssd_chunk" in n),
+            "matmul_ms": sum(v for n, v in busy.items() if matmul_kernel(n)),
+            "top_device_ms": dict(sorted(busy.items(),
+                                         key=lambda kv: -kv[1])[:8])}
+    dev_ms = t["ssd_chunk_device_ms"]
+    over = ("" if dev_ms is None
+            else f", {dev_ms / t['ssd_chunk_bound_ms']:.1f}x its bound")
+    print(f"[time] ssd_chunk on the device: {fmt(dev_ms)} ms per call"
+          f"{over} (" + ", ".join(f"{k.split('(')[0]} {v:.4f}"
+                                  for k, v in ssd.items())
+          + f"); top2_confidence at the LM gate "
+          f"{fmt(t['top2_confidence_device_ms'])} ms")
+    for k in ("prefill", "decode", "fog", "fog_all_exit"):
+        p = t[f"{k}_profile"]
+        print(f"[time] lm {k} under the profiler: wall {p['wall_ms']:.2f} ms,"
+              f" device busy {p['device_busy_ms']:.3f} ms (products "
+              f"{p['matmul_ms']:.3f}, ssd_chunk {p['ssd_chunk_ms']:.3f}), "
+              f"idle share {p['device_idle_share']:.3f}, "
+              f"{p['device_kernels']} distinct device kernels")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -969,7 +1476,13 @@ def main() -> int:
     ring_latency_bounds(dev, ring["timing"])
     main_launches["tree_traverse"] = ring["launches"]["tree_traverse"]
 
-    # 10. the profiler, after every event timing ----------------------------
+    # 10. Mamba-2 serving at full width and depth (its own main path) -------
+    lm = lm_phase(dev)
+    main_launches["ssd_chunk"] = lm["launches"]["ssd_chunk"]
+
+    # 11. the profiler, after every event timing ----------------------------
+    lm_profile(lm)
+    out["lm"] = lm
     for lv, fn in train["level_fns"].items():
         busy, _ = device_profile(fn)
         row = train["levels"][lv]
@@ -1073,7 +1586,7 @@ def main() -> int:
         "timing": {f"B={nb} {p}": row
                    for (nb, p), row in ring["timing"].items()}}
 
-    # 11. the kernels line -----------------------------------------------------
+    # 12. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -1092,6 +1605,18 @@ def main() -> int:
             "library_ms": row.get(f"{k}_library_ms"),
             "called_by": CALLED_BY[k],
             "matches_plain": True, "shape": f"B={B} fp32"})
+    lt = lm["timing"]
+    top2 = kernels[INFERENCE_KERNELS.index("top2_confidence")]
+    top2["max_abs_err"] = max(top2["max_abs_err"],
+                              lm["fog"]["top2_max_abs_err_vs_plain"])
+    top2["lm_gate"] = {
+        "launches": lm["launches"]["top2_confidence"],
+        "shape": f"[{LM_B}, {get_arch(LM_ARCH).vocab_size}] fp32",
+        "max_abs_err": lm["fog"]["top2_max_abs_err_vs_plain"],
+        "matches_plain": True,
+        **{k: lt[f"top2_confidence_{k}"] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}}
     deep = train["levels"][-1]
     fit_sum = {k: sum(lv[k] for lv in train["levels"])
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1127,6 +1652,21 @@ def main() -> int:
         "library_ms": None, "called_by": CALLED_BY["tree_traverse"],
         "matches_plain": True,
         "shape": f"B={B} fp32, stacked [8, {B // 8}] (the ring's hop)"})
+    errs_lm = [e for case in lm["ssd_chunk_max_abs_err"].values()
+               for e in case.values()]
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda", "source": SOURCE["ssd_chunk"],
+        "replaces": REPLACES["ssd_chunk"],
+        "launches": main_launches["ssd_chunk"], "max_abs_err": max(errs_lm),
+        "ms": lt["ssd_chunk_ms"], "device_ms": lt["ssd_chunk_device_ms"],
+        "plain_ms": lt["ssd_chunk_plain_ms"],
+        "bound_ms": lt["ssd_chunk_bound_ms"],
+        "bound_by": lt["ssd_chunk_bound_by"],
+        "fp32_core_bound_ms": lt["ssd_chunk_fp32_core_bound_ms"],
+        "library_ms": None, "called_by": CALLED_BY["ssd_chunk"],
+        "matches_plain": True,
+        "shape": (f"{LM_ARCH} prefill layer 0: B={LM_B} nc={LM_S // 256} "
+                  "Q=256 H=80 P=64 N=128 bf16")})
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

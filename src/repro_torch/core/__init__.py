@@ -1,7 +1,8 @@
 from repro_torch.core.confidence import maxdiff, maxdiff_multioutput, top2
 from repro_torch.core.grove import (GroveCollection, gc_train,
                                     grove_predict_proba, split)
-from repro_torch.core.policy import BACKENDS, NO_BUDGET, PRECISIONS, FogPolicy
+from repro_torch.core.policy import (BACKENDS, NO_BUDGET, PRECISIONS,
+                                    FogPolicy, margin_backend)
 from repro_torch.core.energy import (
     AffineEnergy, AffineHopCost, EnergyModel, EnergyReport, fog_energy,
     rf_report, dt_energy_pj, rf_energy_pj, grove_energy_pj,
@@ -24,7 +25,7 @@ from repro_torch.forest.pack import ForestPack
 __all__ = [
     "maxdiff", "maxdiff_multioutput", "top2",
     "GroveCollection", "gc_train", "split", "grove_predict_proba",
-    "BACKENDS", "NO_BUDGET", "PRECISIONS", "FogPolicy",
+    "BACKENDS", "NO_BUDGET", "PRECISIONS", "FogPolicy", "margin_backend",
     "AffineEnergy", "AffineHopCost", "EnergyModel", "EnergyReport",
     "fog_energy", "rf_report", "dt_energy_pj", "rf_energy_pj",
     "grove_energy_pj", "svm_lr_energy_pj", "svm_rbf_energy_pj",

@@ -41,6 +41,14 @@ NO_BUDGET = 2**31 - 1
 _TPU_ONLY_KNOBS = ("interpret", "compact")
 
 
+def margin_backend(backend: "str | None") -> str:
+    """The confidence-margin implementation the LM early-exit gate runs
+    for an engine backend: the kernel-flavoured backends ("pallas",
+    "fused") route the top-2 kernel, every other (incl. "ring", which has
+    no meaning for the layer-grove gate) the plain reference."""
+    return "pallas" if backend in ("pallas", "fused") else "reference"
+
+
 def check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")

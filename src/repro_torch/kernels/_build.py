@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
-           CSRC / "tree_traverse.cu")
+           CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu")
 HEADERS = (CSRC / "fog_tables.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -43,7 +43,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 # launches per kernel, counted where each kernel is launched and nowhere
 # else; kernels.ops re-exports this dict as ``ops.launches``
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
-            "histogram": 0, "tree_traverse": 0}
+            "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0}
 
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -54,6 +54,7 @@ _SIGNATURES = {
     "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, P),
     "fog_tree_traverse": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                           P),
+    "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
     # a device query, not a kernel
     "fog_smem_optin": (I, P),
     # a latency probe, not an inference kernel: never counted in launches

@@ -16,6 +16,7 @@ from repro_torch.kernels.grove_aggregate import (check_contrib,
 from repro_torch.kernels.histogram import (histogram_level,
                                            histogram_level_scatter,
                                            onehot_rows)
+from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 from repro_torch.kernels.top2_confidence import top2_confidence_cuda
 from repro_torch.kernels.tree_traverse import tree_traverse_cuda
 
@@ -68,6 +69,15 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
               leaf_scale, max_hops=max_hops, block_b=block_b)
 
 
+def ssd_chunk(xbar, a, Bm, Cm):
+    """Mamba-2 SSD intra-chunk block: xbar [B, nc, Q, H, P], a [B, nc, H, Q],
+    Bm/Cm [B, nc, Q, N] -> (y_diag [B, nc, Q, H, P], states
+    [B, nc, H, P, N]) in xbar's dtype (plain: ref.ssd_chunk_ref)."""
+    if _on_cpu(xbar):
+        return ref.ssd_chunk_ref(xbar, a, Bm, Cm)
+    return ssd_chunk_cuda(xbar, a, Bm, Cm)
+
+
 __all__ = ["tree_traverse", "top2_confidence", "grove_aggregate", "fused_fog",
            "histogram_level", "histogram_level_scatter", "onehot_rows",
-           "launches", "ref"]
+           "ssd_chunk", "launches", "ref"]

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.forest.tree import grove_traverse, mean_over_trees
+from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: F401
 
 
 def dequantize_tables(threshold: torch.Tensor, leaf: torch.Tensor,

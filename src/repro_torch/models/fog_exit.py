@@ -1,0 +1,137 @@
+"""FoG for LMs: confidence-gated layer-grove early exit (port of
+``repro.models.fog_exit``).
+
+The layer stack is split into ``cfg.fog_groups`` groves of consecutive
+blocks.  After each grove the shared unembedding gives logits, and the
+MaxDiff margin of their softmax (top-1 minus top-2 probability, the
+paper's Algorithm 2 line 9) is compared with the lane's threshold; lanes
+that clear it stop.  ``hops`` counts the groves each lane used.
+
+A grove runs when any lane is live (one device sync per grove, where JAX
+uses ``lax.cond``); exited lanes keep their hidden state, logits and cache
+through a masked select.  When no lane is live the grove takes JAX's
+skip branch, which for a Mamba layer runs the full ``mamba_decode`` on the
+unchanged hidden state; the mask then keeps every lane's old cache.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, param_count
+from repro_torch.core.energy import E_FP32_MAC, E_SRAM_R32, AffineEnergy
+from repro_torch.core.engine import confidence_margin
+from repro_torch.core.policy import FogPolicy, margin_backend
+from repro_torch.models import mamba2
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import rmsnorm
+
+
+def grove_boundaries(cfg: ArchConfig) -> list[int]:
+    """Split the stack's n_repeat blocks into fog_groups groves: sizes."""
+    _, _, n_rep = T.layer_plan(cfg)
+    g = max(1, min(cfg.fog_groups, n_rep))
+    base, extra = divmod(n_rep, g)
+    return [base + (1 if i < extra else 0) for i in range(g)]
+
+
+def lm_hop_energy(cfg: ArchConfig) -> AffineEnergy:
+    """Price one layer-grove hop: the grove's share of the active per-token
+    MACs at the shared per-op energies (a FLOP-proportional proxy)."""
+    _, active = param_count(cfg)
+    per_grove_macs = active / max(1, len(grove_boundaries(cfg)))
+    return AffineEnergy(per_hop_pj=per_grove_macs * (E_FP32_MAC + E_SRAM_R32))
+
+
+def _mask_cache(new, old, live: torch.Tensor):
+    """Per-lane cache select over a layer cache's tensors ([B, ...])."""
+    if isinstance(new, dict):
+        return {k: _mask_cache(new[k], old[k], live) for k in new}
+    if isinstance(new, (tuple, list)):
+        return type(new)(_mask_cache(n, o, live) for n, o in zip(new, old))
+    mask = live.reshape((-1,) + (1,) * (new.ndim - 1))
+    return torch.where(mask, new, old)
+
+
+def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
+                    length):
+    """Fill a skipped layer's cache from the propagated hidden state."""
+    if s.mixer != "mamba":
+        raise NotImplementedError(f"{s.mixer} layers wait for the attention "
+                                  f"slice (ROADMAP A10 and B6)")
+    # the recurrent state advance is the cheap part of a Mamba layer: the
+    # full decode-state update, its output discarded
+    _, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, rmsnorm(h, p.ln1),
+                                        cache["state"], cache["conv"])
+    return {"state": st, "conv": tail}
+
+
+def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
+                    thresh, *, backend: str = "reference"):
+    """FoG decode step.  Returns (logits [B,V], new_cache, hops [B] int32).
+
+    ``thresh`` is a :class:`FogPolicy` (per-lane ``[B]`` thresholds and hop
+    budgets serve mixed-QoS batches) or a bare scalar / ``[B]`` threshold.
+    A lane whose hop budget is spent exits even while unconfident.
+    ``backend`` picks the margin ("reference" or the "pallas" top-2
+    kernel); a policy's ``backend`` knob overrides it.
+    """
+    prefix, period, _ = T.layer_plan(cfg)
+    sizes = grove_boundaries(cfg)
+    B = token.shape[0]
+    policy = thresh if isinstance(thresh, FogPolicy) else FogPolicy(
+        threshold=thresh)
+    if policy.backend is not None:
+        backend = margin_backend(policy.backend)
+    dev = params.embed.device
+    thresh = policy.lane_thresholds(B, device=dev)
+    budget = (policy.lane_budgets(B, device=dev)
+              if policy.hop_budget is not None else None)
+    h = T.embed_tokens(params, cfg, token[:, None])
+
+    new_prefix = []
+    for p, s, c in zip(params.prefix, prefix, cache["prefix"]):
+        h, c = T._apply_layer_decode(p, cfg, s, h, c, length)
+        new_prefix.append(c)
+
+    live = torch.ones((B,), dtype=torch.bool, device=dev)
+    hops = torch.zeros((B,), dtype=torch.int32, device=dev)
+    logits = torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=dev)
+    new_stack = []
+    start = 0
+    for g, size in enumerate(sizes):
+        blocks = zip(params.stack[start:start + size],
+                     cache["stack"][start:start + size])
+        run = bool(live.any())
+        h_new, grove_cache = h, []
+        for bp, bc in blocks:
+            nc = {}
+            for j, s in enumerate(period):
+                key = f"pos{j}"
+                if run:
+                    h_new, nc[key] = T._apply_layer_decode(
+                        bp[key], cfg, s, h_new, bc[key], length)
+                else:
+                    nc[key] = _kv_only_update(bp[key], cfg, s, h, bc[key],
+                                              length)
+            grove_cache.append(_mask_cache(nc, bc, live))
+        new_stack.extend(grove_cache)
+        # masked select per lane: exited lanes keep their old hidden state
+        h = torch.where(live[:, None, None], h_new, h)
+        hops = hops + live.to(torch.int32)
+
+        g_logits = T.unembed(params, cfg, h[:, 0])
+        logits = torch.where(live[:, None], g_logits, logits)
+        if g < len(sizes) - 1:
+            probs = torch.softmax(g_logits, dim=-1)
+            live = live & (confidence_margin(probs, backend=backend) < thresh)
+            if budget is not None:   # per-lane energy cap
+                live = live & (hops < budget)
+        start += size
+    return logits, {"prefix": new_prefix, "stack": new_stack}, hops
+
+
+def fog_flops_per_token(cfg: ArchConfig, mean_hops: float) -> float:
+    """Modeled decode FLOPs per token under FoG (hops x grove cost)."""
+    _, active = param_count(cfg)
+    frac = mean_hops / max(1, min(cfg.fog_groups, T.layer_plan(cfg)[2]))
+    return 2.0 * active * frac

@@ -348,3 +348,97 @@ def test_ring_on_card_equals_ring_on_cpu(cuda, trained_port, precision):
     assert torch.equal(got.hops, want.hops)
     assert torch.equal(got.label, want.label)
     torch.testing.assert_close(got.proba, want.proba, rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------- the Mamba-2 SSD chunk
+
+# (B, nc, Q, H, P, N): JAX's small cases, a ragged Q with P and N that are
+# not multiples of the tiles, the serving chunk at full width (Q=256,
+# H=80, P=64, N=128) and a ragged Q over two P and N tiles
+SSD_SHAPES = [(1, 1, 8, 1, 4, 4), (2, 2, 64, 2, 32, 32),
+              (1, 3, 37, 3, 16, 20), (1, 1, 256, 80, 64, 128),
+              (2, 1, 200, 5, 72, 130)]
+
+
+def ssd_inputs(rng, shape, dtype, device, decay=1.0):
+    B, nc, Q, H, P, N = shape
+    arrays = (rng.normal(size=(B, nc, Q, H, P)),
+              -rng.uniform(0.01, 0.5, size=(B, nc, H, Q)) * decay,
+              rng.normal(size=(B, nc, Q, N)), rng.normal(size=(B, nc, Q, N)))
+    return [torch.as_tensor(a.astype(np.float32), device=device).to(dtype)
+            for a in arrays]
+
+
+def assert_ssd_close(got, want):
+    """fp32: within 1e-4 of the output's largest magnitude (the kernel
+    sums up to 256 x 128 fp32 terms in another order).  bf16: within 2
+    bf16 ulps of the plain version's cast (rtol 2**-6), plus the same fp32
+    allowance for elements near a rounding boundary."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    want32 = want.float()
+    rtol = 0.0 if want.dtype == torch.float32 else 2**-6
+    torch.testing.assert_close(got.float(), want32, rtol=rtol,
+                               atol=1e-4 * want32.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_chunk_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    args = ssd_inputs(np.random.default_rng(sum(shape)), shape,
+                      getattr(torch, dtype), cuda)
+    before = ops.launches["ssd_chunk"]
+    got = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_chunk"] == before + 1
+    for g, w in zip(got, ssd_chunk_ref(*args)):
+        assert_ssd_close(g, w)
+
+
+def test_ssd_chunk_kernel_branches_above_the_diagonal(cuda):
+    """Decays large enough that exp(cum_i - cum_j) overflows above the
+    diagonal: the kernel must branch there, not multiply by a 0 mask."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    args = ssd_inputs(np.random.default_rng(3), (1, 2, 64, 2, 8, 8),
+                      torch.float32, cuda, decay=200.0)
+    for g, w in zip(ops.ssd_chunk(*args), ssd_chunk_ref(*args)):
+        assert_ssd_close(g, w)
+
+
+def test_ssd_chunk_kernel_refuses_a_long_chunk(cuda):
+    args = ssd_inputs(np.random.default_rng(0), (1, 1, 257, 1, 4, 4),
+                      torch.float32, cuda)
+    before = ops.launches["ssd_chunk"]
+    with pytest.raises(ValueError, match="1 <= Q <= 256"):
+        ops.ssd_chunk(*args)
+    assert ops.launches["ssd_chunk"] == before
+
+
+def test_mamba_decode_matches_forward_on_card(cuda):
+    """The smoke Mamba-2 at fp32 on the card: one ssd_chunk launch per
+    layer per prefill; decode after prefill reproduces the forward's
+    logits at every position; the card's prefill equals the CPU's.
+    Tolerance rtol/atol 1e-4, as the CPU tests hold the port to JAX."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("mamba2-2.7b")
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           torch.float32, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32), device=cuda)
+    h, _ = T.forward(params, cfg, tokens)
+    want = T.unembed(params, cfg, h)
+    before = ops.launches["ssd_chunk"]
+    logits, cache = T.prefill(params, cfg, tokens=tokens[:, :32])
+    assert ops.launches["ssd_chunk"] == before + cfg.n_layers
+    tol = {"rtol": 1e-4, "atol": 1e-4}
+    torch.testing.assert_close(logits, want[:, 31], **tol)
+    cpu_logits, _ = T.prefill(params.to("cpu"), cfg,
+                              tokens=tokens[:, :32].cpu())
+    torch.testing.assert_close(logits.cpu(), cpu_logits, **tol)
+    params.to(cuda)
+    for t in range(32, 64):
+        logits, cache = T.decode_step(params, cfg, tokens[:, t], cache, t)
+        torch.testing.assert_close(logits, want[:, t], **tol)

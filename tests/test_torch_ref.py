@@ -186,7 +186,9 @@ def test_ops_cpu_path_launches_no_kernel():
     ops.tree_traverse(torch.zeros((2, 3), dtype=torch.int32),
                       torch.zeros((2, 3)), torch.rand(2, 4, 5),
                       torch.rand(7, 2))
+    ops.ssd_chunk(torch.rand(1, 2, 8, 3, 4), -torch.rand(1, 2, 3, 8),
+                  torch.rand(1, 2, 8, 5), torch.rand(1, 2, 8, 5))
     assert ops.launches == before
     assert set(ops.launches) == {"fused_fog", "grove_aggregate",
                                  "top2_confidence", "histogram",
-                                 "tree_traverse"}
+                                 "tree_traverse", "ssd_chunk"}
