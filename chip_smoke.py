@@ -8,8 +8,8 @@ trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
 0.3) through ``FogEngine.eval`` on all three backends and precisions, then
 its training path (the device trainer at the gate config of
 ``benchmarks/train_bench.py``), the ``FogClassifier`` facade (train ->
-plan -> serve), the grove ring and Mamba-2 LM serving with the FoG
-layer-grove exit, and:
+plan -> serve), the grove ring, and Mamba-2 and attention (tinyllama) LM
+serving with the FoG layer-grove exit, and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
@@ -69,11 +69,24 @@ layer-grove exit, and:
    fp32 with all 64 layers that decode after prefill equals the forward
    at every position; times prefill, decode, FoG decode, ``ssd_chunk``
    and the gate's ``top2_confidence`` and works out ``ssd_chunk``'s bounds;
-11. reads each kernel's device time, each eval's, the gate fit's and each
+11. serves ``tinyllama-1.1b`` at full width and depth in bf16 the same
+   way (22 layers, d_model 2048, 32 query heads and 4 KV heads of 64,
+   SwiGLU d_ff 5632, vocab 32,000, 4 layer-groves of 6/6/5/5): the prefill
+   of 4 prompts of 2048 tokens into caches of 2048 + 32 positions runs 22
+   ``flash_attention`` launches and no other; greedy decode, FoG decode
+   and the gate's checks as in 10; holds ``flash_attention`` against its
+   plain version on layer 0's captured bf16 q/k/v, on random fp32 input at
+   full width, a ragged Sq = Sk = 200, Sq != Sk causal both ways,
+   non-causal, MQA (K = 1), D = 192 with Dv = 128 and D = Dv = 256;
+   checks at fp32 with all 22 layers that decode after prefill equals the
+   forward; times the steps, ``flash_attention``, its plain version and
+   SDPA (``enable_gqa``, a yardstick the port never calls), and works out
+   its bounds;
+12. reads each kernel's device time, each eval's, the gate fit's and each
    LM step's device idle share from ``torch.profiler`` (after every event
    timing: once CUPTI traces the process, every launch costs the host
    more);
-12. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+13. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -91,6 +104,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -110,6 +124,8 @@ from repro_torch.forest import (ForestPack, TrainConfig,  # noqa: E402
 from repro_torch.forest import grow  # noqa: E402
 from repro_torch.kernels import (_build, autotune, histogram,  # noqa: E402
                                  ops, ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -138,12 +154,14 @@ SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
 SOURCE["histogram"] = "src/repro_torch/kernels/csrc/histogram.cu"
 SOURCE["tree_traverse"] = "src/repro_torch/kernels/csrc/tree_traverse.cu"
 SOURCE["ssd_chunk"] = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
+SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
             "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
             "top2_confidence": "src/repro/kernels/top2_confidence.py:16",
             "histogram": "src/repro/kernels/histogram.py:60",
             "tree_traverse": "src/repro/kernels/tree_traverse.py:83",
-            "ssd_chunk": "src/repro/kernels/ssd_chunk.py:28"}
+            "ssd_chunk": "src/repro/kernels/ssd_chunk.py:28",
+            "flash_attention": "src/repro/kernels/flash_attention.py:28"}
 # the trainer's gate config (benchmarks/train_bench.py) and its bound
 GATE_TREES = (8, 16, 32)
 GATE_DEPTH = 8
@@ -162,6 +180,9 @@ RAGGED_B = 37
 # threshold is set from the margins of a first FoG step (lm_gate_threshold)
 # so that the kernel's margins decide its hops; then a hop budget
 LM_ARCH = "mamba2-2.7b"
+# the attention path: tinyllama-1.1b at full width and depth, the same
+# prompts, steps and lanes
+ATTN_ARCH = "tinyllama-1.1b"
 LM_B, LM_S, LM_DECODE = 4, 2048, 32
 LM_THRESH = (0.0, 2.0, None, 2.0)
 LM_GATE_LANE = 2
@@ -190,7 +211,11 @@ CALLED_BY = {
                      "shards)",
     "ssd_chunk": "models.mamba2.ssd_chunked(use_kernels=True) in every "
                  "Mamba-2 layer of serve.decode.make_prefill_step's prefill "
-                 "(one launch per layer, 64 per prefill)"}
+                 "(one launch per layer, 64 per prefill)",
+    "flash_attention": "models.layers.flash_attention(use_kernels=True) in "
+                       "every attention layer of serve.decode."
+                       "make_prefill_step's prefill (one launch per layer, "
+                       "22 per tinyllama-1.1b prefill)"}
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -225,9 +250,12 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, reps: int = 10) -> tuple[dict, float]:
+def device_profile(fn, reps: int = 10) -> tuple[dict, float, dict]:
     """Profile ``reps`` warm calls of ``fn``: (device-busy ms per call by
-    kernel name, from CUPTI's kernel records; wall ms per call)."""
+    kernel name, from CUPTI's kernel records; wall ms per call; device ms
+    per recorded launch by kernel name).  The last does not depend on how
+    many records CUPTI returned: a short profile can lose some, which
+    lowers the first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -239,17 +267,22 @@ def device_profile(fn, reps: int = 10) -> tuple[dict, float]:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    busy: dict = {}
+    total: dict = {}
+    records: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            busy[e.name] = (busy.get(e.name, 0.0)
-                            + e.time_range.elapsed_us() / 1e3 / reps)
-    return busy, wall
+            total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us()
+            records[e.name] = records.get(e.name, 0) + 1
+    busy = {k: v / 1e3 / reps for k, v in total.items()}
+    per_launch = {k: v / 1e3 / records[k] for k, v in total.items()}
+    return busy, wall, per_launch
 
 
-def kernel_ms(busy: dict, kernel: str) -> float | None:
-    """Device ms per call of the CUDA kernel named ``<kernel>_kernel``."""
-    hits = [v for k, v in busy.items() if f"{kernel}_kernel" in k]
+def kernel_ms(per_launch: dict, kernel: str) -> float | None:
+    """Device ms of one call of the CUDA kernel named ``<kernel>_kernel``
+    (the sum over its template instances), from ``device_profile``'s ms per
+    recorded launch."""
+    hits = [v for k, v in per_launch.items() if f"{kernel}_kernel" in k]
     return sum(hits) if hits else None
 
 
@@ -809,6 +842,205 @@ def ssd_work(B, nc, Q, H, P, N, itemsize) -> dict:
     return {"bytes": n_bytes, "ops": ops_, "ops_full": full}
 
 
+def flash_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless the kernel's output meets its bar against the plain
+    version's; returns the max abs error.  fp32: rtol/atol 2e-5 (the CPU
+    tests' bar; the two are exact to ~1e-6).  bf16: within 2 bf16 ulps of
+    the output's scale (its largest magnitude): the kernel rounds p to bf16
+    against the running max before p.v, the plain version keeps p in fp32,
+    and both round the output once."""
+    g, w = got.float(), want.float()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (g - w).abs()
+    if want.dtype == torch.float32:
+        bar = 2e-5 + 2e-5 * w.abs()
+    else:
+        scale = float(w.abs().max())
+        bar = torch.full_like(w, 2.0 * 2.0**(np.floor(np.log2(scale)) - 7)
+                              if scale > 0 else 0.0)
+    bad = int((err > bar).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} entries off, max abs err "
+                             f"{float(err.max())} at scale "
+                             f"{float(w.abs().max())}")
+    return float(err.max())
+
+
+def flash_inputs(rng, shape, dtype, dev) -> list:
+    """Random q, k, v for flash_attention: shape (B, Sq, Sk, H, K, D, Dv)."""
+    B, Sq, Sk, H, K, D, Dv = shape
+    return [torch.as_tensor(rng.normal(size=sh).astype(np.float32),
+                            device=dev).to(dtype)
+            for sh in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, Dv))]
+
+
+def flash_work(B, Sq, Sk, H, K, D, Dv, itemsize, causal=True) -> dict:
+    """flash_attention's work from its shapes: ``bytes`` q, k, v read once
+    and the output written once; ``pairs`` the (query, key) pairs each
+    (batch, head) attends (causal: key j <= query i, both from 0); ``ops``
+    the two products over them, 2 (D + Dv) FLOP a pair."""
+    n_bytes = itemsize * B * (Sq * H * (D + Dv) + Sk * K * (D + Dv))
+    if causal:
+        n = min(Sq, Sk)          # rows i < Sk see i + 1 keys, the rest Sk
+        pairs = n * (n + 1) // 2 + (Sq - n) * Sk
+    else:
+        pairs = Sq * Sk
+    return {"bytes": n_bytes, "pairs": pairs,
+            "ops": B * H * pairs * 2 * (D + Dv)}
+
+
+# the flash_attention checks on the card beyond layer 0's inputs:
+# (label, (B, Sq, Sk, H, K, D, Dv), causal, dtype)
+FLASH_CASES = (
+    ("random fp32 at full width", (4, 2048, 2048, 32, 4, 64, 64), True,
+     torch.float32),
+    ("ragged Sq = Sk = 200, fp32", (2, 200, 200, 32, 4, 64, 64), True,
+     torch.float32),
+    ("ragged Sq = Sk = 200, bf16", (2, 200, 200, 32, 4, 64, 64), True,
+     torch.bfloat16),
+    ("Sq < Sk causal", (2, 100, 300, 32, 4, 64, 64), True, torch.float32),
+    ("Sq > Sk causal", (2, 300, 100, 32, 4, 64, 64), True, torch.float32),
+    ("non-causal", (2, 256, 256, 32, 4, 64, 64), False, torch.float32),
+    ("non-causal bf16", (2, 256, 256, 32, 4, 64, 64), False, torch.bfloat16),
+    ("MQA (K = 1) bf16", (2, 256, 256, 32, 1, 64, 64), True, torch.bfloat16),
+    ("D = 192, Dv = 128 (MLA's widths)", (1, 256, 256, 16, 16, 192, 128),
+     True, torch.float32),
+    ("D = Dv = 256 (the largest tiles)", (1, 130, 130, 4, 2, 256, 256), True,
+     torch.float32))
+
+
+def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
+    """ssd_chunk against its plain version on layer 0's captured inputs and
+    on random inputs at full width and a ragged chunk."""
+    args = captured[0][0]
+    Bsz, nc, Q, H, P = args[0].shape
+    full = (Bsz, nc, Q, H, P, args[2].shape[-1])
+    rng = np.random.default_rng(SEED)
+    cases = [("layer 0 of the prefill, bf16", args),
+             (f"random fp32 {full}",
+              ssd_inputs(rng, full, torch.float32, dev)),
+             (f"random fp32 ragged {SSD_RAGGED}",
+              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev)),
+             (f"random bf16 ragged {SSD_RAGGED}",
+              ssd_inputs(rng, SSD_RAGGED, torch.bfloat16, dev))]
+    errs = {}
+    for label, a in cases:
+        got, want = ops.ssd_chunk(*a), ssd_chunk_ref(*a)
+        errs[label] = {n: ssd_close(f"ssd_chunk {label} {n}", g, w)
+                       for n, g, w in zip(("y", "states"), got, want)}
+        del got, want
+    return errs, ("fp32 within 1e-4 of the output's magnitude; bf16 within "
+                  "2 ulps of the plain version's cast")
+
+
+def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
+    """flash_attention against its plain version on layer 0's captured
+    inputs and on FLASH_CASES."""
+    rng = np.random.default_rng(SEED)
+    errs = {}
+    cases = [("layer 0 of the prefill, bf16", captured[0][0],
+              captured[0][1]["causal"])]
+    cases += [(f"{label} {list(shape)}", flash_inputs(rng, shape, dtype, dev),
+               causal) for label, shape, causal, dtype in FLASH_CASES]
+    for label, args, causal in cases:
+        got = ops.flash_attention(*args, causal=causal)
+        want = flash_attention_ref(*args, causal=causal)
+        errs[label] = flash_close(f"flash_attention {label}", got, want)
+        del got, want
+    return errs, ("fp32 within rtol/atol 2e-5; bf16 within 2 bf16 ulps of "
+                  "the output's scale")
+
+
+def ssd_timing(t: dict, captured, fns: dict) -> str:
+    """ssd_chunk's call and plain ms at the prefill's layer-0 inputs, and
+    its bounds."""
+    args = captured[0][0]
+    Bsz, nc, Q, H, P = args[0].shape
+    full = (Bsz, nc, Q, H, P, args[2].shape[-1])
+    fns["ssd_chunk"] = lambda a=args: ops.ssd_chunk(*a)
+    t["ssd_chunk_ms"] = cuda_ms(fns["ssd_chunk"])
+    t["ssd_chunk_plain_ms"] = cuda_ms(lambda a=args: ssd_chunk_ref(*a),
+                                      reps=5, warm=1)
+    t["ssd_chunk_library_ms"] = None
+    work = ssd_work(*full, args[0].element_size())
+    t["ssd_chunk_work"] = work
+    t["ssd_chunk_bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ssd_chunk_bf16_tensor_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
+    t["ssd_chunk_fp32_core_bound_ms"] = (work["ops_full"] / FP32_OPS_PER_S
+                                         * 1e3)
+    t["ssd_chunk_bound_ms"], t["ssd_chunk_bound_by"] = bound_ms(
+        work["bytes"], work["ops"], BF16_OPS_PER_S)
+    return (f"ssd_chunk {list(full)} bf16: {t['ssd_chunk_ms']:.4f} ms per "
+            f"call (bound {t['ssd_chunk_bound_ms']:.4f} ms by "
+            f"{t['ssd_chunk_bound_by']}: {work['bytes'] / 1e6:.1f} MB; "
+            f"{work['ops'] / 1e9:.2f} GFLOP causal, "
+            f"{work['ops_full'] / 1e9:.2f} full, "
+            f"{t['ssd_chunk_fp32_core_bound_ms']:.3f} ms at the fp32 CUDA-core "
+            f"rate), plain {t['ssd_chunk_plain_ms']:.3f} ms")
+
+
+def flash_timing(t: dict, captured, fns: dict) -> str:
+    """flash_attention's call, plain and SDPA ms at the prefill's layer-0
+    inputs, and its bounds.  SDPA (``enable_gqa``, causal: at Sq == Sk its
+    bottom-right diagonal is the kernel's top-left one) is a yardstick the
+    port never calls."""
+    args, kw = captured[0]
+    q, k, v = args
+    Bsz, S, H, D = q.shape
+    K, Dv = k.shape[2], v.shape[3]
+    fns["flash_attention"] = lambda: ops.flash_attention(q, k, v, **kw)
+    t["flash_attention_ms"] = cuda_ms(fns["flash_attention"])
+    t["flash_attention_plain_ms"] = cuda_ms(
+        lambda: flash_attention_ref(q, k, v, **kw), reps=5, warm=1)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    t["flash_attention_library_ms"] = cuda_ms(sdpa)
+    t["flash_attention_library_max_abs_diff"] = float(
+        (sdpa().transpose(1, 2).float() - fns["flash_attention"]().float())
+        .abs().max())
+    work = flash_work(Bsz, S, S, H, K, D, Dv, q.element_size(), kw["causal"])
+    t["flash_attention_work"] = work
+    t["flash_attention_bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["flash_attention_fp32_core_bound_ms"] = (work["ops"] / FP32_OPS_PER_S
+                                               * 1e3)
+    t["flash_attention_bound_ms"], t["flash_attention_bound_by"] = bound_ms(
+        work["bytes"], work["ops"], BF16_OPS_PER_S)
+    return (f"flash_attention [{Bsz}, {S}, {H}, {D}] / [{Bsz}, {S}, {K}, "
+            f"{D}] bf16 causal: {t['flash_attention_ms']:.4f} ms per call "
+            f"(bound {t['flash_attention_bound_ms']:.4f} ms by "
+            f"{t['flash_attention_bound_by']}: {work['bytes'] / 1e6:.1f} MB, "
+            f"{work['ops'] / 1e9:.2f} GFLOP over {work['pairs']:,} causal "
+            f"pairs per head, {t['flash_attention_fp32_core_bound_ms']:.3f} "
+            f"ms at the fp32 CUDA-core rate), plain "
+            f"{t['flash_attention_plain_ms']:.3f} ms, SDPA "
+            f"{t['flash_attention_library_ms']:.4f} ms (max abs diff from the "
+            f"kernel {t['flash_attention_library_max_abs_diff']:.3g})")
+
+
+# each LM path's prefill kernel: its checks and its timing
+LM_KERNELS = {"ssd_chunk": (ssd_kernel_checks, ssd_timing),
+              "flash_attention": (flash_kernel_checks, flash_timing)}
+
+
+def describe(cfg) -> str:
+    if cfg.ssm:
+        return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+                f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+                f"{cfg.ssm_state}, vocab {cfg.vocab_size}")
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads} query heads and {cfg.n_kv_heads} KV heads of "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}")
+
+
 class GateSpy:
     """Within ``with``, keeps each ``ops.top2_confidence`` call's input and
     output (the wrapper itself still counts the launch)."""
@@ -862,10 +1094,16 @@ def lm_gate_threshold(margins: torch.Tensor) -> float:
 def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
              n_decode: int = LM_DECODE,
              consist: tuple = (CONSIST_B, CONSIST_S)) -> dict:
-    """Phase 10: Mamba-2 serving at full width and depth (prefill, greedy
-    decode, FoG layer-grove decode) and the ssd_chunk kernel."""
+    """Phases 10 and 11: LM serving at full width and depth (prefill,
+    greedy decode, FoG layer-grove decode) and its prefill's kernel
+    (``ssd_chunk`` for a Mamba-2 config, ``flash_attention`` for an
+    attention config).  Memory figures are above what the phase found
+    allocated."""
     cfg = cfg or get_arch(LM_ARCH)
+    kernel = "ssd_chunk" if cfg.ssm else "flash_attention"
+    kernel_checks, kernel_timing = LM_KERNELS[kernel]
     G = len(grove_boundaries(cfg))
+    base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -873,21 +1111,20 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    res = {"arch": cfg.name, "n_params": n_params,
+    res = {"arch": cfg.name, "kernel": kernel, "n_params": n_params,
            "param_count": param_count(cfg)[0], "init_s": init_s,
-           "weights_max_memory_allocated": torch.cuda.max_memory_allocated(
-               dev)}
-    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
-          f"{cfg.ssm_state}, vocab {cfg.vocab_size}: {n_params:,} parameters "
-          f"(param_count {res['param_count']:,}, which leaves out biases "
-          f"and norms) in bf16 on the card in {init_s:.1f} s; "
-          f"max_memory_allocated "
+           "weights_max_memory_allocated":
+               torch.cuda.max_memory_allocated(dev) - base}
+    print(f"[lm] {cfg.name}: {describe(cfg)}: {n_params:,} parameters "
+          f"(param_count {res['param_count']:,}, which leaves out norms and "
+          f"biases) in bf16 on the card in "
+          f"{init_s:.1f} s; max_memory_allocated "
           f"{res['weights_max_memory_allocated'] / 1e9:.3f} GB")
     tokens = torch.as_tensor(batch_at_step(
         DataConfig(cfg.vocab_size, S, B, seed=SEED), 0)["tokens"],
         device=dev)
-    prefill_fn, _ = make_prefill_step(cfg, dev, batch=B, seq_len=S)
+    prefill_fn, _ = make_prefill_step(cfg, dev, batch=B, seq_len=S,
+                                      max_seq=S + n_decode)
     serve, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + n_decode)
     fog, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + n_decode,
                              fog=True, policy=FogPolicy(backend="pallas"))
@@ -908,25 +1145,26 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
     thresh = lanes.to(dev)
 
     # the main path: prefill, greedy decode and FoG decode, counts zeroed
-    # just before and read just after; layer 0's ssd_chunk inputs kept
-    captured, real = [], ops.ssd_chunk
+    # just before and read just after; layer 0's kernel inputs kept
+    captured, real = [], getattr(ops, kernel)
 
-    def spy(*args):
+    def spy(*args, **kw):
         if not captured:
-            captured.append(tuple(a.clone() for a in args))
-        return real(*args)
+            captured.append((tuple(a.clone() for a in args), kw))
+        return real(*args, **kw)
 
     for k in ops.launches:
         ops.launches[k] = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    ops.ssd_chunk = spy
+    setattr(ops, kernel, spy)
     try:
         logits, cache = prefill_fn(params, tokens)
     finally:
-        ops.ssd_chunk = real
+        setattr(ops, kernel, real)
     torch.cuda.synchronize()
     prefill_launches = dict(ops.launches)
-    res["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    res["prefill_max_memory_allocated"] = (
+        torch.cuda.max_memory_allocated(dev) - base)
 
     def greedy(step, *knobs):
         tok, c = logits.argmax(-1).to(torch.int32), cache
@@ -955,11 +1193,13 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
           f"{LM_BUDGET}): kernel launches {launches}; the prefill alone "
           f"{prefill_launches}; max_memory_allocated in the prefill "
           f"{res['prefill_max_memory_allocated'] / 1e9:.3f} GB")
-    if prefill_launches["ssd_chunk"] != cfg.n_layers or \
-            launches["ssd_chunk"] != cfg.n_layers:
-        raise AssertionError(f"ssd_chunk launches {prefill_launches} in a "
-                             f"{cfg.n_layers}-layer prefill, {launches} in "
-                             "the whole path")
+    want_prefill = {k: cfg.n_layers if k == kernel else 0
+                    for k in prefill_launches}
+    if prefill_launches != want_prefill or \
+            launches[kernel] != cfg.n_layers:
+        raise AssertionError(f"{kernel} launches: {prefill_launches} in a "
+                             f"{cfg.n_layers}-layer prefill (want "
+                             f"{want_prefill}), {launches} in the whole path")
     if any(n != G - 1 for n in fog_gates + bud_gates):
         raise AssertionError(f"top2_confidence launches per FoG step "
                              f"{fog_gates + bud_gates}, want {G - 1}")
@@ -1050,28 +1290,10 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
           f"lanes == plain decode (max abs err {never_err:.3g})")
 
     # the kernel against its plain version, on the card
-    xc = captured[0][0]
-    Bsz, nc, Q, H, P = xc.shape
-    N = captured[0][2].shape[-1]
-    rng = np.random.default_rng(SEED)
-    full = (Bsz, nc, Q, H, P, N)
-    cases = [("layer 0 of the prefill, bf16", captured[0]),
-             (f"random fp32 {full}",
-              ssd_inputs(rng, full, torch.float32, dev)),
-             (f"random fp32 ragged {SSD_RAGGED}",
-              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev)),
-             (f"random bf16 ragged {SSD_RAGGED}",
-              ssd_inputs(rng, SSD_RAGGED, torch.bfloat16, dev))]
-    errs = {}
-    for label, args in cases:
-        got, want = ops.ssd_chunk(*args), ssd_chunk_ref(*args)
-        errs[label] = {n: ssd_close(f"ssd_chunk {label} {n}", g, w)
-                       for n, g, w in zip(("y", "states"), got, want)}
-        del got, want
-    res["ssd_chunk_max_abs_err"] = errs
-    print(f"[lm] ssd_chunk == its plain version on the card (fp32 within "
-          f"1e-4 of the output's magnitude; bf16 within 2 ulps of the plain "
-          f"version's cast): max abs err {errs}")
+    errs, bar = kernel_checks(dev, captured)
+    res[f"{kernel}_max_abs_err"] = errs
+    print(f"[lm] {kernel} == its plain version on the card ({bar}): max abs "
+          f"err {errs}")
 
     # decode after prefill == forward at full width, fp32 weights
     cb, cs = consist
@@ -1089,7 +1311,7 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
         with torch.no_grad():
             h, _ = T.forward(p32, cfg, toks)
             want = T.unembed(p32, cfg, h)
-            lg, c = T.prefill(p32, cfg, tokens=toks[:, :split])
+            lg, c = T.prefill(p32, cfg, tokens=toks[:, :split], max_seq=cs)
             pairs = [(lg, want[:, split - 1])]
             for t in range(split, cs):
                 lg, c = T.decode_step(p32, cfg, toks[:, t], c, t)
@@ -1122,24 +1344,13 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
            "fog": lambda: fog(params, cache, tok0, S, thresh, no_budget),
            "fog_all_exit": lambda: fog(params, cache, tok0, S, exit_all,
                                        no_budget),
-           "ssd_chunk": lambda a=captured[0]: ops.ssd_chunk(*a),
            "top2_confidence": lambda: ops.top2_confidence(probs)}
     t = {"prefill_ms": cuda_ms(fns["prefill"], reps=5, warm=1)}
     t["prefill_tokens_per_s"] = B * S / t["prefill_ms"] * 1e3
     for k in ("decode", "fog", "fog_all_exit"):
         t[f"{k}_ms_per_step"] = cuda_ms(fns[k], reps=10, warm=2)
         t[f"{k}_tokens_per_s"] = B / t[f"{k}_ms_per_step"] * 1e3
-    t["ssd_chunk_ms"] = cuda_ms(fns["ssd_chunk"])
-    t["ssd_chunk_plain_ms"] = cuda_ms(
-        lambda a=captured[0]: ssd_chunk_ref(*a), reps=5, warm=1)
-    work = ssd_work(*full, xc.element_size())
-    t["ssd_chunk_work"] = work
-    t["ssd_chunk_bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    t["ssd_chunk_bf16_tensor_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
-    t["ssd_chunk_fp32_core_bound_ms"] = (work["ops_full"] / FP32_OPS_PER_S
-                                         * 1e3)
-    t["ssd_chunk_bound_ms"], t["ssd_chunk_bound_by"] = bound_ms(
-        work["bytes"], work["ops"], BF16_OPS_PER_S)
+    kernel_line = kernel_timing(t, captured, fns)
     V = cfg.vocab_size
     t["top2_confidence_ms"] = cuda_ms(fns["top2_confidence"])
     t["top2_confidence_plain_ms"] = cuda_ms(
@@ -1149,19 +1360,14 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
     t["top2_confidence_bound_ms"], t["top2_confidence_bound_by"] = bound_ms(
         B * (V + 1) * 4, B * 3 * V)
     res["timing"] = t
-    print(f"[time] lm prefill B={B} x S={S}: {t['prefill_ms']:.2f} ms "
-          f"({t['prefill_tokens_per_s']:.4g} tokens/s); decode "
-          f"{t['decode_ms_per_step']:.2f} ms per step of {B} tokens, FoG "
-          f"{t['fog_ms_per_step']:.2f} ms (every lane exits after one "
-          f"grove: {t['fog_all_exit_ms_per_step']:.2f} ms)")
-    print(f"[time] ssd_chunk {list(full)} bf16: {t['ssd_chunk_ms']:.4f} ms "
-          f"per call (bound {t['ssd_chunk_bound_ms']:.4f} ms by "
-          f"{t['ssd_chunk_bound_by']}: {work['bytes'] / 1e6:.1f} MB; "
-          f"{work['ops'] / 1e9:.2f} GFLOP causal, {work['ops_full'] / 1e9:.2f}"
-          f" full, {t['ssd_chunk_fp32_core_bound_ms']:.3f} ms at the fp32 "
-          f"CUDA-core rate), plain {t['ssd_chunk_plain_ms']:.3f} ms; "
-          f"top2_confidence [{B}, {V}] {t['top2_confidence_ms']:.4f} ms "
-          f"(bound {t['top2_confidence_bound_ms']:.5f} ms), plain "
+    print(f"[time] lm {cfg.name} prefill B={B} x S={S}: "
+          f"{t['prefill_ms']:.2f} ms ({t['prefill_tokens_per_s']:.4g} "
+          f"tokens/s); decode {t['decode_ms_per_step']:.2f} ms per step of "
+          f"{B} tokens, FoG {t['fog_ms_per_step']:.2f} ms (every lane exits "
+          f"after one grove: {t['fog_all_exit_ms_per_step']:.2f} ms)")
+    print(f"[time] {kernel_line}; top2_confidence [{B}, {V}] "
+          f"{t['top2_confidence_ms']:.4f} ms (bound "
+          f"{t['top2_confidence_bound_ms']:.5f} ms), plain "
           f"{t['top2_confidence_plain_ms']:.4f} ms, torch.topk "
           f"{t['top2_confidence_library_ms']:.4f} ms")
     res["prof_fns"] = fns
@@ -1176,44 +1382,51 @@ def matmul_kernel(name: str) -> bool:
 
 
 def lm_profile(lm: dict) -> None:
-    """Device times of the LM phase from torch.profiler: ssd_chunk's three
-    kernels, and each step's busy and idle shares with the products' and
-    ssd_chunk's parts of the busy time."""
-    fns, t = lm.pop("prof_fns"), lm["timing"]
-    busy, _ = device_profile(fns["ssd_chunk"])
-    ssd = {k: v for k, v in busy.items() if "ssd_chunk" in k}
-    t["ssd_chunk_device_ms"] = sum(ssd.values()) if ssd else None
-    t["ssd_chunk_device_ms_by_kernel"] = ssd
-    busy, _ = device_profile(fns["top2_confidence"])
-    t["top2_confidence_device_ms"] = kernel_ms(busy, "top2_confidence")
+    """Device times of an LM phase from torch.profiler: its prefill
+    kernel's (ssd_chunk's three kernels, or flash_attention's one) and the
+    gate's top-2, and each step's busy and idle shares with the products'
+    and the prefill kernel's parts of the busy time."""
+    fns, t, kernel = lm.pop("prof_fns"), lm["timing"], lm["kernel"]
+    busy, _, per_launch = device_profile(fns[kernel])
+    own = {k: v for k, v in per_launch.items() if kernel in k}
+    t[f"{kernel}_device_ms"] = sum(own.values()) if own else None
+    t[f"{kernel}_device_ms_by_kernel"] = own
+    # the same from the records' sum over the calls: lower if records
+    # were lost
+    t[f"{kernel}_device_ms_from_busy"] = sum(v for k, v in busy.items()
+                                             if kernel in k)
+    t["top2_confidence_device_ms"] = kernel_ms(
+        device_profile(fns["top2_confidence"])[2], "top2_confidence")
     for k, reps in (("prefill", 3), ("decode", 5), ("fog", 5),
                     ("fog_all_exit", 5)):
-        busy, wall = device_profile(fns[k], reps=reps)
+        busy, wall, per_launch = device_profile(fns[k], reps=reps)
         total = sum(busy.values())
         t[f"{k}_profile"] = {
             "wall_ms": wall, "device_busy_ms": total,
             "device_idle_share": 1.0 - total / wall,
             "device_kernels": len(busy),
-            "ssd_chunk_ms": sum(v for n, v in busy.items()
-                                if "ssd_chunk" in n),
+            f"{kernel}_ms": sum(v for n, v in busy.items() if kernel in n),
+            f"{kernel}_ms_per_launch": sum(v for n, v in per_launch.items()
+                                           if kernel in n),
             "matmul_ms": sum(v for n, v in busy.items() if matmul_kernel(n)),
             "top_device_ms": dict(sorted(busy.items(),
                                          key=lambda kv: -kv[1])[:8])}
-    dev_ms = t["ssd_chunk_device_ms"]
+    dev_ms = t[f"{kernel}_device_ms"]
     over = ("" if dev_ms is None
-            else f", {dev_ms / t['ssd_chunk_bound_ms']:.1f}x its bound")
-    print(f"[time] ssd_chunk on the device: {fmt(dev_ms)} ms per call"
-          f"{over} (" + ", ".join(f"{k.split('(')[0]} {v:.4f}"
-                                  for k, v in ssd.items())
+            else f", {dev_ms / t[f'{kernel}_bound_ms']:.1f}x its bound")
+    print(f"[time] {lm['arch']}: {kernel} on the device: {fmt(dev_ms)} ms per "
+          f"call{over} (" + ", ".join(f"{k.split('(')[0]} {v:.4f}"
+                                      for k, v in own.items())
           + f"); top2_confidence at the LM gate "
           f"{fmt(t['top2_confidence_device_ms'])} ms")
     for k in ("prefill", "decode", "fog", "fog_all_exit"):
         p = t[f"{k}_profile"]
-        print(f"[time] lm {k} under the profiler: wall {p['wall_ms']:.2f} ms,"
-              f" device busy {p['device_busy_ms']:.3f} ms (products "
-              f"{p['matmul_ms']:.3f}, ssd_chunk {p['ssd_chunk_ms']:.3f}), "
-              f"idle share {p['device_idle_share']:.3f}, "
-              f"{p['device_kernels']} distinct device kernels")
+        print(f"[time] lm {lm['arch']} {k} under the profiler: wall "
+              f"{p['wall_ms']:.2f} ms, device busy {p['device_busy_ms']:.3f} "
+              f"ms (products {p['matmul_ms']:.3f}, {kernel} "
+              f"{p[f'{kernel}_ms']:.3f}), idle share "
+              f"{p['device_idle_share']:.3f}, {p['device_kernels']} distinct "
+              f"device kernels")
 
 
 def main() -> int:
@@ -1480,20 +1693,26 @@ def main() -> int:
     lm = lm_phase(dev)
     main_launches["ssd_chunk"] = lm["launches"]["ssd_chunk"]
 
-    # 11. the profiler, after every event timing ----------------------------
+    # 11. attention serving at full width and depth (its own main path) -----
+    attn = lm_phase(dev, get_arch(ATTN_ARCH))
+    main_launches["flash_attention"] = attn["launches"]["flash_attention"]
+
+    # 12. the profiler, after every event timing ----------------------------
     lm_profile(lm)
-    out["lm"] = lm
+    lm_profile(attn)
+    out["lm"], out["attn_lm"] = lm, attn
     for lv, fn in train["level_fns"].items():
-        busy, _ = device_profile(fn)
+        busy, _, per_launch = device_profile(fn)
         row = train["levels"][lv]
-        row["device_ms"] = kernel_ms(busy, "histogram")
+        row["device_ms"] = kernel_ms(per_launch, "histogram")
         row["call_device_ms"] = sum(busy.values())    # the fill + the kernel
-    busy, wall = device_profile(train["gate_fit"], reps=3)
+    busy, wall, _ = device_profile(train["gate_fit"], reps=3)
     out["train"]["gate_fit_profile"] = {
         "wall_ms": wall, "device_busy_ms": sum(busy.values()),
         "device_idle_share": 1.0 - sum(busy.values()) / wall,
         "device_kernels": len(busy),
-        "histogram_kernel_ms": kernel_ms(busy, "histogram"),
+        "histogram_kernel_ms": sum(v for k, v in busy.items()
+                                   if "histogram_kernel" in k),
         "top_device_ms": dict(sorted(busy.items(), key=lambda kv: -kv[1])[:8])}
     for row in train["levels"]:
         print(f"[time] histogram level {row['level']} ({row['n_nodes']} "
@@ -1517,10 +1736,10 @@ def main() -> int:
           f"{train['acc_gap']:.4f} <= {GATE_MAX_ACC_GAP}")
 
     for (nb, p, k), fn in kernel_fns.items():
-        busy, _ = device_profile(fn)
-        timing[nb, p][f"{k}_device_ms"] = kernel_ms(busy, k)
+        timing[nb, p][f"{k}_device_ms"] = kernel_ms(device_profile(fn)[2],
+                                                    k)
     for (nb, p, b), fn in eval_fns.items():
-        busy, wall = device_profile(fn)
+        busy, wall, _ = device_profile(fn)
         timing[nb, p][f"eval_{b}_profile"] = {
             "wall_ms": wall, "device_busy_ms": sum(busy.values()),
             "device_idle_share": 1.0 - sum(busy.values()) / wall,
@@ -1553,11 +1772,10 @@ def main() -> int:
     out["timing"] = {f"B={nb} {p}": row for (nb, p), row in timing.items()}
 
     for (nb, p), fn in ring["kernel_fns"].items():
-        busy, _ = device_profile(fn)
         ring["timing"][nb, p]["tree_traverse_device_ms"] = kernel_ms(
-            busy, "tree_traverse")
+            device_profile(fn)[2], "tree_traverse")
     for (nb, p, n), fn in ring["eval_fns"].items():
-        busy, wall = device_profile(fn)
+        busy, wall, _ = device_profile(fn)
         ring["timing"][nb, p][f"eval_ring{n}_profile"] = {
             "wall_ms": wall, "device_busy_ms": sum(busy.values()),
             "device_idle_share": 1.0 - sum(busy.values()) / wall,
@@ -1586,7 +1804,7 @@ def main() -> int:
         "timing": {f"B={nb} {p}": row
                    for (nb, p), row in ring["timing"].items()}}
 
-    # 12. the kernels line -----------------------------------------------------
+    # 13. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -1605,18 +1823,17 @@ def main() -> int:
             "library_ms": row.get(f"{k}_library_ms"),
             "called_by": CALLED_BY[k],
             "matches_plain": True, "shape": f"B={B} fp32"})
-    lt = lm["timing"]
     top2 = kernels[INFERENCE_KERNELS.index("top2_confidence")]
-    top2["max_abs_err"] = max(top2["max_abs_err"],
-                              lm["fog"]["top2_max_abs_err_vs_plain"])
-    top2["lm_gate"] = {
-        "launches": lm["launches"]["top2_confidence"],
-        "shape": f"[{LM_B}, {get_arch(LM_ARCH).vocab_size}] fp32",
-        "max_abs_err": lm["fog"]["top2_max_abs_err_vs_plain"],
+    top2["lm_gates"] = [{
+        "arch": r["arch"], "launches": r["launches"]["top2_confidence"],
+        "shape": f"[{LM_B}, {get_arch(r['arch']).vocab_size}] fp32",
+        "max_abs_err": r["fog"]["top2_max_abs_err_vs_plain"],
         "matches_plain": True,
-        **{k: lt[f"top2_confidence_{k}"] for k in (
+        **{k: r["timing"][f"top2_confidence_{k}"] for k in (
             "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")}}
+            "bound_by")}} for r in (lm, attn)]
+    top2["max_abs_err"] = max([top2["max_abs_err"]] + [
+        g["max_abs_err"] for g in top2["lm_gates"]])
     deep = train["levels"][-1]
     fit_sum = {k: sum(lv[k] for lv in train["levels"])
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1652,21 +1869,24 @@ def main() -> int:
         "library_ms": None, "called_by": CALLED_BY["tree_traverse"],
         "matches_plain": True,
         "shape": f"B={B} fp32, stacked [8, {B // 8}] (the ring's hop)"})
-    errs_lm = [e for case in lm["ssd_chunk_max_abs_err"].values()
-               for e in case.values()]
-    kernels.append({
-        "name": "ssd_chunk", "route": "cuda", "source": SOURCE["ssd_chunk"],
-        "replaces": REPLACES["ssd_chunk"],
-        "launches": main_launches["ssd_chunk"], "max_abs_err": max(errs_lm),
-        "ms": lt["ssd_chunk_ms"], "device_ms": lt["ssd_chunk_device_ms"],
-        "plain_ms": lt["ssd_chunk_plain_ms"],
-        "bound_ms": lt["ssd_chunk_bound_ms"],
-        "bound_by": lt["ssd_chunk_bound_by"],
-        "fp32_core_bound_ms": lt["ssd_chunk_fp32_core_bound_ms"],
-        "library_ms": None, "called_by": CALLED_BY["ssd_chunk"],
-        "matches_plain": True,
-        "shape": (f"{LM_ARCH} prefill layer 0: B={LM_B} nc={LM_S // 256} "
-                  "Q=256 H=80 P=64 N=128 bf16")})
+    shapes = {"ssd_chunk": (f"{LM_ARCH} prefill layer 0: B={LM_B} "
+                            f"nc={LM_S // 256} Q=256 H=80 P=64 N=128 bf16"),
+              "flash_attention": (f"{ATTN_ARCH} prefill layer 0: B={LM_B} "
+                                  f"S={LM_S} H=32 K=4 D=Dv=64 causal bf16")}
+    for r in (lm, attn):
+        k, lt = r["kernel"], r["timing"]
+        errs_lm = [e for case in r[f"{k}_max_abs_err"].values()
+                   for e in (case.values() if isinstance(case, dict)
+                             else (case,))]
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCE[k],
+            "replaces": REPLACES[k], "launches": main_launches[k],
+            "max_abs_err": max(errs_lm), "ms": lt[f"{k}_ms"],
+            "device_ms": lt[f"{k}_device_ms"], "plain_ms": lt[f"{k}_plain_ms"],
+            "bound_ms": lt[f"{k}_bound_ms"], "bound_by": lt[f"{k}_bound_by"],
+            "fp32_core_bound_ms": lt[f"{k}_fp32_core_bound_ms"],
+            "library_ms": lt[f"{k}_library_ms"], "called_by": CALLED_BY[k],
+            "matches_plain": True, "shape": shapes[k]})
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

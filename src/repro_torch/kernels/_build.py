@@ -6,7 +6,8 @@ together, and linked into ``build/repro_torch/libfog_<hash>.so`` under the
 repository root (the hash covers the sources, the headers and the flags,
 so an edit rebuilds).  The library is
 loaded with ``ctypes`` and called through a plain C interface: every
-pointer and the stream as ``c_void_p``, every int as ``c_int``.  Each C
+pointer and the stream as ``c_void_p``, every int as ``c_int``, a float
+scale as ``c_float``.  Each C
 entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on anything but 0 and counts
 the launch.
@@ -29,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
-           CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu")
+           CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu",
+           CSRC / "flash_attention.cu")
 HEADERS = (CSRC / "fog_tables.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -43,9 +45,10 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 # launches per kernel, counted where each kernel is launched and nowhere
 # else; kernels.ops re-exports this dict as ``ops.launches``
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
-            "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0}
+            "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0,
+            "flash_attention": 0}
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fog_top2_confidence": (P, P, I, I, I, P),
     "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
@@ -55,6 +58,7 @@ _SIGNATURES = {
     "fog_tree_traverse": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                           P),
     "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "fog_flash_attention": (I, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     # a device query, not a kernel
     "fog_smem_optin": (I, P),
     # a latency probe, not an inference kernel: never counted in launches

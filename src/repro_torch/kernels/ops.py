@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import launches
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.fused_fog import fused_fog_cuda, fused_fog_ref
 from repro_torch.kernels.grove_aggregate import (check_contrib,
                                                  grove_aggregate_cuda)
@@ -78,6 +79,16 @@ def ssd_chunk(xbar, a, Bm, Cm):
     return ssd_chunk_cuda(xbar, a, Bm, Cm)
 
 
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None):
+    """GQA/MQA attention q [B, Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv]
+    -> [B, Sq, H, Dv] in q's dtype, causal with both positions counted from
+    0 (plain: ref.flash_attention_ref)."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
 __all__ = ["tree_traverse", "top2_confidence", "grove_aggregate", "fused_fog",
            "histogram_level", "histogram_level_scatter", "onehot_rows",
-           "ssd_chunk", "launches", "ref"]
+           "ssd_chunk", "flash_attention", "launches", "ref"]

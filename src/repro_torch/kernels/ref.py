@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.forest.tree import grove_traverse, mean_over_trees
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_ref)
 from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: F401
 
 

@@ -1,2 +1,3 @@
-"""The LM side (port of ``repro.models``): the Mamba-2 decoder, its serving
-steps' building blocks and the FoG layer-grove early exit."""
+"""The LM side (port of ``repro.models``): the decoder of attention and
+Mamba-2 layers, its serving steps' building blocks and the FoG
+layer-grove early exit."""

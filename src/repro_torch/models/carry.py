@@ -15,7 +15,8 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2
-from repro_torch.models.transformer import LM, Layer, check_ported, layer_plan
+from repro_torch.models.transformer import (FFN, LM, Attn, Layer,
+                                            check_ported, layer_plan)
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -37,13 +38,24 @@ def _index(tree, r: int):
 
 
 def _layer(tree: dict, device) -> Layer:
-    if set(tree) != {"ln1", "mamba"}:
-        raise NotImplementedError(
-            f"layer with {sorted(set(tree) - {'ln1', 'mamba'})}: the port "
-            f"runs Mamba-2 layers only (ROADMAP A10 and B6)")
-    return Layer(to_tensor(tree["ln1"], device), mamba2.Mamba(
-        {k: to_tensor(tree["mamba"][k], device)
-         for k in mamba2.PARAM_NAMES}))
+    def t(a):
+        return to_tensor(a, device)
+
+    if set(tree) == {"ln1", "mamba"}:
+        return Layer(t(tree["ln1"]), mamba=mamba2.Mamba(
+            {k: t(tree["mamba"][k]) for k in mamba2.PARAM_NAMES}))
+    if set(tree) == {"ln1", "attn", "ln2", "ffn"}:
+        a, f = tree["attn"], tree["ffn"]
+        return Layer(t(tree["ln1"]),
+                     attn=Attn(t(a["wq"]), t(a["wk"]), t(a["wv"]),
+                               t(a["wo"])),
+                     ln2=t(tree["ln2"]),
+                     ffn=FFN(t(f["w_gate"]),
+                             t(f["w_up"]) if "w_up" in f else None,
+                             t(f["w_down"])))
+    raise NotImplementedError(
+        f"layer with {sorted(tree)}: the port runs attention layers with "
+        f"dense FFNs and Mamba-2 layers (ROADMAP A10)")
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
@@ -60,6 +72,9 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
 
 
 def _layer_cache(tree: dict, device) -> dict:
+    if "k" in tree:
+        return {"k": to_tensor(tree["k"], device),
+                "v": to_tensor(tree["v"], device)}
     return {"state": to_tensor(tree["state"], device),
             "conv": tuple(to_tensor(t, device) for t in tree["conv"])}
 

@@ -9,9 +9,14 @@ that clear it stop.  ``hops`` counts the groves each lane used.
 
 A grove runs when any lane is live (one device sync per grove, where JAX
 uses ``lax.cond``); exited lanes keep their hidden state, logits and cache
-through a masked select.  When no lane is live the grove takes JAX's
-skip branch, which for a Mamba layer runs the full ``mamba_decode`` on the
-unchanged hidden state; the mask then keeps every lane's old cache.
+through a masked select (an attention layer's decode writes its K/V row
+into a new tensor, so the old cache the mask selects is untouched: an
+exited lane's row at this position stays as it was, zeros from the
+prefill's padding).  When no lane is live the grove takes JAX's skip
+branch, CALM-style: each layer's cache is filled from the unchanged hidden
+state (K/V projections for attention, the full ``mamba_decode`` for a
+Mamba layer), and the mask then keeps every lane's old cache, since no
+lane is live, so that fill is discarded as in JAX (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -54,15 +59,18 @@ def _mask_cache(new, old, live: torch.Tensor):
 
 def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
                     length):
-    """Fill a skipped layer's cache from the propagated hidden state."""
-    if s.mixer != "mamba":
-        raise NotImplementedError(f"{s.mixer} layers wait for the attention "
-                                  f"slice (ROADMAP A10 and B6)")
-    # the recurrent state advance is the cheap part of a Mamba layer: the
-    # full decode-state update, its output discarded
-    _, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, rmsnorm(h, p.ln1),
-                                        cache["state"], cache["conv"])
-    return {"state": st, "conv": tail}
+    """Fill a skipped layer's cache from the propagated hidden state
+    (projections only)."""
+    x = rmsnorm(h, p.ln1)
+    if s.mixer == "mamba":
+        # the recurrent state advance is the cheap part of a Mamba layer:
+        # the full decode-state update, its output discarded
+        _, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x, cache["state"],
+                                            cache["conv"])
+        return {"state": st, "conv": tail}
+    length = int(length)
+    pos = torch.full((x.shape[0], 1), length, device=x.device)
+    return T._write_kv(cache, *T._kv(p.attn, cfg, x, pos), length)
 
 
 def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,

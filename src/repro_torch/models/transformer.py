@@ -1,20 +1,30 @@
 """Config-driven decoder assembly (port of ``repro.models.transformer``)
-for the layers that are Mamba-2 mixers.
+for attention layers with dense FFNs and for Mamba-2 mixers.
 
 Parameters are an :class:`LM` module whose names are the JAX package's
 dict keys: ``embed``, ``out_norm``, ``unembed``, ``prefix`` (a list of
 layers) and ``stack`` (one ``{"pos{j}": layer}`` block per repeat of the
 period; the JAX package stacks these on a leading ``[n_repeat]`` axis and
-scans, the port keeps a list and loops).  The cache mirrors it:
-``{"prefix": [layer cache], "stack": [{"pos{j}": layer cache}]}`` with a
-Mamba layer cache ``{"state": [B,H,P,N], "conv": (tx, tB, tC)}``.
+scans, the port keeps a list and loops).  An attention layer holds
+``ln1``, ``attn`` (``wq [d, H, hd]``, ``wk``/``wv [d, K, hd]``,
+``wo [H, hd, d]``), ``ln2`` and ``ffn`` (``w_gate``, ``w_up``,
+``w_down``); a Mamba layer ``ln1`` and ``mamba``.  The cache mirrors the
+parameters: ``{"prefix": [layer cache], "stack": [{"pos{j}": layer
+cache}]}`` with an attention layer cache ``{"k", "v": [B, max_seq, K,
+hd]}`` (keys after RoPE) and a Mamba layer cache ``{"state": [B,H,P,N],
+"conv": (tx, tB, tC)}``.
 
-Attention, MLA and MoE layers wait for the attention slice (ROADMAP A10
-and B6): building or loading a config that has them raises.  The mesh's
-``constrain_batch`` has no counterpart on one card, ``chunked_ce`` /
-``lm_loss`` are training, which comes later, and the ``embeds`` inputs of
-the JAX functions serve only the audio/VLM front ends of attention
-configs.
+A decode step writes its K/V row into a new cache tensor, never into the
+one it was given: ``decode_step_fog`` keeps an exited lane's old cache
+through a masked select of the new cache against the old, and an in-place
+write would make them one tensor.
+
+MLA and MoE layers and hybrid attention/Mamba periods wait for a later
+slice (ROADMAP A10): building or loading a config that has them raises.
+The mesh's ``constrain_batch`` has no counterpart on one card,
+``chunked_ce`` / ``lm_loss`` are training, which comes later, and the
+``embeds`` inputs of the JAX functions serve only the audio/VLM front
+ends.
 """
 from __future__ import annotations
 
@@ -27,7 +37,8 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import (apply_rope, decode_attention,
+                                       flash_attention, gated_ffn, rmsnorm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,24 +75,55 @@ def layer_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int]:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise unless every layer of ``cfg`` is a Mamba-2 mixer without an
-    FFN, the only layer the port has."""
+    """Raise unless every layer of ``cfg`` is an attention layer with a
+    dense FFN or a Mamba-2 mixer, the layers the port has."""
     prefix, period, _ = layer_plan(cfg)
-    other = sorted({s.mixer for s in prefix + period} - {"mamba"})
-    if other or cfg.attn_layer_period:
+    specs = prefix + period
+    waiting = sorted(({s.mixer for s in specs} - {"attn", "mamba"})
+                     | ({s.ffn for s in specs} - {"dense"}))
+    if cfg.attn_layer_period:
+        waiting.append("hybrid attention/Mamba")
+    if waiting:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs Mamba-2 layers only; its "
-            f"{', '.join(other) or 'FFN'} layers wait for the attention "
-            f"slice (ROADMAP A10 and B6)")
+            f"{cfg.name}: the port runs attention layers with dense FFNs "
+            f"and Mamba-2 layers; its {', '.join(waiting)} layers wait for "
+            f"a later slice (ROADMAP A10)")
+
+
+def _frozen(module: nn.Module, tensors: dict) -> None:
+    for name, t in tensors.items():
+        module.register_parameter(
+            name, None if t is None else nn.Parameter(t, requires_grad=False))
+
+
+class Attn(nn.Module):
+    """One attention mixer's weights: ``wq [d, H, hd]``, ``wk`` and ``wv``
+    ``[d, K, hd]``, ``wo [H, hd, d]``."""
+
+    def __init__(self, wq, wk, wv, wo):
+        super().__init__()
+        _frozen(self, {"wq": wq, "wk": wk, "wv": wv, "wo": wo})
+
+
+class FFN(nn.Module):
+    """One dense FFN's weights: ``w_gate``/``w_up [d, f]``, ``w_down
+    [f, d]``; ``w_up`` is None for a plain 2-matrix MLP."""
+
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        _frozen(self, {"w_gate": w_gate, "w_up": w_up, "w_down": w_down})
 
 
 class Layer(nn.Module):
-    """One decoder layer: ``ln1`` and its ``mamba`` mixer."""
+    """One decoder layer: ``ln1`` and its mixer (``attn`` or ``mamba``),
+    then ``ln2`` and ``ffn`` where the layer has an FFN."""
 
-    def __init__(self, ln1: torch.Tensor, mamba: mamba2.Mamba):
+    def __init__(self, ln1: torch.Tensor, *,
+                 mamba: mamba2.Mamba | None = None, attn: Attn | None = None,
+                 ln2: torch.Tensor | None = None, ffn: FFN | None = None):
         super().__init__()
-        self.ln1 = nn.Parameter(ln1, requires_grad=False)
-        self.mamba = mamba
+        _frozen(self, {"ln1": ln1, "ln2": ln2})
+        self.mamba, self.attn, self.ffn = mamba, attn, ffn
 
 
 class LM(nn.Module):
@@ -100,10 +142,39 @@ class LM(nn.Module):
 
 
 # ---------------------------------------------------------------- params ---
-def _init_layer(generator, cfg: ArchConfig, dtype) -> Layer:
-    return Layer(torch.zeros((cfg.d_model,), dtype=dtype,
-                             device=generator.device),
-                 mamba2.init_mamba(generator, cfg, dtype))
+def _init_attn(generator, cfg: ArchConfig, dtype) -> Attn:
+    d, H, K, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim)
+    g = generator.device
+
+    def init(*sh, fan_in=d):
+        return (torch.randn(sh, generator=generator, device=g)
+                / np.sqrt(fan_in)).to(dtype)
+
+    return Attn(init(d, H, hd), init(d, K, hd), init(d, K, hd),
+                init(H, hd, d, fan_in=H * hd))
+
+
+def _init_ffn(generator, cfg: ArchConfig, dtype) -> FFN:
+    d, f = cfg.d_model, cfg.d_ff
+    g = generator.device
+
+    def init(a, b):
+        return (torch.randn((a, b), generator=generator, device=g)
+                / np.sqrt(a)).to(dtype)
+
+    return FFN(init(d, f), init(d, f) if cfg.gated_ffn else None, init(f, d))
+
+
+def _init_layer(generator, cfg: ArchConfig, s: LayerSpec, dtype) -> Layer:
+    def zeros():
+        return torch.zeros((cfg.d_model,), dtype=dtype,
+                           device=generator.device)
+
+    if s.mixer == "mamba":
+        return Layer(zeros(), mamba=mamba2.init_mamba(generator, cfg, dtype))
+    return Layer(zeros(), attn=_init_attn(generator, cfg, dtype), ln2=zeros(),
+                 ffn=_init_ffn(generator, cfg, dtype))
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -125,9 +196,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         unembed = (torch.randn((d, V), generator=generator, device=g)
                    / np.sqrt(d)).to(dtype)
     return LM(embed, torch.zeros((d,), dtype=dtype, device=g), unembed,
-              [_init_layer(generator, cfg, dtype) for _ in prefix],
-              [{f"pos{j}": _init_layer(generator, cfg, dtype)
-                for j in range(len(period))} for _ in range(n_rep)])
+              [_init_layer(generator, cfg, s, dtype) for s in prefix],
+              [{f"pos{j}": _init_layer(generator, cfg, s, dtype)
+                for j, s in enumerate(period)} for _ in range(n_rep)])
 
 
 # --------------------------------------------------------------- forward ---
@@ -155,45 +226,130 @@ def unembed(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return (h @ w).to(torch.float32)
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...d,d...->...", x, w)``: x [..., d] times w [d, *out]
+    as one matrix product, contiguous [..., *out]."""
+    return (x @ w.reshape(w.shape[0], -1)).view(*x.shape[:-1], *w.shape[1:])
+
+
+def _kv(p: Attn, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor):
+    """Keys after RoPE and values of x [B, S, d] at positions [B, S]."""
+    return apply_rope(_proj(x, p.wk), pos, cfg.rope_theta), _proj(x, p.wv)
+
+
+def _attn_out(p: Attn, out: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshe,hed->bsd", out, wo)`` as one matrix product."""
+    return out.reshape(*out.shape[:2], -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+
+
+def _attn_train(p: Attn, cfg: ArchConfig, x: torch.Tensor):
+    """Causal self-attention over x [B, S, d]: (output [B, S, d], the keys
+    after RoPE and the values, for the cache)."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
+    k, v = _kv(p, cfg, x, pos)
+    return _attn_out(p, flash_attention(q, k, v, causal=True)), k, v
+
+
+def _ffn(p: Layer, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """The residual FFN block, where the layer has one."""
+    if p.ffn is None:
+        return h
+    f = p.ffn
+    return h + gated_ffn(rmsnorm(h, p.ln2), f.w_gate, f.w_up, f.w_down,
+                         cfg.act)
+
+
+def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
+    """One layer over a whole sequence: (h after it, its cache: the keys
+    after RoPE and the values, or the Mamba state and conv tails)."""
+    x = rmsnorm(h, p.ln1)
+    if s.mixer == "mamba":
+        mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg, x)
+        cache = {"state": st, "conv": tail}
+    else:
+        mixed, k, v = _attn_train(p.attn, cfg, x)
+        cache = {"k": k, "v": v}
+    return _ffn(p, cfg, h + mixed), cache
+
+
 def forward(params: LM, cfg: ArchConfig,
             tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (hidden [B,S,d], moe_aux scalar)."""
     h = embed_tokens(params, cfg, tokens)
-    for p, _ in _layers(params, cfg):
-        mixed, _ = mamba2.mamba_forward(p.mamba, cfg, rmsnorm(h, p.ln1))
-        h = h + mixed
+    for p, s in _layers(params, cfg):
+        h, _ = _layer_seq(p, cfg, s, h)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 # ---------------------------------------------------------------- decode ---
-def _cache_init_layer(cfg: ArchConfig, batch: int, dtype, device) -> dict:
-    state, tail = mamba2.mamba_state_init(cfg, batch, dtype, device)
-    return {"state": state, "conv": tail}
+def _cache_init_layer(cfg: ArchConfig, s: LayerSpec, batch: int,
+                      max_seq: int, dtype, device) -> dict:
+    if s.mixer == "mamba":
+        state, tail = mamba2.mamba_state_init(cfg, batch, dtype, device)
+        return {"state": state, "conv": tail}
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def cache_init(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """Zero caches for ``batch`` lanes (a Mamba layer keeps no per-position
-    entries, so ``max_seq`` sizes nothing)."""
+    """Zero caches for ``batch`` lanes: ``max_seq`` positions of K/V per
+    attention layer (a Mamba layer keeps no per-position entries)."""
     check_ported(cfg)
     dev = resolve_device(device)
     prefix, period, n_rep = layer_plan(cfg)
-    return {"prefix": [_cache_init_layer(cfg, batch, dtype, dev)
-                       for _ in prefix],
-            "stack": [{f"pos{j}": _cache_init_layer(cfg, batch, dtype, dev)
-                       for j in range(len(period))} for _ in range(n_rep)]}
+    return {"prefix": [_cache_init_layer(cfg, s, batch, max_seq, dtype, dev)
+                       for s in prefix],
+            "stack": [{f"pos{j}": _cache_init_layer(cfg, s, batch, max_seq,
+                                                    dtype, dev)
+                       for j, s in enumerate(period)} for _ in range(n_rep)]}
+
+
+def _write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
+              length: int) -> dict:
+    """A new ``{"k", "v"}`` cache: ``cache``'s rows with k/v [B, 1, K, hd]
+    at position ``length``.  The given cache is left as it was (the FoG
+    mask selects between the two)."""
+    size = cache["k"].shape[1]
+    if not 0 <= length < size:
+        raise ValueError(f"length {length} outside the KV cache's "
+                         f"[0, {size})")
+    out = {}
+    for name, row in (("k", k), ("v", v)):
+        t = cache[name].clone()
+        t[:, length] = row[:, 0].to(t.dtype)
+        out[name] = t
+    return out
+
+
+def _attn_decode(p: Attn, cfg: ArchConfig, x: torch.Tensor, cache: dict,
+                 length: int):
+    B = x.shape[0]
+    pos = torch.full((B, 1), length, device=x.device)
+    q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
+    cache = _write_kv(cache, *_kv(p, cfg, x, pos), length)
+    out = decode_attention(q, cache["k"], cache["v"], length + 1)
+    return _attn_out(p, out), cache
 
 
 def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
                         length):
-    mixed, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, rmsnorm(h, p.ln1),
-                                            cache["state"], cache["conv"])
-    return h + mixed, {"state": st, "conv": tail}
+    x = rmsnorm(h, p.ln1)
+    if s.mixer == "mamba":
+        mixed, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x,
+                                                cache["state"], cache["conv"])
+        cache = {"state": st, "conv": tail}
+    else:
+        mixed, cache = _attn_decode(p.attn, cfg, x, cache, int(length))
+    return _ffn(p, cfg, h + mixed), cache
 
 
 def decode_step(params: LM, cfg: ArchConfig, token, cache, length):
-    """One decode step.  token [B] int; returns (logits [B,V] fp32,
-    new_cache)."""
+    """One decode step at position ``length`` (an int, the same for every
+    lane).  token [B] int; returns (logits [B,V] fp32, new_cache)."""
     prefix, period, _ = layer_plan(cfg)
     h = embed_tokens(params, cfg, token[:, None])
     new_prefix = []
@@ -216,29 +372,34 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
     """Prefill: full forward, caches populated for positions [0, S).
 
     Returns (last-position logits [B,V] fp32, cache); decode continues at
-    length=S.  ``max_seq`` (default S) must be at least S; a Mamba cache
-    holds no per-position entries, so it sizes nothing.
+    length=S.  Attention caches are padded with zeros to ``max_seq``
+    positions (default S, which leaves decode no room); ``max_seq`` must be
+    at least S.  A Mamba cache holds no per-position entries.
     """
     prefix, period, _ = layer_plan(cfg)
-    S = tokens.shape[1]
-    if max_seq is not None and max_seq < S:
+    B, S = tokens.shape
+    max_seq = S if max_seq is None else max_seq
+    if max_seq < S:
         raise ValueError(f"max_seq {max_seq} < prompt length {S}")
     h = embed_tokens(params, cfg, tokens)
 
-    def mix_with_cache(p: Layer, h):
-        mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg,
-                                                 rmsnorm(h, p.ln1))
-        return h + mixed, {"state": st, "conv": tail}
+    def mix_with_cache(p: Layer, s: LayerSpec, h):
+        h, cache = _layer_seq(p, cfg, s, h)
+        if s.mixer != "mamba":    # K/V padded to max_seq positions
+            cache = {k: torch.cat([a, a.new_zeros((B, max_seq - S)
+                                                  + a.shape[2:])], dim=1)
+                     for k, a in cache.items()}
+        return h, cache
 
     new_prefix = []
-    for p in params.prefix:
-        h, c = mix_with_cache(p, h)
+    for p, s in zip(params.prefix, prefix):
+        h, c = mix_with_cache(p, s, h)
         new_prefix.append(c)
     new_stack = []
     for blk in params.stack:
         caches = {}
-        for j in range(len(period)):
-            h, caches[f"pos{j}"] = mix_with_cache(blk[f"pos{j}"], h)
+        for j, s in enumerate(period):
+            h, caches[f"pos{j}"] = mix_with_cache(blk[f"pos{j}"], s, h)
         new_stack.append(caches)
     return unembed(params, cfg, h[:, -1]), {"prefix": new_prefix,
                                             "stack": new_stack}

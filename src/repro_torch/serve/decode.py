@@ -15,7 +15,10 @@ keeps JAX's contract::
 
 ``params`` comes from ``models.transformer.init_params`` or
 ``models.carry.params_from_jax``, the cache from the prefill (or
-``models.transformer.cache_init``).
+``models.transformer.cache_init``).  Configs whose layers are attention
+with dense FFNs or Mamba-2 build; MLA, MoE and hybrid periods raise
+(``check_ported``).  An attention cache holds ``max_seq`` positions, so a
+prefill that decode continues takes the decode steps' ``max_seq``.
 """
 from __future__ import annotations
 
@@ -84,10 +87,12 @@ def make_serve_step(cfg: ArchConfig, device=None, *, batch: int,
 
 
 def make_prefill_step(cfg: ArchConfig, device=None, *, batch: int,
-                      seq_len: int):
+                      seq_len: int, max_seq: int | None = None):
     """Prefill of ``batch`` prompts of ``seq_len`` tokens on ``device``
     (default: the card): ``fn(params, tokens) -> (logits [B, V], cache)``,
-    decode continuing at ``length=seq_len``."""
+    decode continuing at ``length=seq_len``.  Attention caches are padded
+    to ``max_seq`` positions (default ``seq_len``): give the decode steps'
+    ``max_seq`` to decode after the prompt."""
     T.check_ported(cfg)
     dev = resolve_device(device)
     inputs = {"tokens": ((batch, seq_len), torch.int32)}
@@ -95,5 +100,5 @@ def make_prefill_step(cfg: ArchConfig, device=None, *, batch: int,
     @torch.no_grad()
     def step(params, tokens):
         _check_input("tokens", tokens, (batch, seq_len), dev)
-        return T.prefill(params, cfg, tokens=tokens)
+        return T.prefill(params, cfg, tokens=tokens, max_seq=max_seq)
     return step, inputs

@@ -11,12 +11,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
 import numpy as np  # noqa: E402
 
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.forest import ForestPack  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -437,6 +443,85 @@ def test_mamba_decode_matches_forward_on_card(cuda):
     torch.testing.assert_close(logits, want[:, 31], **tol)
     cpu_logits, _ = T.prefill(params.to("cpu"), cfg,
                               tokens=tokens[:, :32].cpu())
+    torch.testing.assert_close(logits.cpu(), cpu_logits, **tol)
+    params.to(cuda)
+    for t in range(32, 64):
+        logits, cache = T.decode_step(params, cfg, tokens[:, t], cache, t)
+        torch.testing.assert_close(logits, want[:, t], **tol)
+
+
+# (B, Sq, Sk, H, K, D, Dv, causal): JAX's five cases, a ragged length over
+# several tiles, Sq != Sk both ways, MQA, MLA's widths (D = 192, Dv = 128),
+# the largest tiles (D = Dv = 256) and tinyllama's layer at a short prompt
+FLASH_SHAPES = [(1, 8, 8, 2, 1, 4, 4, True), (2, 64, 64, 4, 2, 16, 16, True),
+                (2, 128, 128, 8, 8, 32, 32, True),
+                (1, 64, 64, 4, 1, 32, 16, True),
+                (2, 64, 64, 4, 2, 16, 16, False),
+                (2, 200, 200, 8, 2, 64, 64, True),
+                (1, 100, 300, 4, 4, 64, 64, True),
+                (1, 300, 100, 4, 4, 64, 64, True),
+                (2, 129, 65, 8, 1, 80, 40, False),
+                (1, 96, 96, 4, 4, 192, 128, True),
+                (1, 70, 70, 2, 2, 256, 256, True),
+                (2, 256, 256, 32, 4, 64, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    """One launch; fp32 within rtol/atol 2e-5, bf16 within 2 bf16 ulps of
+    the output's scale (chip_smoke.flash_close)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    *dims, causal = shape
+    args = chip_smoke.flash_inputs(np.random.default_rng(sum(dims)), dims,
+                                   getattr(torch, dtype), cuda)
+    before = ops.launches["flash_attention"]
+    got = ops.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    chip_smoke.flash_close(f"flash_attention {shape} {dtype}", got,
+                           flash_attention_ref(*args, causal=causal))
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = chip_smoke.flash_inputs(np.random.default_rng(0),
+                                      (1, 8, 8, 2, 1, 16, 16),
+                                      torch.float32, cuda)
+    before = ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match="head sizes up to 256"):
+        ops.flash_attention(*chip_smoke.flash_inputs(
+            np.random.default_rng(0), (1, 8, 8, 2, 1, 272, 16),
+            torch.float32, cuda))
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    assert ops.launches["flash_attention"] == before
+
+
+def test_attention_decode_matches_forward_on_card(cuda):
+    """The smoke tinyllama at fp32 on the card: one flash_attention launch
+    per layer per prefill; decode after prefill reproduces the forward's
+    logits at every position; the card's prefill equals the CPU's.
+    Tolerance rtol/atol 1e-4, as the CPU tests hold the port to JAX."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("tinyllama-1.1b")
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           torch.float32, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32), device=cuda)
+    h, _ = T.forward(params, cfg, tokens)
+    want = T.unembed(params, cfg, h)
+    before = ops.launches["flash_attention"]
+    logits, cache = T.prefill(params, cfg, tokens=tokens[:, :32], max_seq=64)
+    assert ops.launches["flash_attention"] == before + cfg.n_layers
+    tol = {"rtol": 1e-4, "atol": 1e-4}
+    torch.testing.assert_close(logits, want[:, 31], **tol)
+    cpu_logits, _ = T.prefill(params.to("cpu"), cfg,
+                              tokens=tokens[:, :32].cpu(), max_seq=64)
     torch.testing.assert_close(logits.cpu(), cpu_logits, **tol)
     params.to(cuda)
     for t in range(32, 64):

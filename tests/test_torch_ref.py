@@ -188,7 +188,10 @@ def test_ops_cpu_path_launches_no_kernel():
                       torch.rand(7, 2))
     ops.ssd_chunk(torch.rand(1, 2, 8, 3, 4), -torch.rand(1, 2, 3, 8),
                   torch.rand(1, 2, 8, 5), torch.rand(1, 2, 8, 5))
+    ops.flash_attention(torch.rand(1, 6, 4, 8), torch.rand(1, 6, 2, 8),
+                        torch.rand(1, 6, 2, 8))
     assert ops.launches == before
     assert set(ops.launches) == {"fused_fog", "grove_aggregate",
                                  "top2_confidence", "histogram",
-                                 "tree_traverse", "ssd_chunk"}
+                                 "tree_traverse", "ssd_chunk",
+                                 "flash_attention"}

@@ -1,5 +1,6 @@
 """The work accounting ``chip_smoke.py`` reads its kernel bounds from,
-checked on the CPU against a walk of one lane, one tree at a time."""
+checked on the CPU: fused_fog's against a walk of one lane, one tree at a
+time, flash_attention's against a count of every (query, key) pair."""
 import sys
 from pathlib import Path
 
@@ -71,3 +72,31 @@ def test_fused_work_counts_what_the_walk_reads(precision, heads):
     assert work["chain"] == int(hops.max()) * O * t * (2 * d + 1)
     # the distinct reads never exceed the tables, however many lane-hops
     assert n["nodes"] * (4 + tb) + n["leaves"] * C * tb <= pack.table_bytes
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(37, 53, True), (53, 37, True),
+                                          (29, 29, True), (37, 53, False)])
+def test_flash_work_counts_every_pair_and_byte(Sq, Sk, causal):
+    """flash_work against a brute-force count at small ragged shapes: the
+    (query, key) pairs the mask lets through (key j <= query i, both from
+    0) and the bytes of q, k, v and the output."""
+    B, H, K, D, Dv = 2, 6, 3, 24, 8
+    q, k, v = (torch.zeros(sh, dtype=torch.bfloat16) for sh in
+               ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, Dv)))
+    out = ref.flash_attention_ref(q, k, v, causal=causal)
+    pairs = sum(1 for i in range(Sq) for j in range(Sk)
+                if not causal or j <= i)
+    work = chip_smoke.flash_work(B, Sq, Sk, H, K, D, Dv, 2, causal)
+    assert work["pairs"] == pairs
+    assert work["ops"] == B * H * pairs * (2 * D + 2 * Dv)
+    assert work["bytes"] == sum(t.numel() * t.element_size()
+                                for t in (q, k, v, out))
+
+
+def test_flash_work_at_the_prefill_shape():
+    """tinyllama's prefill: 2,098,176 causal pairs per (batch, head), 68.75
+    GFLOP and 75.5 MB."""
+    work = chip_smoke.flash_work(4, 2048, 2048, 32, 4, 64, 64, 2)
+    assert work["pairs"] == 2048 * 2049 // 2 == 2_098_176
+    assert work["ops"] == 68_753_031_168
+    assert work["bytes"] == 75_497_472
