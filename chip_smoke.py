@@ -12,14 +12,18 @@ plan -> serve), the grove ring, and Mamba-2 and attention (tinyllama) LM
 serving with the FoG layer-grove exit, and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+   and counts the tensor-core (``HGMMA``) instructions in the library's
+   SASS (``cuobjdump``);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
 4. evaluates with the ``fused``, ``pallas`` and ``reference`` backends from
    the same seeded start draws (launch counts zeroed just before and read
    just after), checks that they agree with each other and with the plain
-   path on the CPU, and holds each kernel against its plain version;
+   path on the CPU, and holds each kernel against its plain version
+   (``top2_confidence`` also at the LM gates' shapes and with repeated
+   maxima, bit for bit, on each of its two launches);
 5. reports accuracy, mean hops and pJ per classification;
 6. times each kernel, its plain version and the end-to-end backends with
    CUDA events (median of 20 warm runs) at B=1000 and B=65,536, works out
@@ -74,14 +78,19 @@ serving with the FoG layer-grove exit, and:
    SwiGLU d_ff 5632, vocab 32,000, 4 layer-groves of 6/6/5/5): the prefill
    of 4 prompts of 2048 tokens into caches of 2048 + 32 positions runs 22
    ``flash_attention`` launches and no other; greedy decode, FoG decode
-   and the gate's checks as in 10; holds ``flash_attention`` against its
-   plain version on layer 0's captured bf16 q/k/v, on random fp32 input at
-   full width, a ragged Sq = Sk = 200, Sq != Sk causal both ways,
-   non-causal, MQA (K = 1), D = 192 with Dv = 128 and D = Dv = 256;
-   checks at fp32 with all 22 layers that decode after prefill equals the
-   forward; times the steps, ``flash_attention``, its plain version and
-   SDPA (``enable_gqa``, a yardstick the port never calls), and works out
-   its bounds;
+   and the gate's checks as in 10; checks that all 22 prefill launches
+   took the tensor-core route (``flash_attention_kernel_sm90``); holds
+   ``flash_attention`` against its plain version on layer 0's captured
+   bf16 q/k/v and on random inputs: bf16 on the tensor-core route at full
+   width, a ragged Sq = Sk = 200, Sq != Sk causal both ways, non-causal,
+   MQA (K = 1) and chameleon's heads (D = Dv = 128, 64 query heads, 8 KV
+   heads), and fp32 on the SIMT route at full width, ragged, Sq != Sk,
+   non-causal, D = 192 with Dv = 128 and D = Dv = 256, each case checked
+   for the route it took; checks at fp32 with all 22 layers that decode
+   after prefill equals the forward; times the steps, ``flash_attention``,
+   the SIMT kernel at the same bf16 inputs, its plain version and SDPA
+   (``enable_gqa``, a yardstick the port never calls: call and device
+   time and the backend that ran), and works out its bounds;
 12. reads each kernel's device time, each eval's, the gate fit's and each
    LM step's device idle share from ``torch.profiler`` (after every event
    timing: once CUPTI traces the process, every launch costs the host
@@ -96,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -124,8 +134,10 @@ from repro_torch.forest import (ForestPack, TrainConfig,  # noqa: E402
 from repro_torch.forest import grow  # noqa: E402
 from repro_torch.kernels import (_build, autotune, histogram,  # noqa: E402
                                  ops, ref)
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_ref)
+    flash_attention_ref, route as flash_route)
+from repro_torch.kernels.top2_confidence import row_blocks  # noqa: E402
 from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -154,7 +166,11 @@ SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
 SOURCE["histogram"] = "src/repro_torch/kernels/csrc/histogram.cu"
 SOURCE["tree_traverse"] = "src/repro_torch/kernels/csrc/tree_traverse.cu"
 SOURCE["ssd_chunk"] = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
-SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# flash_attention has two routes (kernels/flash_attention.py::route): the
+# main path's bf16 at D = Dv = 64 takes the tensor-core kernel
+SOURCE["flash_attention"] = ("src/repro_torch/kernels/csrc/"
+                             "flash_attention_sm90.cu")
+SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
             "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
             "top2_confidence": "src/repro/kernels/top2_confidence.py:16",
@@ -215,7 +231,8 @@ CALLED_BY = {
     "flash_attention": "models.layers.flash_attention(use_kernels=True) in "
                        "every attention layer of serve.decode."
                        "make_prefill_step's prefill (one launch per layer, "
-                       "22 per tinyllama-1.1b prefill)"}
+                       "22 per tinyllama-1.1b prefill, each on the "
+                       "tensor-core route)"}
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -896,6 +913,14 @@ def flash_work(B, Sq, Sk, H, K, D, Dv, itemsize, causal=True) -> dict:
 # the flash_attention checks on the card beyond layer 0's inputs:
 # (label, (B, Sq, Sk, H, K, D, Dv), causal, dtype)
 FLASH_CASES = (
+    ("random bf16 at full width", (4, 2048, 2048, 32, 4, 64, 64), True,
+     torch.bfloat16),
+    ("Sq < Sk causal bf16", (2, 100, 300, 32, 4, 64, 64), True,
+     torch.bfloat16),
+    ("Sq > Sk causal bf16", (2, 300, 100, 32, 4, 64, 64), True,
+     torch.bfloat16),
+    ("D = Dv = 128, 64 query heads, 8 KV heads (chameleon's) bf16",
+     (1, 1024, 1024, 64, 8, 128, 128), True, torch.bfloat16),
     ("random fp32 at full width", (4, 2048, 2048, 32, 4, 64, 64), True,
      torch.float32),
     ("ragged Sq = Sk = 200, fp32", (2, 200, 200, 32, 4, 64, 64), True,
@@ -911,6 +936,69 @@ FLASH_CASES = (
      True, torch.float32),
     ("D = Dv = 256 (the largest tiles)", (1, 130, 130, 4, 2, 256, 256), True,
      torch.float32))
+
+
+def simt_flash(q, k, v, **kw) -> torch.Tensor:
+    """The SIMT kernel (the wrapper's route for fp32 and other head sizes)
+    on any inputs, to time it beside the tensor-core kernel on the same
+    bf16 inputs: ``route`` is pointed at it for this one call."""
+    real = fa.route
+    fa.route = lambda *a: "simt"
+    try:
+        return ops.flash_attention(q, k, v, **kw)
+    finally:
+        fa.route = real
+
+
+# top2_confidence on the card beyond the main path's inputs: the LM gates'
+# rows (blocks share a row, then the merge pass), one long row, and short
+# rows (one thread per row)
+TOP2_CASES = ((4, 32000), (4, 50280), (1, 50280), (4, 7), (1000, 10))
+
+
+def top2_checks(dev: torch.device) -> dict:
+    """top2_confidence == its plain version bit for bit on TOP2_CASES, with
+    the maximum repeated in every fourth row (at columns 1 and C // 2, in
+    different blocks of a long row) and the last row all equal; the blocks
+    per row of each case's launch (0: one thread per row)."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for B, C in TOP2_CASES:
+        p = torch.softmax(torch.as_tensor(
+            rng.random((B, C), dtype=np.float32) * 8, device=dev), dim=-1)
+        top = float(p.max()) + 1.0
+        p[::4, 1] = top
+        p[::4, C // 2] = top
+        if B > 1:
+            p[-1] = 1.0 / C
+        got = ops.top2_confidence(p)
+        check_equal(f"top2_confidence [{B}, {C}] with repeated maxima", got,
+                    ref.top2_confidence_ref(p))
+        if (got[::4] != 0).any():
+            raise AssertionError(f"top2_confidence [{B}, {C}]: a repeated "
+                                 "maximum gave a margin above 0")
+        out[f"[{B}, {C}]"] = {"blocks_per_row": row_blocks(B, C)}
+    return out
+
+
+def hgmma_per_kernel(lib_path: Path) -> dict:
+    """HGMMA (wgmma) instructions in the library's SASS per
+    flash_attention_kernel_sm90 instance, by its (D, Dv, keys per tile)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_attention_kernel_sm90ILi(\d+)ELi(\d+)ELi"
+                          r"(\d+)E", line)
+            fn = "<{}, {}, {}>".format(*m.groups()) if m else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
@@ -939,7 +1027,7 @@ def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
 
 def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
     """flash_attention against its plain version on layer 0's captured
-    inputs and on FLASH_CASES."""
+    inputs and on FLASH_CASES, each on the route ``route`` names for it."""
     rng = np.random.default_rng(SEED)
     errs = {}
     cases = [("layer 0 of the prefill, bf16", captured[0][0],
@@ -947,9 +1035,17 @@ def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
     cases += [(f"{label} {list(shape)}", flash_inputs(rng, shape, dtype, dev),
                causal) for label, shape, causal, dtype in FLASH_CASES]
     for label, args, causal in cases:
+        entry = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}[
+            flash_route(args[0].dtype, args[0].shape[3], args[2].shape[3])]
+        before = dict(_build.routes)
         got = ops.flash_attention(*args, causal=causal)
+        ran = {k: _build.routes[k] - before[k] for k in before}
+        if ran != {k: int(k == entry) for k in ran}:
+            raise AssertionError(f"flash_attention {label}: routes {ran}, "
+                                 f"want one launch of {entry}")
         want = flash_attention_ref(*args, causal=causal)
-        errs[label] = flash_close(f"flash_attention {label}", got, want)
+        errs[f"{label} ({entry})"] = flash_close(f"flash_attention {label}",
+                                                 got, want)
         del got, want
     return errs, ("fp32 within rtol/atol 2e-5; bf16 within 2 bf16 ulps of "
                   "the output's scale")
@@ -1003,9 +1099,15 @@ def flash_timing(t: dict, captured, fns: dict) -> str:
                                               enable_gqa=True)
 
     t["flash_attention_library_ms"] = cuda_ms(sdpa)
+    fns["sdpa"] = sdpa
     t["flash_attention_library_max_abs_diff"] = float(
         (sdpa().transpose(1, 2).float() - fns["flash_attention"]().float())
         .abs().max())
+    # the SIMT kernel (the fp32 route) on the same bf16 inputs, timed
+    # beside the tensor-core kernel in one run
+    fns["flash_attention_simt"] = lambda: simt_flash(q, k, v, **kw)
+    t["flash_attention_simt_ms"] = cuda_ms(fns["flash_attention_simt"],
+                                           reps=5, warm=1)
     work = flash_work(Bsz, S, S, H, K, D, Dv, q.element_size(), kw["causal"])
     t["flash_attention_work"] = work
     t["flash_attention_bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1020,7 +1122,8 @@ def flash_timing(t: dict, captured, fns: dict) -> str:
             f"{work['ops'] / 1e9:.2f} GFLOP over {work['pairs']:,} causal "
             f"pairs per head, {t['flash_attention_fp32_core_bound_ms']:.3f} "
             f"ms at the fp32 CUDA-core rate), plain "
-            f"{t['flash_attention_plain_ms']:.3f} ms, SDPA "
+            f"{t['flash_attention_plain_ms']:.3f} ms, the SIMT kernel "
+            f"{t['flash_attention_simt_ms']:.3f} ms, SDPA "
             f"{t['flash_attention_library_ms']:.4f} ms (max abs diff from the "
             f"kernel {t['flash_attention_library_max_abs_diff']:.3g})")
 
@@ -1155,6 +1258,8 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
 
     for k in ops.launches:
         ops.launches[k] = 0
+    for k in _build.routes:
+        _build.routes[k] = 0
     torch.cuda.reset_peak_memory_stats(dev)
     setattr(ops, kernel, spy)
     try:
@@ -1163,6 +1268,7 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
         setattr(ops, kernel, real)
     torch.cuda.synchronize()
     prefill_launches = dict(ops.launches)
+    res["prefill_routes"] = dict(_build.routes)
     res["prefill_max_memory_allocated"] = (
         torch.cuda.max_memory_allocated(dev) - base)
 
@@ -1191,7 +1297,8 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
           f"steps, {n_decode} FoG steps at per-lane thresholds "
           f"{lanes.tolist()}, {n_decode} more under a hop budget of "
           f"{LM_BUDGET}): kernel launches {launches}; the prefill alone "
-          f"{prefill_launches}; max_memory_allocated in the prefill "
+          f"{prefill_launches}, by route {res['prefill_routes']}; "
+          f"max_memory_allocated in the prefill "
           f"{res['prefill_max_memory_allocated'] / 1e9:.3f} GB")
     want_prefill = {k: cfg.n_layers if k == kernel else 0
                     for k in prefill_launches}
@@ -1200,6 +1307,11 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
         raise AssertionError(f"{kernel} launches: {prefill_launches} in a "
                              f"{cfg.n_layers}-layer prefill (want "
                              f"{want_prefill}), {launches} in the whole path")
+    if kernel == "flash_attention" and res["prefill_routes"] != {
+            "flash_attention_sm90": cfg.n_layers, "flash_attention": 0}:
+        raise AssertionError(f"flash_attention routes in the prefill "
+                             f"{res['prefill_routes']}: want all "
+                             f"{cfg.n_layers} on the tensor cores")
     if any(n != G - 1 for n in fog_gates + bud_gates):
         raise AssertionError(f"top2_confidence launches per FoG step "
                              f"{fog_gates + bud_gates}, want {G - 1}")
@@ -1374,6 +1486,18 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
     return res
 
 
+def sdpa_backend(name: str) -> str:
+    """Which of SDPA's backends a device kernel's name belongs to."""
+    low = name.lower()
+    if "cudnn" in low:
+        return "cuDNN"
+    if "flash" in low:
+        return "flash"
+    if "fmha" in low or "efficient" in low:
+        return "memory-efficient"
+    return "math"
+
+
 def matmul_kernel(name: str) -> bool:
     """Whether a device kernel's name is one of cuBLAS's products (on
     Hopper cuBLAS names its own kernels ``nvjet_*``)."""
@@ -1397,6 +1521,15 @@ def lm_profile(lm: dict) -> None:
                                              if kernel in k)
     t["top2_confidence_device_ms"] = kernel_ms(
         device_profile(fns["top2_confidence"])[2], "top2_confidence")
+    if "sdpa" in fns:
+        per_launch = device_profile(fns["sdpa"])[2]
+        main = max(per_launch, key=per_launch.get)
+        t["flash_attention_library_device_ms"] = sum(per_launch.values())
+        t["flash_attention_library_kernels"] = per_launch
+        t["flash_attention_library_backend"] = sdpa_backend(main)
+        t["flash_attention_simt_device_ms"] = kernel_ms(
+            device_profile(fns["flash_attention_simt"])[2],
+            "flash_attention")
     for k, reps in (("prefill", 3), ("decode", 5), ("fog", 5),
                     ("fog_all_exit", 5)):
         busy, wall, per_launch = device_profile(fns[k], reps=reps)
@@ -1411,6 +1544,13 @@ def lm_profile(lm: dict) -> None:
             "matmul_ms": sum(v for n, v in busy.items() if matmul_kernel(n)),
             "top_device_ms": dict(sorted(busy.items(),
                                          key=lambda kv: -kv[1])[:8])}
+    if "sdpa" in fns:
+        print(f"[time] {lm['arch']}: SDPA on the device "
+              f"{t['flash_attention_library_device_ms']:.4f} ms per call "
+              f"({t['flash_attention_library_backend']}: "
+              f"{t['flash_attention_library_kernels']}); the SIMT kernel on "
+              f"the same bf16 inputs {fmt(t['flash_attention_simt_device_ms'])}"
+              f" ms")
     dev_ms = t[f"{kernel}_device_ms"]
     over = ("" if dev_ms is None
             else f", {dev_ms / t[f'{kernel}_bound_ms']:.1f}x its bound")
@@ -1457,9 +1597,17 @@ def main() -> int:
     print(f"[build] {lib_path.name} in {build_s:.1f} s (nvcc "
           f"{_build.build_info.get('seconds', 0.0):.1f} s)")
     for line in _build.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling",
+                                   "C75")):
             print(f"[build]   {line.strip()}")
     out["build_s"] = build_s
+    hgmma = hgmma_per_kernel(lib_path)
+    print(f"[build] SASS: HGMMA (wgmma) instructions per "
+          f"flash_attention_kernel_sm90<D, Dv, keys> instance: {hgmma}")
+    if not hgmma or not all(hgmma.values()):
+        raise AssertionError(f"the tensor-core flash_attention kernel has no "
+                             f"HGMMA instruction in the SASS: {hgmma}")
+    out["hgmma_per_kernel"] = hgmma
 
     # 3. train and pack -----------------------------------------------------
     t0 = time.perf_counter()
@@ -1592,8 +1740,11 @@ def main() -> int:
     ties[64:128] = 0.1
     check_equal("top2 ties", ops.top2_confidence(ties),
                 ref.top2_confidence_ref(ties))
+    out["top2_checks"] = top2_checks(dev)
     print(f"[kernels] each kernel equals its plain version on the card; "
-          f"max abs err {errs}")
+          f"max abs err {errs}; top2_confidence bit-equal with repeated "
+          f"maxima at {out['top2_checks']} (blocks per row; 0: one thread "
+          f"per row)")
 
     # 6. time: CUDA events first, then the profiler (once CUPTI has traced
     # the process, every launch costs the host more, so no event timing
@@ -1829,6 +1980,7 @@ def main() -> int:
         "shape": f"[{LM_B}, {get_arch(r['arch']).vocab_size}] fp32",
         "max_abs_err": r["fog"]["top2_max_abs_err_vs_plain"],
         "matches_plain": True,
+        "blocks_per_row": row_blocks(LM_B, get_arch(r["arch"]).vocab_size),
         **{k: r["timing"][f"top2_confidence_{k}"] for k in (
             "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")}} for r in (lm, attn)]
@@ -1887,6 +2039,13 @@ def main() -> int:
             "fp32_core_bound_ms": lt[f"{k}_fp32_core_bound_ms"],
             "library_ms": lt[f"{k}_library_ms"], "called_by": CALLED_BY[k],
             "matches_plain": True, "shape": shapes[k]})
+        if k == "flash_attention":
+            kernels[-1].update(
+                routes=r["prefill_routes"], simt_source=SIMT_SOURCE,
+                simt_ms=lt["flash_attention_simt_ms"],
+                simt_device_ms=lt["flash_attention_simt_device_ms"],
+                library_device_ms=lt["flash_attention_library_device_ms"],
+                library_backend=lt["flash_attention_library_backend"])
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

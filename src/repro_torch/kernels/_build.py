@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu",
-           CSRC / "flash_attention.cu")
+           CSRC / "flash_attention.cu", CSRC / "flash_attention_sm90.cu")
 HEADERS = (CSRC / "fog_tables.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
@@ -47,10 +47,14 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
             "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0,
             "flash_attention": 0}
+# the same launches by C entry point, where a kernel has two routes
+# (flash_attention: "flash_attention" on CUDA cores, "flash_attention_sm90"
+# on the tensor cores)
+routes = {"flash_attention": 0, "flash_attention_sm90": 0}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fog_top2_confidence": (P, P, I, I, I, P),
+    "fog_top2_confidence": (P, P, P, I, I, I, I, P),
     "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, I, P),
@@ -59,10 +63,14 @@ _SIGNATURES = {
                           P),
     "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
     "fog_flash_attention": (I, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
+    "fog_flash_attention_sm90": (P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     # a device query, not a kernel
     "fog_smem_optin": (I, P),
     # a latency probe, not an inference kernel: never counted in launches
     "fog_chase": (P, I, P, P),
+    # one wgmma tile product of each form flash_attention_sm90 issues, for
+    # the tests: never counted in launches
+    "fog_wgmma_probe": (P, P, P, P, P, I, P),
 }
 
 _lib = None
@@ -168,17 +176,22 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(kernel: str, device: torch.device, *args) -> None:
-    """Call C entry point ``fog_<kernel>`` on ``device``'s current stream,
-    raise on a launch error, and count one launch of ``kernel``."""
+def launch(kernel: str, device: torch.device, *args,
+           entry: str | None = None) -> None:
+    """Call C entry point ``fog_<entry>`` (default ``fog_<kernel>``) on
+    ``device``'s current stream, raise on a launch error, and count one
+    launch of ``kernel`` (and of ``entry`` in ``routes``)."""
+    entry = entry or kernel
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"fog_{kernel}")(*args, stream)
+        rc = getattr(lib, f"fog_{entry}")(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"fog_{kernel} launch failed: CUDA error {rc} "
+        raise RuntimeError(f"fog_{entry} launch failed: CUDA error {rc} "
                            f"({lib.fog_error_string(rc).decode()})")
     launches[kernel] += 1
+    if entry in routes:
+        routes[entry] += 1
 
 
 def smem_optin(device: torch.device) -> int:

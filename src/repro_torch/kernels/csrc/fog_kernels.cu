@@ -6,6 +6,8 @@
 // scratch buffer, the kernels allocate nothing):
 //
 //   fog_top2_confidence   replaces repro/kernels/top2_confidence.py::_top2_kernel
+//                         (one thread per short row, or blocks that share
+//                         a long row and a merge pass)
 //   fog_grove_aggregate   replaces repro/kernels/grove_aggregate.py::_aggregate_kernel
 //   fog_fused_fog         replaces repro/kernels/fused_fog.py::_fused_fog_kernel
 //
@@ -19,9 +21,10 @@
 // normalisations divide by max(hops, 1): no reciprocal multiplies.
 //
 // Design (deliberately simple; speed is later work):
-//   * one thread per row/lane, block_b threads per block;
+//   * one thread per row/lane, block_b threads per block, except the
+//     top-2 of long rows (below), where blocks share a row;
 //   * top2/aggregate read each [B, C] row once and are bound by those
-//     bytes (C <= 26 floats per row);
+//     bytes (C <= 26 floats per row on the forest's path);
 //   * fused_fog walks each lane's grove with d dependent gathers per tree,
 //     t trees per hop: it is bound by the latency of that chain, not by
 //     bytes.  Tables are read from global memory (the bench field's 192 KiB
@@ -33,6 +36,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "fog_tables.cuh"
@@ -62,11 +66,100 @@ __device__ __forceinline__ float maxdiff_row(const float* p, int stride, int C) 
   return fabsf(__fsub_rn(m1, m2));
 }
 
+// One thread per row: short rows (the forest's [B, C <= 26] margins).
 __global__ void top2_confidence_kernel(const float* __restrict__ prob,
                                        float* __restrict__ out, int B, int C) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   out[b] = maxdiff_row(prob + (size_t)b * C, 1, C);
+}
+
+// Long rows (the LM gate's [B, V], V = 32,000-50,280, at B = 4): blocks
+// share a row.  Each thread keeps the top two of its stride of the row
+// (the first index of its maximum; a repeat of the maximum becomes the
+// second), then warp shuffles, then the block's 8 warps in shared memory,
+// then, where a row has several blocks, a second small kernel over their
+// [B, nblk] partials.  A second launch rather than a cluster: it needs no
+// cluster launch attributes and costs ~2 us, while a cluster caps a row at
+// 8 blocks (16 portably) of one GPC.  Merging takes the larger maximum
+// (the lower index on a tie) and the larger of the winner's second and the
+// loser's maximum, so only the first maximal entry is masked, in any
+// order; nothing is rounded, so the result equals the one-thread walk.
+constexpr int TOP2_THREADS = 256;
+
+struct Top2 {
+  float m1, m2;  // the maximum and the largest other entry
+  int i1;        // the maximum's first index (INT_MAX: none seen)
+};
+
+__device__ __forceinline__ Top2 top2_merge(Top2 a, Top2 b) {
+  const bool a_wins = a.m1 > b.m1 || (a.m1 == b.m1 && a.i1 < b.i1);
+  Top2 w = a_wins ? a : b;
+  const float other = a_wins ? b.m1 : a.m1;
+  if (other > w.m2) w.m2 = other;
+  return w;
+}
+
+__device__ __forceinline__ Top2 top2_warp(Top2 t) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Top2 o;
+    o.m1 = __shfl_xor_sync(0xffffffffu, t.m1, off);
+    o.m2 = __shfl_xor_sync(0xffffffffu, t.m2, off);
+    o.i1 = __shfl_xor_sync(0xffffffffu, t.i1, off);
+    t = top2_merge(t, o);
+  }
+  return t;
+}
+
+// row blockIdx.x, columns [blockIdx.y * cols, (blockIdx.y + 1) * cols);
+// with one block per row it writes the margin, else its partial
+__global__ void __launch_bounds__(TOP2_THREADS) top2_confidence_kernel_rows(
+    const float* __restrict__ prob, float* __restrict__ out,
+    float* __restrict__ part_m1, float* __restrict__ part_m2,
+    int* __restrict__ part_i1, int C, int cols) {
+  __shared__ Top2 warps[TOP2_THREADS / 32];
+  const int b = blockIdx.x, blk = blockIdx.y, nblk = gridDim.y;
+  const int c0 = blk * cols, c1 = min(C, c0 + cols);
+  const float* row = prob + (size_t)b * C;
+  Top2 t = {-CUDART_INF_F, -CUDART_INF_F, INT_MAX};
+  for (int c = c0 + threadIdx.x; c < c1; c += TOP2_THREADS) {
+    const float v = row[c];
+    if (v > t.m1) {
+      t.m2 = t.m1;
+      t.m1 = v;
+      t.i1 = c;
+    } else if (v > t.m2) {
+      t.m2 = v;
+    }
+  }
+  t = top2_warp(t);
+  if (threadIdx.x % 32 == 0) warps[threadIdx.x / 32] = t;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < TOP2_THREADS / 32; ++w) t = top2_merge(t, warps[w]);
+  if (nblk == 1) {
+    out[b] = fabsf(__fsub_rn(t.m1, t.m2));
+  } else {
+    const size_t k = (size_t)b * nblk + blk;
+    part_m1[k] = t.m1;
+    part_m2[k] = t.m2;
+    part_i1[k] = t.i1;
+  }
+}
+
+// one warp per row over its nblk partials
+__global__ void top2_confidence_kernel_merge(
+    const float* __restrict__ part_m1, const float* __restrict__ part_m2,
+    const int* __restrict__ part_i1, float* __restrict__ out, int nblk) {
+  const int b = blockIdx.x;
+  Top2 t = {-CUDART_INF_F, -CUDART_INF_F, INT_MAX};
+  for (int j = threadIdx.x; j < nblk; j += 32) {
+    const size_t k = (size_t)b * nblk + j;
+    t = top2_merge(t, Top2{part_m1[k], part_m2[k], part_i1[k]});
+  }
+  t = top2_warp(t);
+  if (threadIdx.x == 0) out[b] = fabsf(__fsub_rn(t.m1, t.m2));
 }
 
 // ------------------------------------------------------- one hop update
@@ -226,10 +319,29 @@ const char* fog_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int fog_top2_confidence(const float* prob, float* out, int B, int C, int block,
-                        void* stream) {
-  top2_confidence_kernel<<<grid_for(B, block), block, 0,
-                           static_cast<cudaStream_t>(stream)>>>(prob, out, B, C);
+// nblk == 0: one thread per row, `block` threads per block.  nblk >= 1:
+// nblk blocks of TOP2_THREADS share each row; with nblk > 1 the partials go
+// to scratch (3 * B * nblk words) and a second kernel merges them.
+int fog_top2_confidence(const float* prob, float* out, float* scratch, int B,
+                        int C, int block, int nblk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || C < 1 || nblk < 0 || nblk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nblk == 0) {
+    top2_confidence_kernel<<<grid_for(B, block), block, 0, s>>>(prob, out, B,
+                                                                C);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t n = (size_t)B * nblk;
+  float* m1 = scratch;
+  float* m2 = scratch + n;
+  int* i1 = reinterpret_cast<int*>(scratch + 2 * n);
+  const int cols = (C + nblk - 1) / nblk;
+  top2_confidence_kernel_rows<<<dim3(B, nblk), TOP2_THREADS, 0, s>>>(
+      prob, out, m1, m2, i1, C, cols);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
+  top2_confidence_kernel_merge<<<B, 32, 0, s>>>(m1, m2, i1, out, nblk);
   return static_cast<int>(cudaGetLastError());
 }
 

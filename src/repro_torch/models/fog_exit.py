@@ -74,8 +74,9 @@ def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
 
 
 def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
-                    thresh, *, backend: str = "reference"):
-    """FoG decode step.  Returns (logits [B,V], new_cache, hops [B] int32).
+                    thresh, embeds=None, *, backend: str = "reference"):
+    """FoG decode step from token [B] (or None with embeds [B, 1, d]).
+    Returns (logits [B,V], new_cache, hops [B] int32).
 
     ``thresh`` is a :class:`FogPolicy` (per-lane ``[B]`` thresholds and hop
     budgets serve mixed-QoS batches) or a bare scalar / ``[B]`` threshold.
@@ -85,7 +86,7 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
     """
     prefix, period, _ = T.layer_plan(cfg)
     sizes = grove_boundaries(cfg)
-    B = token.shape[0]
+    B = token.shape[0] if token is not None else embeds.shape[0]
     policy = thresh if isinstance(thresh, FogPolicy) else FogPolicy(
         threshold=thresh)
     if policy.backend is not None:
@@ -94,7 +95,8 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
     thresh = policy.lane_thresholds(B, device=dev)
     budget = (policy.lane_budgets(B, device=dev)
               if policy.hop_budget is not None else None)
-    h = T.embed_tokens(params, cfg, token[:, None])
+    h = T.embed_inputs(params, cfg,
+                       None if token is None else token[:, None], embeds)
 
     new_prefix = []
     for p, s, c in zip(params.prefix, prefix, cache["prefix"]):

@@ -19,12 +19,15 @@ one it was given: ``decode_step_fog`` keeps an exited lane's old cache
 through a masked select of the new cache against the old, and an in-place
 write would make them one tensor.
 
+``forward``, ``prefill`` and ``decode_step`` take token ids or, as JAX's
+do, ``embeds`` ([B, S, d] or [B, 1, d] in the working dtype), which then
+take the place of the token embedding: the audio and VLM configs
+(``cfg.frontend``) are served from their front ends' embeddings.
+
 MLA and MoE layers and hybrid attention/Mamba periods wait for a later
 slice (ROADMAP A10): building or loading a config that has them raises.
-The mesh's ``constrain_batch`` has no counterpart on one card,
-``chunked_ce`` / ``lm_loss`` are training, which comes later, and the
-``embeds`` inputs of the JAX functions serve only the audio/VLM front
-ends.
+The mesh's ``constrain_batch`` has no counterpart on one card, and
+``chunked_ce`` / ``lm_loss`` are training, which comes later.
 """
 from __future__ import annotations
 
@@ -219,6 +222,17 @@ def embed_tokens(params: LM, cfg: ArchConfig,
                             device=h.device)
 
 
+def embed_inputs(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None,
+                 embeds: torch.Tensor | None) -> torch.Tensor:
+    """The first hidden state: ``embeds`` when given, else the tokens'
+    embedding."""
+    if embeds is not None:
+        return embeds
+    if tokens is None:
+        raise ValueError("give tokens or embeds")
+    return embed_tokens(params, cfg, tokens)
+
+
 def unembed(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 from the product in the working dtype."""
     h = rmsnorm(h, params.out_norm)
@@ -274,10 +288,12 @@ def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
     return _ffn(p, cfg, h + mixed), cache
 
 
-def forward(params: LM, cfg: ArchConfig,
-            tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (hidden [B,S,d], moe_aux scalar)."""
-    h = embed_tokens(params, cfg, tokens)
+def forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward over tokens [B, S] or embeds [B, S, d].
+    Returns (hidden [B,S,d], moe_aux scalar)."""
+    h = embed_inputs(params, cfg, tokens, embeds)
     for p, s in _layers(params, cfg):
         h, _ = _layer_seq(p, cfg, s, h)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
@@ -347,11 +363,14 @@ def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
     return _ffn(p, cfg, h + mixed), cache
 
 
-def decode_step(params: LM, cfg: ArchConfig, token, cache, length):
+def decode_step(params: LM, cfg: ArchConfig, token, cache, length,
+                embeds=None):
     """One decode step at position ``length`` (an int, the same for every
-    lane).  token [B] int; returns (logits [B,V] fp32, new_cache)."""
+    lane).  token [B] int (or None with embeds [B, 1, d]); returns
+    (logits [B,V] fp32, new_cache)."""
     prefix, period, _ = layer_plan(cfg)
-    h = embed_tokens(params, cfg, token[:, None])
+    h = embed_inputs(params, cfg, None if token is None else token[:, None],
+                     embeds)
     new_prefix = []
     for p, s, c in zip(params.prefix, prefix, cache["prefix"]):
         h, c = _apply_layer_decode(p, cfg, s, h, c, length)
@@ -367,9 +386,10 @@ def decode_step(params: LM, cfg: ArchConfig, token, cache, length):
                                            "stack": new_stack}
 
 
-def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
-            max_seq: int | None = None):
-    """Prefill: full forward, caches populated for positions [0, S).
+def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, max_seq: int | None = None):
+    """Prefill of tokens [B, S] or embeds [B, S, d]: full forward, caches
+    populated for positions [0, S).
 
     Returns (last-position logits [B,V] fp32, cache); decode continues at
     length=S.  Attention caches are padded with zeros to ``max_seq``
@@ -377,11 +397,11 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
     at least S.  A Mamba cache holds no per-position entries.
     """
     prefix, period, _ = layer_plan(cfg)
-    B, S = tokens.shape
+    h = embed_inputs(params, cfg, tokens, embeds)
+    B, S = h.shape[:2]
     max_seq = S if max_seq is None else max_seq
     if max_seq < S:
         raise ValueError(f"max_seq {max_seq} < prompt length {S}")
-    h = embed_tokens(params, cfg, tokens)
 
     def mix_with_cache(p: Layer, s: LayerSpec, h):
         h, cache = _layer_seq(p, cfg, s, h)

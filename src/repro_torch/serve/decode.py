@@ -13,6 +13,12 @@ keeps JAX's contract::
     FoG:      fn(params, cache, token [B], length, thresh [B], budget [B])
               -> (logits, cache, hops [B])
 
+For the audio and VLM configs (``cfg.frontend``) the steps take the front
+end's embeddings in place of token ids, as JAX's do: ``embeds [B, S, d]``
+for the prefill and ``embeds [B, 1, d]`` for a decode step, in
+``param_dtype``, under the ``inputs`` key ``"embeds"``.  Every input is
+checked for its shape, dtype and device before the step runs.
+
 ``params`` comes from ``models.transformer.init_params`` or
 ``models.carry.params_from_jax``, the cache from the prefill (or
 ``models.transformer.cache_init``).  Configs whose layers are attention
@@ -31,11 +37,16 @@ from repro_torch.models import transformer as T
 from repro_torch.models.fog_exit import decode_step_fog
 
 
-def _check_input(name: str, t: torch.Tensor, shape: tuple,
+def _check_input(name: str, t: torch.Tensor, spec: tuple,
                  device: torch.device) -> None:
+    """Raise unless ``t`` has the ``(shape, dtype)`` of ``spec`` and lies
+    on ``device``."""
+    shape, dtype = spec
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got "
                          f"{tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device.type != device.type:
         raise ValueError(f"{name} is on {t.device}, the step runs on "
                          f"{device}")
@@ -43,7 +54,8 @@ def _check_input(name: str, t: torch.Tensor, shape: tuple,
 
 def make_serve_step(cfg: ArchConfig, device=None, *, batch: int,
                     max_seq: int, fog: bool = False,
-                    policy: FogPolicy | None = None):
+                    policy: FogPolicy | None = None,
+                    param_dtype: torch.dtype = torch.bfloat16):
     """One-token decode for ``batch`` lanes on ``device`` (default: the
     card), at lengths below ``max_seq``.
 
@@ -53,52 +65,64 @@ def make_serve_step(cfg: ArchConfig, device=None, *, batch: int,
     (the gate's backend; default the plain margin).  JAX's legacy
     ``fog_thresh`` / ``fog_backend`` keywords are not ported: the
     threshold comes with every call and the backend with the policy.
+    For ``cfg.frontend`` the step takes ``embeds [B, 1, d]`` (in
+    ``param_dtype``) in place of ``token``.
     """
     T.check_ported(cfg)
     dev = resolve_device(device)
     policy = FogPolicy() if policy is None else policy
     gate_backend = margin_backend(policy.backend)
-    inputs = {"token": ((batch,), torch.int32)}
+    key = "embeds" if cfg.frontend else "token"
+    inputs = {key: ((batch, 1, cfg.d_model), param_dtype) if cfg.frontend
+              else ((batch,), torch.int32)}
 
-    def check(token, length):
-        _check_input("token", token, (batch,), dev)
+    def split(x, length):
+        """(token, embeds) from the step's input, once it is checked."""
+        _check_input(key, x, inputs[key], dev)
         if not 0 <= int(length) < max_seq:
             raise ValueError(f"length {int(length)} outside the cache's "
                              f"[0, {max_seq})")
+        return (None, x) if cfg.frontend else (x, None)
 
     if fog:
         inputs["fog_thresh"] = ((batch,), torch.float32)
         inputs["fog_budget"] = ((batch,), torch.int32)
 
         @torch.no_grad()
-        def step(params, cache, token, length, thresh, budget):
-            check(token, length)
-            _check_input("thresh", thresh, (batch,), dev)
-            _check_input("budget", budget, (batch,), dev)
+        def step(params, cache, x, length, thresh, budget):
+            token, embeds = split(x, length)
+            _check_input("thresh", thresh, inputs["fog_thresh"], dev)
+            _check_input("budget", budget, inputs["fog_budget"], dev)
             lane_policy = policy.replace(threshold=thresh, hop_budget=budget)
             return decode_step_fog(params, cfg, token, cache, length,
-                                   lane_policy, backend=gate_backend)
+                                   lane_policy, embeds=embeds,
+                                   backend=gate_backend)
     else:
         @torch.no_grad()
-        def step(params, cache, token, length):
-            check(token, length)
-            return T.decode_step(params, cfg, token, cache, length)
+        def step(params, cache, x, length):
+            token, embeds = split(x, length)
+            return T.decode_step(params, cfg, token, cache, length,
+                                 embeds=embeds)
     return step, inputs
 
 
 def make_prefill_step(cfg: ArchConfig, device=None, *, batch: int,
-                      seq_len: int, max_seq: int | None = None):
+                      seq_len: int, max_seq: int | None = None,
+                      param_dtype: torch.dtype = torch.bfloat16):
     """Prefill of ``batch`` prompts of ``seq_len`` tokens on ``device``
     (default: the card): ``fn(params, tokens) -> (logits [B, V], cache)``,
     decode continuing at ``length=seq_len``.  Attention caches are padded
     to ``max_seq`` positions (default ``seq_len``): give the decode steps'
-    ``max_seq`` to decode after the prompt."""
+    ``max_seq`` to decode after the prompt.  For ``cfg.frontend`` the step
+    takes ``embeds [B, S, d]`` (in ``param_dtype``) in place of tokens."""
     T.check_ported(cfg)
     dev = resolve_device(device)
-    inputs = {"tokens": ((batch, seq_len), torch.int32)}
+    key = "embeds" if cfg.frontend else "tokens"
+    inputs = {key: ((batch, seq_len, cfg.d_model), param_dtype)
+              if cfg.frontend else ((batch, seq_len), torch.int32)}
 
     @torch.no_grad()
-    def step(params, tokens):
-        _check_input("tokens", tokens, (batch, seq_len), dev)
-        return T.prefill(params, cfg, tokens=tokens, max_seq=max_seq)
+    def step(params, x):
+        _check_input(key, x, inputs[key], dev)
+        return T.prefill(params, cfg, max_seq=max_seq, **{key: x})
     return step, inputs

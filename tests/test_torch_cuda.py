@@ -527,3 +527,199 @@ def test_attention_decode_matches_forward_on_card(cuda):
     for t in range(32, 64):
         logits, cache = T.decode_step(params, cfg, tokens[:, t], cache, t)
         torch.testing.assert_close(logits, want[:, t], **tol)
+
+
+# ------------------------------------------- the tensor-core flash kernel
+def wgmma_probe(a, b1, b2):
+    """csrc/flash_attention_sm90.cu's fog_wgmma_probe: (a b1^T, a b2) in
+    fp32 from one wgmma tile product of each form the kernel issues."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    n = b1.shape[0]
+    c1 = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    c2 = torch.empty_like(c1)
+    rc = _build.library().fog_wgmma_probe(
+        a.data_ptr(), b1.data_ptr(), b2.data_ptr(), c1.data_ptr(),
+        c2.data_ptr(), n, ctypes.c_void_p(torch.cuda.current_stream(
+            a.device).cuda_stream))
+    assert rc == 0, _build.library().fog_error_string(rc)
+    torch.cuda.synchronize()
+    return c1, c2
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_single_tile_matches_matmul(cuda, n):
+    """One m64nNk16 x 4 product with both operands K-major in shared memory
+    (the kernel's q.k^T) and one with A from registers and B MN-major (its
+    p.v), each through TMA and the 128-byte swizzle, against torch.matmul
+    in fp32 on the same bf16 values.  bf16 products are exact in fp32, so
+    only the order of 64 fp32 sums differs: within 1e-5 of the scale."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a, b1, b2 = (torch.randn(sh, generator=g, device=cuda).to(torch.bfloat16)
+                 for sh in ((64, 64), (n, 64), (64, n)))
+    c1, c2 = wgmma_probe(a, b1, b2)
+    for got, want in ((c1, a.float() @ b1.float().T),
+                      (c2, a.float() @ b2.float())):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+# (B, Sq, Sk, H, K, D, Dv, causal), all bf16 on the tensor-core route: a
+# ragged length, Sq != Sk both ways, non-causal, MQA, chameleon's heads
+# (D = Dv = 128, 64 query heads, 8 KV heads), the mixed widths, one row,
+# and tinyllama's layer at a prompt of 512
+SM90_SHAPES = [(2, 200, 200, 32, 4, 64, 64, True),
+               (2, 100, 300, 32, 4, 64, 64, True),
+               (2, 300, 100, 32, 4, 64, 64, True),
+               (2, 256, 256, 32, 4, 64, 64, False),
+               (2, 256, 256, 32, 1, 64, 64, True),
+               (1, 256, 256, 64, 8, 128, 128, True),
+               (1, 300, 200, 16, 2, 128, 128, False),
+               (1, 130, 70, 4, 2, 64, 128, False),
+               (1, 70, 130, 4, 4, 128, 64, True),
+               (1, 1, 1, 4, 2, 64, 64, True),
+               (4, 512, 512, 32, 4, 64, 64, True)]
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES, ids=str)
+def test_flash_attention_sm90_matches_plain(cuda, shape):
+    """One launch on the tensor-core route (and none on the SIMT one),
+    within 2 bf16 ulps of the output's scale (chip_smoke.flash_close)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     route)
+    *dims, causal = shape
+    args = chip_smoke.flash_inputs(np.random.default_rng(sum(dims)), dims,
+                                   torch.bfloat16, cuda)
+    assert route(torch.bfloat16, dims[5], dims[6]) == "sm90"
+    before = dict(_build.routes)
+    got = ops.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.routes["flash_attention_sm90"] == \
+        before["flash_attention_sm90"] + 1
+    assert _build.routes["flash_attention"] == before["flash_attention"]
+    chip_smoke.flash_close(f"flash_attention_sm90 {shape}", got,
+                           flash_attention_ref(*args, causal=causal))
+
+
+def test_flash_attention_routes_by_dtype_and_head_size(cuda):
+    """fp32 at D = 64 and bf16 at D = 80 take the SIMT kernel."""
+    from repro_torch.kernels import _build
+    for dims, dtype in (((1, 40, 40, 4, 2, 64, 64), torch.float32),
+                        ((1, 40, 40, 4, 2, 80, 80), torch.bfloat16),
+                        ((1, 40, 40, 4, 2, 64, 96), torch.bfloat16)):
+        before = dict(_build.routes)
+        ops.flash_attention(*chip_smoke.flash_inputs(
+            np.random.default_rng(0), dims, dtype, cuda))
+        torch.cuda.synchronize()
+        assert _build.routes["flash_attention"] == \
+            before["flash_attention"] + 1
+        assert _build.routes["flash_attention_sm90"] == \
+            before["flash_attention_sm90"]
+
+
+def test_flash_attention_sm90_refuses_a_misaligned_pointer(cuda):
+    """TMA needs 16-byte aligned bases: a view one element in raises
+    before any launch."""
+    q, k, v = chip_smoke.flash_inputs(np.random.default_rng(0),
+                                      (1, 16, 16, 4, 2, 64, 64),
+                                      torch.bfloat16, cuda)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    before = ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.flash_attention(shifted, k, v)
+    assert ops.launches["flash_attention"] == before
+
+
+# ------------------------------------------------ top2 at the LM gates
+@pytest.mark.parametrize("shape", [(4, 32000), (4, 50280), (1, 50280),
+                                   (4, 7), (1000, 10), (3, 65), (300, 5000)],
+                         ids=str)
+def test_top2_kernel_matches_plain_with_ties(cuda, shape):
+    """Both launches (one thread per row at C <= 64, blocks sharing a row
+    above it) equal the plain version bit for bit, with ties of the
+    maximum inside a block, across blocks, at the last entry and over a
+    whole row; one counted launch per call."""
+    from repro_torch.kernels.top2_confidence import row_blocks
+    B, C = shape
+    rng = np.random.default_rng(B + C)
+    p = torch.as_tensor(rng.random((B, C), dtype=np.float32), device=cuda)
+    p = torch.softmax(p * 8, dim=-1) if C > 64 else p
+    top = float(p.max()) + 1.0
+    p[0, 1] = p[0, C // 2] = top                 # a tie, maybe across blocks
+    if B > 1:
+        p[1, C - 1] = top                        # the maximum last
+    if B > 2:
+        p[2] = 0.25                              # a whole row equal
+    if B > 3:
+        p[3, 0] = p[3, 3] = top                  # a tie inside one block
+    before = ops.launches["top2_confidence"]
+    got = ops.top2_confidence(p)
+    assert ops.launches["top2_confidence"] == before + 1
+    want = ref.top2_confidence_ref(p)
+    assert torch.equal(got, want), (row_blocks(B, C), got[:4], want[:4])
+    assert got[0] == 0
+
+
+# --------------------------------------------- the trainer's draws (C2)
+DRAW_SEEDS, DRAW_TREES, DRAW_ROWS, DRAW_F, DRAW_K = 32, 8, 4000, 16, 4
+DRAW_P = 1e-3
+
+
+def trainer_draws(device):
+    """Per seed, the draws ``grow_forest`` makes at the gate config (8
+    trees, 4000 rows, 16 features, 4 per node, depth 8): bootstrap counts
+    [T, N] and the feature masks of levels 0..7 [T, 2**level, F]."""
+    from repro_torch.forest.grow import bootstrap_weights, feature_mask
+    out = []
+    for seed in range(DRAW_SEEDS):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        w = bootstrap_weights(gen, DRAW_TREES, DRAW_ROWS)
+        masks = [feature_mask(gen, DRAW_TREES, 2**lv, DRAW_F, DRAW_K)
+                 for lv in range(8)]
+        out.append((w.cpu(), [m.cpu() for m in masks]))
+    return out
+
+
+def test_card_trainer_draws_match_the_cpu_by_distribution(cuda):
+    """The CUDA generator draws other numbers than the CPU's from one seed;
+    its draws must have the same distribution.  Over 32 seeds x 8 trees on
+    each device: the share of rows drawn at least once per tree (about
+    1 - 1/e), the variance of the counts per tree (their mean is exactly
+    1), and how often each feature is picked at a node: two-sample
+    Kolmogorov-Smirnov tests between the devices at p > 1e-3, every share
+    within 5 standard errors of 1 - (1 - 1/N)^N, exactly 4 features at
+    every node."""
+    from scipy import stats
+    stat = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        draws = trainer_draws(dev)
+        w = torch.stack([d[0] for d in draws])          # [seeds, T, N]
+        assert torch.equal(w.sum(-1), torch.full(w.shape[:2],
+                                                 float(DRAW_ROWS)))
+        share = (w > 0).float().mean(-1).reshape(-1)
+        var = w.var(-1).reshape(-1)
+        picks = torch.zeros(DRAW_F)
+        for _, masks in draws:
+            for m in masks:
+                assert (m.sum(-1) == DRAW_K).all()
+                picks += m.reshape(-1, DRAW_F).sum(0)
+        stat[name] = (share.numpy(), var.numpy(), picks.numpy())
+    expect = 1 - (1 - 1 / DRAW_ROWS) ** DRAW_ROWS
+    # Var(distinct rows) / N^2 for N draws into N bins, to first order
+    se = np.sqrt((np.exp(-1) - 2 * np.exp(-2)) / DRAW_ROWS)
+    for name, (share, var, picks) in stat.items():
+        assert np.abs(share - expect).max() < 5 * se, (name, share.min(),
+                                                      share.max())
+        chi = stats.chisquare(picks)
+        assert chi.pvalue > DRAW_P, (name, picks, chi.pvalue)
+    for i, what in enumerate(("share drawn", "count variance")):
+        ks = stats.ks_2samp(stat["cpu"][i], stat["card"][i])
+        print(f"[draws] {what}: KS {ks.statistic:.4f}, p {ks.pvalue:.4f}")
+        assert ks.pvalue > DRAW_P, (what, ks)
+    picks = np.stack([stat["cpu"][2], stat["card"][2]])
+    p_picks = stats.chi2_contingency(picks)[1]
+    print(f"[draws] feature picks cpu vs card: chi2 p {p_picks:.4f}")
+    assert p_picks > DRAW_P

@@ -23,8 +23,8 @@ import repro.kernels.ref as jref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    MAX_HEAD, check_shapes, flash_attention_cuda, flash_attention_ref,
-    smem_bytes)
+    MAX_HEAD, check_shapes, flash_attention_cuda, flash_attention_ref, route,
+    sm90_keys, smem_bytes, smem_bytes_sm90)
 from repro_torch.models import layers as TL  # noqa: E402
 
 # (B, Sq, Sk, H, K, D, Dv, causal): JAX's five cases
@@ -185,3 +185,45 @@ def test_shared_memory_fits_a_hopper_block_at_every_head_size():
     66,304 B."""
     assert smem_bytes(64, 64) == 66_304
     assert smem_bytes(MAX_HEAD, MAX_HEAD) == 213_760 <= 232_448
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", [
+    (torch.bfloat16, 64, 64, "sm90"), (torch.bfloat16, 128, 128, "sm90"),
+    (torch.bfloat16, 64, 128, "sm90"), (torch.bfloat16, 128, 64, "sm90"),
+    (torch.float32, 64, 64, "simt"), (torch.float32, 128, 128, "simt"),
+    (torch.bfloat16, 96, 96, "simt"), (torch.bfloat16, 192, 128, "simt"),
+    (torch.bfloat16, 256, 256, "simt"), (torch.bfloat16, 80, 40, "simt"),
+    (torch.bfloat16, 32, 32, "simt"), (torch.float16, 64, 64, "simt")],
+    ids=str)
+def test_route_by_dtype_and_head_size(dtype, D, Dv, want):
+    """The documented rule: bf16 with D and Dv in {64, 128} takes the
+    tensor-core kernel, everything else the SIMT kernel (fp16 is then
+    refused by the wrapper's dtype check)."""
+    assert route(dtype, D, Dv) == want
+
+
+@pytest.mark.parametrize("D,Dv,keys,want", [(64, 64, 128, 82_984),
+                                            (128, 128, 64, 99_368),
+                                            (64, 128, 64, 66_600),
+                                            (128, 64, 64, 82_984)])
+def test_tensor_core_kernel_shared_memory_at_each_head_size(D, Dv, keys,
+                                                            want):
+    """The bf16 q tile (128 rows), 2 stages of K and V tiles, 5 mbarriers
+    and 1024 B to align the swizzled tiles: at D = Dv = 64 (128 keys a
+    tile) ~80 KB, at D = Dv = 128 (64 keys) ~97 KB, each under the 227 KB
+    (232,448 B) a Hopper block may opt into."""
+    assert sm90_keys(D, Dv) == keys
+    assert smem_bytes_sm90(D, Dv) == want <= 232_448
+    assert want == (2 * 128 * D + 2 * 2 * keys * (D + Dv) + 8 * 5 + 1024)
+
+
+def test_cuda_wrapper_routes_before_it_checks_alignment():
+    """On CPU tensors the wrapper refuses before any route, alignment check
+    or launch, at both routes' head sizes."""
+    before = dict(ops.launches)
+    for D in (64, 80):
+        q, k, v = (torch.zeros(sh, dtype=torch.bfloat16)
+                   for sh in ((1, 4, 2, D), (1, 4, 1, D), (1, 4, 1, D)))
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            flash_attention_cuda(q, k, v)
+    assert ops.launches == before

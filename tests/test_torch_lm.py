@@ -317,8 +317,10 @@ def test_config_accounting_matches_jax(name):
 @pytest.mark.parametrize("name", [n for n in ARCHS if n != "mamba2-2.7b"])
 def test_other_layers_wait_for_the_attention_slice(name):
     """Since the attention slice, configs of attention layers with dense
-    FFNs build and serve a step (tests/test_torch_attn_lm.py holds them to
-    JAX); MLA, MoE and hybrid configs still raise."""
+    FFNs build and serve a step (tests/test_torch_attn_lm.py and
+    tests/test_torch_frontend_lm.py hold them to JAX), the audio and VLM
+    configs from their front ends' embeddings; MLA, MoE and hybrid configs
+    still raise."""
     cfg = tconfigs.smoke_config(name)
     if cfg.mla or cfg.moe or cfg.attn_layer_period:
         with pytest.raises(NotImplementedError,
@@ -330,10 +332,17 @@ def test_other_layers_wait_for_the_attention_slice(name):
         return
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, device="cpu")
-    step, _ = make_serve_step(cfg, "cpu", batch=1, max_seq=8)
+    step, inputs = make_serve_step(cfg, "cpu", batch=1, max_seq=8,
+                                   param_dtype=torch.float32)
+    if cfg.frontend:
+        assert inputs == {"embeds": ((1, 1, cfg.d_model), torch.float32)}
+        x = torch.randn((1, 1, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1))
+    else:
+        assert inputs == {"token": ((1,), torch.int32)}
+        x = torch.zeros((1,), dtype=torch.int32)
     logits, _ = step(params, T.cache_init(cfg, 1, 8, torch.float32,
-                                          device="cpu"),
-                     torch.zeros((1,), dtype=torch.int32), 0)
+                                          device="cpu"), x, 0)
     assert logits.shape == (1, cfg.vocab_size)
     assert torch.isfinite(logits).all()
 
