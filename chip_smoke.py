@@ -12,9 +12,11 @@ plan -> serve), the grove ring, and Mamba-2 and attention (tinyllama) LM
 serving with the FoG layer-grove exit, and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-   and counts the tensor-core (``HGMMA``) instructions in the library's
-   SASS (``cuobjdump``);
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   counts the tensor-core (``HGMMA``) instructions of every instance of
+   ``flash_attention_kernel_sm90`` and ``ssd_chunk_kernel_sm90`` in the
+   library's SASS (``cuobjdump``; each must have some) and checks that
+   ptxas reported no spills in ``ssd_chunk_kernel_sm90``;
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
@@ -35,7 +37,9 @@ serving with the FoG layer-grove exit, and:
    feature cost, seed 0) at 32 trees with the launch counts zeroed just
    before and read just after (the histogram kernel runs once per level),
    holds the kernel against its plain version and the scatter twin at
-   every level of that fit, checks that same-seed fits are bit-equal, that
+   every level of that fit (bit for bit), checks that each level's call
+   runs the kernel alone on the device (no fill), that same-seed fits are
+   bit-equal, that
    an untied fit equals the host CART and that the device trainer's RF
    accuracy is within 0.005 of the host CART's, and times both trainers at
    8, 16 and 32 trees and the kernel, its plain version and
@@ -58,7 +62,8 @@ serving with the FoG layer-grove exit, and:
 10. serves ``mamba2-2.7b`` at full width and depth in bf16 (weights from a
    seeded ``torch.Generator``): with the counts zeroed just before and read
    just after, ``make_prefill_step`` prefills 4 prompts of 2048 tokens from
-   ``batch_at_step`` (64 ``ssd_chunk`` launches, one per layer), then
+   ``batch_at_step`` (64 ``ssd_chunk`` launches, one per layer, all on the
+   tensor-core route ``ssd_chunk_kernel_sm90``), then
    ``make_serve_step`` decodes 32 tokens greedily, then 32 with FoG at
    per-lane thresholds (0.0, 2.0, t, 2.0) and 32 more under a hop budget
    of 2 (3 ``top2_confidence`` launches per step), where t is set from the
@@ -68,11 +73,14 @@ serving with the FoG layer-grove exit, and:
    plain version's margins give, that the third lane both went on and
    exited on its margin, and that the never-exit lanes equal the plain
    decode; holds ``ssd_chunk``
-   against its plain version on layer 0's captured inputs and on random
-   fp32 and bf16 inputs at full width, a ragged chunk included; checks at
-   fp32 with all 64 layers that decode after prefill equals the forward
-   at every position; times prefill, decode, FoG decode, ``ssd_chunk``
-   and the gate's ``top2_confidence`` and works out ``ssd_chunk``'s bounds;
+   against its plain version, each case on the route it must take and
+   under that route's bar: layer 0's captured bf16 inputs and random bf16
+   at full width and a ragged chunk on the tensor cores, random fp32 at
+   full width and ragged on the SIMT kernel; checks at fp32 with all 64
+   layers that decode after prefill equals the forward at every position;
+   times prefill, decode, FoG decode, ``ssd_chunk``, the SIMT kernel on
+   the same bf16 inputs and the gate's ``top2_confidence`` and works out
+   ``ssd_chunk``'s bounds (the function's and its design's);
 11. serves ``tinyllama-1.1b`` at full width and depth in bf16 the same
    way (22 layers, d_model 2048, 32 query heads and 4 KV heads of 64,
    SwiGLU d_ff 5632, vocab 32,000, 4 layer-groves of 6/6/5/5): the prefill
@@ -139,7 +147,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref, route as flash_route)
 from repro_torch.kernels.top2_confidence import row_blocks  # noqa: E402
 from repro_torch.kernels.fused_fog import fused_fog_ref  # noqa: E402
-from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: E402
+from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
+from repro_torch.kernels.ssd_chunk import (  # noqa: E402
+    route as ssd_chunk_route, ssd_chunk_ref, ssd_chunk_sm90_replay)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.fog_exit import (fog_flops_per_token,  # noqa: E402
                                          grove_boundaries)
@@ -165,12 +175,15 @@ SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
           for k in INFERENCE_KERNELS}
 SOURCE["histogram"] = "src/repro_torch/kernels/csrc/histogram.cu"
 SOURCE["tree_traverse"] = "src/repro_torch/kernels/csrc/tree_traverse.cu"
-SOURCE["ssd_chunk"] = "src/repro_torch/kernels/csrc/ssd_chunk.cu"
-# flash_attention has two routes (kernels/flash_attention.py::route): the
-# main path's bf16 at D = Dv = 64 takes the tensor-core kernel
+# ssd_chunk and flash_attention have two routes each (kernels/ssd_chunk.py::
+# route, kernels/flash_attention.py::route): the main paths' bf16 takes the
+# tensor-core kernels
+SOURCE["ssd_chunk"] = "src/repro_torch/kernels/csrc/ssd_chunk_sm90.cu"
 SOURCE["flash_attention"] = ("src/repro_torch/kernels/csrc/"
                              "flash_attention_sm90.cu")
-SIMT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SIMT_SOURCE = {"ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+               "flash_attention": "src/repro_torch/kernels/csrc/"
+                                  "flash_attention.cu"}
 REPLACES = {"fused_fog": "src/repro/kernels/fused_fog.py:138",
             "grove_aggregate": "src/repro/kernels/grove_aggregate.py:29",
             "top2_confidence": "src/repro/kernels/top2_confidence.py:16",
@@ -227,7 +240,8 @@ CALLED_BY = {
                      "shards)",
     "ssd_chunk": "models.mamba2.ssd_chunked(use_kernels=True) in every "
                  "Mamba-2 layer of serve.decode.make_prefill_step's prefill "
-                 "(one launch per layer, 64 per prefill)",
+                 "(one launch per layer, 64 per prefill, each on the "
+                 "tensor-core route)",
     "flash_attention": "models.layers.flash_attention(use_kernels=True) in "
                        "every attention layer of serve.decode."
                        "make_prefill_step's prefill (one launch per layer, "
@@ -572,8 +586,16 @@ def train_phase(dev: torch.device, ds) -> dict:
                     call())
         n_bytes, n_ops = level_work(node, yy, w, bins, **shape)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
+        plan = histogram.tile_plan(
+            *node.shape, bins.shape[1], shape["n_bins"], shape["n_classes"],
+            shape["n_nodes"], n_sm=_build.sm_count(dev),
+            smem_limit=_build.smem_optin(dev))
         per_level.append({
-            "level": lv, "n_nodes": shape["n_nodes"], "ms": cuda_ms(call),
+            "level": lv, "n_nodes": shape["n_nodes"],
+            "plan": {"nodes_per_block": plan.nodes_per_block,
+                     "features_per_block": plan.features_per_block,
+                     "cluster": plan.cluster, "grid": list(plan.grid)},
+            "ms": cuda_ms(call),
             "plain_ms": cuda_ms(lambda a=(node, yy, w, bins), k=shape: (
                 histogram.histogram_level_ref(*a, **k))),
             "library_ms": cuda_ms(lib), "bytes": n_bytes, "ops": n_ops,
@@ -813,23 +835,44 @@ def ring_latency_bounds(dev: torch.device, timing: dict) -> None:
             (nodes + leaf) * grove_ns + xs * x_ns) * 1e-6
 
 
-def ssd_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Raise unless the kernel's output meets its bar against the plain
-    version's; returns the max abs error.  fp32: within 1e-4 of the
-    output's largest magnitude (the sums run over up to 256 x 128 terms in
-    another order).  bf16: within 2 bf16 ulps of the plain version's cast
-    (rtol 2**-6), plus the same fp32 allowance for values near a rounding
-    boundary."""
+def bf16_ulp(scale: float) -> float:
+    """One bf16 ulp at ``scale``'s binade (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 0.0
+
+
+def ssd_close(what: str, got: torch.Tensor, want: torch.Tensor,
+              route: str = "simt") -> float:
+    """Raise unless the kernel's output meets its route's bar against the
+    plain version's; returns the max abs error.
+
+    ``"simt"``, fp32: within 1e-4 of the output's largest magnitude (the
+    sums run over up to 256 x 128 terms in another order); bf16: within 2
+    bf16 ulps of the plain version's cast (rtol 2**-6), plus the same fp32
+    allowance for values near a rounding boundary.
+
+    ``"sm90"`` (bf16 on the tensor cores): within 2 bf16 ulps of the
+    output's scale (its largest magnitude).  The kernel rounds W and the
+    decay-scaled x to bf16 as its products' operands, where the plain
+    version keeps fp32 until the one cast; y is a sum of up to 256 such
+    terms, so an element where they cancel is off by more than 2 ulps of
+    its own value.  The route's rounding replayed in PyTorch lies at most
+    1 ulp of the scale from the plain version at full width, and nearer
+    to a float64 oracle than JAX's bf16 einsum branch
+    (tests/test_torch_ssd_chunk.py::test_sm90_rounding_replay_at_full_width):
+    the bar is twice that."""
     g, w = got.float(), want.float()
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
                              f"{want.dtype} {tuple(want.shape)}")
     if not torch.isfinite(g).all():
         raise AssertionError(f"{what}: non-finite output")
-    rtol = 0.0 if want.dtype == torch.float32 else 2.0**-6
     scale = float(w.abs().max())
     err = (g - w).abs()
-    bad = int((err > 1e-4 * scale + rtol * w.abs()).sum())
+    if route == "sm90":
+        bad = int((err > 2.0 * bf16_ulp(scale)).sum())
+    else:
+        rtol = 0.0 if want.dtype == torch.float32 else 2.0**-6
+        bad = int((err > 1e-4 * scale + rtol * w.abs()).sum())
     if bad:
         raise AssertionError(f"{what}: {bad} entries off, max abs err "
                              f"{float(err.max())} at scale {scale}")
@@ -848,15 +891,24 @@ def ssd_inputs(rng, shape, dtype, dev) -> list:
 
 def ssd_work(B, nc, Q, H, P, N, itemsize) -> dict:
     """ssd_chunk's work from its shapes: ``bytes`` x, a, B, C read once and
-    y, states written once; ``ops`` the products the causal block needs
-    (C.B^T and the weighted sum over j <= i, the state sum over all j);
-    ``ops_full`` the full [Q, Q] products, as the TPU kernel counts them."""
+    y, states written once (the tensor-core kernel reads x once, so its
+    design moves these bytes too; C and B come in once per block, mostly
+    from L2); ``ops`` the products the causal block needs (C.B^T once per
+    chunk and the weighted sum over j <= i, the state sum over all j);
+    ``ops_full`` the full [Q, Q] products, as the TPU kernel counts them;
+    ``ops_sm90`` what the tensor-core kernel runs: per head the 64 x 64
+    tiles on or below the diagonal of C.B^T (recomputed per head) and of
+    W.x, and the states product."""
     BC = B * nc
     n_bytes = itemsize * BC * (2 * Q * H * P + H * Q + 2 * Q * N + H * P * N)
     pairs = Q * (Q + 1) // 2
     ops_ = BC * (2 * pairs * N + 2 * pairs * H * P + 2 * Q * N * H * P)
     full = BC * (2 * Q * Q * N + 2 * Q * Q * H * P + 2 * Q * N * H * P)
-    return {"bytes": n_bytes, "ops": ops_, "ops_full": full}
+    nt = -(-Q // 64)
+    tiles = nt * (nt + 1) // 2
+    sm90 = BC * H * (tiles * 64 * 64 * 2 * (N + P) + 2 * P * N * 256)
+    return {"bytes": n_bytes, "ops": ops_, "ops_full": full,
+            "ops_sm90": sm90}
 
 
 def flash_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -938,16 +990,17 @@ FLASH_CASES = (
      torch.float32))
 
 
-def simt_flash(q, k, v, **kw) -> torch.Tensor:
-    """The SIMT kernel (the wrapper's route for fp32 and other head sizes)
-    on any inputs, to time it beside the tensor-core kernel on the same
-    bf16 inputs: ``route`` is pointed at it for this one call."""
-    real = fa.route
-    fa.route = lambda *a: "simt"
+def simt(module, call, *args, **kw):
+    """``call(*args, **kw)`` with ``module.route`` (``kernels.flash_attention``
+    or ``kernels.ssd_chunk``) pointed at the SIMT kernel for this one call,
+    to time that kernel beside the tensor-core one on the same bf16
+    inputs."""
+    real = module.route
+    module.route = lambda *a: "simt"
     try:
-        return ops.flash_attention(q, k, v, **kw)
+        return call(*args, **kw)
     finally:
-        fa.route = real
+        module.route = real
 
 
 # top2_confidence on the card beyond the main path's inputs: the LM gates'
@@ -981,48 +1034,103 @@ def top2_checks(dev: torch.device) -> dict:
     return out
 
 
+# the tensor-core kernels' template instances in the SASS, by mangled name
+SM90_KERNELS = {
+    "flash_attention_kernel_sm90": r"flash_attention_kernel_sm90ILi(\d+)ELi"
+                                   r"(\d+)ELi(\d+)E",
+    "ssd_chunk_kernel_sm90": r"ssd_chunk_kernel_sm90ILi(\d+)E"}
+
+
 def hgmma_per_kernel(lib_path: Path) -> dict:
-    """HGMMA (wgmma) instructions in the library's SASS per
-    flash_attention_kernel_sm90 instance, by its (D, Dv, keys per tile)."""
+    """HGMMA (wgmma) instructions in the library's SASS per instance of
+    each tensor-core kernel: flash_attention_kernel_sm90 by its (D, Dv,
+    keys per tile), ssd_chunk_kernel_sm90 by its N."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts, fn = {}, None
+    counts, fn = {k: {} for k in SM90_KERNELS}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_attention_kernel_sm90ILi(\d+)ELi(\d+)ELi"
-                          r"(\d+)E", line)
-            fn = "<{}, {}, {}>".format(*m.groups()) if m else None
-            if fn:
-                counts[fn] = 0
+            fn = None
+            for kernel, pattern in SM90_KERNELS.items():
+                m = re.search(pattern, line)
+                if m:
+                    fn = (kernel, "<{}>".format(", ".join(m.groups())))
+                    counts[kernel][fn[1]] = 0
         elif fn and "HGMMA" in line:
-            counts[fn] += 1
+            counts[fn[0]][fn[1]] += 1
     return counts
 
 
+def ptxas_spills(log: str, kernel: str) -> dict:
+    """Spill stores and loads ptxas reported (-Xptxas=-v) per instance of
+    the kernel whose mangled name contains ``kernel``."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+    return spills
+
+
+def ssd_route(args) -> str:
+    """The C entry point ``kernels/ssd_chunk.py::route`` names for these
+    inputs."""
+    B, nc, Q, H, P = args[0].shape
+    return {"sm90": "ssd_chunk_sm90", "simt": "ssd_chunk"}[ssd_chunk_route(
+        args[0].dtype, Q, P, args[2].shape[-1])]
+
+
 def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
-    """ssd_chunk against its plain version on layer 0's captured inputs and
-    on random inputs at full width and a ragged chunk."""
+    """ssd_chunk against its plain version, each case on the route
+    ``route`` names for it under that route's bar: layer 0's captured bf16
+    inputs, random bf16 at full width and a ragged chunk on the tensor
+    cores, random fp32 at full width and ragged on the SIMT kernel.  For a
+    bf16 case also the distance from the route's rounding replayed in
+    PyTorch, in bf16 ulps of the output's scale (reported, and held to 1
+    ulp by tests/test_torch_cuda.py)."""
     args = captured[0][0]
     Bsz, nc, Q, H, P = args[0].shape
     full = (Bsz, nc, Q, H, P, args[2].shape[-1])
     rng = np.random.default_rng(SEED)
     cases = [("layer 0 of the prefill, bf16", args),
+             (f"random bf16 {full}",
+              ssd_inputs(rng, full, torch.bfloat16, dev)),
+             (f"random bf16 ragged {SSD_RAGGED}",
+              ssd_inputs(rng, SSD_RAGGED, torch.bfloat16, dev)),
              (f"random fp32 {full}",
               ssd_inputs(rng, full, torch.float32, dev)),
              (f"random fp32 ragged {SSD_RAGGED}",
-              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev)),
-             (f"random bf16 ragged {SSD_RAGGED}",
-              ssd_inputs(rng, SSD_RAGGED, torch.bfloat16, dev))]
+              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev))]
     errs = {}
     for label, a in cases:
-        got, want = ops.ssd_chunk(*a), ssd_chunk_ref(*a)
-        errs[label] = {n: ssd_close(f"ssd_chunk {label} {n}", g, w)
-                       for n, g, w in zip(("y", "states"), got, want)}
+        entry = ssd_route(a)
+        before = dict(_build.routes)
+        got = ops.ssd_chunk(*a)
+        ran = {k: _build.routes[k] - before[k] for k in before}
+        if ran != {k: int(k == entry) for k in ran}:
+            raise AssertionError(f"ssd_chunk {label}: routes {ran}, want one "
+                                 f"launch of {entry}")
+        want = ssd_chunk_ref(*a)
+        route = "sm90" if entry == "ssd_chunk_sm90" else "simt"
+        case = {n: ssd_close(f"ssd_chunk {label} {n} ({entry})", g, w, route)
+                for n, g, w in zip(("y", "states"), got, want)}
+        if route == "sm90":
+            for n, g, rp in zip(("y", "states"), got,
+                                ssd_chunk_sm90_replay(*a)):
+                scale = float(rp.float().abs().max())
+                case[f"{n}_ulps_from_replay"] = float(
+                    (g.float() - rp.float()).abs().max()) / bf16_ulp(scale)
+        errs[f"{label} ({entry})"] = case
         del got, want
-    return errs, ("fp32 within 1e-4 of the output's magnitude; bf16 within "
-                  "2 ulps of the plain version's cast")
+    return errs, ("tensor cores (bf16): within 2 bf16 ulps of the output's "
+                  "scale; SIMT fp32 within 1e-4 of the output's magnitude")
 
 
 def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
@@ -1062,21 +1170,34 @@ def ssd_timing(t: dict, captured, fns: dict) -> str:
     t["ssd_chunk_plain_ms"] = cuda_ms(lambda a=args: ssd_chunk_ref(*a),
                                       reps=5, warm=1)
     t["ssd_chunk_library_ms"] = None
+    # the SIMT kernel (the fp32 route) on the same bf16 inputs, timed
+    # beside the tensor-core kernel in one run
+    fns["ssd_chunk_simt"] = lambda a=args: simt(ssd_mod, ops.ssd_chunk, *a)
+    t["ssd_chunk_simt_ms"] = cuda_ms(fns["ssd_chunk_simt"], reps=5, warm=1)
     work = ssd_work(*full, args[0].element_size())
     t["ssd_chunk_work"] = work
     t["ssd_chunk_bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
     t["ssd_chunk_bf16_tensor_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
+    t["ssd_chunk_sm90_ops_bound_ms"] = (work["ops_sm90"] / BF16_OPS_PER_S
+                                        * 1e3)
     t["ssd_chunk_fp32_core_bound_ms"] = (work["ops_full"] / FP32_OPS_PER_S
                                          * 1e3)
     t["ssd_chunk_bound_ms"], t["ssd_chunk_bound_by"] = bound_ms(
         work["bytes"], work["ops"], BF16_OPS_PER_S)
+    t["ssd_chunk_design_bound_ms"], t["ssd_chunk_design_bound_by"] = (
+        bound_ms(work["bytes"], work["ops_sm90"], BF16_OPS_PER_S))
     return (f"ssd_chunk {list(full)} bf16: {t['ssd_chunk_ms']:.4f} ms per "
             f"call (bound {t['ssd_chunk_bound_ms']:.4f} ms by "
             f"{t['ssd_chunk_bound_by']}: {work['bytes'] / 1e6:.1f} MB; "
             f"{work['ops'] / 1e9:.2f} GFLOP causal, "
-            f"{work['ops_full'] / 1e9:.2f} full, "
+            f"{t['ssd_chunk_bf16_tensor_bound_ms']:.4f} ms on the bf16 "
+            f"tensor cores; the tensor-core design's "
+            f"{work['ops_sm90'] / 1e9:.2f} GFLOP "
+            f"{t['ssd_chunk_sm90_ops_bound_ms']:.4f} ms; "
+            f"{work['ops_full'] / 1e9:.2f} GFLOP full, "
             f"{t['ssd_chunk_fp32_core_bound_ms']:.3f} ms at the fp32 CUDA-core "
-            f"rate), plain {t['ssd_chunk_plain_ms']:.3f} ms")
+            f"rate), plain {t['ssd_chunk_plain_ms']:.3f} ms, the SIMT kernel "
+            f"{t['ssd_chunk_simt_ms']:.3f} ms")
 
 
 def flash_timing(t: dict, captured, fns: dict) -> str:
@@ -1105,7 +1226,8 @@ def flash_timing(t: dict, captured, fns: dict) -> str:
         .abs().max())
     # the SIMT kernel (the fp32 route) on the same bf16 inputs, timed
     # beside the tensor-core kernel in one run
-    fns["flash_attention_simt"] = lambda: simt_flash(q, k, v, **kw)
+    fns["flash_attention_simt"] = lambda: simt(fa, ops.flash_attention, q, k,
+                                               v, **kw)
     t["flash_attention_simt_ms"] = cuda_ms(fns["flash_attention_simt"],
                                            reps=5, warm=1)
     work = flash_work(Bsz, S, S, H, K, D, Dv, q.element_size(), kw["causal"])
@@ -1307,11 +1429,13 @@ def lm_phase(dev: torch.device, cfg=None, B: int = LM_B, S: int = LM_S,
         raise AssertionError(f"{kernel} launches: {prefill_launches} in a "
                              f"{cfg.n_layers}-layer prefill (want "
                              f"{want_prefill}), {launches} in the whole path")
-    if kernel == "flash_attention" and res["prefill_routes"] != {
-            "flash_attention_sm90": cfg.n_layers, "flash_attention": 0}:
-        raise AssertionError(f"flash_attention routes in the prefill "
+    want_routes = {k: cfg.n_layers if k == f"{kernel}_sm90" else 0
+                   for k in res["prefill_routes"]}
+    if res["prefill_routes"] != want_routes:
+        raise AssertionError(f"{kernel} routes in the prefill "
                              f"{res['prefill_routes']}: want all "
-                             f"{cfg.n_layers} on the tensor cores")
+                             f"{cfg.n_layers} on the tensor cores "
+                             f"({want_routes})")
     if any(n != G - 1 for n in fog_gates + bud_gates):
         raise AssertionError(f"top2_confidence launches per FoG step "
                              f"{fog_gates + bud_gates}, want {G - 1}")
@@ -1527,9 +1651,10 @@ def lm_profile(lm: dict) -> None:
         t["flash_attention_library_device_ms"] = sum(per_launch.values())
         t["flash_attention_library_kernels"] = per_launch
         t["flash_attention_library_backend"] = sdpa_backend(main)
-        t["flash_attention_simt_device_ms"] = kernel_ms(
-            device_profile(fns["flash_attention_simt"])[2],
-            "flash_attention")
+    # the SIMT kernel on the same bf16 inputs (ssd_chunk's three launches)
+    per_launch = device_profile(fns[f"{kernel}_simt"])[2]
+    t[f"{kernel}_simt_device_ms"] = sum(
+        v for k, v in per_launch.items() if kernel in k) or None
     for k, reps in (("prefill", 3), ("decode", 5), ("fog", 5),
                     ("fog_all_exit", 5)):
         busy, wall, per_launch = device_profile(fns[k], reps=reps)
@@ -1548,12 +1673,15 @@ def lm_profile(lm: dict) -> None:
         print(f"[time] {lm['arch']}: SDPA on the device "
               f"{t['flash_attention_library_device_ms']:.4f} ms per call "
               f"({t['flash_attention_library_backend']}: "
-              f"{t['flash_attention_library_kernels']}); the SIMT kernel on "
-              f"the same bf16 inputs {fmt(t['flash_attention_simt_device_ms'])}"
-              f" ms")
+              f"{t['flash_attention_library_kernels']})")
+    print(f"[time] {lm['arch']}: the SIMT {kernel} on the same bf16 inputs "
+          f"{fmt(t[f'{kernel}_simt_device_ms'])} ms on the device")
     dev_ms = t[f"{kernel}_device_ms"]
     over = ("" if dev_ms is None
             else f", {dev_ms / t[f'{kernel}_bound_ms']:.1f}x its bound")
+    if dev_ms is not None and f"{kernel}_design_bound_ms" in t:
+        over += (f", {dev_ms / t[f'{kernel}_design_bound_ms']:.1f}x its "
+                 f"design's")
     print(f"[time] {lm['arch']}: {kernel} on the device: {fmt(dev_ms)} ms per "
           f"call{over} (" + ", ".join(f"{k.split('(')[0]} {v:.4f}"
                                       for k, v in own.items())
@@ -1602,12 +1730,22 @@ def main() -> int:
             print(f"[build]   {line.strip()}")
     out["build_s"] = build_s
     hgmma = hgmma_per_kernel(lib_path)
-    print(f"[build] SASS: HGMMA (wgmma) instructions per "
-          f"flash_attention_kernel_sm90<D, Dv, keys> instance: {hgmma}")
-    if not hgmma or not all(hgmma.values()):
-        raise AssertionError(f"the tensor-core flash_attention kernel has no "
-                             f"HGMMA instruction in the SASS: {hgmma}")
+    print(f"[build] SASS: HGMMA (wgmma) instructions per instance of "
+          f"flash_attention_kernel_sm90<D, Dv, keys> and "
+          f"ssd_chunk_kernel_sm90<N>: {hgmma}")
+    for kernel, counts in hgmma.items():
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"an instance of {kernel} has no HGMMA "
+                                 f"instruction in the SASS: {counts}")
     out["hgmma_per_kernel"] = hgmma
+    spills = ptxas_spills(_build.build_info.get("log", ""),
+                          "ssd_chunk_kernel_sm90")
+    print(f"[build] ptxas spill bytes per ssd_chunk_kernel_sm90 instance: "
+          f"{spills}")
+    if _build.build_info.get("log") and (not spills or any(spills.values())):
+        raise AssertionError(f"ptxas reports spills in ssd_chunk_kernel_sm90 "
+                             f"(or no report): {spills}")
+    out["ssd_chunk_sm90_spill_bytes"] = spills
 
     # 3. train and pack -----------------------------------------------------
     t0 = time.perf_counter()
@@ -1856,7 +1994,12 @@ def main() -> int:
         busy, _, per_launch = device_profile(fn)
         row = train["levels"][lv]
         row["device_ms"] = kernel_ms(per_launch, "histogram")
-        row["call_device_ms"] = sum(busy.values())    # the fill + the kernel
+        row["call_device_ms"] = sum(busy.values())
+        row["device_kernels"] = sorted(busy)
+        # one launch per call: the kernel writes every cell, no fill runs
+        if len(busy) != 1 or "histogram_kernel" not in next(iter(busy)):
+            raise AssertionError(f"histogram level {lv}: device kernels "
+                                 f"{sorted(busy)}, want the kernel alone")
     busy, wall, _ = device_profile(train["gate_fit"], reps=3)
     out["train"]["gate_fit_profile"] = {
         "wall_ms": wall, "device_busy_ms": sum(busy.values()),
@@ -1867,9 +2010,9 @@ def main() -> int:
         "top_device_ms": dict(sorted(busy.items(), key=lambda kv: -kv[1])[:8])}
     for row in train["levels"]:
         print(f"[time] histogram level {row['level']} ({row['n_nodes']} "
-              f"nodes): {row['ms']:.4f} ms per call, "
-              f"{fmt(row['device_ms'])} ms kernel + fill "
-              f"{row['call_device_ms']:.4f} ms on the device (bound "
+              f"nodes, plan {row['plan']}): {row['ms']:.4f} ms per call, "
+              f"{fmt(row['device_ms'])} ms on the device, the call's only "
+              f"device kernel ({row['call_device_ms']:.4f} ms busy; bound "
               f"{row['bound_ms']:.5f} ms by {row['bound_by']}), plain "
               f"{row['plain_ms']:.3f} ms, torch.bincount "
               f"{row['library_ms']:.4f} ms")
@@ -2028,8 +2171,9 @@ def main() -> int:
     for r in (lm, attn):
         k, lt = r["kernel"], r["timing"]
         errs_lm = [e for case in r[f"{k}_max_abs_err"].values()
-                   for e in (case.values() if isinstance(case, dict)
-                             else (case,))]
+                   for n, e in (case.items() if isinstance(case, dict)
+                                else (("", case),))
+                   if not n.endswith("_from_replay")]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k], "launches": main_launches[k],
@@ -2038,12 +2182,17 @@ def main() -> int:
             "bound_ms": lt[f"{k}_bound_ms"], "bound_by": lt[f"{k}_bound_by"],
             "fp32_core_bound_ms": lt[f"{k}_fp32_core_bound_ms"],
             "library_ms": lt[f"{k}_library_ms"], "called_by": CALLED_BY[k],
-            "matches_plain": True, "shape": shapes[k]})
+            "matches_plain": True, "shape": shapes[k],
+            "routes": r["prefill_routes"], "simt_source": SIMT_SOURCE[k],
+            "simt_ms": lt[f"{k}_simt_ms"],
+            "simt_device_ms": lt[f"{k}_simt_device_ms"]})
+        if k == "ssd_chunk":
+            kernels[-1].update(
+                design_bound_ms=lt["ssd_chunk_design_bound_ms"],
+                design_bound_by=lt["ssd_chunk_design_bound_by"],
+                design_ops=lt["ssd_chunk_work"]["ops_sm90"])
         if k == "flash_attention":
             kernels[-1].update(
-                routes=r["prefill_routes"], simt_source=SIMT_SOURCE,
-                simt_ms=lt["flash_attention_simt_ms"],
-                simt_device_ms=lt["flash_attention_simt_device_ms"],
                 library_device_ms=lt["flash_attention_library_device_ms"],
                 library_backend=lt["flash_attention_library_backend"])
     out["kernels"] = kernels

@@ -31,8 +31,9 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu",
-           CSRC / "flash_attention.cu", CSRC / "flash_attention_sm90.cu")
-HEADERS = (CSRC / "fog_tables.cuh",)
+           CSRC / "ssd_chunk_sm90.cu", CSRC / "flash_attention.cu",
+           CSRC / "flash_attention_sm90.cu")
+HEADERS = (CSRC / "fog_tables.cuh", CSRC / "sm90_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
@@ -48,9 +49,10 @@ launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
             "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0,
             "flash_attention": 0}
 # the same launches by C entry point, where a kernel has two routes
-# (flash_attention: "flash_attention" on CUDA cores, "flash_attention_sm90"
-# on the tensor cores)
-routes = {"flash_attention": 0, "flash_attention_sm90": 0}
+# ("flash_attention" and "ssd_chunk" on CUDA cores, "flash_attention_sm90"
+# and "ssd_chunk_sm90" on the tensor cores)
+routes = {"flash_attention": 0, "flash_attention_sm90": 0, "ssd_chunk": 0,
+          "ssd_chunk_sm90": 0}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -58,19 +60,22 @@ _SIGNATURES = {
     "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, I, P),
-    "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
     "fog_tree_traverse": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                           P),
     "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "fog_ssd_chunk_sm90": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "fog_flash_attention": (I, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     "fog_flash_attention_sm90": (P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     # a device query, not a kernel
     "fog_smem_optin": (I, P),
     # a latency probe, not an inference kernel: never counted in launches
     "fog_chase": (P, I, P, P),
-    # one wgmma tile product of each form flash_attention_sm90 issues, for
-    # the tests: never counted in launches
+    # one wgmma tile product of each form flash_attention_sm90 issues, and
+    # of the forms ssd_chunk_sm90 adds, for the tests: never counted in
+    # launches
     "fog_wgmma_probe": (P, P, P, P, P, I, P),
+    "fog_wgmma_probe_ssd": (P, P, P, P, P, P, P),
 }
 
 _lib = None
@@ -176,6 +181,18 @@ def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_tma(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` is contiguous and starts on a 16-byte boundary, as
+    a TMA tensor map of the tensor-core kernels needs (their row strides
+    are multiples of 16 bytes by their route rules)."""
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous for the tensor-core "
+                         f"kernel's TMA loads")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the "
+                         f"tensor-core kernel's TMA loads")
+
+
 def launch(kernel: str, device: torch.device, *args,
            entry: str | None = None) -> None:
     """Call C entry point ``fog_<entry>`` (default ``fog_<kernel>``) on
@@ -200,6 +217,18 @@ def smem_optin(device: torch.device) -> int:
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return _smem_optin(index)
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors on ``device``."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

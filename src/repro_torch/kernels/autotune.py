@@ -59,10 +59,10 @@ def analytic_hist_config(n_trees: int, depth: int, n_features: int,
                          device=None) -> HistConfig:
     """Seed histogram config, answered without benchmarking.
 
-    On a CUDA device the kernel runs one thread per (tree, sample, feature)
-    at every level: nothing in its launch shape grows with the level's row
-    count, and the zeroed output that does grow is the twin's output too.
-    So the seed sends every level of the signature to the kernel.  On the
+    On a CUDA device the kernel writes the level's output once, and adds
+    each weight once, in shared memory; the twin zeroes the same output
+    and adds whole one-hot rows into it.  So the seed sends every level of
+    the signature to the kernel.  On the
     CPU the kernel slot is the plain one-hot contraction, whose work grows
     with the rows, and the segment-sum twin always wins: the seed is
     twin-everywhere.

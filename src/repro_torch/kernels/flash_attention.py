@@ -159,9 +159,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sm90 = route(q.dtype, D, Dv) == "sm90"
     if sm90:
         for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must start on a 16-byte boundary "
-                                 f"for the tensor-core kernel's TMA loads")
+            _build.check_tma(name, t)
     smem = smem_bytes_sm90(D, Dv) if sm90 else smem_bytes(D, Dv)
     if smem > _build.smem_optin(q.device):
         raise ValueError(f"flash_attention at D={D}, Dv={Dv} needs {smem} B "

@@ -7,14 +7,18 @@ tensor: per-(tree, node, feature, bin, class) weighted sample counts
 falls out of a cumsum.  Four parts:
 
 ``histogram_level_cuda``
-    The hand-written CUDA kernel (``csrc/histogram.cu``): one thread per
-    (tree, sample, feature) that skips zero weights and ``atomicAdd``s its
-    weight into a zeroed ``[T, nodes*C, F*n_bins]`` buffer, which is then
-    viewed as ``[T, nodes, F, n_bins, C]``.  The TPU kernel forms the same
-    sum as a one-hot matmul; on Hopper the native form is a scatter-add.
-    It is bound by its global atomics, one per weighted (tree, sample,
-    feature), whatever the level: on an H100 (700 W) its time is flat over
-    the levels of a gate fit while its bytes bound grows 30-fold (PERF.md).
+    The hand-written CUDA kernel (``csrc/histogram.cu``): a per-block
+    shared-memory histogram that writes each cell once.  A tile is the
+    rows of (tree, a group of nodes) at a group of features, as
+    :func:`tile_plan` cuts them to fit a block's shared memory; one block,
+    or a cluster of up to 8 blocks that merge their copies through
+    distributed shared memory, owns it, adds its samples' weights with
+    shared-memory atomics and writes the tile once into a ``torch.empty``
+    ``[T, nodes*C, F*n_bins]`` buffer, which is then viewed as
+    ``[T, nodes, F, n_bins, C]``.  The TPU kernel forms the same sum as a
+    one-hot matmul; on Hopper the native form is a scatter-add.  No fill
+    kernel and no global atomic; the source's header says what bounds it
+    and what holds its deep levels back.
 ``histogram_level_ref``
     Its plain version: the TPU kernel's one-hot contraction in PyTorch
     (rows one-hot in ``node*C + y`` weighted by the bootstrap multiplicity,
@@ -36,15 +40,77 @@ gives the same bits.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["histogram_level", "histogram_level_cuda", "histogram_level_ref",
-           "histogram_level_scatter", "onehot_rows"]
+__all__ = ["TilePlan", "histogram_level", "histogram_level_cuda",
+           "histogram_level_ref", "histogram_level_scatter", "onehot_rows",
+           "tile_plan"]
 
-# CUDA threads per block when nothing chooses one
-DEFAULT_BLOCK = 256
+# CUDA threads per block when nothing chooses one (the block
+# autotune.tune_histogram picks at the gate signature on an H100, PERF.md)
+DEFAULT_BLOCK = 512
+# a tile's shared memory (4 nodes at the gate config), unless one node's
+# classes at one feature need more
+TILE_BYTES = 48 * 1024
+# the largest portable thread-block cluster
+MAX_CLUSTER = 8
+# samples a thread of the kernel checks per round of its scan
+# (csrc/histogram.cu::SCAN_PER_THREAD)
+SCAN_PER_THREAD = 4
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How ``csrc/histogram.cu`` cuts one level: tiles of (tree,
+    ``nodes_per_block`` nodes, ``features_per_block`` features), each owned
+    by a cluster of ``cluster`` blocks that split the tree's samples into
+    contiguous ranges; ``grid`` is (cluster, node groups x feature groups,
+    trees) and ``smem_bytes`` one block's shared memory: the tile in whole
+    16-byte units, then a round's list of samples."""
+    nodes_per_block: int
+    features_per_block: int
+    cluster: int
+    grid: tuple[int, int, int]
+    smem_bytes: int
+
+
+def tile_plan(T: int, N: int, F: int, n_bins: int, n_classes: int,
+              n_nodes: int, *, block: int = DEFAULT_BLOCK, n_sm: int = 132,
+              smem_limit: int = 232_448) -> TilePlan:
+    """The tile plan of one level: as many features, then as many nodes,
+    as fit ``TILE_BYTES`` of shared memory (one node's classes at one
+    feature at the least, up to ``smem_limit``), and clusters of up to
+    ``MAX_CLUSTER`` blocks while the tiles alone give the card's ``n_sm``
+    multiprocessors fewer than one block each (and each block keeps at
+    least ``block`` samples)."""
+    row = n_classes * n_bins * 4
+    if row > smem_limit:
+        raise ValueError(
+            f"histogram: one node's {n_classes} classes x {n_bins} bins at "
+            f"one feature need {row} B of shared memory, the card allows "
+            f"{smem_limit}")
+    budget = max(TILE_BYTES, row)
+    fpb = min(F, budget // row)
+    npb = min(n_nodes, budget // (row * fpb)) if fpb == F else 1
+    groups = -(-n_nodes // npb) * -(-F // fpb)
+    if groups > 65535 or T > 65535:
+        raise ValueError(f"histogram launches {groups} tiles per tree and "
+                         f"{T} trees, at most 65535 each")
+    tiles = T * groups
+    cluster = max(1, min(MAX_CLUSTER, -(-n_sm // tiles), -(-N // block)))
+    # the tile in whole 16-byte units, then a round's list of samples
+    # (SCAN_PER_THREAD a thread: ids, tile rows, weights) and its length
+    smem = (-(-npb * fpb * n_classes * n_bins // 4) * 16
+            + block * SCAN_PER_THREAD * 12 + 16)
+    if smem > smem_limit:
+        raise ValueError(f"histogram: a block needs {smem} B of shared "
+                         f"memory at block={block}, the card allows "
+                         f"{smem_limit}")
+    return TilePlan(npb, fpb, cluster, (cluster, groups, T), smem)
 
 
 def _as_level(hist: torch.Tensor, n_nodes: int, n_classes: int,
@@ -61,7 +127,8 @@ def histogram_level_cuda(node: torch.Tensor, y: torch.Tensor,
                          block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """[T,N] int32 node ids x [N] int32 labels x [T,N] fp32 weights x
     [N,F] uint8 bins (CUDA tensors) -> [T, n_nodes, F, n_bins, C] fp32
-    counts, in one kernel launch.  Exact below 2**24 samples per cell."""
+    counts, in one kernel launch that writes every cell (no fill).  Exact
+    below 2**24 samples per cell.  ``block``: threads per block."""
     _build.check_block(block)
     for name, t, dt, nd in (("node", node, torch.int32, 2),
                             ("y", y, torch.int32, 1),
@@ -74,13 +141,17 @@ def histogram_level_cuda(node: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"shape mismatch: node {tuple(node.shape)}, y "
                          f"{tuple(y.shape)}, w {tuple(w.shape)}, bins "
                          f"{tuple(bins.shape)}")
-    out = torch.zeros((T, n_nodes * n_classes, F * n_bins),
+    out = torch.empty((T, n_nodes * n_classes, F * n_bins),
                       dtype=torch.float32, device=node.device)
-    if T and N and F:
+    if out.numel():
+        plan = tile_plan(T, N, F, n_bins, n_classes, n_nodes, block=block,
+                         n_sm=_build.sm_count(node.device),
+                         smem_limit=_build.smem_optin(node.device))
         _build.launch("histogram", node.device, node.data_ptr(),
                       y.data_ptr(), w.data_ptr(), bins.data_ptr(),
                       out.data_ptr(), T, N, F, n_bins, n_classes, n_nodes,
-                      block)
+                      plan.nodes_per_block, plan.features_per_block,
+                      plan.cluster, block)
     return _as_level(out, n_nodes, n_classes, F, n_bins)
 
 

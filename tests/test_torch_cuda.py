@@ -202,6 +202,44 @@ def test_histogram_kernel_matches_plain(cuda, shape):
         *(a.cpu() for a in args), **kw))
 
 
+@pytest.mark.parametrize("level", range(8))
+def test_histogram_kernel_at_every_gate_level(cuda, level):
+    """The gate fit's shape at each of its 8 levels (32 trees, 4000 rows,
+    16 features, 17 bins, 10 classes): bit-equal to the plain version and
+    the scatter twin, whatever the level's tile plan (clusters of 8 blocks
+    at level 0, one block per tile at level 7)."""
+    from repro_torch.kernels import histogram
+    shape = (32, 4000, 16, 17, 10, 1 << level)
+    args = hist_inputs(np.random.default_rng(level), cuda, *shape)
+    kw = dict(n_nodes=1 << level, n_bins=17, n_classes=10)
+    got = histogram.histogram_level_cuda(*args, **kw)
+    assert torch.equal(got, histogram.histogram_level_ref(*args, **kw))
+    assert torch.equal(got, histogram.histogram_level_scatter(*args, **kw))
+
+
+def test_histogram_writes_every_cell_in_one_launch(cuda):
+    """The output comes from torch.empty: memory the caching allocator
+    hands back still full of NaN must come out bit-equal to the plain
+    version, and the call runs one device kernel (no fill)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import histogram
+    shape = (32, 4000, 16, 17, 10, 128)
+    args = hist_inputs(np.random.default_rng(1), cuda, *shape)
+    kw = dict(n_nodes=128, n_bins=17, n_classes=10)
+    want = histogram.histogram_level_ref(*args, **kw)
+    torch.cuda.synchronize()
+    junk = torch.full((32, 1280, 272), float("nan"), device=cuda)
+    del junk
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = histogram.histogram_level_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "histogram_kernel" in names[0], names
+
+
 def test_histogram_kernel_ignores_out_of_range_like_the_one_hot(cuda):
     from repro_torch.kernels import histogram
     rng = np.random.default_rng(4)
@@ -375,31 +413,32 @@ def ssd_inputs(rng, shape, dtype, device, decay=1.0):
             for a in arrays]
 
 
-def assert_ssd_close(got, want):
-    """fp32: within 1e-4 of the output's largest magnitude (the kernel
-    sums up to 256 x 128 fp32 terms in another order).  bf16: within 2
-    bf16 ulps of the plain version's cast (rtol 2**-6), plus the same fp32
-    allowance for elements near a rounding boundary."""
-    assert got.dtype == want.dtype and got.shape == want.shape
-    assert torch.isfinite(got).all()
-    want32 = want.float()
-    rtol = 0.0 if want.dtype == torch.float32 else 2**-6
-    torch.testing.assert_close(got.float(), want32, rtol=rtol,
-                               atol=1e-4 * want32.abs().max().item())
+def assert_ssd_close(got, want, route="simt"):
+    """The bar of the route the call took (chip_smoke.ssd_close).  SIMT
+    fp32: within 1e-4 of the output's largest magnitude (the kernel sums up
+    to 256 x 128 fp32 terms in another order); SIMT bf16: within 2 bf16
+    ulps of the plain version's cast (rtol 2**-6), plus the same fp32
+    allowance for elements near a rounding boundary.  Tensor cores (bf16,
+    P = 64, N in {64, 128}): within 2 bf16 ulps of the output's scale, the
+    kernel rounding W and the decay-scaled x to bf16 as its operands
+    (tests/test_torch_ssd_chunk.py sets the bar from that rounding's
+    replay)."""
+    chip_smoke.ssd_close("ssd_chunk", got, want, route)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
 def test_ssd_chunk_kernel_matches_plain(cuda, shape, dtype):
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk import route, ssd_chunk_ref
     args = ssd_inputs(np.random.default_rng(sum(shape)), shape,
                       getattr(torch, dtype), cuda)
     before = ops.launches["ssd_chunk"]
     got = ops.ssd_chunk(*args)
     torch.cuda.synchronize()
     assert ops.launches["ssd_chunk"] == before + 1
+    r = route(args[0].dtype, *shape[2:3], *shape[4:])
     for g, w in zip(got, ssd_chunk_ref(*args)):
-        assert_ssd_close(g, w)
+        assert_ssd_close(g, w, r)
 
 
 def test_ssd_chunk_kernel_branches_above_the_diagonal(cuda):
@@ -410,6 +449,118 @@ def test_ssd_chunk_kernel_branches_above_the_diagonal(cuda):
                       torch.float32, cuda, decay=200.0)
     for g, w in zip(ops.ssd_chunk(*args), ssd_chunk_ref(*args)):
         assert_ssd_close(g, w)
+
+
+# (B, nc, Q, H, P, N), all bf16 on the tensor-core route: the serving
+# chunk at full width, a ragged Q over two chunks, a Q in one row tile at
+# N = 64, one row, a head count no group divides, and the main path's
+# prefill layer (4 prompts of 2048 tokens)
+SSD_SM90_SHAPES = [(1, 2, 256, 80, 64, 128), (2, 3, 200, 80, 64, 128),
+                   (1, 3, 37, 3, 64, 64), (1, 2, 1, 5, 64, 128),
+                   (2, 2, 64, 7, 64, 128), (4, 8, 256, 80, 64, 128)]
+
+
+@pytest.mark.parametrize("shape", SSD_SM90_SHAPES, ids=str)
+def test_ssd_chunk_sm90_matches_plain(cuda, shape):
+    """One launch on the tensor-core route (none on the SIMT one), within
+    2 bf16 ulps of the output's scale of the plain version, and within 1
+    ulp of it of the route's rounding replayed in PyTorch (the two differ
+    only in the order of fp32 sums and exp's last bits)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import (route, ssd_chunk_ref,
+                                               ssd_chunk_sm90_replay)
+    args = ssd_inputs(np.random.default_rng(sum(shape)), shape,
+                      torch.bfloat16, cuda)
+    assert route(torch.bfloat16, shape[2], shape[4], shape[5]) == "sm90"
+    before = dict(_build.routes)
+    got = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert _build.routes["ssd_chunk_sm90"] == before["ssd_chunk_sm90"] + 1
+    assert _build.routes["ssd_chunk"] == before["ssd_chunk"]
+    for g, w, rp in zip(got, ssd_chunk_ref(*args),
+                        ssd_chunk_sm90_replay(*args)):
+        assert_ssd_close(g, w, "sm90")
+        scale = float(rp.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        assert float((g.float() - rp.float()).abs().max()) <= ulp
+
+
+def test_ssd_chunk_routes_by_dtype_and_shape(cuda):
+    """fp32 at the serving widths, and bf16 at a head size or a state size
+    the tensor-core kernel does not take, run the SIMT kernel."""
+    from repro_torch.kernels import _build
+    for shape, dtype in (((1, 1, 64, 2, 64, 128), torch.float32),
+                         ((1, 1, 64, 2, 32, 128), torch.bfloat16),
+                         ((1, 1, 64, 2, 64, 96), torch.bfloat16)):
+        before = dict(_build.routes)
+        ops.ssd_chunk(*ssd_inputs(np.random.default_rng(0), shape, dtype,
+                                  cuda))
+        torch.cuda.synchronize()
+        assert _build.routes["ssd_chunk"] == before["ssd_chunk"] + 1
+        assert _build.routes["ssd_chunk_sm90"] == before["ssd_chunk_sm90"]
+
+
+def test_ssd_chunk_sm90_refuses_a_misaligned_pointer(cuda):
+    """TMA needs 16-byte aligned bases: a view one element in raises
+    before any launch."""
+    x, a, Bm, Cm = ssd_inputs(np.random.default_rng(0),
+                              (1, 1, 64, 2, 64, 128), torch.bfloat16, cuda)
+    buf = torch.zeros(Bm.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(Bm.shape)
+    before = ops.launches["ssd_chunk"]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.ssd_chunk(x, a, shifted, Cm)
+    assert ops.launches["ssd_chunk"] == before
+
+
+def test_ssd_chunk_sm90_branches_above_the_diagonal(cuda):
+    """The overflow case of test_ssd_chunk_kernel_branches_above_the_
+    diagonal on the tensor-core route: W is 0 above the diagonal by a
+    select, so no NaN."""
+    from repro_torch.kernels.ssd_chunk import route, ssd_chunk_ref
+    args = ssd_inputs(np.random.default_rng(3), (1, 2, 64, 2, 64, 64),
+                      torch.bfloat16, cuda, decay=200.0)
+    assert route(torch.bfloat16, 64, 64, 64) == "sm90"
+    for g, w in zip(ops.ssd_chunk(*args), ssd_chunk_ref(*args)):
+        assert_ssd_close(g, w, "sm90")
+
+
+def wgmma_probe_ssd(c, b, x, d):
+    """csrc/ssd_chunk_sm90.cu's fog_wgmma_probe_ssd: (C[192:256]
+    B[64:128]^T, bf16(x d)^T b) in fp32 from the kernel's own product
+    functions."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    s = torch.empty((64, 64), dtype=torch.float32, device=c.device)
+    st = torch.empty((64, 128), dtype=torch.float32, device=c.device)
+    rc = _build.library().fog_wgmma_probe_ssd(
+        c.data_ptr(), b.data_ptr(), x.data_ptr(), d.data_ptr(),
+        s.data_ptr(), st.data_ptr(), ctypes.c_void_p(
+            torch.cuda.current_stream(c.device).cuda_stream))
+    assert rc == 0, _build.library().fog_error_string(rc)
+    torch.cuda.synchronize()
+    return s, st
+
+
+def test_wgmma_ssd_forms_match_matmul(cuda):
+    """The two product forms ssd_chunk_sm90 adds to flash's: the S product
+    at N = 128 (two K-major chunks, row tiles 3 and 1), and the states
+    product with A built in registers from the MN-major x tile scaled by
+    d (rounded to bf16 once) and B MN-major in both 64-column halves of a
+    [256, 128] tile, against torch.matmul in fp32 on the same bf16 values:
+    products exact, only the order of fp32 sums differs."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    c, b = (torch.randn((256, 128), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    x = torch.randn((256, 64), generator=g, device=cuda).to(torch.bfloat16)
+    d = torch.rand((256,), generator=g, device=cuda)
+    s, st = wgmma_probe_ssd(c, b, x, d)
+    xd = (x.float() * d[:, None]).to(torch.bfloat16).float()
+    for got, want in ((s, c[192:].float() @ b[64:128].float().T),
+                      (st, xd.T @ b.float())):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 def test_ssd_chunk_kernel_refuses_a_long_chunk(cuda):

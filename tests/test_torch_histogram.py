@@ -6,7 +6,10 @@ tests/test_grow.py runs it) and ``histogram_level_scatter``, and through
 the port's plain version, its scatter twin and its dispatcher.  Counts are
 sums of integer-valued fp32 weights, exact in any order, so every
 comparison is bit-equal (``torch.equal``), never a tolerance.  The CUDA
-kernel itself is held against the plain version in tests/test_torch_cuda.py.
+kernel itself is held against the plain version in tests/test_torch_cuda.py;
+here its tile plan is checked (every (tree, node, feature) cell owned by
+exactly one tile, each tile within shared memory) and its per-block
+partial sums, merged as a cluster merges them, are replayed in numpy.
 """
 import json
 
@@ -174,3 +177,97 @@ def test_cache_file_round_trip_and_jax_cache_ignored(tmp_path, monkeypatch):
 def test_tune_histogram_needs_the_card():
     with pytest.raises(ValueError, match="CUDA device"):
         autotune.tune_histogram(2, 3, 4, 5, 3, n_samples=64, device="cpu")
+
+
+# ------------------------------------------------------ the kernel's plan
+
+# the gate config's shape (32 trees, 4000 rows, 16 features, 17 bins, 10
+# classes) at levels 0..7, and ragged ones: nodes and features that no
+# group divides, one node's row over the default tile, a tiny fit
+PLAN_SHAPES = ([(32, 4000, 16, 17, 10, 1 << lv) for lv in range(8)]
+               + [(3, 1001, 16, 17, 10, 8), (2, 97, 3, 5, 3, 4),
+                  (5, 333, 7, 200, 37, 13), (2, 300, 64, 256, 100, 8),
+                  (1, 0, 4, 5, 3, 2)])
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tile_plan_owns_every_cell_once(shape):
+    T, N, F, n_bins, C, nodes = shape
+    plan = th.tile_plan(T, N, F, n_bins, C, nodes)
+    npb, fpb, cs = plan.nodes_per_block, plan.features_per_block, plan.cluster
+    assert 1 <= cs <= th.MAX_CLUSTER
+    assert plan.smem_bytes == (-(-npb * fpb * C * n_bins // 4) * 16
+                               + th.DEFAULT_BLOCK * th.SCAN_PER_THREAD * 12
+                               + 16)
+    assert plan.smem_bytes <= 232_448
+    assert npb * fpb * C * n_bins * 4 <= max(th.TILE_BYTES, C * n_bins * 4)
+    n_fg = -(-F // fpb)
+    assert plan.grid == (cs, -(-nodes // npb) * n_fg, T)
+    owned = np.zeros((T, nodes, F), np.int64)
+    for t in range(plan.grid[2]):
+        for gy in range(plan.grid[1]):
+            nd0, f0 = (gy // n_fg) * npb, (gy % n_fg) * fpb
+            assert nd0 < nodes and f0 < F
+            owned[t, nd0:nd0 + npb, f0:f0 + fpb] += 1
+    assert (owned == 1).all()
+    # the cluster's blocks split the samples into contiguous ranges that
+    # cover each sample once
+    per = -(-N // cs)
+    assert sum(max(0, min(N, (r + 1) * per) - r * per)
+               for r in range(cs)) == N
+
+
+def test_tile_plan_refuses_a_row_over_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        th.tile_plan(1, 10, 4, 256, 300, 2)
+
+
+def replay_plan(node, y, w, bins, n_nodes, n_bins, C, plan):
+    """The kernel's arithmetic in numpy: block r of a cluster adds the
+    weights of its contiguous range of samples into its own copy of the
+    tile (fp32), then each cell is the copies' sum in rank order.  Every
+    tile takes the same ranges, so the copies of all tiles together are one
+    partial histogram per rank."""
+    T, N = node.shape
+    F = bins.shape[1]
+    per = -(-N // plan.cluster)
+    partials = []
+    for r in range(plan.cluster):
+        part = np.zeros((T, n_nodes * C, F * n_bins), np.float32)
+        n = np.arange(r * per, min(N, (r + 1) * per))
+        for t in range(T):
+            nd = node[t, n]
+            keep = ((w[t, n] != 0) & (nd >= 0) & (nd < n_nodes)
+                    & (y[n] >= 0) & (y[n] < C))
+            nn = n[keep]
+            rows = node[t, nn] * C + y[nn]
+            for f in range(F):
+                b = bins[nn, f].astype(np.int64)
+                ok = b < n_bins
+                np.add.at(part[t], (rows[ok], f * n_bins + b[ok]),
+                          w[t, nn[ok]])
+        partials.append(part)
+    merged = np.zeros_like(partials[0])
+    for part in partials:
+        merged = merged + part
+    return merged
+
+
+@pytest.mark.parametrize("shape", [(4, 4000, 16, 17, 10, 1),
+                                   (4, 4000, 16, 17, 10, 8),
+                                   (4, 4000, 16, 17, 10, 128),
+                                   (3, 1001, 16, 17, 10, 8),
+                                   (2, 97, 3, 5, 3, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_replayed_cluster_merge_equals_plain(shape):
+    T, N, F, n_bins, C, nodes = shape
+    node, y, w, bins = make_inputs(sum(shape), *shape)
+    node[0, :5] = nodes                   # one past the last node
+    bins[5:9, 0] = n_bins                 # one past the last bin
+    plan = th.tile_plan(T, N, F, n_bins, C, nodes)
+    got = replay_plan(node, y, w, bins, nodes, n_bins, C, plan)
+    want = th.histogram_level_ref(*torch_inputs(node, y, w, bins),
+                                  n_nodes=nodes, n_bins=n_bins, n_classes=C)
+    assert torch.equal(
+        th._as_level(torch.from_numpy(got), nodes, C, F, n_bins), want)

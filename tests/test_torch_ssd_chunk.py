@@ -18,6 +18,16 @@ equivalence).
 bf16: the plain version computes in fp32 and casts, as the TPU kernel
 does, so it equals JAX's interpret kernel within 2 bf16 ulps (rtol 2**-6)
 plus 1e-4 of the output's magnitude for the fp32 sums' order.
+
+The tensor-core route (bf16, P = 64, N in {64, 128}) rounds W and the
+decay-scaled x̄ to bf16 as its products' operands.  Its replay
+(``ssd_chunk_sm90_replay``) is held to the float64 oracle at full width
+(Q = 256, H = 80, P = 64, N = 128): no farther from it than
+``ssd_intra_chunk`` in bf16, the einsum branch JAX's own Mamba model runs.
+Its distance from the plain version sets the card's bar
+(``chip_smoke.ssd_close``): within 2 bf16 ulps of the output's scale,
+twice the replay's worst (1 ulp of y's scale, half an ulp of the
+states').
 """
 import pytest
 
@@ -29,9 +39,15 @@ import numpy as np  # noqa: E402
 import repro.kernels.ref as jref  # noqa: E402
 from repro.kernels.ssd_chunk import ssd_chunk_pallas  # noqa: E402
 from repro.models import mamba2 as jm  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (MAX_Q, check_shapes,  # noqa: E402
-                                           ssd_chunk_cuda, ssd_chunk_ref)
+                                           route,
+                                           sm90_heads_per_block,
+                                           smem_bytes_sm90, ssd_chunk_cuda,
+                                           ssd_chunk_ref,
+                                           ssd_chunk_sm90_replay,
+                                           ssd_intra_chunk)
 from repro_torch.models import mamba2 as tm  # noqa: E402
 
 # JAX's four cases (tests/test_kernels.py:355) and the serving chunk
@@ -172,3 +188,103 @@ def test_cuda_wrapper_refuses_bad_inputs():
         ssd_chunk_cuda(*big)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         ssd_chunk_cuda(*(t.double() for t in args))
+
+
+# ------------------------------------------------ the tensor-core route
+
+@pytest.mark.parametrize("dtype,Q,P,N,want", [
+    (torch.bfloat16, 256, 64, 128, "sm90"),
+    (torch.bfloat16, 256, 64, 64, "sm90"),
+    (torch.bfloat16, 1, 64, 128, "sm90"),
+    (torch.bfloat16, 200, 64, 128, "sm90"),
+    (torch.float32, 256, 64, 128, "simt"),
+    (torch.bfloat16, 256, 72, 128, "simt"),
+    (torch.bfloat16, 256, 32, 128, "simt"),
+    (torch.bfloat16, 256, 64, 130, "simt"),
+    (torch.bfloat16, 256, 64, 256, "simt"),
+    (torch.bfloat16, 257, 64, 128, "simt"),
+    (torch.float16, 256, 64, 128, "simt")], ids=str)
+def test_route_rule(dtype, Q, P, N, want):
+    assert route(dtype, Q, P, N) == want
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_serving_configs_take_the_tensor_cores(arch):
+    cfg = get_arch(arch)
+    assert route(torch.bfloat16, cfg.ssm_chunk, cfg.ssm_head_dim,
+                 cfg.ssm_state) == "sm90"
+    assert route(torch.float32, cfg.ssm_chunk, cfg.ssm_head_dim,
+                 cfg.ssm_state) == "simt"
+
+
+def test_sm90_plan_fits_the_card():
+    """One block's shared memory fits the H100's 227 KB opt-in at both
+    state sizes, and the head groups cover every head once."""
+    assert smem_bytes_sm90(128) == 201_768
+    assert smem_bytes_sm90(64) < smem_bytes_sm90(128) <= 232_448
+    assert sm90_heads_per_block(32, 80, 132) == 20     # 4 x 32 blocks
+    for n_chunks, H, n_sm in ((32, 80, 132), (6, 80, 132), (1, 3, 132),
+                              (500, 80, 132), (7, 13, 16)):
+        hpb = sm90_heads_per_block(n_chunks, H, n_sm)
+        groups = -(-H // hpb)
+        assert 1 <= hpb <= H and (groups - 1) * hpb < H <= groups * hpb
+
+
+def test_tma_check_refuses_misaligned_and_strided_inputs():
+    """The tensor-core route refuses a base off a 16-byte boundary or a
+    non-contiguous view before any launch."""
+    before = dict(ops.launches)
+    x = torch.zeros((1, 1, 8, 2, 64), dtype=torch.bfloat16)
+    _build.check_tma("xbar", x)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _build.check_tma("xbar", buf[1:].view(x.shape))
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.check_tma("Bm", torch.zeros((1, 1, 128, 8),
+                                    dtype=torch.bfloat16).transpose(2, 3))
+    assert ops.launches == before
+
+
+def bf16_inputs(shape, seed):
+    return [torch.as_tensor(t).to(torch.bfloat16)
+            for t in chunk_inputs(*shape, seed=seed)]
+
+
+def ulps_of_scale(got, want):
+    """max |got - want| in bf16 ulps of want's largest magnitude."""
+    scale = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 80, 64, 128),
+                                   (1, 2, 200, 80, 64, 128),
+                                   (2, 1, 256, 80, 64, 64)], ids=str)
+def test_sm90_rounding_replay_at_full_width(shape):
+    """The tensor-core route's rounding, at mamba2-2.7b's width: no farther
+    from the float64 oracle than JAX's bf16 einsum branch, and within the
+    card's bar (2 bf16 ulps of the output's scale) of the plain version,
+    at most 1 ulp here: the bar's margin is 2."""
+    args = bf16_inputs(shape, seed=sum(shape))
+    replay = ssd_chunk_sm90_replay(*args)
+    einsum = ssd_intra_chunk(*args)
+    plain = ssd_chunk_ref(*args)
+    exact = float64_oracle(*(t.float().numpy() for t in args))
+    for rp, ein, pl, ex in zip(replay, einsum, plain, exact):
+        assert rp.dtype == torch.bfloat16 and rp.shape == pl.shape
+        rp_err = np.abs(rp.float().numpy() - ex).max()
+        ein_err = np.abs(ein.float().numpy() - ex).max()
+        assert rp_err <= ein_err
+        assert ulps_of_scale(rp, pl) <= 1.0
+
+
+def test_sm90_replay_selects_zero_above_the_diagonal():
+    """Decays large enough that exp(cum_i - cum_j) overflows above the
+    diagonal: the replay, like the kernel, selects 0 there (no NaN) and
+    stays within the bar of the plain version."""
+    x, a, Bm, Cm = chunk_inputs(1, 2, 64, 2, 64, 64, seed=3)
+    args = [torch.as_tensor(t).to(torch.bfloat16)
+            for t in (x, a * 200.0, Bm, Cm)]
+    for rp, pl in zip(ssd_chunk_sm90_replay(*args), ssd_chunk_ref(*args)):
+        assert torch.isfinite(rp.float()).all()
+        assert ulps_of_scale(rp, pl) <= 1.0
