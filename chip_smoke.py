@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sweep    # only the fused_fog / tree_traverse
+                                     # route, K and lane-count sweep
+                                     # (SWEEP_GRID); every run sweeps
+                                     # BOUNDARY_GRID with the same code
 
 Drives ``repro_torch``'s inference path at the bench field (penbased, 16
 trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
@@ -16,22 +20,30 @@ serving with the FoG layer-grove exit, and:
    counts the tensor-core (``HGMMA``) instructions of every instance of
    ``flash_attention_kernel_sm90`` and ``ssd_chunk_kernel_sm90`` in the
    library's SASS (``cuobjdump``; each must have some) and checks that
-   ptxas reported no spills in ``ssd_chunk_kernel_sm90``;
+   ptxas reported no spills in ``ssd_chunk_kernel_sm90``,
+   ``fused_fog_group_kernel`` and ``tree_traverse_spread_kernel`` (every
+   instance; their registers printed);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
 4. evaluates with the ``fused``, ``pallas`` and ``reference`` backends from
-   the same seeded start draws (launch counts zeroed just before and read
-   just after), checks that they agree with each other and with the plain
+   the same seeded start draws (launch and route counts zeroed just before
+   and read just after: one ``fused_fog`` launch per fused eval, each on a
+   group route), checks that they agree with each other and with the plain
    path on the CPU, and holds each kernel against its plain version
+   (``fused_fog`` on each of its routes, bit for bit, at B = 1000, 65,536
+   and 997, one and two heads, the bench threshold and per-lane thresholds
+   and budgets)
    (``top2_confidence`` also at the LM gates' shapes and with repeated
    maxima, bit for bit, on each of its two launches);
 5. reports accuracy, mean hops and pJ per classification;
 6. times each kernel, its plain version and the end-to-end backends with
-   CUDA events (median of 20 warm runs) at B=1000 and B=65,536, works out
-   each kernel's bounds from these inputs (the bytes the data makes it
-   move, its operations, and for fused_fog the latency of its chain of
-   dependent loads, from a timed pointer chase);
+   CUDA events (median of 20 warm runs) at B=1000 and B=65,536 --
+   ``fused_fog`` beside the first port's kernel (the lane route) on the
+   same inputs -- and works out each kernel's bounds from these inputs
+   (the bytes the data makes it move, its operations, and for fused_fog
+   the latency of the chain the function needs, one tree's walk, and of
+   the serial chain, from a timed pointer chase);
 7. trains with the device trainer at the gate config (penbased, 4000 rows,
    16 features, depth 8, 16 thresholds, every feature with a linear
    feature cost, seed 0) at 32 trees with the launch counts zeroed just
@@ -50,15 +62,17 @@ serving with the FoG layer-grove exit, and:
    reports it met, quantizes to int8, saves, loads and checks the labels;
 9. runs the grove ring (``FogEngine(backend="ring")``) on the bench field:
    one eval on ``RingMesh(8)`` with ``use_kernels`` with the counts zeroed
-   just before and read just after (8 ``tree_traverse`` and 8
-   ``grove_aggregate`` launches), then at every precision and B=1000 and
+   just before and read just after (8 ``tree_traverse`` launches, all on
+   the spread route, and 8 ``grove_aggregate``), then at every precision and
+   B=1000 and
    B=65,536 the kernel path on ``RingMesh(8)`` and the gather path on
    ``RingMesh(4)`` and ``RingMesh(1)`` against the ``reference`` backend
    from the same stratified starts, and the kernel path against the same
-   ring on the CPU; holds ``tree_traverse`` against its plain version on
-   the ring's stacked inputs, on one grove and on an unaligned batch;
-   prints the per-hop occupancy; times the ring evals, the kernel and its
-   plain version, and works out the kernel's bounds;
+   ring on the CPU; holds ``tree_traverse`` on each of its routes against
+   its plain version on the ring's stacked inputs, on one grove and on an
+   unaligned batch; prints the per-hop occupancy; times the ring evals, the
+   kernel beside the first port's kernel and its plain version, and works
+   out the kernel's bounds;
 10. serves ``mamba2-2.7b`` at full width and depth in bf16 (weights from a
    seeded ``torch.Generator``): with the counts zeroed just before and read
    just after, ``make_prefill_step`` prefills 4 prompts of 2048 tokens from
@@ -102,7 +116,9 @@ serving with the FoG layer-grove exit, and:
 12. reads each kernel's device time, each eval's, the gate fit's and each
    LM step's device idle share from ``torch.profiler`` (after every event
    timing: once CUPTI traces the process, every launch costs the host
-   more);
+   more), and times ``fused_fog``'s "smem" and "l1" routes on the device
+   where ``fused_fog.route``'s copy-bytes line falls (``BOUNDARY_GRID``,
+   each output checked bit for bit), beside the route the rule picks;
 13. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
@@ -130,8 +146,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_arch, param_count  # noqa: E402
 from repro_torch.core import (FogEngine, FogPolicy,  # noqa: E402
                               GroveCollection, RingMesh, split)
-from repro_torch.core.engine import (confidence_margin,  # noqa: E402
-                                     sample_starts)
+from repro_torch.core.engine import (FUSED_BLOCK_B,  # noqa: E402
+                                     confidence_margin, sample_starts)
 from repro_torch.core.fog_ring import TRAVERSE_BLOCK_B  # noqa: E402
 from repro_torch.core.policy import NO_BUDGET  # noqa: E402
 from repro_torch.data import (DataConfig, batch_at_step,  # noqa: E402
@@ -143,6 +159,8 @@ from repro_torch.forest import grow  # noqa: E402
 from repro_torch.kernels import (_build, autotune, histogram,  # noqa: E402
                                  ops, ref)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import fused_fog as ff  # noqa: E402
+from repro_torch.kernels import tree_traverse as tt  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref, route as flash_route)
 from repro_torch.kernels.top2_confidence import row_blocks  # noqa: E402
@@ -201,8 +219,10 @@ BUDGET_NJ = 0.3
 # the ring's meshes: one grove per shard (the kernel path), then two and
 # eight groves per shard (the gather path)
 RING_MESHES = (8, 4, 1)
-# an unaligned per-shard batch for the kernel check
+# an unaligned per-shard batch for the kernel check, and a ragged fused
+# batch
 RAGGED_B = 37
+FUSED_RAGGED_B = 997
 # the LM slice: mamba2-2.7b at full width and depth in bf16, B prompts of
 # S tokens (8 chunks of 256), greedy decode; FoG lanes that exit after
 # one grove (0.0) or never exit (2.0), and lane LM_GATE_LANE, whose
@@ -317,6 +337,15 @@ def kernel_ms(per_launch: dict, kernel: str) -> float | None:
     return sum(hits) if hits else None
 
 
+def profiled_ms(fn, kernel: str, tries: int = 3) -> float | None:
+    """``kernel_ms`` of ``fn`` over ``tries`` profiles of 10 calls each:
+    the median of those that recorded the kernel (CUPTI may return no
+    record of a short kernel in a profile, or a stray one)."""
+    got = [kernel_ms(device_profile(fn)[2], kernel) for _ in range(tries)]
+    got = [v for v in got if v is not None]
+    return statistics.median(got) if got else None
+
+
 def fmt(ms: float | None) -> str:
     return "(no profiler record)" if ms is None else f"{ms:.4f}"
 
@@ -339,9 +368,15 @@ def fused_work(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
                   plain walk visits), the lane vectors read once and the
                   outputs written once;
     ``ops``       the arithmetic of every lane-hop;
-    ``chain``     the dependent loads of the slowest lane: per hop, head
-                  and tree, ``d`` levels of (node, then ``x[feature]``)
-                  and one leaf row, trees in order;
+    ``chain``     the dependent loads the function needs in a row: one
+                  tree's walk, ``d`` levels of (node, then ``x[feature]``)
+                  and one leaf row, ``2d + 1`` -- every walk of every hop
+                  can start at once, since a lane's grove sequence does not
+                  depend on the gate (the gate's in-order arithmetic, hop
+                  by hop, is left unpriced);
+    ``serial_chain``  the same loads when the slowest lane walks its hops'
+                  heads and trees one after another, as the first port's
+                  kernel does: ``max hops x O x t x (2d + 1)``;
     ``gathered``  the bytes the walk gathers counting every repeat.
     """
     feat, thr, leaf, ts, ls = pack.layout("fused")
@@ -382,7 +417,8 @@ def fused_work(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
     per = O * (t * d + t * C * (2 if pack.precision == "int8" else 1)
                + 6 * C)
     return {"bytes": n_bytes, "ops": lane_hops * per, "distinct": n,
-            "chain": int(hops.max()) * O * t * (2 * d + 1),
+            "chain": 2 * d + 1,
+            "serial_chain": int(hops.max()) * O * t * (2 * d + 1),
             "gathered": lane_hops * O * t * (d * (4 + tb + 4) + C * tb)}
 
 
@@ -669,6 +705,51 @@ def facade_phase(dev: torch.device, ds) -> dict:
     return res
 
 
+def fused_checks(dev: torch.device, cases: list, x: torch.Tensor,
+                 gen) -> dict:
+    """fused_fog on each of its routes against its plain version, bit for
+    bit (``torch.equal`` on proba and hops): every case (the bench field at
+    each precision, two heads at int8 and fp32) at B = 1000, 65,536 and a
+    ragged batch, at the bench threshold and at per-lane thresholds and
+    budgets; the "smem" route wherever the field fits one block (not two
+    fp32 heads).  Returns the routes checked per case."""
+    rng = np.random.default_rng(SEED)
+    checked: dict = {}
+    for nb in (x.shape[0], BIG_B, FUSED_RAGGED_B):
+        xb = x.repeat(-(-nb // x.shape[0]), 1)[:nb].contiguous()
+        knobs = (("bench", torch.full((nb,), THRESH, device=dev),
+                  torch.full((nb,), MAX_HOPS, dtype=torch.int32,
+                             device=dev)),
+                 ("per lane", torch.as_tensor(rng.random(nb, dtype=np.float32),
+                                              device=dev),
+                  torch.as_tensor(rng.integers(1, MAX_HOPS + 1, nb,
+                                               dtype=np.int32), device=dev)))
+        for label, pack in cases:
+            lay = pack.layout("fused")
+            O, G, t = lay[0].shape[:3]
+            sb = sample_starts(gen.manual_seed(SEED + 1), nb, G)
+            smem = ff.plan("smem", nb, O, G, t, pack.depth, pack.n_classes,
+                           xb.shape[1], pack.threshold.element_size(),
+                           MAX_HOPS, FUSED_BLOCK_B, _build.sm_count(dev))
+            names = ["l1", "lane"] + (
+                ["smem"] if smem["smem"] <= _build.smem_optin(dev) else [])
+            for what, thr, bud in knobs:
+                args = (*lay[:3], xb, sb, thr, bud, *lay[3:])
+                pr, hr = fused_fog_ref(*args, max_hops=MAX_HOPS)
+                for name in names:
+                    pk, hk = ff.fused_fog_on_route(
+                        *args, max_hops=MAX_HOPS, block_b=FUSED_BLOCK_B,
+                        route=name)
+                    tag = f"fused_fog {name} {label} B={nb} {what}"
+                    check_equal(f"{tag} hops", hk, hr)
+                    check_equal(f"{tag} proba", pk, pr)
+            checked[f"B={nb} {label}"] = names
+    print(f"[kernels] fused_fog == its plain version (torch.equal, proba "
+          f"and hops) on every route, at the bench threshold and per-lane "
+          f"thresholds and budgets: {checked}")
+    return checked
+
+
 def ring_inputs(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
                 n: int = 8) -> tuple:
     """The tree_traverse inputs of one ring hop on ``RingMesh(n)`` with one
@@ -682,19 +763,16 @@ def ring_inputs(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
 def traverse_work(pack: ForestPack, xs: torch.Tensor) -> dict:
     """The work of one tree_traverse call over ``xs [S, b, F]``, from these
     shapes: ``bytes`` each input read once (every shard's grove, x) and the
-    output written once; ``block_bytes`` the same with the grove read once
-    per block, as the kernel reads it; ``ops`` per lane ``t*d`` compares,
-    ``t*C`` leaf adds and ``C`` divides (int8 adds one multiply per
-    threshold and leaf value dequantized); ``chain`` the dependent loads of
-    one lane per tree: ``d`` levels of (node, then ``x[feature]``) and the
-    leaf row."""
+    output written once; ``ops`` per lane ``t*d`` compares, ``t*C`` leaf
+    adds and ``C`` divides (int8 adds one multiply per threshold and leaf
+    value dequantized); ``chain`` the dependent loads of one tree's walk:
+    ``d`` levels of (node, then ``x[feature]``) and the leaf row."""
     S, b, F = xs.shape
     t, d, C = pack.grove_size, pack.depth, pack.n_classes
     grove = pack.table_bytes // pack.n_groves
-    blocks = S * -(-b // TRAVERSE_BLOCK_B)
     io = S * b * (F + C) * 4
     q = 2 if pack.precision == "int8" else 1
-    return {"bytes": S * grove + io, "block_bytes": blocks * grove + io,
+    return {"bytes": S * grove + io,
             "ops": S * b * (t * d * q + t * C * q + C),
             "grove_bytes": grove, "x_bytes": S * b * F * 4,
             "chain_per_tree": (d, d, 1), "trees": t}
@@ -719,15 +797,21 @@ def ring_phase(dev: torch.device, ds, packs: dict, gen) -> dict:
     # the main path: one ring eval, counts zeroed just before, read after
     for k in ops.launches:
         ops.launches[k] = 0
+    for k in _build.routes:
+        _build.routes[k] = 0
     engines["fp32", G].eval(xs[B], start=starts[B], policy=policy)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
+    routes = {k: _build.routes[k] for k in TRAVERSE_ROUTES}
     print(f"[ring] one eval on RingMesh({G}) with use_kernels, B={B}: "
-          f"kernel launches {launches}")
+          f"kernel launches {launches}; tree_traverse by route {routes}")
     for k in ("tree_traverse", "grove_aggregate"):
         if launches[k] != MAX_HOPS:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
                                  f"{MAX_HOPS}-hop ring eval")
+    if routes["tree_traverse_spread"] != MAX_HOPS or routes["tree_traverse"]:
+        raise AssertionError(f"want every tree_traverse launch of the ring "
+                             f"eval on the spread route: {routes}")
 
     # every mesh against the reference backend, and the card against the CPU
     results, max_err = {}, 0.0
@@ -778,14 +862,17 @@ def ring_phase(dev: torch.device, ds, packs: dict, gen) -> dict:
                       *stacked[4:])
             for what, args in (("stacked", stacked), ("one grove", one),
                                (f"b={RAGGED_B}", ragged)):
-                got = ops.tree_traverse(*args, block_b=TRAVERSE_BLOCK_B)
                 want = ref.tree_traverse_ref(*args)
-                check_equal(f"tree_traverse {p} B={nb} {what}", got, want)
-                kernel_err = max(kernel_err,
-                                 float((got - want).abs().max()))
-    print("[ring] tree_traverse == its plain version (torch.equal) at every "
-          "precision: stacked [8, B/8], one grove [B], unaligned "
-          f"[8, {RAGGED_B}]")
+                for name in tt.ROUTES:
+                    got = tt.tree_traverse_on_route(
+                        *args, block_b=TRAVERSE_BLOCK_B, route=name)
+                    check_equal(f"tree_traverse {name} {p} B={nb} {what}",
+                                got, want)
+                    kernel_err = max(kernel_err,
+                                     float((got - want).abs().max()))
+    print("[ring] tree_traverse == its plain version (torch.equal) on every "
+          f"route {tt.ROUTES} at every precision: stacked [8, B/8], one "
+          f"grove [B], unaligned [8, {RAGGED_B}]")
 
     # time: the ring evals, the kernel and its plain version, the bounds
     timing, kernel_fns, eval_fns = {}, {}, {}
@@ -802,37 +889,59 @@ def ring_phase(dev: torch.device, ds, packs: dict, gen) -> dict:
             args = ring_inputs(packs[p], xb, starts[nb], G)
             call = lambda a=args: ops.tree_traverse(
                 *a, block_b=TRAVERSE_BLOCK_B)
+            # the first port's kernel on the same inputs
+            was = lambda a=args: tt.tree_traverse_on_route(
+                *a, block_b=TRAVERSE_BLOCK_B, route="lane")
+            before = dict(_build.routes)
+            call()
+            row["tree_traverse_route"] = [
+                k for k in TRAVERSE_ROUTES if _build.routes[k] != before[k]]
             row["tree_traverse_ms"] = cuda_ms(call)
+            row["tree_traverse_was_ms"] = cuda_ms(was)
             row["tree_traverse_plain_ms"] = cuda_ms(
                 lambda a=args: ref.tree_traverse_ref(*a))
-            kernel_fns[nb, p] = call
+            kernel_fns[nb, p, "tree_traverse"] = call
+            kernel_fns[nb, p, "tree_traverse_was"] = was
             work = traverse_work(packs[p], args[3])
             row["tree_traverse_work"] = work
             row["tree_traverse_bound_ms"], row["tree_traverse_bound_by"] = (
                 bound_ms(work["bytes"], work["ops"]))
-            row["tree_traverse_block_bytes_bound_ms"] = (
-                work["block_bytes"] / HBM_BYTES_PER_S * 1e3)
             timing[nb, p] = row
-    return {"launches": launches, "max_abs_err": kernel_err,
+    return {"launches": launches, "routes": routes,
+            "max_abs_err": kernel_err,
             "ring_max_abs_err_vs_reference": max_err, "timing": timing,
             "kernel_fns": kernel_fns, "eval_fns": eval_fns}
 
 
+def redesign_rows(timing: dict, k: str) -> dict:
+    """The redesigned kernel's numbers per batch and precision: its route,
+    call and device ms, the first kernel's on the same inputs ("was"), the
+    bounds and the plain version's ms."""
+    keys = ("route", "ms", "device_ms", "was_ms", "was_device_ms",
+            "bound_ms", "bound_by", "latency_bound_ms", "serial_chain_ms",
+            "plain_ms")
+    return {f"B={nb} {p}": {key: row[f"{k}_{key}"] for key in keys}
+            for (nb, p), row in timing.items()}
+
+
 def ring_latency_bounds(dev: torch.device, timing: dict) -> None:
-    """tree_traverse's latency bound per row: one lane's chain, per tree
-    ``d`` levels of (node load, then ``x[feature]``) and the leaf row,
-    priced with ``load_latency_ns``: the node and leaf loads over a working
-    set of one grove's bytes (shared memory in the kernel; the chase over
-    so small a set hits L1, the nearest stand-in), the ``x`` gathers over
-    the stacked ``x``'s bytes."""
+    """tree_traverse's latency bound per row: the chain the function needs,
+    one tree's walk -- ``d`` levels of (node load, then ``x[feature]``) and
+    the leaf row; the t trees of a lane can be walked at once -- priced
+    with ``load_latency_ns``: the node and leaf loads over a working set of
+    one grove's bytes (the chase over so small a set hits L1), the ``x``
+    gathers over the stacked ``x``'s bytes.  The serial chain, the t trees
+    one after another as the first port's kernel walks them, is kept as a
+    second figure."""
     for row in timing.values():
         w = row["tree_traverse_work"]
         grove_ns = load_latency_ns(dev, w["grove_bytes"])
         x_ns = load_latency_ns(dev, w["x_bytes"])
         nodes, xs, leaf = w["chain_per_tree"]
+        tree_ms = ((nodes + leaf) * grove_ns + xs * x_ns) * 1e-6
         row["tree_traverse_latency_ns"] = {"grove": grove_ns, "x": x_ns}
-        row["tree_traverse_latency_bound_ms"] = w["trees"] * (
-            (nodes + leaf) * grove_ns + xs * x_ns) * 1e-6
+        row["tree_traverse_latency_bound_ms"] = tree_ms
+        row["tree_traverse_serial_chain_ms"] = w["trees"] * tree_ms
 
 
 def bf16_ulp(scale: float) -> float:
@@ -1077,6 +1186,45 @@ def ptxas_spills(log: str, kernel: str) -> dict:
         if m and fn:
             spills[fn] = int(m.group(1)) + int(m.group(2))
     return spills
+
+
+def ptxas_registers(log: str, kernel: str) -> dict:
+    """Registers ptxas reported (-Xptxas=-v) per instance of the kernel
+    whose mangled name contains ``kernel``."""
+    regs, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    return regs
+
+
+def instance(mangled: str) -> str:
+    """A readable name for an instance of the group or spread kernel:
+    ``<table type[, smem|l1, accumulators]>``."""
+    m = re.search(r"fog\d(Tab\w+?)E(?:Lb([01])ELi(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    parts = [m.group(1)[3:]]
+    if m.group(2):
+        parts += ["smem" if m.group(2) == "1" else "l1", m.group(3)]
+    return "<" + ", ".join(parts) + ">"
+
+
+# the kernels this slice redesigned: each instance must build without
+# spills; their device names in the profiler, and the first port's
+NEW_KERNELS = {"fused_fog": "fused_fog_group_kernel",
+               "tree_traverse": "tree_traverse_spread_kernel"}
+FUSED_ROUTES = ("fused_fog", "fused_fog_smem", "fused_fog_l1")
+# the profiler's kernel name (``<name>_kernel``) of each timed call
+DEVICE_NAME = {"fused_fog": "fused_fog_group", "fused_fog_was": "fused_fog",
+               "tree_traverse": "tree_traverse_spread",
+               "tree_traverse_was": "tree_traverse"}
+TRAVERSE_ROUTES = ("tree_traverse", "tree_traverse_spread")
 
 
 def ssd_route(args) -> str:
@@ -1697,6 +1845,118 @@ def lm_profile(lm: dict) -> None:
               f"device kernels")
 
 
+# ``--sweep``: the grid the rules in kernels/fused_fog.py and
+# kernels/tree_traverse.py were chosen from -- the serving batch, two
+# between, the big one; fused_fog's route x K (None: the rule's) x block_b;
+# tree_traverse's route x lanes a block (None: the plan's)
+SWEEP_GRID = {
+    "B": (1000, 4096, 16_384, BIG_B),
+    "fused_fog": [("lane", None, 128)] + [
+        (r, k, bb) for r in ("smem", "l1") for k in (1, 2, 4, 8)
+        for bb in (128, 256, 1024)],
+    "tree_traverse": [("lane", None)] + [
+        ("spread", n) for n in (2, 3, 4, 7, 8, 16, 32, 128)]}
+# every run: fused_fog's "smem" against "l1" at the rule's K and the
+# engine's block, where fused_fog.route's copy-bytes line falls (the copies
+# move 3.9 / 6.8 / 12.6 MB at B = 128, 7.7 / 13.3 / 24.6 MB at 1000 and
+# 15.4 / 26.6 / 49.2 MB at 2000, int8 / bf16 / fp32)
+BOUNDARY_GRID = {"B": (128, 1000, 2000),
+                 "fused_fog": [("smem", None, FUSED_BLOCK_B),
+                               ("l1", None, FUSED_BLOCK_B)],
+                 "tree_traverse": []}
+
+
+def bench_field(dev: torch.device) -> tuple:
+    """The bench field: penbased, 16 trees of depth 8 split into 8 groves
+    of 2, packed on the card at every precision; returns (dataset, the
+    host grove collection, packs)."""
+    ds = make_dataset("penbased")
+    rf = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
+                             TrainConfig(n_trees=16, max_depth=8, seed=1))
+    gc = split(rf, 2)
+    gc_card = GroveCollection(*(a.to(dev) for a in (
+        gc.feature, gc.threshold, gc.leaf)))
+    return ds, gc, {p: ForestPack.from_groves(gc_card, p) for p in PRECISIONS}
+
+
+def sweep_phase(dev: torch.device, packs: dict, x0: torch.Tensor,
+                grid: dict) -> list:
+    """The device ms per launch (``torch.profiler``, ``profiled_ms``) of
+    fused_fog and tree_traverse over ``grid``'s choices at the bench
+    field, every precision, each output checked against the plain version
+    (``torch.equal``); each fused_fog row also names the route the rule
+    picks there.  Profiles, so no event timing may follow it."""
+    G = packs["fp32"].n_groves
+    gen = torch.Generator(device=dev)
+    rows = []
+    for nb in grid["B"]:
+        xb = x0.repeat(-(-nb // x0.shape[0]), 1)[:nb].contiguous()
+        sb = sample_starts(gen.manual_seed(SEED), nb, G)
+        thr = torch.full((nb,), THRESH, device=dev)
+        bud = torch.full((nb,), MAX_HOPS, dtype=torch.int32, device=dev)
+        for p in PRECISIONS:
+            lay = packs[p].layout("fused")
+            args = (*lay[:3], xb, sb, thr, bud, *lay[3:])
+            want = fused_fog_ref(*args, max_hops=MAX_HOPS)
+            O, G, t = lay[0].shape[:3]
+            for r, k, bb in grid["fused_fog"]:
+                fn = lambda a=args, r=r, k=k, bb=bb: ff.fused_fog_on_route(
+                    *a, max_hops=MAX_HOPS, block_b=bb, route=r,
+                    hops_per_walk=k)
+                got = fn()
+                check_equal(f"sweep fused_fog {r} K={k} B={nb} {p} proba",
+                            got[0], want[0])
+                check_equal(f"sweep fused_fog {r} K={k} B={nb} {p} hops",
+                            got[1], want[1])
+                ms = profiled_ms(fn, "fused_fog" if r == "lane"
+                                 else "fused_fog_group")
+                rule = ff.route(nb, O, G, t, packs[p].depth,
+                                packs[p].n_classes, xb.shape[1],
+                                lay[1].element_size(), MAX_HOPS, bb,
+                                _build.sm_count(dev), _build.smem_optin(dev))
+                rows.append({"kernel": "fused_fog", "B": nb, "precision": p,
+                             "route": r, "K": k, "block_b": bb,
+                             "rule": rule, "device_ms": ms})
+                print(f"[sweep] fused_fog B={nb} {p} {r} K={k} block_b={bb}:"
+                      f" {fmt(ms)} ms on the device (the rule picks {rule})")
+            if not grid["tree_traverse"]:
+                continue
+            stacked = ring_inputs(packs[p], xb, sb, RING_MESHES[0])
+            want = ref.tree_traverse_ref(*stacked)
+            S, b = stacked[3].shape[:2]
+            for r, n in grid["tree_traverse"]:
+                fn = lambda a=stacked, r=r, n=n: tt.tree_traverse_on_route(
+                    *a, block_b=TRAVERSE_BLOCK_B, route=r, lanes=n)
+                check_equal(f"sweep tree_traverse {r} lanes={n}", fn(), want)
+                ms = profiled_ms(fn, "tree_traverse" if r == "lane"
+                                 else "tree_traverse_spread")
+                rows.append({"kernel": "tree_traverse", "B": nb,
+                             "precision": p, "route": r, "lanes": n,
+                             "device_ms": ms})
+                print(f"[sweep] tree_traverse B={nb} [{S}, {b}] {p} {r} "
+                      f"lanes={n}: {fmt(ms)} ms on the device")
+    return rows
+
+
+def route_boundary(rows: list) -> dict:
+    """Per (B, precision) of a boundary sweep: fused_fog's device ms on
+    "smem" and "l1", the rule's pick, and whether the pick was the faster
+    (neither when the two lie within 3 % of each other)."""
+    out = {}
+    for r in rows:
+        out.setdefault(f"B={r['B']} {r['precision']}", {"rule": r["rule"]})[
+            r["route"]] = r["device_ms"]
+    for row in out.values():
+        sm, l1 = row.get("smem"), row.get("l1")
+        if sm is None or l1 is None:
+            row["faster"] = None
+        elif abs(sm - l1) <= 0.03 * min(sm, l1):
+            row["faster"] = "tie"
+        else:
+            row["faster"] = "smem" if sm < l1 else "l1"
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1704,6 +1964,19 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     out: dict = {}
+    if "--sweep" in sys.argv[1:]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip())
+        _build.build()
+        ds, _, packs = bench_field(dev)
+        rows = sweep_phase(dev, packs, torch.as_tensor(ds.x_test, device=dev),
+                           SWEEP_GRID)
+        (ROOT / "build").mkdir(exist_ok=True)
+        (ROOT / "build" / "chip_sweep.json").write_text(
+            json.dumps({"rows": rows}, indent=1))
+        return 0
 
     # 1. device -------------------------------------------------------------
     smi = subprocess.run(
@@ -1746,16 +2019,22 @@ def main() -> int:
         raise AssertionError(f"ptxas reports spills in ssd_chunk_kernel_sm90 "
                              f"(or no report): {spills}")
     out["ssd_chunk_sm90_spill_bytes"] = spills
+    out["ptxas"] = {}
+    for k, kernel in NEW_KERNELS.items():
+        log = _build.build_info.get("log", "")
+        spills = {instance(n): v for n, v in ptxas_spills(log, kernel).items()}
+        regs = {instance(n): v for n, v in ptxas_registers(log,
+                                                           kernel).items()}
+        print(f"[build] ptxas per {kernel} instance: registers {regs}, "
+              f"spill bytes {spills}")
+        if log and (not spills or any(spills.values())):
+            raise AssertionError(f"ptxas reports spills in {kernel} (or no "
+                                 f"report): {spills}")
+        out["ptxas"][kernel] = {"registers": regs, "spill_bytes": spills}
 
     # 3. train and pack -----------------------------------------------------
     t0 = time.perf_counter()
-    ds = make_dataset("penbased")
-    rf = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
-                             TrainConfig(n_trees=16, max_depth=8, seed=1))
-    gc = split(rf, 2)
-    gc_card = GroveCollection(*(a.to(dev) for a in (
-        gc.feature, gc.threshold, gc.leaf)))
-    packs = {p: ForestPack.from_groves(gc_card, p) for p in PRECISIONS}
+    ds, gc, packs = bench_field(dev)
     for p, pack in packs.items():
         cpu_pack = ForestPack.from_groves(gc, p)
         for f in ("feature", "threshold", "leaf", "thr_scale", "leaf_scale"):
@@ -1782,6 +2061,8 @@ def main() -> int:
     reports, margins = {}, {}
     for k in ops.launches:
         ops.launches[k] = 0
+    for k in _build.routes:
+        _build.routes[k] = 0
     for p in PRECISIONS:
         for b in BACKENDS:
             gen.manual_seed(SEED)      # the same start draws for each run
@@ -1796,6 +2077,14 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"kernel {k} was not launched on the main "
                                  "path")
+    fused_routes = {k: _build.routes[k] for k in FUSED_ROUTES}
+    print(f"[eval] fused_fog by route: {fused_routes}")
+    if (main_launches["fused_fog"] != len(PRECISIONS)
+            or fused_routes["fused_fog"]
+            or sum(fused_routes.values()) != len(PRECISIONS)):
+        raise AssertionError(
+            f"want one fused_fog launch per fused eval, each on a group "
+            f"route: {main_launches['fused_fog']} launches, {fused_routes}")
 
     start = sample_starts(gen.manual_seed(SEED), B, gc.n_groves)
     errs = {"fused_fog": 0.0, "grove_aggregate": 0.0, "top2_confidence": 0.0}
@@ -1842,21 +2131,11 @@ def main() -> int:
                                             dtype=np.int32), device=dev)
     rf2 = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
                               TrainConfig(n_trees=16, max_depth=8, seed=2))
+    two = (gc, split(rf2, 2))
     cases = [(p, packs[p]) for p in PRECISIONS] + [
-        ("int8 two heads",
-         ForestPack.from_groves((gc, split(rf2, 2)), "int8").to(dev))]
-    for label, pack in cases:
-        for thr, bud in ((torch.full((B,), THRESH, device=dev),
-                          torch.full((B,), MAX_HOPS, dtype=torch.int32,
-                                     device=dev)),
-                         (lane_thr, lane_bud)):
-            args = (*pack.layout("fused")[:3], x, start, thr, bud,
-                    *pack.layout("fused")[3:])
-            pk, hk = ops.fused_fog(*args, max_hops=MAX_HOPS)
-            pr, hr = fused_fog_ref(*args, max_hops=MAX_HOPS)
-            check_equal(f"fused_fog {label} hops", hk, hr)
-            errs["fused_fog"] = max(errs["fused_fog"],
-                                    check_close(f"fused_fog {label}", pk, pr))
+        ("int8 two heads", ForestPack.from_groves(two, "int8").to(dev)),
+        ("fp32 two heads", ForestPack.from_groves(two, "fp32").to(dev))]
+    out["fused_fog_checks"] = fused_checks(dev, cases, x, gen)
     # grove_aggregate at a mid-loop state: two plain hops, some lanes dead
     pack = packs["fp32"]
     prob = torch.zeros((B, ds.n_classes), device=dev)
@@ -1904,30 +2183,57 @@ def main() -> int:
             pack = packs[p]
             args = (*pack.layout("fused")[:3], xb, sb, thr_b, bud_b,
                     *pack.layout("fused")[3:])
-            _, hk = ops.fused_fog(*args, max_hops=MAX_HOPS)
+            fused = lambda a=args: ops.fused_fog(*a, max_hops=MAX_HOPS,
+                                                 block_b=FUSED_BLOCK_B)
+            # the first port's kernel as the engine ran it (128 threads)
+            was = lambda a=args: ff.fused_fog_on_route(
+                *a, max_hops=MAX_HOPS, block_b=128, route="lane")
+            before = dict(_build.routes)
+            _, hk = fused()
+            route = [k for k in FUSED_ROUTES
+                     if _build.routes[k] != before[k]]
+            check_equal(f"fused_fog {p} B={nb}: the first kernel",
+                        was()[1], hk)
             work = fused_work(pack, xb, sb, hk)
             row = {"mean_hops": float(hk.float().mean()),
+                   "fused_fog_route": route,
                    "fused_fog_distinct": work["distinct"],
                    "fused_fog_bytes": work["bytes"],
                    "fused_fog_chain_loads": work["chain"],
+                   "fused_fog_serial_chain_loads": work["serial_chain"],
                    "fused_fog_gather_bound_ms":
                        work["gathered"] / HBM_BYTES_PER_S * 1e3,
                    "fused_fog_latency_bound_ms":
-                       work["chain"] * latency_ns[p] * 1e-6}
+                       work["chain"] * latency_ns[p] * 1e-6,
+                   "fused_fog_serial_chain_ms":
+                       work["serial_chain"] * latency_ns[p] * 1e-6}
             row["fused_fog_bound_ms"], row["fused_fog_bound_by"] = bound_ms(
                 work["bytes"], work["ops"])
-            fused = lambda a=args: ops.fused_fog(*a, max_hops=MAX_HOPS)
             row["fused_fog_ms"] = cuda_ms(fused)
+            row["fused_fog_was_ms"] = cuda_ms(was)
             row["fused_fog_plain_ms"] = cuda_ms(
                 lambda a=args: fused_fog_ref(*a, max_hops=MAX_HOPS))
             kernel_fns[nb, p, "fused_fog"] = fused
+            kernel_fns[nb, p, "fused_fog_was"] = was
             for b in BACKENDS:
                 ev = lambda e=engines[p, b], xx=xb: e.eval(
                     xx, gen.manual_seed(SEED), policy=policy)
                 before = dict(ops.launches)
+                routes = dict(_build.routes)
                 ev()
                 row[f"{b}_launches_per_eval"] = {
                     k: ops.launches[k] - before[k] for k in ops.launches}
+                row[f"{b}_routes_per_eval"] = {
+                    k: _build.routes[k] - routes[k] for k in _build.routes
+                    if _build.routes[k] != routes[k]}
+                if b == "fused" and (
+                        row["fused_launches_per_eval"]["fused_fog"] != 1
+                        or list(row["fused_routes_per_eval"]) != route):
+                    raise AssertionError(
+                        f"B={nb} {p}: a fused eval launched "
+                        f"{row['fused_launches_per_eval']} by route "
+                        f"{row['fused_routes_per_eval']}, want one fused_fog "
+                        f"launch on {route}")
                 row[f"eval_{b}_ms"] = cuda_ms(ev)
                 row[f"eval_{b}_classifications_per_s"] = (
                     nb / row[f"eval_{b}_ms"] * 1e3)
@@ -2030,8 +2336,8 @@ def main() -> int:
           f"{train['acc_gap']:.4f} <= {GATE_MAX_ACC_GAP}")
 
     for (nb, p, k), fn in kernel_fns.items():
-        timing[nb, p][f"{k}_device_ms"] = kernel_ms(device_profile(fn)[2],
-                                                    k)
+        timing[nb, p][f"{k}_device_ms"] = profiled_ms(fn,
+                                                      DEVICE_NAME.get(k, k))
     for (nb, p, b), fn in eval_fns.items():
         busy, wall, _ = device_profile(fn)
         timing[nb, p][f"eval_{b}_profile"] = {
@@ -2039,22 +2345,31 @@ def main() -> int:
             "device_idle_share": 1.0 - sum(busy.values()) / wall,
             "device_kernels": len(busy)}
     for (nb, p), row in timing.items():
-        print(f"[time] B={nb} {p}: fused_fog {row['fused_fog_ms']:.4f} ms per "
-              f"call, {fmt(row['fused_fog_device_ms'])} ms on the device "
-              f"(bound {row['fused_fog_bound_ms']:.6f} ms by "
+        print(f"[time] B={nb} {p}: fused_fog on {row['fused_fog_route']} "
+              f"{row['fused_fog_ms']:.4f} ms per call, "
+              f"{fmt(row['fused_fog_device_ms'])} ms on the device (was "
+              f"{row['fused_fog_was_ms']:.4f} / "
+              f"{fmt(row['fused_fog_was_device_ms'])}: the first kernel on "
+              f"the same inputs; bound {row['fused_fog_bound_ms']:.6f} ms by "
               f"{row['fused_fog_bound_by']}; latency bound "
               f"{row['fused_fog_latency_bound_ms']:.5f} ms for "
-              f"{row['fused_fog_chain_loads']} dependent loads; gathered "
-              f"bytes with repeats {row['fused_fog_gather_bound_ms']:.5f} "
-              f"ms), plain {row['fused_fog_plain_ms']:.3f} ms; distinct "
-              f"entries {row['fused_fog_distinct']}")
+              f"{row['fused_fog_chain_loads']} dependent loads, serial chain "
+              f"{row['fused_fog_serial_chain_ms']:.5f} ms for "
+              f"{row['fused_fog_serial_chain_loads']}; gathered bytes with "
+              f"repeats {row['fused_fog_gather_bound_ms']:.5f} ms), plain "
+              f"{row['fused_fog_plain_ms']:.3f} ms; distinct entries "
+              f"{row['fused_fog_distinct']}")
         for b in BACKENDS:
             prof = row[f"eval_{b}_profile"]
+            launched = {k: v for k, v in row[f"{b}_launches_per_eval"].items()
+                        if v}
             print(f"[time] B={nb} {p}: eval {b} {row[f'eval_{b}_ms']:.3f} ms "
                   f"({row[f'eval_{b}_classifications_per_s']:.4g} "
-                  f"classifications/s), kernel launches "
-                  f"{row[f'{b}_launches_per_eval']}, device idle "
-                  f"{prof['device_idle_share']:.3f} under the profiler")
+                  f"classifications/s), kernel launches {launched} by route "
+                  f"{row[f'{b}_routes_per_eval']}; under the profiler wall "
+                  f"{prof['wall_ms']:.3f} ms, device busy "
+                  f"{prof['device_busy_ms']:.4f} ms, idle "
+                  f"{prof['device_idle_share']:.3f}")
         if p == "fp32":
             for k in ("grove_aggregate", "top2_confidence"):
                 print(f"[time] B={nb} [B,{C}]: {k} {row[f'{k}_ms']:.4f} ms "
@@ -2065,9 +2380,9 @@ def main() -> int:
                          if f"{k}_library_ms" in row else ""))
     out["timing"] = {f"B={nb} {p}": row for (nb, p), row in timing.items()}
 
-    for (nb, p), fn in ring["kernel_fns"].items():
-        ring["timing"][nb, p]["tree_traverse_device_ms"] = kernel_ms(
-            device_profile(fn)[2], "tree_traverse")
+    for (nb, p, k), fn in ring["kernel_fns"].items():
+        ring["timing"][nb, p][f"{k}_device_ms"] = profiled_ms(fn,
+                                                              DEVICE_NAME[k])
     for (nb, p, n), fn in ring["eval_fns"].items():
         busy, wall, _ = device_profile(fn)
         ring["timing"][nb, p][f"eval_ring{n}_profile"] = {
@@ -2075,28 +2390,43 @@ def main() -> int:
             "device_idle_share": 1.0 - sum(busy.values()) / wall,
             "device_kernels": len(busy)}
     for (nb, p), row in ring["timing"].items():
-        print(f"[time] B={nb} {p}: tree_traverse [8, {nb // 8}] "
-              f"{row['tree_traverse_ms']:.4f} ms per call, "
-              f"{fmt(row['tree_traverse_device_ms'])} ms on the device "
-              f"(bound {row['tree_traverse_bound_ms']:.6f} ms by "
-              f"{row['tree_traverse_bound_by']}; grove read per block "
-              f"{row['tree_traverse_block_bytes_bound_ms']:.6f} ms; latency "
-              f"bound {row['tree_traverse_latency_bound_ms']:.5f} ms at "
+        print(f"[time] B={nb} {p}: tree_traverse [8, {nb // 8}] on "
+              f"{row['tree_traverse_route']} {row['tree_traverse_ms']:.4f} ms "
+              f"per call, {fmt(row['tree_traverse_device_ms'])} ms on the "
+              f"device (was {row['tree_traverse_was_ms']:.4f} / "
+              f"{fmt(row['tree_traverse_was_device_ms'])}: the first kernel "
+              f"on the same inputs; bound {row['tree_traverse_bound_ms']:.6f}"
+              f" ms by {row['tree_traverse_bound_by']}; latency bound "
+              f"{row['tree_traverse_latency_bound_ms']:.5f} ms, serial chain "
+              f"{row['tree_traverse_serial_chain_ms']:.5f} ms, at "
               f"{row['tree_traverse_latency_ns']['grove']:.2f} / "
               f"{row['tree_traverse_latency_ns']['x']:.2f} ns per grove / x "
               f"load), plain {row['tree_traverse_plain_ms']:.3f} ms")
         fused = timing[nb, p]["eval_fused_ms"]
         print(f"[time] B={nb} {p}: eval ring " + ", ".join(
-            f"RingMesh({n}) {row[f'eval_ring{n}_ms']:.3f} ms (idle "
+            f"RingMesh({n}) {row[f'eval_ring{n}_ms']:.3f} ms (under the "
+            f"profiler wall {row[f'eval_ring{n}_profile']['wall_ms']:.3f} ms,"
+            f" device busy "
+            f"{row[f'eval_ring{n}_profile']['device_busy_ms']:.4f} ms, idle "
             f"{row[f'eval_ring{n}_profile']['device_idle_share']:.3f})"
             for n in RING_MESHES) + f"; fused {fused:.3f} ms")
         row["eval_fused_ms"] = fused
     out["ring"] = {
-        "launches": ring["launches"], "max_abs_err": ring["max_abs_err"],
+        "launches": ring["launches"], "routes": ring["routes"],
+        "max_abs_err": ring["max_abs_err"],
         "ring_max_abs_err_vs_reference":
             ring["ring_max_abs_err_vs_reference"],
         "timing": {f"B={nb} {p}": row
                    for (nb, p), row in ring["timing"].items()}}
+
+    # fused_fog's route rule against both routes' device times where its
+    # copy-bytes line falls (the sweep's code at BOUNDARY_GRID)
+    boundary = route_boundary(sweep_phase(dev, packs, x, BOUNDARY_GRID))
+    out["fused_fog_route_boundary"] = boundary
+    for key, row in boundary.items():
+        print(f"[route] fused_fog {key}: smem {fmt(row['smem'])} ms, l1 "
+              f"{fmt(row['l1'])} ms on the device; the rule picks "
+              f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
     # 13. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
@@ -2117,6 +2447,12 @@ def main() -> int:
             "library_ms": row.get(f"{k}_library_ms"),
             "called_by": CALLED_BY[k],
             "matches_plain": True, "shape": f"B={B} fp32"})
+    fused = kernels[INFERENCE_KERNELS.index("fused_fog")]
+    fused.update(
+        routes=fused_routes,
+        design="the group kernel (fused_fog_group_kernel)",
+        serial_chain_ms=row["fused_fog_serial_chain_ms"],
+        by_batch=redesign_rows(timing, "fused_fog"))
     top2 = kernels[INFERENCE_KERNELS.index("top2_confidence")]
     top2["lm_gates"] = [{
         "arch": r["arch"], "launches": r["launches"]["top2_confidence"],
@@ -2157,8 +2493,11 @@ def main() -> int:
         "plain_ms": row["tree_traverse_plain_ms"],
         "bound_ms": row["tree_traverse_bound_ms"],
         "bound_by": row["tree_traverse_bound_by"],
-        "block_bytes_bound_ms": row["tree_traverse_block_bytes_bound_ms"],
         "latency_bound_ms": lat,
+        "serial_chain_ms": row["tree_traverse_serial_chain_ms"],
+        "routes": ring["routes"],
+        "design": "the spread kernel (tree_traverse_spread_kernel)",
+        "by_batch": redesign_rows(ring["timing"], "tree_traverse"),
         "larger_bound": ("latency" if lat > row["tree_traverse_bound_ms"]
                          else row["tree_traverse_bound_by"]),
         "library_ms": None, "called_by": CALLED_BY["tree_traverse"],

@@ -51,7 +51,9 @@ from repro_torch.kernels._build import check_block
 
 # CUDA threads per block when nothing chooses one
 DEFAULT_BLOCK_B = 256     # per-hop kernels
-FUSED_BLOCK_B = 128       # the fused kernel
+# the fused kernel: the most threads a block runs (its group routes run
+# fewer where that spreads the batch over more SMs; kernels/fused_fog.py)
+FUSED_BLOCK_B = 128
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,7 +41,8 @@ from repro_torch.kernels import ops, ref
 
 __all__ = ["RingMesh", "reorder_tables", "ring_eval"]
 
-# CUDA threads per block of the ring's tree_traverse launches
+# the most lanes one block of the ring's tree_traverse launches serves
+# (kernels/tree_traverse.py::lane_plan)
 TRAVERSE_BLOCK_B = 128
 
 

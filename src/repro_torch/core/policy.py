@@ -13,8 +13,9 @@ knob             meaning
                  default.  "pallas" names the per-hop kernel backend (the
                  name the JAX package writes into saved artifacts); "ring"
                  needs an engine built with a ``RingMesh``
-``block_b``      CUDA threads per block (a multiple of 32, at most 1024);
-                 None = engine default
+``block_b``      CUDA threads per block (a multiple of 32, at most 1024;
+                 for the fused kernel the most a block runs); None =
+                 engine default
 ``chunk_b``      batch chunking: an int, ``"auto"`` (never chunks in this
                  port yet) or None
 ``lazy``         stop the per-hop loop once every lane is dead, instead of

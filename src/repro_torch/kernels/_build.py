@@ -33,7 +33,8 @@ SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu",
            CSRC / "ssd_chunk_sm90.cu", CSRC / "flash_attention.cu",
            CSRC / "flash_attention_sm90.cu")
-HEADERS = (CSRC / "fog_tables.cuh", CSRC / "sm90_common.cuh")
+HEADERS = (CSRC / "fog_tables.cuh", CSRC / "fog_stage.cuh",
+           CSRC / "sm90_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
@@ -48,11 +49,15 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
             "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0,
             "flash_attention": 0}
-# the same launches by C entry point, where a kernel has two routes
+# the same launches by C entry point, where a kernel has several routes
 # ("flash_attention" and "ssd_chunk" on CUDA cores, "flash_attention_sm90"
-# and "ssd_chunk_sm90" on the tensor cores)
+# and "ssd_chunk_sm90" on the tensor cores; "fused_fog" and
+# "tree_traverse" one thread per lane, "fused_fog_smem" and "fused_fog_l1"
+# the group kernel with the field in shared memory or read through L1,
+# "tree_traverse_spread" the spread kernel)
 routes = {"flash_attention": 0, "flash_attention_sm90": 0, "ssd_chunk": 0,
-          "ssd_chunk_sm90": 0}
+          "ssd_chunk_sm90": 0, "fused_fog": 0, "fused_fog_smem": 0,
+          "fused_fog_l1": 0, "tree_traverse": 0, "tree_traverse_spread": 0}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -61,8 +66,11 @@ _SIGNATURES = {
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, I, P),
     "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+    "fog_fused_fog_smem": (I, *[P] * 11, *[I] * 14, P),
+    "fog_fused_fog_l1": (I, *[P] * 11, *[I] * 14, P),
     "fog_tree_traverse": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                           P),
+    "fog_tree_traverse_spread": (I, *[P] * 7, *[I] * 10, P),
     "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
     "fog_ssd_chunk_sm90": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "fog_flash_attention": (I, P, P, P, P, I, I, I, I, I, I, I, F, I, P),

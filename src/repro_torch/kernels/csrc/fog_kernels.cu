@@ -1,6 +1,6 @@
 // Field of Groves inference kernels for NVIDIA Hopper (sm_90a).
 //
-// Three kernels, each behind a plain C entry point that launches on the
+// The inference kernels, each behind a plain C entry point that launches on the
 // caller's stream and returns cudaGetLastError() (loaded with ctypes by
 // repro_torch/kernels/_build.py; the wrappers allocate every output and
 // scratch buffer, the kernels allocate nothing):
@@ -9,7 +9,13 @@
 //                         (one thread per short row, or blocks that share
 //                         a long row and a merge pass)
 //   fog_grove_aggregate   replaces repro/kernels/grove_aggregate.py::_aggregate_kernel
-//   fog_fused_fog         replaces repro/kernels/fused_fog.py::_fused_fog_kernel
+//   fog_fused_fog_smem    replace repro/kernels/fused_fog.py::_fused_fog_kernel
+//   fog_fused_fog_l1      (the group kernel: a group of threads per lane,
+//                         lane state in registers; tables staged in shared
+//                         memory, or read through L1)
+//   fog_fused_fog         the first port's kernel (one thread per lane), a
+//                         declared route for what the group kernel does not
+//                         take and the comparison
 //
 // plus fog_chase, a one-thread pointer chase that only measures the
 // latency of a dependent load (it is not on the inference path).
@@ -20,18 +26,26 @@
 // into an FMA; the build also passes -fmad=false.  Means divide by t and
 // normalisations divide by max(hops, 1): no reciprocal multiplies.
 //
-// Design (deliberately simple; speed is later work):
-//   * one thread per row/lane, block_b threads per block, except the
-//     top-2 of long rows (below), where blocks share a row;
-//   * top2/aggregate read each [B, C] row once and are bound by those
-//     bytes (C <= 26 floats per row on the forest's path);
-//   * fused_fog walks each lane's grove with d dependent gathers per tree,
-//     t trees per hop: it is bound by the latency of that chain, not by
-//     bytes.  Tables are read from global memory (the bench field's 192 KiB
-//     stays resident in the 50 MB L2).  Pinning them in shared memory needs
-//     the dynamic opt-in above 48 KB (the fp32 bench field leaves ~35 KB of
-//     the 227 KB for lane state), and a warp-cooperative walk would hide the
-//     gather latency; both are later work.
+// Design:
+//   * top2/aggregate: one thread per row/lane, block_b threads per block,
+//     except the top-2 of long rows (below), where blocks share a row;
+//     they read each [B, C] row once and are bound by those bytes (C <= 26
+//     floats per row on the forest's path);
+//   * fused_fog (the group kernel below): what bounds it on this card is
+//     the chain a lane needs -- one tree's walk, 2d + 1 dependent loads, then
+//     the gate's in-order arithmetic hop by hop -- not bytes (the bench
+//     field is 192 KiB).  The first port's kernel (one thread per lane, the
+//     [O, C] accumulators in a global scratch buffer, the tables read from
+//     L2 inside the chain) walked max_hops x O x t trees in a row per lane
+//     and ran 8 blocks on 8 SMs at B = 1000; it stays as the "lane" route
+//     (fused_fog_kernel) for fields whose lane state does not fit the group
+//     kernel's registers, and as the comparison.  The group kernel gives a
+//     lane a group of threads that walks the trees of K hops at once, keeps
+//     the lane state in registers split by class over the group, and reads
+//     the tables from shared memory (the "smem" route: staged once per
+//     block by the bulk-copy engine, fog_stage.cuh, with a grid of at most
+//     the blocks the SMs hold at once looping over the lanes) or in place
+//     through L1 (the "l1" route); kernels/fused_fog.py::route picks one.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -39,6 +53,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "fog_stage.cuh"
 #include "fog_tables.cuh"
 
 namespace {
@@ -199,9 +214,11 @@ __global__ void grove_aggregate_kernel(
   margin_out[b] = margin;
 }
 
-// ------------------------------------------------ the whole Algorithm 2
-// One thread per lane.  Lane state that is indexed by class lives in
-// `scratch`, laid out lane-minor so a warp's accesses are coalesced:
+// ------------------------- the whole Algorithm 2, one thread per lane
+// The first port's kernel, the lane route (kernels/fused_fog.py::route):
+// one thread per lane, block_b lanes a block, tables read in place, the
+// trees of each hop walked in turn.  Lane state that is indexed by class
+// lives in `scratch`, laid out lane-minor so a warp's accesses coalesce:
 //   acc[o][c][b] = scratch[(o * C + c) * B + b]       (O * C * B floats)
 //   con[c][b]    = scratch[(O * C + c) * B + b]       (C * B floats)
 template <class Tab>
@@ -279,6 +296,266 @@ __global__ void fused_fog_kernel(
       proba[((size_t)b * O + o) * C + c] =
           __fdiv_rn(acc[((size_t)o * C + c) * B + b], denom);
   hops_out[b] = hops;
+}
+
+// ------------------------------------ the whole Algorithm 2, lane groups
+// A group of `group` threads (a power of two <= 32, within one warp) serves
+// one lane at a time; a block holds blockDim.x / group groups, and group g
+// of block k serves lanes k * gpb + g, then that plus gridDim.x * gpb, ...
+// (the smem route's grid is at most the blocks the SMs hold at once; the l1
+// route's covers the batch, one lane a group).
+//
+// Per lane: its grove sequence (start + j) mod G does not depend on the
+// gate, so the group walks the K x O x t trees of the next K hops at once
+// (walk slot w = (jj * O + o) * t + tr, thread r takes w = r, r + group,
+// ...) and leaves each leaf row's index in shared memory; then the gate
+// runs hop by hop over those rows in order -- per (head, class), owned by
+// thread c % group: trees summed in order, / t, added to the accumulator
+// (a register), / hops -- and the first-max MaxDiff of each head is merged
+// over the group by xor shuffles (the larger maximum, the lower index on a
+// tie, the larger of the winner's second and the loser's maximum: only the
+// first maximal entry is masked, in any merge order, with nothing rounded),
+// the minimum over heads against the lane's threshold and hop budget.
+// Every thread of a group gets the same margin, so the group stays in step.
+// A lane that exits inside a batch leaves the batch's later walks unused.
+//
+// Lane state: thread r owns classes r, r + group, ... of every head, NACC
+// registers (O * ceil(C / group) rounded up to 1, 2, 4 or FUSED_ACC = 8,
+// an instance each; the wrapper routes anything larger to the lane route).
+// Shared layout: the mbarrier, then (STAGE) the field's five tables at
+// region_bytes each, then per group the leaf rows int32 [K * O * t] and
+// (stage_x) the lane's x row fp32 [F].
+constexpr int FUSED_ACC = 8;
+// threads a block runs at most: 512, so that a thread may hold 128
+// registers and no instance spills
+constexpr int GROUP_THREADS = 512;
+
+__device__ __forceinline__ int floor_mod(int a, int m) {
+  return ((a % m) + m) % m;  // jnp's % for a positive modulus
+}
+
+__device__ __forceinline__ Top2 top2_group(Top2 t, unsigned mask, int group) {
+  for (int off = group / 2; off > 0; off >>= 1) {
+    Top2 o;
+    o.m1 = __shfl_xor_sync(mask, t.m1, off, group);
+    o.m2 = __shfl_xor_sync(mask, t.m2, off, group);
+    o.i1 = __shfl_xor_sync(mask, t.i1, off, group);
+    t = top2_merge(t, o);
+  }
+  return t;
+}
+
+template <class Tab, bool STAGE, int NACC>
+__global__ void __launch_bounds__(GROUP_THREADS, 1) fused_fog_group_kernel(
+    const int* __restrict__ feature, const typename Tab::T* __restrict__ threshold,
+    const typename Tab::T* __restrict__ leaf, const float* __restrict__ thr_scale,
+    const float* __restrict__ leaf_scale, const float* __restrict__ x,
+    const int* __restrict__ start, const float* __restrict__ thresh,
+    const int* __restrict__ budget, float* __restrict__ proba,
+    int* __restrict__ hops_out, int B, int F, int O, int G, int t, int depth,
+    int C, int max_hops, int K, int group, int stage_x) {
+  typedef typename Tab::T T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int N = (1 << depth) - 1;  // internal nodes per tree
+  const int L = N + 1;             // leaves per tree
+  const int n_trees = O * G * t;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* p = smem + 16;
+  const int* fe = feature;
+  const T* th = threshold;
+  const T* lf = leaf;
+  const float* ts = thr_scale;
+  const float* ls = leaf_scale;
+  if (STAGE) {
+    p = fog::stage_grove(p, bar, fe, th, lf, ts, ls, (size_t)n_trees * N,
+                         (size_t)n_trees * L * C, (size_t)n_trees);
+    __syncthreads();
+    mbar_wait(bar, 0);
+  }
+  const int W = K * O * t;  // walk slots of one batch of K hops
+  const int gpb = blockDim.x / group;
+  const int gi = threadIdx.x / group, r = threadIdx.x - gi * group;
+  int* row = reinterpret_cast<int*>(p) + (size_t)gi * W;
+  float* xs = reinterpret_cast<float*>(reinterpret_cast<int*>(p) +
+                                       (size_t)gpb * W) + (size_t)gi * F;
+  const unsigned wl = threadIdx.x & 31;
+  const unsigned mask =
+      group == 32 ? 0xffffffffu
+                  : ((1u << group) - 1u) << (wl & ~(unsigned)(group - 1));
+  const int cpt = (C + group - 1) / group;  // classes a thread owns per head
+  const int nacc = O * cpt;
+  const int OT = O * t;
+  const float tf = (float)t;
+
+  for (int b = blockIdx.x * gpb + gi; b < B; b += gridDim.x * gpb) {
+    __syncwarp(mask);  // the group's previous lane is done with row and xs
+    const float* xb = x + (size_t)b * F;
+    if (stage_x) {
+      for (int f = r; f < F; f += group) xs[f] = xb[f];
+      __syncwarp(mask);
+      xb = xs;
+    }
+    const int s0 = start[b];
+    const float lane_thresh = thresh[b];
+    const int bud = budget[b];
+    float acc[NACC];
+#pragma unroll
+    for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
+    int hops = 0;
+    bool live = true;
+    for (int j0 = 0; j0 < max_hops && live; j0 += K) {
+      const int nk = min(K, max_hops - j0);
+      for (int w = r; w < nk * OT; w += group) {
+        const int jj = w / OT, rem = w - jj * OT;
+        const int o = rem / t, tr = rem - o * t;
+        const int g = floor_mod(s0 + j0 + jj, G);
+        const int tree = (o * G + g) * t + tr;
+        const int* f = fe + tree * N;
+        const T* h = th + tree * N;
+        const float sc = ts[tree];
+        int idx = 0;
+        for (int lvl = 0; lvl < depth; ++lvl) {
+          const float v = Tab::thr(h[idx], sc);
+          idx = 2 * idx + 1 + (xb[f[idx]] > v ? 1 : 0);
+        }
+        row[w] = tree * L + idx - N;
+      }
+      __syncwarp(mask);
+      for (int jj = 0; jj < nk && live; ++jj) {
+        const int g = floor_mod(s0 + j0 + jj, G);
+        ++hops;
+        const float denom = (float)hops;
+        float margin = CUDART_INF_F;
+        for (int o = 0; o < O; ++o) {
+          const int* rw = row + (jj * O + o) * t;
+          const int tree0 = (o * G + g) * t;
+          Top2 tp = {-CUDART_INF_F, -CUDART_INF_F, INT_MAX};
+          // one class at a time (one copy of the divisions, few live
+          // registers); its accumulator read and written by a select over
+          // the unrolled slots, so it stays in a register
+#pragma unroll 1
+          for (int i = 0; i < cpt; ++i) {
+            const int c = r + group * i;
+            if (c >= C) break;
+            const int k = o * cpt + i;
+            float con = Tab::leaf(lf[(size_t)rw[0] * C + c], ls[tree0]);
+            for (int tr = 1; tr < t; ++tr)
+              con = __fadd_rn(con, Tab::leaf(lf[(size_t)rw[tr] * C + c],
+                                             ls[tree0 + tr]));
+            float a = 0.f;
+#pragma unroll
+            for (int j = 0; j < NACC; ++j)
+              if (j == k) a = acc[j];
+            a = __fadd_rn(a, __fdiv_rn(con, tf));
+#pragma unroll
+            for (int j = 0; j < NACC; ++j)
+              if (j == k) acc[j] = a;
+            const float v = __fdiv_rn(a, denom);
+            if (v > tp.m1) {
+              tp.m2 = tp.m1;
+              tp.m1 = v;
+              tp.i1 = c;
+            } else if (v > tp.m2) {
+              tp.m2 = v;
+            }
+          }
+          tp = top2_group(tp, mask, group);
+          margin = fminf(margin, fabsf(__fsub_rn(tp.m1, tp.m2)));
+        }
+        live = (margin < lane_thresh) && (hops < bud);
+      }
+      __syncwarp(mask);  // every thread read the batch's rows
+    }
+    const float denom = (float)max(hops, 1);
+#pragma unroll 1
+    for (int k = 0; k < nacc; ++k) {
+      const int o = k / cpt, c = r + group * (k - o * cpt);
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < NACC; ++j)
+        if (j == k) a = acc[j];
+      if (c < C) proba[((size_t)b * O + o) * C + c] = __fdiv_rn(a, denom);
+    }
+    if (r == 0) hops_out[b] = hops;
+  }
+}
+
+template <class Tab, bool STAGE, int NACC>
+int launch_group(const int* feature, const void* threshold, const void* leaf,
+                 const float* thr_scale, const float* leaf_scale,
+                 const float* x, const int* start, const float* thresh,
+                 const int* budget, float* proba, int* hops, int B, int F,
+                 int O, int G, int t, int depth, int C, int max_hops, int K,
+                 int group, int grid, int threads, int stage_x, int smem,
+                 cudaStream_t stream) {
+  typedef typename Tab::T T;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_fog_group_kernel<Tab, STAGE, NACC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fused_fog_group_kernel<Tab, STAGE, NACC><<<grid, threads, smem, stream>>>(
+      feature, static_cast<const T*>(threshold), static_cast<const T*>(leaf),
+      thr_scale, leaf_scale, x, start, thresh, budget, proba, hops, B, F, O,
+      G, t, depth, C, max_hops, K, group, stage_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance that holds `nacc` accumulators a thread
+template <class Tab, bool STAGE>
+int launch_nacc(int nacc, const int* feature, const void* threshold,
+                const void* leaf, const float* thr_scale,
+                const float* leaf_scale, const float* x, const int* start,
+                const float* thresh, const int* budget, float* proba,
+                int* hops, int B, int F, int O, int G, int t, int depth, int C,
+                int max_hops, int K, int group, int grid, int threads,
+                int stage_x, int smem, cudaStream_t s) {
+#define FOG_GROUP(n)                                                        \
+  launch_group<Tab, STAGE, n>(feature, threshold, leaf, thr_scale,          \
+                              leaf_scale, x, start, thresh, budget, proba,  \
+                              hops, B, F, O, G, t, depth, C, max_hops, K,   \
+                              group, grid, threads, stage_x, smem, s)
+  if (nacc <= 1) return FOG_GROUP(1);
+  if (nacc <= 2) return FOG_GROUP(2);
+  if (nacc <= 4) return FOG_GROUP(4);
+  return FOG_GROUP(FUSED_ACC);
+#undef FOG_GROUP
+}
+
+template <bool STAGE>
+int fused_group(int dtype, const int* feature, const void* threshold,
+                const void* leaf, const float* thr_scale,
+                const float* leaf_scale, const float* x, const int* start,
+                const float* thresh, const int* budget, float* proba,
+                int* hops, int B, int F, int O, int G, int t, int depth, int C,
+                int max_hops, int K, int group, int grid, int threads,
+                int stage_x, int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nacc = O * ((C + group - 1) / group);
+  if (group < 1 || group > 32 || (group & (group - 1)) || K < 1 ||
+      threads < 32 || threads > GROUP_THREADS || threads % 32 || grid < 1 ||
+      nacc > FUSED_ACC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0:
+      return launch_nacc<TabF32, STAGE>(
+          nacc, feature, threshold, leaf, thr_scale, leaf_scale, x, start,
+          thresh, budget, proba, hops, B, F, O, G, t, depth, C, max_hops, K,
+          group, grid, threads, stage_x, smem, s);
+    case 1:
+      return launch_nacc<TabBF16, STAGE>(
+          nacc, feature, threshold, leaf, thr_scale, leaf_scale, x, start,
+          thresh, budget, proba, hops, B, F, O, G, t, depth, C, max_hops, K,
+          group, grid, threads, stage_x, smem, s);
+    case 2:
+      return launch_nacc<TabI8, STAGE>(
+          nacc, feature, threshold, leaf, thr_scale, leaf_scale, x, start,
+          thresh, budget, proba, hops, B, F, O, G, t, depth, C, max_hops, K,
+          group, grid, threads, stage_x, smem, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // --------------------------------------- measurement: dependent-load latency
@@ -363,7 +640,40 @@ int fog_chase(const int* next, int steps, int* out, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = fp32, 1 = bf16 (raw bits), 2 = int8
+// The group kernel (dtype as below): `group` threads per lane walking K
+// hops' trees at once, `threads` threads and `grid` blocks, x staged when
+// stage_x, `smem` bytes of dynamic shared memory (fused_fog.plan).  _smem
+// stages the field in shared memory, _l1 reads it in place.
+int fog_fused_fog_smem(int dtype, const int* feature, const void* threshold,
+                       const void* leaf, const float* thr_scale,
+                       const float* leaf_scale, const float* x,
+                       const int* start, const float* thresh,
+                       const int* budget, float* proba, int* hops, int B,
+                       int F, int O, int G, int t, int depth, int C,
+                       int max_hops, int K, int group, int grid, int threads,
+                       int stage_x, int smem, void* stream) {
+  return fused_group<true>(dtype, feature, threshold, leaf, thr_scale,
+                           leaf_scale, x, start, thresh, budget, proba, hops,
+                           B, F, O, G, t, depth, C, max_hops, K, group, grid,
+                           threads, stage_x, smem, stream);
+}
+
+int fog_fused_fog_l1(int dtype, const int* feature, const void* threshold,
+                     const void* leaf, const float* thr_scale,
+                     const float* leaf_scale, const float* x,
+                     const int* start, const float* thresh, const int* budget,
+                     float* proba, int* hops, int B, int F, int O, int G,
+                     int t, int depth, int C, int max_hops, int K, int group,
+                     int grid, int threads, int stage_x, int smem,
+                     void* stream) {
+  return fused_group<false>(dtype, feature, threshold, leaf, thr_scale,
+                            leaf_scale, x, start, thresh, budget, proba, hops,
+                            B, F, O, G, t, depth, C, max_hops, K, group, grid,
+                            threads, stage_x, smem, stream);
+}
+
+// The first port's kernel (the lane route): dtype 0 = fp32, 1 = bf16 (raw
+// bits), 2 = int8
 int fog_fused_fog(int dtype, const int* feature, const void* threshold,
                   const void* leaf, const float* thr_scale,
                   const float* leaf_scale, const float* x, const int* start,

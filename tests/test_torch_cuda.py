@@ -394,6 +394,206 @@ def test_ring_on_card_equals_ring_on_cpu(cuda, trained_port, precision):
     torch.testing.assert_close(got.proba, want.proba, rtol=1e-6, atol=1e-7)
 
 
+# -------------------- the group fused_fog and the spread tree_traverse
+
+BENCH_SHAPE = {"G": 8, "t": 2, "depth": 8, "C": 10, "F": 16}
+
+
+def fused_case(rng, precision, heads, B, device, **shape):
+    """The bench field's shape (or ``shape``) at random values, per-lane
+    thresholds and budgets, and the fused layout's arguments."""
+    shape = {**BENCH_SHAPE, **shape}
+    pack = random_pack(rng, precision, O=heads, **shape).to(device)
+    G, F = shape["G"], shape["F"]
+    x = torch.as_tensor(rng.normal(size=(B, F)).astype(np.float32),
+                        device=device)
+    start = torch.as_tensor(rng.integers(0, G, B, dtype=np.int32),
+                            device=device)
+    thresh = torch.as_tensor(rng.random(B, dtype=np.float32) * 0.6,
+                             device=device)
+    budget = torch.as_tensor(rng.integers(1, 9, B, dtype=np.int32),
+                             device=device)
+    lay = pack.layout("fused")
+    return (*lay[:3], x, start, thresh, budget, *lay[3:])
+
+
+@pytest.mark.parametrize("block_b", [128, 1024])
+@pytest.mark.parametrize("B", [1, 97, 1000, 65_536])
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_fused_group_routes_equal_plain(cuda, precision, heads, B, block_b):
+    """Each group route (and the lane route) bit-equal to the plain
+    version on proba and hops, with per-lane thresholds and budgets; the
+    shared-memory route only where the field fits it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_fog as ff
+    args = fused_case(np.random.default_rng(B + heads), precision, heads, B,
+                      cuda)
+    pr, hr = fused_fog_ref(*args, max_hops=8)
+    fits = ff.table_smem_bytes(heads, 8, 2, 8, 10, args[1].element_size()) \
+        < _build.smem_optin(cuda)
+    names = ("smem", "l1", "lane") if fits else ("l1", "lane")
+    for name in names:
+        before = dict(_build.routes)
+        n = ops.launches["fused_fog"]
+        pk, hk = ff.fused_fog_on_route(*args, max_hops=8, block_b=block_b,
+                                       route=name)
+        torch.cuda.synchronize()
+        entry = "fused_fog" if name == "lane" else f"fused_fog_{name}"
+        assert _build.routes[entry] == before[entry] + 1
+        assert ops.launches["fused_fog"] == n + 1
+        assert torch.equal(hk, hr), name
+        assert torch.equal(pk, pr), name
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_fused_route_rule_at_the_bench_field(cuda, precision):
+    """The rule's picks at the bench field with the engine's 128 threads,
+    counted by route: "smem" for int8 at B = 1000, "l1" for fp32 and bf16
+    there and for all at 65,536; two fp32 heads (393 KB, over shared
+    memory) take "l1"; each equal to plain."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(3)
+    cases = [(1, 1000, "smem" if precision == "int8" else "l1"),
+             (1, 65_536, "l1")]
+    if precision == "fp32":
+        cases.append((2, 65_536, "l1"))
+    for heads, B, want in cases:
+        args = fused_case(rng, precision, heads, B, cuda)
+        before = dict(_build.routes)
+        pk, hk = ops.fused_fog(*args, max_hops=8, block_b=128)
+        torch.cuda.synchronize()
+        got = {k for k in ("fused_fog", "fused_fog_smem", "fused_fog_l1")
+               if _build.routes[k] != before[k]}
+        assert got == {f"fused_fog_{want}"}, (heads, B, got)
+        pr, hr = fused_fog_ref(*args, max_hops=8)
+        assert torch.equal(hk, hr) and torch.equal(pk, pr)
+
+
+def test_fused_lane_state_over_the_registers_takes_the_lane_route(cuda):
+    """Two heads of 129 classes need 2 x ceil(129 / 32) = 10 registers a
+    thread, over FUSED_ACC: the lane route, equal to plain."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_fog as ff
+    assert ff.group_size(2, 2, 129, 8) is None
+    args = fused_case(np.random.default_rng(4), "fp32", 2, 300, cuda, G=4,
+                      depth=5, C=129)
+    before = _build.routes["fused_fog"]
+    pk, hk = ops.fused_fog(*args, max_hops=8)
+    assert _build.routes["fused_fog"] == before + 1
+    pr, hr = fused_fog_ref(*args, max_hops=8)
+    assert torch.equal(hk, hr) and torch.equal(pk, pr)
+
+
+def test_fused_and_traverse_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda):
+    from repro_torch.kernels.fused_fog import (fused_fog_cuda,
+                                               fused_fog_on_route)
+    from repro_torch.kernels.tree_traverse import tree_traverse_cuda
+    args = list(fused_case(np.random.default_rng(5), "fp32", 1, 64, cuda))
+    before = dict(ops.launches)
+    # two fp32 heads (393 KB) do not fit the shared-memory route
+    two = fused_case(np.random.default_rng(6), "fp32", 2, 64, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_fog_on_route(*two, max_hops=8, route="smem")
+    with pytest.raises(ValueError, match="threads per block"):
+        fused_fog_cuda(*args, max_hops=8, block_b=48)
+    bad = list(args)
+    bad[3] = args[3].t().contiguous().t()          # x not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_fog_cuda(*bad, max_hops=8)
+    bad = list(args)
+    bad[4] = args[4].long()                       # start int64
+    with pytest.raises(TypeError):
+        fused_fog_cuda(*bad, max_hops=8)
+    bad = list(args)
+    bad[3] = args[3].cpu()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_fog_cuda(*bad, max_hops=8)
+    tables = [a[0, 0] for a in (args[0], args[1], args[2], args[7],
+                                args[8])]
+    x = torch.zeros((64, 16), device=cuda)
+    with pytest.raises(ValueError, match="threads per block"):
+        tree_traverse_cuda(*tables[:3], x, *tables[3:], block_b=20)
+    with pytest.raises(TypeError):
+        tree_traverse_cuda(*tables[:3], x.double(), *tables[3:])
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        tree_traverse_cuda(tables[0], tables[1][:, :7].contiguous(),
+                           tables[2], x, *tables[3:])
+    assert dict(ops.launches) == before
+
+
+@pytest.mark.parametrize("S,b", [(8, 125), (8, 8192), (1, 1000), (8, 37),
+                                 (1, 1)])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_tree_traverse_spread_routes_equal_plain(cuda, precision, S, b):
+    """The spread kernel (and the lane route) bit-equal to the plain
+    version: the ring's stacked inputs at B = 1000 and 65,536, one grove
+    with 2-D tables, a ragged b and a single lane."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import tree_traverse as tt
+    rng = np.random.default_rng(S * b)
+    pack = random_pack(rng, precision, G=S, t=2, depth=8, C=10,
+                       F=16).to(cuda)
+    tables = [getattr(pack, f)[0] for f in ("feature", "threshold", "leaf",
+                                            "thr_scale", "leaf_scale")]
+    x = rng.normal(size=(S, b, 16)).astype(np.float32)
+    if S == 1:
+        tables = [a[0] for a in tables]
+        x = x[0]
+    x = torch.as_tensor(x, device=cuda)
+    want = ref.tree_traverse_ref(*tables[:3], x, *tables[3:])
+    for name in tt.ROUTES:
+        before = dict(_build.routes)
+        got = tt.tree_traverse_on_route(*tables[:3], x, *tables[3:],
+                                        block_b=128, route=name)
+        torch.cuda.synchronize()
+        entry = "tree_traverse" if name == "lane" else f"tree_traverse_{name}"
+        assert _build.routes[entry] == before[entry] + 1
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("S,b,want", [(8, 125, "spread"),
+                                      (8, 8192, "spread"),
+                                      (1, 1000, "spread")])
+def test_tree_traverse_route_rule_at_the_ring(cuda, S, b, want):
+    """The wrapper at the bench grove: the spread kernel at the ring's
+    B = 1000 and 65,536 and for one grove; one counted launch on that
+    route."""
+    from repro_torch.kernels import _build
+    pack = random_pack(np.random.default_rng(0), "fp32", G=S, t=2, depth=8,
+                       C=10, F=16).to(cuda)
+    tables = [getattr(pack, f)[0] for f in ("feature", "threshold", "leaf",
+                                            "thr_scale", "leaf_scale")]
+    x = torch.zeros((S, b, 16), device=cuda)
+    before = dict(_build.routes)
+    n = ops.launches["tree_traverse"]
+    ops.tree_traverse(*tables[:3], x, *tables[3:], block_b=128)
+    torch.cuda.synchronize()
+    got = {k for k in ("tree_traverse", "tree_traverse_spread")
+           if _build.routes[k] != before[k]}
+    assert got == {f"tree_traverse_{want}"}
+    assert ops.launches["tree_traverse"] == n + 1
+
+
+def test_tree_traverse_over_shared_memory_raises_on_every_route(cuda):
+    """The acceptance rule does not depend on the route: a grove over one
+    block's shared memory raises before any launch, on the spread route
+    (which reads the grove through L1) too."""
+    from repro_torch.kernels import tree_traverse as tt
+    t, depth, C = 32, 12, 30
+    before = ops.launches["tree_traverse"]
+    for name in tt.ROUTES:
+        with pytest.raises(ValueError, match="shared memory"):
+            tt.tree_traverse_on_route(
+                torch.zeros((t, 2**depth - 1), dtype=torch.int32,
+                            device=cuda),
+                torch.zeros((t, 2**depth - 1), device=cuda),
+                torch.zeros((t, 2**depth, C), device=cuda),
+                torch.zeros((128, 8), device=cuda), route=name)
+    assert ops.launches["tree_traverse"] == before
+
+
 # ------------------------------------------------- the Mamba-2 SSD chunk
 
 # (B, nc, Q, H, P, N): JAX's small cases, a ragged Q with P and N that are

@@ -69,7 +69,10 @@ def test_fused_work_counts_what_the_walk_reads(precision, heads):
     assert work["bytes"] == (n["nodes"] * (4 + tb) + n["leaves"] * C * tb
                              + n["trees"] * 8 + n["x"] * 4 + 3 * B * 4
                              + B * O * C * 4 + B * 4)
-    assert work["chain"] == int(hops.max()) * O * t * (2 * d + 1)
+    # the function's chain is one tree's walk; the serial chain walks the
+    # slowest lane's hops, heads and trees in turn
+    assert work["chain"] == 2 * d + 1
+    assert work["serial_chain"] == int(hops.max()) * O * t * (2 * d + 1)
     # the distinct reads never exceed the tables, however many lane-hops
     assert n["nodes"] * (4 + tb) + n["leaves"] * C * tb <= pack.table_bytes
 

@@ -130,3 +130,92 @@ def test_smem_rejects_the_oversized_forest():
     # int8 does not save this one either: still over
     with pytest.raises(ValueError, match=str(smem_bytes(32, 12, 30, 1))):
         check_smem(smem_bytes(32, 12, 30, 1), H100_SMEM_OPTIN, "int8")
+
+
+# ------------------------------------------------- the spread kernel's plan
+
+# an H100's SM count
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("S,b", [(8, 125), (8, 37), (1, 1000), (8, 8192),
+                                 (3, 1), (5, 1001)])
+@pytest.mark.parametrize("block_b", [32, 128, 1024])
+@pytest.mark.parametrize("n_sm", [H100_SMS, 7])
+def test_lane_plan_serves_every_lane_once(S, b, block_b, n_sm):
+    """Every lane of every shard falls in exactly one block of the grid,
+    ragged b included; a block serves at most block_b lanes on at most
+    1024 threads, a multiple of 32."""
+    from repro_torch.kernels.tree_traverse import block_lanes, lane_plan
+    plan = lane_plan(S, b, 2, 16, block_b, n_sm)
+    seen = np.zeros((S, b), np.int64)
+    for s, lane0, nl in block_lanes(plan, S, b):
+        assert 1 <= nl <= plan["lanes"] <= block_b
+        seen[s, lane0:lane0 + nl] += 1
+    assert (seen == 1).all()
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
+    assert plan["threads"] >= min(1024, plan["lanes"] * 2)
+
+
+@pytest.mark.parametrize("S,b", [(8, 125), (1, 1000)])
+def test_grid_fills_the_sms_at_the_bench_batch(monkeypatch, S, b):
+    """The ring's hop at B = 1000 (8 shards of 125) and one grove of 1000
+    lanes: at least a block per SM of the 132 patched in as the card's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tree_traverse import lane_plan
+    monkeypatch.setattr(_build, "sm_count", lambda device: H100_SMS)
+    plan = lane_plan(S, b, 2, 16, 128,
+                     _build.sm_count(torch.device("cuda")))
+    assert plan["grid"][0] * plan["grid"][1] >= H100_SMS
+    assert plan["lanes"] == 2 and plan["threads"] == 32
+
+
+def test_lane_plan_at_the_ring_batches():
+    """The plan's lane counts at the ring's batches on 132 SMs (2 lanes a
+    block at B = 1000, 32 at 65,536), x staged, the shared memory the
+    leaf rows and x rows take; a named lane count overrides the rule."""
+    from repro_torch.kernels.tree_traverse import lane_plan
+    for b, lanes in ((125, 2), (512, 2), (2048, 8), (8192, 32)):
+        plan = lane_plan(8, b, 2, 16, 128, H100_SMS)
+        assert plan["lanes"] == lanes and plan["stage_x"]
+        assert plan["smem"] == lanes * (2 + 16) * 4
+    plan = lane_plan(8, 125, 2, 16, 128, H100_SMS, lanes=7)
+    assert plan["lanes"] == 7 and plan["grid"] == (18, 8)
+    # mnist's 784 features at 32 lanes: 100 KB of x rows, gathered instead
+    plan = lane_plan(8, 8192, 2, 784, 128, H100_SMS)
+    assert not plan["stage_x"] and plan["smem"] == 32 * 2 * 4
+
+
+def test_named_routes_are_the_declared_ones():
+    """tree_traverse_on_route takes the spread kernel or the first port's
+    kernel by name, and refuses any other name before it reads a tensor."""
+    from repro_torch.kernels.tree_traverse import ROUTES, tree_traverse_on_route
+    assert ROUTES == ("spread", "lane")
+    with pytest.raises(ValueError, match="route must be one of"):
+        tree_traverse_on_route(None, None, None, None, route="smem")
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 8, 10, 16, 125), (8, 2, 8, 10, 16,
+                                                           37),
+                                   (3, 4, 5, 7, 9, 50), (2, 8, 6, 3, 12, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_spread_replay_equals_plain(precision, shape):
+    """The spread kernel's plan and tree-order sums, replayed: one walk
+    per (lane, tree), each output entry summed in tree order, / t, written
+    once -- torch.equal to tree_traverse_ref on stacked shards."""
+    from repro_torch.kernels.tree_traverse import (
+        lane_plan, tree_traverse_spread_replay)
+    S, t, d, C, F, b = shape
+    rng = np.random.default_rng(sum(shape))
+    _, tp = grove_packs(rng, precision, t, d, C, F, G=S)
+    tables = [getattr(tp, f)[0] for f in FIELDS]
+    x = torch.as_tensor(rng.normal(size=(S, b, F)).astype(np.float32))
+    plan = lane_plan(S, b, t, F, 128, H100_SMS)
+    got = tree_traverse_spread_replay(*tables[:3], x, *tables[3:], plan)
+    assert torch.equal(got, ref_traverse(tables, x))
+
+
+def ref_traverse(tables, x):
+    from repro_torch.kernels.ref import tree_traverse_ref
+    return tree_traverse_ref(*tables[:3], x, *tables[3:])
