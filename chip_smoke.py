@@ -4,8 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sweep    # only the fused_fog / tree_traverse
                                      # route, K and lane-count sweep
-                                     # (SWEEP_GRID); every run sweeps
-                                     # BOUNDARY_GRID with the same code
+                                     # (SWEEP_GRID) and grove_aggregate's
+                                     # lanes a block (AGG_SWEEP); every run
+                                     # sweeps BOUNDARY_GRID, and times
+                                     # grove_aggregate, with the same code
+    python3 chip_smoke.py --sweep grove_aggregate   # AGG_SWEEP alone
 
 Drives ``repro_torch``'s inference path at the bench field (penbased, 16
 trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
@@ -21,29 +24,36 @@ serving with the FoG layer-grove exit, and:
    ``flash_attention_kernel_sm90`` and ``ssd_chunk_kernel_sm90`` in the
    library's SASS (``cuobjdump``; each must have some) and checks that
    ptxas reported no spills in ``ssd_chunk_kernel_sm90``,
-   ``fused_fog_group_kernel`` and ``tree_traverse_spread_kernel`` (every
-   instance; their registers printed);
+   ``fused_fog_group_kernel``, ``tree_traverse_spread_kernel`` and
+   ``grove_aggregate_tile_kernel`` (every instance; their registers
+   printed);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
 4. evaluates with the ``fused``, ``pallas`` and ``reference`` backends from
    the same seeded start draws (launch and route counts zeroed just before
    and read just after: one ``fused_fog`` launch per fused eval, each on a
-   group route), checks that they agree with each other and with the plain
+   group route, and 8 ``grove_aggregate`` per per-hop eval, each on the
+   tile route), checks that they agree with each other and with the plain
    path on the CPU, and holds each kernel against its plain version
    (``fused_fog`` on each of its routes, bit for bit, at B = 1000, 65,536
    and 997, one and two heads, the bench threshold and per-lane thresholds
    and budgets)
    (``top2_confidence`` also at the LM gates' shapes and with repeated
-   maxima, bit for bit, on each of its two launches);
+   maxima, bit for bit, on each of its two launches; ``grove_aggregate``
+   on both routes, bit for bit on all four outputs, at a mid-loop state
+   and every ``aggregate_case``, a row-offset view and B = 65,536);
 5. reports accuracy, mean hops and pJ per classification;
 6. times each kernel, its plain version and the end-to-end backends with
    CUDA events (median of 20 warm runs) at B=1000 and B=65,536 --
    ``fused_fog`` beside the first port's kernel (the lane route) on the
-   same inputs -- and works out each kernel's bounds from these inputs
+   same inputs, ``grove_aggregate`` likewise at the per-hop path's live
+   shares (hop 1, hop 2, none live) -- and works out each kernel's bounds
+   from these inputs
    (the bytes the data makes it move, its operations, and for fused_fog
    the latency of the chain the function needs, one tree's walk, and of
-   the serial chain, from a timed pointer chase);
+   the serial chain, from a timed pointer chase; for grove_aggregate an
+   empty kernel's device time and one dependent load);
 7. trains with the device trainer at the gate config (penbased, 4000 rows,
    16 features, depth 8, 16 thresholds, every feature with a linear
    feature cost, seed 0) at 32 trees with the launch counts zeroed just
@@ -63,7 +73,8 @@ serving with the FoG layer-grove exit, and:
 9. runs the grove ring (``FogEngine(backend="ring")``) on the bench field:
    one eval on ``RingMesh(8)`` with ``use_kernels`` with the counts zeroed
    just before and read just after (8 ``tree_traverse`` launches, all on
-   the spread route, and 8 ``grove_aggregate``), then at every precision and
+   the spread route, and 8 ``grove_aggregate``, all on the tile route),
+   then at every precision and
    B=1000 and
    B=65,536 the kernel path on ``RingMesh(8)`` and the gather path on
    ``RingMesh(4)`` and ``RingMesh(1)`` against the ``reference`` backend
@@ -160,6 +171,7 @@ from repro_torch.kernels import (_build, autotune, histogram,  # noqa: E402
                                  ops, ref)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_fog as ff  # noqa: E402
+from repro_torch.kernels import grove_aggregate as ga  # noqa: E402
 from repro_torch.kernels import tree_traverse as tt  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_ref, route as flash_route)
@@ -247,7 +259,10 @@ SSD_RAGGED = (2, 3, 200, 80, 64, 128)
 CALLED_BY = {
     "fused_fog": "FogEngine.eval, backend 'fused' (one launch per eval)",
     "grove_aggregate": "FogEngine.eval, backend 'pallas' (one launch per "
-                       "hop)",
+                       "hop, 8 per eval), and backend 'ring' on RingMesh(8) "
+                       "with use_kernels (one launch per hop over all 8 "
+                       "stacked shards, 8 per eval); each on the tile "
+                       "route",
     "top2_confidence": "engine.confidence_margin(backend='pallas'), the "
                        "margin the LM gate reads; FogEngine.eval never "
                        "launches it (grove_aggregate computes its own "
@@ -267,6 +282,51 @@ CALLED_BY = {
                        "make_prefill_step's prefill (one launch per layer, "
                        "22 per tinyllama-1.1b prefill, each on the "
                        "tensor-core route)"}
+
+# grove_aggregate's checks (here, tests/test_torch_grove_aggregate.py on the
+# CPU and tests/test_torch_cuda.py on the card): batches around a warp and
+# the bench's, class counts from one to the forest path's most, and the
+# kinds of aggregate_case
+AGG_B = (1, 31, 32, 33, 777, 1000)
+AGG_C = (1, 2, 10, 26)
+AGG_KINDS = ("mixed", "dead", "live", "ties", "ulp", "negzero")
+
+
+def aggregate_case(rng, B: int, C: int, kind: str) -> tuple:
+    """One hop update's inputs as numpy arrays (prob [B, C], contrib
+    [B, C], live [B] bool, hops [B] int32, thresh [B] float32): "mixed"
+    has its first warp of lanes dead, its second live and the rest at
+    random; "dead" and "live" every lane so; "ties" repeats each row's
+    first entry (prob and contrib both, so the sums tie; every eighth row
+    all equal); "ulp" makes each row's second entry the float next to its
+    first (the larger first in every other row) over hops of 1-6, so
+    that dividing by max(hops, 1) can round the two maxima together;
+    "negzero" puts -0.0 into dead lanes' prob rows."""
+    prob = rng.random((B, C), dtype=np.float32) * 3
+    contrib = rng.random((B, C), dtype=np.float32)
+    live = rng.random(B) < 0.5
+    hops = rng.integers(0, 5, B, dtype=np.int32)
+    thresh = rng.random(B, dtype=np.float32) * 0.5
+    if kind == "mixed":
+        live[:32], live[32:64] = False, True
+    elif kind in ("dead", "live"):
+        live[:] = kind == "live"
+    elif kind == "ties":
+        prob[:, 1:2] = prob[:, :1]
+        contrib[:, 1:2] = contrib[:, :1]
+        prob[::8], contrib[::8] = 0.5, 0.25
+    elif kind == "ulp":
+        up = np.nextafter(prob[:, 0], np.float32(np.inf))
+        prob[:, 1:2] = up[:, None]
+        prob[::2, :2] = prob[::2, 1::-1][:, :2]
+        contrib[:, 1:2] = contrib[:, :1]
+        prob[:, 2:] *= 0.1
+        hops[:] = rng.integers(1, 7, B, dtype=np.int32)
+    elif kind == "negzero":
+        prob[~live, ::2] = -0.0
+    else:
+        raise ValueError(f"kind must be one of {AGG_KINDS}, got {kind!r}")
+    return prob, contrib, live, hops, thresh
 
 
 def check_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -329,6 +389,40 @@ def device_profile(fn, reps: int = 10) -> tuple[dict, float, dict]:
     return busy, wall, per_launch
 
 
+def eval_profile(fn, swap_aggregate: bool = False) -> dict:
+    """An eval under the profiler: wall and device-busy ms per call, the
+    idle share, the distinct device kernels and the device ms per launch
+    of grove_aggregate's tile kernel in it; with ``swap_aggregate`` the
+    same again with ``ops.grove_aggregate`` on the first kernel (the lane
+    route): the same path in the same process ("was_")."""
+    busy, wall, per = device_profile(fn)
+    out = {"wall_ms": wall, "device_busy_ms": sum(busy.values()),
+           "device_idle_share": 1.0 - sum(busy.values()) / wall,
+           "device_kernels": len(busy),
+           "grove_aggregate_ms": kernel_ms(per, "grove_aggregate_tile")}
+    if swap_aggregate:
+        real = ops.grove_aggregate
+        ops.grove_aggregate = lambda *a, block_b=256: (
+            ga.grove_aggregate_on_route(*a, block_b=block_b, route="lane"))
+        try:
+            busy, wall, per = device_profile(fn)
+        finally:
+            ops.grove_aggregate = real
+        out.update(was_wall_ms=wall, was_device_busy_ms=sum(busy.values()),
+                   was_grove_aggregate_ms=kernel_ms(per, "grove_aggregate"))
+    return out
+
+
+def was_text(prof: dict) -> str:
+    """``eval_profile``'s grove_aggregate figures, for a [time] line."""
+    if "was_device_busy_ms" not in prof:
+        return ""
+    return (f"; grove_aggregate {fmt(prof['grove_aggregate_ms'])} ms a "
+            f"launch, with the first kernel swapped in device busy "
+            f"{prof['was_device_busy_ms']:.4f} ms and "
+            f"{fmt(prof['was_grove_aggregate_ms'])} a launch")
+
+
 def kernel_ms(per_launch: dict, kernel: str) -> float | None:
     """Device ms of one call of the CUDA kernel named ``<kernel>_kernel``
     (the sum over its template instances), from ``device_profile``'s ms per
@@ -344,6 +438,22 @@ def profiled_ms(fn, kernel: str, tries: int = 3) -> float | None:
     got = [kernel_ms(device_profile(fn)[2], kernel) for _ in range(tries)]
     got = [v for v in got if v is not None]
     return statistics.median(got) if got else None
+
+
+def recorded_profile(fn, kernel: str, tries: int = 5
+                     ) -> list[tuple[dict, float, dict]]:
+    """``device_profile`` of ``fn`` repeated until one profile recorded a
+    device kernel whose name holds ``kernel`` (any kernel for ``""``), at
+    most ``tries`` times: CUPTI may return no record of a short kernel in a
+    profile.  Returns every profile taken, the recording one last; raises
+    if none recorded it."""
+    taken = []
+    for _ in range(tries):
+        taken.append(device_profile(fn))
+        if any(kernel in k for k in taken[-1][0]):
+            return taken
+    raise AssertionError(f"{tries} profiles recorded no device kernel "
+                         f"named like {kernel!r}")
 
 
 def fmt(ms: float | None) -> str:
@@ -802,9 +912,10 @@ def ring_phase(dev: torch.device, ds, packs: dict, gen) -> dict:
     engines["fp32", G].eval(xs[B], start=starts[B], policy=policy)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
-    routes = {k: _build.routes[k] for k in TRAVERSE_ROUTES}
+    routes = {k: _build.routes[k] for k in TRAVERSE_ROUTES + AGG_ROUTES}
     print(f"[ring] one eval on RingMesh({G}) with use_kernels, B={B}: "
-          f"kernel launches {launches}; tree_traverse by route {routes}")
+          f"kernel launches {launches}; tree_traverse and grove_aggregate "
+          f"by route {routes}")
     for k in ("tree_traverse", "grove_aggregate"):
         if launches[k] != MAX_HOPS:
             raise AssertionError(f"{k} launched {launches[k]} times in a "
@@ -812,6 +923,9 @@ def ring_phase(dev: torch.device, ds, packs: dict, gen) -> dict:
     if routes["tree_traverse_spread"] != MAX_HOPS or routes["tree_traverse"]:
         raise AssertionError(f"want every tree_traverse launch of the ring "
                              f"eval on the spread route: {routes}")
+    if routes["grove_aggregate_tile"] != MAX_HOPS or routes["grove_aggregate"]:
+        raise AssertionError(f"want every grove_aggregate launch of the ring "
+                             f"eval on the tile route: {routes}")
 
     # every mesh against the reference backend, and the card against the CPU
     results, max_err = {}, 0.0
@@ -942,6 +1056,122 @@ def ring_latency_bounds(dev: torch.device, timing: dict) -> None:
         row["tree_traverse_latency_ns"] = {"grove": grove_ns, "x": x_ns}
         row["tree_traverse_latency_bound_ms"] = tree_ms
         row["tree_traverse_serial_chain_ms"] = w["trees"] * tree_ms
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bit patterns (so -0.0 != +0.0), others as is."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def aggregate_equal(what: str, got: tuple, want: tuple) -> None:
+    """grove_aggregate's four outputs bit for bit."""
+    for name, g, w in zip(("prob", "hops", "live", "margin"), got, want):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{what} {name}: {g.dtype} != {w.dtype}")
+        check_equal(f"{what} {name}", bits(g), bits(w))
+
+
+def aggregate_checks(dev: torch.device) -> int:
+    """grove_aggregate on both routes against its plain version, bit for
+    bit on all four outputs: every ``aggregate_case`` kind at every
+    ``AGG_B`` x ``AGG_C``, scalar and per-lane thresholds; row-offset views
+    (off a 16-byte boundary) with NaN in dead lanes' contrib; B = 65,536.
+    Returns the number of cases."""
+    cases = []
+    for B in AGG_B:
+        for C in AGG_C:
+            for kind in AGG_KINDS:
+                case = aggregate_case(np.random.default_rng(B + C), B, C,
+                                      kind)
+                args = [torch.as_tensor(a, device=dev) for a in case]
+                cases.append((f"B={B} C={C} {kind}", (*args[:4], 0.2)))
+                cases.append((f"B={B} C={C} {kind} per lane", tuple(args)))
+    args = [torch.as_tensor(a, device=dev) for a in aggregate_case(
+        np.random.default_rng(1), 1001, 10, "mixed")]
+    args[1][~args[2]] = float("nan")
+    cases.append(("row-offset view, NaN dead contrib",
+                  tuple(a[1:] for a in args)))
+    args = [torch.as_tensor(a, device=dev) for a in aggregate_case(
+        np.random.default_rng(2), BIG_B, 10, "mixed")]
+    cases.append((f"B={BIG_B}", tuple(args)))
+    for what, args in cases:
+        want = ref.grove_aggregate_ref(*args)
+        for route in ga.ROUTES:
+            aggregate_equal(f"grove_aggregate {route} {what}",
+                            ga.grove_aggregate_on_route(*args, route=route),
+                            want)
+    return len(cases)
+
+
+def aggregate_shares(pack: ForestPack, x: torch.Tensor,
+                     start: torch.Tensor) -> dict:
+    """The per-hop path's grove_aggregate inputs at the bench threshold, by
+    live share: "all live" (hop 1: every lane live, the state zero), "hop
+    2" (the state and lanes the plain loop leaves after hop 1, the second
+    grove's contributions) and "none live" (the same with every lane
+    dead)."""
+    G = pack.n_groves
+    thr = torch.full((x.shape[0],), THRESH, device=x.device)
+    prob = torch.zeros((x.shape[0], pack.n_classes), device=x.device)
+    live = torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+    hops = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+    first = (prob, pack.predict_proba(0, start.long() % G, x), live, hops,
+             thr)
+    prob, hops, live, _ = ref.grove_aggregate_ref(*first)
+    second = pack.predict_proba(0, (start.long() + 1) % G, x)
+    return {"all live": first, "hop 2": (prob, second, live, hops, thr),
+            "none live": (prob, second, torch.zeros_like(live), hops, thr)}
+
+
+def aggregate_work(args: tuple) -> dict:
+    """The work of one hop update on ``args``: ``bytes`` prob read and
+    written, contrib read for live lanes only, live, hops and thresh read
+    and hops, live and margin written; ``ops`` an add per live entry and
+    per entry a divide, two compares and the margin's share; ``working_set``
+    the inputs' bytes, over which one dependent load is priced."""
+    prob, _, live = args[:3]
+    B, C = prob.shape
+    n_live = int(live.sum())
+    return {"live_lanes": n_live,
+            "bytes": B * (2 * C * 4 + 2 * 1 + 4 * 4) + n_live * C * 4,
+            "ops": B * 5 * C + n_live * C,
+            "working_set": B * (2 * C * 4 + 1 + 4 + 4)}
+
+
+def empty_launch(dev: torch.device):
+    """A function that launches ``fog_empty`` once (not counted)."""
+    lib = _build.library()
+
+    def launch() -> None:
+        rc = lib.fog_empty(torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fog_empty launch failed: CUDA error {rc}")
+    return launch
+
+
+def aggregate_sweep(inputs: dict, lanes: tuple) -> list:
+    """Device ms per launch (``profiled_ms``) of grove_aggregate's tile
+    kernel at each of ``lanes`` a block (``None``: the plan's) and of the
+    first kernel (the lane route, 256 lanes a block, as the engine runs
+    it) on every ``(B, share) -> args`` of ``inputs``, each output checked
+    bit for bit against the plain version.  Profiles, so no event timing
+    may follow it."""
+    rows = []
+    for (nb, share), args in inputs.items():
+        want = ref.grove_aggregate_ref(*args)
+        for route, n in [("tile", n) for n in lanes] + [("lane", None)]:
+            fn = lambda a=args, r=route, n=n: ga.grove_aggregate_on_route(
+                *a, route=r, lanes=n, block_b=1024 if n else 256)
+            aggregate_equal(f"sweep grove_aggregate {route} lanes={n} "
+                            f"B={nb} {share}", fn(), want)
+            ms = profiled_ms(fn, "grove_aggregate_tile" if route == "tile"
+                             else "grove_aggregate")
+            rows.append({"kernel": "grove_aggregate", "B": nb,
+                         "share": share, "route": route, "lanes": n,
+                         "device_ms": ms})
+            print(f"[sweep] grove_aggregate B={nb} {share} {route} "
+                  f"lanes={n}: {fmt(ms)} ms on the device")
+    return rows
 
 
 def bf16_ulp(scale: float) -> float:
@@ -1205,10 +1435,11 @@ def ptxas_registers(log: str, kernel: str) -> dict:
 
 def instance(mangled: str) -> str:
     """A readable name for an instance of the group or spread kernel:
-    ``<table type[, smem|l1, accumulators]>``."""
+    ``<table type[, smem|l1, accumulators]>``; ``<>`` for a kernel that is
+    no template."""
     m = re.search(r"fog\d(Tab\w+?)E(?:Lb([01])ELi(\d+)E)?", mangled)
     if not m:
-        return mangled
+        return "<>"
     parts = [m.group(1)[3:]]
     if m.group(2):
         parts += ["smem" if m.group(2) == "1" else "l1", m.group(3)]
@@ -1218,13 +1449,17 @@ def instance(mangled: str) -> str:
 # the kernels this slice redesigned: each instance must build without
 # spills; their device names in the profiler, and the first port's
 NEW_KERNELS = {"fused_fog": "fused_fog_group_kernel",
-               "tree_traverse": "tree_traverse_spread_kernel"}
+               "tree_traverse": "tree_traverse_spread_kernel",
+               "grove_aggregate": "grove_aggregate_tile_kernel"}
 FUSED_ROUTES = ("fused_fog", "fused_fog_smem", "fused_fog_l1")
 # the profiler's kernel name (``<name>_kernel``) of each timed call
 DEVICE_NAME = {"fused_fog": "fused_fog_group", "fused_fog_was": "fused_fog",
                "tree_traverse": "tree_traverse_spread",
-               "tree_traverse_was": "tree_traverse"}
+               "tree_traverse_was": "tree_traverse",
+               "grove_aggregate": "grove_aggregate_tile",
+               "grove_aggregate_was": "grove_aggregate"}
 TRAVERSE_ROUTES = ("tree_traverse", "tree_traverse_spread")
+AGG_ROUTES = ("grove_aggregate", "grove_aggregate_tile")
 
 
 def ssd_route(args) -> str:
@@ -1794,7 +2029,7 @@ def lm_profile(lm: dict) -> None:
     t["top2_confidence_device_ms"] = kernel_ms(
         device_profile(fns["top2_confidence"])[2], "top2_confidence")
     if "sdpa" in fns:
-        per_launch = device_profile(fns["sdpa"])[2]
+        per_launch = recorded_profile(fns["sdpa"], "")[-1][2]
         main = max(per_launch, key=per_launch.get)
         t["flash_attention_library_device_ms"] = sum(per_launch.values())
         t["flash_attention_library_kernels"] = per_launch
@@ -1845,10 +2080,13 @@ def lm_profile(lm: dict) -> None:
               f"device kernels")
 
 
-# ``--sweep``: the grid the rules in kernels/fused_fog.py and
-# kernels/tree_traverse.py were chosen from -- the serving batch, two
-# between, the big one; fused_fog's route x K (None: the rule's) x block_b;
-# tree_traverse's route x lanes a block (None: the plan's)
+# ``--sweep``: the grid the rules in kernels/fused_fog.py,
+# kernels/tree_traverse.py and kernels/grove_aggregate.py were chosen from
+# -- the serving batch, two between, the big one; fused_fog's route x K
+# (None: the rule's) x block_b; tree_traverse's route x lanes a block
+# (None: the plan's); grove_aggregate's tile kernel at lanes a block
+# (beside the first kernel) at its batches, each at the per-hop path's
+# live shares.  ``--sweep grove_aggregate`` sweeps that kernel alone.
 SWEEP_GRID = {
     "B": (1000, 4096, 16_384, BIG_B),
     "fused_fog": [("lane", None, 128)] + [
@@ -1856,6 +2094,7 @@ SWEEP_GRID = {
         for bb in (128, 256, 1024)],
     "tree_traverse": [("lane", None)] + [
         ("spread", n) for n in (2, 3, 4, 7, 8, 16, 32, 128)]}
+AGG_SWEEP = {"B": (1000, 16_384, BIG_B), "lanes": (32, 64, 128, 256)}
 # every run: fused_fog's "smem" against "l1" at the rule's K and the
 # engine's block, where fused_fog.route's copy-bytes line falls (the copies
 # move 3.9 / 6.8 / 12.6 MB at B = 128, 7.7 / 13.3 / 24.6 MB at 1000 and
@@ -1970,9 +2209,21 @@ def main() -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip())
         _build.build()
-        ds, _, packs = bench_field(dev)
-        rows = sweep_phase(dev, packs, torch.as_tensor(ds.x_test, device=dev),
-                           SWEEP_GRID)
+        ds, gc, packs = bench_field(dev)
+        x = torch.as_tensor(ds.x_test, device=dev)
+        rows = ([] if "grove_aggregate" in sys.argv[2:] else
+                sweep_phase(dev, packs, x, SWEEP_GRID))
+        gen = torch.Generator(device=dev)
+        inputs = {}
+        for nb in AGG_SWEEP["B"]:
+            xb = x.repeat(-(-nb // x.shape[0]), 1)[:nb].contiguous()
+            sb = sample_starts(gen.manual_seed(SEED), nb, gc.n_groves)
+            for share, a in aggregate_shares(packs["fp32"], xb, sb).items():
+                inputs[nb, share] = a
+        rows += aggregate_sweep(inputs, AGG_SWEEP["lanes"])
+        empty_ms = profiled_ms(empty_launch(dev), "empty")
+        rows.append({"kernel": "empty", "device_ms": empty_ms})
+        print(f"[sweep] an empty kernel: {fmt(empty_ms)} ms on the device")
         (ROOT / "build").mkdir(exist_ok=True)
         (ROOT / "build" / "chip_sweep.json").write_text(
             json.dumps({"rows": rows}, indent=1))
@@ -2078,7 +2329,16 @@ def main() -> int:
             raise AssertionError(f"kernel {k} was not launched on the main "
                                  "path")
     fused_routes = {k: _build.routes[k] for k in FUSED_ROUTES}
-    print(f"[eval] fused_fog by route: {fused_routes}")
+    agg_routes = {k: _build.routes[k] for k in AGG_ROUTES}
+    print(f"[eval] fused_fog by route: {fused_routes}; grove_aggregate by "
+          f"route: {agg_routes}")
+    if (agg_routes["grove_aggregate"]
+            or agg_routes["grove_aggregate_tile"] != len(PRECISIONS) * MAX_HOPS
+            or main_launches["grove_aggregate"] != len(PRECISIONS) * MAX_HOPS):
+        raise AssertionError(
+            f"want {MAX_HOPS} grove_aggregate launches per per-hop eval, each "
+            f"on the tile route: {main_launches['grove_aggregate']} "
+            f"launches, {agg_routes}")
     if (main_launches["fused_fog"] != len(PRECISIONS)
             or fused_routes["fused_fog"]
             or sum(fused_routes.values()) != len(PRECISIONS)):
@@ -2136,7 +2396,8 @@ def main() -> int:
         ("int8 two heads", ForestPack.from_groves(two, "int8").to(dev)),
         ("fp32 two heads", ForestPack.from_groves(two, "fp32").to(dev))]
     out["fused_fog_checks"] = fused_checks(dev, cases, x, gen)
-    # grove_aggregate at a mid-loop state: two plain hops, some lanes dead
+    # grove_aggregate at a mid-loop state (two plain hops, some lanes dead)
+    # on both routes, then every case of aggregate_checks
     pack = packs["fp32"]
     prob = torch.zeros((B, ds.n_classes), device=dev)
     live = torch.ones((B,), dtype=torch.bool, device=dev)
@@ -2145,12 +2406,19 @@ def main() -> int:
         contrib = pack.predict_proba(0, (start.long() + j) % gc.n_groves, x)
         args = (prob, contrib, live, hops, lane_thr)
         if j == 2:
-            got = ops.grove_aggregate(*args)
             want = ref.grove_aggregate_ref(*args)
-            for name_, g_, w_ in zip(("prob", "hops", "live", "margin"),
-                                     got, want):
-                check_equal(f"grove_aggregate {name_}", g_, w_)
+            for route in ga.ROUTES:
+                aggregate_equal(f"grove_aggregate {route} mid-loop",
+                                ga.grove_aggregate_on_route(*args,
+                                                            route=route),
+                                want)
         prob, hops, live, _ = ref.grove_aggregate_ref(*args)
+    out["grove_aggregate_cases"] = aggregate_checks(dev)
+    print(f"[kernels] grove_aggregate == its plain version bit for bit (all "
+          f"four outputs) on both routes {ga.ROUTES}: a mid-loop state and "
+          f"{out['grove_aggregate_cases']} cases (B {AGG_B}, C {AGG_C}, "
+          f"kinds {AGG_KINDS}, scalar and per-lane thresholds; a row-offset "
+          f"view with NaN dead contrib; B={BIG_B})")
     # top2 with ties at the max and below it
     ties = reports["fp32", "fused"].proba.clone()
     ties[:64, 3] = ties[:64, 7] = 2.0
@@ -2166,7 +2434,7 @@ def main() -> int:
     # 6. time: CUDA events first, then the profiler (once CUPTI has traced
     # the process, every launch costs the host more, so no event timing
     # may follow a profile) -----------------------------------------------
-    timing, kernel_fns, eval_fns = {}, {}, {}
+    timing, kernel_fns, eval_fns, agg_inputs = {}, {}, {}, {}
     C = ds.n_classes
     latency_ns = {p: load_latency_ns(dev, TABLE_BYTES[p]) for p in PRECISIONS}
     print("[time] dependent-load latency (fog_chase over a working set of "
@@ -2234,34 +2502,43 @@ def main() -> int:
                         f"{row['fused_launches_per_eval']} by route "
                         f"{row['fused_routes_per_eval']}, want one fused_fog "
                         f"launch on {route}")
+                if b == "pallas" and row["pallas_routes_per_eval"] != {
+                        "grove_aggregate_tile": MAX_HOPS}:
+                    raise AssertionError(
+                        f"B={nb} {p}: a per-hop eval launched by route "
+                        f"{row['pallas_routes_per_eval']}, want {MAX_HOPS} "
+                        f"on grove_aggregate_tile")
                 row[f"eval_{b}_ms"] = cuda_ms(ev)
                 row[f"eval_{b}_classifications_per_s"] = (
                     nb / row[f"eval_{b}_ms"] * 1e3)
                 eval_fns[nb, p, b] = ev
             timing[nb, p] = row
-        # the per-hop kernels at [nb, C]
-        prob = torch.rand((nb, C), device=dev)
-        contrib = torch.rand((nb, C), device=dev)
-        live = torch.rand((nb,), device=dev) < 0.5
-        hops = torch.randint(0, 4, (nb,), dtype=torch.int32, device=dev)
-        agg = (prob, contrib, live, hops, thr_b)
+        # grove_aggregate at the per-hop path's live shares (the eval's own
+        # start draws), the tile kernel beside the first kernel; one
+        # dependent load priced over the inputs' bytes
         row = timing[nb, "fp32"]
-        kernel_fns[nb, "fp32", "grove_aggregate"] = (
-            lambda a=agg: ops.grove_aggregate(*a))
+        shares = aggregate_shares(packs["fp32"], xb, sb)
+        chase_ns = load_latency_ns(dev, aggregate_work(
+            shares["all live"])["working_set"])
+        row["grove_aggregate_shares"] = {}
+        for share, a in shares.items():
+            agg_inputs[nb, share] = a
+            work = aggregate_work(a)
+            r = {"live_lanes": work["live_lanes"], "chase_ns": chase_ns,
+                 "ms": cuda_ms(lambda a=a: ops.grove_aggregate(*a)),
+                 "was_ms": cuda_ms(lambda a=a: ga.grove_aggregate_on_route(
+                     *a, route="lane")),
+                 "plain_ms": cuda_ms(
+                     lambda a=a: ref.grove_aggregate_ref(*a))}
+            r["bound_ms"], r["bound_by"] = bound_ms(work["bytes"],
+                                                    work["ops"])
+            row["grove_aggregate_shares"][share] = r
+        # the per-hop kernels' row: the share of the path's hops 2-8
+        row.update({f"grove_aggregate_{k}": v for k, v in
+                    row["grove_aggregate_shares"]["hop 2"].items()})
+        prob = torch.rand((nb, C), device=dev)
         kernel_fns[nb, "fp32", "top2_confidence"] = (
             lambda q=prob: ops.top2_confidence(q))
-        row["grove_aggregate_ms"] = cuda_ms(
-            kernel_fns[nb, "fp32", "grove_aggregate"])
-        row["grove_aggregate_plain_ms"] = cuda_ms(
-            lambda a=agg: ref.grove_aggregate_ref(*a))
-        # the kernel reads contrib only for live lanes, and adds it only
-        # there; every lane reads prob, live, hops and thresh and writes
-        # prob, hops, live and margin
-        n_live = int(live.sum())
-        row["grove_aggregate_live_lanes"] = n_live
-        row["grove_aggregate_bound_ms"], row["grove_aggregate_bound_by"] = (
-            bound_ms(nb * (2 * C * 4 + 2 * 1 + 4 * 4) + n_live * C * 4,
-                     nb * 5 * C + n_live * C))
         row["top2_confidence_ms"] = cuda_ms(
             kernel_fns[nb, "fp32", "top2_confidence"])
         row["top2_confidence_plain_ms"] = cuda_ms(
@@ -2297,15 +2574,19 @@ def main() -> int:
     lm_profile(attn)
     out["lm"], out["attn_lm"] = lm, attn
     for lv, fn in train["level_fns"].items():
-        busy, _, per_launch = device_profile(fn)
+        taken = recorded_profile(fn, "histogram_kernel")
+        busy, _, per_launch = taken[-1]
         row = train["levels"][lv]
         row["device_ms"] = kernel_ms(per_launch, "histogram")
         row["call_device_ms"] = sum(busy.values())
         row["device_kernels"] = sorted(busy)
-        # one launch per call: the kernel writes every cell, no fill runs
-        if len(busy) != 1 or "histogram_kernel" not in next(iter(busy)):
-            raise AssertionError(f"histogram level {lv}: device kernels "
-                                 f"{sorted(busy)}, want the kernel alone")
+        row["profiles_taken"] = len(taken)
+        # one launch per call: the kernel writes every cell, no fill runs;
+        # a profile that recorded nothing shows no other kernel either
+        for b, _, _ in taken:
+            if b and (len(b) != 1 or "histogram_kernel" not in next(iter(b))):
+                raise AssertionError(f"histogram level {lv}: device kernels "
+                                     f"{sorted(b)}, want the kernel alone")
     busy, wall, _ = device_profile(train["gate_fit"], reps=3)
     out["train"]["gate_fit_profile"] = {
         "wall_ms": wall, "device_busy_ms": sum(busy.values()),
@@ -2338,12 +2619,24 @@ def main() -> int:
     for (nb, p, k), fn in kernel_fns.items():
         timing[nb, p][f"{k}_device_ms"] = profiled_ms(fn,
                                                       DEVICE_NAME.get(k, k))
+    for r in aggregate_sweep(agg_inputs, (None,)):
+        timing[r["B"], "fp32"]["grove_aggregate_shares"][r["share"]][
+            "device_ms" if r["route"] == "tile" else "was_device_ms"] = (
+                r["device_ms"])
+    empty_ms = profiled_ms(empty_launch(dev), "empty")
+    out["empty_kernel_device_ms"] = empty_ms
+    print(f"[time] an empty kernel (fog_empty, 1 block of 32 threads): "
+          f"{fmt(empty_ms)} ms on the device")
+    for nb in (B, BIG_B):
+        row = timing[nb, "fp32"]
+        for r in row["grove_aggregate_shares"].values():
+            r["floor_ms"] = empty_ms
+            r["latency_bound_ms"] = (None if empty_ms is None else
+                                     empty_ms + r["chase_ns"] * 1e-6)
+        row.update({f"grove_aggregate_{k}": v for k, v in
+                    row["grove_aggregate_shares"]["hop 2"].items()})
     for (nb, p, b), fn in eval_fns.items():
-        busy, wall, _ = device_profile(fn)
-        timing[nb, p][f"eval_{b}_profile"] = {
-            "wall_ms": wall, "device_busy_ms": sum(busy.values()),
-            "device_idle_share": 1.0 - sum(busy.values()) / wall,
-            "device_kernels": len(busy)}
+        timing[nb, p][f"eval_{b}_profile"] = eval_profile(fn, b == "pallas")
     for (nb, p), row in timing.items():
         print(f"[time] B={nb} {p}: fused_fog on {row['fused_fog_route']} "
               f"{row['fused_fog_ms']:.4f} ms per call, "
@@ -2369,26 +2662,32 @@ def main() -> int:
                   f"{row[f'{b}_routes_per_eval']}; under the profiler wall "
                   f"{prof['wall_ms']:.3f} ms, device busy "
                   f"{prof['device_busy_ms']:.4f} ms, idle "
-                  f"{prof['device_idle_share']:.3f}")
+                  f"{prof['device_idle_share']:.3f}{was_text(prof)}")
         if p == "fp32":
-            for k in ("grove_aggregate", "top2_confidence"):
-                print(f"[time] B={nb} [B,{C}]: {k} {row[f'{k}_ms']:.4f} ms "
-                      f"per call, {fmt(row[f'{k}_device_ms'])} ms on the "
-                      f"device (bound {row[f'{k}_bound_ms']:.5f} ms), plain "
-                      f"{row[f'{k}_plain_ms']:.4f} ms"
-                      + (f", torch.topk {row[f'{k}_library_ms']:.4f} ms"
-                         if f"{k}_library_ms" in row else ""))
+            for share, r in row["grove_aggregate_shares"].items():
+                print(f"[time] B={nb} [B,{C}] {share} ({r['live_lanes']} "
+                      f"live): grove_aggregate {r['ms']:.4f} ms per call, "
+                      f"{fmt(r['device_ms'])} ms on the device (was "
+                      f"{r['was_ms']:.4f} / {fmt(r['was_device_ms'])}: the "
+                      f"first kernel on the same inputs; bound "
+                      f"{r['bound_ms']:.6f} ms by {r['bound_by']}; latency "
+                      f"bound {fmt(r['latency_bound_ms'])} ms: the empty "
+                      f"kernel {fmt(r['floor_ms'])} + one load at "
+                      f"{r['chase_ns']:.1f} ns), plain {r['plain_ms']:.4f} ms")
+            k = "top2_confidence"
+            print(f"[time] B={nb} [B,{C}]: {k} {row[f'{k}_ms']:.4f} ms "
+                  f"per call, {fmt(row[f'{k}_device_ms'])} ms on the "
+                  f"device (bound {row[f'{k}_bound_ms']:.5f} ms), plain "
+                  f"{row[f'{k}_plain_ms']:.4f} ms, torch.topk "
+                  f"{row[f'{k}_library_ms']:.4f} ms")
     out["timing"] = {f"B={nb} {p}": row for (nb, p), row in timing.items()}
 
     for (nb, p, k), fn in ring["kernel_fns"].items():
         ring["timing"][nb, p][f"{k}_device_ms"] = profiled_ms(fn,
                                                               DEVICE_NAME[k])
     for (nb, p, n), fn in ring["eval_fns"].items():
-        busy, wall, _ = device_profile(fn)
-        ring["timing"][nb, p][f"eval_ring{n}_profile"] = {
-            "wall_ms": wall, "device_busy_ms": sum(busy.values()),
-            "device_idle_share": 1.0 - sum(busy.values()) / wall,
-            "device_kernels": len(busy)}
+        ring["timing"][nb, p][f"eval_ring{n}_profile"] = eval_profile(
+            fn, n == RING_MESHES[0])
     for (nb, p), row in ring["timing"].items():
         print(f"[time] B={nb} {p}: tree_traverse [8, {nb // 8}] on "
               f"{row['tree_traverse_route']} {row['tree_traverse_ms']:.4f} ms "
@@ -2408,7 +2707,8 @@ def main() -> int:
             f"profiler wall {row[f'eval_ring{n}_profile']['wall_ms']:.3f} ms,"
             f" device busy "
             f"{row[f'eval_ring{n}_profile']['device_busy_ms']:.4f} ms, idle "
-            f"{row[f'eval_ring{n}_profile']['device_idle_share']:.3f})"
+            f"{row[f'eval_ring{n}_profile']['device_idle_share']:.3f}"
+            f"{was_text(row[f'eval_ring{n}_profile'])})"
             for n in RING_MESHES) + f"; fused {fused:.3f} ms")
         row["eval_fused_ms"] = fused
     out["ring"] = {
@@ -2453,6 +2753,15 @@ def main() -> int:
         design="the group kernel (fused_fog_group_kernel)",
         serial_chain_ms=row["fused_fog_serial_chain_ms"],
         by_batch=redesign_rows(timing, "fused_fog"))
+    agg = kernels[INFERENCE_KERNELS.index("grove_aggregate")]
+    agg.update(
+        routes=agg_routes, shape=f"B={B} fp32 [B, {C}], the per-hop "
+        f"path's hop-2 state", design="the tile kernel "
+        "(grove_aggregate_tile_kernel)", floor_ms=empty_ms,
+        was_device_ms=row["grove_aggregate_was_device_ms"],
+        by_share={f"B={nb} {share}": r for nb in (B, BIG_B)
+                  for share, r in timing[nb, "fp32"][
+                      "grove_aggregate_shares"].items()})
     top2 = kernels[INFERENCE_KERNELS.index("top2_confidence")]
     top2["lm_gates"] = [{
         "arch": r["arch"], "launches": r["launches"]["top2_confidence"],

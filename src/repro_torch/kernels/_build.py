@@ -54,15 +54,18 @@ launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
 # and "ssd_chunk_sm90" on the tensor cores; "fused_fog" and
 # "tree_traverse" one thread per lane, "fused_fog_smem" and "fused_fog_l1"
 # the group kernel with the field in shared memory or read through L1,
-# "tree_traverse_spread" the spread kernel)
+# "tree_traverse_spread" the spread kernel; "grove_aggregate" one thread
+# per lane, "grove_aggregate_tile" the warp-tile kernel)
 routes = {"flash_attention": 0, "flash_attention_sm90": 0, "ssd_chunk": 0,
           "ssd_chunk_sm90": 0, "fused_fog": 0, "fused_fog_smem": 0,
-          "fused_fog_l1": 0, "tree_traverse": 0, "tree_traverse_spread": 0}
+          "fused_fog_l1": 0, "tree_traverse": 0, "tree_traverse_spread": 0,
+          "grove_aggregate": 0, "grove_aggregate_tile": 0}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fog_top2_confidence": (P, P, P, I, I, I, I, P),
     "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
+    "fog_grove_aggregate_tile": (*[P] * 9, I, I, I, I, I, P),
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,
                       I, I, I, I, I, I, I, I, I, P),
     "fog_histogram": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
@@ -79,6 +82,9 @@ _SIGNATURES = {
     "fog_smem_optin": (I, P),
     # a latency probe, not an inference kernel: never counted in launches
     "fog_chase": (P, I, P, P),
+    # a kernel that does nothing (the device time of a launch): never
+    # counted in launches
+    "fog_empty": (P,),
     # one wgmma tile product of each form flash_attention_sm90 issues, and
     # of the forms ssd_chunk_sm90 adds, for the tests: never counted in
     # launches

@@ -8,7 +8,12 @@
 //   fog_top2_confidence   replaces repro/kernels/top2_confidence.py::_top2_kernel
 //                         (one thread per short row, or blocks that share
 //                         a long row and a merge pass)
-//   fog_grove_aggregate   replaces repro/kernels/grove_aggregate.py::_aggregate_kernel
+//   fog_grove_aggregate_tile  replace repro/kernels/grove_aggregate.py::_aggregate_kernel
+//   fog_grove_aggregate   (the tile kernel: warp tiles read and written
+//                         coalesced, rows walked in shared memory; the
+//                         first port's kernel, one thread per lane reading
+//                         its row in place, for C above the tile's limit
+//                         and as the comparison)
 //   fog_fused_fog_smem    replace repro/kernels/fused_fog.py::_fused_fog_kernel
 //   fog_fused_fog_l1      (the group kernel: a group of threads per lane,
 //                         lane state in registers; tables staged in shared
@@ -18,7 +23,8 @@
 //                         take and the comparison
 //
 // plus fog_chase, a one-thread pointer chase that only measures the
-// latency of a dependent load (it is not on the inference path).
+// latency of a dependent load, and fog_empty, a kernel that does nothing
+// (the device time of a launch); neither is on the inference path.
 //
 // Exact arithmetic: the results must equal the plain PyTorch versions bit
 // for bit, so every float operation on the path is an explicitly rounded
@@ -27,10 +33,19 @@
 // normalisations divide by max(hops, 1): no reciprocal multiplies.
 //
 // Design:
-//   * top2/aggregate: one thread per row/lane, block_b threads per block,
-//     except the top-2 of long rows (below), where blocks share a row;
-//     they read each [B, C] row once and are bound by those bytes (C <= 26
-//     floats per row on the forest's path);
+//   * top2: one thread per row, block_b threads per block, except for
+//     long rows (below), where blocks share a row;
+//   * aggregate: not bound by bytes.  At the forest's [B, C <= 26] a call
+//     moves 0.1-9 MB (0.00003-0.003 ms at the H100's memory rate), and
+//     what sets its time is the launch (an empty kernel ~0.0009 ms) and
+//     each lane's chain of dependent steps.  The first kernel (the lane
+//     route) loads a row's C entries one after another, 4C bytes apart
+//     across a warp, and divides all C: 0.0055-0.0066 ms up to B = 16k,
+//     0.012 at 65,536 (PERF.md, row 2).  The tile kernel spreads the lanes
+//     over tens of blocks (grove_aggregate.py::plan), reads a warp's rows
+//     as one contiguous run, walks each row in shared memory and divides
+//     two entries: 0.0025-0.0029 up to 16k, 0.0032-0.0034 at 65,536 (1.2-
+//     1.7x the bytes bound);
 //   * fused_fog (the group kernel below): what bounds it on this card is
 //     the chain a lane needs -- one tree's walk, 2d + 1 dependent loads, then
 //     the gate's in-order arithmetic hop by hop -- not bytes (the bench
@@ -180,6 +195,11 @@ __global__ void top2_confidence_kernel_merge(
 // ------------------------------------------------------- one hop update
 // prob += contrib * live; hops += live; margin = MaxDiff(prob / max(hops,1));
 // live &= margin < thresh.
+//
+// The first port's kernel, the lane route: one thread per lane, block_b
+// lanes a block, each thread reading its row in place (a warp's loads of
+// one column lie 4C bytes apart) and reading back the row it wrote for
+// the second maximum.
 __global__ void grove_aggregate_kernel(
     const float* __restrict__ prob, const float* __restrict__ contrib,
     const uint8_t* __restrict__ live, const int* __restrict__ hops,
@@ -213,6 +233,118 @@ __global__ void grove_aggregate_kernel(
   live_out[b] = (lv && margin < thresh[b]) ? 1 : 0;
   margin_out[b] = margin;
 }
+
+// The tile route (kernels/grove_aggregate.py::plan): blockDim.x lanes a
+// block, each warp its own 32 lanes, no block-wide barrier.  A warp's rows
+// of prob and contrib are one contiguous run of 32 x C floats, read as such
+// (16-byte vectors when `vec` -- the three [B, C] pointers 16-byte aligned
+// -- and the warp full; scalar otherwise: a ragged last warp, a row-offset
+// view); contrib is loaded only for the elements (vectors) of live lanes,
+// so a warp whose lanes are all dead loads none.  The sums go to prob_out
+// from the same registers and into the warp's tile [32, S] in shared
+// memory, S = C | 1 (odd, so the row walk below touches 32 banks).  Then
+// each thread walks its own row in the tile for its top two and divides
+// those two by max(hops, 1) (below: the same margin as C divisions), and
+// writes its lane's hops, live and margin.  A dead lane's row is still
+// p + 0.0f (the plain version adds a zero: -0.0 becomes +0.0) and its
+// margin still computed (the two-head path reads it).
+__global__ void __launch_bounds__(1024) grove_aggregate_tile_kernel(
+    const float* __restrict__ prob, const float* __restrict__ contrib,
+    const uint8_t* __restrict__ live, const int* __restrict__ hops,
+    const float* __restrict__ thresh, float* __restrict__ prob_out,
+    int* __restrict__ hops_out, uint8_t* __restrict__ live_out,
+    float* __restrict__ margin_out, int B, int C, int vec) {
+  extern __shared__ float agg_tile[];
+  const int lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  if (b0 >= B) return;  // the whole warp
+  const int S = C | 1;
+  float* tile = agg_tile + (size_t)(threadIdx.x >> 5) * 32 * S;
+  const int n = min(32, B - b0);  // lanes of this warp
+  const int b = b0 + lane;
+  const bool in = lane < n;
+  const bool lv = in && live[b] != 0;
+  const int h = in ? hops[b] + (lv ? 1 : 0) : 0;
+  const float th = in ? thresh[b] : 0.f;
+  const unsigned lm = __ballot_sync(0xffffffffu, lv);
+  const size_t base = (size_t)b0 * C;
+  if (vec && n == 32) {
+    // 8 x C vectors; vector i holds elements 4i .. 4i + 3, element e at
+    // row e / C, column e % C
+    const float4* p4 = reinterpret_cast<const float4*>(prob + base);
+    const float4* q4 = reinterpret_cast<const float4*>(contrib + base);
+    float4* o4 = reinterpret_cast<float4*>(prob_out + base);
+    for (int i = lane; i < 8 * C; i += 32) {
+      int r[4], c[4];
+      r[0] = 4 * i / C;
+      c[0] = 4 * i - r[0] * C;
+#pragma unroll
+      for (int k = 1; k < 4; ++k) {
+        c[k] = c[k - 1] + 1;
+        r[k] = r[k - 1];
+        if (c[k] == C) { c[k] = 0; ++r[k]; }
+      }
+      bool l[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) l[k] = (lm >> r[k]) & 1u;
+      const float4 pv = p4[i];
+      float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (l[0] || l[1] || l[2] || l[3]) qv = q4[i];
+      float4 a;
+      a.x = __fadd_rn(pv.x, l[0] ? qv.x : 0.0f);
+      a.y = __fadd_rn(pv.y, l[1] ? qv.y : 0.0f);
+      a.z = __fadd_rn(pv.z, l[2] ? qv.z : 0.0f);
+      a.w = __fadd_rn(pv.w, l[3] ? qv.w : 0.0f);
+      o4[i] = a;
+      tile[r[0] * S + c[0]] = a.x;
+      tile[r[1] * S + c[1]] = a.y;
+      tile[r[2] * S + c[2]] = a.z;
+      tile[r[3] * S + c[3]] = a.w;
+    }
+  } else {
+    const float* p = prob + base;
+    const float* q = contrib + base;
+    float* po = prob_out + base;
+    for (int e = lane; e < n * C; e += 32) {
+      const int r = e / C, c = e - r * C;
+      float qv = 0.0f;
+      if ((lm >> r) & 1u) qv = q[e];
+      const float a = __fadd_rn(p[e], qv);
+      po[e] = a;
+      tile[r * S + c] = a;
+    }
+  }
+  __syncwarp();
+  if (!in) return;
+  // The row's first maximum m1 and the largest other entry m2, taken on
+  // the sums (a tie leaves m2 == m1), then divided: a correctly rounded
+  // division by the same d > 0 never reverses an order, so the first
+  // maximum of the sums is a maximum of the quotients and the largest
+  // other quotient is m2 / d -- the margin the plain version computes
+  // from C quotients, from two.
+  const float* row = tile + lane * S;
+  float m1 = row[0], m2 = -CUDART_INF_F;
+#pragma unroll 4
+  for (int c = 1; c < C; ++c) {
+    const float v = row[c];
+    if (v > m1) {
+      m2 = m1;
+      m1 = v;
+    } else if (v > m2) {
+      m2 = v;
+    }
+  }
+  const float denom = (float)max(h, 1);
+  const float margin =
+      fabsf(__fsub_rn(__fdiv_rn(m1, denom), __fdiv_rn(m2, denom)));
+  hops_out[b] = h;
+  live_out[b] = (lv && margin < th) ? 1 : 0;
+  margin_out[b] = margin;
+}
+
+// A kernel that does nothing: chip_smoke.py times it as the device time of
+// a launch, the floor under every kernel's time.  Not on the inference path.
+__global__ void empty_kernel() {}
 
 // ------------------------- the whole Algorithm 2, one thread per lane
 // The first port's kernel, the lane route (kernels/fused_fog.py::route):
@@ -631,6 +763,36 @@ int fog_grove_aggregate(const float* prob, const float* contrib,
                            static_cast<cudaStream_t>(stream)>>>(
       prob, contrib, live, hops, thresh, prob_out, hops_out, live_out,
       margin_out, B, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lanes a block (a multiple of 32), smem >= lanes * (C | 1) floats of
+// dynamic shared memory (grove_aggregate.py::plan); vec != 0 only where
+// prob, contrib and prob_out start on 16-byte boundaries
+int fog_grove_aggregate_tile(const float* prob, const float* contrib,
+                             const uint8_t* live, const int* hops,
+                             const float* thresh, float* prob_out,
+                             int* hops_out, uint8_t* live_out,
+                             float* margin_out, int B, int C, int lanes,
+                             int vec, int smem, void* stream) {
+  if (B < 1 || C < 1 || lanes < 32 || lanes > 1024 || lanes % 32 ||
+      (size_t)smem < (size_t)lanes * (C | 1) * sizeof(float))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grove_aggregate_tile_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  grove_aggregate_tile_kernel<<<grid_for(B, lanes), lanes, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      prob, contrib, live, hops, thresh, prob_out, hops_out, live_out,
+      margin_out, B, C, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fog_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1074,3 +1074,118 @@ def test_card_trainer_draws_match_the_cpu_by_distribution(cuda):
     p_picks = stats.chi2_contingency(picks)[1]
     print(f"[draws] feature picks cpu vs card: chi2 p {p_picks:.4f}")
     assert p_picks > DRAW_P
+
+
+# ------------------------------------------ the grove_aggregate tile kernel
+
+# float outputs compared by their bits, so -0.0 != +0.0
+bits = chip_smoke.bits
+
+def aggregate_on_card(case, device, scalar_thresh):
+    prob, contrib, live, hops, thresh = (torch.as_tensor(a, device=device)
+                                         for a in case)
+    return prob, contrib, live, hops, 0.2 if scalar_thresh else thresh
+
+
+@pytest.mark.parametrize("route", ["tile", "lane"])
+@pytest.mark.parametrize("C", chip_smoke.AGG_C)
+@pytest.mark.parametrize("B", chip_smoke.AGG_B)
+def test_grove_aggregate_routes_equal_plain(cuda, B, C, route):
+    """Each route bit-equal to the plain version on all four outputs, in
+    every kind of chip_smoke.aggregate_case (all-dead and all-live warps,
+    ties at the maximum, -0.0 in dead lanes' rows), scalar and per-lane
+    thresholds; one counted launch each, on the named route."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import grove_aggregate as ga
+    for kind in chip_smoke.AGG_KINDS:
+        case = chip_smoke.aggregate_case(np.random.default_rng(B + C), B, C,
+                                         kind)
+        for scalar in (True, False):
+            args = aggregate_on_card(case, cuda, scalar)
+            want = ref.grove_aggregate_ref(*args)
+            before = dict(_build.routes)
+            n = ops.launches["grove_aggregate"]
+            got = ga.grove_aggregate_on_route(*args, route=route)
+            torch.cuda.synchronize()
+            entry = "grove_aggregate" + ("_tile" if route == "tile" else "")
+            assert _build.routes[entry] == before[entry] + 1
+            assert ops.launches["grove_aggregate"] == n + 1
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                assert torch.equal(bits(g), bits(w)), (kind, scalar)
+
+
+@pytest.mark.parametrize("lanes", [32, 64, 128, 256, 1024])
+@pytest.mark.parametrize("B", [1000, 65_536])
+def test_grove_aggregate_tile_at_every_block_size(cuda, B, lanes):
+    """The tile kernel at the sweep's lanes a block (and 1024) and the
+    plan's, at the bench batch and 65,536, against the plain version."""
+    from repro_torch.kernels import grove_aggregate as ga
+    case = chip_smoke.aggregate_case(np.random.default_rng(lanes), B, 10,
+                                     "mixed")
+    args = aggregate_on_card(case, cuda, False)
+    want = ref.grove_aggregate_ref(*args)
+    for got in (ga.grove_aggregate_on_route(*args, route="tile", lanes=lanes,
+                                            block_b=1024),
+                ops.grove_aggregate(*args)):
+        for g, w in zip(got, want):
+            assert torch.equal(bits(g), bits(w))
+
+
+@pytest.mark.parametrize("route", ["tile", "lane"])
+def test_grove_aggregate_row_offset_view(cuda, route):
+    """Row-offset views (prob, contrib off a 16-byte boundary: the tile
+    kernel's scalar loads) and a dead lane's contrib of NaN (never read
+    into a sum) equal the plain version."""
+    from repro_torch.kernels import grove_aggregate as ga
+    prob, contrib, live, hops, thresh = aggregate_on_card(
+        chip_smoke.aggregate_case(np.random.default_rng(5), 1001, 10,
+                                  "mixed"), cuda, False)
+    contrib[~live] = float("nan")
+    args = (prob[1:], contrib[1:], live[1:], hops[1:], thresh[1:])
+    assert args[0].data_ptr() % 16 and args[1].data_ptr() % 16
+    want = ref.grove_aggregate_ref(*args)
+    got = ga.grove_aggregate_on_route(*args, route=route)
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g), bits(w))
+
+
+def test_grove_aggregate_over_the_tile_takes_the_lane_route(cuda):
+    """C above the tile's limit: the wrapper takes the lane route (equal to
+    plain); the tile route named there raises before any launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import grove_aggregate as ga
+    C = ga.tile_max_classes(_build.smem_optin(cuda)) + 1
+    args = aggregate_on_card(chip_smoke.aggregate_case(
+        np.random.default_rng(6), 70, C, "mixed"), cuda, False)
+    before = dict(_build.routes)
+    got = ops.grove_aggregate(*args)
+    assert _build.routes["grove_aggregate"] == before["grove_aggregate"] + 1
+    assert _build.routes["grove_aggregate_tile"] == \
+        before["grove_aggregate_tile"]
+    for g, w in zip(got, ref.grove_aggregate_ref(*args)):
+        assert torch.equal(bits(g), bits(w))
+    n = ops.launches["grove_aggregate"]
+    with pytest.raises(ValueError, match="tile route takes C <="):
+        ga.grove_aggregate_on_route(*args, route="tile")
+    assert ops.launches["grove_aggregate"] == n
+
+
+def test_grove_aggregate_tile_route_per_eval(cuda, trained_port):
+    """8 launches per per-hop eval and 8 per RingMesh(8) eval at B = 1000,
+    every one on the tile route."""
+    from repro_torch.kernels import _build
+    ds, gc = trained_port
+    x = ds.x_test[:1000]
+    start = tcore.sample_starts(torch.Generator().manual_seed(2), 1000, 8,
+                                n_shards=8)
+    pol = tcore.FogPolicy(threshold=0.3, max_hops=8)
+    for eng in (tcore.FogEngine(gc, backend="pallas", device=cuda),
+                tcore.FogEngine(gc, backend="ring", mesh=tcore.RingMesh(8),
+                                use_kernels=True, device=cuda)):
+        before = dict(_build.routes)
+        eng.eval(x, start=start, policy=pol)
+        torch.cuda.synchronize()
+        assert _build.routes["grove_aggregate_tile"] == \
+            before["grove_aggregate_tile"] + 8
+        assert _build.routes["grove_aggregate"] == before["grove_aggregate"]
