@@ -15,8 +15,9 @@ trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
 0.3) through ``FogEngine.eval`` on all three backends and precisions, then
 its training path (the device trainer at the gate config of
 ``benchmarks/train_bench.py``), the ``FogClassifier`` facade (train ->
-plan -> serve), the grove ring, and Mamba-2 and attention (tinyllama) LM
-serving with the FoG layer-grove exit, and:
+plan -> serve), the grove ring, Mamba-2 and attention (tinyllama) LM
+serving with the FoG layer-grove exit, and the serving plane (the
+registry plane, the fused plane and the serve CLI's LM mode), and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -124,13 +125,37 @@ serving with the FoG layer-grove exit, and:
    the SIMT kernel at the same bf16 inputs, its plain version and SDPA
    (``enable_gqa``, a yardstick the port never calls: call and device
    time and the backend that ran), and works out its bounds;
-12. reads each kernel's device time, each eval's, the gate fit's and each
-   LM step's device idle share from ``torch.profiler`` (after every event
-   timing: once CUPTI traces the process, every launch costs the host
-   more), and times ``fused_fog``'s "smem" and "l1" routes on the device
-   where ``fused_fog.route``'s copy-bytes line falls (``BOUNDARY_GRID``,
-   each output checked bit for bit), beside the route the rule picks;
-13. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+12. serves through the serving plane (``serve/`` and ``registry/``):
+   the registry plane at the setup of ``benchmarks/registry_bench.py``
+   (rebuilt here: penbased, 16 trees of depth 9, 8 groves of 2; tenants
+   alpha / beta / gamma at Zipf shares, std / gold / bulk tiers with fp32
+   and int8 contracts, 64 slots, 1500 requests of two tokens on a fixed
+   arrival schedule, a hot-swap of alpha at 45 %, an int8 canary on beta
+   from 70 %, beta governed under a budget its fp32 rungs miss), sync and
+   pipelined, with the launch counts zeroed just before each measured run
+   and read just after (one ``fused_fog`` a dispatch); holds every request
+   done, the swap's in-flight requests on v1, the two modes bit-equal
+   (labels, hops, energy, shed set, transitions, pinned versions), every
+   served lane, witnessed at dispatch, equal to
+   ``_eval_core(..., "reference")`` on its request's own row and owed
+   knobs and the start its replica drew, and the "pallas" backend (8
+   ``grove_aggregate`` a dispatch) equal to "fused"; the fused plane at
+   1 replica x 1024 slots and 4 stream replicas x 256, fp32 and int8,
+   sync and pipelined: checked runs on shared start draws hold every lane
+   to the reference and the layouts and modes to each other, then timed
+   runs launch one ``fused_fog`` a dispatch (counts zeroed just before,
+   read just after) with each pair equal; and the serve CLI's LM mode at
+   full width (tinyllama-1.1b, fp32, FoG with the top-2 kernel, 8
+   requests, 4 slots), each first token equal to ``forward``'s argmax;
+13. reads each kernel's device time, each eval's, the gate fit's, each
+   LM step's and each serving run's device idle share from
+   ``torch.profiler`` (after every event timing: once CUPTI traces the
+   process, every launch costs the host more), with the serving runs'
+   launches and host ops per dispatch, and times ``fused_fog``'s "smem"
+   and "l1" routes on the device where ``fused_fog.route``'s copy-bytes
+   line falls (``BOUNDARY_GRID``, each output checked bit for bit),
+   beside the route the rule picks;
+14. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -141,6 +166,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -157,7 +183,9 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_arch, param_count  # noqa: E402
 from repro_torch.core import (FogEngine, FogPolicy,  # noqa: E402
                               GroveCollection, RingMesh, split)
-from repro_torch.core.engine import (FUSED_BLOCK_B,  # noqa: E402
+from repro_torch.core.energy import EnergyModel  # noqa: E402
+from repro_torch.core.engine import (DEFAULT_BLOCK_B,  # noqa: E402
+                                     FUSED_BLOCK_B, _eval_core,
                                      confidence_margin, sample_starts)
 from repro_torch.core.fog_ring import TRAVERSE_BLOCK_B  # noqa: E402
 from repro_torch.core.policy import NO_BUDGET  # noqa: E402
@@ -181,10 +209,19 @@ from repro_torch.kernels import ssd_chunk as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     route as ssd_chunk_route, ssd_chunk_ref, ssd_chunk_sm90_replay)
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.fog_exit import (fog_flops_per_token,  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models.fog_exit import (decode_step_fog,  # noqa: E402
+                                         fog_flops_per_token,
                                          grove_boundaries)
+from repro_torch.registry import ModelRegistry, PackCache  # noqa: E402
 from repro_torch.serve.decode import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
+from repro_torch.serve.dispatch import (DeviceDispatcher,  # noqa: E402
+                                        ForestReplicaServer)
+from repro_torch.serve.governor import (EnergyGovernor,  # noqa: E402
+                                        TenantLedger, default_ladder)
+from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
+                                         Request)
 from repro_torch.sklearn import FogClassifier  # noqa: E402
 
 PRECISIONS = ("fp32", "bf16", "int8")
@@ -2196,6 +2233,723 @@ def route_boundary(rows: list) -> dict:
     return out
 
 
+# -- the serving plane (phase 12) ---------------------------------------------
+# The registry plane at the setup of benchmarks/registry_bench.py, rebuilt
+# here: the penbased field as benchmarks/common.py::forest_for trains it,
+# three tenants at Zipf shares, QoS tiers, a hot-swap, a canary and a
+# per-tenant governor ledger, 64 slots and 1500 requests of two tokens
+SERVE_TREES, SERVE_DEPTH = 16, 9
+TENANTS = (("alpha", 0.62), ("beta", 0.24), ("gamma", 0.14))
+TIER_MIX = (("std", 0.60), ("gold", 0.20), ("bulk", 0.20))
+BASE_THRESH, GOLD_THRESH, BULK_THRESH = 0.6, 0.9, 0.4
+BUDGET_FACTOR = {"alpha": 1.6, "beta": 0.55, "gamma": 1.7}
+SWAP_FRAC, CANARY_FRAC_AT, CANARY_FRACTION = 0.45, 0.70, 0.25
+SERVE_SLOTS, SERVE_REQUESTS = 64, 1500
+# the fixed arrival schedule: requests submitted before each step (the
+# plane retires ~32 a step at two tokens each), so every mode serves the
+# same schedule and sync and pipelined runs can be held bit-equal
+ARRIVALS_PER_STEP = 24
+# the fused plane: 1 replica x 1024 slots and 4 stream replicas x 256
+FUSED_PLANES = ((1, 1024), (4, 256))
+FUSED_REQUESTS = 32_768
+# a checked run's requests after its warm batch (a whole number of
+# 1024-slot waves, so every replica dispatches at every step)
+FUSED_CHECKED = 4096
+# the LM mode of the serve CLI at full width, fp32 as the JAX CLI makes it
+LM_SERVE_ARGS = ["--arch", ATTN_ARCH, "--fog", "--fog-backend", "pallas",
+                 "--requests", "8", "--slots", "4", "--max-seq", "160",
+                 "--max-new", "16"]
+
+
+def serve_field(dev: torch.device) -> dict:
+    """The registry plane's field (host CART, 16 trees of depth 9, 8
+    groves of 2) as a CPU pack, and the dataset."""
+    ds = make_dataset("penbased")
+    rf = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
+                             TrainConfig(n_trees=SERVE_TREES,
+                                         max_depth=SERVE_DEPTH, seed=0))
+    return {"ds": ds, "pack": ForestPack.from_groves(split(rf, 2), "fp32"),
+            "F": ds.x_test.shape[1]}
+
+
+def request_mix(seed: int = SEED) -> tuple:
+    """Per-request tenant, tier and beta-bulk draws (registry_bench's)."""
+    rng = np.random.default_rng(seed)
+    share = np.asarray([s for _, s in TENANTS])
+    tiers = np.asarray([s for _, s in TIER_MIX])
+    return (rng.choice(len(TENANTS), size=SERVE_REQUESTS, p=share / share.sum()),
+            rng.choice([t for t, _ in TIER_MIX], size=SERVE_REQUESTS,
+                       p=tiers / tiers.sum()),
+            rng.random(SERVE_REQUESTS))
+
+
+def make_request(field: dict, mix: tuple, rid: int) -> Request:
+    tenants_of, tiers_of, beta_bulk = mix
+    n = len(tenants_of)
+    t = TENANTS[int(tenants_of[rid % n])][0]
+    if t == "beta":
+        # the squeezed tenant's traffic is governed lanes plus some bulk
+        tier = "bulk" if beta_bulk[rid % n] < 0.1 else "std"
+    else:
+        tier = str(tiers_of[rid % n])
+    pol = None
+    if tier == "gold":
+        pol = FogPolicy(threshold=GOLD_THRESH)
+    elif tier == "bulk":
+        pol = FogPolicy(threshold=BULK_THRESH, precision="int8")
+    ds = field["ds"]
+    return Request(rid=rid, prompt=ds.x_test[rid % len(ds.x_test)], model=t,
+                   tier=tier, max_new_tokens=2, policy=pol)
+
+
+def owed_lane(b: ContinuousBatcher, req: Request, default: FogPolicy,
+              default_precision: str) -> tuple:
+    """``(request, threshold, hop budget, precision)`` that one served lane
+    is owed: the request's own policy, else its tenant's governor rung,
+    else the step's default (the batcher's governor's rung when it has
+    one).  An explicit policy without a budget means no budget; a precision
+    left unset falls to the default's, then to the server's."""
+    pol = req.policy
+    if pol is None and b.ledger is not None:
+        gov = b.ledger.governor_for(req.tenant)
+        pol = None if gov is None else gov.current
+    knobs = pol if pol is not None else default
+    bud = knobs.hop_budget
+    prec = pol.precision if pol is not None else None
+    return (req, float(np.float32(knobs.threshold)),
+            NO_BUDGET if bud is None else int(bud),
+            prec or default.precision or default_precision)
+
+
+def witness(b: ContinuousBatcher, default_precision: str) -> None:
+    """Record on each packed dispatch, as ``b`` makes it, what each of its
+    lanes is owed (:func:`owed_lane`), read from the batcher's slots and
+    governors at that moment, for :func:`check_dispatches`."""
+    disp = b.dispatcher
+    inner = type(disp).dispatch_packed.__get__(disp)
+
+    def dispatch_packed(lanes, *args, **kw):
+        out = inner(lanes, *args, **kw)
+        default = (b.governor.current if b.governor is not None
+                   else b.default_policy)
+        for p in out:
+            p.owed = [owed_lane(b, b.slots[int(i)].request, default,
+                                default_precision) for i in p.lanes]
+        return out
+
+    disp.dispatch_packed = dispatch_packed
+
+
+def check_dispatches(pending: list, F: int) -> int:
+    """Each packed dispatch recorded by :func:`witness` against what its
+    lanes are owed: its registry bucket and pack precision are the
+    requests', the knobs it resolved are the requests', its labels and
+    hops equal ``_eval_core(..., "reference")`` on the requests' own rows,
+    those knobs and the starts its replica drew, and its energy equals the
+    model's price of its hops.  Returns the lanes checked."""
+    n = 0
+    for p in pending:
+        start, thr, bud = p.inputs
+        dev = start.device
+        reqs, want_thr, want_bud, precs = zip(*p.owed)
+        for r, prec in zip(reqs, precs):
+            bucket = None if r.model is None else (r.model, r.version)
+            if p.bucket != bucket or p.pack.precision != prec:
+                raise AssertionError(
+                    f"request {r.rid} served from {p.bucket} "
+                    f"{p.pack.precision}, owed {bucket} {prec}")
+        want_thr = torch.tensor(want_thr, dtype=torch.float32, device=dev)
+        want_bud = torch.tensor(want_bud, dtype=torch.int32, device=dev)
+        loc = torch.as_tensor(p.local)
+        check_equal("resolved thresholds vs the requests'",
+                    thr[loc.to(dev)], want_thr)
+        check_equal("resolved budgets vs the requests'",
+                    bud[loc.to(dev)], want_bud)
+        xs = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             dtype=torch.float32, device=dev)
+        res = _eval_core(p.pack, xs, start[loc.to(dev)], want_thr, want_bud,
+                         p.pack.n_groves, "reference", DEFAULT_BLOCK_B, False)
+        check_equal("served labels vs reference", p.nxt[loc], res.label)
+        check_equal("served hops vs reference", p.hops[loc], res.hops)
+        price = EnergyModel.from_pack(p.pack, F).lane_pj(p.hops[loc])
+        check_equal("served energy vs lane_pj", p.energy[loc], price)
+        n += len(p.local)
+    return n
+
+
+def checker(b: ContinuousBatcher, F: int):
+    """A function that holds the dispatches ``b`` harvested since its last
+    call to what their lanes are owed (:func:`check_dispatches`) and
+    returns the lanes it checked."""
+    seen = b.last_dispatches
+
+    def harvested() -> int:
+        nonlocal seen
+        if b.last_dispatches is seen:
+            return 0
+        seen = b.last_dispatches
+        return check_dispatches(seen, F)
+
+    return harvested
+
+
+def lane_draws(n_slots: int, seed: int = 5):
+    """``draw_starts`` that gives every GLOBAL lane the same start whatever
+    the replica count: the span's slice of one seeded draw per step."""
+    def draw(index, step, span, n_groves):
+        rng = np.random.default_rng(seed * 1_000_003 + step)
+        full = rng.integers(0, n_groves, n_slots).astype(np.int32)
+        return full[index * span:(index + 1) * span]
+    return draw
+
+
+def registry_setup(dev: torch.device, field: dict, root: Path, *,
+                   backend: str = "fused") -> dict:
+    """The registry plane before its measured run: three tenants published,
+    the byte-budgeted cache, one packed replica, and a calibration run
+    (six waves of the slots, synchronous) whose completions size each
+    tenant's ledger budget from its measured mixed-traffic rung-0 cost."""
+    shutil.rmtree(root, ignore_errors=True)
+    pack, F = field["pack"], field["F"]
+    registry = ModelRegistry(root)
+    extra = {"n_features_in": F}
+    for t, _ in TENANTS:
+        registry.publish(t, pack, extra=extra)
+    budget_bytes = 4 * pack.table_bytes + 3 * pack.astype("int8").table_bytes
+    cache = PackCache(registry, budget_bytes=budget_bytes)
+    server = ForestReplicaServer(None, F, backend=backend, registry=registry,
+                                 cache=cache, seed=SEED)
+    dispatcher = DeviceDispatcher(server.packed_factory, [dev])
+    base = FogPolicy(threshold=BASE_THRESH)
+    mix = request_mix()
+    cal = ContinuousBatcher(SERVE_SLOTS, None, server.prefill, eos_id=-1,
+                            default_policy=base, dispatcher=dispatcher,
+                            registry=registry)
+    for rid in range(6 * SERVE_SLOTS):
+        cal.submit(make_request(field, mix, rid))
+    cal.run()
+    ledger = TenantLedger()
+    budgets = {}
+    for t, _ in TENANTS:
+        m32 = server.energy_model(tenant=t)
+        m8 = server.energy_model("int8", tenant=t)
+        done = [r for r in cal.completed if r.model == t]
+        pj = np.concatenate([
+            np.asarray(m32.lane_pj(np.asarray(
+                [r.hops[0] for r in done if r.tier != "bulk"]))),
+            np.asarray(m8.lane_pj(np.asarray(
+                [r.hops[0] for r in done if r.tier == "bulk"])))])
+        budgets[t] = BUDGET_FACTOR[t] * float(pj.mean()) * 1e-3
+        ledger.add(t, EnergyGovernor(default_ladder(base, m32, budgets[t]),
+                                     budgets[t], model=m32, window=128,
+                                     patience=2, cooldown=10**9))
+        registry.stats_for(t, 1).reset()
+    cache.stats.reset()
+    return {"field": field, "pack": pack, "extra": extra,
+            "registry": registry, "cache": cache, "server": server,
+            "dispatcher": dispatcher, "base": base, "mix": mix,
+            "ledger": ledger, "budgets": budgets,
+            "budget_bytes": budget_bytes}
+
+
+def registry_serve(ctx: dict, *, pipeline: bool,
+                   checked: bool = False) -> dict:
+    """The registry plane's measured run: SERVE_REQUESTS on the fixed
+    schedule (ARRIVALS_PER_STEP before each step), a hot-swap of alpha at
+    SWAP_FRAC and an int8 canary on beta from CANARY_FRAC_AT.  ``checked``
+    holds every dispatch to what its lanes are owed
+    (:func:`check_dispatches`)."""
+    field, pack, extra = ctx["field"], ctx["pack"], ctx["extra"]
+    registry, cache, ledger = ctx["registry"], ctx["cache"], ctx["ledger"]
+    F = field["F"]
+    b = ContinuousBatcher(SERVE_SLOTS, None, ctx["server"].prefill,
+                          eos_id=-1, default_policy=ctx["base"],
+                          governor=ledger, dispatcher=ctx["dispatcher"],
+                          registry=registry, pipeline=pipeline)
+    if checked:
+        witness(b, ctx["server"].default_precision)
+    swap_at = int(SWAP_FRAC * SERVE_REQUESTS)
+    canary_at = int(CANARY_FRAC_AT * SERVE_REQUESTS)
+    rid, inflight, n_checked = 0, [], 0
+    dispatches0 = ctx["dispatcher"].n_dispatches
+    harvested = checker(b, F) if checked else (lambda: 0)
+
+    t0 = time.perf_counter()
+    while rid < SERVE_REQUESTS or b.active or b.queue:
+        for _ in range(ARRIVALS_PER_STEP):
+            if rid >= SERVE_REQUESTS:
+                break
+            if rid in (swap_at, canary_at):
+                # the control plane acts between harvests: a pipelined
+                # step's dispatch is drained first, so both modes publish
+                # (and reset beta's live telemetry) at the same point
+                b.flush()
+            if rid == swap_at:
+                # control plane: the hot tenant's retrain-and-publish; in
+                # flight or queued alpha requests keep their pinned version
+                inflight = [s.request.rid for s in b.slots
+                            if s.request is not None
+                            and s.request.model == "alpha"]
+                registry.publish("alpha", pack, extra=extra)
+            if rid == canary_at:
+                registry.stats_for("beta",
+                                   registry.live_version("beta")).reset()
+                registry.publish("beta", pack.astype("int8"), extra=extra,
+                                 canary=CANARY_FRACTION)
+            b.submit(make_request(field, ctx["mix"], rid))
+            rid += 1
+        b.step()
+        n_checked += harvested()
+    b.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_checked += harvested()
+    done = {r.rid: r for r in b.completed}
+    lat = np.asarray([(r.t_done - r.t_submit) * 1e3 for r in b.completed])
+    judge = registry.judge_canary("beta")
+    beta_post = [r for r in b.completed
+                 if r.model == "beta" and r.rid >= canary_at]
+    govs = {t: ledger.governor_for(t) for t, _ in TENANTS}
+    return {
+        "completed": len(b.completed), "shed": len(b.shed_requests),
+        "served": {r.rid: (r.version, tuple(r.generated), tuple(r.hops))
+                   for r in b.completed},
+        "inflight_at_swap": inflight,
+        "inflight_kept_v1": sum(1 for i in inflight
+                                if i in done and done[i].version == 1),
+        "transitions": {t: list(g.transitions) for t, g in govs.items()},
+        "rung_precision": {t: g.current.precision for t, g in govs.items()},
+        "rolling_nj": {t: g.rolling_nj for t, g in govs.items()},
+        "budgets_nj": ctx["budgets"],
+        "total_pj": b.stats.total_pj, "tiers": b.stats.tier_summary(),
+        "versions": {f"{t} v{v}": (registry.stats_for(t, v).n_events,
+                                   registry.stats_for(t, v).total_hops,
+                                   registry.stats_for(t, v).total_pj)
+                     for t, _ in TENANTS for v in registry.versions(t)},
+        "canary_observed_fraction": len([
+            r for r in beta_post if r.version == judge["canary_version"]])
+        / max(1, len(beta_post)),
+        "canary_delta_nj": judge["delta_nj"],
+        "wall_s": wall, "requests_per_s": len(b.completed) / wall,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "steps": b.n_steps,
+        "dispatches": ctx["dispatcher"].n_dispatches - dispatches0,
+        "host_ms_per_step": {k: v / 1e6 / b.n_steps
+                             for k, v in b.phase_ns.items()},
+        "cache": {"hits": cache.stats.hits, "misses": cache.stats.misses,
+                  "evictions": cache.stats.evictions,
+                  "peak_bytes": cache.peak_bytes,
+                  "budget_bytes": ctx["budget_bytes"]},
+        "checked_lanes": n_checked,
+    }
+
+
+def registry_plane(dev: torch.device, field: dict, root: Path, *,
+                   pipeline: bool, checked: bool = False,
+                   backend: str = "fused", counted: bool = False) -> dict:
+    """:func:`registry_setup` then :func:`registry_serve`; with
+    ``counted`` the launch and route counts are zeroed just before the
+    measured run and read just after."""
+    ctx = registry_setup(dev, field, root, backend=backend)
+    if counted:
+        zero_counts()
+    out = registry_serve(ctx, pipeline=pipeline, checked=checked)
+    if counted:
+        out["launches"], out["routes"] = read_counts()
+    return out
+
+
+def zero_counts() -> None:
+    torch.cuda.synchronize()
+    for k in ops.launches:
+        ops.launches[k] = 0
+    for k in _build.routes:
+        _build.routes[k] = 0
+
+
+def read_counts() -> tuple[dict, dict]:
+    torch.cuda.synchronize()
+    return ({k: v for k, v in ops.launches.items() if v},
+            {k: v for k, v in _build.routes.items() if v})
+
+
+SERVED_KEYS = ("served", "transitions", "rung_precision", "total_pj",
+               "tiers", "versions", "inflight_at_swap", "shed")
+
+
+def same_serving(what: str, a: dict, b: dict,
+                 keys: tuple = SERVED_KEYS) -> None:
+    for k in keys:
+        if a[k] != b[k]:
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def fused_plane(dev: torch.device, pack: ForestPack, x: np.ndarray,
+                replicas: int, span: int, pipeline: bool,
+                n: int = FUSED_REQUESTS, checked: bool = False) -> dict:
+    """The fused plane: ``replicas`` packed replicas of ``span`` slots on
+    one card (one CUDA stream each), every request one token, all queued
+    up front.  A warm batch first, then ``n`` requests timed, the launch
+    counts zeroed just before them and read just after.  ``checked`` draws
+    every global lane's start from :func:`lane_draws`, so layouts can be
+    held to each other, and holds every dispatch to what its lanes are
+    owed (:func:`check_dispatches`)."""
+    n_slots, F = replicas * span, x.shape[1]
+    server = ForestReplicaServer(
+        pack, F, precisions=(pack.precision,), seed=SEED,
+        draw_starts=lane_draws(n_slots) if checked else None)
+    disp = DeviceDispatcher(server.packed_factory, [dev] * replicas)
+    b = ContinuousBatcher(n_slots, None, server.prefill, eos_id=-1,
+                          default_policy=FogPolicy(threshold=BASE_THRESH),
+                          dispatcher=disp, pipeline=pipeline)
+    n_checked = 0
+    if checked:
+        witness(b, server.default_precision)
+        harvested = checker(b, F)
+
+    def serve(count: int, first: int = 0) -> float:
+        nonlocal n_checked
+        for rid in range(first, first + count):
+            b.submit(Request(rid=rid, prompt=x[rid % len(x)],
+                             max_new_tokens=1))
+        t0 = time.perf_counter()
+        if checked:
+            while b.queue or b.active:
+                b.step()
+                n_checked += harvested()
+            b.flush()
+            n_checked += harvested()
+        else:
+            b.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    serve(n_slots)
+    for k in b.phase_ns:
+        b.phase_ns[k] = 0
+    b.n_steps = 0
+    d0 = disp.n_dispatches
+    zero_counts()
+    wall = serve(n, n_slots)
+    launches, routes = read_counts()
+    done = b.completed[n_slots:]
+    lat = np.asarray([(r.t_done - r.t_submit) * 1e3 for r in done])
+    return {"replicas": replicas, "span": span, "pipeline": pipeline,
+            "precision": pack.precision, "requests": n, "wall_s": wall,
+            "requests_per_s": n / wall, "steps": b.n_steps,
+            "dispatches": disp.n_dispatches - d0, "launches": launches,
+            "routes": routes, "checked_lanes": n_checked,
+            "p99_ms": float(np.percentile(lat, 99)),
+            "host_ms_per_step": {k: v / 1e6 / b.n_steps
+                                 for k, v in b.phase_ns.items()},
+            "served": {r.rid: (r.generated[0], r.hops[0])
+                       for r in b.completed},
+            "batcher": b, "serve": serve}
+
+
+# the PyTorch op a device kernel of the serving path runs, by a piece of
+# its name
+KERNEL_OPS = (("random_from_to", "randint"), ("where_kernel", "where"),
+              ("MulFunctor", "mul"), ("index_copy", "index_copy_"),
+              ("ArgMax", "argmax"), ("clamp", "clamp"), ("CompareEq", "eq"),
+              ("CUDAFunctorOnSelf_add", "add"), ("CUDAFunctor_add", "add"),
+              ("compare_scalar", "compare"), ("direct_copy", "copy (cast)"))
+
+
+def kernel_label(name: str) -> str:
+    """A device kernel's name without its signature: this repo's kernels
+    with their template arguments, PyTorch's as the op they run."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    for piece, op in KERNEL_OPS:
+        if piece in name:
+            return f"torch {op}"
+    if name.startswith("Memcpy") or name.startswith("Memset"):
+        return name.split(" (")[0]
+    return name.split("(")[0]
+
+
+def serving_profile(fn, n_dispatch_fn) -> dict:
+    """``fn`` (one serving run) under ``torch.profiler``: wall ms, the
+    device's busy ms as the union of its kernel and copy intervals over
+    every stream, the idle share, device launches per dispatch by kernel
+    name, the fused_fog kernel's device ms per launch, and the host's
+    top-level PyTorch ops per dispatch by name.  ``n_dispatch_fn()`` gives
+    the dispatches the run made."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n = max(1, n_dispatch_fn())
+    spans, kernels, fused_us, host_ops = [], {}, [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            if "Memcpy" not in e.name and "Memset" not in e.name:
+                k = kernel_label(e.name)
+                kernels[k] = kernels.get(k, 0) + 1
+            if "fused_fog" in e.name:
+                fused_us.append(e.time_range.elapsed_us())
+        elif e.cpu_parent is None and e.name.startswith("aten::"):
+            host_ops[e.name] = host_ops.get(e.name, 0) + 1
+    busy, end = 0.0, -1.0
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy_ms = busy / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall,
+            "dispatches": n,
+            "launches_per_dispatch": {k: v / n for k, v in sorted(
+                kernels.items())},
+            "fused_fog_device_ms": (statistics.mean(fused_us) / 1e3
+                                    if fused_us else None),
+            "host_ops_per_dispatch": {k: v / n for k, v in sorted(
+                host_ops.items(), key=lambda kv: -kv[1])}}
+
+
+def lm_serve(dev: torch.device) -> dict:
+    """The serve CLI's LM mode at full width (tinyllama-1.1b, fp32 weights
+    as JAX's CLI makes them, FoG with the top-2 kernel), launch counts
+    zeroed just before and read just after; then each request's first
+    token against the argmax of ``forward`` on its prompt and last token
+    (the batcher feeds a prompt's last token again at its first decode
+    step, as JAX's does), whose logits must agree with the prefill +
+    ``decode_step_fog`` path within CONSIST_TOL.  The gate at 0.3 never
+    fires on random weights, so a first token is the whole model's."""
+    zero_counts()
+    out = serve_main(LM_SERVE_ARGS)
+    launches, routes = read_counts()
+    done, params, cfg = out["done"], out["params"], out["cfg"]
+    G = out["n_groves"]
+    if len(done) != 8 or any(len(r.generated) != 16 for r in done):
+        raise AssertionError(f"LM serve: {len(done)} of 8 requests done")
+    worst = 0.0
+    for r in done:
+        seq = torch.as_tensor(np.append(r.prompt, r.prompt[-1]),
+                              device=dev)[None]
+        with torch.no_grad():
+            h, _ = T.forward(params, cfg, tokens=seq)
+            want = T.unembed(params, cfg, h[:, -1]).float()
+            _, c = T.prefill(params, cfg, tokens=seq[:, :-1],
+                             max_seq=seq.shape[1])
+            got, _, hops = decode_step_fog(
+                params, cfg, seq[:, -1], c, seq.shape[1] - 1,
+                FogPolicy(threshold=0.3, backend="pallas"))
+        if r.hops[0] != G or int(hops[0]) != G:
+            raise AssertionError(f"LM serve: request {r.rid} exited after "
+                                 f"{r.hops[0]} of {G} groves at its first "
+                                 "token")
+        if not torch.allclose(got.float(), want, rtol=CONSIST_TOL,
+                              atol=CONSIST_TOL):
+            raise AssertionError(f"LM serve: request {r.rid}'s decode "
+                                 "logits differ from forward's")
+        worst = max(worst, float((got.float() - want).abs().max()))
+        if r.generated[0] != int(torch.argmax(want, dim=-1)[0]):
+            raise AssertionError(f"LM serve: request {r.rid}'s first token "
+                                 f"{r.generated[0]} is not forward's argmax")
+    hops = np.asarray([h for r in done for h in r.hops], np.float64)
+    return {"arch": cfg.name, "requests": len(done), "tokens": out["tokens"],
+            "seconds": out["seconds"],
+            "tokens_per_s": out["tokens"] / out["seconds"],
+            "groves_per_token": float(hops.mean()), "n_groves": G,
+            "launches": launches, "routes": routes,
+            "first_token_max_abs_err_vs_forward": worst}
+
+
+def serve_phase(dev: torch.device) -> dict:
+    """Phase 12: the serving plane on the card (see the module
+    docstring's item 12); event timings only — ``serve_profile`` adds the
+    profiler's figures after every event timing."""
+    field = serve_field(dev)
+    root = ROOT / "build" / "serve_registry"
+    res: dict = {}
+    # the registry plane: checked runs, then the timed main path with the
+    # launch counts zeroed just before and read just after
+    checks = {m: registry_plane(dev, field, root / f"check-{m}",
+                                pipeline=m == "pipelined", checked=True)
+              for m in ("sync", "pipelined")}
+    same_serving("registry plane sync vs pipelined", checks["sync"],
+                 checks["pipelined"])
+    runs = {}
+    for m in ("sync", "pipelined"):
+        runs[m] = registry_plane(dev, field, root / m,
+                                 pipeline=m == "pipelined", counted=True)
+        same_serving(f"registry plane {m} vs its checked run", runs[m],
+                     checks[m])
+    pallas = registry_plane(dev, field, root / "pallas", pipeline=False,
+                            backend="pallas", counted=True)
+    same_serving("registry plane fused vs pallas backend", pallas,
+                 runs["sync"], ("served", "transitions", "versions"))
+    if pallas["launches"].get("grove_aggregate") != (
+            MAX_HOPS * pallas["dispatches"]) or "fused_fog" in pallas[
+                "launches"]:
+        raise AssertionError(f"registry plane, backend pallas: launches "
+                             f"{pallas['launches']} over "
+                             f"{pallas['dispatches']} dispatches, want "
+                             f"{MAX_HOPS} grove_aggregate a dispatch")
+    for m, r in runs.items():
+        if r["completed"] != SERVE_REQUESTS or r["shed"]:
+            raise AssertionError(f"registry plane {m}: {r['completed']} of "
+                                 f"{SERVE_REQUESTS} completed, {r['shed']} "
+                                 "shed")
+        if r["inflight_kept_v1"] != len(r["inflight_at_swap"]):
+            raise AssertionError(f"registry plane {m}: the hot-swap moved "
+                                 "in-flight requests off v1")
+        if not r["transitions"]["beta"]:
+            raise AssertionError(f"registry plane {m}: beta's governor "
+                                 "never stepped down")
+        if r["launches"] != {"fused_fog": r["dispatches"]}:
+            raise AssertionError(f"registry plane {m}: launches "
+                                 f"{r['launches']} over {r['dispatches']} "
+                                 "dispatches, want one fused_fog each")
+    res["registry"] = {m: {k: v for k, v in r.items() if k != "served"}
+                       for m, r in runs.items()}
+    res["registry_checked_lanes"] = {m: r["checked_lanes"]
+                                     for m, r in checks.items()}
+    res["registry_pallas"] = {k: pallas[k] for k in (
+        "launches", "routes", "dispatches", "requests_per_s", "p99_ms")}
+    for m, r in runs.items():
+        print(f"[serve] registry plane {m}: {r['completed']}/"
+              f"{SERVE_REQUESTS} requests, {r['requests_per_s']:.1f} "
+              f"requests/s, completion p50 {r['p50_ms']:.3f} / p99 "
+              f"{r['p99_ms']:.3f} ms, {r['steps']} steps, host ms per step "
+              + ", ".join(f"{k} {v:.4f}"
+                          for k, v in r["host_ms_per_step"].items())
+              + f"; launches {r['launches']} by route {r['routes']}; cache "
+              f"{r['cache']}; swap: {len(r['inflight_at_swap'])} alpha in "
+              f"flight, all done on v1; beta governor {len(r['transitions']['beta'])} "
+              f"transitions, settled at {r['rung_precision']['beta'] or 'fp32'} "
+              f"(budget {r['budgets_nj']['beta']:.4f} nJ, rolling "
+              f"{r['rolling_nj']['beta']:.4f}); canary split "
+              f"{r['canary_observed_fraction']:.3f} of {CANARY_FRACTION}")
+    print(f"[serve] registry plane: sync == pipelined (labels, hops, energy "
+          f"bit for bit, shed set, governor transitions, pinned versions); "
+          f"every served lane == _eval_core reference on its request's row, "
+          f"bucket, precision and owed knobs and the drawn start "
+          f"({res['registry_checked_lanes']} lanes); "
+          f"backend pallas == fused")
+    # the fused plane at 1024 slots: per precision, checked runs of each
+    # layout and mode held to what their lanes are owed and, on the same
+    # start draws, to each other; then the timed runs, one fused_fog a
+    # dispatch, sync held to pipelined
+    res["fused"], res["fused_checked_lanes"] = [], {}
+    fused_runs = {}
+    x = field["ds"].x_test
+    for prec in ("fp32", "int8"):
+        pack = field["pack"].astype(prec).to(dev)
+        want = None
+        for replicas, span in FUSED_PLANES:
+            for pipe in (False, True):
+                r = fused_plane(dev, pack, x, replicas, span, pipe,
+                                n=FUSED_CHECKED, checked=True)
+                tag = f"{replicas}x{span} {prec} " + (
+                    "pipelined" if pipe else "sync")
+                res["fused_checked_lanes"][tag] = r["checked_lanes"]
+                if r["checked_lanes"] != FUSED_CHECKED + replicas * span:
+                    raise AssertionError(f"fused plane {tag}: "
+                                         f"{r['checked_lanes']} lanes checked")
+                if want is None:
+                    want = r["served"]
+                elif r["served"] != want:
+                    raise AssertionError(f"fused plane {tag} differs from "
+                                         f"{FUSED_PLANES[0][0]}x"
+                                         f"{FUSED_PLANES[0][1]} sync on the "
+                                         "same start draws")
+        for replicas, span in FUSED_PLANES:
+            pair = {}
+            for pipe in (False, True):
+                r = fused_plane(dev, pack, x, replicas, span, pipe)
+                pair[pipe] = r
+                fused_runs[prec, replicas, pipe] = r
+                if r["launches"] != {"fused_fog": r["dispatches"]}:
+                    raise AssertionError(
+                        f"fused plane {replicas}x{span} {prec}: launches "
+                        f"{r['launches']} over {r['dispatches']} dispatches, "
+                        "want one fused_fog each")
+            if pair[False]["served"] != pair[True]["served"]:
+                raise AssertionError(f"fused plane {replicas}x{span} {prec}: "
+                                     "sync and pipelined differ")
+            for pipe, r in pair.items():
+                row = {k: v for k, v in r.items()
+                       if k not in ("served", "batcher", "serve",
+                                    "checked_lanes")}
+                res["fused"].append(row)
+                print(f"[serve] fused plane {replicas} x {span} slots {prec} "
+                      f"{'pipelined' if pipe else 'sync'}: "
+                      f"{r['requests_per_s']:.1f} requests/s, p99 "
+                      f"{r['p99_ms']:.3f} ms, {r['steps']} steps, "
+                      f"{r['dispatches']} dispatches, launches "
+                      f"{r['launches']} by route {r['routes']}, host ms "
+                      "per step " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in
+                          r["host_ms_per_step"].items()))
+    print(f"[serve] fused plane: every served lane == _eval_core reference "
+          f"on its request's row and knobs and the drawn start "
+          f"({res['fused_checked_lanes']} lanes); on the same draws 4 x 256 "
+          f"== 1 x 1024, sync == pipelined")
+    res["fused_runs"] = fused_runs
+    # the LM mode
+    res["lm"] = lm_serve(dev)
+    lm = res["lm"]
+    print(f"[serve] LM mode {lm['arch']} fp32: {lm['requests']} requests, "
+          f"{lm['tokens']} tokens in {lm['seconds']:.2f} s "
+          f"({lm['tokens_per_s']:.1f} tokens/s), {lm['groves_per_token']:.2f} "
+          f"of {lm['n_groves']} groves per token; launches {lm['launches']} "
+          f"by route {lm['routes']}; first tokens == forward's argmax, logits "
+          f"within {lm['first_token_max_abs_err_vs_forward']:.2e}")
+    res["field"] = field
+    res["root"] = root
+    return res
+
+
+def serve_profile(serve: dict, dev: torch.device) -> None:
+    """The profiler's figures of the serve phase, after every event
+    timing: a registry-plane run and every fused-plane run under
+    ``torch.profiler``."""
+    field, root = serve["field"], serve["root"]
+    for m in ("sync", "pipelined"):
+        ctx = registry_setup(dev, field, root / f"prof-{m}")
+        d0 = ctx["dispatcher"].n_dispatches
+        prof = serving_profile(
+            lambda c=ctx, m=m: registry_serve(c, pipeline=m == "pipelined"),
+            lambda c=ctx: c["dispatcher"].n_dispatches - d0)
+        serve["registry"][m]["profile"] = prof
+        print(f"[serve] registry plane {m} under the profiler: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle "
+              f"{prof['device_idle_share']:.3f}; per dispatch: launches "
+              f"{prof['launches_per_dispatch']}, fused_fog "
+              f"{fmt(prof['fused_fog_device_ms'])} ms on the device, host "
+              f"ops {prof['host_ops_per_dispatch']}")
+    for (prec, replicas, pipe), r in serve.pop("fused_runs").items():
+        disp = r["batcher"].dispatcher
+        d0 = disp.n_dispatches
+        prof = serving_profile(
+            lambda r=r: r["serve"](FUSED_REQUESTS // 4, 10**6),
+            lambda disp=disp, d0=d0: disp.n_dispatches - d0)
+        row = next(x for x in serve["fused"]
+                   if (x["precision"], x["replicas"], x["pipeline"])
+                   == (prec, replicas, pipe))
+        row["profile"] = prof
+        print(f"[serve] fused plane {replicas} x {row['span']} {prec} "
+              f"{'pipelined' if pipe else 'sync'} under the profiler: wall "
+              f"{prof['wall_ms']:.1f} ms, idle {prof['device_idle_share']:.3f}"
+              f", fused_fog {fmt(prof['fused_fog_device_ms'])} ms on the "
+              f"device a launch, {prof['launches_per_dispatch']} per "
+              "dispatch")
+    serve.pop("field")
+    serve.pop("root")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2569,10 +3323,23 @@ def main() -> int:
     attn = lm_phase(dev, get_arch(ATTN_ARCH))
     main_launches["flash_attention"] = attn["launches"]["flash_attention"]
 
-    # 12. the profiler, after every event timing ----------------------------
+    # 12. the serving plane (its own main paths) ----------------------------
+    serve = serve_phase(dev)
+    n_layers = T.layer_plan(get_arch(ATTN_ARCH))[2]
+    lm_launches = serve["lm"]["launches"]
+    if (lm_launches.get("flash_attention") != 8 * n_layers
+            or lm_launches.get("top2_confidence", 0) < 1
+            or set(lm_launches) != {"flash_attention", "top2_confidence"}):
+        raise AssertionError(f"LM serve: launches {lm_launches}, want "
+                             f"{n_layers} flash_attention a prefill and the "
+                             "gate's top2_confidence")
+
+    # 13. the profiler, after every event timing ----------------------------
     lm_profile(lm)
     lm_profile(attn)
     out["lm"], out["attn_lm"] = lm, attn
+    serve_profile(serve, dev)
+    out["serve"] = serve
     for lv, fn in train["level_fns"].items():
         taken = recorded_profile(fn, "histogram_kernel")
         busy, _, per_launch = taken[-1]
@@ -2728,7 +3495,7 @@ def main() -> int:
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
-    # 13. the kernels line -----------------------------------------------------
+    # 14. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -2843,6 +3610,37 @@ def main() -> int:
             kernels[-1].update(
                 library_device_ms=lt["flash_attention_library_device_ms"],
                 library_backend=lt["flash_attention_library_backend"])
+    # the serve phase's launches beside each kernel's main-path count
+    reg = serve["registry"]
+    by_span = {64: reg["sync"]["profile"]["fused_fog_device_ms"]}
+    for row in serve["fused"]:
+        if row["precision"] == "fp32" and not row["pipeline"]:
+            by_span[row["span"]] = row["profile"]["fused_fog_device_ms"]
+    serve_launches = {
+        "fused_fog": {"registry plane sync": reg["sync"]["launches"],
+                      "registry plane pipelined":
+                          reg["pipelined"]["launches"],
+                      "dispatches": {m: reg[m]["dispatches"] for m in reg},
+                      "launches_per_dispatch": {
+                          m: reg[m]["launches"]["fused_fog"]
+                          / reg[m]["dispatches"] for m in reg},
+                      "fused_plane": {
+                          f"{r['replicas']}x{r['span']} {r['precision']} "
+                          + ("pipelined" if r["pipeline"] else "sync"):
+                          r["launches"].get("fused_fog", 0)
+                          / r["dispatches"] for r in serve["fused"]},
+                      "device_ms_by_span": by_span},
+        "grove_aggregate": {"registry plane, backend pallas":
+                                serve["registry_pallas"]["launches"],
+                            "dispatches":
+                                serve["registry_pallas"]["dispatches"]},
+        "top2_confidence": {"LM serve": serve["lm"]["launches"].get(
+            "top2_confidence", 0)},
+        "flash_attention": {"LM serve": serve["lm"]["launches"].get(
+            "flash_attention", 0), "routes": serve["lm"]["routes"]}}
+    for k in kernels:
+        if k["name"] in serve_launches:
+            k["serve_launches"] = serve_launches[k["name"]]
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

@@ -236,6 +236,70 @@ def _eval_core(pack: ForestPack, x, start, thresh, budget, max_hops: int,
 
 
 # --------------------------------------------------------------------------
+# device-resident lane state (the serving plane's splice path)
+# --------------------------------------------------------------------------
+
+def _lane_index(idx, device: torch.device) -> torch.Tensor:
+    if isinstance(idx, torch.Tensor):
+        return idx.to(device=device, dtype=torch.long).reshape(-1)
+    return torch.as_tensor(np.asarray(idx, np.int64).reshape(-1),
+                           device=device)
+
+
+def _lane_values(vals, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(vals, torch.Tensor):
+        return vals.to(device=like.device, dtype=like.dtype)
+    return torch.as_tensor(np.asarray(vals), device=like.device).to(
+        like.dtype)
+
+
+def _splice_into(buf: torch.Tensor, idx: torch.Tensor, vals,
+                 donate: bool) -> torch.Tensor:
+    n = buf.shape[0]
+    if idx.numel() > n:
+        raise ValueError(f"splice of {idx.numel()} lanes into a {n}-lane "
+                         "buffer")
+    out = buf if donate else buf.clone()
+    return out.index_copy_(0, idx, _lane_values(vals, buf))
+
+
+def splice_lanes(buf: torch.Tensor, idx, vals, *,
+                 donate: bool = True) -> torch.Tensor:
+    """Row update ``buf[idx] = vals`` of a device-resident lane buffer.
+
+    With ``donate=True`` (the default) ``buf`` is updated in place
+    (``index_copy_``) and returned.  Pass ``donate=False`` when another
+    reader may still need ``buf`` as it was — a dispatch on another stream,
+    or a caller holding the old state: a new tensor is returned and ``buf``
+    stays readable and unchanged (one buffer copy, trivial at per-span
+    row-buffer sizes).  On one stream an in-place splice enqueued after a
+    launch is ordered after it, so the serving replicas donate.
+
+    ``idx`` and ``vals`` may be host arrays or tensors; host values are
+    copied to ``buf``'s device.
+    """
+    idx = _lane_index(idx, buf.device)
+    if idx.numel() == 0:
+        return buf
+    return _splice_into(buf, idx, vals, donate)
+
+
+def splice_slot_state(x: torch.Tensor, thr: torch.Tensor, bud: torch.Tensor,
+                      idx, rows, t, b, *, donate: bool = True):
+    """:func:`splice_lanes` over a replica's THREE slot buffers (feature
+    rows, thresholds, hop budgets) sharing ONE lane index set, moved to the
+    device once.  Same contract: ``donate=True`` updates the three in place
+    and returns them; ``donate=False`` returns three new tensors and leaves
+    the sources unchanged."""
+    idx = _lane_index(idx, x.device)
+    if idx.numel() == 0:
+        return x, thr, bud
+    return (_splice_into(x, idx, rows, donate),
+            _splice_into(thr, idx, t, donate),
+            _splice_into(bud, idx, b, donate))
+
+
+# --------------------------------------------------------------------------
 # packed-table ownership
 # --------------------------------------------------------------------------
 

@@ -26,6 +26,7 @@ knob             meaning
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -100,6 +101,17 @@ class FogPolicy:
         return (getattr(self.threshold, "ndim", 0) > 0
                 or getattr(self.hop_budget, "ndim", 0) > 0)
 
+    @property
+    def static_overrides(self) -> tuple[str, ...]:
+        """Names of the static knobs this policy sets (non-None).  Static
+        knobs select the evaluation path, so contexts that share one path
+        across many policies (the serving scheduler) reject them on
+        per-request policies — except ``precision``, which the scheduler
+        handles by dispatching once per precision group."""
+        return tuple(k for k in ("max_hops", "backend", "block_b",
+                                 "chunk_b", "lazy", "precision")
+                     if getattr(self, k) is not None)
+
     # -- persistence -----------------------------------------------------
     def to_dict(self) -> dict:
         """JSON-safe scalar-knob dict.  Per-lane policies are batch-shaped
@@ -154,3 +166,119 @@ class FogPolicy:
             raise ValueError(
                 f"per-lane hop_budget has shape {tuple(b.shape)}, batch is {B}")
         return b.contiguous()
+
+
+# -- device-resident per-lane policy state (the packed serving path) -------
+#
+# The continuous batcher's packed path keeps each span's per-lane threshold
+# / hop-budget vectors RESIDENT on the serving device and splices only the
+# lanes that changed (admit / retire), instead of re-assembling and
+# re-uploading full vectors every step.  Lanes without an explicit
+# per-request policy carry sentinels — NaN threshold / negative budget —
+# that each dispatch resolves against the step's default rung
+# (``torch.where``), so a governor rung change never forces a re-splice.
+# Retired lanes are stamped DEAD: threshold -1 confirms on the first hop
+# (MaxDiff >= 0 > -1 always) and budget 1 hard-caps it, so an empty lane
+# costs one hop instead of walking the default policy.
+
+THRESH_DEFAULT = float("nan")
+BUDGET_DEFAULT = -1
+DEAD_THRESH = -1.0
+DEAD_BUDGET = 1
+
+
+def lane_knobs(policy: "FogPolicy | None") -> tuple[float, int]:
+    """One lane's resident (threshold, hop_budget) encoding: concrete
+    values for an explicit policy (an unset hop_budget is NO_BUDGET — the
+    per-request contract fully overrides the default, matching
+    :func:`assemble`), default sentinels otherwise."""
+    if policy is None:
+        return THRESH_DEFAULT, BUDGET_DEFAULT
+    bud = (int(policy.hop_budget)
+           if policy.hop_budget is not None else NO_BUDGET)
+    return float(policy.threshold), bud
+
+
+class LanePolicies:
+    """Host mirror of one span's resident per-lane policy vectors, with
+    dirty-lane tracking: the serving replica drains :meth:`take_dirty` into
+    a device splice right before each dispatch.  All lanes start DEAD (the
+    span serves nothing until admits arrive)."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+        self.thresh = np.full((n,), DEAD_THRESH, np.float32)
+        self.budget = np.full((n,), DEAD_BUDGET, np.int32)
+        self._dirty = np.zeros((n,), bool)
+
+    def stamp(self, lane: int, thr: float, bud: int) -> None:
+        """Raw per-lane write (admit resolved knobs, flush re-stamps)."""
+        self.thresh[lane] = thr
+        self.budget[lane] = bud
+        self._dirty[lane] = True
+
+    def stamp_many(self, lanes, thr, bud) -> None:
+        """Vectorized :meth:`stamp`: one bulk write per refill."""
+        self.thresh[lanes] = thr
+        self.budget[lanes] = bud
+        self._dirty[lanes] = True
+
+    def admit(self, lane: int, policy: "FogPolicy | None" = None) -> None:
+        self.stamp(lane, *lane_knobs(policy))
+
+    def retire(self, lane: int) -> None:
+        self.stamp(lane, DEAD_THRESH, DEAD_BUDGET)
+
+    def retire_many(self, lanes) -> None:
+        self.stamp_many(lanes, DEAD_THRESH, DEAD_BUDGET)
+
+    @property
+    def dirty(self) -> bool:
+        return bool(self._dirty.any())
+
+    def take_dirty(self):
+        """``(idx, thresh, budget)`` of every lane staged since the last
+        take (idx ascending, for deterministic splices), clearing the
+        mask."""
+        idx = np.flatnonzero(self._dirty).astype(np.int32)
+        self._dirty[idx] = False
+        return idx, self.thresh[idx], self.budget[idx]
+
+    def resolve(self, default: "FogPolicy") -> tuple[np.ndarray, np.ndarray]:
+        """The full effective vectors under ``default`` — the host-side
+        reference of what the dispatch's ``torch.where`` resolution
+        computes."""
+        thr = np.where(np.isnan(self.thresh),
+                       np.float32(np.asarray(default.threshold)),
+                       self.thresh).astype(np.float32)
+        def_bud = (int(np.asarray(default.hop_budget))
+                   if default.hop_budget is not None else NO_BUDGET)
+        bud = np.where(self.budget < 0, np.int32(def_bud),
+                       self.budget).astype(np.int32)
+        return thr, bud
+
+
+def assemble(policies: Sequence["FogPolicy | None"],
+             default: "FogPolicy | None" = None) -> FogPolicy:
+    """Stack per-request scalar policies into one per-lane batch policy.
+
+    The continuous-batching scheduler holds one (possibly absent) scalar
+    policy per slot; this builds the single ``FogPolicy`` whose ``threshold``
+    / ``hop_budget`` are ``[n_slots]`` vectors, so one decode step serves
+    mixed-QoS traffic.  Static knobs (backend, block_b, ...) come from
+    ``default``.  The vectors are host numpy: the scheduler assembles and
+    re-slices them every step, and each decode path moves them to its own
+    device.
+    """
+    default = default if default is not None else FogPolicy()
+    thr = [float(p.threshold if p is not None else default.threshold)
+           for p in policies]
+    budgets = [(p.hop_budget if p is not None else default.hop_budget)
+               for p in policies]
+    budget_vec = None
+    if any(b is not None for b in budgets):
+        budget_vec = np.asarray(
+            [int(b) if b is not None else NO_BUDGET for b in budgets],
+            np.int32)
+    return default.replace(threshold=np.asarray(thr, np.float32),
+                           hop_budget=budget_vec)

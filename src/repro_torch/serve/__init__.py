@@ -1,2 +1,3 @@
-"""Serving entry points (port of ``repro.serve``): the LM prefill and
-decode steps."""
+"""Serving (port of ``repro.serve``): the LM prefill and decode steps
+(``decode``), the continuous batcher (``scheduler``), the data-parallel
+replica plane (``dispatch``) and the energy governors (``governor``)."""

@@ -25,8 +25,9 @@ Artifacts are the JAX package's ``.npz`` v1 pack plus the same facade state
 (``FogClassifier.save``/``load`` in either package read each other's).
 ``set_energy_budget`` calibrates a Pareto frontier over the runtime knobs
 (:mod:`repro_torch.core.frontier`) and pins the highest-accuracy policy
-meeting the budget; ``profile()`` then reports measured-vs-budget.  The
-serving governor (``governor()``) is not ported yet.
+meeting the budget; ``profile()`` then reports measured-vs-budget, and
+``governor()`` builds the serving plane's ``EnergyGovernor`` over that
+frontier.
 """
 from __future__ import annotations
 
@@ -276,9 +277,22 @@ class FogClassifier:
         return self
 
     def governor(self, energy_budget_nj: float | None = None, **kw):
-        """The serving ``EnergyGovernor`` is not ported yet (ROADMAP A8)."""
-        raise NotImplementedError(
-            "the serving EnergyGovernor is not ported yet: ROADMAP A8")
+        """An :class:`~repro_torch.serve.governor.EnergyGovernor` over this
+        model's calibrated frontier (requires :meth:`set_energy_budget`
+        first, or a loaded artifact that persisted one), priced by the
+        engine's own EnergyModel — ready to hand to
+        ``ContinuousBatcher(governor=...)``."""
+        from repro_torch.serve.governor import EnergyGovernor
+        self._check_fitted()
+        if getattr(self, "frontier_", None) is None:
+            raise RuntimeError(
+                "no calibrated frontier; call set_energy_budget(nj, X_cal, "
+                "y_cal) first (or load an artifact that persisted one)")
+        budget = (energy_budget_nj if energy_budget_nj is not None
+                  else getattr(self, "energy_budget_nj_", None))
+        model = self.engine_.energy_model(self.engine_.precision,
+                                          self.n_features_in_)
+        return EnergyGovernor(self.frontier_, budget, model=model, **kw)
 
     # -- precision & persistence ------------------------------------------
     def quantize(self, precision: str = "int8") -> "FogClassifier":

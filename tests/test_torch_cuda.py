@@ -1189,3 +1189,94 @@ def test_grove_aggregate_tile_route_per_eval(cuda, trained_port):
         assert _build.routes["grove_aggregate_tile"] == \
             before["grove_aggregate_tile"] + 8
         assert _build.routes["grove_aggregate"] == before["grove_aggregate"]
+
+
+# --------------------------------------------------------------------------
+# the serving plane on the card
+# --------------------------------------------------------------------------
+
+def serve_plane(dev, gc, x, *, replicas, pipeline, n_slots=256,
+                backend="fused", checked=False, n=1500):
+    """One packed plane on the card (fp32 and int8 requests, two tiers),
+    every request two tokens, all queued up front, every global lane's
+    start from ``chip_smoke.lane_draws``; ``checked`` witnesses each
+    dispatch (``chip_smoke.witness``).  Returns the batcher."""
+    from repro_torch.serve.dispatch import (DeviceDispatcher,
+                                            ForestReplicaServer)
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request
+    server = ForestReplicaServer(gc, x.shape[1], backend=backend,
+                                 precisions=("fp32", "int8"),
+                                 draw_starts=chip_smoke.lane_draws(n_slots))
+    disp = DeviceDispatcher(server.packed_factory, [dev] * replicas)
+    b = ContinuousBatcher(n_slots, None, server.prefill, eos_id=-1,
+                          default_policy=tcore.FogPolicy(threshold=0.6),
+                          dispatcher=disp, pipeline=pipeline)
+    if checked:
+        chip_smoke.witness(b, server.default_precision)
+    for rid in range(n):
+        pol = (tcore.FogPolicy(threshold=0.4, hop_budget=3, precision="int8")
+               if rid % 5 == 0 else None)
+        b.submit(Request(rid=rid, prompt=x[rid % len(x)], max_new_tokens=2,
+                         policy=pol))
+    return b
+
+
+def served(b):
+    return {r.rid: (tuple(r.generated), tuple(r.hops)) for r in b.completed}
+
+
+@pytest.mark.parametrize("replicas", [1, 4])
+def test_serving_sync_equals_pipelined_on_card(cuda, trained_port, replicas):
+    ds, gc = trained_port
+    runs = []
+    for pipe in (False, True):
+        b = serve_plane(cuda, gc, ds.x_test, replicas=replicas,
+                        pipeline=pipe)
+        b.run()
+        assert len(b.completed) == 1500
+        runs.append((served(b), b.stats.total_pj, b.stats.tier_summary()))
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_stream_replicas_equal_one_replica(cuda, trained_port, pipeline):
+    """Four replicas on one card, one CUDA stream each, serve what one
+    replica serves when every global lane draws the same start."""
+    ds, gc = trained_port
+    out = []
+    for replicas in (1, 4):
+        b = serve_plane(cuda, gc, ds.x_test, replicas=replicas,
+                        pipeline=pipeline)
+        b.run()
+        assert [s is not None for s in b.dispatcher.streams] == \
+            [True] * replicas
+        out.append((served(b), b.stats.total_pj))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+def test_served_lanes_equal_the_reference_backend(cuda, trained_port,
+                                                  backend):
+    """Every packed dispatch's labels and hops (one fused_fog launch, or 8
+    grove_aggregate) equal ``_eval_core(..., "reference")`` on its
+    requests' own rows and owed knobs and the starts it drew, and its
+    energy equals the model's price of its hops, bit for bit."""
+    from repro_torch.kernels import ops
+    ds, gc = trained_port
+    b = serve_plane(cuda, gc, ds.x_test, replicas=2, pipeline=True,
+                    backend=backend, checked=True, n=600)
+    n0 = dict(ops.launches)
+    harvested = chip_smoke.checker(b, ds.x_test.shape[1])
+    checked = 0
+    while b.active or b.queue:
+        b.step()
+        checked += harvested()
+    b.flush()
+    checked += harvested()
+    assert len(b.completed) == 600 and checked >= 1000
+    launched = {k: ops.launches[k] - n0[k] for k in ops.launches
+                if ops.launches[k] != n0[k]}
+    want = ("fused_fog" if backend == "fused" else "grove_aggregate")
+    assert set(launched) == {want}
+    assert launched[want] == b.dispatcher.n_dispatches * (
+        1 if backend == "fused" else 8)

@@ -243,8 +243,8 @@ def test_governor_raises_and_params(ds):
     with pytest.raises(ValueError):
         FogClassifier(n_trees=5, grove_size=2, device="cpu").fit(
             ds.x_train, ds.y_train)
-    with pytest.raises(NotImplementedError, match="A8"):
-        clf.governor(1.0)
+    with pytest.raises(RuntimeError):
+        clf.governor(1.0)                           # not fitted
 
 
 # ------------------------------------------------------------ budget.py
