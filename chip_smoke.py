@@ -16,8 +16,9 @@ trees of depth 8 split into 8 groves x 2, the 1000-row test set, threshold
 its training path (the device trainer at the gate config of
 ``benchmarks/train_bench.py``), the ``FogClassifier`` facade (train ->
 plan -> serve), the grove ring, Mamba-2 and attention (tinyllama) LM
-serving with the FoG layer-grove exit, and the serving plane (the
-registry plane, the fused plane and the serve CLI's LM mode), and:
+serving with the FoG layer-grove exit, the serving plane (the registry
+plane, the fused plane and the serve CLI's LM mode) and the paper's
+evaluation path (Table 1, Figures 4-5, the ablation), and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -147,15 +148,38 @@ registry plane, the fused plane and the serve CLI's LM mode), and:
    read just after) with each pair equal; and the serve CLI's LM mode at
    full width (tinyllama-1.1b, fp32, FoG with the top-2 kernel, 8
    requests, 4 slots), each first token equal to ``forward``'s argmax;
-13. reads each kernel's device time, each eval's, the gate fit's, each
+13. runs the paper's evaluation path (``repro_torch.paper``) with the
+   launch counts zeroed just before and read just after: ``fused_fog``
+   at the five Table 1 fields (each dataset's host-CART forest of 16
+   trees at ``paper.common.DEPTHS``, 8 x 2, packed on the card at every
+   precision; thresholds 1.1 and 0.3 from seeded starts), Table 1 on the
+   card (the four baselines trained in fp32 with TF32 off, RF, FoG_max,
+   FoG_opt) and ``paper.run``'s Figure 4, Figure 5 and ablation sections:
+   one ``fused_fog`` launch an eval and no other kernel; holds every
+   eval of that run (each recorded at ``_eval_core``: the fields, the
+   Table 1 sweeps and each topology the figures launch, 16 x 1 to 1 x 16)
+   equal to ``reference`` on the card and to the plain path on the CPU
+   from its own inputs and starts (hops and labels equal, proba within
+   rtol 1e-6 / atol 1e-7); prints each field's route, its bytes bound and
+   the call's time;
+   prints Table 1's accuracy and nJ rows and the geomean energy ratios
+   beside the paper's; times each classifier's prediction over each test
+   set (classifications/s); and trains each baseline on segmentation on
+   the card and on the CPU from the same init (accuracy within 0.01); and
+   holds each baseline's params after 5 steps from 6 inits on every
+   dataset, card against CPU (within 1e-4 of each leaf's scale on
+   segmentation; the CNN with TF32 on must part by more), with cuDNN's
+   convolutions on beside them;
+14. reads each kernel's device time, each eval's, the gate fit's, each
    LM step's and each serving run's device idle share from
    ``torch.profiler`` (after every event timing: once CUPTI traces the
    process, every launch costs the host more), with the serving runs'
    launches and host ops per dispatch, and times ``fused_fog``'s "smem"
    and "l1" routes on the device where ``fused_fog.route``'s copy-bytes
    line falls (``BOUNDARY_GRID``, each output checked bit for bit),
-   beside the route the rule picks;
-14. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   beside the route the rule picks, and ``fused_fog``'s at the five
+   paper fields;
+15. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -163,7 +187,9 @@ raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import re
 import shutil
@@ -188,6 +214,7 @@ from repro_torch.core.engine import (DEFAULT_BLOCK_B,  # noqa: E402
                                      FUSED_BLOCK_B, _eval_core,
                                      confidence_margin, sample_starts)
 from repro_torch.core.fog_ring import TRAVERSE_BLOCK_B  # noqa: E402
+fog_engine = importlib.import_module("repro_torch.core.engine")
 from repro_torch.core.policy import NO_BUDGET  # noqa: E402
 from repro_torch.data import (DataConfig, batch_at_step,  # noqa: E402
                               make_dataset)
@@ -223,6 +250,15 @@ from repro_torch.serve.governor import (EnergyGovernor,  # noqa: E402
 from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
                                          Request)
 from repro_torch.sklearn import FogClassifier  # noqa: E402
+from repro_torch.baselines import ALL_BASELINES  # noqa: E402
+from repro_torch.baselines import train as bl_train  # noqa: E402
+from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.paper import ablation_adaptive  # noqa: E402
+from repro_torch.paper import common as paper_common  # noqa: E402
+from repro_torch.paper import fig5_threshold, table1_accuracy  # noqa: E402
+from repro_torch.paper import run as paper_run  # noqa: E402
+from repro_torch.paper import table1_energy  # noqa: E402
+from repro_torch.paper.table1_energy import PAPER_RATIOS  # noqa: E402
 
 PRECISIONS = ("fp32", "bf16", "int8")
 BACKENDS = ("fused", "pallas", "reference")
@@ -2950,6 +2986,400 @@ def serve_profile(serve: dict, dev: torch.device) -> None:
     serve.pop("root")
 
 
+# -- the paper's evaluation path (phase 13) ------------------------------------
+PAPER_THRESHOLDS = (1.1, 0.3)
+PAPER_SECTIONS = ("fig4_topology", "fig5_threshold", "ablation_adaptive")
+PAPER_ACC_BAR = 0.01      # card vs CPU accuracy of a trained baseline
+# card vs CPU params after 5 steps on segmentation, over each leaf's
+# scale: the port's setting (TF32 and cuDNN off) parts by at most 3.5e-6
+# there over 6 inits, and TF32 on by at least 7.5e-4 for SVM_RBF, the MLP
+# and the CNN (PERF.md)
+FIVE_STEP_BAR = 1e-4
+
+
+def five_steps(name: str, init, ds, dev: torch.device):
+    """A baseline's trained tree after one epoch of ``ds``, as its
+    ``train_*`` trains it (``fit_setup``, TF32 off)."""
+    return bl_train.fit_setup(name, init, ds.n_features, dev).fit(
+        ds, epochs=1, device=dev)
+
+
+FIVE_STEP_SEEDS = 6
+# the baselines' training setting: the port's (``fp32_products``), with
+# cuDNN's convolutions back on, and with TF32 back on (the control)
+FIVE_STEP_SETTINGS = ("port", "cudnn", "tf32")
+
+
+@contextlib.contextmanager
+def training_setting(setting: str):
+    """``_fit`` inside the block trains under ``setting``."""
+    real = bl_train.fp32_products
+
+    @contextlib.contextmanager
+    def products(cudnn: bool = True):
+        with real(cudnn=cudnn or setting == "cudnn"):
+            if setting == "tf32":
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
+            yield
+
+    bl_train.fp32_products = products
+    try:
+        yield
+    finally:
+        bl_train.fp32_products = real
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of a tree's leaves, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def five_step_checks(dev: torch.device) -> list:
+    """Each baseline's params after 5 steps (one epoch of 640 rows) from
+    ``FIVE_STEP_SEEDS`` inits on each dataset, on the card in every
+    setting against the CPU: the largest gap over a leaf's scale and its
+    leaf.  On segmentation the port's setting must stay within
+    ``FIVE_STEP_BAR``, and the CNN with TF32 on must not (the bar sees
+    that drift)."""
+    rows = []
+    for dname in paper_common.DATASETS:
+        ds = paper_common.dataset(dname)
+        five = dataclasses.replace(ds, x_train=ds.x_train[:640],
+                                   y_train=ds.y_train[:640])
+        for name in ALL_BASELINES:
+            for seed in range(FIVE_STEP_SEEDS):
+                init = bl_train.BASELINE_INIT[name](
+                    torch.Generator().manual_seed(seed), ds.n_features,
+                    ds.n_classes)
+                cpu = five_steps(name, init, five, torch.device("cpu"))
+                row = {"dataset": dname, "baseline": name, "seed": seed}
+                for setting in FIVE_STEP_SETTINGS:
+                    with training_setting(setting):
+                        card = five_steps(name, init, five, dev)
+                    row[setting] = max(
+                        (float((a.cpu() - b).abs().max() / b.abs().max()), n)
+                        for a, b, n in zip(tree_leaves(card),
+                                           tree_leaves(cpu),
+                                           leaf_names(cpu)))
+                what = f"{dname} {name} seed {seed}: params after 5 steps"
+                if dname == "segmentation" and row["port"][0] > FIVE_STEP_BAR:
+                    raise AssertionError(
+                        f"{what} part by {row['port'][0]:.3e} of the scale of "
+                        f"{row['port'][1]} (bar {FIVE_STEP_BAR})")
+                if name == "cnn" and row["tf32"][0] <= FIVE_STEP_BAR:
+                    raise AssertionError(
+                        f"{what} with TF32 on part by only "
+                        f"{row['tf32'][0]:.3e} (bar {FIVE_STEP_BAR})")
+                rows.append(row)
+    for name in ALL_BASELINES:
+        mine = [r for r in rows if r["baseline"] == name]
+        seg = [r for r in mine if r["dataset"] == "segmentation"]
+
+        def worst(rs, setting):
+            r = max(rs, key=lambda r: r[setting][0])
+            return (f"{r[setting][0]:.2e} ({r['dataset']} seed {r['seed']} "
+                    f"{r[setting][1]})")
+
+        print(f"[paper] {name} params after 5 steps, card vs CPU, largest "
+              f"gap over a leaf's scale over {FIVE_STEP_SEEDS} inits: port "
+              f"{worst(seg, 'port')} on segmentation (bar {FIVE_STEP_BAR}),"
+              f" {worst(mine, 'port')} on all five; cuDNN on "
+              f"{worst(mine, 'cudnn')}; TF32 on, the smallest "
+              f"{min(r['tf32'][0] for r in mine):.2e}")
+    return rows
+
+
+def paper_fields(dev: torch.device) -> dict:
+    """The five Table 1 fields (host CART at ``paper_common.DEPTHS``, 8 x
+    2), packed on the card at every precision, with their test sets on
+    the card and seeded start draws."""
+    gen = torch.Generator(device=dev)
+    fields = {}
+    for name in paper_common.DATASETS:
+        ds = paper_common.dataset(name)
+        gc = split(paper_common.forest_for(name), paper_common.GROVE_SIZE)
+        gc_card = GroveCollection(*(a.to(dev) for a in (
+            gc.feature, gc.threshold, gc.leaf)))
+        fields[name] = {
+            "ds": ds, "gc": gc,
+            "packs": {p: ForestPack.from_groves(gc_card, p)
+                      for p in PRECISIONS},
+            "x": torch.as_tensor(ds.x_test, device=dev),
+            "start": sample_starts(gen.manual_seed(SEED), len(ds.y_test),
+                                   gc.n_groves)}
+    return fields
+
+
+def paper_field_evals(dev: torch.device, fields: dict) -> dict:
+    """``fused`` evals at every field, precision and threshold from the
+    field's starts: {(name, precision, threshold): (report, route)}."""
+    out = {}
+    for name, f in fields.items():
+        for p in PRECISIONS:
+            engine = FogEngine(f["packs"][p], backend="fused", device=dev)
+            for thr in PAPER_THRESHOLDS:
+                before = dict(_build.routes)
+                r = engine.eval(f["x"], policy=FogPolicy(threshold=thr),
+                                start=f["start"])
+                torch.cuda.synchronize()
+                route = [k for k in FUSED_ROUTES
+                         if _build.routes[k] != before[k]]
+                out[name, p, thr] = (r, route)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_evals():
+    """Every ``_eval_core`` call a ``FogEngine`` makes inside the block, as
+    (pack, the call's other arguments, its result)."""
+    calls: list = []
+    core = fog_engine._eval_core
+
+    def spy(pack, *args):
+        out = core(pack, *args)
+        calls.append((pack, args, out))
+        return out
+
+    fog_engine._eval_core = spy
+    try:
+        yield calls
+    finally:
+        fog_engine._eval_core = core
+
+
+def check_paper_evals(calls: list, fields: dict) -> dict:
+    """Hold each recorded eval, which must be ``fused`` at one threshold,
+    to ``reference`` on the card and to the plain path on the CPU from
+    the same inputs and starts: hops and labels equal, proba within RTOL /
+    ATOL.  {(dataset, topology, precision, threshold): (evals, max abs
+    err)}."""
+    name_of = {(f["ds"].n_features, f["ds"].n_classes, len(f["ds"].y_test)):
+               name for name, f in fields.items()}
+    on_cpu: dict = {}
+    out: dict = {}
+    for pack, args, got in calls:
+        x, start, thresh, budget, max_hops, backend, block_b, lazy = args
+        thr = round(float(thresh[0]), 6)
+        key = (name_of[x.shape[1], pack.n_classes, x.shape[0]],
+               f"{pack.n_groves}x{pack.grove_size}", pack.precision, thr)
+        what = "paper eval {} {} {} thresh {}".format(*key)
+        if backend != "fused" or not bool((thresh == thresh[0]).all()):
+            raise AssertionError(f"{what}: backend {backend}, want fused "
+                                 "at one threshold")
+        if id(pack) not in on_cpu:
+            on_cpu[id(pack)] = pack.to("cpu")
+        tail = (max_hops, "reference", block_b, lazy)
+        want_card = _eval_core(pack, x, start, thresh, budget, *tail)
+        want_cpu = _eval_core(on_cpu[id(pack)], *(a.cpu() for a in (
+            x, start, thresh, budget)), *tail)
+        err = 0.0
+        for want, where in ((want_card, "reference on the card"),
+                            (want_cpu, "the CPU")):
+            check_equal(f"{what} hops vs {where}", got.hops, want.hops)
+            check_equal(f"{what} labels vs {where}", got.label, want.label)
+            err = max(err, check_close(f"{what} proba vs {where}",
+                                       got.proba, want.proba))
+        n, e = out.get(key, (0, 0.0))
+        out[key] = (n + 1, max(e, err))
+    return out
+
+
+def paper_phase(dev: torch.device) -> dict:
+    """Phase 13: the paper's evaluation path on the card (see the module
+    docstring's item 13); event timings only -- ``paper_profile`` adds
+    the kernel's device ms after every event timing."""
+    t0 = time.perf_counter()
+    fields = paper_fields(dev)
+    setup_s = time.perf_counter() - t0
+    print(f"[paper] five fields (host CART, 16 trees in 8 x 2) trained and "
+          f"packed on the card in {setup_s:.1f} s")
+    # the main path: the fields' fused evals, Table 1 and the figure
+    # sections, with the counts zeroed just before and read just after
+    t0 = time.perf_counter()
+    zero_counts()
+    with recorded_evals() as calls:
+        evals = paper_field_evals(dev, fields)
+        table1 = paper_common.evaluate_datasets(paper_common.DATASETS,
+                                                device=dev)
+        secs = paper_run.sections(device=dev)
+        figures = {s: secs[s]() for s in PAPER_SECTIONS}
+    launches, routes = read_counts()
+    path_s = time.perf_counter() - t0
+    # one launch an eval: the fields' evals; FoG_max and the 9-point
+    # FoG_opt sweep per dataset; Figure 4's 5 topologies on its 2
+    # datasets; Figure 5's 2 topologies x 9 thresholds on all 5; the
+    # ablation's 4 thresholds on its 2
+    n_sweep = len(fig5_threshold.THRESHOLDS)
+    n_fog = (len(evals) + len(table1) * (1 + n_sweep) + 2 * 5
+             + len(paper_common.DATASETS) * 2 * n_sweep
+             + 2 * len(ablation_adaptive.THRESHOLDS))
+    print(f"[paper] main path in {path_s:.1f} s: kernel launches "
+          f"{launches} by route {routes}")
+    if launches != {"fused_fog": n_fog} or routes.get("fused_fog"):
+        raise AssertionError(
+            f"paper path: launches {launches} by route {routes}, want "
+            f"{n_fog} fused_fog launches (one an eval), each on a group "
+            "route, and no other kernel")
+
+    # 1. every eval of the main path (each topology the figures launch:
+    # 16 x 1 to 1 x 16) == reference on the card == the plain path on the
+    # CPU, from its own inputs and starts
+    t0 = time.perf_counter()
+    checked = check_paper_evals(calls, fields)
+    n_checked = sum(n for n, _ in checked.values())
+    if n_checked != n_fog:
+        raise AssertionError(f"paper path: {n_checked} evals recorded and "
+                             f"checked, {n_fog} fused_fog launches")
+    res: dict = {"fields": {}, "evals_checked": [
+        {"dataset": d, "topology": t, "precision": p, "threshold": thr,
+         "evals": n, "max_abs_err": e}
+        for (d, t, p, thr), (n, e) in checked.items()]}
+    by_topology: dict = {}
+    for (d, t, p, thr), (n, e) in checked.items():
+        row = by_topology.setdefault(t, {"evals": 0, "datasets": set(),
+                                         "thresholds": set(), "err": 0.0})
+        row["evals"] += n
+        row["datasets"].add(d)
+        row["thresholds"].add(thr)
+        row["err"] = max(row["err"], e)
+    print(f"[paper] all {n_checked} evals of the main path == reference on "
+          f"the card == the CPU (hops, labels; proba within rtol {RTOL} / "
+          f"atol {ATOL}) in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{t} {r['evals']} evals, {len(r['datasets'])} datasets, "
+              f"{len(r['thresholds'])} thresholds, max abs err "
+              f"{r['err']:.2e}" for t, r in sorted(by_topology.items())))
+    kernel_fns = {}
+    for (name, p, thr), (r, route) in evals.items():
+        f = fields[name]
+        pack, x, start = f["packs"][p], f["x"], f["start"]
+        what = f"paper {name} {p} thresh {thr}"
+        err = checked[name, "8x2", p, thr][1]
+        check_equal(f"{what} energy", r.energy_pj, r.model.lane_pj(r.hops))
+        if len(route) != 1:
+            raise AssertionError(f"{what}: one fused_fog launch on one "
+                                 f"route, got {route}")
+        ffa = pack.layout("fused")
+        B = x.shape[0]
+        args = (*ffa[:3], x, start, torch.full((B,), thr, device=dev),
+                torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev),
+                *ffa[3:])
+        fn = lambda a=args, G=pack.n_groves: ops.fused_fog(
+            *a, max_hops=G, block_b=FUSED_BLOCK_B)
+        check_equal(f"{what} fused_fog call vs the eval", fn()[1], r.hops)
+        work = fused_work(pack, x, start, r.hops)
+        row = {"route": route[0], "launches_per_eval": 1,
+               "accuracy": float((r.label.cpu().numpy()
+                                  == f["ds"].y_test).mean()),
+               "mean_hops": float(r.hops.float().mean()),
+               "pj_per_classification": r.mean_energy_pj,
+               "max_abs_err": err, "table_bytes": pack.table_bytes,
+               "smem_table_bytes": ff.table_smem_bytes(
+                   pack.n_heads, pack.n_groves, pack.grove_size,
+                   pack.depth, pack.n_classes,
+                   pack.threshold.element_size()),
+               "B": B, "F": x.shape[1], "depth": pack.depth,
+               "C": pack.n_classes, "ms": cuda_ms(fn),
+               "plain_ms": cuda_ms(lambda a=args, G=pack.n_groves:
+                                   fused_fog_ref(*a, max_hops=G))}
+        row["bound_ms"], row["bound_by"] = bound_ms(work["bytes"],
+                                                    work["ops"])
+        res["fields"][f"{name} {p} {thr}"] = row
+        kernel_fns[name, p, thr] = (fn, route[0])
+    for key, row in res["fields"].items():
+        print(f"[paper] fused_fog {key}: B={row['B']} F={row['F']} depth "
+              f"{row['depth']} C={row['C']}, table {row['table_bytes']} B "
+              f"({row['smem_table_bytes']} B staged); route {row['route']}, "
+              f"1 launch an eval; accuracy {row['accuracy']:.3f}, mean hops "
+              f"{row['mean_hops']:.3f}; {row['ms']:.4f} ms a call, bound "
+              f"{row['bound_ms']:.6f} ms by {row['bound_by']}, plain "
+              f"{row['plain_ms']:.3f} ms; fused == reference == CPU "
+              f"(max abs err {row['max_abs_err']:.2e})")
+
+    # 2. Table 1 and the ratios beside the paper's
+    rows_acc = table1_accuracy.run(table1)
+    rows_nj = table1_energy.run(table1)
+    for line in rows_acc:
+        print(f"[paper] table1 accuracy: {line}")
+    for line in rows_nj:
+        print(f"[paper] table1 nJ: {line}")
+    ratios = table1_energy.geomean_ratios(table1)
+    print("[paper] geomean energy / FoG_opt's (this run; the paper's): "
+          + ", ".join(f"{c} {ratios[c]:.2f} ({PAPER_RATIOS[c]:.3g})"
+                      for c in PAPER_RATIOS))
+    res["table1"] = {name: {c: {"accuracy": r.accuracy,
+                                "energy_nj": r.energy_nj}
+                            for c, r in cols.items()}
+                     for name, cols in table1.items()}
+    res["geomean_ratio_vs_fog_opt"] = ratios
+    res["paper_ratios"] = PAPER_RATIOS
+
+    # 3. prediction over each test set, CUDA events, median of 20
+    res["classifications_per_s"] = {}
+    for name, cols in table1.items():
+        x = fields[name]["x"]
+        per = {c: x.shape[0] / cuda_ms(lambda r=r: r.predict(x)) * 1e3
+               for c, r in cols.items()}
+        res["classifications_per_s"][name] = per
+        print(f"[paper] {name} classifications/s over the {x.shape[0]}-row "
+              "test set: " + ", ".join(f"{c} {v:.4g}"
+                                       for c, v in per.items()))
+
+    # 4. segmentation: each baseline trained on the card and on the CPU
+    # from the same init (the port's, drawn on the CPU); and the params
+    # after one epoch of 5 minibatches from 6 inits on every dataset
+    ds = paper_common.dataset("segmentation")
+    res["segmentation_card_vs_cpu"] = {}
+    for name, train in ALL_BASELINES.items():
+        acc = {}
+        for where, key in ((dev, "card"), (torch.device("cpu"), "cpu")):
+            init = bl_train.BASELINE_INIT[name](
+                torch.Generator().manual_seed(SEED), ds.n_features,
+                ds.n_classes)
+            acc[key] = train(ds, params=init, device=where).accuracy
+        gap = abs(acc["card"] - acc["cpu"])
+        res["segmentation_card_vs_cpu"][name] = {**acc, "gap": gap}
+        if gap > PAPER_ACC_BAR:
+            raise AssertionError(f"segmentation {name}: card accuracy "
+                                 f"{acc['card']:.4f} vs CPU {acc['cpu']:.4f}"
+                                 f" (bar {PAPER_ACC_BAR})")
+    print("[paper] segmentation, card vs CPU from the same init: " + ", ".join(
+        f"{k} {v['card']:.3f} / {v['cpu']:.3f}"
+        for k, v in res["segmentation_card_vs_cpu"].items())
+        + f" (within {PAPER_ACC_BAR})")
+    res["five_steps"] = five_step_checks(dev)
+
+    # 5. the figure sections, run on the card above
+    for s, rows in figures.items():
+        for line in rows:
+            print(f"[paper] {s}: {line}")
+    res["figures"] = figures
+    res["launches"], res["routes"] = launches, routes
+    res["main_path_s"], res["setup_s"] = path_s, setup_s
+    res["kernel_fns"] = kernel_fns
+    return res
+
+
+def paper_profile(paper: dict) -> None:
+    """fused_fog's device ms at each field, precision and threshold, after
+    every event timing."""
+    for (name, p, thr), (fn, route) in paper.pop("kernel_fns").items():
+        kernel = "fused_fog" if route == "fused_fog" else "fused_fog_group"
+        per_launch = recorded_profile(fn, kernel)[-1][2]
+        row = paper["fields"][f"{name} {p} {thr}"]
+        row["device_ms"] = kernel_ms(per_launch, kernel)
+        print(f"[time] paper fused_fog {name} {p} thresh {thr} on "
+              f"{row['route']}: {fmt(row['device_ms'])} ms on the device "
+              f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}; "
+              f"{row['ms']:.4f} ms a call)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3334,7 +3764,12 @@ def main() -> int:
                              f"{n_layers} flash_attention a prefill and the "
                              "gate's top2_confidence")
 
-    # 13. the profiler, after every event timing ----------------------------
+    # 13. the paper's evaluation path (its own main path) -------------------
+    paper = paper_phase(dev)
+
+    # 14. the profiler, after every event timing ----------------------------
+    paper_profile(paper)
+    out["paper"] = paper
     lm_profile(lm)
     lm_profile(attn)
     out["lm"], out["attn_lm"] = lm, attn
@@ -3495,7 +3930,7 @@ def main() -> int:
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
-    # 14. the kernels line -----------------------------------------------------
+    # 15. the kernels line -----------------------------------------------------
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -3519,7 +3954,11 @@ def main() -> int:
         routes=fused_routes,
         design="the group kernel (fused_fog_group_kernel)",
         serial_chain_ms=row["fused_fog_serial_chain_ms"],
-        by_batch=redesign_rows(timing, "fused_fog"))
+        by_batch=redesign_rows(timing, "fused_fog"),
+        paper_launches=paper["launches"]["fused_fog"],
+        paper_fields={k: {f: r[f] for f in (
+            "route", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for k, r in paper["fields"].items()})
     agg = kernels[INFERENCE_KERNELS.index("grove_aggregate")]
     agg.update(
         routes=agg_routes, shape=f"B={B} fp32 [B, {C}], the per-hop "

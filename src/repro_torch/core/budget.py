@@ -94,12 +94,18 @@ def policy_sweep(forest: TensorForest, grove_size: int, x_val, y_val,
 
 def topology_sweep(forest: TensorForest, x_val, y_val,
                    policy: FogPolicy | float = 0.3, backend: str = "fused",
-                   device=None) -> list[TopologyPoint]:
-    """Figure 4: every (groves x grove_size) factorization of the forest."""
+                   device=None, start=None) -> list[TopologyPoint]:
+    """Figure 4: every (groves x grove_size) factorization of the forest.
+
+    ``start`` gives each topology's start groves: a callable
+    ``n_groves -> [B]`` or a dict keyed by ``n_groves``; ``None`` draws
+    them from a generator seeded with 0."""
     pol = _as_policy(policy)
     t = forest.n_trees
-    return [evaluate_topology(forest, k, x_val, y_val, pol, backend=backend,
-                              device=device)
+    starts = start.__getitem__ if isinstance(start, dict) else start
+    return [evaluate_topology(
+                forest, k, x_val, y_val, pol, backend=backend, device=device,
+                start=None if starts is None else starts(t // k))
             for k in range(1, t + 1) if t % k == 0]
 
 

@@ -554,8 +554,9 @@ class FogEngine:
         B = x.shape[0]
         core = lambda *a: _eval_core(pack, *a, p.max_hops, p.backend,
                                      p.block_b, p.lazy)
-        # an explicit int chunks; "auto" never chunks yet (the shared-memory
-        # footprint model that would size chunks is ROADMAP A5)
+        # an explicit int chunks; "auto" never chunks yet (the fused tuner
+        # that would size chunks is ROADMAP A2, to be swept over the five
+        # Table 1 fields of paper/common.py as well as the bench field)
         cb = p.chunk_b if isinstance(p.chunk_b, int) else None
         if cb is None or B <= cb:
             return core(x, start, thresh, budget)

@@ -49,6 +49,14 @@ class TensorForest:
     def n_classes(self) -> int:
         return self.leaf.shape[2]
 
+    def slice_trees(self, start: int, count: int) -> "TensorForest":
+        """Trees ``start .. start + count - 1`` (a truncated forest)."""
+        return TensorForest(
+            self.feature[start:start + count],
+            self.threshold[start:start + count],
+            self.leaf[start:start + count],
+        )
+
     def stack_groves(self, grove_size: int) -> "TensorForest":
         """Reshape [t, ...] -> [n_groves, k, ...] (Algorithm 1's Split)."""
         t = self.n_trees

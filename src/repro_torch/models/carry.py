@@ -55,7 +55,7 @@ def _layer(tree: dict, device) -> Layer:
                              t(f["w_down"])))
     raise NotImplementedError(
         f"layer with {sorted(tree)}: the port runs attention layers with "
-        f"dense FFNs and Mamba-2 layers (ROADMAP A10)")
+        f"dense FFNs and Mamba-2 layers (ROADMAP A4)")
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:

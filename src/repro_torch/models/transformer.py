@@ -25,7 +25,7 @@ take the place of the token embedding: the audio and VLM configs
 (``cfg.frontend``) are served from their front ends' embeddings.
 
 MLA and MoE layers and hybrid attention/Mamba periods wait for a later
-slice (ROADMAP A10): building or loading a config that has them raises.
+slice (ROADMAP A4): building or loading a config that has them raises.
 The mesh's ``constrain_batch`` has no counterpart on one card, and
 ``chunked_ce`` / ``lm_loss`` are training, which comes later.
 """
@@ -90,7 +90,7 @@ def check_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs attention layers with dense FFNs "
             f"and Mamba-2 layers; its {', '.join(waiting)} layers wait for "
-            f"a later slice (ROADMAP A10)")
+            f"a later slice (ROADMAP A4)")
 
 
 def _frozen(module: nn.Module, tensors: dict) -> None:

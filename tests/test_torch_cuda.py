@@ -1280,3 +1280,141 @@ def test_served_lanes_equal_the_reference_backend(cuda, trained_port,
     assert set(launched) == {want}
     assert launched[want] == b.dispatcher.n_dispatches * (
         1 if backend == "fused" else 8)
+
+
+# -- the paper's evaluation path on the card ---------------------------------
+
+def port_baseline_init(name, F, C):
+    """The port's own init, drawn on the CPU (seed 0), for both runs."""
+    from repro_torch.baselines import BASELINE_INIT
+    return BASELINE_INIT[name](torch.Generator().manual_seed(0), F, C)
+
+
+@pytest.mark.parametrize("name", ["svm_lr", "svm_rbf", "mlp", "cnn"])
+def test_card_baselines_equal_the_cpu_port(cuda, name):
+    """From the same init and minibatches, TF32 and cuDNN off as in
+    training: the logits, and the loss and gradients at each of the first 5 steps (the
+    card's taken at the CPU's params), within rtol 1e-5 of the CPU (atol
+    1e-5 of each leaf's scale); the params after 5 steps of each run on
+    its own within rtol 1e-4 (atol 1e-4 of each leaf's scale: the port's
+    setting parts by at most 3.5e-6 here over 6 inits, TF32 on by at least
+    7.5e-4 for all but SVM_LR, PERF.md); trained accuracy on segmentation
+    within 0.01."""
+    import dataclasses
+
+    from repro_torch.baselines import train
+    from repro_torch.data import make_dataset
+    from repro_torch.optim import adamw, tree_leaves, tree_map
+    from repro_torch.optim import tree_unflatten
+    ds = make_dataset("segmentation")
+    F, C = ds.n_features, ds.n_classes
+
+    def moved(tree, dev):
+        return tree_map(lambda a: a.to(dev), tree)
+
+    def close(got, want, rtol):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert g.device.type == "cuda"
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=rtol,
+                                       atol=rtol * float(w.abs().max()))
+
+    def grads(tree, logits, loss, x, y):
+        leaves = [a.detach().requires_grad_() for a in tree_leaves(tree)]
+        value = loss(logits(tree_unflatten(tree, leaves), x), y)
+        return value.item(), torch.autograd.grad(value, leaves)
+
+    p_cpu = port_baseline_init(name, F, C)
+    x = torch.as_tensor(ds.x_train)
+    y = torch.as_tensor(ds.y_train, dtype=torch.long)
+    perm = torch.as_tensor(np.random.default_rng(0).permutation(len(x)))
+    setup = train.fit_setup(name, p_cpu, F, "cpu")
+    tree, logits, loss = setup.tree, setup.logits, setup.loss
+    logits_card = train.fit_setup(name, p_cpu, F, cuda).logits
+    init, update = adamw(lr=setup.lr, weight_decay=1e-4)
+    with train.fp32_products(cudnn=False):
+        close(logits_card(moved(tree, cuda), x[:256].to(cuda)),
+              logits(tree, x[:256]), 1e-5)
+        state = init(tree)
+        for k in range(5):
+            idx = perm[k * 128:(k + 1) * 128]
+            v, g = grads(tree, logits, loss, x[idx], y[idx])
+            vc, gc = grads(moved(tree, cuda), logits_card, loss,
+                           x[idx].to(cuda), y[idx].to(cuda))
+            np.testing.assert_allclose(vc, v, rtol=1e-5)
+            close(gc, g, 1e-5)
+            with torch.no_grad():
+                tree, state = update(tree_unflatten(tree, g), state, tree)
+    small = dataclasses.replace(ds, x_train=ds.x_train[:640],
+                                y_train=ds.y_train[:640])
+    fits = [chip_smoke.five_steps(name, p_cpu, small, torch.device(d))
+            for d in ("cpu", cuda)]
+    close(fits[1], fits[0], 1e-4)
+    on_cpu = train.ALL_BASELINES[name](
+        ds, params=port_baseline_init(name, F, C), device="cpu")
+    on_card = train.ALL_BASELINES[name](
+        ds, params=port_baseline_init(name, F, C), device=cuda)
+    assert abs(on_card.accuracy - on_cpu.accuracy) <= 0.01
+    if name != "svm_rbf":
+        assert on_card.energy_nj == on_cpu.energy_nj
+
+
+def test_card_evaluate_all_fused_equals_cpu_reference(cuda):
+    """Table 1's columns on segmentation: ``fused`` on the card against
+    ``reference`` on the CPU from the same starts and baseline init; the
+    forest columns equal (energy within rtol 1e-6), the baselines within
+    0.01."""
+    from repro_torch.paper import common
+    name = "segmentation"
+    ds = common.dataset(name)
+    B = len(ds.y_test)
+
+    def start_for(G):
+        return tcore.sample_starts(torch.Generator().manual_seed(0), B, G)
+
+    def init():
+        return {k: port_baseline_init(k, ds.n_features, ds.n_classes)
+                for k in ("svm_lr", "svm_rbf", "mlp", "cnn")}
+
+    from repro_torch.kernels import ops
+    n0 = ops.launches["fused_fog"]
+    card = common.evaluate_all(name, device=cuda, backend="fused",
+                               start_for=start_for, baseline_params=init())
+    # FoG_max and the 9-point FoG_opt sweep: one launch each
+    assert ops.launches["fused_fog"] - n0 == 10
+    cpu = common.evaluate_all(name, device="cpu", backend="reference",
+                              start_for=start_for, baseline_params=init())
+    for col in ("rf", "fog_max", "fog_opt"):
+        assert card[col].accuracy == cpu[col].accuracy, col
+        np.testing.assert_allclose(card[col].energy_nj, cpu[col].energy_nj,
+                                   rtol=1e-6)
+    for col in ("svm_lr", "svm_rbf", "mlp", "cnn"):
+        assert abs(card[col].accuracy - cpu[col].accuracy) <= 0.01, col
+
+
+@pytest.mark.parametrize("grove_size", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name", ["isolet", "penbased", "mnist", "letter",
+                                  "segmentation"])
+def test_card_paper_topologies_fused_equal_cpu_reference(cuda, name,
+                                                         grove_size):
+    """Each topology of Figures 4 and 5 (16 x 1 to 1 x 16) on each Table 1
+    field: ``fused`` on the card, one launch an eval, against ``reference``
+    on the CPU from the same starts at Figure 5's thresholds and 1.1 (every
+    grove votes): hops and labels equal, proba within rtol 1e-6 / atol
+    1e-7."""
+    from repro_torch.paper import common, fig5_threshold
+    ds = common.dataset(name)
+    gc = tcore.split(common.forest_for(name), grove_size)
+    start = tcore.sample_starts(torch.Generator().manual_seed(0),
+                                len(ds.y_test), gc.n_groves)
+    card = tcore.FogEngine(gc, backend="fused", device=cuda)
+    cpu = tcore.FogEngine(gc, backend="reference", device="cpu")
+    for thr in (*fig5_threshold.THRESHOLDS.tolist(), 1.1):
+        pol = tcore.FogPolicy(threshold=thr)
+        n0 = ops.launches["fused_fog"]
+        got = card.eval(ds.x_test, policy=pol, start=start)
+        assert ops.launches["fused_fog"] - n0 == 1
+        want = cpu.eval(ds.x_test, policy=pol, start=start)
+        assert torch.equal(got.hops.cpu(), want.hops), thr
+        assert torch.equal(got.label.cpu(), want.label), thr
+        torch.testing.assert_close(got.proba.cpu(), want.proba, rtol=1e-6,
+                                   atol=1e-7)
