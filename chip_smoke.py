@@ -17,8 +17,9 @@ its training path (the device trainer at the gate config of
 ``benchmarks/train_bench.py``), the ``FogClassifier`` facade (train ->
 plan -> serve), the grove ring, Mamba-2 and attention (tinyllama) LM
 serving with the FoG layer-grove exit, the serving plane (the registry
-plane, the fused plane and the serve CLI's LM mode) and the paper's
-evaluation path (Table 1, Figures 4-5, the ablation), and:
+plane, the fused plane and the serve CLI's LM mode), the paper's
+evaluation path (Table 1, Figures 4-5, the ablation), the fused
+autotuner, and the MLA, MoE and hybrid LM configs, and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -178,8 +179,36 @@ evaluation path (Table 1, Figures 4-5, the ablation), and:
    and "l1" routes on the device where ``fused_fog.route``'s copy-bytes
    line falls (``BOUNDARY_GRID``, each output checked bit for bit),
    beside the route the rule picks, and ``fused_fog``'s at the five
-   paper fields;
-15. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   paper fields; and the seed's and the tuned pick's device ms at every
+   key of 15, and the steps of every config of 16 (their weights drawn
+   again) with the split of device time into products,
+   ``flash_attention``, ``top2_confidence``, ``ssd_chunk`` and the rest;
+15. tunes the fused launch (``kernels/autotune.py::tune``: every route
+   the shapes fit x K x 64-512 threads, and chunks where K stays at
+   ``max_hops``, each candidate held bit for bit to the seed's output) at
+   the bench field (B = 1000 and 65,536) and the five Table 1 fields, at
+   every precision and threshold 0.3, into ``build/autotune.json``;
+   prints the seed's and the tuned pick's route, K, threads, chunk and
+   device time (CUDA events behind a sleeping kernel) and the bytes
+   bound; holds every tuned pick bit for bit to ``fused_fog_ref``; then
+   reruns phase 13's fused evals (the fields, Table 1's forest columns
+   and the figure sections) with the file loaded, every eval held to
+   ``reference`` on the card and the CPU;
+16. (run before 10, while no other model holds the card's memory)
+   serves ``MORE_LM`` at full width in bf16, depth cut to fit the card
+   (minicpm3-4b at 62 layers, grok-1-314b at 4, deepseek-v3-671b at 5:
+   its 3 dense layers and 2 MoE layers; jamba-1.5-large-398b at its smoke
+   config): with the counts zeroed just before and read just after, a
+   prefill of 4 x 2048 (one ``flash_attention`` an attention or MLA
+   layer, one ``ssd_chunk`` a Mamba layer, each on its rule's route), 32
+   greedy decode steps and 32 FoG steps at per-lane thresholds; the gate
+   held to its plain version and the hops to its margins; the prefill's
+   logits with the kernels held to those with their plain versions
+   (drop-free capacity for MoE); at the MLA shapes ``flash_attention``
+   held to its plain version (layer 0's bf16 inputs, causal bf16 and
+   fp32 at S = 2048, ragged S = 200); fp32 decode after prefill == the
+   forward at a small depth;
+17. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -191,6 +220,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -206,13 +236,15 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_arch, param_count  # noqa: E402
+from repro_torch.configs import (get_arch, param_count,  # noqa: E402
+                                 smoke_config)
 from repro_torch.core import (FogEngine, FogPolicy,  # noqa: E402
                               GroveCollection, RingMesh, split)
 from repro_torch.core.energy import EnergyModel  # noqa: E402
 from repro_torch.core.engine import (DEFAULT_BLOCK_B,  # noqa: E402
                                      FUSED_BLOCK_B, _eval_core,
-                                     confidence_margin, sample_starts)
+                                     confidence_margin, fused_eval,
+                                     sample_starts)
 from repro_torch.core.fog_ring import TRAVERSE_BLOCK_B  # noqa: E402
 fog_engine = importlib.import_module("repro_torch.core.engine")
 from repro_torch.core.policy import NO_BUDGET  # noqa: E402
@@ -3142,8 +3174,8 @@ def recorded_evals():
     calls: list = []
     core = fog_engine._eval_core
 
-    def spy(pack, *args):
-        out = core(pack, *args)
+    def spy(pack, *args, **kw):
+        out = core(pack, *args, **kw)
         calls.append((pack, args, out))
         return out
 
@@ -3380,7 +3412,638 @@ def paper_profile(paper: dict) -> None:
               f"{row['ms']:.4f} ms a call)")
 
 
+# -- the fused autotuner (phase 15) -------------------------------------------
+TUNE_THRESH = 0.3
+TUNE_CACHE = ROOT / "build" / "autotune.json"
+
+
+def tune_cases(dev: torch.device, packs: dict, x: torch.Tensor,
+               fields: dict) -> list:
+    """(label, pack, x, start) of every tuned key: the bench field at
+    B = 1000 and BIG_B, the five Table 1 fields at their test sets, each at
+    every precision."""
+    gen = torch.Generator(device=dev)
+    cases = []
+    for nb in (x.shape[0], BIG_B):
+        xb = x.repeat(-(-nb // x.shape[0]), 1)[:nb].contiguous()
+        sb = sample_starts(gen.manual_seed(SEED), nb, packs["fp32"].n_groves)
+        cases += [(f"bench B={nb} {p}", packs[p], xb, sb) for p in PRECISIONS]
+    for name, f in fields.items():
+        cases += [(f"{name} B={f['x'].shape[0]} {p}", f["packs"][p], f["x"],
+                   f["start"]) for p in PRECISIONS]
+    return cases
+
+
+def fused_run(pack, x, start, thresh, budget, cfg):
+    """The engine's fused evaluation on ``cfg``'s route, K, threads and
+    chunk, at the pack's ``max_hops``."""
+    return fused_eval(pack, x, start, thresh, budget, pack.n_groves, cfg)
+
+
+def tune_phase(dev: torch.device, packs: dict, x: torch.Tensor) -> dict:
+    """Phase 15: ``autotune.tune`` at every key of ``tune_cases`` into
+    ``build/autotune.json``; each tuned pick held bit for bit to
+    ``fused_fog_ref``; then phase 13's fused evals (the fields' evals,
+    Table 1's forest columns and the figure sections; the baselines,
+    which launch no kernel, are not trained again) with the cache file
+    loaded, every eval held to ``reference`` on the card and the CPU.  Device times come after
+    every event timing (``tune_profile``)."""
+    TUNE_CACHE.parent.mkdir(exist_ok=True)
+    TUNE_CACHE.unlink(missing_ok=True)
+    os.environ[autotune.CACHE_ENV] = str(TUNE_CACHE)
+    autotune.clear_cache()
+    fields = paper_fields(dev)
+    rows = {}
+    t0 = time.perf_counter()
+    for label, pack, xb, sb in tune_cases(dev, packs, x, fields):
+        nb, nf = xb.shape
+        thresh = torch.full((nb,), TUNE_THRESH, dtype=torch.float32,
+                            device=dev)
+        budget = torch.full((nb,), NO_BUDGET, dtype=torch.int32, device=dev)
+        seed = autotune.best_config(pack, nf, nb, pack.n_groves, dev)
+        if seed.source != "analytic":
+            raise AssertionError(f"tune {label}: untuned lookup {seed}")
+        report: list = []
+        tuned = autotune.tune(pack, xb, sb, thresh, budget,
+                              max_hops=pack.n_groves, report=report)
+        if autotune.best_config(pack, nf, nb, pack.n_groves, dev) != tuned:
+            raise AssertionError(f"tune {label}: the lookup does not return "
+                                 f"the tuned pick {tuned}")
+        got = fused_run(pack, xb, sb, thresh, budget, tuned)
+        lay = pack.layout("fused")
+        want_p, want_h = fused_fog_ref(*lay[:3], xb, sb, thresh, budget,
+                                       *lay[3:], max_hops=pack.n_groves)
+        check_equal(f"tune {label}: tuned pick's proba vs fused_fog_ref",
+                    got.proba, want_p[:, 0] if pack.n_heads == 1 else want_p)
+        check_equal(f"tune {label}: tuned pick's hops vs fused_fog_ref",
+                    got.hops, want_h)
+        work = fused_work(pack, xb, sb, got.hops)
+        bound, by = bound_ms(work["bytes"], work["ops"])
+        by_route = {}
+        for cfg, t in report:
+            name = cfg.route + (" chunked" if cfg.chunk_b else "")
+            by_route[name] = min(by_route.get(name, t), t)
+        rows[label] = {
+            "seed": seed.to_dict(), "tuned": tuned.to_dict(),
+            "seed_ms": report[0][1] * 1e3, "tuned_ms": tuned.measured_s * 1e3,
+            "candidates": len(report),
+            "best_ms_by_route": {k: v * 1e3 for k, v in by_route.items()},
+            "bound_ms": bound, "bound_by": by, "bytes": work["bytes"],
+            "mean_hops": float(got.hops.float().mean()),
+            "fns": {"seed": lambda a=(pack, xb, sb, thresh, budget, seed):
+                    fused_run(*a),
+                    "tuned": lambda a=(pack, xb, sb, thresh, budget, tuned):
+                    fused_run(*a)}}
+        print(f"[tune] {label}: seed {seed.describe()} "
+              f"{rows[label]['seed_ms']:.4f} ms, tuned {tuned.describe()} "
+              f"{rows[label]['tuned_ms']:.4f} ms (events, best of 3; "
+              f"{len(report)} candidates; best by route " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in
+                  rows[label]["best_ms_by_route"].items())
+              + f"); bytes bound {bound:.6f} ms by {by}; tuned == "
+              f"fused_fog_ref bit for bit")
+    tune_s = time.perf_counter() - t0
+    raw = json.loads(TUNE_CACHE.read_text())
+    if len([k for k in raw if not k.startswith("hist/")]) != len(rows):
+        raise AssertionError(f"{TUNE_CACHE}: {len(raw)} entries for "
+                             f"{len(rows)} tuned keys")
+    print(f"[tune] {len(rows)} keys tuned in {tune_s:.1f} s into "
+          f"{TUNE_CACHE.relative_to(ROOT)}")
+
+    # phase 13's fused evals again, the cache read back from the file
+    autotune.clear_cache()
+    looked: list = []
+    real = autotune.best_config
+
+    def spy(*a):
+        cfg = real(*a)
+        looked.append(cfg.source)
+        return cfg
+
+    autotune.best_config = spy
+    t0 = time.perf_counter()
+    zero_counts()
+    try:
+        with recorded_evals() as calls:
+            paper_field_evals(dev, fields)
+            for name in paper_common.DATASETS:      # Table 1's FoG columns
+                paper_common.evaluate_forest(name, device=dev)
+            secs = paper_run.sections(device=dev)
+            for sec in PAPER_SECTIONS:
+                secs[sec]()
+        launches, routes = read_counts()
+    finally:
+        autotune.best_config = real
+    path_s = time.perf_counter() - t0
+    if launches != {"fused_fog": len(calls)}:
+        raise AssertionError(f"paper path under the cache: launches "
+                             f"{launches} for {len(calls)} evals")
+    checked = check_paper_evals(calls, fields)
+    n_cached = looked.count("cache-file")
+    print(f"[tune] phase 13's fused evals with {TUNE_CACHE.name} loaded in "
+          f"{path_s:.1f} s: {len(calls)} evals, {n_cached} on a cached pick "
+          f"(the rest untuned topologies), launches by route {routes}; all "
+          f"{sum(n for n, _ in checked.values())} == reference on the card "
+          f"== the CPU (max abs err "
+          f"{max(e for _, e in checked.values()):.2e})")
+    if not n_cached:
+        raise AssertionError("no eval of the paper path took a cached pick")
+    # the later phases measure the untuned engine, as before
+    autotune.clear_cache()
+    del os.environ[autotune.CACHE_ENV]
+    return {"keys": rows, "tune_s": tune_s, "paper_evals": len(calls),
+            "paper_evals_cached": n_cached, "paper_routes": routes}
+
+
+def tune_profile(tuned: dict) -> None:
+    """The seed's and the tuned pick's device ms per evaluation at every
+    key, from torch.profiler."""
+    for label, row in tuned["keys"].items():
+        fns = row.pop("fns")
+        for k in ("seed", "tuned"):
+            busy, _, _ = recorded_profile(fns[k], "fused_fog")[-1]
+            row[f"{k}_device_ms"] = sum(v for n, v in busy.items()
+                                        if "fused_fog" in n)
+        print(f"[time] tune {label}: seed {row['seed']['route']} "
+              f"{row['seed_device_ms']:.4f} ms, tuned {row['tuned']['route']}"
+              f" K={row['tuned']['hops_per_walk']} block_b="
+              f"{row['tuned']['block_b']} chunk {row['tuned']['chunk_b']} "
+              f"{row['tuned_device_ms']:.4f} ms on the device (bytes bound "
+              f"{row['bound_ms']:.6f} ms)")
+
+
+# -- the rest of the LM layers (phase 16) -------------------------------------
+# (config, what the card run cuts): full width in bf16, depth cut to fit
+MORE_LM = (
+    ("minicpm3-4b", {}, "none: 62 layers, full depth (~8 GB of weights)"),
+    ("grok-1-314b", {"n_layers": 4},
+     "depth 64 -> 4 layers (~9.8 GB a layer)"),
+    ("deepseek-v3-671b", {"n_layers": 5},
+     "depth 61 -> 5 layers: the 3 dense layers, then 2 MoE layers "
+     "(~23 GB a MoE layer)"),
+    ("jamba-1.5-large-398b", "smoke",
+     "its smoke config (16 layers, d_model 128, 8 experts of 256): one "
+     "period at full width holds 4 MoE layers of ~19.3 GB and 7 Mamba "
+     "layers, ~90 GB, over the card's 80 GB"))
+MORE_CONSIST = (2, 128)
+# FoG steps whose first-gate margins set the calibrated lane's threshold
+MORE_CALIBRATION = 8
+# tokens a prompt of the drop-free kernels-vs-plain prefill (default LM_S)
+PLAIN_S = {"deepseek-v3-671b": 128}
+MLA_FLASH_CASES = (("causal bf16", 1, 2048, torch.bfloat16),
+                   ("causal fp32", 1, 2048, torch.float32),
+                   ("ragged S = 200 bf16", 2, 200, torch.bfloat16),
+                   ("ragged S = 200 fp32", 2, 200, torch.float32))
+
+
+def more_config(name: str, over) -> "ArchConfig":
+    return smoke_config(name) if over == "smoke" else get_arch(name).scaled(
+        **over)
+
+
+def plain_flash(q, k, v, **kw):
+    """``flash_attention_ref`` one batch row at a time (deepseek's full
+    score matrix for four rows would take 8.6 GB in fp32)."""
+    return torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                          v[i:i + 1], **kw)
+                      for i in range(q.shape[0])])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The prefill's kernels swapped for their plain versions on the card
+    (``use_kernels=False``'s counterpart: no kernel launches)."""
+    saved = ops.flash_attention, ops.ssd_chunk
+    ops.flash_attention, ops.ssd_chunk = plain_flash, ssd_chunk_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.ssd_chunk = saved
+
+
+def more_gate_threshold(margins: torch.Tensor) -> float:
+    """A threshold for one lane from its first gate's margins over
+    calibration steps ``[steps]``: their median, so the lane exits at some
+    steps and goes on at others (at full width with random weights the
+    margins sit near 1e-4 and move little from gate to gate, so
+    ``lm_gate_threshold``'s one-step rule left every step on one side)."""
+    return float(margins.double().median())
+
+
+def expected_prefill(cfg) -> tuple[dict, dict]:
+    """The prefill's launches per kernel and routes, from the layer plan
+    and the route rules."""
+    prefix, period, n_rep = T.layer_plan(cfg)
+    specs = prefix + period * n_rep
+    n_attn = sum(s.mixer != "mamba" for s in specs)
+    n_ssd = len(specs) - n_attn
+    launches = {k: 0 for k in ops.launches}
+    routes = {k: 0 for k in _build.routes}
+    if n_attn:
+        launches["flash_attention"] = n_attn
+        D = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim if cfg.mla
+             else cfg.resolved_head_dim)
+        Dv = cfg.v_head_dim if cfg.mla else D
+        r = flash_route(torch.bfloat16, D, Dv)
+        routes["flash_attention_sm90" if r == "sm90"
+               else "flash_attention"] = n_attn
+    if n_ssd:
+        launches["ssd_chunk"] = n_ssd
+        P, N, Q = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        r = ssd_chunk_route(torch.bfloat16, Q, P, N)
+        routes["ssd_chunk_sm90" if r == "sm90" else "ssd_chunk"] = n_ssd
+    return launches, routes
+
+
+def mla_flash_checks(dev, cfg, captured) -> dict:
+    """flash_attention_cuda against its plain version at the config's MLA
+    shape: the prefill's layer-0 bf16 q/k/v, random causal bf16 and fp32
+    at S = 2048 and ragged S = 200."""
+    H = cfg.n_heads
+    D = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    Dv = cfg.v_head_dim
+    rng = np.random.default_rng(SEED)
+    cases = [("layer 0 of the prefill, bf16", captured[0], captured[1])]
+    for label, b, S, dtype in MLA_FLASH_CASES:
+        cases.append((f"{label} [{b}, {S}, {H}, {D}/{Dv}]",
+                      flash_inputs(rng, (b, S, S, H, H, D, Dv), dtype, dev),
+                      {"causal": True, "scale": 1.0 / np.sqrt(D)}))
+    errs = {}
+    for label, args, kw in cases:
+        before = dict(_build.routes)
+        got = ops.flash_attention(*args, **kw)
+        ran = {k: _build.routes[k] - before[k] for k in before if
+               _build.routes[k] != before[k]}
+        want_route = ("flash_attention_sm90" if flash_route(
+            args[0].dtype, D, Dv) == "sm90" else "flash_attention")
+        if ran != {want_route: 1}:
+            raise AssertionError(f"flash_attention {label}: routes {ran}")
+        errs[f"{label} ({want_route})"] = flash_close(
+            f"flash_attention {cfg.name} {label}", got,
+            plain_flash(*args, **kw))
+        del got
+    return errs
+
+
+def lm_more_run(dev: torch.device, name: str, over, cut: str,
+                B: int = LM_B, S: int = LM_S,
+                n_decode: int = LM_DECODE) -> dict:
+    """One config of phase 16 (see ``lm_more_phase``)."""
+    cfg = more_config(name, over)
+    G = len(grove_boundaries(cfg))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    res = {"arch": cfg.name, "cut": cut, "n_params": n_params,
+           "groves": G, "init_s": time.perf_counter() - t0,
+           "weights_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
+    print(f"[lm+] {cfg.name}: {describe(cfg)}; cut: {cut}; {n_params:,} "
+          f"parameters in bf16 ({res['weights_gb']:.2f} GB) in "
+          f"{res['init_s']:.1f} s; {G} layer-groves")
+    tokens = torch.as_tensor(batch_at_step(
+        DataConfig(cfg.vocab_size, S, B, seed=SEED), 0)["tokens"], device=dev)
+    prefill_fn, _ = make_prefill_step(cfg, dev, batch=B, seq_len=S,
+                                      max_seq=S + n_decode)
+    serve, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + n_decode)
+    fog, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + n_decode,
+                             fog=True, policy=FogPolicy(backend="pallas"))
+    no_budget = torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev)
+
+    # lane LM_GATE_LANE's threshold from calibration FoG steps (before the
+    # counts are zeroed)
+    logits, cache = prefill_fn(params, tokens)
+    never = torch.full((B,), 2.0, dtype=torch.float32, device=dev)
+    tok, cal = logits.argmax(-1).to(torch.int32), []
+    for t in range(MORE_CALIBRATION):
+        with GateSpy() as spy:
+            lg, cache, _ = fog(params, cache, tok, S + t, never, no_budget)
+        cal.append(spy.calls[0][1][LM_GATE_LANE])
+        tok = lg.argmax(-1).to(torch.int32)
+    del logits, cache
+    cal = torch.stack(cal).cpu()
+    lanes = torch.tensor([more_gate_threshold(cal) if t is None else t
+                          for t in LM_THRESH[:B]], dtype=torch.float32)
+    thresh = lanes.to(dev)
+
+    # the main path: prefill, greedy decode, FoG decode; layer 0's
+    # attention inputs kept
+    captured, real = [], ops.flash_attention
+
+    def spy_flash(*args, **kw):
+        if not captured:
+            captured.append((tuple(a.clone() for a in args), kw))
+        return real(*args, **kw)
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.flash_attention = spy_flash
+    try:
+        logits, cache = prefill_fn(params, tokens)
+    finally:
+        ops.flash_attention = real
+    torch.cuda.synchronize()
+    pre_launches, pre_routes = dict(ops.launches), dict(_build.routes)
+    res["prefill_max_gb"] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    def greedy(step, *knobs):
+        tk, c = logits.argmax(-1).to(torch.int32), cache
+        out, hops = [], []
+        for t in range(n_decode):
+            r = step(params, c, tk, S + t, *knobs)
+            out.append(r[0])
+            c = r[1]
+            if knobs:
+                hops.append(r[2])
+            tk = r[0].argmax(-1).to(torch.int32)
+        return torch.stack(out), (torch.stack(hops) if hops else None)
+
+    plain, _ = greedy(serve)
+    with GateSpy() as gates:
+        fog_logits, fog_hops = greedy(fog, thresh, no_budget)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launches.items() if v}
+    want_l, want_r = expected_prefill(cfg)
+    res.update(prefill_launches={k: v for k, v in pre_launches.items() if v},
+               prefill_routes={k: v for k, v in pre_routes.items() if v},
+               launches=launches)
+    print(f"[lm+] {cfg.name} main path (prefill B={B} x S={S}, {n_decode} "
+          f"greedy decode steps, {n_decode} FoG steps at per-lane "
+          f"thresholds {lanes.tolist()}): kernel launches {launches}; the "
+          f"prefill alone {res['prefill_launches']}, by route "
+          f"{res['prefill_routes']}; max_memory_allocated in the prefill "
+          f"{res['prefill_max_gb']:.2f} GB")
+    if pre_launches != want_l or pre_routes != want_r:
+        raise AssertionError(
+            f"{cfg.name} prefill: launches {pre_launches} by route "
+            f"{pre_routes}, want {want_l} by route {want_r}")
+    if launches.get("top2_confidence") != n_decode * (G - 1):
+        raise AssertionError(f"{cfg.name}: {launches} in the path, want "
+                             f"{n_decode * (G - 1)} top2_confidence")
+    for what, t in (("prefill", logits), ("decode", plain),
+                    ("FoG", fog_logits)):
+        if not torch.isfinite(t).all() or t.shape[-1] != cfg.vocab_size:
+            raise AssertionError(f"{cfg.name} {what} logits: not finite or "
+                                 f"{tuple(t.shape)}")
+
+    # the gate: the kernel == plain on every input; the hops those margins
+    # give; the calibrated lane decided both ways
+    gate_err = max(check_close(f"{cfg.name} top2_confidence gate {i}", m,
+                               ref.top2_confidence_ref(p))
+                   for i, (p, m) in enumerate(gates.calls))
+    margins = torch.stack([m for _, m in gates.calls]).cpu().view(
+        n_decode, G - 1, B)
+    hops_cpu = fog_hops.cpu()
+    decided = torch.zeros((2, B), dtype=torch.int64)
+    for t in range(n_decode):
+        want, d = gate_hops(margins[t], lanes, no_budget.cpu())
+        if not torch.equal(hops_cpu[t], want):
+            raise AssertionError(f"{cfg.name} FoG step {t}: hops "
+                                 f"{hops_cpu[t].tolist()}, the plain margins "
+                                 f"give {want.tolist()}")
+        decided += d
+    if not (decided[:, LM_GATE_LANE] > 0).all():
+        raise AssertionError(f"{cfg.name}: lane {LM_GATE_LANE} at threshold "
+                             f"{float(lanes[LM_GATE_LANE])} went on "
+                             f"{int(decided[0, LM_GATE_LANE])} and exited "
+                             f"{int(decided[1, LM_GATE_LANE])} times")
+    keep = (lanes >= 1.0).to(dev)
+    never_err = float((fog_logits[:, keep] - plain[:, keep]).abs().max())
+    if not torch.allclose(fog_logits[:, keep], plain[:, keep], rtol=FOG_TOL,
+                          atol=FOG_TOL):
+        raise AssertionError(f"{cfg.name}: never-exit lanes differ from the "
+                             f"plain decode by {never_err}")
+    res["fog"] = {"thresholds": lanes.tolist(),
+                  "hops_per_lane_mean": hops_cpu.float().mean(0).tolist(),
+                  "mean_groves_per_token": float(hops_cpu.float().mean()),
+                  "top2_max_abs_err_vs_plain": gate_err,
+                  "gate_lane_decisions": decided[:, LM_GATE_LANE].tolist(),
+                  "never_exit_max_abs_err_vs_plain": never_err}
+    print(f"[lm+] {cfg.name}: top2_confidence == plain on all "
+          f"{len(gates.calls)} gate inputs (max abs err {gate_err:.3g}), hops "
+          f"== the plain margins' at every step; hops per lane "
+          f"{[round(v, 3) for v in res['fog']['hops_per_lane_mean']]} of {G}; "
+          f"lane {LM_GATE_LANE} went on / exited "
+          f"{res['fog']['gate_lane_decisions']}; never-exit lanes == plain "
+          f"decode (max abs err {never_err:.3g})")
+    del gates
+
+    # the prefill with the kernels' plain versions on the card.  The
+    # logits are bf16 products (an ulp is 2**-5 at a logit of 4), so the
+    # bar is CONSIST_TOL of the logit scale.  An expert's capacity cut is a
+    # step function of the hidden states: one bf16 ulp moves which tokens
+    # it keeps, so MoE configs are held drop-free (capacity = every token,
+    # at PLAIN_S tokens a prompt where the full prompt's [B, E, S, d]
+    # dispatch would not fit beside the weights); the configured capacity's
+    # difference is printed beside it
+    with plain_kernels():
+        zero_counts()
+        plain_logits, _ = prefill_fn(params, tokens)
+        if read_counts()[0]:
+            raise AssertionError("the plain prefill launched a kernel")
+    as_configured = float((logits - plain_logits).abs().max())
+    ps = min(PLAIN_S.get(name, S), S)
+    if cfg.moe:
+        free = cfg.scaled(capacity_factor=float(cfg.n_experts))
+        pre_free, _ = make_prefill_step(free, dev, batch=B, seq_len=ps)
+        got = pre_free(params, tokens[:, :ps])[0]
+        with plain_kernels():
+            plain_logits = pre_free(params, tokens[:, :ps])[0]
+    else:
+        got = logits
+    prefill_err = float((got - plain_logits).abs().max())
+    scale = float(plain_logits.abs().max())
+    del got, plain_logits
+    if prefill_err > CONSIST_TOL * scale:
+        raise AssertionError(f"{cfg.name}: prefill logits with the kernels "
+                             f"differ from the plain versions' by "
+                             f"{prefill_err} (scale {scale})")
+    res["prefill_vs_plain"] = {"max_abs_err": prefill_err, "seq": ps,
+                               "logit_scale": scale, "tol": CONSIST_TOL,
+                               "drop_free": bool(cfg.moe),
+                               "as_configured_max_abs_err": as_configured}
+    print(f"[lm+] {cfg.name}: prefill logits with the kernels == with their "
+          f"plain versions at B={B} x S={ps}"
+          + (" with drop-free capacity" if cfg.moe else "")
+          + f" (max abs err {prefill_err:.3g} at logit scale {scale:.3g}; "
+          f"bar {CONSIST_TOL} of the scale); at the configured capacity "
+          f"and S={S}: {as_configured:.3g}")
+    if cfg.mla:
+        res["flash_attention_max_abs_err"] = mla_flash_checks(
+            dev, cfg, captured[0])
+        print(f"[lm+] {cfg.name}: flash_attention == plain at the MLA shape: "
+              f"{res['flash_attention_max_abs_err']}")
+
+    # event timings
+    tok0 = logits.argmax(-1).to(torch.int32)
+    t = {"prefill_ms": cuda_ms(lambda: prefill_fn(params, tokens), reps=3,
+                               warm=1)}
+    t["prefill_tokens_per_s"] = B * S / t["prefill_ms"] * 1e3
+    t["decode_ms_per_step"] = cuda_ms(lambda: serve(params, cache, tok0, S),
+                                      reps=5, warm=1)
+    t["fog_ms_per_step"] = cuda_ms(
+        lambda: fog(params, cache, tok0, S, thresh, no_budget), reps=5,
+        warm=1)
+    if captured:
+        (q, k, v), kw = captured[0]
+        t["flash_attention_ms"] = cuda_ms(
+            lambda: ops.flash_attention(q, k, v, **kw), reps=5, warm=1)
+        t["flash_attention_plain_ms"] = cuda_ms(
+            lambda: plain_flash(q, k, v, **kw), reps=3, warm=1)
+        work = flash_work(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                          k.shape[2], q.shape[3], v.shape[3],
+                          q.element_size())
+        t["flash_attention_bound_ms"], t["flash_attention_bound_by"] = (
+            bound_ms(work["bytes"], work["ops"], BF16_OPS_PER_S))
+        t["flash_attention_shape"] = (f"{list(q.shape)} / {list(k.shape)} / "
+                                      f"{list(v.shape)}")
+    res["timing"] = t
+    print(f"[time] lm+ {cfg.name}: prefill B={B} x S={S} "
+          f"{t['prefill_ms']:.1f} ms ({t['prefill_tokens_per_s']:.4g} "
+          f"tokens/s), decode {t['decode_ms_per_step']:.2f} ms per step of "
+          f"{B} tokens, FoG {t['fog_ms_per_step']:.2f} ms" + (
+              "" if not captured else
+              f"; flash_attention {t['flash_attention_shape']} "
+              f"{t['flash_attention_ms']:.3f} ms per call (bound "
+              f"{t['flash_attention_bound_ms']:.4f} ms by "
+              f"{t['flash_attention_bound_by']}), plain "
+              f"{t['flash_attention_plain_ms']:.2f} ms"))
+    del params, cache, logits, plain, fog_logits, captured
+    torch.cuda.empty_cache()
+
+    # fp32 decode after prefill == forward, at a small depth, drop-free
+    cb, cs = MORE_CONSIST
+    small = cfg.scaled(
+        n_layers=min(cfg.moe_first_k_dense, 1) + max(1, cfg.attn_layer_period),
+        moe_first_k_dense=min(cfg.moe_first_k_dense, 1),
+        capacity_factor=float(max(cfg.n_experts, 1)))
+    p32 = T.init_params(small, torch.Generator(device=dev).manual_seed(SEED),
+                        torch.float32, device=dev)
+    toks = torch.as_tensor(batch_at_step(
+        DataConfig(small.vocab_size, cs, cb, seed=SEED), 1)["tokens"],
+        device=dev)
+    split_at = cs // 2
+    with bl_train.fp32_products():
+        with torch.no_grad():
+            h, _ = T.forward(p32, small, toks)
+            want = T.unembed(p32, small, h)
+            lg, c = T.prefill(p32, small, tokens=toks[:, :split_at],
+                              max_seq=cs)
+            pairs = [(lg, want[:, split_at - 1])]
+            for i in range(split_at, cs):
+                lg, c = T.decode_step(p32, small, toks[:, i], c, i)
+                pairs.append((lg, want[:, i]))
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    ok = all(torch.allclose(a, b, rtol=CONSIST_TOL, atol=CONSIST_TOL)
+             for a, b in pairs)
+    del p32, h, want, c, pairs
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"{cfg.name}: fp32 decode after prefill differs "
+                             f"from the forward by {worst}")
+    res["consistency"] = {"layers": small.n_layers, "batch": cb, "seq": cs,
+                          "max_abs_err": worst, "tol": CONSIST_TOL}
+    print(f"[lm+] {cfg.name}: fp32 at {small.n_layers} layers, drop-free "
+          f"capacity, B={cb}, S={cs}: prefill {split_at} + decode "
+          f"{cs - split_at} == forward (max abs err {worst:.3g}; rtol/atol "
+          f"{CONSIST_TOL})")
+    return res
+
+
+def lm_more_phase(dev: torch.device) -> dict:
+    """Phase 16: ``MORE_LM`` at full width in bf16 (depth cut as each
+    entry says; weights from a seeded ``torch.Generator``): with the counts
+    zeroed just before and read just after, prefill 4 x 2048 (one
+    ``flash_attention`` a attention/MLA layer, one ``ssd_chunk`` a Mamba
+    layer, each on the route its rule names), 32 greedy decode steps and
+    32 FoG steps at per-lane thresholds (G - 1 ``top2_confidence`` a
+    step); the gate held to its plain version and the hops to its
+    margins; never-exit lanes == plain decode; the prefill's logits with
+    the kernels == with their plain versions within CONSIST_TOL; at the
+    MLA shapes ``flash_attention`` == plain (layer 0's bf16 inputs,
+    causal bf16 and fp32 at S = 2048, ragged S = 200); fp32 decode after
+    prefill == forward at a small depth with drop-free capacity."""
+    out = {}
+    for name, over, cut in MORE_LM:
+        out[name] = lm_more_run(dev, name, over, cut)
+    return out
+
+
+def split_device_ms(busy: dict) -> dict:
+    """A step's device ms by part: products, flash_attention,
+    top2_confidence, ssd_chunk and the rest (elementwise, copies, sorts,
+    reductions)."""
+    parts = {"products": 0.0, "flash_attention": 0.0, "top2_confidence": 0.0,
+             "ssd_chunk": 0.0, "elementwise_and_other": 0.0}
+    for n, v in busy.items():
+        if "flash_attention" in n:
+            parts["flash_attention"] += v
+        elif "top2" in n:
+            parts["top2_confidence"] += v
+        elif "ssd_chunk" in n:
+            parts["ssd_chunk"] += v
+        elif matmul_kernel(n):
+            parts["products"] += v
+        else:
+            parts["elementwise_and_other"] += v
+    return parts
+
+
+def lm_more_profile(more: dict, dev: torch.device) -> None:
+    """Each phase-16 config's steps under torch.profiler, its weights drawn
+    again from the same seed (one config fits the card at a time): wall
+    and device-busy ms per step, the idle share and the split of device
+    time."""
+    for name, over, _ in MORE_LM:
+        res = more[name]
+        cfg = more_config(name, over)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), torch.bfloat16, device=dev)
+        B, S = LM_B, LM_S
+        tokens = torch.as_tensor(batch_at_step(
+            DataConfig(cfg.vocab_size, S, B, seed=SEED), 0)["tokens"],
+            device=dev)
+        prefill_fn, _ = make_prefill_step(cfg, dev, batch=B, seq_len=S,
+                                          max_seq=S + 1)
+        serve, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + 1)
+        fog, _ = make_serve_step(cfg, dev, batch=B, max_seq=S + 1, fog=True,
+                                 policy=FogPolicy(backend="pallas"))
+        logits, cache = prefill_fn(params, tokens)
+        tok = logits.argmax(-1).to(torch.int32)
+        thresh = torch.tensor(res["fog"]["thresholds"], device=dev)
+        budget = torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev)
+        fns = {"prefill": (lambda: prefill_fn(params, tokens), 2),
+               "decode": (lambda: serve(params, cache, tok, S), 5),
+               "fog": (lambda: fog(params, cache, tok, S, thresh, budget), 5)}
+        prof = {}
+        for k, (fn, reps) in fns.items():
+            busy, wall, _ = device_profile(fn, reps=reps)
+            total = sum(busy.values())
+            prof[k] = {"wall_ms": wall, "device_busy_ms": total,
+                       "device_idle_share": 1.0 - total / wall,
+                       "device_kernels": len(busy),
+                       "split_ms": split_device_ms(busy)}
+            print(f"[time] lm+ {name} {k} under the profiler: wall "
+                  f"{wall:.2f} ms, device busy {total:.3f} ms, idle share "
+                  f"{prof[k]['device_idle_share']:.3f}; device ms by part " +
+                  ", ".join(f"{p} {v:.3f}" for p, v in
+                            prof[k]["split_ms"].items()))
+        res["timing"]["profile"] = prof
+        del params, cache, logits, fns
+        torch.cuda.empty_cache()
+
+
+def stamp(what: str, t0: float) -> None:
+    """Print the seconds since ``t0`` at which a phase starts."""
+    print(f"[phase] {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -3426,6 +4089,7 @@ def main() -> int:
                      "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # 2. build --------------------------------------------------------------
+    stamp("2. build", t_main)
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -3468,6 +4132,7 @@ def main() -> int:
         out["ptxas"][kernel] = {"registers": regs, "spill_bytes": spills}
 
     # 3. train and pack -----------------------------------------------------
+    stamp("3. train and pack", t_main)
     t0 = time.perf_counter()
     ds, gc, packs = bench_field(dev)
     for p, pack in packs.items():
@@ -3486,6 +4151,7 @@ def main() -> int:
           + "; packed on the card == packed on the CPU")
 
     # 4. evaluate: the main path ---------------------------------------------
+    stamp("4. evaluate", t_main)
     x = torch.as_tensor(ds.x_test, device=dev)
     y = torch.as_tensor(ds.y_test, device=dev)
     B, F = x.shape
@@ -3733,6 +4399,7 @@ def main() -> int:
             bound_ms(nb * (C + 1) * 4, nb * 3 * C))
 
     # 7. the device trainer, and 8. the facade (each its own main path) ----
+    stamp("7-8. trainer and facade", t_main)
     (ROOT / "build").mkdir(exist_ok=True)
     train = train_phase(dev, ds)
     out["train"] = {k: v for k, v in train.items()
@@ -3741,19 +4408,28 @@ def main() -> int:
     main_launches["histogram"] = train["launches"]["histogram"]
 
     # 9. the grove ring (its own main path) --------------------------------
+    stamp("9. ring", t_main)
     ring = ring_phase(dev, ds, packs, gen)
     ring_latency_bounds(dev, ring["timing"])
     main_launches["tree_traverse"] = ring["launches"]["tree_traverse"]
 
+    # 16. the rest of the LM layers (its own main paths), before the LM
+    # phases whose weights stay on the card for the profiler -------------
+    stamp("16. MLA, MoE, hybrid LMs", t_main)
+    more_lm = lm_more_phase(dev)
+
     # 10. Mamba-2 serving at full width and depth (its own main path) -------
+    stamp("10. Mamba-2", t_main)
     lm = lm_phase(dev)
     main_launches["ssd_chunk"] = lm["launches"]["ssd_chunk"]
 
     # 11. attention serving at full width and depth (its own main path) -----
+    stamp("11. attention", t_main)
     attn = lm_phase(dev, get_arch(ATTN_ARCH))
     main_launches["flash_attention"] = attn["launches"]["flash_attention"]
 
     # 12. the serving plane (its own main paths) ----------------------------
+    stamp("12. serving plane", t_main)
     serve = serve_phase(dev)
     n_layers = T.layer_plan(get_arch(ATTN_ARCH))[2]
     lm_launches = serve["lm"]["launches"]
@@ -3765,9 +4441,19 @@ def main() -> int:
                              "gate's top2_confidence")
 
     # 13. the paper's evaluation path (its own main path) -------------------
+    stamp("13. paper", t_main)
     paper = paper_phase(dev)
 
+    # 15. the fused autotuner (its own main path) ----------------------------
+    stamp("15. autotuner", t_main)
+    tuned = tune_phase(dev, packs, x)
+
     # 14. the profiler, after every event timing ----------------------------
+    stamp("14. profiler", t_main)
+    tune_profile(tuned)
+    out["tune"] = tuned
+    lm_more_profile(more_lm, dev)
+    out["more_lm"] = more_lm
     paper_profile(paper)
     out["paper"] = paper
     lm_profile(lm)
@@ -3930,7 +4616,8 @@ def main() -> int:
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
-    # 15. the kernels line -----------------------------------------------------
+    # 17. the kernels line -----------------------------------------------------
+    stamp("17. kernels line", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -4080,6 +4767,37 @@ def main() -> int:
     for k in kernels:
         if k["name"] in serve_launches:
             k["serve_launches"] = serve_launches[k["name"]]
+    # phase 15's tuned picks beside the seed, phase 16's launches
+    fused.update(tuned={label: {
+        "seed": row["seed"], "tuned": row["tuned"],
+        **{f: row[f] for f in ("seed_ms", "tuned_ms", "seed_device_ms",
+                               "tuned_device_ms", "bound_ms", "bound_by")}}
+        for label, row in tuned["keys"].items()},
+        tuned_paper_evals=tuned["paper_evals"])
+    top2["lm_more_gates"] = [{
+        "arch": r["arch"], "launches": r["launches"]["top2_confidence"],
+        "shape": f"[{LM_B}, {more_config(n, o).vocab_size}] fp32",
+        "max_abs_err": r["fog"]["top2_max_abs_err_vs_plain"],
+        "matches_plain": True} for (n, o, _), r in zip(
+            MORE_LM, more_lm.values())]
+    for k in kernels:
+        if k["name"] in ("flash_attention", "ssd_chunk"):
+            k["lm_more_launches"] = {
+                r["arch"]: {"launches": r["prefill_launches"].get(
+                    k["name"], 0), "routes": r["prefill_routes"]}
+                for r in more_lm.values()
+                if r["prefill_launches"].get(k["name"])}
+        if k["name"] == "flash_attention":
+            k["mla_max_abs_err"] = {
+                r["arch"]: r["flash_attention_max_abs_err"]
+                for r in more_lm.values()
+                if "flash_attention_max_abs_err" in r}
+            k["mla_ms"] = {r["arch"]: {f: r["timing"][f] for f in (
+                "flash_attention_shape", "flash_attention_ms",
+                "flash_attention_plain_ms", "flash_attention_bound_ms",
+                "flash_attention_bound_by")}
+                for r in more_lm.values()
+                if "flash_attention_max_abs_err" in r}
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

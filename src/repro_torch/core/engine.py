@@ -46,14 +46,13 @@ from repro_torch.core.fog_ring import RingMesh, ring_eval
 from repro_torch.core.grove import GroveCollection
 from repro_torch.core.policy import PRECISIONS, FogPolicy, check_backend
 from repro_torch.forest.pack import ForestPack
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import autotune, ops, ref
 from repro_torch.kernels._build import check_block
+from repro_torch.kernels.fused_fog import FUSED_BLOCK_B  # noqa: F401
 
-# CUDA threads per block when nothing chooses one
-DEFAULT_BLOCK_B = 256     # per-hop kernels
-# the fused kernel: the most threads a block runs (its group routes run
-# fewer where that spreads the batch over more SMs; kernels/fused_fog.py)
-FUSED_BLOCK_B = 128
+# CUDA threads per block of the per-hop kernels when nothing chooses one
+# (the fused kernel's come from kernels/autotune.py::best_config)
+DEFAULT_BLOCK_B = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,7 +200,12 @@ def _step(pack, x, start, thresh, budget, j, prob, live, hops, backend,
 
 
 def _eval_core(pack: ForestPack, x, start, thresh, budget, max_hops: int,
-               backend: str, block_b: int, lazy: bool) -> FogResult:
+               backend: str, block_b: int, lazy: bool, *,
+               route: str | None = None,
+               hops_per_walk: int | None = None) -> FogResult:
+    """One evaluation of the whole batch.  ``route`` and ``hops_per_walk``
+    (the fused backend's; ``None``: the launch rule's) come from
+    :func:`repro_torch.kernels.autotune.best_config`."""
     B = x.shape[0]
     O = pack.n_heads
     C = pack.n_classes
@@ -211,7 +215,8 @@ def _eval_core(pack: ForestPack, x, start, thresh, budget, max_hops: int,
         feat, thr, leaf, ts, ls = pack.layout("fused")
         proba, hops = ops.fused_fog(feat, thr, leaf, x, start, thresh, budget,
                                     ts, ls, max_hops=max_hops,
-                                    block_b=block_b)
+                                    block_b=block_b, route=route,
+                                    hops_per_walk=hops_per_walk)
         if O == 1:
             proba = proba[:, 0]
         return FogResult(proba=proba,
@@ -453,8 +458,10 @@ class FogEngine:
         p = policy if policy is not None else self.policy
         backend = p.backend if p.backend is not None else self.backend
         block_b = p.block_b if p.block_b is not None else self.block_b
-        if block_b is None:
-            block_b = FUSED_BLOCK_B if backend == "fused" else DEFAULT_BLOCK_B
+        # left None on the fused backend: the evaluation then consults
+        # kernels/autotune.py::best_config for the batch it is given
+        if block_b is None and backend != "fused":
+            block_b = DEFAULT_BLOCK_B
         return p.replace(
             max_hops=p.max_hops if p.max_hops is not None else self.n_groves,
             backend=backend,
@@ -475,7 +482,8 @@ class FogEngine:
         stratified over the mesh's shards, and given starts must be.
         """
         p = self.resolve(policy)
-        check_block(p.block_b)
+        if p.block_b is not None:
+            check_block(p.block_b)
         ring = p.backend == "ring"
         if ring:
             self._check_ring_config(lazy=bool(p.lazy), chunk_b=p.chunk_b)
@@ -551,24 +559,58 @@ class FogEngine:
 
     def _eval_chunked(self, pack: ForestPack, x, start, thresh, budget,
                       p: FogPolicy) -> FogResult:
+        """The evaluation, split into chunks where a chunk size applies.
+
+        On the fused backend an unset ``block_b`` takes the route, K and
+        threads of :func:`~repro_torch.kernels.autotune.best_config` for
+        this batch, and ``chunk_b`` None or ``"auto"`` its chunk (only a
+        measured entry has one).  An explicit ``block_b`` or int
+        ``chunk_b`` is honoured as it is (the launch rule picks route and
+        K).  Elsewhere ``"auto"`` never chunks."""
         B = x.shape[0]
-        core = lambda *a: _eval_core(pack, *a, p.max_hops, p.backend,
-                                     p.block_b, p.lazy)
-        # an explicit int chunks; "auto" never chunks yet (the fused tuner
-        # that would size chunks is ROADMAP A2, to be swept over the five
-        # Table 1 fields of paper/common.py as well as the bench field)
-        cb = p.chunk_b if isinstance(p.chunk_b, int) else None
-        if cb is None or B <= cb:
-            return core(x, start, thresh, budget)
-        pad = (-B) % cb
-        if pad:  # dead-pad the tail chunk: padded lanes get thresh=-1 /
-            # budget=1, so any margin clears the gate and they die on hop 1
-            x = torch.cat([x, x[:1].expand(pad, -1)])
-            start = torch.cat([start, start.new_zeros((pad,))])
-            thresh = torch.cat([thresh, thresh.new_full((pad,), -1.0)])
-            budget = torch.cat([budget, budget.new_ones((pad,))])
-        chunks = [core(x[i:i + cb], start[i:i + cb], thresh[i:i + cb],
-                       budget[i:i + cb])
-                  for i in range(0, B + pad, cb)]
-        return FogResult(*(torch.cat([getattr(c, f) for c in chunks])[:B]
-                           for f in ("proba", "label", "hops")))
+        block_b, cb, kw = p.block_b, p.chunk_b, {}
+        if p.backend == "fused" and (block_b is None
+                                     or not isinstance(cb, int)):
+            cfg = autotune.best_config(pack, x.shape[1], B, p.max_hops,
+                                       self.device)
+            if block_b is None:
+                block_b = cfg.block_b
+                kw = {"route": cfg.route, "hops_per_walk": cfg.hops_per_walk}
+            if not isinstance(cb, int):
+                cb = cfg.chunk_b
+        if not isinstance(cb, int):
+            cb = None
+        return run_chunked(
+            lambda *a: _eval_core(pack, *a, p.max_hops, p.backend, block_b,
+                                  p.lazy, **kw),
+            x, start, thresh, budget, cb)
+
+
+def fused_eval(pack: ForestPack, x, start, thresh, budget, max_hops: int,
+               cfg: "autotune.TuneResult") -> FogResult:
+    """The fused evaluation on ``cfg``'s route, K, threads and chunk (what
+    ``FogEngine`` runs when ``best_config`` returns ``cfg``)."""
+    return run_chunked(lambda *a: _eval_core(
+        pack, *a, max_hops, "fused", cfg.block_b, False, route=cfg.route,
+        hops_per_walk=cfg.hops_per_walk), x, start, thresh, budget,
+        cfg.chunk_b)
+
+
+def run_chunked(core, x, start, thresh, budget, cb: int | None) -> FogResult:
+    """``core(x, start, thresh, budget)`` over the whole batch, or over
+    chunks of ``cb`` lanes, concatenated."""
+    B = x.shape[0]
+    if cb is None or B <= cb:
+        return core(x, start, thresh, budget)
+    pad = (-B) % cb
+    if pad:  # dead-pad the tail chunk: padded lanes get thresh=-1 /
+        # budget=1, so any margin clears the gate and they die on hop 1
+        x = torch.cat([x, x[:1].expand(pad, -1)])
+        start = torch.cat([start, start.new_zeros((pad,))])
+        thresh = torch.cat([thresh, thresh.new_full((pad,), -1.0)])
+        budget = torch.cat([budget, budget.new_ones((pad,))])
+    chunks = [core(x[i:i + cb], start[i:i + cb], thresh[i:i + cb],
+                   budget[i:i + cb])
+              for i in range(0, B + pad, cb)]
+    return FogResult(*(torch.cat([getattr(c, f) for c in chunks])[:B]
+                       for f in ("proba", "label", "hops")))

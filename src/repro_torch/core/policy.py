@@ -15,9 +15,11 @@ knob             meaning
                  needs an engine built with a ``RingMesh``
 ``block_b``      CUDA threads per block (a multiple of 32, at most 1024;
                  for the fused kernel the most a block runs); None =
-                 engine default
-``chunk_b``      batch chunking: an int, ``"auto"`` (never chunks in this
-                 port yet) or None
+                 engine default (fused: the autotuner's pick, with its
+                 route and K; ``kernels/autotune.py``)
+``chunk_b``      batch chunking: an int, ``"auto"`` or None (fused: chunk
+                 where a measured autotuner entry says so; elsewhere
+                 never)
 ``lazy``         stop the per-hop loop once every lane is dead, instead of
                  running all ``max_hops`` hops; None = engine default
 ``precision``    packed-table dtype: "fp32" | "bf16" | "int8"

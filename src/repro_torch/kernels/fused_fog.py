@@ -83,6 +83,10 @@ BLOCK_RESERVED_SMEM = 1024
 # csrc/fog_kernels.cu::GROUP_THREADS: up to 128 registers a thread, so no
 # instance spills); a block of them fills an SM's 65,536 registers
 GROUP_THREADS = 512
+# the most threads a block runs when nothing chooses (the analytic seed of
+# kernels/autotune.py: the group routes run fewer where that spreads the
+# batch over more SMs)
+FUSED_BLOCK_B = 128
 
 
 def walk_hops(B: int, max_hops: int, O: int, t: int, C: int,

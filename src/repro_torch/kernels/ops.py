@@ -11,7 +11,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import launches
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.fused_fog import fused_fog_cuda, fused_fog_ref
+from repro_torch.kernels.fused_fog import fused_fog_on_route, fused_fog_ref
 from repro_torch.kernels.grove_aggregate import (check_contrib,
                                                  grove_aggregate_cuda)
 from repro_torch.kernels.histogram import (histogram_level,
@@ -62,12 +62,20 @@ def grove_aggregate(prob_acc, contrib, live, hops, thresh, *,
 
 def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
               thr_scale=None, leaf_scale=None, *, max_hops: int,
-              block_b: int = 128):
+              block_b: int = 128, route: str | None = None,
+              hops_per_walk: int | None = None):
     """Whole Algorithm-2 loop over head-stacked packed tables; returns
-    (proba [B, O, C], hops [B]) (plain: fused_fog.fused_fog_ref)."""
-    fn = fused_fog_ref if _on_cpu(x) else fused_fog_cuda
-    return fn(feature, threshold, leaf, x, start, thresh, budget, thr_scale,
-              leaf_scale, max_hops=max_hops, block_b=block_b)
+    (proba [B, O, C], hops [B]) (plain: fused_fog.fused_fog_ref).  On the
+    card ``route`` and ``hops_per_walk`` name the launch (``None``: the
+    rule's); the plain version has neither."""
+    if _on_cpu(x):
+        return fused_fog_ref(feature, threshold, leaf, x, start, thresh,
+                             budget, thr_scale, leaf_scale,
+                             max_hops=max_hops, block_b=block_b)
+    return fused_fog_on_route(feature, threshold, leaf, x, start, thresh,
+                              budget, thr_scale, leaf_scale,
+                              max_hops=max_hops, block_b=block_b,
+                              route=route, hops_per_walk=hops_per_walk)
 
 
 def ssd_chunk(xbar, a, Bm, Cm):

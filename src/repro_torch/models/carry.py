@@ -14,9 +14,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import mamba2
-from repro_torch.models.transformer import (FFN, LM, Attn, Layer,
-                                            check_ported, layer_plan)
+from repro_torch.models import mamba2, mla, moe
+from repro_torch.models.transformer import FFN, LM, Attn, Layer, layer_plan
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -41,26 +40,36 @@ def _layer(tree: dict, device) -> Layer:
     def t(a):
         return to_tensor(a, device)
 
-    if set(tree) == {"ln1", "mamba"}:
-        return Layer(t(tree["ln1"]), mamba=mamba2.Mamba(
-            {k: t(tree["mamba"][k]) for k in mamba2.PARAM_NAMES}))
-    if set(tree) == {"ln1", "attn", "ln2", "ffn"}:
-        a, f = tree["attn"], tree["ffn"]
-        return Layer(t(tree["ln1"]),
-                     attn=Attn(t(a["wq"]), t(a["wk"]), t(a["wv"]),
-                               t(a["wo"])),
-                     ln2=t(tree["ln2"]),
-                     ffn=FFN(t(f["w_gate"]),
-                             t(f["w_up"]) if "w_up" in f else None,
-                             t(f["w_down"])))
-    raise NotImplementedError(
-        f"layer with {sorted(tree)}: the port runs attention layers with "
-        f"dense FFNs and Mamba-2 layers (ROADMAP A4)")
+    kw = {}
+    if "mamba" in tree:
+        kw["mamba"] = mamba2.Mamba({k: t(tree["mamba"][k])
+                                    for k in mamba2.PARAM_NAMES})
+    elif "w_dq" in tree["attn"]:
+        kw["attn"] = mla.MLA({k: t(tree["attn"][k])
+                              for k in mla.PARAM_NAMES})
+    else:
+        a = tree["attn"]
+        kw["attn"] = Attn(t(a["wq"]), t(a["wk"]), t(a["wv"]), t(a["wo"]))
+    if "ffn" in tree:
+        f = tree["ffn"]
+        kw["ln2"] = t(tree["ln2"])
+        if "router" in f:
+            shared = None
+            if "shared" in f:
+                shared = moe.SharedExpert(*(t(f["shared"][k]) for k in (
+                    "w_gate", "w_up", "w_down")))
+            kw["ffn"] = moe.MoE(t(f["router"]), t(f["w_gate"]),
+                                t(f["w_up"]), t(f["w_down"]), shared)
+        else:
+            kw["ffn"] = FFN(t(f["w_gate"]),
+                            t(f["w_up"]) if "w_up" in f else None,
+                            t(f["w_down"]))
+    return Layer(t(tree["ln1"]), **kw)
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
-    """The port's model from JAX's ``init_params`` tree (numpy leaves)."""
-    check_ported(cfg)
+    """The port's model from JAX's ``init_params`` tree (numpy leaves),
+    deepseek's ``mtp`` head included."""
     dev = resolve_device(device)
     _, period, n_rep = layer_plan(cfg)
     return LM(to_tensor(tree["embed"], dev), to_tensor(tree["out_norm"], dev),
@@ -68,13 +77,14 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
                else None),
               [_layer(layer, dev) for layer in tree["prefix"]],
               [{f"pos{j}": _layer(_index(tree["stack"][f"pos{j}"], r), dev)
-                for j in range(len(period))} for r in range(n_rep)])
+                for j in range(len(period))} for r in range(n_rep)],
+              ({k: to_tensor(v, dev) for k, v in tree["mtp"].items()}
+               if "mtp" in tree else None))
 
 
 def _layer_cache(tree: dict, device) -> dict:
-    if "k" in tree:
-        return {"k": to_tensor(tree["k"], device),
-                "v": to_tensor(tree["v"], device)}
+    if "state" not in tree:       # attention {"k", "v"}, MLA {"c_kv", ...}
+        return {k: to_tensor(v, device) for k, v in tree.items()}
     return {"state": to_tensor(tree["state"], device),
             "conv": tuple(to_tensor(t, device) for t in tree["conv"])}
 
@@ -82,7 +92,6 @@ def _layer_cache(tree: dict, device) -> dict:
 def cache_from_jax(tree: dict, cfg: ArchConfig, device=None) -> dict:
     """The port's cache from a JAX ``prefill`` / ``decode_step`` /
     ``cache_init`` cache (numpy leaves)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     _, period, n_rep = layer_plan(cfg)
     return {"prefix": [_layer_cache(c, dev) for c in tree["prefix"]],

@@ -14,9 +14,10 @@ into a new tensor, so the old cache the mask selects is untouched: an
 exited lane's row at this position stays as it was, zeros from the
 prefill's padding).  When no lane is live the grove takes JAX's skip
 branch, CALM-style: each layer's cache is filled from the unchanged hidden
-state (K/V projections for attention, the full ``mamba_decode`` for a
-Mamba layer), and the mask then keeps every lane's old cache, since no
-lane is live, so that fill is discarded as in JAX (ROADMAP §C).
+state (K/V projections for attention, the latent and rope key for MLA,
+the full ``mamba_decode`` for a Mamba layer), and the mask then keeps
+every lane's old cache, since no lane is live, so that fill is discarded
+as in JAX (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ from repro_torch.configs.base import ArchConfig, param_count
 from repro_torch.core.energy import E_FP32_MAC, E_SRAM_R32, AffineEnergy
 from repro_torch.core.engine import confidence_margin
 from repro_torch.core.policy import FogPolicy, margin_backend
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, mla
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import rmsnorm, write_cache_rows
 
 
 def grove_boundaries(cfg: ArchConfig) -> list[int]:
@@ -60,7 +61,7 @@ def _mask_cache(new, old, live: torch.Tensor):
 def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
                     length):
     """Fill a skipped layer's cache from the propagated hidden state
-    (projections only)."""
+    (projections only: K/V, or the MLA latent and rope key)."""
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         # the recurrent state advance is the cheap part of a Mamba layer:
@@ -69,8 +70,11 @@ def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
                                             cache["conv"])
         return {"state": st, "conv": tail}
     length = int(length)
+    if s.mixer == "mla":
+        return mla.mla_kv_update(p.attn, cfg, x, cache, length)
     pos = torch.full((x.shape[0], 1), length, device=x.device)
-    return T._write_kv(cache, *T._kv(p.attn, cfg, x, pos), length)
+    k, v = T._kv(p.attn, cfg, x, pos)
+    return write_cache_rows(cache, length, {"k": k, "v": v})
 
 
 def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,

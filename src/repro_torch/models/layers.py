@@ -142,6 +142,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def write_cache_rows(cache: dict, length: int, rows: dict) -> dict:
+    """A new cache: ``cache``'s tensors ``[B, S, ...]`` with ``rows[name]
+    [B, 1, ...]`` at position ``length`` (K/V, or MLA's latent and rope
+    key).  The given cache is left as it was: the FoG mask selects
+    between the two."""
+    size = next(iter(cache.values())).shape[1]
+    if not 0 <= length < size:
+        raise ValueError(f"length {length} outside the KV cache's "
+                         f"[0, {size})")
+    out = {}
+    for name, row in rows.items():
+        t = cache[name].clone()
+        t[:, length] = row[:, 0].to(t.dtype)
+        out[name] = t
+    return out
+
+
 # ------------------------------------------------------------- gated FFN ---
 def gated_ffn(x: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor | None, w_down: torch.Tensor,

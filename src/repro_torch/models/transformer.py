@@ -1,20 +1,26 @@
 """Config-driven decoder assembly (port of ``repro.models.transformer``)
-for attention layers with dense FFNs and for Mamba-2 mixers.
+for every layer kind of the assigned architectures: attention (GQA/MQA
+with RoPE) or MLA or Mamba-2 mixers, dense or MoE FFNs, in the periods of
+``layer_plan`` (deepseek's dense prefix, jamba's hybrid period of Mamba
+layers that keep an FFN around one attention layer, MoE every
+``moe_period`` layers).
 
 Parameters are an :class:`LM` module whose names are the JAX package's
 dict keys: ``embed``, ``out_norm``, ``unembed``, ``prefix`` (a list of
 layers) and ``stack`` (one ``{"pos{j}": layer}`` block per repeat of the
 period; the JAX package stacks these on a leading ``[n_repeat]`` axis and
-scans, the port keeps a list and loops).  An attention layer holds
-``ln1``, ``attn`` (``wq [d, H, hd]``, ``wk``/``wv [d, K, hd]``,
-``wo [H, hd, d]``), ``ln2`` and ``ffn`` (``w_gate``, ``w_up``,
-``w_down``); a Mamba layer ``ln1`` and ``mamba``.  The cache mirrors the
+scans, the port keeps a list and loops).  A layer holds ``ln1`` and its
+mixer -- ``attn`` (an :class:`Attn`: ``wq [d, H, hd]``, ``wk``/``wv [d,
+K, hd]``, ``wo [H, hd, d]``; or an ``mla.MLA``) or ``mamba`` -- then,
+where it has an FFN, ``ln2`` and ``ffn`` (an :class:`FFN`: ``w_gate``,
+``w_up``, ``w_down``; or a ``moe.MoE``).  The cache mirrors the
 parameters: ``{"prefix": [layer cache], "stack": [{"pos{j}": layer
 cache}]}`` with an attention layer cache ``{"k", "v": [B, max_seq, K,
-hd]}`` (keys after RoPE) and a Mamba layer cache ``{"state": [B,H,P,N],
-"conv": (tx, tB, tC)}``.
+hd]}`` (keys after RoPE), an MLA layer cache ``{"c_kv": [B, max_seq,
+rkv], "k_rope": [B, max_seq, dr]}`` and a Mamba layer cache ``{"state":
+[B,H,P,N], "conv": (tx, tB, tC)}``.
 
-A decode step writes its K/V row into a new cache tensor, never into the
+A decode step writes its cache row into a new cache tensor, never into the
 one it was given: ``decode_step_fog`` keeps an exited lane's old cache
 through a masked select of the new cache against the old, and an in-place
 write would make them one tensor.
@@ -23,11 +29,12 @@ write would make them one tensor.
 do, ``embeds`` ([B, S, d] or [B, 1, d] in the working dtype), which then
 take the place of the token embedding: the audio and VLM configs
 (``cfg.frontend``) are served from their front ends' embeddings.
+``forward`` returns the MoE layers' load-balance loss summed, as JAX's.
 
-MLA and MoE layers and hybrid attention/Mamba periods wait for a later
-slice (ROADMAP A4): building or loading a config that has them raises.
 The mesh's ``constrain_batch`` has no counterpart on one card, and
-``chunked_ce`` / ``lm_loss`` are training, which comes later.
+``chunked_ce`` / ``lm_loss`` (and deepseek's multi-token-prediction head,
+whose weights ``init_params`` draws as JAX's does) are training, which
+comes later.
 """
 from __future__ import annotations
 
@@ -39,9 +46,10 @@ from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (apply_rope, decode_attention,
-                                       flash_attention, gated_ffn, rmsnorm)
+                                       flash_attention, gated_ffn, rmsnorm,
+                                       write_cache_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,22 +85,6 @@ def layer_plan(cfg: ArchConfig) -> tuple[list[LayerSpec], list[LayerSpec], int]:
     return prefix, period, rem // R
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise unless every layer of ``cfg`` is an attention layer with a
-    dense FFN or a Mamba-2 mixer, the layers the port has."""
-    prefix, period, _ = layer_plan(cfg)
-    specs = prefix + period
-    waiting = sorted(({s.mixer for s in specs} - {"attn", "mamba"})
-                     | ({s.ffn for s in specs} - {"dense"}))
-    if cfg.attn_layer_period:
-        waiting.append("hybrid attention/Mamba")
-    if waiting:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs attention layers with dense FFNs "
-            f"and Mamba-2 layers; its {', '.join(waiting)} layers wait for "
-            f"a later slice (ROADMAP A4)")
-
-
 def _frozen(module: nn.Module, tensors: dict) -> None:
     for name, t in tensors.items():
         module.register_parameter(
@@ -118,23 +110,29 @@ class FFN(nn.Module):
 
 
 class Layer(nn.Module):
-    """One decoder layer: ``ln1`` and its mixer (``attn`` or ``mamba``),
-    then ``ln2`` and ``ffn`` where the layer has an FFN."""
+    """One decoder layer: ``ln1`` and its mixer (``attn``: an
+    :class:`Attn` or an ``mla.MLA``; or ``mamba``), then ``ln2`` and
+    ``ffn`` (an :class:`FFN` or a ``moe.MoE``) where the layer has an
+    FFN."""
 
     def __init__(self, ln1: torch.Tensor, *,
-                 mamba: mamba2.Mamba | None = None, attn: Attn | None = None,
-                 ln2: torch.Tensor | None = None, ffn: FFN | None = None):
+                 mamba: mamba2.Mamba | None = None,
+                 attn: Attn | mla.MLA | None = None,
+                 ln2: torch.Tensor | None = None,
+                 ffn: FFN | moe.MoE | None = None):
         super().__init__()
         _frozen(self, {"ln1": ln1, "ln2": ln2})
         self.mamba, self.attn, self.ffn = mamba, attn, ffn
 
 
 class LM(nn.Module):
-    """The whole decoder's weights (serving only)."""
+    """The whole decoder's weights (serving only).  ``mtp`` holds
+    deepseek's multi-token-prediction head (``proj [2d, d]``, ``ln [d]``),
+    which serving does not use."""
 
     def __init__(self, embed: torch.Tensor, out_norm: torch.Tensor,
                  unembed: torch.Tensor | None, prefix: list[Layer],
-                 stack: list[dict[str, Layer]]):
+                 stack: list[dict[str, Layer]], mtp: dict | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.out_norm = nn.Parameter(out_norm, requires_grad=False)
@@ -142,6 +140,11 @@ class LM(nn.Module):
                         else nn.Parameter(unembed, requires_grad=False))
         self.prefix = nn.ModuleList(prefix)
         self.stack = nn.ModuleList(nn.ModuleDict(blk) for blk in stack)
+        self.mtp = None
+        if mtp is not None:
+            self.mtp = nn.ParameterDict(
+                {k: nn.Parameter(v, requires_grad=False)
+                 for k, v in mtp.items()})
 
 
 # ---------------------------------------------------------------- params ---
@@ -174,17 +177,25 @@ def _init_layer(generator, cfg: ArchConfig, s: LayerSpec, dtype) -> Layer:
         return torch.zeros((cfg.d_model,), dtype=dtype,
                            device=generator.device)
 
+    ln1 = zeros()
     if s.mixer == "mamba":
-        return Layer(zeros(), mamba=mamba2.init_mamba(generator, cfg, dtype))
-    return Layer(zeros(), attn=_init_attn(generator, cfg, dtype), ln2=zeros(),
-                 ffn=_init_ffn(generator, cfg, dtype))
+        mixer = {"mamba": mamba2.init_mamba(generator, cfg, dtype)}
+    elif s.mixer == "mla":
+        mixer = {"attn": mla.init_mla(generator, cfg, dtype)}
+    else:
+        mixer = {"attn": _init_attn(generator, cfg, dtype)}
+    # Mamba blocks are mixer-only in mamba2; the hybrid (jamba) keeps the FFN
+    if s.mixer == "mamba" and not cfg.attn_layer_period:
+        return Layer(ln1, **mixer)
+    ffn = (moe.init_moe(generator, cfg, dtype) if s.ffn == "moe"
+           else _init_ffn(generator, cfg, dtype))
+    return Layer(ln1, **mixer, ln2=zeros(), ffn=ffn)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> LM:
     """Random weights from JAX's distributions, drawn by ``generator``,
     which must live on ``device`` (default: the card)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
@@ -198,10 +209,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         unembed = (torch.randn((d, V), generator=generator, device=g)
                    / np.sqrt(d)).to(dtype)
-    return LM(embed, torch.zeros((d,), dtype=dtype, device=g), unembed,
-              [_init_layer(generator, cfg, s, dtype) for s in prefix],
+    layers = ([_init_layer(generator, cfg, s, dtype) for s in prefix],
               [{f"pos{j}": _init_layer(generator, cfg, s, dtype)
                 for j, s in enumerate(period)} for _ in range(n_rep)])
+    mtp = None
+    if cfg.mtp:
+        mtp = {"proj": (torch.randn((2 * d, d), generator=generator,
+                                    device=g) / np.sqrt(2 * d)).to(dtype),
+               "ln": torch.zeros((d,), dtype=dtype, device=g)}
+    return LM(embed, torch.zeros((d,), dtype=dtype, device=g), unembed,
+              *layers, mtp)
 
 
 # --------------------------------------------------------------- forward ---
@@ -266,26 +283,35 @@ def _attn_train(p: Attn, cfg: ArchConfig, x: torch.Tensor):
     return _attn_out(p, flash_attention(q, k, v, causal=True)), k, v
 
 
-def _ffn(p: Layer, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """The residual FFN block, where the layer has one."""
+def _ffn(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
+    """The residual FFN block, where the layer has one: (h after it, the
+    MoE load-balance loss or None)."""
     if p.ffn is None:
-        return h
+        return h, None
+    x = rmsnorm(h, p.ln2)
+    if s.ffn == "moe":
+        y, aux = moe.moe_ffn(p.ffn, cfg, x)
+        return h + y, aux
     f = p.ffn
-    return h + gated_ffn(rmsnorm(h, p.ln2), f.w_gate, f.w_up, f.w_down,
-                         cfg.act)
+    return h + gated_ffn(x, f.w_gate, f.w_up, f.w_down, cfg.act), None
 
 
 def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
     """One layer over a whole sequence: (h after it, its cache: the keys
-    after RoPE and the values, or the Mamba state and conv tails)."""
+    after RoPE and the values, the MLA latent and rope key, or the Mamba
+    state and conv tails; the MoE loss or None)."""
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg, x)
         cache = {"state": st, "conv": tail}
+    elif s.mixer == "mla":
+        mixed, c_kv, k_rope = mla.mla_forward(p.attn, cfg, x)
+        cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         mixed, k, v = _attn_train(p.attn, cfg, x)
         cache = {"k": k, "v": v}
-    return _ffn(p, cfg, h + mixed), cache
+    h, aux = _ffn(p, cfg, s, h + mixed)
+    return h, cache, aux
 
 
 def forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
@@ -294,9 +320,12 @@ def forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     """Full-sequence forward over tokens [B, S] or embeds [B, S, d].
     Returns (hidden [B,S,d], moe_aux scalar)."""
     h = embed_inputs(params, cfg, tokens, embeds)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
     for p, s in _layers(params, cfg):
-        h, _ = _layer_seq(p, cfg, s, h)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        h, _, aux = _layer_seq(p, cfg, s, h)
+        if aux is not None:
+            total = total + aux
+    return h, total
 
 
 # ---------------------------------------------------------------- decode ---
@@ -305,6 +334,8 @@ def _cache_init_layer(cfg: ArchConfig, s: LayerSpec, batch: int,
     if s.mixer == "mamba":
         state, tail = mamba2.mamba_state_init(cfg, batch, dtype, device)
         return {"state": state, "conv": tail}
+    if s.mixer == "mla":
+        return mla.mla_cache_init(cfg, batch, max_seq, dtype, device)
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -313,8 +344,8 @@ def _cache_init_layer(cfg: ArchConfig, s: LayerSpec, batch: int,
 def cache_init(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """Zero caches for ``batch`` lanes: ``max_seq`` positions of K/V per
-    attention layer (a Mamba layer keeps no per-position entries)."""
-    check_ported(cfg)
+    attention layer, of latent and rope key per MLA layer (a Mamba layer
+    keeps no per-position entries)."""
     dev = resolve_device(device)
     prefix, period, n_rep = layer_plan(cfg)
     return {"prefix": [_cache_init_layer(cfg, s, batch, max_seq, dtype, dev)
@@ -324,29 +355,13 @@ def cache_init(cfg: ArchConfig, batch: int, max_seq: int,
                        for j, s in enumerate(period)} for _ in range(n_rep)]}
 
 
-def _write_kv(cache: dict, k: torch.Tensor, v: torch.Tensor,
-              length: int) -> dict:
-    """A new ``{"k", "v"}`` cache: ``cache``'s rows with k/v [B, 1, K, hd]
-    at position ``length``.  The given cache is left as it was (the FoG
-    mask selects between the two)."""
-    size = cache["k"].shape[1]
-    if not 0 <= length < size:
-        raise ValueError(f"length {length} outside the KV cache's "
-                         f"[0, {size})")
-    out = {}
-    for name, row in (("k", k), ("v", v)):
-        t = cache[name].clone()
-        t[:, length] = row[:, 0].to(t.dtype)
-        out[name] = t
-    return out
-
-
 def _attn_decode(p: Attn, cfg: ArchConfig, x: torch.Tensor, cache: dict,
                  length: int):
     B = x.shape[0]
     pos = torch.full((B, 1), length, device=x.device)
     q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
-    cache = _write_kv(cache, *_kv(p, cfg, x, pos), length)
+    k, v = _kv(p, cfg, x, pos)
+    cache = write_cache_rows(cache, length, {"k": k, "v": v})
     out = decode_attention(q, cache["k"], cache["v"], length + 1)
     return _attn_out(p, out), cache
 
@@ -358,9 +373,12 @@ def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
         mixed, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x,
                                                 cache["state"], cache["conv"])
         cache = {"state": st, "conv": tail}
+    elif s.mixer == "mla":
+        mixed, cache = mla.mla_attention_decode(p.attn, cfg, x, cache,
+                                                int(length))
     else:
         mixed, cache = _attn_decode(p.attn, cfg, x, cache, int(length))
-    return _ffn(p, cfg, h + mixed), cache
+    return _ffn(p, cfg, s, h + mixed)[0], cache
 
 
 def decode_step(params: LM, cfg: ArchConfig, token, cache, length,
@@ -392,9 +410,10 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     populated for positions [0, S).
 
     Returns (last-position logits [B,V] fp32, cache); decode continues at
-    length=S.  Attention caches are padded with zeros to ``max_seq``
-    positions (default S, which leaves decode no room); ``max_seq`` must be
-    at least S.  A Mamba cache holds no per-position entries.
+    length=S.  Attention and MLA caches are padded with zeros to
+    ``max_seq`` positions (default S, which leaves decode no room);
+    ``max_seq`` must be at least S.  A Mamba cache holds no per-position
+    entries.
     """
     prefix, period, _ = layer_plan(cfg)
     h = embed_inputs(params, cfg, tokens, embeds)
@@ -404,8 +423,8 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
         raise ValueError(f"max_seq {max_seq} < prompt length {S}")
 
     def mix_with_cache(p: Layer, s: LayerSpec, h):
-        h, cache = _layer_seq(p, cfg, s, h)
-        if s.mixer != "mamba":    # K/V padded to max_seq positions
+        h, cache, _ = _layer_seq(p, cfg, s, h)
+        if s.mixer != "mamba":    # padded to max_seq positions
             cache = {k: torch.cat([a, a.new_zeros((B, max_seq - S)
                                                   + a.shape[2:])], dim=1)
                      for k, a in cache.items()}

@@ -95,9 +95,8 @@ def evaluate_all(name: str, *, device=None, backend: str = "fused",
                  baseline_params: dict | None = None
                  ) -> dict[str, ClassifierResult]:
     """Accuracy and modeled energy of the seven classifiers on one dataset:
-    the four baselines, RF (majority vote), FoG_max (threshold 1.1, every
-    grove votes) and FoG_opt (the accuracy-optimal threshold of the 8 x 2
-    sweep).  FoG runs on ``backend``."""
+    the four baselines, then :func:`evaluate_forest`'s RF, FoG_max and
+    FoG_opt."""
     dev = resolve_device(device)
     ds = dataset(name)
     out: dict[str, ClassifierResult] = {}
@@ -106,7 +105,20 @@ def evaluate_all(name: str, *, device=None, backend: str = "fused",
                   else baseline_params[key], device=dev)
         out[key] = ClassifierResult(key, m.accuracy, m.energy_nj,
                                     functools.partial(m.predict, m.params))
+    out.update(evaluate_forest(name, device=dev, backend=backend,
+                               start_for=start_for))
+    return out
 
+
+def evaluate_forest(name: str, *, device=None, backend: str = "fused",
+                    start_for: Callable | None = None
+                    ) -> dict[str, ClassifierResult]:
+    """Table 1's forest columns on one dataset: RF (majority vote), FoG_max
+    (threshold 1.1, every grove votes) and FoG_opt (the accuracy-optimal
+    threshold of the 8 x 2 sweep).  FoG runs on ``backend``."""
+    dev = resolve_device(device)
+    ds = dataset(name)
+    out: dict[str, ClassifierResult] = {}
     rf = forest_for(name)
     rf_dev = forest_on(rf, dev)
     x_test = torch.as_tensor(ds.x_test, device=dev)

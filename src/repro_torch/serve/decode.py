@@ -21,10 +21,10 @@ checked for its shape, dtype and device before the step runs.
 
 ``params`` comes from ``models.transformer.init_params`` or
 ``models.carry.params_from_jax``, the cache from the prefill (or
-``models.transformer.cache_init``).  Configs whose layers are attention
-with dense FFNs or Mamba-2 build; MLA, MoE and hybrid periods raise
-(``check_ported``).  An attention cache holds ``max_seq`` positions, so a
-prefill that decode continues takes the decode steps' ``max_seq``.
+``models.transformer.cache_init``); every assigned config builds
+(attention, MLA, Mamba-2 and hybrid mixers, dense and MoE FFNs).  An
+attention or MLA cache holds ``max_seq`` positions, so a prefill that
+decode continues takes the decode steps' ``max_seq``.
 """
 from __future__ import annotations
 
@@ -68,7 +68,6 @@ def make_serve_step(cfg: ArchConfig, device=None, *, batch: int,
     For ``cfg.frontend`` the step takes ``embeds [B, 1, d]`` (in
     ``param_dtype``) in place of ``token``.
     """
-    T.check_ported(cfg)
     dev = resolve_device(device)
     policy = FogPolicy() if policy is None else policy
     gate_backend = margin_backend(policy.backend)
@@ -115,7 +114,6 @@ def make_prefill_step(cfg: ArchConfig, device=None, *, batch: int,
     to ``max_seq`` positions (default ``seq_len``): give the decode steps'
     ``max_seq`` to decode after the prompt.  For ``cfg.frontend`` the step
     takes ``embeds [B, S, d]`` (in ``param_dtype``) in place of tokens."""
-    T.check_ported(cfg)
     dev = resolve_device(device)
     key = "embeds" if cfg.frontend else "tokens"
     inputs = {key: ((batch, seq_len, cfg.d_model), param_dtype)

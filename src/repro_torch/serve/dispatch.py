@@ -398,13 +398,23 @@ class DeviceDispatcher:
         return logits, hops, pending
 
 
-def _block_b(backend: str) -> int:
-    from repro_torch.core.engine import DEFAULT_BLOCK_B, FUSED_BLOCK_B
-    return FUSED_BLOCK_B if backend == "fused" else DEFAULT_BLOCK_B
+def _launch(pack, x, max_hops: int, backend: str) -> tuple[int, dict]:
+    """(block_b, route and K keywords) of one dispatch: the per-hop
+    kernels' default threads, or on the fused backend the engine's lookup,
+    ``kernels/autotune.py::best_config`` for the span's lanes (a measured
+    entry's chunk is not taken: a span is one launch)."""
+    from repro_torch.core.engine import DEFAULT_BLOCK_B
+    from repro_torch.kernels import autotune
+    if backend != "fused":
+        return DEFAULT_BLOCK_B, {}
+    cfg = autotune.best_config(pack, x.shape[1], x.shape[0], max_hops,
+                               x.device)
+    return cfg.block_b, {"route": cfg.route,
+                         "hops_per_walk": cfg.hops_per_walk}
 
 
 def _serve_eval(pack, x, generator, thresh, budget, *, max_hops: int,
-                backend: str, block_b: int, start=None):
+                backend: str, start=None):
     """One span's decode: the start-grove draw (from ``generator`` unless
     ``start`` is given) and the Algorithm-2 evaluation.  The conveniences
     of ``FogEngine.eval`` (policy resolution, report pricing) are bypassed:
@@ -415,8 +425,9 @@ def _serve_eval(pack, x, generator, thresh, budget, *, max_hops: int,
         start = torch.randint(0, pack.n_groves, (x.shape[0],),
                               generator=generator, device=x.device,
                               dtype=torch.int32)
+    block_b, kw = _launch(pack, x, max_hops, backend)
     res = _eval_core(pack, x, start, thresh, budget, max_hops, backend,
-                     block_b, False)
+                     block_b, False, **kw)
     return res.proba, res.hops
 
 
@@ -434,7 +445,7 @@ class ServedSpan(NamedTuple):
 
 def _serve_eval_packed(pack, x, generator, thresh, budget, def_thresh,
                        def_budget, per_hop_pj, transfer_pj, *,
-                       max_hops: int, backend: str, block_b: int,
+                       max_hops: int, backend: str,
                        start=None) -> ServedSpan:
     """The packed protocol's whole decode step over RESIDENT span state:
     the start-grove draw (from ``generator`` on the span's device unless
@@ -452,8 +463,9 @@ def _serve_eval_packed(pack, x, generator, thresh, budget, def_thresh,
                               dtype=torch.int32)
     thr = torch.where(torch.isnan(thresh), def_thresh, thresh)
     bud = torch.where(budget < 0, def_budget, budget)
+    block_b, kw = _launch(pack, x, max_hops, backend)
     res = _eval_core(pack, x, start, thr, bud, max_hops, backend, block_b,
-                     False)
+                     False, **kw)
     h = res.hops.to(torch.float32)
     energy = h * per_hop_pj + torch.clamp(h - 1.0, min=0.0) * transfer_pj
     return ServedSpan(res.label, res.hops, energy, start, thr, bud)
@@ -638,7 +650,6 @@ class ForestReplicaServer:
         buf = np.zeros((span, self.n_features), np.float32)
         self._buffers[index] = buf
         backend = self.backend
-        block_b = _block_b(backend)
 
         def decode(tokens, lengths, policy, bucket=None):
             # tokens/lengths are the slot-model plumbing; the forest serves
@@ -659,7 +670,7 @@ class ForestReplicaServer:
             thr_t, bud_t = _upload(device, thr, bud)
             return _serve_eval(
                 pack, x, generator, thr_t, bud_t, max_hops=pack.n_groves,
-                backend=backend, block_b=block_b,
+                backend=backend,
                 start=self._starts(index, step, span, pack.n_groves,
                                    device))
 
@@ -698,7 +709,6 @@ class ForestReplicaServer:
         from repro_torch.core.engine import splice_slot_state
         packs, generator = self._replica(index, device, span)
         backend = self.backend
-        block_b = _block_b(backend)
         lp = LanePolicies(span)
         # resident state, allocated under the replica's stream (the
         # dispatcher builds replicas under it)
@@ -774,7 +784,7 @@ class ForestReplicaServer:
             out = _serve_eval_packed(
                 pack, state["x"], generator, state["thr"], state["bud"],
                 knobs[0], knobs[1], hop[0], hop[1], max_hops=pack.n_groves,
-                backend=backend, block_b=block_b,
+                backend=backend,
                 start=self._starts(index, step, span, pack.n_groves,
                                    device))
             decode.last_pack = pack

@@ -41,7 +41,7 @@ ARCH = "tinyllama-1.1b"
 B, S, EXTRA = 4, 64, 8
 MAX_SEQ = S + EXTRA
 LOGIT_TOL, LAYER_TOL = 1e-4, 1e-5
-# configs whose layers the port does not have yet
+# configs whose layers the port built last (MLA, MoE, the hybrid period)
 WAITING = ["minicpm3-4b", "deepseek-v3-671b", "grok-1-314b",
            "jamba-1.5-large-398b"]
 
@@ -406,15 +406,47 @@ def test_params_from_jax_carries_bf16_bit_for_bit():
 
 @pytest.mark.parametrize("name", WAITING)
 def test_mla_moe_and_hybrid_configs_still_raise(name):
-    tcfg = tconfigs.smoke_config(name)
-    calls = (
-        lambda: T.init_params(tcfg, torch.Generator(), torch.float32,
-                              device="cpu"),
-        lambda: T.cache_init(tcfg, 1, 8, device="cpu"),
-        lambda: make_prefill_step(tcfg, "cpu", batch=1, seq_len=8),
-        lambda: make_serve_step(tcfg, "cpu", batch=1, max_seq=8),
-        lambda: params_from_jax({}, tcfg, device="cpu"))
-    for call in calls:
-        with pytest.raises(NotImplementedError,
-                           match="wait for a later slice"):
-            call()
+    """The five entry points that raised for these configs until the last
+    LM slice now build them and equal JAX: ``init_params`` and
+    ``cache_init`` have JAX's shapes, ``params_from_jax`` carries bf16 bit
+    for bit, and the prefill and serving steps from carried fp32 weights
+    equal JAX's ``prefill`` and ``decode_step`` within 1e-4 of the logit
+    scale (``tests/test_torch_lm_configs.py`` holds them end to end)."""
+    tcfg, jcfg = tconfigs.smoke_config(name), jconfigs.smoke_config(name)
+    port = T.init_params(tcfg, torch.Generator().manual_seed(0),
+                         torch.float32, device="cpu")
+    jtree = np_tree(JT.init_params(jcfg, jax.random.key(0), jnp.bfloat16))
+    assert sum(p.numel() for p in port.parameters()) == sum(
+        a.size for a in jax.tree.leaves(jtree))
+    cache = T.cache_init(tcfg, 1, 8, device="cpu")
+    jcache = np_tree(JT.cache_init(jcfg, 1, 8))
+    shapes = lambda tree: sorted(tuple(a.shape)  # noqa: E731
+                                 for a in jax.tree.leaves(tree))
+    assert shapes(cache["prefix"]) == shapes(jcache["prefix"])
+    assert len(cache["stack"]) == jax.tree.leaves(jcache["stack"])[0].shape[0]
+    assert shapes(cache["stack"][0]) == sorted(
+        s[1:] for s in shapes(jcache["stack"]))
+    carried_bf16 = params_from_jax(jtree, tcfg, device="cpu")
+    np.testing.assert_array_equal(
+        carried_bf16.embed.view(torch.int16).numpy(),
+        jtree["embed"].view(np.int16))
+    assert all(p.dtype == torch.bfloat16 or p.dtype == torch.float32
+               for p in carried_bf16.parameters())
+
+    jparams = JT.init_params(jcfg, jax.random.key(1), jnp.float32)
+    tparams = params_from_jax(np_tree(jparams), tcfg, device="cpu")
+    tokens = np.random.default_rng(2).integers(
+        0, tcfg.vocab_size, (1, 8)).astype(np.int32)
+    prefill_fn, _ = make_prefill_step(tcfg, "cpu", batch=1, seq_len=8,
+                                      max_seq=9, param_dtype=torch.float32)
+    logits, tcache = prefill_fn(tparams, torch.as_tensor(tokens))
+    want, jcache = JT.prefill(jparams, jcfg, tokens=jnp.asarray(tokens),
+                              max_seq=9)
+    assert_scaled_close(logits.numpy(), want, LOGIT_TOL)
+    step, _ = make_serve_step(tcfg, "cpu", batch=1, max_seq=9,
+                              param_dtype=torch.float32)
+    tok = np.asarray(want).argmax(-1).astype(np.int32)
+    got, _ = step(tparams, tcache, torch.as_tensor(tok), 8)
+    want, _ = JT.decode_step(jparams, jcfg, jnp.asarray(tok), jcache,
+                             jnp.int32(8))
+    assert_scaled_close(got.numpy(), want, LOGIT_TOL)

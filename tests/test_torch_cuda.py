@@ -1418,3 +1418,132 @@ def test_card_paper_topologies_fused_equal_cpu_reference(cuda, name,
         assert torch.equal(got.label.cpu(), want.label), thr
         torch.testing.assert_close(got.proba.cpu(), want.proba, rtol=1e-6,
                                    atol=1e-7)
+
+
+# ------------------------------------------------ the fused autotuner
+
+def _bench_field_pack(precision):
+    from repro_torch.data import make_dataset
+    from repro_torch.forest import TrainConfig, train_random_forest
+    ds = make_dataset("penbased")
+    rf = train_random_forest(ds.x_train, ds.y_train, ds.n_classes,
+                             TrainConfig(n_trees=16, max_depth=8, seed=1))
+    return ds, ForestPack.from_groves(tcore.split(rf, 2), precision)
+
+
+@pytest.mark.parametrize("B", [1000, 65_536])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_tuned_pick_equals_plain_on_the_bench_field(cuda, precision, B,
+                                                     tmp_path, monkeypatch):
+    """``autotune.tune`` on the card: every candidate was held to the
+    seed's output; the winner, persisted and read back, equals
+    ``fused_fog_ref`` bit for bit, and the engine takes it."""
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear_cache()
+    try:
+        ds, pack = _bench_field_pack(precision)
+        pack = pack.to(cuda)
+        x = torch.as_tensor(ds.x_test, device=cuda)
+        x = x.repeat(-(-B // x.shape[0]), 1)[:B].contiguous()
+        start = tcore.sample_starts(torch.Generator(device=cuda).manual_seed(
+            0), B, pack.n_groves)
+        thresh = torch.full((B,), 0.3, device=cuda)
+        budget = torch.full((B,), 8, dtype=torch.int32, device=cuda)
+        report = []
+        won = autotune.tune(pack, x, start, thresh, budget, max_hops=8,
+                            repeats=1, report=report)
+        assert won.source == "measured" and len(report) > 10
+        autotune.clear_cache()
+        got = autotune.best_config(pack, 16, B, 8, cuda)
+        assert got.source == "cache-file"
+        assert (got.route, got.hops_per_walk, got.block_b, got.chunk_b) == (
+            won.route, won.hops_per_walk, won.block_b, won.chunk_b)
+        res = tcore.FogEngine(pack, backend="fused", device=cuda).eval(
+            x, start=start, policy=tcore.FogPolicy(threshold=0.3))
+        lay = pack.layout("fused")
+        pr, hr = fused_fog_ref(*lay[:3], x, start, thresh, budget, *lay[3:],
+                               max_hops=8)
+        assert torch.equal(res.hops, hr)
+        assert torch.equal(res.proba, pr[:, 0])
+    finally:
+        autotune.clear_cache()
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_tuned_pick_equals_plain_on_a_table1_field(cuda, precision):
+    """Segmentation (depth 8, 7 classes, 19 features, 500 rows)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.paper import common
+    autotune.clear_cache()
+    try:
+        ds = common.dataset("segmentation")
+        pack = ForestPack.from_groves(tcore.split(
+            common.forest_for("segmentation"), 2), precision).to(cuda)
+        x = torch.as_tensor(ds.x_test, device=cuda)
+        B = x.shape[0]
+        start = tcore.sample_starts(torch.Generator(device=cuda).manual_seed(
+            0), B, pack.n_groves)
+        thresh = torch.full((B,), 0.3, device=cuda)
+        budget = torch.full((B,), 8, dtype=torch.int32, device=cuda)
+        won = autotune.tune(pack, x, start, thresh, budget, max_hops=8,
+                            repeats=1, persist=False)
+        res = chip_smoke.fused_run(pack, x, start, thresh, budget, won)
+        lay = pack.layout("fused")
+        pr, hr = fused_fog_ref(*lay[:3], x, start, thresh, budget, *lay[3:],
+                               max_hops=8)
+        assert torch.equal(res.hops, hr) and torch.equal(res.proba, pr[:, 0])
+    finally:
+        autotune.clear_cache()
+
+
+# ------------------------------------------------ MLA and MoE on the card
+
+@pytest.mark.parametrize("S", [2048, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(40, 96, 64), (128, 192, 128)],
+                         ids=["minicpm3", "deepseek-v3"])
+def test_flash_attention_at_the_mla_shapes(cuda, shape, dtype, S):
+    """D = dn + dr and Dv = dv of minicpm3-4b and deepseek-v3, causal,
+    scale 1/sqrt(D), at S = 2048 and ragged S = 200 (the SIMT route)."""
+    H, D, Dv = shape
+    dt = getattr(torch, dtype)
+    q, k, v = chip_smoke.flash_inputs(np.random.default_rng(S + D),
+                                      (1, S, S, H, H, D, Dv), dt, cuda)
+    before = dict(chip_smoke._build.routes)
+    got = ops.flash_attention(q, k, v, causal=True, scale=1.0 / np.sqrt(D))
+    ran = {n: chip_smoke._build.routes[n] - before[n] for n in before
+           if chip_smoke._build.routes[n] != before[n]}
+    assert ran == {"flash_attention": 1}
+    want = ref.flash_attention_ref(q, k, v, causal=True,
+                                   scale=1.0 / np.sqrt(D))
+    chip_smoke.flash_close(f"MLA {shape} {dtype} S={S}", got, want)
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 1.0])
+@pytest.mark.parametrize("name", ["grok-1-314b", "deepseek-v3-671b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_layer_on_card_equals_the_cpu_port(cuda, name, capacity_factor):
+    """One MoE FFN at the smoke width from the same fp32 weights, drop-free
+    and with experts overflowing: the card's output within 1e-5 of the
+    CPU's scale, the load-balance loss within rtol 1e-5 (the routing is
+    the same: the router's fp32 product decides it on both)."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    cfg = smoke_config(name)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn((2, 96, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want, waux = moe.moe_ffn(p, cfg, x)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, aux = moe.moe_ffn(p.to(cuda), cfg, x.to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=0)

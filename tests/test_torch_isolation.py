@@ -49,3 +49,21 @@ def test_no_source_names_jax_or_repro():
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in bad.finditer(f.read_text())]
     assert not hits, hits
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.mla",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.kernels.autotune"])
+def test_new_modules_import_first_and_alone(module):
+    """Each module of the last slices imports as the first module of a
+    fresh process (no import cycle through kernels, forest and the
+    tuner), with JAX and the JAX package blocked."""
+    code = (f"import sys\nsys.modules['jax'] = None\n"
+            f"sys.modules['repro'] = None\n"
+            f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+            f"import {module}\nprint('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", \
+        proc.stderr

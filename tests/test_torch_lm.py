@@ -316,35 +316,39 @@ def test_config_accounting_matches_jax(name):
 
 @pytest.mark.parametrize("name", [n for n in ARCHS if n != "mamba2-2.7b"])
 def test_other_layers_wait_for_the_attention_slice(name):
-    """Since the attention slice, configs of attention layers with dense
-    FFNs build and serve a step (tests/test_torch_attn_lm.py and
-    tests/test_torch_frontend_lm.py hold them to JAX), the audio and VLM
-    configs from their front ends' embeddings; MLA, MoE and hybrid configs
-    still raise."""
-    cfg = tconfigs.smoke_config(name)
-    if cfg.mla or cfg.moe or cfg.attn_layer_period:
-        with pytest.raises(NotImplementedError,
-                           match="wait for a later slice"):
-            T.init_params(cfg, torch.Generator(), torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="wait for a later slice"):
-            make_serve_step(cfg, "cpu", batch=1, max_seq=8)
-        return
-    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+    """Every other config builds, serves a step and equals JAX: attention
+    layers with dense FFNs since the attention slice (the audio and VLM
+    configs from their front ends' embeddings), MLA, MoE and the hybrid
+    period since the last LM slice.  One serving step from zero caches at
+    position 0, from JAX's fp32 weights, equals JAX's ``decode_step``
+    within 1e-4 of the logit scale; the port's own init builds and its
+    step is finite."""
+    tcfg, jcfg = tconfigs.smoke_config(name), jconfigs.smoke_config(name)
+    params = T.init_params(tcfg, torch.Generator().manual_seed(0),
                            torch.float32, device="cpu")
-    step, inputs = make_serve_step(cfg, "cpu", batch=1, max_seq=8,
+    step, inputs = make_serve_step(tcfg, "cpu", batch=1, max_seq=8,
                                    param_dtype=torch.float32)
-    if cfg.frontend:
-        assert inputs == {"embeds": ((1, 1, cfg.d_model), torch.float32)}
-        x = torch.randn((1, 1, cfg.d_model),
+    if tcfg.frontend:
+        assert inputs == {"embeds": ((1, 1, tcfg.d_model), torch.float32)}
+        x = torch.randn((1, 1, tcfg.d_model),
                         generator=torch.Generator().manual_seed(1))
+        jin = {"token": None, "embeds": jnp.asarray(x.numpy())}
     else:
         assert inputs == {"token": ((1,), torch.int32)}
-        x = torch.zeros((1,), dtype=torch.int32)
-    logits, _ = step(params, T.cache_init(cfg, 1, 8, torch.float32,
+        x = torch.full((1,), 3, dtype=torch.int32)
+        jin = {"token": jnp.asarray(x.numpy())}
+    logits, _ = step(params, T.cache_init(tcfg, 1, 8, torch.float32,
                                           device="cpu"), x, 0)
-    assert logits.shape == (1, cfg.vocab_size)
+    assert logits.shape == (1, tcfg.vocab_size)
     assert torch.isfinite(logits).all()
+    jparams = JT.init_params(jcfg, jax.random.key(5), jnp.float32)
+    want, _ = JT.decode_step(jparams, jcfg, cache=JT.cache_init(
+        jcfg, 1, 8, jnp.float32), length=jnp.int32(0), **jin)
+    got, _ = step(params_from_jax(np_tree(jparams), tcfg, device="cpu"),
+                  T.cache_init(tcfg, 1, 8, torch.float32, device="cpu"), x, 0)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
 
 
 def test_margin_backend_matches_jax():
