@@ -19,7 +19,8 @@ plan -> serve), the grove ring, Mamba-2 and attention (tinyllama) LM
 serving with the FoG layer-grove exit, the serving plane (the registry
 plane, the fused plane and the serve CLI's LM mode), the paper's
 evaluation path (Table 1, Figures 4-5, the ablation), the fused
-autotuner, and the MLA, MoE and hybrid LM configs, and:
+autotuner, the MLA, MoE and hybrid LM configs, and LM training
+(tinyllama-1.1b at full width through the train CLI), and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -208,7 +209,27 @@ autotuner, and the MLA, MoE and hybrid LM configs, and:
    held to its plain version (layer 0's bf16 inputs, causal bf16 and
    fp32 at S = 2048, ragged S = 200); fp32 decode after prefill == the
    forward at a small depth;
-17. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+17. (run before 16, while the card's memory is free) trains
+   ``tinyllama-1.1b`` at full width in fp32 (22 layers, d_model 2048,
+   32 / 4 heads of 64, d_ff 5632, vocab 32,000; weights from the port's
+   generator) through ``launch.train.main`` for 4 steps of 8 x 256
+   tokens, the counts zeroed just before and read just after each step
+   (44 ``flash_attention`` on the SIMT route, the forward and its remat
+   recompute, and 22 ``flash_attention_bwd``; nothing else); holds the
+   next step's loss and every gradient with the kernels against the same
+   step with their plain versions on the card; holds the backward kernel
+   against its plain version on layer 0's captured q/k/v/dO and
+   ``BWD_CASES`` (ragged, Sq != Sk both ways, non-causal, MQA, D = 192 /
+   Dv = 128, D = Dv = 256, MLA at smoke width) and a fully masked row,
+   each run twice bit-equal; resumes at ``examples/train_lm.py``'s config
+   (4 steps straight == 2, save, restore, 2, bit for bit); holds 5 steps
+   on the card against the CPU port at the tiny config and one step of
+   ``deepseek-v3-671b``'s smoke config (MLA, MoE, MTP) against the plain
+   versions; times the step (tokens/s), the backward kernel beside its
+   bounds, its plain version and SDPA's backward; the profiler's split of
+   a step's device time (products, ``flash_attention``, its backward, the
+   rest; the CE chunks and the optimizer alone) comes in 14;
+18. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -217,6 +238,7 @@ raises.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import importlib
 import json
@@ -284,7 +306,14 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
 from repro_torch.sklearn import FogClassifier  # noqa: E402
 from repro_torch.baselines import ALL_BASELINES  # noqa: E402
 from repro_torch.baselines import train as bl_train  # noqa: E402
-from repro_torch.optim import tree_leaves  # noqa: E402
+from repro_torch.optim import (adamw, clip_by_global_norm,  # noqa: E402
+                               linear_warmup_cosine, tree_leaves)
+from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.train import step_batch  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.loop import (loss_and_grads,  # noqa: E402
+                                    make_train_step, trainable)
 from repro_torch.paper import ablation_adaptive  # noqa: E402
 from repro_torch.paper import common as paper_common  # noqa: E402
 from repro_torch.paper import fig5_threshold, table1_accuracy  # noqa: E402
@@ -386,7 +415,9 @@ CALLED_BY = {
                        "every attention layer of serve.decode."
                        "make_prefill_step's prefill (one launch per layer, "
                        "22 per tinyllama-1.1b prefill, each on the "
-                       "tensor-core route)"}
+                       "tensor-core route); in training, ops.FlashAttention "
+                       "(fp32, the SIMT route with lse: 44 a tinyllama-1.1b "
+                       "step, the forward and its remat recompute)"}
 
 # grove_aggregate's checks (here, tests/test_torch_grove_aggregate.py on the
 # CPU and tests/test_torch_cuda.py on the card): batches around a warp and
@@ -4037,6 +4068,484 @@ def lm_more_profile(more: dict, dev: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- 17 ---
+# LM training at full width: tinyllama-1.1b in fp32 through the train CLI
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 4, 8, 256
+# bars of the training checks: the loss with kernels against the plain
+# versions (relative), every gradient leaf (of the leaf's scale, its
+# largest magnitude), the backward kernel's dq, dk, dv against its plain
+# version (of each gradient's scale), params after 5 steps on the card
+# against the CPU port (of each leaf's scale, plus 1e-7 for the norm
+# weights that start at 0; the CPU tests' reason, tests/test_torch_train.py)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_BAR = 1e-4
+BWD_BAR = 1e-5
+CARD_CPU_BAR, CARD_CPU_ATOL = 1e-4, 1e-7
+# the backward kernel against its plain version: (label, (B, Sq, Sk, H, K,
+# D, Dv), causal)
+BWD_CASES = (
+    ("the training shape", (8, 256, 256, 32, 4, 64, 64), True),
+    ("ragged Sq = Sk = 200", (2, 200, 200, 32, 4, 64, 64), True),
+    ("Sq < Sk causal", (2, 100, 300, 32, 4, 64, 64), True),
+    ("Sq > Sk causal", (2, 300, 100, 32, 4, 64, 64), True),
+    ("non-causal", (2, 256, 256, 32, 4, 64, 64), False),
+    ("MQA (K = 1)", (2, 256, 256, 32, 1, 64, 64), True),
+    ("D = 192, Dv = 128 (deepseek's MLA)", (1, 256, 256, 16, 16, 192, 128),
+     True),
+    ("D = Dv = 256 (the largest tiles)", (1, 130, 130, 4, 2, 256, 256),
+     True),
+    ("D = 48, Dv = 32 (MLA at smoke width)", (2, 64, 64, 4, 4, 48, 32),
+     True))
+TRAIN_CKPT = ROOT / "build" / "train_resume_ckpt"
+
+
+class PlainFlash(torch.autograd.Function):
+    """flash_attention's plain versions with a gradient, on any device:
+    ``flash_attention_ref_lse`` forward, ``flash_attention_bwd_ref``
+    backward (the training path's kernels swapped out)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = fa.flash_attention_ref_lse(q, k, v, causal=causal,
+                                              scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*fa.flash_attention_bwd_ref(q, k, v, out, do.contiguous(),
+                                            lse, causal=ctx.causal,
+                                            scale=ctx.scale), None, None)
+
+
+@contextlib.contextmanager
+def plain_training():
+    """The training path's flash_attention on its plain versions (forward
+    and backward) on the card: no kernel launches."""
+    saved = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, *, causal=True, scale=None: (
+        PlainFlash.apply(q, k, v, causal, scale))
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+@contextlib.contextmanager
+def capture_first_flash(store: dict):
+    """Record the first ``ops.flash_attention`` call's q, k, v and the
+    gradient that reaches its output (layer 0 of the step)."""
+    real = ops.flash_attention
+
+    def wrapped(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        if "q" not in store:
+            store.update(q=q.detach().clone(), k=k.detach().clone(),
+                         v=v.detach().clone(), kw=kw)
+            out.register_hook(lambda g: store.setdefault("do", g.clone()))
+        return out
+
+    ops.flash_attention = wrapped
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def leaf_error(got: dict, want: dict, bar: float, atol: float = 0.0,
+               what: str = "") -> float:
+    """Raise unless every tensor of ``got`` (by name) is within ``bar`` of
+    the scale of ``want``'s (plus ``atol``); the largest error as a share
+    of its leaf's scale."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: other leaves")
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].float(), w.float().to(got[k].device)
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not torch.isfinite(g).all() or err > bar * scale + atol:
+            raise AssertionError(f"{what} {k}: max abs err {err} at scale "
+                                 f"{scale} (bar {bar} of it + {atol})")
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def bwd_work(B, Sq, Sk, H, K, D, Dv, causal=True) -> dict:
+    """flash_attention's backward from its shapes: ``bytes`` q, k, v, o,
+    do and lse read once and dq, dk, dv written once (fp32); ``ops`` the
+    five products over the live pairs (s = q k^T recomputed, dp = do v^T,
+    dv = p^T do, dq = ds k, dk = ds^T q), 2 (3 D + 2 Dv) FLOP a pair."""
+    fwd = flash_work(B, Sq, Sk, H, K, D, Dv, 4, causal)
+    n_bytes = 4 * B * (2 * Sq * H * (D + Dv) + 2 * Sk * K * (D + Dv)
+                       + H * Sq)
+    return {"bytes": n_bytes, "pairs": fwd["pairs"],
+            "ops": B * H * fwd["pairs"] * 2 * (3 * D + 2 * Dv)}
+
+
+def bwd_inputs(rng, shape, causal, dev) -> tuple:
+    """q, k, v, the forward's output and lse (the kernel's, with_lse) and a
+    random do, fp32 on the card."""
+    B, Sq, Sk, H, K, D, Dv = shape
+    q, k, v = flash_inputs(rng, shape, torch.float32, dev)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    do = torch.as_tensor(rng.normal(size=(B, Sq, H, Dv)).astype(np.float32),
+                         device=dev)
+    return q, k, v, o, do, lse
+
+
+def bwd_check(what: str, args: tuple, causal: bool, scale=None) -> float:
+    """The backward kernel twice (bit-equal: no atomics) against its plain
+    version; the largest error of dq, dk, dv as a share of its scale."""
+    kw = {"causal": causal, "scale": scale}
+    got = fa.flash_attention_bwd_cuda(*args, **kw)
+    again = fa.flash_attention_bwd_cuda(*args, **kw)
+    want = fa.flash_attention_bwd_ref(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash_attention_bwd {what}: {name} "
+                                 f"differs from run to run")
+    return leaf_error(dict(zip(("dq", "dk", "dv"), got)),
+                      dict(zip(("dq", "dk", "dv"), want)), BWD_BAR,
+                      what=f"flash_attention_bwd {what}")
+
+
+def train_state(params) -> dict:
+    return {k: p.detach() for k, p in params.named_parameters()}
+
+
+def steps_of(cfg, dev, params, opt_state, n, start=0, *, lr=3e-4, total=None,
+             B=TRAIN_B, S=TRAIN_S):
+    """``n`` train steps from ``start`` on ``batch_at_step``'s batches."""
+    step_fn, _ = make_train_step(cfg, lr=lr, total_steps=total or n,
+                                 device=dev)
+    dcfg = DataConfig(cfg.vocab_size, S, B, seed=SEED)
+    losses = []
+    for s in range(start, start + n):
+        params, opt_state, m = step_fn(params, opt_state,
+                                       step_batch(cfg, dcfg, s, dev))
+        losses.append(float(m["loss"]))
+    return params, opt_state, losses
+
+
+def same_training_state(what, a, b) -> None:
+    (pa, oa), (pb, ob) = a, b
+    for k, t in train_state(pa).items():
+        check_equal(f"{what} param {k}", t, train_state(pb)[k])
+    check_equal(f"{what} step", oa.step, ob.step)
+    for m in ("mu", "nu"):
+        for k, t in getattr(oa, m).items():
+            check_equal(f"{what} {m} {k}", t, getattr(ob, m)[k])
+
+
+def lm_train_phase(dev: torch.device) -> dict:
+    """Phase 17: LM training on the card (see the module docstring)."""
+    out: dict = {}
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_step = []
+    real_make = train_cli.make_train_step
+
+    def counted_make(cfg_, **kw):
+        step, init = real_make(cfg_, **kw)
+
+        def counted(params, opt_state, batch):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = step(params, opt_state, batch)
+            launched, routes = read_counts()
+            per_step.append({"launches": launched, "routes": routes,
+                             "ms": (time.perf_counter() - t0) * 1e3})
+            return res
+        return counted, init
+
+    # 1. full width through the CLI, counts zeroed and read around each
+    # step
+    train_cli.make_train_step = counted_make
+    try:
+        run = train_cli.main(["--arch", TRAIN_ARCH, "--steps",
+                              str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                              "--seq", str(TRAIN_S), "--log-every", "1"])
+    finally:
+        train_cli.make_train_step = real_make
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_layers = cfg.n_layers
+    want = ({"flash_attention": 2 * n_layers, "flash_attention_bwd":
+             n_layers}, {"flash_attention": 2 * n_layers})
+    for i, s in enumerate(per_step):
+        if (s["launches"], s["routes"]) != want:
+            raise AssertionError(
+                f"train step {i}: launches {s['launches']} by route "
+                f"{s['routes']}, want {want} (the forward and its remat "
+                f"recompute on the SIMT route, one backward a layer; no "
+                f"ssd_chunk or top2_confidence)")
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"train losses {run['losses']}")
+    n_params = sum(p.numel() for p in run["params"].parameters())
+    out.update(arch=TRAIN_ARCH, params=n_params, losses=run["losses"],
+               grad_norms=run["grad_norms"], per_step=per_step,
+               launches_per_step=per_step[-1]["launches"],
+               routes_per_step=per_step[-1]["routes"])
+    steady = [s["ms"] for s in per_step[1:]]
+    out["step_ms"] = statistics.median(steady)
+    out["tokens_per_s"] = TRAIN_B * TRAIN_S / out["step_ms"] * 1e3
+    print(f"[train-lm] {TRAIN_ARCH} fp32 full width ({n_params:,} "
+          f"parameters), B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} steps "
+          f"through launch.train: losses "
+          f"{[round(x, 4) for x in run['losses']]}, grad norms "
+          f"{[round(x, 3) for x in run['grad_norms']]}; per step "
+          f"{per_step[-1]['launches']} by route {per_step[-1]['routes']}; "
+          f"step ms {[round(s['ms'], 1) for s in per_step]} (median of "
+          f"steps 2-{TRAIN_STEPS} {out['step_ms']:.1f}, "
+          f"{out['tokens_per_s']:.0f} tokens/s); peak {out['peak_gb']:.1f} "
+          f"GB", flush=True)
+
+    # 2. the same step with the kernels and with the plain versions, from
+    # the trained weights and the next batch
+    params = run["params"]
+    del run
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                       seed=SEED), TRAIN_STEPS, dev)
+    layer0: dict = {}
+    with capture_first_flash(layer0):
+        loss_k, grads_k = loss_and_grads(params, cfg, batch)
+    with plain_training():
+        loss_p, grads_p = loss_and_grads(params, cfg, batch)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train loss kernels {float(loss_k)} vs plain "
+                             f"{float(loss_p)}: rel {rel}")
+    out["loss_rel_err_vs_plain"] = rel
+    out["grad_err_vs_plain"] = leaf_error(grads_k, grads_p, TRAIN_GRAD_BAR,
+                                          what="train gradient")
+    del grads_k, grads_p, params, batch
+    torch.cuda.empty_cache()
+    print(f"[train-lm] one step's loss with the kernels == with the plain "
+          f"versions on the card: rel err {rel:.3e} (bar "
+          f"{TRAIN_LOSS_RTOL}); gradients: largest error "
+          f"{out['grad_err_vs_plain']:.3e} of a leaf's scale (bar "
+          f"{TRAIN_GRAD_BAR})", flush=True)
+
+    # 3. the backward kernel against its plain version, twice each
+    if "do" not in layer0:
+        raise AssertionError("layer 0's flash_attention output got no "
+                             "gradient")
+    rng = np.random.default_rng(SEED)
+    q0, k0, v0 = layer0["q"], layer0["k"], layer0["v"]
+    o0, lse0 = fa.flash_attention_cuda(q0, k0, v0, with_lse=True,
+                                       **layer0["kw"])
+    errs = {"layer 0 of the step": bwd_check(
+        "layer 0", (q0, k0, v0, o0, layer0["do"].contiguous(), lse0),
+        layer0["kw"].get("causal", True), layer0["kw"].get("scale"))}
+    for label, shape, causal in BWD_CASES:
+        errs[f"{label} {shape}{'' if causal else ' non-causal'}"] = \
+            bwd_check(label, bwd_inputs(rng, shape, causal, dev), causal)
+    # a row that saw no key: lse -inf, its output 0 (as the kernel writes)
+    q, k, v, o, do, lse = bwd_inputs(rng, (1, 64, 64, 4, 2, 64, 64), True,
+                                     dev)
+    lse[0, 1, 5] = -float("inf")
+    o[0, 5, 1] = 0.0
+    errs["a fully masked row"] = bwd_check("masked row",
+                                           (q, k, v, o, do, lse), True)
+    dq = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=True)[0]
+    if dq[0, 5, 1].abs().max() != 0:
+        raise AssertionError("a fully masked row got a gradient")
+    out["bwd_err"] = errs
+    print(f"[train-lm] flash_attention_bwd == its plain version (largest "
+          f"error of dq, dk, dv as a share of its scale; bar {BWD_BAR}), "
+          f"bit-equal run to run: " + ", ".join(
+              f"{k}: {v:.2e}" for k, v in errs.items()), flush=True)
+
+    # 4. resume on the card at examples/train_lm.py's config
+    small = train_lm.config()
+    gen = torch.Generator(device=dev)
+
+    def fresh():
+        p = T.init_params(small, gen.manual_seed(SEED), torch.float32,
+                          device=dev)
+        return p, make_train_step(small, device=dev)[1](p)
+
+    straight = steps_of(small, dev, *fresh(), 4, total=4)[:2]
+    half = steps_of(small, dev, *fresh(), 2, total=4)[:2]
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    ckpt.save(2, half, TRAIN_CKPT)
+    restored, step = ckpt.restore(fresh(), TRAIN_CKPT)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    same_training_state("restored", restored, half)
+    resumed = steps_of(small, dev, *restored, 2, start=step, total=4)[:2]
+    same_training_state("resumed vs straight", resumed, straight)
+    del straight, half, restored, resumed
+    print(f"[train-lm] {small.name}: 4 steps straight == 2 steps, save, "
+          f"restore, 2 steps, bit for bit (params and optimizer state)",
+          flush=True)
+
+    # 5. card against the CPU at the tiny config, and deepseek's smoke
+    # config (MLA, MoE, MTP) kernels against plain
+    tiny = cfg.scaled(name="tiny-test", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, head_dim=16, d_ff=128, vocab_size=256)
+    cpu = torch.device("cpu")
+    p_cpu = T.init_params(tiny, torch.Generator().manual_seed(SEED),
+                          torch.float32, device="cpu")
+    p_card = copy.deepcopy(p_cpu).to(dev)
+    res = {}
+    for key, d, p in (("cpu", cpu, p_cpu), ("card", dev, p_card)):
+        res[key] = steps_of(tiny, d, p, make_train_step(tiny, device=d)[1](p),
+                            5, lr=5e-3, B=4, S=64)
+    out["card_vs_cpu_err"] = leaf_error(
+        train_state(res["card"][0]), train_state(res["cpu"][0]),
+        CARD_CPU_BAR, CARD_CPU_ATOL, "card vs CPU params after 5 steps")
+    out["card_vs_cpu_losses"] = {k: v[2] for k, v in res.items()}
+    deep = smoke_config("deepseek-v3-671b")
+    p = T.init_params(deep, gen.manual_seed(SEED), torch.float32,
+                      device=dev)
+    db = step_batch(deep, DataConfig(deep.vocab_size, 64, 4, seed=SEED), 0,
+                    dev)
+    zero_counts()
+    lk, gk = loss_and_grads(p, deep, db)
+    deep_launches = read_counts()[0]
+    with plain_training():
+        lp, gp = loss_and_grads(p, deep, db)
+    drel = abs(float(lk) - float(lp)) / abs(float(lp))
+    if drel > TRAIN_LOSS_RTOL or deep_launches.get(
+            "flash_attention_bwd", 0) != deep.n_layers:
+        raise AssertionError(f"deepseek smoke: loss rel err {drel}, "
+                             f"launches {deep_launches}")
+    out["deepseek_smoke"] = {"loss_rel_err": drel, "launches": deep_launches,
+                             "grad_err": leaf_error(gk, gp, TRAIN_GRAD_BAR,
+                                                    what="deepseek smoke")}
+    print(f"[train-lm] tiny config, 5 steps: card == CPU port within "
+          f"{out['card_vs_cpu_err']:.2e} of a leaf's scale (bar "
+          f"{CARD_CPU_BAR} + {CARD_CPU_ATOL}); losses card "
+          f"{[round(x, 5) for x in res['card'][2]]}, CPU "
+          f"{[round(x, 5) for x in res['cpu'][2]]}; deepseek-v3 smoke (MLA "
+          f"D = 48 / Dv = 32, MoE, MTP) one step: launches {deep_launches}, "
+          f"loss rel err {drel:.2e}, gradients "
+          f"{out['deepseek_smoke']['grad_err']:.2e} of a leaf's scale vs "
+          f"plain", flush=True)
+    del res, p_cpu, p_card, p, gk, gp
+
+    # 6. times (CUDA events; the profiler's split comes in phase 14)
+    B, Sq, Sk, H, K, D, Dv = BWD_CASES[0][1]
+    args = bwd_inputs(rng, BWD_CASES[0][1], True, dev)
+    q, k, v, o, do, lse = args
+    work = bwd_work(B, Sq, Sk, H, K, D, Dv)
+    t = {"shape": f"q [{B}, {Sq}, {H}, {D}], k/v [{B}, {Sk}, {K}, {D}], "
+                  f"causal, fp32"}
+    t["bound_ms"], t["bound_by"] = bound_ms(work["bytes"], work["ops"])
+    t["bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ops_bound_ms"] = work["ops"] / FP32_OPS_PER_S * 1e3
+    t["ms"] = cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args))
+    t["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_ref(*args),
+                            reps=5)
+    t["fwd_lse_ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
+        q, k, v, with_lse=True))
+    qs, ks, vs = (a.transpose(1, 2).contiguous().requires_grad_()
+                  for a in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+    dos = do.transpose(1, 2).contiguous()
+    t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qs, ks, vs), dos, retain_graph=True))
+    out["timing"] = t
+    out["prof_fns"] = {
+        "bwd": lambda: fa.flash_attention_bwd_cuda(*args),
+        "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos,
+                                                retain_graph=True)}
+    print(f"[time] train-lm flash_attention_bwd at {t['shape']}: "
+          f"{t['ms']:.4f} ms a call (bound {t['bound_ms']:.4f} ms by "
+          f"{t['bound_by']}: bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA's "
+          f"backward {t['library_ms']:.4f} ms; the forward with lse "
+          f"{t['fwd_lse_ms']:.4f} ms", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train-lm] phase 17 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def lm_train_profile(train: dict, dev: torch.device) -> None:
+    """Phase 17's step under torch.profiler, its weights drawn again: wall
+    and device-busy ms, the idle share and the device time by part
+    (products, flash_attention forward, its backward, the rest), with the
+    CE chunks (forward and backward) and the optimizer (clip and AdamW)
+    each profiled alone; the backward kernel's and SDPA's backward's
+    device ms."""
+    fns = train.pop("prof_fns")
+    t = train["timing"]
+    per = recorded_profile(fns["bwd"], "flash_attention_bwd")[-1][2]
+    t["device_ms"] = sum(v for k, v in per.items()
+                         if "flash_attention_bwd" in k)
+    t["device_ms_by_kernel"] = {k: v for k, v in per.items()
+                                if "flash_attention_bwd" in k}
+    per = recorded_profile(fns["sdpa_bwd"], "")[-1][2]
+    t["library_device_ms"] = sum(per.values())
+    t["library_backend"] = sdpa_backend(max(per, key=per.get))
+    del fns
+    cfg = get_arch(TRAIN_ARCH)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), torch.float32, device=dev)
+    step_fn, init_opt = make_train_step(cfg, device=dev)
+    state = {"p": params, "o": init_opt(params)}
+    dcfg = DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED)
+    batch = step_batch(cfg, dcfg, 0, dev)
+
+    def step():
+        state["p"], state["o"], _ = step_fn(state["p"], state["o"], batch)
+
+    busy, wall, _ = device_profile(step, reps=2)
+    parts = {"products": 0.0, "flash_attention": 0.0,
+             "flash_attention_bwd": 0.0, "other": 0.0}
+    for n, v in busy.items():
+        key = ("flash_attention_bwd" if "flash_attention_bwd" in n else
+               "flash_attention" if "flash_attention" in n else
+               "products" if matmul_kernel(n) else "other")
+        parts[key] += v
+    total = sum(busy.values())
+    prof = {"wall_ms": wall, "device_busy_ms": total,
+            "device_idle_share": 1.0 - total / wall, "split_ms": parts}
+    h = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), device=dev,
+                    requires_grad=True)
+    named = trainable(state["p"])
+    head = [h, named["out_norm"], named["unembed"]]
+
+    def ce():
+        with bl_train.fp32_products():
+            loss = T.chunked_ce(state["p"], cfg, h, batch["labels"])
+            torch.autograd.grad(loss, head)
+
+    busy, _, _ = device_profile(ce, reps=2)
+    prof["ce_chunks_alone_ms"] = sum(busy.values())
+    _, grads = loss_and_grads(state["p"], cfg, batch)
+    _, update = adamw(lr=linear_warmup_cosine(3e-4, 100, TRAIN_STEPS),
+                      b1=0.9, b2=0.95, weight_decay=0.1)
+
+    def optimizer():
+        with torch.no_grad():
+            g, _ = clip_by_global_norm(grads, 1.0)
+            update(g, state["o"], train_state(state["p"]))
+
+    busy, _, _ = device_profile(optimizer, reps=2)
+    prof["optimizer_alone_ms"] = sum(busy.values())
+    train["profile"] = prof
+    print(f"[time] train-lm step under the profiler: wall {wall:.1f} ms, "
+          f"device busy {total:.1f} ms, idle share "
+          f"{prof['device_idle_share']:.3f}; device ms by part " + ", ".join(
+              f"{k} {v:.2f}" for k, v in parts.items()) +
+          f"; alone: the CE chunks (forward + backward) "
+          f"{prof['ce_chunks_alone_ms']:.2f} ms, the optimizer (clip + "
+          f"AdamW) {prof['optimizer_alone_ms']:.2f} ms; "
+          f"flash_attention_bwd {t['device_ms']:.4f} ms on the device "
+          f"({t['device_ms_by_kernel']}), SDPA's backward "
+          f"{t['library_device_ms']:.4f} ({t['library_backend']})",
+          flush=True)
+    del state, grads, params, h, named, head
+    torch.cuda.empty_cache()
+
+
 def stamp(what: str, t0: float) -> None:
     """Print the seconds since ``t0`` at which a phase starts."""
     print(f"[phase] {what} at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4413,6 +4922,12 @@ def main() -> int:
     ring_latency_bounds(dev, ring["timing"])
     main_launches["tree_traverse"] = ring["launches"]["tree_traverse"]
 
+    # 17. LM training (its own main path), while the card's memory is free
+    stamp("17. LM training", t_main)
+    train_lm_out = lm_train_phase(dev)
+    main_launches["flash_attention_bwd"] = (
+        train_lm_out["launches_per_step"]["flash_attention_bwd"] * TRAIN_STEPS)
+
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
     stamp("16. MLA, MoE, hybrid LMs", t_main)
@@ -4450,6 +4965,8 @@ def main() -> int:
 
     # 14. the profiler, after every event timing ----------------------------
     stamp("14. profiler", t_main)
+    lm_train_profile(train_lm_out, dev)
+    out["train_lm"] = train_lm_out
     tune_profile(tuned)
     out["tune"] = tuned
     lm_more_profile(more_lm, dev)
@@ -4616,8 +5133,8 @@ def main() -> int:
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
-    # 17. the kernels line -----------------------------------------------------
-    stamp("17. kernels line", t_main)
+    # 18. the kernels line -----------------------------------------------------
+    stamp("18. kernels line", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -4798,6 +5315,34 @@ def main() -> int:
                 "flash_attention_bound_by")}
                 for r in more_lm.values()
                 if "flash_attention_max_abs_err" in r}
+    tl, tt = train_lm_out, train_lm_out["timing"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": REPLACES["flash_attention"],
+        "replaces_note": "the gradient of that kernel; the JAX package "
+                         "takes it with jax.grad of its blocked attention "
+                         "(src/repro/models/layers.py:40)",
+        "launches": main_launches["flash_attention_bwd"],
+        "launches_per_step": tl["launches_per_step"]["flash_attention_bwd"],
+        "max_abs_err": max(tl["bwd_err"].values()),
+        "max_err_is": "the largest error of dq, dk, dv as a share of its "
+                      "scale over the cases",
+        "ms": tt["ms"], "device_ms": tt.get("device_ms"),
+        "plain_ms": tt["plain_ms"], "bound_ms": tt["bound_ms"],
+        "bound_by": tt["bound_by"], "library_ms": tt["library_ms"],
+        "library_device_ms": tt.get("library_device_ms"),
+        "library_backend": tt.get("library_backend"),
+        "called_by": "ops.FlashAttention.backward (training: "
+                     "train/loop.py through models/layers.py)",
+        "matches_plain": True, "deterministic": True, "shape": tt["shape"],
+        "cases": tl["bwd_err"]})
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["train_launches_per_step"] = tl["launches_per_step"][
+                "flash_attention"]
+            k["train_routes_per_step"] = tl["routes_per_step"]
+            k["train_forward_with_lse_ms"] = tt["fwd_lse_ms"]
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

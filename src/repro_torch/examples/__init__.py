@@ -1,2 +1,3 @@
-"""Runnable examples of the port: ``python -m repro_torch.examples.quickstart``
-and ``python -m repro_torch.examples.fog_ring_demo``."""
+"""Runnable examples of the port: ``python -m repro_torch.examples.quickstart``,
+``python -m repro_torch.examples.fog_ring_demo`` and
+``python -m repro_torch.examples.train_lm``."""

@@ -18,6 +18,9 @@
 //   m, l      = running max and sum of exp(s - m) over the live j   fp32
 //   acc       = sum_j round_v(exp(s[i, j] - m)) v[b, j, h / G]        fp32
 //   out[b, i, h] = acc / max(l, 1e-30), in q's dtype
+//   lse[b, h, i] = m + log(l) (fp32; -inf where the row saw no key), only
+//                  when the lse pointer is not null: the backward
+//                  (flash_attention_bwd.cu) recomputes p = exp(s - lse)
 //
 // where round_v rounds p to v's dtype before the product, and each KV tile
 // rescales m, l and acc as the TPU kernel's loop does.  A score that is not
@@ -102,8 +105,8 @@ size_t smem_bytes(int D, int Dv) {
 template <class T, int NC>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Sq, int Sk, int H, int K, int D, int Dv,
-    float scale, int causal) {
+    T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H,
+    int K, int D, int Dv, float scale, int causal) {
   extern __shared__ float smem[];
   const int ld_qk = D + 1, ld_p = BK + 1;
   float* Qs = smem;                 // [BQ][D + 1]
@@ -220,6 +223,9 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty * 4 + r;
     if (i >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + i] =
+          l[r] > 0.0f ? __fadd_rn(m[r], logf(l[r])) : -INFINITY;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -232,8 +238,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 }
 
 template <class T, int NC>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int K, int D, int Dv, float scale,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int Sq, int Sk, int H, int K, int D, int Dv, float scale,
            int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, Dv);
   if (smem > 48 * 1024) {
@@ -245,44 +251,45 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<T, NC><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, K, D, Dv,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, H, K, D,
+      Dv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
-int launch_dv(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int K, int D, int Dv, float scale,
-              int causal, cudaStream_t s) {
+int launch_dv(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Sk, int H, int K, int D, int Dv,
+              float scale, int causal, cudaStream_t s) {
   if (Dv <= 64)
-    return launch<T, 4>(q, k, v, out, B, Sq, Sk, H, K, D, Dv, scale, causal,
-                        s);
+    return launch<T, 4>(q, k, v, out, lse, B, Sq, Sk, H, K, D, Dv, scale,
+                        causal, s);
   if (Dv <= 128)
-    return launch<T, 8>(q, k, v, out, B, Sq, Sk, H, K, D, Dv, scale, causal,
-                        s);
-  return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, K, D, Dv, scale, causal,
-                       s);
+    return launch<T, 8>(q, k, v, out, lse, B, Sq, Sk, H, K, D, Dv, scale,
+                        causal, s);
+  return launch<T, 16>(q, k, v, out, lse, B, Sq, Sk, H, K, D, Dv, scale,
+                       causal, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype 0: q, k, v and out fp32; 1: all bf16.  causal: 0 or 1.
+// dtype 0: q, k, v and out fp32; 1: all bf16.  causal: 0 or 1.  lse:
+// null, or fp32 [B, H, Sq] written with each row's log-sum-exp.
 int fog_flash_attention(int dtype, const void* q, const void* k,
-                        const void* v, void* out, int B, int Sq, int Sk,
-                        int H, int K, int D, int Dv, float scale, int causal,
-                        void* stream) {
+                        const void* v, void* out, void* lse, int B, int Sq,
+                        int Sk, int H, int K, int D, int Dv, float scale,
+                        int causal, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || H % K != 0 || D < 1 ||
       Dv < 1 || D > MAX_HEAD || Dv > MAX_HEAD || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dv<float>(q, k, v, out, B, Sq, Sk, H, K, D, Dv, scale,
-                            causal, s);
+    return launch_dv<float>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                            Sk, H, K, D, Dv, scale, causal, s);
   if (dtype == 1)
-    return launch_dv<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, K, D, Dv,
-                                    scale, causal, s);
+    return launch_dv<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse),
+                                    B, Sq, Sk, H, K, D, Dv, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -34,6 +34,15 @@ Positions of the causal mask count from 0 for both q and k (``i >= j``,
 top-left), as the TPU kernel and the JAX reference do; FlashAttention-2
 and SDPA align the diagonal bottom-right instead, which differs when
 ``Sq != Sk``.
+
+The backward (training, fp32 only) is a hand-written kernel too:
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_cuda`), which
+recomputes ``p = exp(s - lse)`` from q, k and the SIMT forward's
+per-row log-sum-exp (``flash_attention_cuda(..., with_lse=True)``) and
+writes dq, dk and dv once each without atomics (deterministic); its tile
+sizes follow the head size (:func:`bwd_tiles`).  Its plain version is
+:func:`flash_attention_bwd_ref`.  The tensor-core forward writes no
+``lse``: a bf16 backward is later work (ROADMAP A5b).
 """
 from __future__ import annotations
 
@@ -42,9 +51,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["MAX_HEAD", "SM90_HEADS", "check_shapes", "flash_attention_cuda",
-           "flash_attention_ref", "route", "sm90_keys", "smem_bytes",
-           "smem_bytes_sm90", "softmax_scale"]
+__all__ = ["MAX_HEAD", "SM90_HEADS", "bwd_smem_bytes", "bwd_tiles",
+           "check_shapes", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_ref", "flash_attention_cuda",
+           "flash_attention_ref", "flash_attention_ref_lse", "route",
+           "sm90_keys", "smem_bytes", "smem_bytes_sm90", "softmax_scale"]
 
 # the q, k, v and p tiles of one block of the SIMT kernel live in shared
 # memory
@@ -63,26 +74,82 @@ def softmax_scale(D: int, scale: float | None = None) -> float:
     return float(1.0 / np.sqrt(D)) if scale is None else float(scale)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        scale: float | None = None) -> torch.Tensor:
-    """Full-matrix attention in fp32: q [B, Sq, H, D], k [B, Sk, K, D],
-    v [B, Sk, K, Dv] with H % K == 0 (GQA broadcast) -> [B, Sq, H, Dv] in
-    q's dtype (``repro.kernels.ref.flash_attention_ref``)."""
+def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+            scale: float | None) -> torch.Tensor:
+    """fp32 scores ``[B, K, G, Sq, Sk]`` scaled, -inf where masked."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    G = H // K
-    qg = q.reshape(B, Sq, K, G, D)
+    qg = q.reshape(B, Sq, K, H // K, D)
     s = torch.einsum("bqkgd,bpkd->bkgqp", qg.to(torch.float32),
                      k.to(torch.float32)) * softmax_scale(D, scale)
     if causal:
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
         s = torch.where(mask, s, float("-inf"))
+    return s
+
+
+def _attend(s: torch.Tensor, q: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    B, Sq, H, _ = q.shape
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqp,bpkd->bkgqd", p, v.to(torch.float32))
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[3]).to(
         q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """Full-matrix attention in fp32: q [B, Sq, H, D], k [B, Sk, K, D],
+    v [B, Sk, K, Dv] with H % K == 0 (GQA broadcast) -> [B, Sq, H, Dv] in
+    q's dtype (``repro.kernels.ref.flash_attention_ref``)."""
+    return _attend(_scores(q, k, causal=causal, scale=scale), q, v)
+
+
+def flash_attention_ref_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref`'s output (the same bits) and each row's
+    log-sum-exp of the scaled scores, fp32 ``[B, H, Sq]`` (-inf for a row
+    that sees no key), as the SIMT kernel writes it."""
+    s = _scores(q, k, causal=causal, scale=scale)
+    B, Sq, H, _ = q.shape
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return _attend(s, q, v), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool = True, scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward in plain PyTorch, fp32, from the formulas the kernel
+    computes: ``p = exp(s - lse)`` (0 where masked or where the row's lse
+    is -inf), ``delta = rowsum(do * o)``, ``dv = p^T do``, ``dp = do v^T``,
+    ``ds = p (dp - delta)``, ``dq = ds k * scale``, ``dk = ds^T q * scale``;
+    dk and dv summed over each KV head's G query heads.  Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    f32 = torch.float32
+    sc = softmax_scale(D, scale)
+    s = _scores(q, k, causal=causal, scale=scale)
+    lse_g = lse.to(f32).reshape(B, K, G, Sq)[..., None]
+    p = torch.where(torch.isfinite(lse_g), torch.exp(s - lse_g), 0.0)
+    dog = do.to(f32).reshape(B, Sq, K, G, -1)
+    delta = (do.to(f32) * o.to(f32)).sum(-1).reshape(B, Sq, K, G)
+    dv = torch.einsum("bkgqp,bqkgd->bpkd", p, dog)
+    dp = torch.einsum("bqkgd,bpkd->bkgqp", dog, v.to(f32))
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    qg = q.to(f32).reshape(B, Sq, K, G, D)
+    dq = torch.einsum("bkgqp,bpkd->bqkgd", ds, k.to(f32)) * sc
+    dk = torch.einsum("bkgqp,bqkgd->bpkd", ds, qg) * sc
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor,
@@ -147,16 +214,21 @@ def route(dtype: torch.dtype, D: int, Dv: int) -> str:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         scale: float | None = None) -> torch.Tensor:
+                         *, causal: bool = True, scale: float | None = None,
+                         with_lse: bool = False):
     """The kernel :func:`route` names, on contiguous CUDA tensors, all fp32
-    or all bf16 (one counted launch)."""
+    or all bf16 (one counted launch).  ``with_lse`` (the SIMT route only)
+    also returns each row's log-sum-exp, fp32 ``[B, H, Sq]``, for the
+    backward: ``(out, lse)``."""
     B, Sq, Sk, H, K, D, Dv = check_shapes(q, k, v)
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes fp32 or bf16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_cuda(name, t, q.dtype, 4)
     sm90 = route(q.dtype, D, Dv) == "sm90"
+    if sm90 and with_lse:
+        raise ValueError("the tensor-core flash_attention writes no lse: a "
+                         "bf16 backward is not ported yet (ROADMAP A5b)")
     if sm90:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _build.check_tma(name, t)
@@ -166,6 +238,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"of shared memory per block, the card allows "
                          f"{_build.smem_optin(q.device)}")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if sm90:
         _build.launch("flash_attention", q.device, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
@@ -174,6 +248,65 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         _build.launch("flash_attention", q.device, _DTYPES[q.dtype],
                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Sk, H, K, D, Dv,
-                      softmax_scale(D, scale), int(causal))
-    return out
+                      out.data_ptr(), None if lse is None else lse.data_ptr(),
+                      B, Sq, Sk, H, K, D, Dv, softmax_scale(D, scale),
+                      int(causal))
+    return (out, lse) if with_lse else out
+
+
+def bwd_tiles(D: int, Dv: int) -> tuple[int, int, int]:
+    """The backward's tiles by head size (``csrc/flash_attention_bwd.cu``):
+    (keys a dkdv block, q rows a dq block, output columns a thread / 16).
+    Up to 64 columns: 32, 64, 4; up to 128: 32, 64, 8; up to 256: 32, 32,
+    16 (64 rows at D = Dv = 256 would need over 256 KB of shared
+    memory)."""
+    head = max(D, Dv)
+    if head <= 64:
+        return 32, 64, 4
+    if head <= 128:
+        return 32, 64, 8
+    return 32, 32, 16
+
+
+def bwd_smem_bytes(D: int, Dv: int) -> int:
+    """Dynamic shared memory of a block of the larger of the two backward
+    kernels: its own K, V (or q, do) tile, the 64-row loop tile of q, do
+    (or K, V), two score tiles and the loop tile's lse and delta, fp32,
+    rows padded by one."""
+    return max(4 * (own * (D + 1) + own * (Dv + 1) + BK * (D + 1)
+                    + BK * (Dv + 1) + 2 * own * (BK + 1) + 2 * BK)
+               for own in bwd_tiles(D, Dv)[:2])
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) by ``csrc/flash_attention_bwd.cu`` on contiguous fp32
+    CUDA tensors: o and do ``[B, Sq, H, Dv]``, lse ``[B, H, Sq]`` from
+    :func:`flash_attention_cuda` with ``with_lse`` (one counted launch of
+    its three kernels)."""
+    B, Sq, Sk, H, K, D, Dv = check_shapes(q, k, v)
+    f32 = torch.float32
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _build.check_cuda(name, t, f32, 4)
+    _build.check_cuda("lse", lse, f32, 3)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (B, Sq, H, Dv):
+            raise ValueError(f"{name} must be {(B, Sq, H, Dv)}, got "
+                             f"{tuple(t.shape)}")
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse must be {(B, H, Sq)}, got {tuple(lse.shape)}")
+    smem = bwd_smem_bytes(D, Dv)
+    if smem > _build.smem_optin(q.device):
+        raise ValueError(f"flash_attention's backward at D={D}, Dv={Dv} "
+                         f"needs {smem} B of shared memory per block, the "
+                         f"card allows {_build.smem_optin(q.device)}")
+    delta = torch.empty((B, H, Sq), dtype=f32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _build.launch("flash_attention_bwd", q.device, *(
+        t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+        B, Sq, Sk, H, K, D, Dv, softmax_scale(D, scale), int(causal))
+    return dq, dk, dv

@@ -224,6 +224,7 @@ def histogram_level(node: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         if node.device.type == "cpu":
             return histogram_level_ref(node, y, w, bins, n_nodes=n_nodes,
                                        n_bins=n_bins, n_classes=n_classes)
+        _build.refuse_grad("histogram", w)
         return histogram_level_cuda(node, y, w, bins, n_nodes=n_nodes,
                                     n_bins=n_bins, n_classes=n_classes,
                                     block=block)

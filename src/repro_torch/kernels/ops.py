@@ -3,14 +3,25 @@
 A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written CUDA kernel (built at first use) or raises —
 there is no fallback.  ``launches`` counts kernel launches per kernel.
+
+A kernel's output is a fresh tensor with no autograd history, so a CUDA
+dispatch never lets a gradient fall silently out of the graph: with grad
+mode on and a floating input that requires grad, ``flash_attention`` goes
+through :class:`FlashAttention` (its backward a hand-written kernel too)
+and every other kernel raises, naming the ROADMAP item that would give it
+a backward (``_build.refuse_grad``).  Their plain versions on the CPU are
+differentiated by autograd.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import launches
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels._build import launches, needs_grad, refuse_grad
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                flash_attention_bwd_ref,
+                                                flash_attention_cuda,
+                                                flash_attention_ref_lse)
 from repro_torch.kernels.fused_fog import fused_fog_on_route, fused_fog_ref
 from repro_torch.kernels.grove_aggregate import (check_contrib,
                                                  grove_aggregate_cuda)
@@ -38,6 +49,7 @@ def tree_traverse(feature, threshold, leaf, x, thr_scale=None,
             leaf_scale = torch.ones(leaf.shape[:-2] + (1, 1))
         return ref.tree_traverse_ref(feature, threshold, leaf, x, thr_scale,
                                      leaf_scale)
+    refuse_grad("tree_traverse", threshold, leaf, x)
     return tree_traverse_cuda(feature, threshold, leaf, x, thr_scale,
                               leaf_scale, block_b=block_b)
 
@@ -46,6 +58,7 @@ def top2_confidence(prob: torch.Tensor, *, block_b: int = 256) -> torch.Tensor:
     """MaxDiff margin [B, C] -> [B] (plain: ref.top2_confidence_ref)."""
     if _on_cpu(prob):
         return ref.top2_confidence_ref(prob)
+    refuse_grad("top2_confidence", prob)
     return top2_confidence_cuda(prob, block_b=block_b)
 
 
@@ -56,6 +69,7 @@ def grove_aggregate(prob_acc, contrib, live, hops, thresh, *,
     check_contrib(contrib)
     if _on_cpu(prob_acc):
         return ref.grove_aggregate_ref(prob_acc, contrib, live, hops, thresh)
+    refuse_grad("grove_aggregate", prob_acc, contrib, thresh)
     return grove_aggregate_cuda(prob_acc, contrib, live, hops, thresh,
                                 block_b=block_b)
 
@@ -72,6 +86,7 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
         return fused_fog_ref(feature, threshold, leaf, x, start, thresh,
                              budget, thr_scale, leaf_scale,
                              max_hops=max_hops, block_b=block_b)
+    refuse_grad("fused_fog", threshold, leaf, x, thresh)
     return fused_fog_on_route(feature, threshold, leaf, x, start, thresh,
                               budget, thr_scale, leaf_scale,
                               max_hops=max_hops, block_b=block_b,
@@ -84,19 +99,66 @@ def ssd_chunk(xbar, a, Bm, Cm):
     [B, nc, H, P, N]) in xbar's dtype (plain: ref.ssd_chunk_ref)."""
     if _on_cpu(xbar):
         return ref.ssd_chunk_ref(xbar, a, Bm, Cm)
+    refuse_grad("ssd_chunk", xbar, a, Bm, Cm)
     return ssd_chunk_cuda(xbar, a, Bm, Cm)
+
+
+def _flash_forward(q, k, v, causal, scale, with_lse):
+    if _on_cpu(q):
+        out, lse = flash_attention_ref_lse(q, k, v, causal=causal,
+                                           scale=scale)
+        return (out, lse) if with_lse else out
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                with_lse=with_lse)
+
+
+def _flash_backward(q, k, v, o, do, lse, causal, scale):
+    if _on_cpu(q):
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                       scale=scale)
+    return flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                    scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward (the SIMT kernel
+    with its per-row lse on CUDA, the plain version on the CPU) saves q,
+    k, v, the output and lse; the backward is
+    ``flash_attention_bwd_cuda`` on CUDA, ``flash_attention_bwd_ref`` on
+    the CPU.  fp32 only: a bf16 input that needs a gradient raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale):
+        out, lse = _flash_forward(q, k, v, causal, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, do.contiguous(), lse,
+                                     ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
     """GQA/MQA attention q [B, Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv]
     -> [B, Sq, H, Dv] in q's dtype, causal with both positions counted from
-    0 (plain: ref.flash_attention_ref)."""
-    if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    0 (plain: ref.flash_attention_ref).  Where a gradient is wanted it goes
+    through :class:`FlashAttention` (fp32 only)."""
+    if needs_grad(q, k, v):
+        if not all(t.dtype == torch.float32 for t in (q, k, v)):
+            raise TypeError(
+                f"flash_attention's backward takes fp32 only, got "
+                f"{q.dtype}: bf16 training waits for a tensor-core backward "
+                f"(ROADMAP A5b)")
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return _flash_forward(q, k, v, causal, scale, False)
 
 
 __all__ = ["tree_traverse", "top2_confidence", "grove_aggregate", "fused_fog",
            "histogram_level", "histogram_level_scatter", "onehot_rows",
-           "ssd_chunk", "flash_attention", "launches", "ref"]
+           "ssd_chunk", "flash_attention", "FlashAttention", "launches",
+           "ref"]

@@ -1,11 +1,17 @@
-"""Carry the JAX package's parameters and caches into the port.
+"""Carry the JAX package's parameters, caches and optimizer state into
+the port, and the port's parameters and optimizer state back.
 
-Both take the JAX pytree as numpy arrays (``jax.tree.map(np.asarray,
+The JAX side is its pytree as numpy arrays (``jax.tree.map(np.asarray,
 tree)``): bf16 leaves arrive as numpy's ``bfloat16`` extension dtype and
 are moved bit for bit.  The JAX tree stacks each period position on a
 leading ``[n_repeat]`` axis (``stack``, from ``jax.vmap`` of the layer
 init, or from the decode ``lax.scan``); the port splits that axis into
-one block per repeat.
+one block per repeat, and :func:`params_to_jax` stacks it again.  The
+port's optimizer state keys its moments by the model's parameter names
+(``dict(lm.named_parameters())``: ``"stack.3.pos0.attn.wq"``), which
+:func:`tree_to_named` and :func:`named_to_tree` map to and from JAX's
+layout.  Training checkpoints (``train/checkpoint.py``) are written in
+JAX's layout, so that either package restores what the other wrote.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.transformer import FFN, LM, Attn, Layer, layer_plan
+from repro_torch.optim import OptState
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -67,19 +74,141 @@ def _layer(tree: dict, device) -> Layer:
     return Layer(t(tree["ln1"]), **kw)
 
 
+def _n_repeat(tree: dict) -> int:
+    """The stack's leading axis in a JAX tree (0 when it has no stack)."""
+    stack = tree.get("stack") or {}
+    for leaf in _leaves(stack):
+        return int(np.shape(leaf)[0])
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_from_tree(tree: dict, device) -> LM:
+    """The port's model from a JAX-layout tree (numpy leaves), its depth and
+    period read from the tree itself."""
+    stack = tree.get("stack") or {}
+    return LM(to_tensor(tree["embed"], device),
+              to_tensor(tree["out_norm"], device),
+              (to_tensor(tree["unembed"], device) if "unembed" in tree
+               else None),
+              [_layer(layer, device) for layer in tree["prefix"]],
+              [{f"pos{j}": _layer(_index(stack[f"pos{j}"], r), device)
+                for j in range(len(stack))} for r in range(_n_repeat(tree))],
+              ({k: to_tensor(v, device) for k, v in tree["mtp"].items()}
+               if "mtp" in tree else None))
+
+
 def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     """The port's model from JAX's ``init_params`` tree (numpy leaves),
     deepseek's ``mtp`` head included."""
     dev = resolve_device(device)
     _, period, n_rep = layer_plan(cfg)
-    return LM(to_tensor(tree["embed"], dev), to_tensor(tree["out_norm"], dev),
-              (to_tensor(tree["unembed"], dev) if "unembed" in tree
-               else None),
-              [_layer(layer, dev) for layer in tree["prefix"]],
-              [{f"pos{j}": _layer(_index(tree["stack"][f"pos{j}"], r), dev)
-                for j in range(len(period))} for r in range(n_rep)],
-              ({k: to_tensor(v, dev) for k, v in tree["mtp"].items()}
-               if "mtp" in tree else None))
+    if (len(tree.get("stack") or {}), _n_repeat(tree)) != (len(period),
+                                                          n_rep):
+        raise ValueError(f"the tree's stack is not {cfg.name}'s: "
+                         f"{n_rep} repeats of a period of {len(period)}")
+    return lm_from_tree(tree, dev)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor as a numpy array on the host (never sharing the
+    tensor's memory), bf16 as numpy's ``bfloat16`` extension dtype bit for
+    bit (registered by whoever loaded ``ml_dtypes``, as JAX does; raises
+    when none is)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return np.array(t.numpy())
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise TypeError("a bf16 tensor goes to numpy only as the bfloat16 "
+                        "dtype that ml_dtypes registers; none is loaded "
+                        "(checkpoints of training hold fp32)") from None
+    return np.array(t.view(torch.int16).numpy()).view(bf16)
+
+
+def named_to_tree(named: dict) -> dict:
+    """JAX's layout from tensors or arrays keyed by the port's parameter
+    names: ``prefix.{i}.…`` into the list ``prefix``, ``stack.{r}.pos{j}.…``
+    stacked on a leading ``[n_repeat]`` axis under ``stack/pos{j}``, the
+    rest nested by the dots."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, value in named.items():
+        a = to_numpy(value) if isinstance(value, torch.Tensor) else value
+        parts = name.split(".")
+        if parts[0] == "stack":
+            stacked.setdefault((parts[2], *parts[3:]), {})[int(parts[1])] = a
+            continue
+        if parts[0] == "prefix":
+            prefix = tree.setdefault("prefix", [])
+            i = int(parts[1])
+            prefix.extend({} for _ in range(i + 1 - len(prefix)))
+            node, parts = prefix[i], parts[2:]
+        else:
+            node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = a
+    tree.setdefault("prefix", [])
+    for path, by_repeat in stacked.items():
+        node = tree.setdefault("stack", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([by_repeat[r]
+                                   for r in range(len(by_repeat))])
+    return tree
+
+
+def tree_to_named(tree: dict, device, dtypes: dict | None = None) -> dict:
+    """Tensors on ``device`` keyed by the port's parameter names from a
+    JAX-layout tree (the inverse of :func:`named_to_tree`), each cast to
+    ``dtypes[name]`` where given."""
+    named = dict(lm_from_tree(tree, device).named_parameters())
+    dtypes = dtypes or {}
+    return {k: v.detach().to(dtypes.get(k, v.dtype))
+            for k, v in named.items()}
+
+
+def params_to_jax(lm: LM, cfg: ArchConfig | None = None) -> dict:
+    """JAX's ``init_params`` tree (numpy leaves) from the port's model:
+    the inverse of :func:`params_from_jax`, ``stack`` stacked on a leading
+    ``[n_repeat]`` axis."""
+    if cfg is not None:
+        _, period, n_rep = layer_plan(cfg)
+        if (len(lm.stack), len(lm.stack[0]) if len(lm.stack) else 0) != (
+                n_rep, len(period) if n_rep else 0):
+            raise ValueError(f"the model's stack is not {cfg.name}'s")
+    return named_to_tree(dict(lm.named_parameters()))
+
+
+def opt_state_to_jax(state: OptState) -> dict:
+    """JAX's ``OptState`` fields as a dict (``step``, ``mu``, ``nu`` in
+    JAX's layout, numpy leaves) from the port's, whose moments are keyed
+    by parameter name."""
+    return {"step": to_numpy(state.step), "mu": named_to_tree(state.mu),
+            "nu": named_to_tree(state.nu)}
+
+
+def opt_state_from_jax(tree, device=None) -> OptState:
+    """The port's ``OptState`` from JAX's (its dataclass, or a dict of
+    its fields; numpy leaves)."""
+    dev = resolve_device(device)
+    get = (tree.get if isinstance(tree, dict)
+           else lambda k: getattr(tree, k))
+    return OptState(step=to_tensor(get("step"), dev),
+                    mu=tree_to_named(get("mu"), dev),
+                    nu=tree_to_named(get("nu"), dev))
 
 
 def _layer_cache(tree: dict, device) -> dict:

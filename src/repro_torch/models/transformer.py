@@ -31,10 +31,15 @@ take the place of the token embedding: the audio and VLM configs
 (``cfg.frontend``) are served from their front ends' embeddings.
 ``forward`` returns the MoE layers' load-balance loss summed, as JAX's.
 
-The mesh's ``constrain_batch`` has no counterpart on one card, and
-``chunked_ce`` / ``lm_loss`` (and deepseek's multi-token-prediction head,
-whose weights ``init_params`` draws as JAX's does) are training, which
-comes later.
+Training: ``forward(..., remat=True)`` wraps each block of the stack in
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of its scan body; the
+prefix layers are not wrapped, as in JAX), which changes no number;
+``chunked_ce`` is JAX's chunked cross-entropy, each chunk's logits
+recomputed in the backward; ``lm_loss`` adds the MoE load-balance loss and
+deepseek's multi-token-prediction term.  The model's weights are frozen
+as built or carried (serving); ``train.loop`` turns gradients on for the
+parameters it trains.  The mesh's ``constrain_batch`` has no counterpart
+on one card.
 """
 from __future__ import annotations
 
@@ -42,7 +47,9 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -126,9 +133,9 @@ class Layer(nn.Module):
 
 
 class LM(nn.Module):
-    """The whole decoder's weights (serving only).  ``mtp`` holds
-    deepseek's multi-token-prediction head (``proj [2d, d]``, ``ln [d]``),
-    which serving does not use."""
+    """The whole decoder's weights.  ``mtp`` holds deepseek's
+    multi-token-prediction head (``proj [2d, d]``, ``ln [d]``), which only
+    ``lm_loss`` uses."""
 
     def __init__(self, embed: torch.Tensor, out_norm: torch.Tensor,
                  unembed: torch.Tensor | None, prefix: list[Layer],
@@ -233,7 +240,10 @@ def _layers(params: LM, cfg: ArchConfig):
 
 def embed_tokens(params: LM, cfg: ArchConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    h = params.embed[tokens.long()]
+    # a lookup whose backward sums each row's gradients in a fixed order on
+    # both devices (indexing's backward accumulates in parallel on the CPU,
+    # and training's resume must be bit-exact)
+    h = F.embedding(tokens.long(), params.embed)
     # the scale is cast to the working dtype before the multiply
     return h * torch.tensor(np.sqrt(cfg.d_model), dtype=h.dtype,
                             device=h.device)
@@ -314,18 +324,92 @@ def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
     return h, cache, aux
 
 
-def forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
-            embeds: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward over tokens [B, S] or embeds [B, S, d].
-    Returns (hidden [B,S,d], moe_aux scalar)."""
-    h = embed_inputs(params, cfg, tokens, embeds)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for p, s in _layers(params, cfg):
-        h, _, aux = _layer_seq(p, cfg, s, h)
+def _block_seq(blk, cfg: ArchConfig, period: list[LayerSpec],
+               h: torch.Tensor, total: torch.Tensor):
+    """One block of the stack (one period of layers) over a sequence:
+    (h after it, the MoE losses added to ``total``)."""
+    for j, s in enumerate(period):
+        h, _, aux = _layer_seq(blk[f"pos{j}"], cfg, s, h)
         if aux is not None:
             total = total + aux
     return h, total
+
+
+def forward(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, remat: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward over tokens [B, S] or embeds [B, S, d].
+    Returns (hidden [B,S,d], moe_aux scalar).  ``remat`` recomputes each
+    block of the stack in the backward instead of keeping its
+    activations (``lm_loss`` passes True, as JAX's does)."""
+    prefix, period, _ = layer_plan(cfg)
+    h = embed_inputs(params, cfg, tokens, embeds)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p, s in zip(params.prefix, prefix):
+        h, _, aux = _layer_seq(p, cfg, s, h)
+        if aux is not None:
+            total = total + aux
+    for blk in params.stack:
+        if remat:
+            h, total = checkpoint(_block_seq, blk, cfg, period, h, total,
+                                  use_reentrant=False)
+        else:
+            h, total = _block_seq(blk, cfg, period, h, total)
+    return h, total
+
+
+def _ce_chunk(params: LM, cfg: ArchConfig, h: torch.Tensor,
+              labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(unembed(params, cfg, h), dim=-1)
+    ce = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return (ce * mask).sum()
+
+
+def chunked_ce(params: LM, cfg: ArchConfig, h: torch.Tensor,
+               labels: torch.Tensor, chunk: int = 512,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy of ``unembed(h)`` against labels [B, S] over the
+    positions ``mask`` keeps, without the whole [B, S, V] fp32 logits:
+    sequence chunks of ``min(chunk, S)`` (the whole sequence when that
+    does not divide S), each chunk's logits recomputed in the backward
+    (``torch.utils.checkpoint``, JAX's ``nothing_saveable`` scan body) and
+    the chunks' sums added in order."""
+    B, S = labels.shape
+    c = min(chunk, S)
+    if S % c:
+        c = S
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, c):
+        total = total + checkpoint(_ce_chunk, params, cfg, h[:, i:i + c],
+                                   labels[:, i:i + c], mask[:, i:i + c],
+                                   use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
+            labels: torch.Tensor | None = None,
+            embeds: torch.Tensor | None = None, aux_coef: float = 0.01,
+            remat: bool = True) -> torch.Tensor:
+    """JAX's training loss: ``chunked_ce`` of the forward against labels,
+    plus for ``cfg.mtp`` 0.3 x the multi-token-prediction term (position t
+    predicts label t + 1 from ``rmsnorm(h_t, mtp.ln) ‖ embed(label_t)``
+    times ``mtp.proj``; the last position masked), plus ``aux_coef`` x the
+    MoE load-balance loss."""
+    h, aux = forward(params, cfg, tokens=tokens, embeds=embeds, remat=remat)
+    loss = chunked_ce(params, cfg, h, labels)
+    if cfg.mtp:
+        mtp = params.mtp
+        mixed = torch.cat([rmsnorm(h, mtp["ln"]),
+                           embed_tokens(params, cfg, labels)], dim=-1)
+        labels2 = torch.roll(labels, -1, dims=1)
+        mask2 = torch.ones(labels2.shape, dtype=torch.float32,
+                           device=h.device)
+        mask2[:, -1] = 0.0
+        loss = loss + 0.3 * chunked_ce(params, cfg, mixed @ mtp["proj"],
+                                       labels2, mask=mask2)
+    return loss + aux_coef * aux
 
 
 # ---------------------------------------------------------------- decode ---

@@ -1547,3 +1547,81 @@ def test_moe_layer_on_card_equals_the_cpu_port(cuda, name, capacity_factor):
     scale = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * scale)
     torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("label,shape,causal", chip_smoke.BWD_CASES[1:],
+                         ids=[c[0] for c in chip_smoke.BWD_CASES[1:]])
+def test_flash_backward_kernel_matches_plain(cuda, label, shape, causal):
+    """The backward kernel (with the forward's lse) against
+    ``flash_attention_bwd_ref`` within ``BWD_BAR`` of each gradient's
+    scale, the same bits on a second run (no atomics)."""
+    args = chip_smoke.bwd_inputs(np.random.default_rng(sum(shape)), shape,
+                                 causal, cuda)
+    before = ops.launches["flash_attention_bwd"]
+    chip_smoke.bwd_check(label, args, causal)
+    assert ops.launches["flash_attention_bwd"] == before + 2
+
+
+def test_train_step_kernels_equal_plain_on_the_card(cuda):
+    """One step's loss and gradients at tinyllama's smoke config with the
+    kernels (forward with lse, the backward kernel) and with their plain
+    versions on the card: the loss within rtol 1e-5, every gradient
+    within 1e-4 of its leaf's scale; 2 forward launches (and remat) and 1
+    backward a layer."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import loss_and_grads
+    cfg = smoke_config("tinyllama-1.1b")
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           torch.float32, device=cuda)
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, 64, 4), 0, cuda)
+    before = dict(ops.launches)
+    lk, gk = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] - before["flash_attention"] == \
+        2 * cfg.n_layers
+    assert (ops.launches["flash_attention_bwd"]
+            - before["flash_attention_bwd"]) == cfg.n_layers
+    with chip_smoke.plain_training():
+        lp, gp = loss_and_grads(params, cfg, batch)
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    chip_smoke.leaf_error(gk, gp, chip_smoke.TRAIN_GRAD_BAR, what="grads")
+
+
+def test_card_training_equals_the_cpu_port_and_resumes(cuda, tmp_path):
+    """Three steps at the tiny config of tests/test_train_integration.py on
+    the card and on the CPU from one init: params within 1e-4 of each
+    leaf's scale (+1e-7); on the card 3 steps straight == 1 step, save,
+    restore, 2 steps, bit for bit."""
+    import copy
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import make_train_step
+    cfg = get_arch("tinyllama-1.1b").scaled(
+        name="tiny-test", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=128, vocab_size=256)
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, device="cpu")
+
+    def run(p, dev, n, start=0, opt=None):
+        opt = opt or make_train_step(cfg, device=dev)[1](p)
+        return chip_smoke.steps_of(cfg, dev, p, opt, n, start, lr=5e-3,
+                                   total=3, B=4, S=64)[:2]
+
+    card = run(copy.deepcopy(p_cpu).to(cuda), cuda, 3)
+    cpu = run(p_cpu, torch.device("cpu"), 3)
+    chip_smoke.leaf_error(chip_smoke.train_state(card[0]),
+                          chip_smoke.train_state(cpu[0]),
+                          chip_smoke.CARD_CPU_BAR, chip_smoke.CARD_CPU_ATOL,
+                          "card vs CPU")
+    p0 = T.init_params(cfg, torch.Generator().manual_seed(0), torch.float32,
+                       device="cpu").to(cuda)
+    one = run(p0, cuda, 1)
+    ckpt.save(1, one, tmp_path)
+    template = copy.deepcopy(one)
+    (p1, o1), step = ckpt.restore(template, tmp_path)
+    assert step == 1
+    chip_smoke.same_training_state("resumed", run(p1, cuda, 2, 1, o1), card)

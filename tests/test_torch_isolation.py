@@ -54,7 +54,12 @@ def test_no_source_names_jax_or_repro():
 @pytest.mark.parametrize("module", ["repro_torch.models.mla",
                                     "repro_torch.models.moe",
                                     "repro_torch.models.transformer",
-                                    "repro_torch.kernels.autotune"])
+                                    "repro_torch.kernels.autotune",
+                                    "repro_torch.train.loop",
+                                    "repro_torch.train.checkpoint",
+                                    "repro_torch.train.fault",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.examples.train_lm"])
 def test_new_modules_import_first_and_alone(module):
     """Each module of the last slices imports as the first module of a
     fresh process (no import cycle through kernels, forest and the

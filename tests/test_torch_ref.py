@@ -194,4 +194,4 @@ def test_ops_cpu_path_launches_no_kernel():
     assert set(ops.launches) == {"fused_fog", "grove_aggregate",
                                  "top2_confidence", "histogram",
                                  "tree_traverse", "ssd_chunk",
-                                 "flash_attention"}
+                                 "flash_attention", "flash_attention_bwd"}

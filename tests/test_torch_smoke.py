@@ -103,3 +103,34 @@ def test_flash_work_at_the_prefill_shape():
     assert work["pairs"] == 2048 * 2049 // 2 == 2_098_176
     assert work["ops"] == 68_753_031_168
     assert work["bytes"] == 75_497_472
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(37, 53, True), (53, 37, True),
+                                          (37, 53, False)])
+def test_backward_work_counts_every_tensor_and_product(Sq, Sk, causal):
+    """bwd_work against the tensors the backward reads and writes (q, k, v,
+    o, do, lse; dq, dk, dv) and the five products over the live pairs
+    (s, dp, dv, dq, dk: 2 D, 2 Dv, 2 Dv, 2 D, 2 D FLOP a pair)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, K, D, Dv = 2, 6, 3, 24, 8
+    q, k, v = (torch.zeros(sh) for sh in
+               ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, Dv)))
+    o, lse = fa.flash_attention_ref_lse(q, k, v, causal=causal)
+    grads = fa.flash_attention_bwd_ref(q, k, v, o, o, lse, causal=causal)
+    pairs = sum(1 for i in range(Sq) for j in range(Sk)
+                if not causal or j <= i)
+    work = chip_smoke.bwd_work(B, Sq, Sk, H, K, D, Dv, causal)
+    assert work["pairs"] == pairs
+    assert work["ops"] == B * H * pairs * (6 * D + 4 * Dv)
+    assert work["bytes"] == sum(t.numel() * t.element_size() for t in (
+        q, k, v, o, o, lse, *grads))
+
+
+def test_backward_work_at_the_training_shape():
+    """tinyllama's training shape: 5.39 GFLOP (0.080 ms at 67 TFLOP/s) and
+    75.8 MB (0.023 ms at 3.35 TB/s)."""
+    work = chip_smoke.bwd_work(8, 256, 256, 32, 4, 64, 64)
+    assert work["ops"] == 8 * 32 * (256 * 257 // 2) * 640 == 5_389_680_640
+    assert work["bytes"] == 75_759_616
+    ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"])
+    assert by == "operations" and abs(ms - 0.080443) < 1e-6

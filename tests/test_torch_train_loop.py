@@ -1,0 +1,211 @@
+"""repro_torch's LM training loop on the CPU: JAX's own convergence bars
+(``tests/test_train_integration.py``, whose JAX run fails under a mesh in
+jax 0.9, ROADMAP §C) on the port, bit-exact resume after a crash, the
+train CLI (``--smoke --device cpu`` in-process) and ``examples.train_lm``,
+and the refusals: a Mamba config on every device.  The comparison with
+JAX's loss, gradients and steps is ``tests/test_torch_train.py``'s.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.data.lm_data import DataConfig as JDataConfig  # noqa: E402
+from repro.data.lm_data import batch_at_step as jbatch_at_step  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.data.lm_data import DataConfig, batch_at_step  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.carry import params_from_jax  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.loop import (check_trainable,  # noqa: E402
+                                    make_train_step)
+
+LR = 5e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small tensors: the suite runs test
+    files in parallel workers, where each op's threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def tiny(configs):
+    """The tiny config of ``tests/test_train_integration.py``."""
+    return configs.get_arch("tinyllama-1.1b").scaled(
+        name="tiny-test", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=128, vocab_size=256)
+
+
+def run_tiny(steps, *, compress=False, params=None, opt_state=None, start=0,
+             lr=LR):
+    """``tests/test_train_integration.py::_run`` in the port: the tiny
+    config from the port's seed-0 init, batches of 4 x 64."""
+    cfg = tiny(tconfigs)
+    step_fn, init_opt = make_train_step(cfg, lr=lr, total_steps=steps,
+                                        compress_pod_grads=compress,
+                                        device="cpu")
+    if params is None:
+        params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, device="cpu")
+        opt_state = init_opt(params)
+    dcfg = DataConfig(cfg.vocab_size, 64, 4, seed=0)
+    losses = []
+    for s in range(start, steps):
+        b = batch_at_step(dcfg, s)
+        params, opt_state, m = step_fn(params, opt_state, {
+            k: torch.as_tensor(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    return params, opt_state, losses
+
+
+@pytest.mark.parametrize("compress,drop", [(False, 0.5), (True, 0.4)])
+def test_loss_decreases(compress, drop):
+    """JAX's own bars (``tests/test_train_integration.py``): 30 steps drop
+    the loss by 0.5, or 0.4 with compressed gradients."""
+    _, _, losses = run_tiny(30, compress=compress)
+    assert losses[-1] < losses[0] - drop, (losses[0], losses[-1])
+
+
+def same_state(a, b):
+    (pa, oa), (pb, ob) = a, b
+    na, nb = dict(pa.named_parameters()), dict(pb.named_parameters())
+    assert na.keys() == nb.keys()
+    assert all(torch.equal(na[k], nb[k]) for k in na)
+    assert torch.equal(oa.step, ob.step)
+    for m in ("mu", "nu"):
+        ma, mb = getattr(oa, m), getattr(ob, m)
+        assert ma.keys() == mb.keys()
+        assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_resume_after_a_crash_is_bit_exact(tmp_path):
+    """Crash at step 10, resume from the checkpoint: steps 10..20 equal the
+    uninterrupted run bit for bit (deterministic data, the optimizer state
+    saved)."""
+    p1, o1, l_full = run_tiny(20)
+    p2, o2, _ = run_tiny(10)
+    ckpt.save(10, (p2, o2), tmp_path)
+    (p3, o3), step = ckpt.restore((p2, o2), tmp_path)
+    assert step == 10
+    same_state((p3, o3), (p2, o2))
+    p4, o4, l_resumed = run_tiny(20, params=p3, opt_state=o3, start=10)
+    assert l_resumed == l_full[10:]
+    same_state((p4, o4), (p1, o1))
+
+
+def test_data_is_jax_data():
+    """The batches the CLI trains on are JAX's ``batch_at_step``'s."""
+    for step in (0, 7):
+        got = batch_at_step(DataConfig(256, 64, 4, seed=3), step)
+        want = jbatch_at_step(JDataConfig(256, 64, 4, seed=3), step)
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_step_turns_gradients_on_and_replaces_tensors():
+    """The trainer's parameters require grad after a step (carried serving
+    weights stay frozen until then); tensors taken before the step keep
+    their values."""
+    cfg = tiny(tconfigs)
+    jp = JT.init_params(tiny(jconfigs), jax.random.key(0), jnp.float32)
+    params = params_from_jax(np_tree(jp), cfg, device="cpu")
+    assert not any(p.requires_grad for p in params.parameters())
+    before = {k: p.detach() for k, p in params.named_parameters()}
+    copies = {k: p.clone() for k, p in before.items()}
+    step_fn, init_opt = make_train_step(cfg, lr=LR, device="cpu")
+    b = batch_at_step(DataConfig(cfg.vocab_size, 16, 2), 0)
+    params, _, m = step_fn(params, init_opt(params), {
+        k: torch.as_tensor(v) for k, v in b.items()})
+    assert all(p.requires_grad for p in params.parameters())
+    assert all(torch.equal(before[k], copies[k]) for k in before)
+    assert int(m["step"]) == 1 and float(m["grad_norm"]) > 0
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_mamba_configs_are_refused(name):
+    """Mamba layers' ssd_chunk kernel has no backward: every device
+    refuses the config, naming the ROADMAP item, before any step."""
+    cfg = tconfigs.smoke_config(name)
+    with pytest.raises(NotImplementedError, match="ssd_chunk.*A5b"):
+        check_trainable(cfg)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        make_train_step(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5b"):
+        train_cli.main(["--arch", name, "--smoke", "--steps", "1",
+                        "--device", "cpu"])
+
+
+def cli(tmp_path, *extra):
+    return train_cli.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps",
+                           "4", "--batch", "2", "--seq", "32", "--device",
+                           "cpu", "--log-every", "1", *extra])
+
+
+def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
+    """``--smoke --device cpu`` in-process: JAX's ``[train]`` lines, a
+    heartbeat and committed checkpoints every 2 steps; after a crash that
+    left step 4 uncommitted, ``--resume`` restarts from step 2 and steps
+    2..3 equal the first run's bit for bit."""
+    first = cli(tmp_path, "--ckpt-dir", str(tmp_path), "--ckpt-every", "2")
+    out = capsys.readouterr().out
+    assert "[train] arch=tinyllama-1.1b-smoke device=cpu B=2 S=32" in out
+    assert out.count("[train] step") == 4 and "[train] done" in out
+    assert first["steps"] == [0, 1, 2, 3]
+    assert ckpt.latest_step(tmp_path) == 4
+    assert (tmp_path / "hb_host0.json").exists()
+    (tmp_path / "step_00000004" / "COMMIT").unlink()
+    again = cli(tmp_path, "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+                "--resume")
+    assert "[train] resumed from step 2" in capsys.readouterr().out
+    assert again["steps"] == [2, 3]
+    assert again["losses"] == first["losses"][2:]
+    same_state((again["params"], again["opt_state"]),
+               (first["params"], first["opt_state"]))
+
+
+def test_cli_trains_a_front_end_config_from_embeddings(capsys):
+    """musicgen trains from embeddings drawn by a seeded generator: two
+    runs give the same losses."""
+    args = ["--arch", "musicgen-large", "--smoke", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--device", "cpu"]
+    a, b = train_cli.main(args), train_cli.main(args)
+    assert a["losses"] == b["losses"] and len(a["losses"]) == 2
+    assert all(np.isfinite(a["losses"]))
+
+
+def test_cli_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps",
+                        "1"])
+
+
+def test_train_lm_example_resumes(tmp_path):
+    """``examples.train_lm`` at its ~100M config, cut to 2 + 1 steps of
+    1 x 16 tokens: the second run resumes from the first's checkpoint."""
+    from repro_torch.examples import train_lm
+    cfg = train_lm.config()
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab_size) == (8, 768, 12, 4, 2048, 8192)
+    args = ["--batch", "1", "--seq", "16", "--ckpt-dir", str(tmp_path),
+            "--device", "cpu"]
+    first = train_lm.main(["--steps", "2", *args])
+    assert first["start"] == 0 and len(first["losses"]) == 2
+    second = train_lm.main(["--steps", "3", *args])
+    assert second["start"] == 2 and len(second["losses"]) == 1
+    assert ckpt.latest_step(tmp_path) == 3
