@@ -20,7 +20,8 @@ serving with the FoG layer-grove exit, the serving plane (the registry
 plane, the fused plane and the serve CLI's LM mode), the paper's
 evaluation path (Table 1, Figures 4-5, the ablation), the fused
 autotuner, the MLA, MoE and hybrid LM configs, and LM training
-(tinyllama-1.1b at full width through the train CLI), and:
+(tinyllama-1.1b and mamba2-2.7b at full width through the train CLI),
+and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -168,7 +169,7 @@ autotuner, the MLA, MoE and hybrid LM configs, and LM training
    beside the paper's; times each classifier's prediction over each test
    set (classifications/s); and trains each baseline on segmentation on
    the card and on the CPU from the same init (accuracy within 0.01); and
-   holds each baseline's params after 5 steps from 6 inits on every
+   holds each baseline's params after 5 steps from 2 inits on every
    dataset, card against CPU (within 1e-4 of each leaf's scale on
    segmentation; the CNN with TF32 on must part by more), with cuDNN's
    convolutions on beside them;
@@ -184,6 +185,10 @@ autotuner, the MLA, MoE and hybrid LM configs, and LM training
    key of 15, and the steps of every config of 16 (their weights drawn
    again) with the split of device time into products,
    ``flash_attention``, ``top2_confidence``, ``ssd_chunk`` and the rest;
+   and the train steps of 17 and 18 (their weights drawn again) with
+   their splits.  Each step, eval and kernel is profiled once (a kernel
+   again only when CUPTI returned no record of it), so the whole run stays
+   within half its 1200 s time limit;
 15. tunes the fused launch (``kernels/autotune.py::tune``: every route
    the shapes fit x K x 64-512 threads, and chunks where K stays at
    ``max_hops``, each candidate held bit for bit to the seed's output) at
@@ -228,8 +233,31 @@ autotuner, the MLA, MoE and hybrid LM configs, and LM training
    versions; times the step (tokens/s), the backward kernel beside its
    bounds, its plain version and SDPA's backward; the profiler's split of
    a step's device time (products, ``flash_attention``, its backward, the
-   rest; the CE chunks and the optimizer alone) comes in 14;
-18. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   rest; the CE chunks and the optimizer alone) comes in 14; checks that
+   the 4 losses equal, bit for bit, those of the update that built whole
+   new trees (``TRAIN_LOSSES_WHOLE_TREE``);
+18. (run after 17) trains ``mamba2-2.7b`` at full width and depth in fp32
+   (64 layers, d_model 2560, 80 heads of 64, state 128, vocab 50,280;
+   weights from the port's generator) through ``launch.train.main`` for 4
+   steps of 8 x 256 tokens under the update that frees as it goes, the
+   counts zeroed just before and read just after each step (128
+   ``ssd_chunk`` on the SIMT route, the forward and its remat recompute,
+   and 64 ``ssd_chunk_bwd``; nothing else); prints the peak memory, step
+   ms and tokens/s; holds the next step's loss and every gradient with
+   the kernels against the same step with their plain versions on the
+   card; holds the backward kernel against ``ssd_chunk_bwd_ref`` on layer
+   0's captured inputs and output gradients, on ``SSD_BWD_CASES`` (the
+   CPU tests' shapes, ragged chunks and tiles) and on decays whose cumsum
+   reaches -64, each run twice bit-equal; resumes bit for bit at a narrow
+   mamba2 (4 layers, d_model 256); holds 5 steps of mamba2's smoke config
+   on the card against the CPU port, and one step of jamba's smoke config
+   (Mamba, attention, MoE: 2 forward and 1 backward launch of each kernel
+   a layer) against the plain versions; times the backward kernel beside
+   its bounds and its plain version, and the SIMT forward; the profiler's
+   split of a step's device time (products, ``ssd_chunk``, its backward,
+   the optimizer alone, the elementwise rest) and the idle share come in
+   14;
+19. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -306,14 +334,15 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
 from repro_torch.sklearn import FogClassifier  # noqa: E402
 from repro_torch.baselines import ALL_BASELINES  # noqa: E402
 from repro_torch.baselines import train as bl_train  # noqa: E402
-from repro_torch.optim import (adamw, clip_by_global_norm,  # noqa: E402
-                               linear_warmup_cosine, tree_leaves)
+from repro_torch.optim import (adamw, linear_warmup_cosine,  # noqa: E402
+                               tree_leaves)
 from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import step_batch  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
-from repro_torch.train.loop import (loss_and_grads,  # noqa: E402
-                                    make_train_step, trainable)
+from repro_torch.train.loop import (apply_update,  # noqa: E402
+                                    loss_and_grads, make_train_step,
+                                    trainable)
 from repro_torch.paper import ablation_adaptive  # noqa: E402
 from repro_torch.paper import common as paper_common  # noqa: E402
 from repro_torch.paper import fig5_threshold, table1_accuracy  # noqa: E402
@@ -497,15 +526,18 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, reps: int = 10) -> tuple[dict, float, dict]:
-    """Profile ``reps`` warm calls of ``fn``: (device-busy ms per call by
-    kernel name, from CUPTI's kernel records; wall ms per call; device ms
-    per recorded launch by kernel name).  The last does not depend on how
-    many records CUPTI returned: a short profile can lose some, which
-    lowers the first."""
+def device_profile(fn, reps: int = 10,
+                   warm: bool = True) -> tuple[dict, float, dict]:
+    """Profile ``reps`` calls of ``fn``, after one unprofiled call unless
+    ``warm`` is False: (device-busy ms per call by kernel name, from
+    CUPTI's kernel records; wall ms per call; device ms per recorded
+    launch by kernel name).  The last does not depend on how many records
+    CUPTI returned: a short profile can lose some, which lowers the
+    first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -525,13 +557,17 @@ def device_profile(fn, reps: int = 10) -> tuple[dict, float, dict]:
     return busy, wall, per_launch
 
 
+# calls of an eval under one profile (each eval is profiled once)
+EVAL_PROFILE_REPS = 3
+
+
 def eval_profile(fn, swap_aggregate: bool = False) -> dict:
     """An eval under the profiler: wall and device-busy ms per call, the
     idle share, the distinct device kernels and the device ms per launch
     of grove_aggregate's tile kernel in it; with ``swap_aggregate`` the
     same again with ``ops.grove_aggregate`` on the first kernel (the lane
     route): the same path in the same process ("was_")."""
-    busy, wall, per = device_profile(fn)
+    busy, wall, per = device_profile(fn, reps=EVAL_PROFILE_REPS)
     out = {"wall_ms": wall, "device_busy_ms": sum(busy.values()),
            "device_idle_share": 1.0 - sum(busy.values()) / wall,
            "device_kernels": len(busy),
@@ -541,7 +577,7 @@ def eval_profile(fn, swap_aggregate: bool = False) -> dict:
         ops.grove_aggregate = lambda *a, block_b=256: (
             ga.grove_aggregate_on_route(*a, block_b=block_b, route="lane"))
         try:
-            busy, wall, per = device_profile(fn)
+            busy, wall, per = device_profile(fn, reps=EVAL_PROFILE_REPS)
         finally:
             ops.grove_aggregate = real
         out.update(was_wall_ms=wall, was_device_busy_ms=sum(busy.values()),
@@ -568,12 +604,14 @@ def kernel_ms(per_launch: dict, kernel: str) -> float | None:
 
 
 def profiled_ms(fn, kernel: str, tries: int = 3) -> float | None:
-    """``kernel_ms`` of ``fn`` over ``tries`` profiles of 10 calls each:
-    the median of those that recorded the kernel (CUPTI may return no
-    record of a short kernel in a profile, or a stray one)."""
-    got = [kernel_ms(device_profile(fn)[2], kernel) for _ in range(tries)]
-    got = [v for v in got if v is not None]
-    return statistics.median(got) if got else None
+    """``kernel_ms`` of ``fn`` from the first of at most ``tries``
+    profiles of 10 calls each that recorded the kernel (CUPTI may return
+    no record of a short kernel in a profile)."""
+    for _ in range(tries):
+        got = kernel_ms(device_profile(fn)[2], kernel)
+        if got is not None:
+            return got
+    return None
 
 
 def recorded_profile(fn, kernel: str, tries: int = 5
@@ -2174,8 +2212,8 @@ def lm_profile(lm: dict) -> None:
     per_launch = device_profile(fns[f"{kernel}_simt"])[2]
     t[f"{kernel}_simt_device_ms"] = sum(
         v for k, v in per_launch.items() if kernel in k) or None
-    for k, reps in (("prefill", 3), ("decode", 5), ("fog", 5),
-                    ("fog_all_exit", 5)):
+    for k, reps in (("prefill", 1), ("decode", 2), ("fog", 2),
+                    ("fog_all_exit", 2)):
         busy, wall, per_launch = device_profile(fns[k], reps=reps)
         total = sum(busy.values())
         t[f"{k}_profile"] = {
@@ -3033,7 +3071,7 @@ def serve_profile(serve: dict, dev: torch.device) -> None:
         disp = r["batcher"].dispatcher
         d0 = disp.n_dispatches
         prof = serving_profile(
-            lambda r=r: r["serve"](FUSED_REQUESTS // 4, 10**6),
+            lambda r=r: r["serve"](FUSED_REQUESTS // 16, 10**6),
             lambda disp=disp, d0=d0: disp.n_dispatches - d0)
         row = next(x for x in serve["fused"]
                    if (x["precision"], x["replicas"], x["pipeline"])
@@ -3067,7 +3105,7 @@ def five_steps(name: str, init, ds, dev: torch.device):
         ds, epochs=1, device=dev)
 
 
-FIVE_STEP_SEEDS = 6
+FIVE_STEP_SEEDS = 2
 # the baselines' training setting: the port's (``fp32_products``), with
 # cuDNN's convolutions back on, and with TF32 back on (the control)
 FIVE_STEP_SETTINGS = ("port", "cudnn", "tf32")
@@ -3387,7 +3425,8 @@ def paper_phase(dev: torch.device) -> dict:
     res["classifications_per_s"] = {}
     for name, cols in table1.items():
         x = fields[name]["x"]
-        per = {c: x.shape[0] / cuda_ms(lambda r=r: r.predict(x)) * 1e3
+        per = {c: x.shape[0] / cuda_ms(lambda r=r: r.predict(x), reps=5)
+               * 1e3
                for c, r in cols.items()}
         res["classifications_per_s"][name] = per
         print(f"[paper] {name} classifications/s over the {x.shape[0]}-row "
@@ -3396,7 +3435,7 @@ def paper_phase(dev: torch.device) -> dict:
 
     # 4. segmentation: each baseline trained on the card and on the CPU
     # from the same init (the port's, drawn on the CPU); and the params
-    # after one epoch of 5 minibatches from 6 inits on every dataset
+    # after one epoch of 5 minibatches from 2 inits on every dataset
     ds = paper_common.dataset("segmentation")
     res["segmentation_card_vs_cpu"] = {}
     for name, train in ALL_BASELINES.items():
@@ -4047,9 +4086,9 @@ def lm_more_profile(more: dict, dev: torch.device) -> None:
         tok = logits.argmax(-1).to(torch.int32)
         thresh = torch.tensor(res["fog"]["thresholds"], device=dev)
         budget = torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev)
-        fns = {"prefill": (lambda: prefill_fn(params, tokens), 2),
-               "decode": (lambda: serve(params, cache, tok, S), 5),
-               "fog": (lambda: fog(params, cache, tok, S, thresh, budget), 5)}
+        fns = {"prefill": (lambda: prefill_fn(params, tokens), 1),
+               "decode": (lambda: serve(params, cache, tok, S), 2),
+               "fog": (lambda: fog(params, cache, tok, S, thresh, budget), 2)}
         prof = {}
         for k, (fn, reps) in fns.items():
             busy, wall, _ = device_profile(fn, reps=reps)
@@ -4098,6 +4137,11 @@ BWD_CASES = (
     ("D = 48, Dv = 32 (MLA at smoke width)", (2, 64, 64, 4, 4, 48, 32),
      True))
 TRAIN_CKPT = ROOT / "build" / "train_resume_ckpt"
+# the 4 losses of step 1 when the update built whole new trees (its last
+# run on an H100 80GB HBM3 at 700 W): the update that frees as it goes must
+# give the same bits
+TRAIN_LOSSES_WHOLE_TREE = (10.923294067382812, 10.866758346557617,
+                           10.610088348388672, 10.171917915344238)
 
 
 class PlainFlash(torch.autograd.Function):
@@ -4123,15 +4167,16 @@ class PlainFlash(torch.autograd.Function):
 
 @contextlib.contextmanager
 def plain_training():
-    """The training path's flash_attention on its plain versions (forward
-    and backward) on the card: no kernel launches."""
-    saved = ops.flash_attention
+    """The training path's flash_attention and ssd_chunk on their plain
+    versions (forward and backward) on the card: no kernel launches."""
+    saved = ops.flash_attention, ops.ssd_chunk
     ops.flash_attention = lambda q, k, v, *, causal=True, scale=None: (
         PlainFlash.apply(q, k, v, causal, scale))
+    ops.ssd_chunk = PlainSsd.apply
     try:
         yield
     finally:
-        ops.flash_attention = saved
+        ops.flash_attention, ops.ssd_chunk = saved
 
 
 @contextlib.contextmanager
@@ -4248,31 +4293,11 @@ def lm_train_phase(dev: torch.device) -> dict:
     cfg = get_arch(TRAIN_ARCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    per_step = []
-    real_make = train_cli.make_train_step
-
-    def counted_make(cfg_, **kw):
-        step, init = real_make(cfg_, **kw)
-
-        def counted(params, opt_state, batch):
-            zero_counts()
-            t0 = time.perf_counter()
-            res = step(params, opt_state, batch)
-            launched, routes = read_counts()
-            per_step.append({"launches": launched, "routes": routes,
-                             "ms": (time.perf_counter() - t0) * 1e3})
-            return res
-        return counted, init
-
     # 1. full width through the CLI, counts zeroed and read around each
     # step
-    train_cli.make_train_step = counted_make
-    try:
-        run = train_cli.main(["--arch", TRAIN_ARCH, "--steps",
-                              str(TRAIN_STEPS), "--batch", str(TRAIN_B),
-                              "--seq", str(TRAIN_S), "--log-every", "1"])
-    finally:
-        train_cli.make_train_step = real_make
+    run, per_step = counted_cli(["--arch", TRAIN_ARCH, "--steps",
+                                 str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                                 "--seq", str(TRAIN_S), "--log-every", "1"])
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     n_layers = cfg.n_layers
     want = ({"flash_attention": 2 * n_layers, "flash_attention_bwd":
@@ -4286,6 +4311,11 @@ def lm_train_phase(dev: torch.device) -> dict:
                 f"ssd_chunk or top2_confidence)")
     if not all(np.isfinite(run["losses"])):
         raise AssertionError(f"train losses {run['losses']}")
+    if run["losses"] != list(TRAIN_LOSSES_WHOLE_TREE):
+        raise AssertionError(
+            f"train losses {run['losses']}: the update that frees as it goes "
+            f"must give the whole-tree update's {TRAIN_LOSSES_WHOLE_TREE} "
+            f"bit for bit")
     n_params = sum(p.numel() for p in run["params"].parameters())
     out.update(arch=TRAIN_ARCH, params=n_params, losses=run["losses"],
                grad_norms=run["grad_norms"], per_step=per_step,
@@ -4496,7 +4526,7 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
     def step():
         state["p"], state["o"], _ = step_fn(state["p"], state["o"], batch)
 
-    busy, wall, _ = device_profile(step, reps=2)
+    busy, wall, _ = device_profile(step, reps=1)
     parts = {"products": 0.0, "flash_attention": 0.0,
              "flash_attention_bwd": 0.0, "other": 0.0}
     for n, v in busy.items():
@@ -4517,19 +4547,11 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
             loss = T.chunked_ce(state["p"], cfg, h, batch["labels"])
             torch.autograd.grad(loss, head)
 
-    busy, _, _ = device_profile(ce, reps=2)
+    busy, _, _ = device_profile(ce, reps=1)
     prof["ce_chunks_alone_ms"] = sum(busy.values())
     _, grads = loss_and_grads(state["p"], cfg, batch)
-    _, update = adamw(lr=linear_warmup_cosine(3e-4, 100, TRAIN_STEPS),
-                      b1=0.9, b2=0.95, weight_decay=0.1)
-
-    def optimizer():
-        with torch.no_grad():
-            g, _ = clip_by_global_norm(grads, 1.0)
-            update(g, state["o"], train_state(state["p"]))
-
-    busy, _, _ = device_profile(optimizer, reps=2)
-    prof["optimizer_alone_ms"] = sum(busy.values())
+    prof["optimizer_alone_ms"] = optimizer_alone(dev, state["p"], state["o"],
+                                                 grads)
     train["profile"] = prof
     print(f"[time] train-lm step under the profiler: wall {wall:.1f} ms, "
           f"device busy {total:.1f} ms, idle share "
@@ -4537,12 +4559,442 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
               f"{k} {v:.2f}" for k, v in parts.items()) +
           f"; alone: the CE chunks (forward + backward) "
           f"{prof['ce_chunks_alone_ms']:.2f} ms, the optimizer (clip + "
-          f"AdamW) {prof['optimizer_alone_ms']:.2f} ms; "
+          f"AdamW leaf by leaf) {prof['optimizer_alone_ms']:.2f} ms; "
           f"flash_attention_bwd {t['device_ms']:.4f} ms on the device "
           f"({t['device_ms_by_kernel']}), SDPA's backward "
           f"{t['library_device_ms']:.4f} ({t['library_backend']})",
           flush=True)
     del state, grads, params, h, named, head
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- 18 ---
+# Mamba training at full width: mamba2-2.7b in fp32 through the train CLI,
+# all 64 layers (2,831,296,000 parameters: 45.3 GB of params, gradients
+# and moments under the update that frees as it goes)
+MAMBA_TRAIN_ARCH = "mamba2-2.7b"
+# bars of the phase: the loss with kernels against the plain versions
+# (relative); every gradient leaf against the plain versions' (of the
+# leaf's scale): the Mamba leaves' gradients are ill-conditioned in fp32
+# (tests/test_torch_train_mamba.py: JAX's own is 2.3e-5 of A_log's scale
+# from float64 at smoke width), and at full width the decay cumsum reaches
+# -64 at Q = 256 in every one of 64 layers (measured: A_log up to 2.2e-4);
+# the backward kernel's four gradients: no farther from a float64 run of
+# the plain version than twice the fp32 plain version is, plus
+# SSD_BWD_FLOOR of the scale (the CPU tests' bar; kernel and plain sum up
+# to 256 x 128 terms in other orders, and da is a reverse cumsum whose
+# terms cancel: on layer 0's trained inputs kernel and plain part by
+# 7.8e-5 of da's scale); params after 5 smoke steps, card against the
+# CPU port (of each leaf's scale, plus 1e-7)
+MAMBA_LOSS_RTOL = 1e-5
+MAMBA_GRAD_BAR = 1e-3
+SSD_BWD_FLOOR = 1e-6
+MAMBA_CARD_CPU_BAR = 1e-4
+# the backward kernel against its plain version: the training shape, the
+# CPU tests' shapes (tests/test_torch_ssd_backward.py::SHAPES: Q in {1, 7,
+# 32, 256}, odd P and N), a ragged chunk at full width, and P, N over one
+# tile: (label, (B, nc, Q, H, P, N))
+SSD_BWD_CASES = (
+    ("the training shape", (8, 1, 256, 80, 64, 128)),
+    ("Q = 1", (1, 2, 1, 2, 3, 5)),
+    ("Q = 7", (2, 2, 7, 3, 5, 3)),
+    ("Q = 32", (1, 3, 32, 2, 9, 7)),
+    ("Q = 256, odd P, N", (1, 2, 256, 2, 17, 9)),
+    ("ragged Q = 200 at full width", (2, 2, 200, 80, 64, 128)),
+    ("P = 130, N = 70 (ragged tiles)", (1, 2, 100, 3, 130, 70)))
+MAMBA_CKPT = ROOT / "build" / "mamba_resume_ckpt"
+
+
+def counted_cli(argv: list) -> tuple[dict, list]:
+    """``launch.train.main(argv)`` with the launch and route counts zeroed
+    just before and read just after each step; returns the run and each
+    step's ``{"launches", "routes", "ms"}``."""
+    per_step = []
+    real_make = train_cli.make_train_step
+
+    def counted_make(cfg_, **kw):
+        step, init = real_make(cfg_, **kw)
+
+        def counted(params, opt_state, batch):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = step(params, opt_state, batch)
+            launched, routes = read_counts()
+            per_step.append({"launches": launched, "routes": routes,
+                             "ms": (time.perf_counter() - t0) * 1e3})
+            return res
+        return counted, init
+
+    train_cli.make_train_step = counted_make
+    try:
+        run = train_cli.main(argv)
+    finally:
+        train_cli.make_train_step = real_make
+    return run, per_step
+
+
+class PlainSsd(torch.autograd.Function):
+    """ssd_chunk's plain versions with a gradient, on any device:
+    ``ssd_chunk_ref`` forward, ``ssd_chunk_bwd_ref`` backward."""
+
+    @staticmethod
+    def forward(ctx, xbar, a, Bm, Cm):
+        ctx.save_for_backward(xbar, a, Bm, Cm)
+        return ssd_chunk_ref(xbar, a, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        return ssd_mod.ssd_chunk_bwd_ref(*ctx.saved_tensors, dy.contiguous(),
+                                         dstates.contiguous())
+
+
+@contextlib.contextmanager
+def capture_first_ssd(store: dict):
+    """Record the first ``ops.ssd_chunk`` call's inputs and the gradients
+    that reach its two outputs (layer 0 of the step)."""
+    real = ops.ssd_chunk
+
+    def keep(name: str, like: torch.Tensor):
+        # an output the loss does not reach (the states of a sequence of
+        # one chunk) gets no gradient: zeros, as the Function's backward
+        # sees it; the hook returns None (the gradient is not replaced)
+        def hook(g):
+            store.setdefault(name, torch.zeros_like(like) if g is None
+                             else g.clone())
+        return hook
+
+    def wrapped(*args):
+        y, st = real(*args)
+        if "args" not in store:
+            store["args"] = [t.detach().clone() for t in args]
+            y.register_hook(keep("dy", y))
+            st.register_hook(keep("dst", st))
+        return y, st
+
+    ops.ssd_chunk = wrapped
+    try:
+        yield
+    finally:
+        ops.ssd_chunk = real
+
+
+def ssd_bwd_work(B, nc, Q, H, P, N) -> dict:
+    """ssd_chunk's backward from its shapes: ``bytes`` xbar, a, B, C, dy
+    and dstates read once and dxbar, da, dB, dC written once (fp32);
+    ``ops`` the products it needs: per chunk S = C B^T, dC = dS B and dB +=
+    dS^T C over the causal pairs (2 N FLOP a pair each), and per (chunk,
+    head) dy x^T and W^T dy over the causal pairs (2 P each), and B dst^T
+    and x dst over the whole chunk (2 Q P N each)."""
+    BC = B * nc
+    n_bytes = 4 * BC * (3 * Q * H * P + 2 * H * Q + 4 * Q * N + H * P * N)
+    pairs = Q * (Q + 1) // 2
+    ops_ = BC * (3 * 2 * pairs * N
+                 + H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N))
+    return {"bytes": n_bytes, "pairs": pairs, "ops": ops_}
+
+
+def ssd_bwd_inputs(rng, shape, dev) -> list:
+    """Random fp32 xbar, a, B, C (``ssd_inputs``) and dy, dstates on the
+    card."""
+    B, nc, Q, H, P, N = shape
+    return ssd_inputs(rng, shape, torch.float32, dev) + [
+        torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+        for sh in ((B, nc, Q, H, P), (B, nc, H, P, N))]
+
+
+def ssd_bwd_check(what: str, args: list) -> float:
+    """The backward kernel twice (bit-equal: no atomics) and held to a
+    float64 run of its plain version: each gradient no farther from it
+    than twice the fp32 plain version is, plus ``SSD_BWD_FLOOR`` of its
+    scale.  Returns the largest error of the four gradients against the
+    fp32 plain version as a share of each one's scale."""
+    got = ssd_mod.ssd_chunk_bwd_cuda(*args)
+    again = ssd_mod.ssd_chunk_bwd_cuda(*args)
+    want = ssd_mod.ssd_chunk_bwd_ref(*args)
+    exact = ssd_mod.ssd_chunk_bwd_ref(*(t.double() for t in args))
+    worst = 0.0
+    for name, g, a, w, e in zip(("dxbar", "da", "dBm", "dCm"), got, again,
+                                want, exact):
+        if not torch.equal(g, a):
+            raise AssertionError(f"ssd_chunk_bwd {what}: {name} differs "
+                                 f"from run to run")
+        scale = float(e.abs().max())
+        err = float((g.double() - e).abs().max())
+        plain_err = float((w.double() - e).abs().max())
+        if (not torch.isfinite(g).all()
+                or err > 2 * plain_err + SSD_BWD_FLOOR * scale):
+            raise AssertionError(
+                f"ssd_chunk_bwd {what} {name}: {err} from float64, the "
+                f"plain version {plain_err}, at scale {scale}")
+        if scale:
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def mamba_layers(cfg) -> tuple[int, int]:
+    """(Mamba layers, attention layers) of ``cfg``'s plan."""
+    prefix, period, n_rep = T.layer_plan(cfg)
+    specs = list(prefix) + list(period) * n_rep
+    n_mamba = sum(s.mixer == "mamba" for s in specs)
+    return n_mamba, len(specs) - n_mamba
+
+
+def mamba_train_phase(dev: torch.device) -> dict:
+    """Phase 18: Mamba training on the card (see the module docstring)."""
+    out: dict = {}
+    t_phase = time.perf_counter()
+    cfg = get_arch(MAMBA_TRAIN_ARCH)
+    n_mamba = mamba_layers(cfg)[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # 1. full width and depth through the CLI, counts around each step
+    run, per_step = counted_cli([
+        "--arch", MAMBA_TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "1"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = ({"ssd_chunk": 2 * n_mamba, "ssd_chunk_bwd": n_mamba},
+            {"ssd_chunk": 2 * n_mamba})
+    for i, s in enumerate(per_step):
+        if (s["launches"], s["routes"]) != want:
+            raise AssertionError(
+                f"mamba train step {i}: launches {s['launches']} by route "
+                f"{s['routes']}, want {want} (the forward and its remat "
+                f"recompute on the SIMT route, one backward a layer)")
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"mamba train losses {run['losses']}")
+    n_params = sum(p.numel() for p in run["params"].parameters())
+    steady = [s["ms"] for s in per_step[1:]]
+    out.update(arch=MAMBA_TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
+               losses=run["losses"], grad_norms=run["grad_norms"],
+               per_step=per_step, step_ms=statistics.median(steady),
+               launches_per_step=per_step[-1]["launches"],
+               routes_per_step=per_step[-1]["routes"])
+    out["tokens_per_s"] = TRAIN_B * TRAIN_S / out["step_ms"] * 1e3
+    print(f"[train-mamba] {MAMBA_TRAIN_ARCH} fp32 full width and depth "
+          f"({cfg.n_layers} layers, {n_params:,} parameters), B={TRAIN_B} "
+          f"S={TRAIN_S}, {TRAIN_STEPS} steps through launch.train: losses "
+          f"{[round(x, 4) for x in run['losses']]}, grad norms "
+          f"{[round(x, 3) for x in run['grad_norms']]}; per step "
+          f"{per_step[-1]['launches']} by route {per_step[-1]['routes']}; "
+          f"step ms {[round(s['ms'], 1) for s in per_step]} (median of "
+          f"steps 2-{TRAIN_STEPS} {out['step_ms']:.1f}, "
+          f"{out['tokens_per_s']:.0f} tokens/s); peak {out['peak_gb']:.2f} "
+          f"GB", flush=True)
+
+    # 2. the next step with the kernels and with the plain versions, from
+    # the trained weights (the optimizer state freed first)
+    params = run["params"]
+    del run
+    torch.cuda.empty_cache()
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                       seed=SEED), TRAIN_STEPS, dev)
+    layer0: dict = {}
+    with capture_first_ssd(layer0):
+        loss_k, grads_k = loss_and_grads(params, cfg, batch)
+    with plain_training():
+        loss_p, grads_p = loss_and_grads(params, cfg, batch)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if rel > MAMBA_LOSS_RTOL:
+        raise AssertionError(f"mamba train loss kernels {float(loss_k)} vs "
+                             f"plain {float(loss_p)}: rel {rel}")
+    out["loss_rel_err_vs_plain"] = rel
+    worst = {k: float((grads_k[k] - g).abs().max() / g.abs().max())
+             for k, g in grads_p.items()}
+    out["grad_err_vs_plain"] = leaf_error(grads_k, grads_p, MAMBA_GRAD_BAR,
+                                          what="mamba train gradient")
+    out["grad_err_worst_leaves"] = dict(sorted(
+        worst.items(), key=lambda kv: -kv[1])[:4])
+    del grads_k, grads_p, params, batch
+    torch.cuda.empty_cache()
+    print(f"[train-mamba] one step's loss with the kernels == with the plain "
+          f"versions on the card: rel err {rel:.3e} (bar {MAMBA_LOSS_RTOL}); "
+          f"gradients: largest error {out['grad_err_vs_plain']:.3e} of a "
+          f"leaf's scale (bar {MAMBA_GRAD_BAR}); worst leaves "
+          f"{ {k: f'{v:.2e}' for k, v in out['grad_err_worst_leaves'].items()} }",
+          flush=True)
+
+    # 3. the backward kernel against its plain version, twice each
+    if "dy" not in layer0 or "dst" not in layer0:
+        raise AssertionError("layer 0's ssd_chunk outputs got no gradient")
+    rng = np.random.default_rng(SEED)
+    errs = {"layer 0 of the step": ssd_bwd_check(
+        "layer 0", [*layer0["args"], layer0["dy"].contiguous(),
+                    layer0["dst"].contiguous()])}
+    del layer0
+    for label, shape in SSD_BWD_CASES:
+        errs[f"{label} {shape}"] = ssd_bwd_check(
+            label, ssd_bwd_inputs(rng, shape, dev))
+    # decays whose cumsum reaches -64 at Q = 256
+    args = ssd_bwd_inputs(rng, (1, 2, 256, 8, 64, 128), dev)
+    args[1] = torch.full_like(args[1], -0.25)
+    errs["cumsum to -64 (1, 2, 256, 8, 64, 128)"] = ssd_bwd_check("-64",
+                                                                 args)
+    out["bwd_err"] = errs
+    print(f"[train-mamba] ssd_chunk_bwd == its plain version (each gradient "
+          f"within twice the plain version's distance from float64 + "
+          f"{SSD_BWD_FLOOR} of its scale; below, the largest error against "
+          f"the fp32 plain version as a share of its scale), bit-equal run "
+          f"to run: " + ", ".join(
+              f"{k}: {v:.2e}" for k, v in errs.items()), flush=True)
+
+    # 4. resume on the card at a narrow mamba2 (4 layers, d_model 256, Q =
+    # 256, two chunks a row)
+    small = cfg.scaled(name="mamba2-narrow", n_layers=4, d_model=256,
+                       vocab_size=8192)
+    gen = torch.Generator(device=dev)
+
+    def fresh():
+        p = T.init_params(small, gen.manual_seed(SEED), torch.float32,
+                          device=dev)
+        return p, make_train_step(small, device=dev)[1](p)
+
+    kw = {"total": 4, "B": 2, "S": 512}
+    straight = steps_of(small, dev, *fresh(), 4, **kw)[:2]
+    half = steps_of(small, dev, *fresh(), 2, **kw)[:2]
+    shutil.rmtree(MAMBA_CKPT, ignore_errors=True)
+    ckpt.save(2, half, MAMBA_CKPT)
+    restored, step = ckpt.restore(fresh(), MAMBA_CKPT)
+    shutil.rmtree(MAMBA_CKPT, ignore_errors=True)
+    same_training_state("mamba restored", restored, half)
+    resumed = steps_of(small, dev, *restored, 2, start=step, **kw)[:2]
+    same_training_state("mamba resumed vs straight", resumed, straight)
+    del straight, half, restored, resumed
+    print(f"[train-mamba] {small.name}: 4 steps straight == 2 steps, save, "
+          f"restore, 2 steps, bit for bit (params and optimizer state)",
+          flush=True)
+
+    # 5. card against the CPU at mamba2's smoke config, 5 steps; jamba's
+    # smoke config (Mamba, attention, MoE) kernels against plain
+    smoke = smoke_config(MAMBA_TRAIN_ARCH)
+    p_cpu = T.init_params(smoke, torch.Generator().manual_seed(SEED),
+                          torch.float32, device="cpu")
+    p_card = copy.deepcopy(p_cpu).to(dev)
+    res = {}
+    for key, d, p in (("cpu", torch.device("cpu"), p_cpu),
+                      ("card", dev, p_card)):
+        res[key] = steps_of(smoke, d, p, make_train_step(smoke, device=d)[1](
+            p), 5, lr=5e-3, B=4, S=64)
+    out["card_vs_cpu_err"] = leaf_error(
+        train_state(res["card"][0]), train_state(res["cpu"][0]),
+        MAMBA_CARD_CPU_BAR, CARD_CPU_ATOL,
+        "mamba smoke card vs CPU params after 5 steps")
+    out["card_vs_cpu_losses"] = {k: v[2] for k, v in res.items()}
+    jamba = smoke_config("jamba-1.5-large-398b")
+    jm, ja = mamba_layers(jamba)
+    p = T.init_params(jamba, gen.manual_seed(SEED), torch.float32,
+                      device=dev)
+    jb = step_batch(jamba, DataConfig(jamba.vocab_size, 64, 4, seed=SEED), 0,
+                    dev)
+    zero_counts()
+    lk, gk = loss_and_grads(p, jamba, jb)
+    jamba_launches = read_counts()[0]
+    with plain_training():
+        lp, gp = loss_and_grads(p, jamba, jb)
+    jrel = abs(float(lk) - float(lp)) / abs(float(lp))
+    want = {"ssd_chunk": 2 * jm, "ssd_chunk_bwd": jm,
+            "flash_attention": 2 * ja, "flash_attention_bwd": ja}
+    if jrel > MAMBA_LOSS_RTOL or jamba_launches != want:
+        raise AssertionError(f"jamba smoke: loss rel err {jrel}, launches "
+                             f"{jamba_launches}, want {want}")
+    out["jamba_smoke"] = {"loss_rel_err": jrel, "launches": jamba_launches,
+                          "grad_err": leaf_error(gk, gp, MAMBA_GRAD_BAR,
+                                                 what="jamba smoke")}
+    print(f"[train-mamba] mamba2 smoke, 5 steps: card == CPU port within "
+          f"{out['card_vs_cpu_err']:.2e} of a leaf's scale (bar "
+          f"{MAMBA_CARD_CPU_BAR} + {CARD_CPU_ATOL}); losses card "
+          f"{[round(x, 5) for x in res['card'][2]]}, CPU "
+          f"{[round(x, 5) for x in res['cpu'][2]]}; jamba smoke ({jm} Mamba "
+          f"and {ja} attention layers, MoE) one step: launches "
+          f"{jamba_launches}, loss rel err {jrel:.2e}, gradients "
+          f"{out['jamba_smoke']['grad_err']:.2e} of a leaf's scale vs plain",
+          flush=True)
+    del res, p_cpu, p_card, p, gk, gp
+
+    # 6. times (CUDA events; the profiler's split comes in phase 14)
+    shape = SSD_BWD_CASES[0][1]
+    args = ssd_bwd_inputs(rng, shape, dev)
+    work = ssd_bwd_work(*shape)
+    t = {"shape": "xbar [{}, {}, {}, {}, {}], N = {}, fp32".format(*shape)}
+    t["bound_ms"], t["bound_by"] = bound_ms(work["bytes"], work["ops"])
+    t["bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ops_bound_ms"] = work["ops"] / FP32_OPS_PER_S * 1e3
+    t["work"] = work
+    t["ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_cuda(*args))
+    t["plain_ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_ref(*args), reps=5)
+    t["fwd_ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_cuda(*args[:4]))
+    out["timing"] = t
+    out["prof_fns"] = {"bwd": lambda: ssd_mod.ssd_chunk_bwd_cuda(*args)}
+    print(f"[time] train-mamba ssd_chunk_bwd at {t['shape']}: {t['ms']:.4f} "
+          f"ms a call (bound {t['bound_ms']:.4f} ms by {t['bound_by']}: "
+          f"bytes {t['bytes_bound_ms']:.4f}, operations "
+          f"{t['ops_bound_ms']:.4f}), plain {t['plain_ms']:.3f} ms, no "
+          f"library call; the SIMT forward {t['fwd_ms']:.4f} ms", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train-mamba] phase 18 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def optimizer_alone(dev: torch.device, params, opt_state, grads) -> float:
+    """Device ms of the step's update alone (``train.loop.apply_update``:
+    clip and AdamW leaf by leaf) on ``grads`` (which it consumes) under
+    the profiler, once, without a warm call: the step just ran it."""
+    _, update = adamw(lr=linear_warmup_cosine(3e-4, 100, TRAIN_STEPS),
+                      b1=0.9, b2=0.95, weight_decay=0.1)
+    named = trainable(params)
+    busy, _, _ = device_profile(
+        lambda: apply_update(named, grads, opt_state, update), reps=1,
+        warm=False)
+    return sum(busy.values())
+
+
+def mamba_train_profile(train: dict, dev: torch.device) -> None:
+    """Phase 18's step under torch.profiler, its weights drawn again: wall
+    and device-busy ms, the idle share and the device time by part
+    (products, ssd_chunk's forward, its backward, the rest), the
+    optimizer alone, and the backward kernel's device ms."""
+    fns = train.pop("prof_fns")
+    t = train["timing"]
+    per = recorded_profile(fns["bwd"], "ssd_bwd")[-1][2]
+    t["device_ms_by_kernel"] = {k: v for k, v in per.items()
+                                if "ssd_bwd" in k}
+    t["device_ms"] = sum(t["device_ms_by_kernel"].values())
+    del fns
+    cfg = get_arch(MAMBA_TRAIN_ARCH)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), torch.float32, device=dev)
+    step_fn, init_opt = make_train_step(cfg, device=dev)
+    state = {"p": params, "o": init_opt(params)}
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                       seed=SEED), 0, dev)
+
+    def step():
+        state["p"], state["o"], _ = step_fn(state["p"], state["o"], batch)
+
+    busy, wall, _ = device_profile(step, reps=1)
+    parts = {"products": 0.0, "ssd_chunk": 0.0, "ssd_chunk_bwd": 0.0,
+             "other": 0.0}
+    for n, v in busy.items():
+        key = ("ssd_chunk_bwd" if "ssd_bwd" in n else
+               "ssd_chunk" if "ssd_chunk" in n else
+               "products" if matmul_kernel(n) else "other")
+        parts[key] += v
+    total = sum(busy.values())
+    prof = {"wall_ms": wall, "device_busy_ms": total,
+            "device_idle_share": 1.0 - total / wall, "split_ms": parts}
+    _, grads = loss_and_grads(state["p"], cfg, batch)
+    prof["optimizer_alone_ms"] = optimizer_alone(dev, state["p"], state["o"],
+                                                 grads)
+    prof["elementwise_ms"] = parts["other"] - prof["optimizer_alone_ms"]
+    train["profile"] = prof
+    print(f"[time] train-mamba step under the profiler: wall {wall:.1f} ms, "
+          f"device busy {total:.1f} ms, idle share "
+          f"{prof['device_idle_share']:.3f}; device ms by part " + ", ".join(
+              f"{k} {v:.2f}" for k, v in parts.items()) +
+          f"; of the rest the optimizer (clip + AdamW leaf by leaf, alone) "
+          f"{prof['optimizer_alone_ms']:.2f} ms and the elementwise passes "
+          f"{prof['elementwise_ms']:.2f}; ssd_chunk_bwd {t['device_ms']:.4f} "
+          f"ms on the device ({t['device_ms_by_kernel']})", flush=True)
+    del state, grads, params
     torch.cuda.empty_cache()
 
 
@@ -4928,6 +5380,12 @@ def main() -> int:
     main_launches["flash_attention_bwd"] = (
         train_lm_out["launches_per_step"]["flash_attention_bwd"] * TRAIN_STEPS)
 
+    # 18. Mamba training (its own main path), while the card's memory is free
+    stamp("18. Mamba training", t_main)
+    train_mamba = mamba_train_phase(dev)
+    main_launches["ssd_chunk_bwd"] = (
+        train_mamba["launches_per_step"]["ssd_chunk_bwd"] * TRAIN_STEPS)
+
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
     stamp("16. MLA, MoE, hybrid LMs", t_main)
@@ -4967,17 +5425,24 @@ def main() -> int:
     stamp("14. profiler", t_main)
     lm_train_profile(train_lm_out, dev)
     out["train_lm"] = train_lm_out
+    stamp("14. profiler: Mamba training", t_main)
+    mamba_train_profile(train_mamba, dev)
+    out["train_mamba"] = train_mamba
+    stamp("14. profiler: tuner, LM+, paper", t_main)
     tune_profile(tuned)
     out["tune"] = tuned
     lm_more_profile(more_lm, dev)
     out["more_lm"] = more_lm
     paper_profile(paper)
     out["paper"] = paper
+    stamp("14. profiler: LM serving", t_main)
     lm_profile(lm)
     lm_profile(attn)
     out["lm"], out["attn_lm"] = lm, attn
+    stamp("14. profiler: serving plane", t_main)
     serve_profile(serve, dev)
     out["serve"] = serve
+    stamp("14. profiler: trainer, kernels, evals, ring", t_main)
     for lv, fn in train["level_fns"].items():
         taken = recorded_profile(fn, "histogram_kernel")
         busy, _, per_launch = taken[-1]
@@ -4992,7 +5457,7 @@ def main() -> int:
             if b and (len(b) != 1 or "histogram_kernel" not in next(iter(b))):
                 raise AssertionError(f"histogram level {lv}: device kernels "
                                      f"{sorted(b)}, want the kernel alone")
-    busy, wall, _ = device_profile(train["gate_fit"], reps=3)
+    busy, wall, _ = device_profile(train["gate_fit"], reps=1)
     out["train"]["gate_fit_profile"] = {
         "wall_ms": wall, "device_busy_ms": sum(busy.values()),
         "device_idle_share": 1.0 - sum(busy.values()) / wall,
@@ -5126,6 +5591,7 @@ def main() -> int:
 
     # fused_fog's route rule against both routes' device times where its
     # copy-bytes line falls (the sweep's code at BOUNDARY_GRID)
+    stamp("14. profiler: route boundary", t_main)
     boundary = route_boundary(sweep_phase(dev, packs, x, BOUNDARY_GRID))
     out["fused_fog_route_boundary"] = boundary
     for key, row in boundary.items():
@@ -5133,8 +5599,8 @@ def main() -> int:
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
-    # 18. the kernels line -----------------------------------------------------
-    stamp("18. kernels line", t_main)
+    # 19. the kernels line -----------------------------------------------------
+    stamp("19. kernels line", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -5337,7 +5803,34 @@ def main() -> int:
                      "train/loop.py through models/layers.py)",
         "matches_plain": True, "deterministic": True, "shape": tt["shape"],
         "cases": tl["bwd_err"]})
+    tm, tmt = train_mamba, train_mamba["timing"]
+    kernels.append({
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": REPLACES["ssd_chunk"],
+        "replaces_note": "the gradient of that kernel; the JAX package "
+                         "takes it with jax.grad of the einsum branch of "
+                         "src/repro/models/mamba2.py::ssd_chunked "
+                         "(src/repro/models/mamba2.py:107-118)",
+        "launches": main_launches["ssd_chunk_bwd"],
+        "launches_per_step": tm["launches_per_step"]["ssd_chunk_bwd"],
+        "max_abs_err": max(tm["bwd_err"].values()),
+        "max_err_is": "the largest error of dxbar, da, dB, dC as a share of "
+                      "its scale over the cases",
+        "ms": tmt["ms"], "device_ms": tmt.get("device_ms"),
+        "device_ms_by_kernel": tmt.get("device_ms_by_kernel"),
+        "plain_ms": tmt["plain_ms"], "bound_ms": tmt["bound_ms"],
+        "bound_by": tmt["bound_by"], "library_ms": None,
+        "called_by": "ops.SsdChunk.backward (training: train/loop.py "
+                     "through models/mamba2.py::ssd_chunked)",
+        "matches_plain": True, "deterministic": True, "shape": tmt["shape"],
+        "cases": tm["bwd_err"]})
     for k in kernels:
+        if k["name"] == "ssd_chunk":
+            k["train_launches_per_step"] = tm["launches_per_step"][
+                "ssd_chunk"]
+            k["train_routes_per_step"] = tm["routes_per_step"]
+            k["train_forward_ms"] = tmt["fwd_ms"]
         if k["name"] == "flash_attention":
             k["train_launches_per_step"] = tl["launches_per_step"][
                 "flash_attention"]

@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu",
            CSRC / "ssd_chunk_sm90.cu", CSRC / "flash_attention.cu",
-           CSRC / "flash_attention_sm90.cu", CSRC / "flash_attention_bwd.cu")
+           CSRC / "flash_attention_sm90.cu", CSRC / "flash_attention_bwd.cu",
+           CSRC / "ssd_chunk_bwd.cu")
 HEADERS = (CSRC / "fog_tables.cuh", CSRC / "fog_stage.cuh",
            CSRC / "sm90_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,7 +49,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 # else; kernels.ops re-exports this dict as ``ops.launches``
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
             "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0,
-            "flash_attention": 0, "flash_attention_bwd": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "ssd_chunk_bwd": 0}
 # the same launches by C entry point, where a kernel has several routes
 # ("flash_attention" and "ssd_chunk" on CUDA cores, "flash_attention_sm90"
 # and "ssd_chunk_sm90" on the tensor cores; "fused_fog" and
@@ -78,6 +80,7 @@ _SIGNATURES = {
     "fog_ssd_chunk_sm90": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "fog_flash_attention": (I, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     "fog_flash_attention_bwd": (*[P] * 10, *[I] * 7, F, I, P),
+    "fog_ssd_chunk_bwd": (*[P] * 14, *[I] * 5, P),
     "fog_flash_attention_sm90": (P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     # a device query, not a kernel
     "fog_smem_optin": (I, P),
@@ -232,20 +235,15 @@ def needs_grad(*tensors) -> bool:
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
-# the ROADMAP item that gives a kernel without a backward one; the forest
-# kernels and top2_confidence have none queued: no training path reaches
-# them
-_BACKWARD_ITEM = {"ssd_chunk": "A5b"}
-
-
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise where a CUDA kernel without a backward is given an input that
-    needs a gradient: its output would leave the autograd graph."""
+    needs a gradient: its output would leave the autograd graph.  (The
+    forest kernels and top2_confidence have no backward queued: no
+    training path reaches them.)"""
     if needs_grad(*tensors):
-        item = _BACKWARD_ITEM.get(kernel,
-                                  "none queued, no training path reaches it")
         raise RuntimeError(
-            f"{kernel}'s CUDA kernel has no backward (ROADMAP: {item}); an "
+            f"{kernel}'s CUDA kernel has no backward (ROADMAP: none queued, "
+            f"no training path reaches it); an "
             f"input requires grad, and its output would carry no gradient. "
             f"Run it under torch.no_grad() or on the CPU's plain version")
 

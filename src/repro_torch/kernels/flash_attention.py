@@ -42,7 +42,7 @@ per-row log-sum-exp (``flash_attention_cuda(..., with_lse=True)``) and
 writes dq, dk and dv once each without atomics (deterministic); its tile
 sizes follow the head size (:func:`bwd_tiles`).  Its plain version is
 :func:`flash_attention_bwd_ref`.  The tensor-core forward writes no
-``lse``: a bf16 backward is later work (ROADMAP A5b).
+``lse``: a bf16 backward is later work (ROADMAP A5c).
 """
 from __future__ import annotations
 
@@ -228,7 +228,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sm90 = route(q.dtype, D, Dv) == "sm90"
     if sm90 and with_lse:
         raise ValueError("the tensor-core flash_attention writes no lse: a "
-                         "bf16 backward is not ported yet (ROADMAP A5b)")
+                         "bf16 backward is not ported yet (ROADMAP A5c)")
     if sm90:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _build.check_tma(name, t)

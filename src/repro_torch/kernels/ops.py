@@ -6,11 +6,13 @@ there is no fallback.  ``launches`` counts kernel launches per kernel.
 
 A kernel's output is a fresh tensor with no autograd history, so a CUDA
 dispatch never lets a gradient fall silently out of the graph: with grad
-mode on and a floating input that requires grad, ``flash_attention`` goes
-through :class:`FlashAttention` (its backward a hand-written kernel too)
-and every other kernel raises, naming the ROADMAP item that would give it
-a backward (``_build.refuse_grad``).  Their plain versions on the CPU are
-differentiated by autograd.
+mode on and a floating input that requires grad, ``flash_attention`` and
+``ssd_chunk`` go through :class:`FlashAttention` and :class:`SsdChunk`
+(their backwards hand-written kernels too, fp32 only: a bf16 input that
+needs a gradient raises, naming ROADMAP A5c) and every other kernel
+raises (``_build.refuse_grad``).  On the CPU the two Functions run their
+kernels' plain forward and backward; the other kernels' plain versions
+are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.kernels.grove_aggregate import (check_contrib,
 from repro_torch.kernels.histogram import (histogram_level,
                                            histogram_level_scatter,
                                            onehot_rows)
-from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_cuda,
+                                           ssd_chunk_bwd_ref, ssd_chunk_cuda)
 from repro_torch.kernels.top2_confidence import top2_confidence_cuda
 from repro_torch.kernels.tree_traverse import tree_traverse_cuda
 
@@ -93,14 +96,46 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
                               route=route, hops_per_walk=hops_per_walk)
 
 
+def _ssd_forward(xbar, a, Bm, Cm):
+    if _on_cpu(xbar):
+        return ref.ssd_chunk_ref(xbar, a, Bm, Cm)
+    return ssd_chunk_cuda(xbar, a, Bm, Cm)
+
+
+class SsdChunk(torch.autograd.Function):
+    """``ssd_chunk`` with a gradient: the forward (the kernel on CUDA, the
+    plain version on the CPU) saves xbar, a, Bm and Cm; the backward is
+    ``ssd_chunk_bwd_cuda`` on CUDA, ``ssd_chunk_bwd_ref`` on the CPU.  An
+    unused output's gradient arrives as zeros."""
+
+    @staticmethod
+    def forward(ctx, xbar, a, Bm, Cm):
+        y, states = _ssd_forward(xbar, a, Bm, Cm)
+        ctx.save_for_backward(xbar, a, Bm, Cm)
+        return y, states
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        xbar, a, Bm, Cm = ctx.saved_tensors
+        bwd = ssd_chunk_bwd_ref if _on_cpu(xbar) else ssd_chunk_bwd_cuda
+        return bwd(xbar, a, Bm, Cm, dy.contiguous(), dstates.contiguous())
+
+
 def ssd_chunk(xbar, a, Bm, Cm):
     """Mamba-2 SSD intra-chunk block: xbar [B, nc, Q, H, P], a [B, nc, H, Q],
     Bm/Cm [B, nc, Q, N] -> (y_diag [B, nc, Q, H, P], states
-    [B, nc, H, P, N]) in xbar's dtype (plain: ref.ssd_chunk_ref)."""
-    if _on_cpu(xbar):
-        return ref.ssd_chunk_ref(xbar, a, Bm, Cm)
-    refuse_grad("ssd_chunk", xbar, a, Bm, Cm)
-    return ssd_chunk_cuda(xbar, a, Bm, Cm)
+    [B, nc, H, P, N]) in xbar's dtype (plain: ref.ssd_chunk_ref).  Where a
+    gradient is wanted it goes through :class:`SsdChunk`; on the card a
+    bf16 input that needs one raises (the backward kernel is fp32)."""
+    if needs_grad(xbar, a, Bm, Cm):
+        if not _on_cpu(xbar) and xbar.dtype != torch.float32:
+            raise RuntimeError(
+                f"ssd_chunk's CUDA kernel has no backward for {xbar.dtype} "
+                f"(fp32 only; a bf16 backward is ROADMAP A5c); an input "
+                f"requires grad, and its output would carry no gradient. "
+                f"Train in fp32, or run it under torch.no_grad()")
+        return SsdChunk.apply(xbar, a, Bm, Cm)
+    return _ssd_forward(xbar, a, Bm, Cm)
 
 
 def _flash_forward(q, k, v, causal, scale, with_lse):
@@ -153,12 +188,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
             raise TypeError(
                 f"flash_attention's backward takes fp32 only, got "
                 f"{q.dtype}: bf16 training waits for a tensor-core backward "
-                f"(ROADMAP A5b)")
+                f"(ROADMAP A5c)")
         return FlashAttention.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale, False)
 
 
 __all__ = ["tree_traverse", "top2_confidence", "grove_aggregate", "fused_fog",
            "histogram_level", "histogram_level_scatter", "onehot_rows",
-           "ssd_chunk", "flash_attention", "FlashAttention", "launches",
+           "ssd_chunk", "SsdChunk", "flash_attention", "FlashAttention",
+           "launches",
            "ref"]

@@ -9,7 +9,8 @@ import torch
 from repro_torch.forest.tree import grove_traverse, mean_over_trees
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention_ref)
-from repro_torch.kernels.ssd_chunk import ssd_chunk_ref  # noqa: F401
+from repro_torch.kernels.ssd_chunk import (  # noqa: F401
+    ssd_chunk_bwd_ref, ssd_chunk_ref)
 
 
 def dequantize_tables(threshold: torch.Tensor, leaf: torch.Tensor,

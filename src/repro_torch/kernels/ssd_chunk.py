@@ -24,6 +24,12 @@ alone, a documented rule, never by a failure:
 Both write ``y`` and the states in ``xbar``'s dtype; each C entry point
 counts as one launch.  The sources' headers say what bounds each.  The
 plain version is :func:`ssd_chunk_ref`, which ``kernels.ref`` re-exports.
+
+The backward (the gradient the JAX package takes with ``jax.grad`` of the
+einsum branch of ``models/mamba2.py::ssd_chunked``) is
+``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_bwd_cuda`), fp32 on CUDA
+cores, four launches in one counted call; its plain version is
+:func:`ssd_chunk_bwd_ref`, written from the formulas and not by autograd.
 """
 from __future__ import annotations
 
@@ -33,8 +39,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["MAX_Q", "SM90_N", "SM90_P", "check_shapes", "route",
            "segsum", "sm90_heads_per_block", "smem_bytes_sm90",
-           "ssd_chunk_cuda", "ssd_chunk_ref", "ssd_chunk_sm90_replay",
-           "ssd_intra_chunk"]
+           "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_ref", "ssd_chunk_cuda",
+           "ssd_chunk_ref", "ssd_chunk_sm90_replay", "ssd_intra_chunk"]
 
 # the kernels keep one head's cumsum of `a` in shared memory (and the
 # tensor-core kernel loads a chunk as one TMA box of 256 rows); 256 is the
@@ -109,12 +115,65 @@ def ssd_chunk_ref(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     xbar [B, nc, Q, H, P], a [B, nc, H, Q], Bm/Cm [B, nc, Q, N]
     -> (y_diag [B, nc, Q, H, P], states [B, nc, H, P, N])
 
-    Computed in fp32 and returned in ``xbar``'s dtype, as the TPU kernel
-    does (at fp32 this is exactly ``repro.kernels.ref.ssd_chunk_ref``).
+    Computed in fp32 (float64 stays float64) and returned in ``xbar``'s
+    dtype, as the TPU kernel does (at fp32 this is exactly
+    ``repro.kernels.ref.ssd_chunk_ref``).
     """
+    work = _work_dtype(xbar)
     y_diag, states = ssd_intra_chunk(
-        *(t.to(torch.float32) for t in (xbar, a, Bm, Cm)))
+        *(t.to(work) for t in (xbar, a, Bm, Cm)))
     return y_diag.to(xbar.dtype), states.to(xbar.dtype)
+
+
+def _work_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def ssd_chunk_bwd_ref(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                      Cm: torch.Tensor, dy: torch.Tensor,
+                      dstates: torch.Tensor):
+    """The gradient of :func:`ssd_chunk_ref`, in plain PyTorch from the
+    formulas the kernel computes (not autograd): per chunk and head h, with
+    ``cum = cumsum(a)``, ``L_ij = exp(cum_i - cum_j)`` for i >= j (0
+    above), ``S = C Bᵀ``, ``W_h = S ∘ L_h``, ``d_j = exp(cum_{Q-1} -
+    cum_j)`` and ``G_h = B dst_hᵀ`` (``[Q, P]``):
+
+    * ``dx_h = W_hᵀ dy_h + d ∘ G_h``
+    * ``dS = Σ_h (dy_h x_hᵀ) ∘ L_h``; ``dC = dS B``;
+      ``dB = dSᵀ C + Σ_h d ∘ (x_h dst_h)``
+    * ``dcum_i += Σ_j t_ij`` and ``dcum_j -= Σ_i t_ij`` with ``t_h =
+      (dy_h x_hᵀ) ∘ W_h``; from the states ``e_j = d_j Σ_p x_jp G_jp``,
+      ``dcum_{Q-1} += Σ_j e_j``, ``dcum_j -= e_j``
+    * ``da`` is the reverse cumsum of ``dcum``.
+
+    Shapes as :func:`ssd_chunk_ref`, ``dy`` as y_diag and ``dstates`` as
+    the states; returns ``(dxbar, da, dBm, dCm)`` in the inputs' dtypes,
+    computed in fp32 (float64 stays float64)."""
+    B, nc, Q, H, P, N = check_shapes(xbar, a, Bm, Cm)
+    work = _work_dtype(xbar)
+    x, a32, Bf, Cf, dyf, dst = (t.to(work) for t in (xbar, a, Bm, Cm, dy,
+                                                     dstates))
+    cum = torch.cumsum(a32, dim=-1)                           # [B,nc,H,Q]
+    live = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(live, torch.exp(torch.where(
+        live, cum[..., :, None] - cum[..., None, :], 0.0)), 0.0)
+    S = torch.einsum("bcin,bcjn->bcij", Cf, Bf)               # [B,nc,Q,Q]
+    d = torch.exp(cum[..., -1:] - cum)                        # [B,nc,H,Q]
+    G = torch.einsum("bcjn,bchpn->bchjp", Bf, dst)            # [B,nc,H,Q,P]
+    dW = torch.einsum("bcihp,bcjhp->bchij", dyf, x) * live    # [B,nc,H,Q,Q]
+    dx = (torch.einsum("bcij,bchij,bcihp->bcjhp", S, L, dyf)
+          + (d[..., None] * G).permute(0, 1, 3, 2, 4))
+    dS = (dW * L).sum(dim=2)                                  # [B,nc,Q,Q]
+    dC = torch.einsum("bcij,bcjn->bcin", dS, Bf)
+    dB = (torch.einsum("bcij,bcin->bcjn", dS, Cf)
+          + torch.einsum("bchj,bcjhp,bchpn->bcjn", d, x, dst))
+    t = dW * S[:, :, None] * L
+    e = d * torch.einsum("bcjhp,bchjp->bchj", x, G)           # [B,nc,H,Q]
+    dcum = t.sum(dim=-1) - t.sum(dim=-2) - e
+    dcum[..., -1] += e.sum(dim=-1)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
+    return (dx.to(xbar.dtype), da.to(a.dtype), dB.to(Bm.dtype),
+            dC.to(Cm.dtype))
 
 
 def ssd_chunk_sm90_replay(xbar: torch.Tensor, a: torch.Tensor,
@@ -201,3 +260,59 @@ def ssd_chunk_cuda(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                   Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
                   scores.data_ptr(), B * nc, Q, H, P, N)
     return y, states
+
+
+# the backward kernel's [i, j] tiles (csrc/ssd_chunk_bwd.cu), which size
+# its scratch of per-tile row and column sums
+BWD_TILE = 64
+
+
+def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                       dstates: torch.Tensor):
+    """``(dxbar, da, dBm, dCm)`` by ``csrc/ssd_chunk_bwd.cu`` on contiguous
+    fp32 CUDA tensors shaped as :func:`ssd_chunk_bwd_ref`'s (one counted
+    launch of its four kernels).  Refuses by shape and dtype what the
+    kernel does not take; never falls back to the plain version."""
+    B, nc, Q, H, P, N = check_shapes(xbar, a, Bm, Cm)
+    f32 = torch.float32
+    if not 1 <= Q <= MAX_Q:
+        raise ValueError(
+            f"ssd_chunk's backward takes a chunk of 1 <= Q <= {MAX_Q} "
+            f"tokens (each block keeps one head's cumsum in shared memory), "
+            f"got Q={Q}; lower ssm_chunk")
+    BC = B * nc
+    if BC * H > 2**31 - 1 or BC > 65535 or H > 65535:
+        raise ValueError(f"ssd_chunk's backward launches one block per "
+                         f"chunk and head: B*nc={BC}, H={H} is too many")
+    if tuple(dy.shape) != tuple(xbar.shape):
+        raise ValueError(f"dy must be {tuple(xbar.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    if tuple(dstates.shape) != (B, nc, H, P, N):
+        raise ValueError(f"dstates must be {(B, nc, H, P, N)}, got "
+                         f"{tuple(dstates.shape)}")
+    for name, t, nd in (("xbar", xbar, 5), ("a", a, 4), ("Bm", Bm, 4),
+                        ("Cm", Cm, 4), ("dy", dy, 5), ("dstates", dstates,
+                                                        5)):
+        if t.dtype != f32:
+            raise TypeError(
+                f"ssd_chunk's backward takes fp32 only, got {name} "
+                f"{t.dtype}: bf16 training waits for a bf16 backward "
+                f"(ROADMAP A5c)")
+        _build.check_cuda(name, t, f32, nd)
+    nt = -(-Q // BWD_TILE)
+    dev = xbar.device
+    # scratch: cumsums and end decays, S and dS, the per-head row and
+    # column sums of t per tile, and e
+    cum = torch.empty((BC, H, 2, Q), dtype=f32, device=dev)
+    S = torch.empty((BC, 2, Q, Q), dtype=f32, device=dev)
+    part = torch.empty((BC, H, 2, nt, Q), dtype=f32, device=dev)
+    e = torch.empty((BC, H, Q), dtype=f32, device=dev)
+    dx = torch.empty_like(xbar)
+    da = torch.empty_like(a)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    _build.launch("ssd_chunk_bwd", dev, *(
+        t.data_ptr() for t in (xbar, a, Bm, Cm, dy, dstates, cum, S, part,
+                               e, dx, da, dB, dC)), BC, Q, H, P, N)
+    return dx, da, dB, dC

@@ -38,7 +38,8 @@ PARAM_NAMES = ("in_z", "in_x", "in_B", "in_C", "in_dt", "conv_x", "conv_b_x",
 
 class Mamba(nn.Module):
     """One Mamba-2 mixer's weights, named as the JAX package's dict keys.
-    Serving only: no parameter requires a gradient."""
+    Created frozen; the trainer turns gradients on
+    (``train.loop.trainable``)."""
 
     def __init__(self, tensors: dict[str, torch.Tensor]):
         super().__init__()
@@ -108,8 +109,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """SSD scan.  x [B,S,H,P], dt [B,S,H], A [H], Bm/Cm [B,S,N] (G=1).
 
     ``use_kernels=True`` computes the intra-chunk block (y_diag and the
-    chunk states) with ``ops.ssd_chunk``; the inter-chunk recurrence and
-    the off-diagonal term are plain PyTorch either way.
+    chunk states) with ``ops.ssd_chunk`` (where a gradient is wanted,
+    through ``ops.SsdChunk``, whose backward is the ssd_chunk backward
+    kernel on the card); the inter-chunk recurrence and the off-diagonal
+    term are plain PyTorch under autograd either way.
 
     Returns (y [B,S,H,P], final_state [B,H,P,N]).
     """

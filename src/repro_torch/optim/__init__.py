@@ -1,5 +1,6 @@
 from repro_torch.optim.optim import (
-    OptState, adamw, sgd, clip_by_global_norm, cosine_schedule,
+    OptState, adamw, sgd, clip_by_global_norm, clip_leaf, clip_scale,
+    cosine_schedule,
     linear_warmup_cosine, global_norm, tree_leaves, tree_map, tree_unflatten,
 )
 from repro_torch.optim.compression import (
@@ -8,7 +9,8 @@ from repro_torch.optim.compression import (
 )
 
 __all__ = [
-    "OptState", "adamw", "sgd", "clip_by_global_norm", "cosine_schedule",
+    "OptState", "adamw", "sgd", "clip_by_global_norm", "clip_leaf",
+    "clip_scale", "cosine_schedule",
     "linear_warmup_cosine", "global_norm", "tree_leaves", "tree_map",
     "tree_unflatten",
     "CompressionState", "compress_int8", "decompress_int8",

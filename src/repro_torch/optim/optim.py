@@ -81,14 +81,24 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm ``norm`` to at most
+    ``max_norm``."""
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def clip_leaf(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One leaf times the clip factor, in its dtype promoted with float32,
+    as JAX's product with the float32 scale does."""
+    return g.to(torch.promote_types(g.dtype, F32)) * scale
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """Scale ``grads`` to a global norm of at most ``max_norm``; returns
-    (clipped, norm).  A leaf comes back in its dtype promoted with
-    float32, as JAX's product with the float32 scale does."""
+    (clipped, norm); each leaf by :func:`clip_leaf`."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, F32))
-                    * scale, grads), norm
+    scale = clip_scale(norm, max_norm)
+    return tree_map(lambda g: clip_leaf(g, scale), grads), norm
 
 
 def _as_step(step) -> torch.Tensor:
@@ -146,29 +156,40 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,
         return OptState(step=step, mu=tree_map(zeros, params),
                         nu=tree_map(zeros, params))
 
-    def update(grads, state: OptState, params):
-        step = state.step + 1
+    def scalars(step: torch.Tensor) -> tuple:
+        """The step's scalars from the state's step count: (step + 1,
+        its bias corrections, its learning rate)."""
+        step = step + 1
         stepf = step.to(F32)
-        bc1 = 1 - b1 ** stepf
-        bc2 = 1 - b2 ** stepf
-        lr_t = lr_fn(stepf)
+        return step, 1 - b1 ** stepf, 1 - b2 ** stepf, lr_fn(stepf)
+
+    def leaf(g, m, v, p, sc):
+        """One leaf's (new param, new m, new v) at the scalars ``sc``."""
+        _, bc1, bc2, lr_t = sc
+        g32 = g.to(F32)
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * torch.square(g32)
+        mhat = m / bc1
+        vhat = v / bc2
+        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(F32)
+        return _take_step(p, lr_t, delta), m, v
+
+    def update(grads, state: OptState, params):
+        sc = scalars(state.step)
         new_p, new_m, new_v = [], [], []
         for g, m, v, p in zip(*map(tree_leaves, (grads, state.mu, state.nu,
                                                   params))):
-            g32 = g.to(F32)
-            m = b1 * m + (1 - b1) * g32
-            v = b2 * v + (1 - b2) * torch.square(g32)
-            mhat = m / bc1
-            vhat = v / bc2
-            delta = (mhat / (torch.sqrt(vhat) + eps)
-                     + weight_decay * p.to(F32))
-            new_p.append(_take_step(p, lr_t, delta))
+            p, m, v = leaf(g, m, v, p, sc)
+            new_p.append(p)
             new_m.append(m)
             new_v.append(v)
         return tree_unflatten(params, new_p), OptState(
-            step=step, mu=tree_unflatten(state.mu, new_m),
+            step=sc[0], mu=tree_unflatten(state.mu, new_m),
             nu=tree_unflatten(state.nu, new_v))
 
+    # the pieces of ``update``, for a caller that updates leaf by leaf
+    # (train.loop): the scalars once a step, then ``leaf`` per leaf
+    update.scalars, update.leaf = scalars, leaf
     return init, update
 
 

@@ -17,12 +17,26 @@ values).  The optimizer state keys its moments by parameter name
 (``dict(params.named_parameters())``), which ``models.carry`` maps to
 JAX's layout for checkpoints.
 
-JAX's mesh, shardings and buffer donation have no counterpart on one
-card; ``SHAPES``, ``input_specs``, ``shape_supported`` and
-``make_train_step_lowerable`` (gradient accumulation) are the dry-run
-tools, not ported (ROADMAP A6).  Mamba layers have no backward yet: a
-config whose layer plan holds one is refused on every device (ROADMAP
-A5b).
+The update frees as it goes, the one-card counterpart of JAX's
+``donate_argnums=(0, 1)``: the global norm is taken over every gradient
+first, then clip, the optional compression and AdamW (the per-leaf
+arithmetic of the port's ``optim.adamw`` ``update``) run leaf by leaf,
+and each leaf's gradient, old parameter tensor and old moments are
+released before the next leaf is done.  So the step holds the
+parameters, their gradients and two moments (16 bytes a parameter in
+fp32) and one leaf's temporaries, never a second tree of any of them.
+The optimizer state passed in is consumed: its moment dicts are updated
+in place and returned.  The numbers are those of the whole-tree update
+bit for bit (compression takes its int8 scale per JAX leaf, so a period
+position's stacked repeats are done together).
+
+Mamba layers train through ``ops.SsdChunk`` (``csrc/ssd_chunk_bwd.cu`` on
+the card).  Every backward kernel is fp32: a 16-bit model is refused
+(:func:`check_trainable`, ROADMAP A5c).
+
+JAX's mesh and shardings have no counterpart on one card; ``SHAPES``,
+``input_specs``, ``shape_supported`` and ``make_train_step_lowerable``
+(gradient accumulation) are the dry-run tools, not ported (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -32,18 +46,25 @@ from repro_torch._device import resolve_device
 from repro_torch.baselines.train import fp32_products
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
-from repro_torch.optim import (OptState, adamw, clip_by_global_norm,
-                               ef_compress_grads, linear_warmup_cosine)
+from repro_torch.optim import (OptState, adamw, clip_leaf, clip_scale,
+                               ef_compress_grads, global_norm,
+                               linear_warmup_cosine)
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a config the port cannot train: Mamba layers (their
-    ``ssd_chunk`` kernel has no backward yet)."""
+def check_trainable(cfg: ArchConfig, dtype: torch.dtype = torch.float32
+                    ) -> None:
+    """Raise for what the port cannot train: parameters in a 16-bit dtype
+    (bf16, fp16), since every config's mixers run ``flash_attention`` or
+    ``ssd_chunk``, whose backward kernels are fp32 only.  (float64 runs
+    on the CPU's plain versions.)"""
+    if dtype.itemsize >= 4:
+        return
     prefix, period, _ = T.layer_plan(cfg)
-    if any(s.mixer == "mamba" for s in prefix + period):
-        raise NotImplementedError(
-            f"{cfg.name} has Mamba layers: Mamba training waits for a "
-            f"backward of the ssd_chunk kernel (ROADMAP A5b)")
+    mixers = sorted({s.mixer for s in prefix + period})
+    raise NotImplementedError(
+        f"{cfg.name} in {dtype}: its {'/'.join(mixers)} layers' backward "
+        f"kernels (flash_attention, ssd_chunk) take fp32 only; {dtype} "
+        f"training waits for them (ROADMAP A5c)")
 
 
 def trainable(params: T.LM) -> dict[str, torch.nn.Parameter]:
@@ -59,8 +80,8 @@ def loss_and_grads(params: T.LM, cfg: ArchConfig, batch: dict
     """``lm_loss(remat=True)`` of ``batch`` (``tokens`` or ``embeds``, and
     ``labels``) and its gradient by parameter name (zeros for a parameter
     the loss does not reach, as ``jax.grad`` gives), products in fp32."""
-    check_trainable(cfg)
     named = trainable(params)
+    check_trainable(cfg, next(iter(named.values())).dtype)
     dev = next(iter(named.values())).device
     batch = {k: v.to(dev) for k, v in batch.items()}
     with fp32_products():
@@ -74,22 +95,48 @@ def loss_and_grads(params: T.LM, cfg: ArchConfig, batch: dict
         for (k, p), g in zip(named.items(), grads)}
 
 
-def compress_like_jax(grads: dict[str, torch.Tensor]
-                      ) -> dict[str, torch.Tensor]:
-    """``ef_compress_grads(grads, None)`` over JAX's leaves: each period
-    position's gradients stacked over the repeats
-    (``stack.{r}.pos{j}.…``) share one int8 scale, as JAX's stacked leaf
-    does."""
+def jax_leaves(names) -> dict[str, list[str]]:
+    """Parameter names grouped by JAX leaf: each period position's
+    parameters stacked over the repeats (``stack.{r}.pos{j}.…``) are one
+    leaf of JAX's tree (compression scales it as one), every other
+    parameter a leaf of its own."""
     groups: dict[str, list[str]] = {}
-    for name in grads:
+    for name in names:
         parts = name.split(".")
         key = ".".join(parts[:1] + parts[2:]) if parts[0] == "stack" else name
         groups.setdefault(key, []).append(name)
-    out, _ = ef_compress_grads(
-        {key: torch.stack([grads[n] for n in names])
-         for key, names in groups.items()}, None)
-    return {n: out[key][r] for key, names in groups.items()
-            for r, n in enumerate(names)}
+    return groups
+
+
+def apply_update(named: dict[str, torch.nn.Parameter],
+                 grads: dict[str, torch.Tensor], opt_state: OptState,
+                 update, *, clip_norm: float = 1.0,
+                 compress: bool = False) -> torch.Tensor:
+    """The step's update, freeing as it goes (the module docstring): the
+    global norm over ``grads``, the step's scalars once, then leaf by leaf
+    (or JAX leaf by JAX leaf, with ``compress``) clip, compression and
+    ``update.leaf`` (an ``optim.adamw`` update's per-leaf arithmetic),
+    each new tensor put in its parameter's and moments' place and each
+    gradient popped from ``grads``.  Advances ``opt_state.step`` and
+    returns the global norm."""
+    with torch.no_grad(), fp32_products():
+        gnorm = global_norm(grads)
+        scale = clip_scale(gnorm, clip_norm)
+        sc = update.scalars(opt_state.step)
+        mu, nu = opt_state.mu, opt_state.nu
+        for names in (jax_leaves(named).values() if compress
+                      else ([k] for k in named)):
+            g = [clip_leaf(grads.pop(k), scale) for k in names]
+            if compress:
+                # ef_compress_grads(grads, None) with one int8 scale per
+                # JAX leaf, as JAX's stacked leaf has
+                g = ef_compress_grads(torch.stack(g), None)[0].unbind()
+            for k, gk in zip(names, g):
+                named[k].data, mu[k], nu[k] = update.leaf(
+                    gk, mu[k], nu[k], named[k].detach(), sc)
+            del g, gk
+        opt_state.step = sc[0]
+    return gnorm
 
 
 def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
@@ -100,8 +147,8 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with metrics ``{"loss", "grad_norm", "step"}``;
     ``init_opt(params) -> OptState``.  ``device`` (default: the card) is
-    where the step runs; the model and the state must live there."""
-    check_trainable(cfg)
+    where the step runs; the model and the state must live there.  The
+    step consumes ``opt_state`` (see the module docstring)."""
     dev = resolve_device(device)
     init, update = adamw(lr=linear_warmup_cosine(lr, warmup, total_steps),
                          b1=0.9, b2=0.95, weight_decay=0.1)
@@ -114,14 +161,9 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
         if next(iter(named.values())).device.type != dev.type:
             raise ValueError(f"the model is not on {dev}")
         loss, grads = loss_and_grads(params, cfg, batch)
-        with torch.no_grad(), fp32_products():
-            grads, gnorm = clip_by_global_norm(grads, clip_norm)
-            if compress_pod_grads:
-                grads = compress_like_jax(grads)
-            new, opt_state = update(
-                grads, opt_state, {k: p.detach() for k, p in named.items()})
-            for k, p in named.items():
-                p.data = new[k]
+        gnorm = apply_update(named, grads, opt_state, update,
+                             clip_norm=clip_norm,
+                             compress=compress_pod_grads)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "step": opt_state.step}
 

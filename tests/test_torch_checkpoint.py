@@ -32,6 +32,9 @@ from repro_torch.train.loop import make_train_step  # noqa: E402
 # in the hybrid period; embeddings in
 CARRY = ["tinyllama-1.1b", "deepseek-v3-671b", "jamba-1.5-large-398b",
          "musicgen-large"]
+# the configs whose checkpoints cross after a port train step: attention,
+# MLA + MoE + MTP, Mamba, and Mamba + attention + MoE
+CROSS = CARRY[:2] + ["mamba2-2.7b", "jamba-1.5-large-398b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,7 +119,7 @@ def port_template(name):
     return cfg, params, init_opt(params)
 
 
-@pytest.mark.parametrize("name", CARRY[:2])
+@pytest.mark.parametrize("name", CROSS)
 def test_a_jax_checkpoint_restores_in_the_port(name, tmp_path):
     params, state = jax_state(name, seed=1)
     jckpt.save(7, (params, state), tmp_path)
@@ -130,7 +133,7 @@ def test_a_jax_checkpoint_restores_in_the_port(name, tmp_path):
     assert int(ro.step) == 1 and ro.step.dtype == torch.int32
 
 
-@pytest.mark.parametrize("name", CARRY[:2])
+@pytest.mark.parametrize("name", CROSS)
 def test_a_port_checkpoint_restores_in_jax(name, tmp_path):
     """The port's model and state after a train step, saved by the port,
     restored by JAX's ``restore`` into its own tree."""

@@ -1625,3 +1625,100 @@ def test_card_training_equals_the_cpu_port_and_resumes(cuda, tmp_path):
     (p1, o1), step = ckpt.restore(template, tmp_path)
     assert step == 1
     chip_smoke.same_training_state("resumed", run(p1, cuda, 2, 1, o1), card)
+
+
+@pytest.mark.parametrize("label,shape", chip_smoke.SSD_BWD_CASES[1:],
+                         ids=[c[0] for c in chip_smoke.SSD_BWD_CASES[1:]])
+def test_ssd_backward_kernel_matches_plain(cuda, label, shape):
+    """The ssd_chunk backward kernel held to a float64 run of
+    ``ssd_chunk_bwd_ref`` (within twice the fp32 plain version's distance
+    plus ``SSD_BWD_FLOOR`` of each gradient's scale), the same bits on a
+    second run (no atomics); one counted launch a call."""
+    args = chip_smoke.ssd_bwd_inputs(np.random.default_rng(sum(shape)),
+                                     shape, cuda)
+    before = ops.launches["ssd_chunk_bwd"]
+    chip_smoke.ssd_bwd_check(label, args)
+    assert ops.launches["ssd_chunk_bwd"] == before + 2
+
+
+def test_ssd_backward_refuses_by_shape_and_dtype(cuda):
+    """bf16 and a chunk over 256 are refused before any launch; a bf16
+    forward that needs a gradient is refused naming ROADMAP A5c."""
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(0)
+    args = chip_smoke.ssd_bwd_inputs(rng, (1, 2, 16, 2, 8, 8), cuda)
+    long = chip_smoke.ssd_bwd_inputs(rng, (1, 1, 257, 1, 4, 4), cuda)
+    before = dict(ops.launches)
+    with pytest.raises(TypeError, match="fp32 only.*A5c"):
+        sc.ssd_chunk_bwd_cuda(*(t.bfloat16() for t in args))
+    with pytest.raises(ValueError, match="Q <= 256"):
+        sc.ssd_chunk_bwd_cuda(*long)
+    with pytest.raises(RuntimeError, match="A5c"):
+        ops.ssd_chunk(*(t.bfloat16().requires_grad_() for t in args[:4]))
+    assert ops.launches == before
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_mamba_train_step_kernels_equal_plain_on_the_card(cuda, name):
+    """One step's loss and gradients at the smoke config with the kernels
+    (the SIMT ssd_chunk forward, its backward kernel; flash_attention's at
+    jamba) and with their plain versions on the card: the loss within
+    rtol 1e-5, every gradient within ``MAMBA_GRAD_BAR`` of its leaf's
+    scale; 2 forward launches (the remat recompute) and 1 backward a
+    layer."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import loss_and_grads
+    cfg = smoke_config(name)
+    n_mamba, n_attn = chip_smoke.mamba_layers(cfg)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           torch.float32, device=cuda)
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, 64, 4), 0, cuda)
+    chip_smoke.zero_counts()
+    lk, gk = loss_and_grads(params, cfg, batch)
+    launched = chip_smoke.read_counts()[0]
+    want = {"ssd_chunk": 2 * n_mamba, "ssd_chunk_bwd": n_mamba}
+    if n_attn:
+        want.update(flash_attention=2 * n_attn, flash_attention_bwd=n_attn)
+    assert launched == want
+    with chip_smoke.plain_training():
+        lp, gp = loss_and_grads(params, cfg, batch)
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    chip_smoke.leaf_error(gk, gp, chip_smoke.MAMBA_GRAD_BAR, what=name)
+
+
+def test_mamba_card_training_equals_the_cpu_port_and_resumes(cuda,
+                                                              tmp_path):
+    """Three steps at mamba2's smoke config on the card and on the CPU from
+    one init: params within ``MAMBA_CARD_CPU_BAR`` of each leaf's scale
+    (+1e-7); on the card 3 steps straight == 1 step, save, restore, 2
+    steps, bit for bit."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import make_train_step
+    cfg = smoke_config("mamba2-2.7b")
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0),
+                          torch.float32, device="cpu")
+
+    def run(p, dev, n, start=0, opt=None):
+        opt = opt or make_train_step(cfg, device=dev)[1](p)
+        return chip_smoke.steps_of(cfg, dev, p, opt, n, start, lr=5e-3,
+                                   total=3, B=4, S=64)[:2]
+
+    card = run(copy.deepcopy(p_cpu).to(cuda), cuda, 3)
+    cpu = run(p_cpu, torch.device("cpu"), 3)
+    chip_smoke.leaf_error(chip_smoke.train_state(card[0]),
+                          chip_smoke.train_state(cpu[0]),
+                          chip_smoke.MAMBA_CARD_CPU_BAR,
+                          chip_smoke.CARD_CPU_ATOL, "card vs CPU")
+    p0 = T.init_params(cfg, torch.Generator().manual_seed(0), torch.float32,
+                       device="cpu").to(cuda)
+    one = run(p0, cuda, 1)
+    ckpt.save(1, one, tmp_path)
+    (p1, o1), step = ckpt.restore(copy.deepcopy(one), tmp_path)
+    assert step == 1
+    chip_smoke.same_training_state("resumed", run(p1, cuda, 2, 1, o1), card)

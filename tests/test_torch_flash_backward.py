@@ -196,7 +196,7 @@ def test_cuda_path_keeps_the_graph(routed_as_cuda):
 def test_bf16_that_needs_a_gradient_is_refused():
     q, k, v, _ = (torch.tensor(a).bfloat16()
                   for a in inputs((1, 8, 8, 2, 1, 4, 4, True)))
-    with pytest.raises(TypeError, match="fp32 only.*A5b"):
+    with pytest.raises(TypeError, match="fp32 only.*A5c"):
         ops.flash_attention(q.requires_grad_(), k, v)
     with torch.no_grad():      # serving's bf16 forward is unchanged
         assert ops.flash_attention(q, k, v).dtype == torch.bfloat16
@@ -221,14 +221,17 @@ def _launched(monkeypatch, module, name):
 def test_kernels_without_a_backward_refuse_inputs_that_need_one(
         monkeypatch, kernel):
     """Where a kernel without a backward would get an input that requires
-    grad, the dispatch raises naming the kernel (and for ssd_chunk the
-    ROADMAP item of its backward) before any launch; under no_grad, or
-    with no input requiring grad, it launches."""
+    grad, the dispatch raises naming the kernel (and for ssd_chunk, whose
+    backward kernel is fp32 only, a bf16 input and the ROADMAP item of its
+    bf16 backward) before any launch; under no_grad, or with no input
+    requiring grad, it launches."""
     g = dict(grad=True)
+    bf16 = torch.bfloat16
     cases = {
         "ssd_chunk": (ops, "ssd_chunk_cuda", lambda gr: ops.ssd_chunk(
-            _meta(1, 1, 4, 2, 4, **gr), _meta(1, 1, 2, 4),
-            _meta(1, 1, 4, 4), _meta(1, 1, 4, 4))),
+            _meta(1, 1, 4, 2, 4, dtype=bf16, **gr),
+            _meta(1, 1, 2, 4, dtype=bf16), _meta(1, 1, 4, 4, dtype=bf16),
+            _meta(1, 1, 4, 4, dtype=bf16))),
         "top2_confidence": (ops, "top2_confidence_cuda",
                             lambda gr: ops.top2_confidence(_meta(4, 5, **gr))),
         "grove_aggregate": (ops, "grove_aggregate_cuda",
@@ -258,7 +261,7 @@ def test_kernels_without_a_backward_refuse_inputs_that_need_one(
     if kernel == "grove_aggregate":
         monkeypatch.setattr(ops, "check_contrib", lambda c: None)
     with pytest.raises(RuntimeError, match=f"{kernel}'s CUDA kernel has no "
-                       "backward" + (r".*A5b" if kernel == "ssd_chunk"
+                       "backward" + (r".*A5c" if kernel == "ssd_chunk"
                                      else "")):
         call(g)
     assert launched == []

@@ -194,4 +194,5 @@ def test_ops_cpu_path_launches_no_kernel():
     assert set(ops.launches) == {"fused_fog", "grove_aggregate",
                                  "top2_confidence", "histogram",
                                  "tree_traverse", "ssd_chunk",
-                                 "flash_attention", "flash_attention_bwd"}
+                                 "flash_attention", "flash_attention_bwd",
+                                 "ssd_chunk_bwd"}

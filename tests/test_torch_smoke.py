@@ -134,3 +134,38 @@ def test_backward_work_at_the_training_shape():
     assert work["bytes"] == 75_759_616
     ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"])
     assert by == "operations" and abs(ms - 0.080443) < 1e-6
+
+
+@pytest.mark.parametrize("Q", [1, 7, 32])
+def test_ssd_backward_work_counts_every_tensor_and_product(Q):
+    """ssd_bwd_work against the tensors the backward reads and writes
+    (xbar, a, B, C, dy, dstates; dxbar, da, dB, dC) and its products: per
+    chunk S, dC and dB's dS^T C over the causal pairs (2 N FLOP a pair
+    each), per (chunk, head) dy x^T and W^T dy over the pairs (2 P each)
+    and B dst^T and x dst over the chunk (2 Q P N each)."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_ref
+    B, nc, H, P, N = 2, 3, 5, 7, 9
+    xbar, dy = torch.zeros((B, nc, Q, H, P)), torch.zeros((B, nc, Q, H, P))
+    a = torch.zeros((B, nc, H, Q))
+    Bm, Cm = torch.zeros((B, nc, Q, N)), torch.zeros((B, nc, Q, N))
+    dst = torch.zeros((B, nc, H, P, N))
+    grads = ssd_chunk_bwd_ref(xbar, a, Bm, Cm, dy, dst)
+    pairs = sum(1 for i in range(Q) for j in range(Q) if j <= i)
+    work = chip_smoke.ssd_bwd_work(B, nc, Q, H, P, N)
+    assert work["pairs"] == pairs
+    assert work["ops"] == B * nc * (6 * pairs * N + H * (
+        4 * pairs * P + 4 * Q * P * N))
+    assert work["bytes"] == sum(t.numel() * t.element_size() for t in (
+        xbar, a, Bm, Cm, dy, dst, *grads))
+
+
+def test_ssd_backward_work_at_the_training_shape():
+    """mamba2-2.7b's training shape (xbar [8, 1, 256, 80, 64], N = 128):
+    10.96 GFLOP (0.164 ms at 67 TFLOP/s) and 152 MB (0.045 ms at 3.35
+    TB/s): operations bound it."""
+    work = chip_smoke.ssd_bwd_work(8, 1, 256, 80, 64, 128)
+    assert work["ops"] == 8 * (6 * 32896 * 128 + 80 * (
+        4 * 32896 * 64 + 4 * 256 * 64 * 128)) == 10_960_502_784
+    assert work["bytes"] == 152_305_664
+    ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"])
+    assert by == "operations" and abs(ms - 0.163590) < 1e-6

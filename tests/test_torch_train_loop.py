@@ -1,8 +1,10 @@
 """repro_torch's LM training loop on the CPU: JAX's own convergence bars
 (``tests/test_train_integration.py``, whose JAX run fails under a mesh in
 jax 0.9, ROADMAP §C) on the port, bit-exact resume after a crash, the
-train CLI (``--smoke --device cpu`` in-process) and ``examples.train_lm``,
-and the refusals: a Mamba config on every device.  The comparison with
+train CLI (``--smoke --device cpu`` in-process, Mamba configs included)
+and ``examples.train_lm``, Mamba resume, the update that frees as it
+goes, and the refusal of bf16 training (the backward kernels are fp32
+only) on every device.  The comparison with
 JAX's loss, gradients and steps is ``tests/test_torch_train.py``'s.
 """
 import pytest
@@ -135,18 +137,118 @@ def test_step_turns_gradients_on_and_replaces_tensors():
     assert int(m["step"]) == 1 and float(m["grad_norm"]) > 0
 
 
-@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
-def test_mamba_configs_are_refused(name):
-    """Mamba layers' ssd_chunk kernel has no backward: every device
-    refuses the config, naming the ROADMAP item, before any step."""
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b",
+                                  "tinyllama-1.1b"])
+def test_bf16_training_is_refused(name):
+    """The backward kernels (ssd_chunk's, flash_attention's) are fp32 only:
+    a bf16 model is refused before any step, on every device, naming the
+    ROADMAP item of the bf16 backwards; fp32 and float64 pass."""
     cfg = tconfigs.smoke_config(name)
-    with pytest.raises(NotImplementedError, match="ssd_chunk.*A5b"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        make_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        train_cli.main(["--arch", name, "--smoke", "--steps", "1",
-                        "--device", "cpu"])
+    for dtype in (torch.bfloat16, torch.float16):
+        with pytest.raises(NotImplementedError, match="fp32 only.*A5c"):
+            check_trainable(cfg, dtype)
+    check_trainable(cfg)
+    check_trainable(cfg, torch.float64)
+    step_fn, init_opt = make_train_step(cfg, device="cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.bfloat16, device="cpu")
+    b = batch_at_step(DataConfig(cfg.vocab_size, 16, 2), 0)
+    with pytest.raises(NotImplementedError, match="A5c"):
+        step_fn(params, init_opt(params),
+                {k: torch.as_tensor(v) for k, v in b.items()})
+
+
+def mamba_steps(steps, *, params=None, opt_state=None, start=0):
+    """The mamba2-2.7b smoke config from the port's seed-0 init, batches
+    of 2 x 64 (two chunks)."""
+    cfg = tconfigs.smoke_config("mamba2-2.7b")
+    step_fn, init_opt = make_train_step(cfg, lr=LR, total_steps=steps,
+                                        device="cpu")
+    if params is None:
+        params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                               torch.float32, device="cpu")
+        opt_state = init_opt(params)
+    dcfg = DataConfig(cfg.vocab_size, 64, 2, seed=0)
+    losses = []
+    for s in range(start, steps):
+        params, opt_state, m = step_fn(params, opt_state, {
+            k: torch.as_tensor(v) for k, v in batch_at_step(dcfg, s).items()})
+        losses.append(float(m["loss"]))
+    return params, opt_state, losses
+
+
+def test_mamba_resume_is_bit_exact(tmp_path):
+    """mamba2-2.7b smoke: 6 steps straight equal 3 steps, save, restore, 3
+    steps bit for bit (params and optimizer state), and the loss falls."""
+    p1, o1, l_full = mamba_steps(6)
+    p2, o2, _ = mamba_steps(3)
+    ckpt.save(3, (p2, o2), tmp_path)
+    (p3, o3), step = ckpt.restore((p2, o2), tmp_path)
+    assert step == 3
+    same_state((p3, o3), (p2, o2))
+    p4, o4, l_resumed = mamba_steps(6, params=p3, opt_state=o3, start=3)
+    assert l_resumed == l_full[3:]
+    same_state((p4, o4), (p1, o1))
+    assert l_full[-1] < l_full[0]
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_cli_trains_a_mamba_config(name, capsys):
+    """``--arch <mamba config> --smoke --device cpu`` trains: the
+    ``[train]`` lines and finite losses, the same on a second run."""
+    args = ["--arch", name, "--smoke", "--steps", "2", "--batch", "2",
+            "--seq", "64", "--device", "cpu", "--log-every", "1"]
+    a = train_cli.main(args)
+    out = capsys.readouterr().out
+    assert f"[train] arch={name}-smoke device=cpu B=2 S=64" in out
+    assert out.count("[train] step") == 2 and "[train] done" in out
+    assert all(np.isfinite(a["losses"])) and len(a["losses"]) == 2
+    assert train_cli.main(args)["losses"] == a["losses"]
+
+
+def test_update_frees_as_it_goes(monkeypatch):
+    """The step holds no second tree: AdamW's per-leaf arithmetic runs
+    once a leaf, and by then every earlier leaf's gradient has left the
+    gradients (the
+    remaining gradients' elements fall leaf by leaf to none at the last);
+    the optimizer state passed in is the one returned, its moments
+    replaced in place."""
+    from repro_torch.train import loop
+    cfg = tconfigs.smoke_config("mamba2-2.7b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    alive, left = {}, []
+    real_adamw, real_lg = loop.adamw, loop.loss_and_grads
+
+    def spying_adamw(**kw):
+        init, update = real_adamw(**kw)
+        leaf = update.leaf
+
+        def spy(*args):
+            left.append(sum(g.numel() for g in alive["grads"].values()))
+            return leaf(*args)
+        update.leaf = spy
+        return init, update
+
+    def spying_lg(*a):
+        loss, grads = real_lg(*a)
+        alive["grads"] = grads
+        return loss, grads
+
+    monkeypatch.setattr(loop, "adamw", spying_adamw)
+    monkeypatch.setattr(loop, "loss_and_grads", spying_lg)
+    step_fn, init_opt = make_train_step(cfg, device="cpu")
+    opt_state = init_opt(params)
+    mu0 = dict(opt_state.mu)
+    b = batch_at_step(DataConfig(cfg.vocab_size, 64, 2), 0)
+    params, out_state, _ = step_fn(params, opt_state, {
+        k: torch.as_tensor(v) for k, v in b.items()})
+    sizes = [p.numel() for p in params.parameters()]
+    assert len(left) == len(sizes)
+    assert left[0] < sum(sizes)
+    assert left[-1] == 0 and all(a > b for a, b in zip(left, left[1:]))
+    assert out_state is opt_state and int(opt_state.step) == 1
+    assert all(opt_state.mu[k] is not mu0[k] for k in mu0)
 
 
 def cli(tmp_path, *extra):
