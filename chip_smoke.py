@@ -257,7 +257,30 @@ and:
    split of a step's device time (products, ``ssd_chunk``, its backward,
    the optimizer alone, the elementwise rest) and the idle share come in
    14;
-19. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+19. (run after 18) trains in bf16, through ``make_train_step`` given a
+   bf16 model from the port's generator, at ``train_4k``'s sequence
+   length of 4096 with its batch cut to 2: ``tinyllama-1.1b`` at full
+   width and depth for 4 steps (44 ``flash_attention`` on the tensor-core
+   route with lse and 22 ``flash_attention_bwd_sm90`` a step, nothing
+   else), ``mamba2-2.7b`` at full width and depth for 4 steps (128
+   ``ssd_chunk`` on the tensor-core route and 64 bf16 ``ssd_chunk_bwd`` a
+   step), ``minicpm3-4b`` at full width cut to 8 layers for 2 steps (16
+   ``flash_attention`` and 8 bf16 SIMT ``flash_attention_bwd`` at D = 96 /
+   Dv = 64 a step), the counts zeroed just before and read just after
+   each step, and one step of jamba's smoke config; prints each run's
+   peak memory, step ms and tokens/s; holds tinyllama's next step with
+   the kernels and with the plain versions to an fp32 oracle of the same
+   bf16 params (the kernels' distance of each gradient no more than twice
+   the plain versions' plus half a bf16 ulp); holds each bf16 backward
+   kernel against its plain version on layer 0's captured inputs and on
+   ``BWD_BF16_CASES`` / ``SSD_BWD_CASES``, each run twice bit-equal, and
+   the tensor-core forward's lse against the plain version's; resumes a
+   bf16 model bit for bit through a checkpoint; times the backwards
+   beside their bounds, their plain versions and SDPA's bf16 backward;
+   the profiler's split of each step (products, the attention and SSD
+   forwards, their backwards, the optimizer, the elementwise rest) and
+   the idle share come in 14;
+20. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -526,21 +549,26 @@ def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, reps: int = 10,
-                   warm: bool = True) -> tuple[dict, float, dict]:
+def device_profile(fn, reps: int = 10, warm: bool = True,
+                   host: bool = True) -> tuple[dict, float, dict]:
     """Profile ``reps`` calls of ``fn``, after one unprofiled call unless
     ``warm`` is False: (device-busy ms per call by kernel name, from
     CUPTI's kernel records; wall ms per call; device ms per recorded
     launch by kernel name).  The last does not depend on how many records
     CUPTI returned: a short profile can lose some, which lowers the
-    first."""
+    first.  ``host`` records the host's ops too; only the device's
+    records are read, and phase 19's full-size bf16 steps record the
+    device alone (their host records are the bulk of the profile's
+    post-processing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warm:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -4120,6 +4148,14 @@ TRAIN_STEPS, TRAIN_B, TRAIN_S = 4, 8, 256
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_BAR = 1e-4
 BWD_BAR = 1e-5
+# a bf16 backward kernel against its plain version on the same bf16 inputs
+# (of each gradient's scale): the tensor-core kernel rounds p and ds to
+# bf16 before its last products, the plain version does not, and both
+# store the gradients in bf16 (half an ulp, 2e-3 of an element); its
+# numpy replay (tests/test_torch_flash_backward_bf16.py) and the card
+# measured 6.5e-3 at most.  The SIMT kernel computes as the plain version
+# does and parts from it by a stored ulp
+BWD_BF16_BAR = 2e-2
 CARD_CPU_BAR, CARD_CPU_ATOL = 1e-4, 1e-7
 # the backward kernel against its plain version: (label, (B, Sq, Sk, H, K,
 # D, Dv), causal)
@@ -4231,14 +4267,29 @@ def bwd_work(B, Sq, Sk, H, K, D, Dv, causal=True) -> dict:
             "ops": B * H * fwd["pairs"] * 2 * (3 * D + 2 * Dv)}
 
 
-def bwd_inputs(rng, shape, causal, dev) -> tuple:
+def bwd_work_sm90(B, Sq, Sk, H, K, D, Dv, causal=True) -> dict:
+    """The tensor-core backward's work from its shapes: ``bytes`` bf16 q,
+    k, v, o, do read and dq, dk, dv written once, and the fp32 lse read
+    once; ``ops`` the five products over the live pairs (as
+    :func:`bwd_work`); ``design_ops`` the seven the two-pass design runs
+    (s and dp in both passes), 2 (4 D + 3 Dv) FLOP a pair."""
+    fwd = flash_work(B, Sq, Sk, H, K, D, Dv, 2, causal)
+    n_bytes = (2 * B * (2 * Sq * H * (D + Dv) + 2 * Sk * K * (D + Dv))
+               + 4 * B * H * Sq)
+    n_pairs = B * H * fwd["pairs"]
+    return {"bytes": n_bytes, "pairs": fwd["pairs"],
+            "ops": n_pairs * 2 * (3 * D + 2 * Dv),
+            "design_ops": n_pairs * 2 * (4 * D + 3 * Dv)}
+
+
+def bwd_inputs(rng, shape, causal, dev, dtype=torch.float32) -> tuple:
     """q, k, v, the forward's output and lse (the kernel's, with_lse) and a
-    random do, fp32 on the card."""
+    random do, in ``dtype`` (lse fp32) on the card."""
     B, Sq, Sk, H, K, D, Dv = shape
-    q, k, v = flash_inputs(rng, shape, torch.float32, dev)
+    q, k, v = flash_inputs(rng, shape, dtype, dev)
     o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
     do = torch.as_tensor(rng.normal(size=(B, Sq, H, Dv)).astype(np.float32),
-                         device=dev)
+                         device=dev).to(dtype)
     return q, k, v, o, do, lse
 
 
@@ -4678,36 +4729,43 @@ def capture_first_ssd(store: dict):
         ops.ssd_chunk = real
 
 
-def ssd_bwd_work(B, nc, Q, H, P, N) -> dict:
+def ssd_bwd_work(B, nc, Q, H, P, N, itemsize=4) -> dict:
     """ssd_chunk's backward from its shapes: ``bytes`` xbar, a, B, C, dy
-    and dstates read once and dxbar, da, dB, dC written once (fp32);
+    and dstates read once and dxbar, da, dB, dC written once (``itemsize``
+    bytes each: 4 fp32, 2 bf16);
     ``ops`` the products it needs: per chunk S = C B^T, dC = dS B and dB +=
     dS^T C over the causal pairs (2 N FLOP a pair each), and per (chunk,
     head) dy x^T and W^T dy over the causal pairs (2 P each), and B dst^T
     and x dst over the whole chunk (2 Q P N each)."""
     BC = B * nc
-    n_bytes = 4 * BC * (3 * Q * H * P + 2 * H * Q + 4 * Q * N + H * P * N)
+    n_bytes = itemsize * BC * (3 * Q * H * P + 2 * H * Q + 4 * Q * N
+                               + H * P * N)
     pairs = Q * (Q + 1) // 2
     ops_ = BC * (3 * 2 * pairs * N
                  + H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N))
     return {"bytes": n_bytes, "pairs": pairs, "ops": ops_}
 
 
-def ssd_bwd_inputs(rng, shape, dev) -> list:
-    """Random fp32 xbar, a, B, C (``ssd_inputs``) and dy, dstates on the
-    card."""
+def ssd_bwd_inputs(rng, shape, dev, dtype=torch.float32) -> list:
+    """Random xbar, a, B, C (``ssd_inputs``) and dy, dstates in ``dtype``
+    on the card."""
     B, nc, Q, H, P, N = shape
-    return ssd_inputs(rng, shape, torch.float32, dev) + [
-        torch.as_tensor(rng.normal(size=sh).astype(np.float32), device=dev)
+    return ssd_inputs(rng, shape, dtype, dev) + [
+        torch.as_tensor(rng.normal(size=sh).astype(np.float32),
+                        device=dev).to(dtype)
         for sh in ((B, nc, Q, H, P), (B, nc, H, P, N))]
 
 
 def ssd_bwd_check(what: str, args: list) -> float:
     """The backward kernel twice (bit-equal: no atomics) and held to a
-    float64 run of its plain version: each gradient no farther from it
-    than twice the fp32 plain version is, plus ``SSD_BWD_FLOOR`` of its
-    scale.  Returns the largest error of the four gradients against the
-    fp32 plain version as a share of each one's scale."""
+    float64 run of its plain version on the same values: each gradient no
+    farther from it than twice the plain version (fp32 inside, in the
+    inputs' dtype) is, plus ``SSD_BWD_FLOOR`` of its scale for fp32 inputs
+    and ``BF16_FLOOR`` for bf16 (half a bf16 ulp: the bf16 CPU tests' bar,
+    tests/test_torch_ssd_backward_bf16.py).  Returns the largest error of
+    the four gradients against the plain version as a share of each one's
+    scale."""
+    floor = SSD_BWD_FLOOR if args[0].dtype == torch.float32 else BF16_FLOOR
     got = ssd_mod.ssd_chunk_bwd_cuda(*args)
     again = ssd_mod.ssd_chunk_bwd_cuda(*args)
     want = ssd_mod.ssd_chunk_bwd_ref(*args)
@@ -4722,12 +4780,13 @@ def ssd_bwd_check(what: str, args: list) -> float:
         err = float((g.double() - e).abs().max())
         plain_err = float((w.double() - e).abs().max())
         if (not torch.isfinite(g).all()
-                or err > 2 * plain_err + SSD_BWD_FLOOR * scale):
+                or err > 2 * plain_err + floor * scale):
             raise AssertionError(
                 f"ssd_chunk_bwd {what} {name}: {err} from float64, the "
                 f"plain version {plain_err}, at scale {scale}")
         if scale:
-            worst = max(worst, float((g - w).abs().max()) / scale)
+            worst = max(worst,
+                        float((g.float() - w.float()).abs().max()) / scale)
     return worst
 
 
@@ -4934,16 +4993,18 @@ def mamba_train_phase(dev: torch.device) -> dict:
     return out
 
 
-def optimizer_alone(dev: torch.device, params, opt_state, grads) -> float:
+def optimizer_alone(dev: torch.device, params, opt_state, grads,
+                    host: bool = True) -> float:
     """Device ms of the step's update alone (``train.loop.apply_update``:
     clip and AdamW leaf by leaf) on ``grads`` (which it consumes) under
-    the profiler, once, without a warm call: the step just ran it."""
+    the profiler (``device_profile``'s ``host``), once, without a warm
+    call: the step just ran it."""
     _, update = adamw(lr=linear_warmup_cosine(3e-4, 100, TRAIN_STEPS),
                       b1=0.9, b2=0.95, weight_decay=0.1)
     named = trainable(params)
     busy, _, _ = device_profile(
         lambda: apply_update(named, grads, opt_state, update), reps=1,
-        warm=False)
+        warm=False, host=host)
     return sum(busy.values())
 
 
@@ -4996,6 +5057,494 @@ def mamba_train_profile(train: dict, dev: torch.device) -> None:
           f"ms on the device ({t['device_ms_by_kernel']})", flush=True)
     del state, grads, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- 19 ---
+# bf16 training at train_4k's sequence length (S = 4096; its batch cut
+# from 256 to 2 sequences): tinyllama-1.1b and mamba2-2.7b at full width
+# and depth, minicpm3-4b at full width cut to BF16_MLA_LAYERS layers (its
+# MLA attention, D = 96 / Dv = 64, on the SIMT backward), jamba's smoke
+# config; weights from the port's generator, in bf16
+BF16_B, BF16_S, BF16_STEPS = 2, 4096, 4
+BF16_ATTN_ARCH, BF16_MAMBA_ARCH, BF16_MLA_ARCH = (
+    "tinyllama-1.1b", "mamba2-2.7b", "minicpm3-4b")
+BF16_MLA_LAYERS, BF16_MLA_STEPS = 8, 2
+# half a bf16 ulp: the floor of the bf16 bars (tests/test_torch_*_bf16.py)
+BF16_FLOOR = 2.0 ** -9
+BF16_CKPT = ROOT / "build" / "bf16_resume_ckpt"
+# the bf16 backward kernels against their plain versions beside layer 0's
+# captured inputs: (label, (B, Sq, Sk, H, K, D, Dv), causal)
+BWD_BF16_CASES = (
+    ("ragged Sq = Sk = 200", (2, 200, 200, 32, 4, 64, 64), True),
+    ("Sq < Sk causal", (2, 100, 300, 8, 2, 64, 64), True),
+    ("Sq > Sk causal", (2, 300, 100, 8, 2, 64, 64), True),
+    ("non-causal", (2, 256, 256, 8, 2, 64, 64), False),
+    ("MQA (K = 1)", (2, 256, 256, 8, 1, 64, 64), True),
+    ("D = Dv = 128", (1, 256, 256, 4, 4, 128, 128), True),
+    ("D = 64, Dv = 128", (1, 130, 130, 4, 2, 64, 128), True),
+    ("D = 128, Dv = 64 non-causal", (1, 130, 130, 4, 2, 128, 64), False),
+    ("SIMT: D = 192, Dv = 128", (1, 256, 256, 16, 16, 192, 128), True),
+    ("SIMT: D = Dv = 256", (1, 130, 130, 4, 2, 256, 256), True),
+    ("SIMT: D = Dv = 32 (jamba smoke)", (2, 64, 64, 4, 4, 32, 32), True))
+
+
+def bwd_bf16_check(what: str, args: tuple, causal: bool, scale=None
+                   ) -> float:
+    """A bf16 backward kernel (the route ``flash_attention.route`` names)
+    twice, bit-equal, against its plain version within ``BWD_BF16_BAR`` of
+    each gradient's scale; the largest error as a share of its scale."""
+    kw = {"causal": causal, "scale": scale}
+    got = fa.flash_attention_bwd_cuda(*args, **kw)
+    again = fa.flash_attention_bwd_cuda(*args, **kw)
+    want = fa.flash_attention_bwd_ref(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if a.dtype != torch.bfloat16 or not torch.equal(a, b):
+            raise AssertionError(f"bf16 backward {what}: {name} is {a.dtype} "
+                                 f"or differs from run to run")
+    return leaf_error(dict(zip(("dq", "dk", "dv"), got)),
+                      dict(zip(("dq", "dk", "dv"), want)), BWD_BF16_BAR,
+                      what=f"bf16 backward {what}")
+
+
+def bf16_model(cfg, dev):
+    return T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         torch.bfloat16, device=dev)
+
+
+def counted_steps(cfg, dev, n, params, B=BF16_B, S=BF16_S):
+    """``n`` steps of ``make_train_step`` (JAX's defaults: lr 3e-4, warmup
+    100) from ``params`` on ``batch_at_step``'s batches, the counts zeroed
+    just before and read just after each step; returns (params, optimizer
+    state, each step's {"launches", "routes", "ms"}, losses)."""
+    step_fn, init_opt = make_train_step(cfg, total_steps=n, device=dev)
+    opt = init_opt(params)
+    dcfg = DataConfig(cfg.vocab_size, S, B, seed=SEED)
+    per_step, losses = [], []
+    for s in range(n):
+        batch = step_batch(cfg, dcfg, s, dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        launched, routes = read_counts()
+        per_step.append({"launches": launched, "routes": routes,
+                         "ms": (time.perf_counter() - t0) * 1e3})
+    return params, opt, per_step, losses
+
+
+def check_counts(what: str, per_step: list, want: tuple) -> None:
+    for i, st in enumerate(per_step):
+        if (st["launches"], st["routes"]) != want:
+            raise AssertionError(f"{what} step {i}: launches "
+                                 f"{st['launches']} by route {st['routes']}, "
+                                 f"want {want}")
+
+
+def rel_l2(a: torch.Tensor, ref: torch.Tensor) -> float:
+    ref = ref.double()
+    return float((a.double() - ref).norm() / ref.norm().clamp_min(1e-300))
+
+
+def bf16_run_line(what: str, cfg, run: dict) -> str:
+    return (f"[train-bf16] {what} bf16 ({cfg.n_layers} layers, "
+            f"{run['params']:,} parameters), B={BF16_B} S={BF16_S}, "
+            f"{len(run['losses'])} steps through make_train_step: losses "
+            f"{[round(x, 4) for x in run['losses']]}; per step "
+            f"{run['launches_per_step']} by route {run['routes_per_step']}; "
+            f"step ms {[round(x, 1) for x in run['step_ms_all']]} (median "
+            f"of steps 2-{len(run['losses'])} {run['step_ms']:.1f}, "
+            f"{run['tokens_per_s']:.0f} tokens/s); peak "
+            f"{run['peak_gb']:.2f} GB")
+
+
+def bf16_run(cfg, dev, n, want) -> tuple:
+    """``counted_steps`` of a fresh bf16 model, the counts checked against
+    ``want`` each step, the peak memory taken; returns (params, optimizer
+    state, the run's record)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = bf16_model(cfg, dev)
+    params, opt, per_step, losses = counted_steps(cfg, dev, n, params)
+    check_counts(cfg.name, per_step, want)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{cfg.name} bf16 losses {losses}")
+    ms = [st["ms"] for st in per_step]
+    run = {"arch": cfg.name, "layers": cfg.n_layers, "losses": losses,
+           "params": sum(p.numel() for p in params.parameters()),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches_per_step": per_step[-1]["launches"],
+           "routes_per_step": per_step[-1]["routes"], "step_ms_all": ms,
+           "step_ms": statistics.median(ms[1:])}
+    run["tokens_per_s"] = BF16_B * BF16_S / run["step_ms"] * 1e3
+    return params, opt, run
+
+
+def bf16_train_phase(dev: torch.device) -> dict:
+    """Phase 19: bf16 training on the card (see the module docstring)."""
+    out: dict = {}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+
+    # 1. tinyllama-1.1b, 22 layers, 2 x 4096: the tensor-core forward
+    # with lse and the tensor-core backward
+    cfg = get_arch(BF16_ATTN_ARCH)
+    n = cfg.n_layers
+    params, opt, run = bf16_run(cfg, dev, BF16_STEPS, (
+        {"flash_attention": 2 * n, "flash_attention_bwd_sm90": n},
+        {"flash_attention_sm90": 2 * n}))
+    out["tinyllama"] = run
+    print(bf16_run_line(BF16_ATTN_ARCH, cfg, run), flush=True)
+
+    # 2. the next step with the kernels and with the plain versions, each
+    # held to an fp32 oracle of the same bf16 params
+    del opt
+    torch.cuda.empty_cache()
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, BF16_S, BF16_B,
+                                       seed=SEED), BF16_STEPS, dev)
+    layer0: dict = {}
+    with capture_first_flash(layer0):
+        loss_k, grads_k = loss_and_grads(params, cfg, batch)
+    with plain_training():
+        loss_p, grads_p = loss_and_grads(params, cfg, batch)
+    oracle_model = copy.deepcopy(params).float()
+    loss_o, grads_o = loss_and_grads(oracle_model, cfg, batch)
+    del oracle_model
+    lo = float(loss_o)
+    kern = {"loss": abs(float(loss_k) - lo) / abs(lo)}
+    plain = {"loss": abs(float(loss_p) - lo) / abs(lo)}
+    if kern["loss"] > 2 * plain["loss"] + BF16_FLOOR:
+        raise AssertionError(f"bf16 loss kernels {float(loss_k)}, plain "
+                             f"{float(loss_p)}, fp32 oracle {lo}")
+    worst = (0.0, "")
+    for k, go in grads_o.items():
+        dk, dp = rel_l2(grads_k[k], go), rel_l2(grads_p[k], go)
+        if dk > 2 * dp + BF16_FLOOR:
+            raise AssertionError(f"bf16 gradient {k}: kernels {dk:.3e} from "
+                                 f"the fp32 oracle, plain {dp:.3e}")
+        kern[k], plain[k] = dk, dp
+        worst = max(worst, (dk / (2 * dp + BF16_FLOOR), k))
+    out["oracle"] = {"loss": {"kernels": float(loss_k),
+                              "plain": float(loss_p), "fp32": lo},
+                     "kernels_max_dist": max(v for k, v in kern.items()
+                                             if k != "loss"),
+                     "plain_max_dist": max(v for k, v in plain.items()
+                                           if k != "loss"),
+                     "worst_ratio": worst[0], "worst_leaf": worst[1]}
+    del grads_k, grads_p, grads_o, batch
+    torch.cuda.empty_cache()
+    print(f"[train-bf16] {BF16_ATTN_ARCH} one step against an fp32 oracle "
+          f"of the same bf16 params: loss kernels {float(loss_k):.6f}, plain "
+          f"{float(loss_p):.6f}, fp32 {lo:.6f}; gradients (relative L2 of "
+          f"each leaf): kernels at most {out['oracle']['kernels_max_dist']:.3e}"
+          f", plain at most {out['oracle']['plain_max_dist']:.3e}; the "
+          f"closest to the bar (kernels <= 2 x plain + {BF16_FLOOR}) "
+          f"{worst[1]} at {worst[0]:.2f} of it", flush=True)
+
+    # 3. the tensor-core backward against its plain version on layer 0's
+    # inputs and the cases, twice each
+    if "do" not in layer0:
+        raise AssertionError("layer 0's flash_attention output got no "
+                             "gradient")
+    q0, k0, v0 = layer0["q"], layer0["k"], layer0["v"]
+    kw0 = layer0["kw"]
+    o0, lse0 = fa.flash_attention_cuda(q0, k0, v0, with_lse=True, **kw0)
+    ro, rlse = fa.flash_attention_ref_lse(q0, k0, v0, **kw0)
+    fin = torch.isfinite(rlse)
+    out["lse_max_abs_err"] = float((lse0[fin] - rlse[fin]).abs().max())
+    if (not torch.equal(torch.isfinite(lse0), fin)
+            or out["lse_max_abs_err"] > 1e-4
+            or not torch.equal(o0, fa.flash_attention_cuda(q0, k0, v0,
+                                                           **kw0))):
+        raise AssertionError(f"the tensor-core forward's lse: max abs err "
+                             f"{out['lse_max_abs_err']} against the plain "
+                             f"version, or its output moved")
+    del ro, rlse
+    errs = {"layer 0 of the step": bwd_bf16_check(
+        "layer 0", (q0, k0, v0, o0, layer0["do"].contiguous(), lse0),
+        kw0.get("causal", True), kw0.get("scale"))}
+    args0 = (q0, k0, v0, o0, layer0["do"].contiguous(), lse0)
+    del layer0
+    for label, shape, causal in BWD_BF16_CASES:
+        errs[f"{label} {shape}{'' if causal else ' non-causal'}"] = \
+            bwd_bf16_check(label, bwd_inputs(rng, shape, causal, dev,
+                                             torch.bfloat16), causal)
+    out["bwd_err"] = errs
+    print(f"[train-bf16] the bf16 backwards == their plain versions "
+          f"(largest error of dq, dk, dv as a share of its scale; bar "
+          f"{BWD_BF16_BAR}), bit-equal run to run: " + ", ".join(
+              f"{k}: {v:.2e}" for k, v in errs.items()) +
+          f"; the tensor-core forward's lse within "
+          f"{out['lse_max_abs_err']:.2e} of the plain version's", flush=True)
+
+    # 4. times of the tensor-core backward at layer 0's shape
+    B, Sq, H, D = q0.shape
+    Sk, K, Dv = k0.shape[1], k0.shape[2], v0.shape[3]
+    work = bwd_work_sm90(B, Sq, Sk, H, K, D, Dv)
+    t = {"shape": f"q [{B}, {Sq}, {H}, {D}], k/v [{B}, {Sk}, {K}, {D}], "
+                  f"causal, bf16", "work": work}
+    t["bound_ms"], t["bound_by"] = bound_ms(work["bytes"], work["ops"],
+                                            BF16_OPS_PER_S)
+    t["bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t["ops_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
+    t["design_ops_bound_ms"] = work["design_ops"] / BF16_OPS_PER_S * 1e3
+    t["ms"] = cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args0))
+    t["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_ref(*args0),
+                            reps=2, warm=1)
+    t["fwd_lse_ms"] = cuda_ms(lambda: fa.flash_attention_cuda(
+        q0, k0, v0, with_lse=True))
+    t["fwd_ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q0, k0, v0))
+    qs, ks, vs = (a.transpose(1, 2).contiguous().requires_grad_()
+                  for a in (q0, k0, v0))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+    dos = args0[4].transpose(1, 2).contiguous()
+    t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qs, ks, vs), dos, retain_graph=True))
+    out["timing"] = t
+    out["prof_fns"] = {
+        "bwd": lambda: fa.flash_attention_bwd_cuda(*args0),
+        "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos,
+                                                retain_graph=True)}
+    print(f"[time] train-bf16 flash_attention_bwd_sm90 at {t['shape']}: "
+          f"{t['ms']:.4f} ms a call (bound {t['bound_ms']:.4f} ms by "
+          f"{t['bound_by']}: bytes {t['bytes_bound_ms']:.4f}, five products "
+          f"{t['ops_bound_ms']:.4f}; the design's seven "
+          f"{t['design_ops_bound_ms']:.4f}), plain {t['plain_ms']:.3f} ms, "
+          f"SDPA's bf16 backward {t['library_ms']:.4f} ms; the forward "
+          f"with lse {t['fwd_lse_ms']:.4f} ms, without {t['fwd_ms']:.4f}",
+          flush=True)
+
+    # 5. a bf16 resume through a checkpoint, at examples/train_lm.py's
+    # config (head size 64: the tensor-core routes)
+    small = train_lm.config()
+    gen = torch.Generator(device=dev)
+
+    def fresh():
+        p = T.init_params(small, gen.manual_seed(SEED), torch.bfloat16,
+                          device=dev)
+        return p, make_train_step(small, device=dev)[1](p)
+
+    straight = steps_of(small, dev, *fresh(), 4, total=4)[:2]
+    half = steps_of(small, dev, *fresh(), 2, total=4)[:2]
+    shutil.rmtree(BF16_CKPT, ignore_errors=True)
+    ckpt.save(2, half, BF16_CKPT)
+    restored, step = ckpt.restore(fresh(), BF16_CKPT)
+    shutil.rmtree(BF16_CKPT, ignore_errors=True)
+    same_training_state("bf16 restored", restored, half)
+    resumed = steps_of(small, dev, *restored, 2, start=step, total=4)[:2]
+    same_training_state("bf16 resumed vs straight", resumed, straight)
+    if next(resumed[0].parameters()).dtype != torch.bfloat16:
+        raise AssertionError("the bf16 resume did not stay bf16")
+    del straight, half, restored, resumed, params
+    torch.cuda.empty_cache()
+    print(f"[train-bf16] {small.name} in bf16: 4 steps straight == 2 steps, "
+          f"save, restore, 2 steps, bit for bit (bf16 params, fp32 "
+          f"moments)", flush=True)
+
+    # 6. mamba2-2.7b, 64 layers, 2 x 4096 (16 chunks a row): the
+    # tensor-core forward and the bf16 backward
+    cfg = get_arch(BF16_MAMBA_ARCH)
+    nm = mamba_layers(cfg)[0]
+    params, opt, run = bf16_run(cfg, dev, BF16_STEPS, (
+        {"ssd_chunk": 2 * nm, "ssd_chunk_bwd": nm},
+        {"ssd_chunk_sm90": 2 * nm}))
+    out["mamba2"] = run
+    print(bf16_run_line(BF16_MAMBA_ARCH, cfg, run), flush=True)
+    del opt
+    torch.cuda.empty_cache()
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, BF16_S, BF16_B,
+                                       seed=SEED), BF16_STEPS, dev)
+    layer0 = {}
+    with capture_first_ssd(layer0):
+        loss_and_grads(params, cfg, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    if "dy" not in layer0 or "dst" not in layer0:
+        raise AssertionError("layer 0's ssd_chunk outputs got no gradient")
+    sargs = [*layer0.pop("args"), layer0.pop("dy").contiguous(),
+             layer0.pop("dst").contiguous()]
+    serrs = {"layer 0 of the step": ssd_bwd_check("bf16 layer 0", sargs)}
+    for label, shape in SSD_BWD_CASES[1:]:
+        serrs[f"{label} {shape}"] = ssd_bwd_check(
+            f"bf16 {label}", ssd_bwd_inputs(rng, shape, dev, torch.bfloat16))
+    out["ssd_bwd_err"] = serrs
+    work = ssd_bwd_work(*sargs[0].shape[:5], sargs[2].shape[-1], itemsize=2)
+    ts = {"shape": "xbar [{}, {}, {}, {}, {}], N = {}, bf16".format(
+        *sargs[0].shape, sargs[2].shape[-1]), "work": work}
+    ts["bound_ms"], ts["bound_by"] = bound_ms(work["bytes"], work["ops"],
+                                              BF16_OPS_PER_S)
+    ts["bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    ts["ops_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
+    ts["fp32_core_ops_bound_ms"] = work["ops"] / FP32_OPS_PER_S * 1e3
+    ts["ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_cuda(*sargs), reps=5)
+    ts["plain_ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_ref(*sargs),
+                             reps=2, warm=1)
+    out["ssd_timing"] = ts
+    out["prof_fns"]["ssd_bwd"] = lambda: ssd_mod.ssd_chunk_bwd_cuda(*sargs)
+    print(f"[train-bf16] ssd_chunk_bwd on bf16 == its plain version (each "
+          f"gradient within twice the plain version's distance from float64 "
+          f"+ {BF16_FLOOR} of its scale; below, the largest error against "
+          f"the plain version as a share of its scale), bit-equal run to "
+          f"run: " + ", ".join(f"{k}: {v:.2e}" for k, v in serrs.items()),
+          flush=True)
+    print(f"[time] train-bf16 ssd_chunk_bwd at {ts['shape']}: "
+          f"{ts['ms']:.4f} ms a call (bound {ts['bound_ms']:.4f} ms by "
+          f"{ts['bound_by']}: bytes {ts['bytes_bound_ms']:.4f}, operations "
+          f"{ts['ops_bound_ms']:.4f} at the bf16 rate, "
+          f"{ts['fp32_core_ops_bound_ms']:.4f} at the fp32 CUDA-core rate it "
+          f"runs at), plain {ts['plain_ms']:.3f} ms, no library call",
+          flush=True)
+
+    # 7. minicpm3-4b at full width, BF16_MLA_LAYERS layers: the SIMT
+    # backward in bf16 at D = 96 / Dv = 64; then jamba's smoke config
+    cfg = get_arch(BF16_MLA_ARCH).scaled(n_layers=BF16_MLA_LAYERS)
+    n = cfg.n_layers
+    params, opt, run = bf16_run(cfg, dev, BF16_MLA_STEPS, (
+        {"flash_attention": 2 * n, "flash_attention_bwd": n},
+        {"flash_attention": 2 * n}))
+    out["minicpm3"] = run
+    print(bf16_run_line(f"{BF16_MLA_ARCH} cut to {n} layers", cfg, run),
+          flush=True)
+    del opt
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, BF16_S, BF16_B,
+                                       seed=SEED), BF16_MLA_STEPS, dev)
+    layer0 = {}
+    with capture_first_flash(layer0):
+        loss_and_grads(params, cfg, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    q0, k0, v0 = layer0["q"], layer0["k"], layer0["v"]
+    kw0 = layer0["kw"]
+    o0, lse0 = fa.flash_attention_cuda(q0, k0, v0, with_lse=True, **kw0)
+    margs = (q0, k0, v0, o0, layer0.pop("do").contiguous(), lse0)
+    out["mla_bwd_err"] = bwd_bf16_check(
+        f"{BF16_MLA_ARCH} layer 0", margs, kw0.get("causal", True),
+        kw0.get("scale"))
+    B, Sq, H, D = q0.shape
+    Sk, K, Dv = k0.shape[1], k0.shape[2], v0.shape[3]
+    work = bwd_work_sm90(B, Sq, Sk, H, K, D, Dv)
+    tm = {"shape": f"q [{B}, {Sq}, {H}, {D}], k [{B}, {Sk}, {K}, {D}], v "
+                   f"[..., {Dv}], causal, bf16 (SIMT)", "work": work}
+    tm["bound_ms"], tm["bound_by"] = bound_ms(work["bytes"], work["ops"],
+                                              BF16_OPS_PER_S)
+    tm["fp32_core_ops_bound_ms"] = work["ops"] / FP32_OPS_PER_S * 1e3
+    kwm = {"causal": kw0.get("causal", True), "scale": kw0.get("scale")}
+    tm["ms"] = cuda_ms(lambda: fa.flash_attention_bwd_cuda(*margs, **kwm),
+                       reps=3, warm=1)
+    tm["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_ref(
+        *margs, **kwm), reps=2, warm=1)
+    out["mla_timing"] = tm
+    del layer0, margs, q0, k0, v0, o0, lse0
+    torch.cuda.empty_cache()
+    print(f"[train-bf16] {BF16_MLA_ARCH} layer 0's bf16 SIMT backward == its "
+          f"plain version within {out['mla_bwd_err']:.2e} of each "
+          f"gradient's scale (bar {BWD_BF16_BAR}), bit-equal; at "
+          f"{tm['shape']}: {tm['ms']:.3f} ms a call (bound "
+          f"{tm['bound_ms']:.4f} ms by {tm['bound_by']}; the operations at "
+          f"the fp32 CUDA-core rate {tm['fp32_core_ops_bound_ms']:.4f}), "
+          f"plain {tm['plain_ms']:.3f} ms", flush=True)
+    jamba = smoke_config("jamba-1.5-large-398b")
+    jm, ja = mamba_layers(jamba)
+    p = bf16_model(jamba, dev)
+    jb = step_batch(jamba, DataConfig(jamba.vocab_size, 64, 4, seed=SEED), 0,
+                    dev)
+    zero_counts()
+    lk, gk = loss_and_grads(p, jamba, jb)
+    jamba_launches = read_counts()
+    with plain_training():
+        lp, gp = loss_and_grads(p, jamba, jb)
+    want = {"ssd_chunk": 2 * jm, "ssd_chunk_bwd": jm,
+            "flash_attention": 2 * ja, "flash_attention_bwd": ja}
+    if jamba_launches[0] != want or not np.isfinite(float(lk)):
+        raise AssertionError(f"jamba smoke bf16: launches {jamba_launches}, "
+                             f"want {want}, loss {float(lk)}")
+    out["jamba_smoke"] = {"launches": jamba_launches[0],
+                          "routes": jamba_launches[1],
+                          "loss": float(lk), "plain_loss": float(lp),
+                          "grad_max_dist_vs_plain": max(
+                              rel_l2(gk[k], gp[k]) for k in gp)}
+    del p, gk, gp
+    print(f"[train-bf16] jamba smoke bf16 ({jm} Mamba and {ja} attention "
+          f"layers, MoE) one step: launches {jamba_launches[0]} by route "
+          f"{jamba_launches[1]}, loss {float(lk):.5f} (plain versions "
+          f"{float(lp):.5f}), gradients at most "
+          f"{out['jamba_smoke']['grad_max_dist_vs_plain']:.3e} from the "
+          f"plain versions' (relative L2)", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train-bf16] phase 19 in {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def bf16_train_profile(train: dict, dev: torch.device) -> None:
+    """Phase 19's steps under torch.profiler, their weights drawn again:
+    for tinyllama and mamba2 at 2 x 4096, wall and device-busy ms, the
+    idle share and the device time by part (products, the attention and
+    SSD forwards, their backwards, the optimizer alone, the elementwise
+    rest); the backward kernels' and SDPA's bf16 backward's device ms."""
+    fns = train.pop("prof_fns")
+    t, ts = train["timing"], train["ssd_timing"]
+    per = recorded_profile(fns["bwd"], "flash_attention_bwd")[-1][2]
+    t["device_ms_by_kernel"] = {k: v for k, v in per.items()
+                                if "flash_attention_bwd" in k}
+    t["device_ms"] = sum(t["device_ms_by_kernel"].values())
+    per = recorded_profile(fns["sdpa_bwd"], "")[-1][2]
+    t["library_device_ms"] = sum(per.values())
+    t["library_backend"] = sdpa_backend(max(per, key=per.get))
+    per = recorded_profile(fns["ssd_bwd"], "ssd_bwd")[-1][2]
+    ts["device_ms_by_kernel"] = {k: v for k, v in per.items()
+                                 if "ssd_bwd" in k}
+    ts["device_ms"] = sum(ts["device_ms_by_kernel"].values())
+    del fns
+    for key, arch in (("tinyllama", BF16_ATTN_ARCH),
+                      ("mamba2", BF16_MAMBA_ARCH)):
+        cfg = get_arch(arch)
+        params = bf16_model(cfg, dev)
+        step_fn, init_opt = make_train_step(cfg, device=dev)
+        state = {"p": params, "o": init_opt(params)}
+        batch = step_batch(cfg, DataConfig(cfg.vocab_size, BF16_S, BF16_B,
+                                           seed=SEED), 0, dev)
+
+        def step():
+            state["p"], state["o"], _ = step_fn(state["p"], state["o"],
+                                                batch)
+
+        t_prof = time.perf_counter()
+        busy, wall, _ = device_profile(step, reps=1, host=False)
+        parts = {"products": 0.0, "attention forward": 0.0,
+                 "attention backward": 0.0, "ssd forward": 0.0,
+                 "ssd backward": 0.0, "other": 0.0}
+        for name, v in busy.items():
+            part = ("attention backward" if "flash_attention_bwd" in name
+                    else "attention forward" if "flash_attention" in name
+                    else "ssd backward" if "ssd_bwd" in name
+                    else "ssd forward" if "ssd_chunk" in name
+                    else "products" if matmul_kernel(name) else "other")
+            parts[part] += v
+        total = sum(busy.values())
+        prof = {"wall_ms": wall, "device_busy_ms": total,
+                "device_idle_share": 1.0 - total / wall, "split_ms": parts}
+        _, grads = loss_and_grads(state["p"], cfg, batch)
+        prof["optimizer_alone_ms"] = optimizer_alone(
+            dev, state["p"], state["o"], grads, host=False)
+        prof["elementwise_ms"] = parts["other"] - prof["optimizer_alone_ms"]
+        prof["seconds"] = time.perf_counter() - t_prof
+        train[key]["profile"] = prof
+        print(f"[time] train-bf16 {arch} step under the profiler: wall "
+              f"{wall:.1f} ms, device busy {total:.1f} ms, idle share "
+              f"{prof['device_idle_share']:.3f}; device ms by part " +
+              ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) +
+              f"; of the rest the optimizer (alone) "
+              f"{prof['optimizer_alone_ms']:.2f} ms and the elementwise "
+              f"passes {prof['elementwise_ms']:.2f} ({prof['seconds']:.1f} "
+              f"s to profile)", flush=True)
+        del state, grads, params, batch, step
+        torch.cuda.empty_cache()
+    print(f"[time] train-bf16 on the device: flash_attention_bwd_sm90 "
+          f"{t['device_ms']:.4f} ms ({t['device_ms_by_kernel']}), SDPA's "
+          f"bf16 backward {t['library_device_ms']:.4f} "
+          f"({t['library_backend']}); ssd_chunk_bwd bf16 "
+          f"{ts['device_ms']:.4f} ms ({ts['device_ms_by_kernel']})",
+          flush=True)
 
 
 def stamp(what: str, t0: float) -> None:
@@ -5386,6 +5935,13 @@ def main() -> int:
     main_launches["ssd_chunk_bwd"] = (
         train_mamba["launches_per_step"]["ssd_chunk_bwd"] * TRAIN_STEPS)
 
+    # 19. bf16 training (its own main path), while the card's memory is free
+    stamp("19. bf16 training", t_main)
+    train_bf16 = bf16_train_phase(dev)
+    main_launches["flash_attention_bwd_sm90"] = (
+        train_bf16["tinyllama"]["launches_per_step"][
+            "flash_attention_bwd_sm90"] * BF16_STEPS)
+
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
     stamp("16. MLA, MoE, hybrid LMs", t_main)
@@ -5428,6 +5984,9 @@ def main() -> int:
     stamp("14. profiler: Mamba training", t_main)
     mamba_train_profile(train_mamba, dev)
     out["train_mamba"] = train_mamba
+    stamp("14. profiler: bf16 training", t_main)
+    bf16_train_profile(train_bf16, dev)
+    out["train_bf16"] = train_bf16
     stamp("14. profiler: tuner, LM+, paper", t_main)
     tune_profile(tuned)
     out["tune"] = tuned
@@ -5599,8 +6158,8 @@ def main() -> int:
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
 
-    # 19. the kernels line -----------------------------------------------------
-    stamp("19. kernels line", t_main)
+    # 20. the kernels line -----------------------------------------------------
+    stamp("20. kernels line", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -5825,6 +6384,84 @@ def main() -> int:
                      "through models/mamba2.py::ssd_chunked)",
         "matches_plain": True, "deterministic": True, "shape": tmt["shape"],
         "cases": tm["bwd_err"]})
+    tb, tbt, tbs = (train_bf16, train_bf16["timing"],
+                    train_bf16["ssd_timing"])
+    kernels.append({
+        "name": "flash_attention_bwd_sm90", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        "replaces": REPLACES["flash_attention"],
+        "replaces_note": "the gradient of that kernel on the tensor cores "
+                         "(bf16, D, Dv in {64, 128}); the JAX package takes "
+                         "it with jax.grad of its blocked attention "
+                         "(src/repro/models/layers.py:40)",
+        "launches": main_launches["flash_attention_bwd_sm90"],
+        "launches_per_step": tb["tinyllama"]["launches_per_step"][
+            "flash_attention_bwd_sm90"],
+        "max_abs_err": max(v for k, v in tb["bwd_err"].items()
+                           if not k.startswith("SIMT")),
+        "max_err_is": "the largest error of dq, dk, dv as a share of its "
+                      "scale against the plain version on the same bf16 "
+                      "inputs, over layer 0 and the cases",
+        "ms": tbt["ms"], "device_ms": tbt.get("device_ms"),
+        "device_ms_by_kernel": tbt.get("device_ms_by_kernel"),
+        "plain_ms": tbt["plain_ms"], "bound_ms": tbt["bound_ms"],
+        "bound_by": tbt["bound_by"],
+        "design_ops_bound_ms": tbt["design_ops_bound_ms"],
+        "library_ms": tbt["library_ms"],
+        "library_device_ms": tbt.get("library_device_ms"),
+        "library_backend": tbt.get("library_backend"),
+        "called_by": "ops.FlashAttention.backward (bf16 training: "
+                     "train/loop.py through models/layers.py)",
+        "matches_plain": True, "deterministic": True, "shape": tbt["shape"],
+        "cases": tb["bwd_err"]})
+    kernels.append({
+        "name": "ssd_chunk_bwd_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "replaces": REPLACES["ssd_chunk"],
+        "replaces_note": "ssd_chunk_bwd on bf16 inputs (the same kernels, "
+                         "templated on the input type, counted under "
+                         "launches['ssd_chunk_bwd'])",
+        "launches": tb["mamba2"]["launches_per_step"]["ssd_chunk_bwd"]
+        * BF16_STEPS,
+        "launches_per_step": tb["mamba2"]["launches_per_step"][
+            "ssd_chunk_bwd"],
+        "max_abs_err": max(tb["ssd_bwd_err"].values()),
+        "max_err_is": "the largest error of dxbar, da, dB, dC as a share of "
+                      "its scale against the plain version on the same "
+                      "bf16 inputs",
+        "ms": tbs["ms"], "device_ms": tbs.get("device_ms"),
+        "device_ms_by_kernel": tbs.get("device_ms_by_kernel"),
+        "plain_ms": tbs["plain_ms"], "bound_ms": tbs["bound_ms"],
+        "bound_by": tbs["bound_by"],
+        "fp32_core_ops_bound_ms": tbs["fp32_core_ops_bound_ms"],
+        "library_ms": None,
+        "called_by": "ops.SsdChunk.backward (bf16 training)",
+        "matches_plain": True, "deterministic": True, "shape": tbs["shape"],
+        "cases": tb["ssd_bwd_err"]})
+    for k in kernels:
+        if k["name"] == "flash_attention_bwd":
+            k["bf16"] = {
+                "arch": f"{BF16_MLA_ARCH} cut to {BF16_MLA_LAYERS} layers",
+                "launches_per_step": tb["minicpm3"]["launches_per_step"][
+                    "flash_attention_bwd"],
+                "max_abs_err": max([tb["mla_bwd_err"]] + [
+                    v for c, v in tb["bwd_err"].items()
+                    if c.startswith("SIMT")]),
+                **{f: tb["mla_timing"][f] for f in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "fp32_core_ops_bound_ms")}}
+        if k["name"] == "flash_attention":
+            k["train_bf16_launches_per_step"] = tb["tinyllama"][
+                "launches_per_step"]["flash_attention"]
+            k["train_bf16_routes_per_step"] = tb["tinyllama"][
+                "routes_per_step"]
+            k["sm90_forward_with_lse_ms"] = tbt["fwd_lse_ms"]
+            k["sm90_forward_ms"] = tbt["fwd_ms"]
+            k["sm90_lse_max_abs_err"] = tb["lse_max_abs_err"]
+        if k["name"] == "ssd_chunk":
+            k["train_bf16_launches_per_step"] = tb["mamba2"][
+                "launches_per_step"]["ssd_chunk"]
+            k["train_bf16_routes_per_step"] = tb["mamba2"]["routes_per_step"]
     for k in kernels:
         if k["name"] == "ssd_chunk":
             k["train_launches_per_step"] = tm["launches_per_step"][

@@ -1,5 +1,5 @@
 // The backward of causal or non-causal GQA/MQA attention for NVIDIA Hopper
-// (sm_90a), in fp32 on CUDA cores.
+// (sm_90a), in fp32 on CUDA cores, from fp32 or bf16 inputs.
 //
 //   fog_flash_attention_bwd   the gradient of fog_flash_attention's SIMT
 //                             forward (flash_attention.cu); replaces no TPU
@@ -13,7 +13,10 @@
 //
 // With q [B, Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv], the forward's
 // output o and its gradient do [B, Sq, H, Dv], and the forward's lse
-// [B, H, Sq] (m + log l per row), all fp32, G = H / K:
+// [B, H, Sq] (m + log l per row), G = H / K; q, k, v, o, do and the
+// outputs dq, dk, dv all fp32 or all bf16 (the kernels are templated on
+// that type: loads convert to fp32, every sum is fp32, stores round to
+// the inputs' type), lse and delta fp32:
 //
 //   s[i, j]  = (q[b, i, h] . k[b, j, h / G]) * scale  (the forward's order)
 //   p[i, j]  = exp(s[i, j] - lse[i]) where (i, j) is live, else 0; a row
@@ -55,13 +58,26 @@
 // does 7 products (s and dp twice) as fp32 FMAs from shared memory, about
 // one shared load per FMA, on 256 dkdv blocks at that shape (one per key
 // tile, KV head and batch), so it runs well above the bound (PERF.md row
-// 6b).  Tensor cores (bf16 inputs) are later work.
+// 6b).  bf16 at the head sizes the tensor cores take (D, Dv in {64, 128})
+// runs flash_attention_bwd_sm90.cu instead; this kernel takes bf16 at the
+// others (MLA's 96 / 64 and 192 / 128, gemma's 256, small test widths).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// an input element as fp32, and an fp32 result stored in the inputs' type
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int THREADS = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr int MAX_HEAD = 256;
@@ -77,18 +93,19 @@ size_t smem_floats(int R, int D, int Dv) {
 }
 
 // delta[b, h, i] = sum_e do[b, i, h, e] o[b, i, h, e]: one warp per row
+template <class T>
 __global__ void __launch_bounds__(THREADS) flash_attention_bwd_delta_kernel(
-    const float* __restrict__ o, const float* __restrict__ dout,
+    const T* __restrict__ o, const T* __restrict__ dout,
     float* __restrict__ delta, int Sq, int H, int Dv, long long rows) {
   const long long row = (long long)blockIdx.x * (THREADS / 32) +
                         threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* orow = o + row * Dv;
-  const float* drow = dout + row * Dv;
+  const T* orow = o + row * Dv;
+  const T* drow = dout + row * Dv;
   float sum = 0.0f;
   for (int e = lane; e < Dv; e += 32)
-    sum = __fmaf_rn(drow[e], orow[e], sum);
+    sum = __fmaf_rn(ld(drow + e), ld(orow + e), sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, off));
@@ -101,12 +118,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_delta_kernel(
 
 // dk, dv for the 16 RK keys of tile blockIdx.x, KV head blockIdx.y, batch
 // blockIdx.z.  NC * 16 >= max(D, Dv).
-template <int RK, int NC>
+template <class T, int RK, int NC>
 __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
+    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
     int K, int D, int Dv, float scale, int causal) {
   constexpr int BKT = 16 * RK;
   extern __shared__ float smem[];
@@ -127,12 +144,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_kernel(
   for (int idx = tid; idx < BKT * D; idx += THREADS) {
     const int jj = idx / D, d = idx % D, j = j0 + jj;
     Ks[jj * ldd + d] =
-        j < Sk ? k[(((size_t)b * Sk + j) * K + kh) * D + d] : 0.0f;
+        j < Sk ? ld(k + (((size_t)b * Sk + j) * K + kh) * D + d) : 0.0f;
   }
   for (int idx = tid; idx < BKT * Dv; idx += THREADS) {
     const int jj = idx / Dv, e = idx % Dv, j = j0 + jj;
     Vs[jj * ldv + e] =
-        j < Sk ? v[(((size_t)b * Sk + j) * K + kh) * Dv + e] : 0.0f;
+        j < Sk ? ld(v + (((size_t)b * Sk + j) * K + kh) * Dv + e) : 0.0f;
   }
 
   float dk_acc[RK][NC], dv_acc[RK][NC];
@@ -151,12 +168,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_kernel(
       for (int idx = tid; idx < TILE * D; idx += THREADS) {
         const int ii = idx / D, d = idx % D, i = i0 + ii;
         Qs[ii * ldd + d] =
-            i < Sq ? q[(((size_t)b * Sq + i) * H + h) * D + d] : 0.0f;
+            i < Sq ? ld(q + (((size_t)b * Sq + i) * H + h) * D + d) : 0.0f;
       }
       for (int idx = tid; idx < TILE * Dv; idx += THREADS) {
         const int ii = idx / Dv, e = idx % Dv, i = i0 + ii;
         dOs[ii * ldv + e] =
-            i < Sq ? dout[(((size_t)b * Sq + i) * H + h) * Dv + e] : 0.0f;
+            i < Sq ? ld(dout + (((size_t)b * Sq + i) * H + h) * Dv + e) : 0.0f;
       }
       for (int ii = tid; ii < TILE; ii += THREADS) {
         const int i = i0 + ii;
@@ -246,22 +263,22 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_kernel(
     for (int c = 0; c < NC; ++c) {
       const int e = tx + 16 * c;
       if (e < D)
-        dk[(((size_t)b * Sk + j) * K + kh) * D + e] =
-            __fmul_rn(dk_acc[r][c], scale);
+        st(dk + (((size_t)b * Sk + j) * K + kh) * D + e,
+           __fmul_rn(dk_acc[r][c], scale));
       if (e < Dv)
-        dv[(((size_t)b * Sk + j) * K + kh) * Dv + e] = dv_acc[r][c];
+        st(dv + (((size_t)b * Sk + j) * K + kh) * Dv + e, dv_acc[r][c]);
     }
   }
 }
 
 // dq for the 16 RQ rows of q tile blockIdx.x, query head blockIdx.y, batch
 // blockIdx.z.  NC * 16 >= max(D, Dv).
-template <int RQ, int NC>
+template <class T, int RQ, int NC>
 __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int Sq, int Sk, int H, int K, int D, int Dv,
+    T* __restrict__ dq, int Sq, int Sk, int H, int K, int D, int Dv,
     float scale, int causal) {
   constexpr int BQT = 16 * RQ;
   extern __shared__ float smem[];
@@ -283,12 +300,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_kernel(
   for (int idx = tid; idx < BQT * D; idx += THREADS) {
     const int ii = idx / D, d = idx % D, i = i0 + ii;
     Qs[ii * ldd + d] =
-        i < Sq ? q[(((size_t)b * Sq + i) * H + h) * D + d] : 0.0f;
+        i < Sq ? ld(q + (((size_t)b * Sq + i) * H + h) * D + d) : 0.0f;
   }
   for (int idx = tid; idx < BQT * Dv; idx += THREADS) {
     const int ii = idx / Dv, e = idx % Dv, i = i0 + ii;
     dOs[ii * ldv + e] =
-        i < Sq ? dout[(((size_t)b * Sq + i) * H + h) * Dv + e] : 0.0f;
+        i < Sq ? ld(dout + (((size_t)b * Sq + i) * H + h) * Dv + e) : 0.0f;
   }
   for (int ii = tid; ii < BQT; ii += THREADS) {
     const int i = i0 + ii;
@@ -310,12 +327,12 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_kernel(
     for (int idx = tid; idx < TILE * D; idx += THREADS) {
       const int jj = idx / D, d = idx % D, j = j0 + jj;
       Ks[jj * ldd + d] =
-          j < Sk ? k[(((size_t)b * Sk + j) * K + kh) * D + d] : 0.0f;
+          j < Sk ? ld(k + (((size_t)b * Sk + j) * K + kh) * D + d) : 0.0f;
     }
     for (int idx = tid; idx < TILE * Dv; idx += THREADS) {
       const int jj = idx / Dv, e = idx % Dv, j = j0 + jj;
       Vs[jj * ldv + e] =
-          j < Sk ? v[(((size_t)b * Sk + j) * K + kh) * Dv + e] : 0.0f;
+          j < Sk ? ld(v + (((size_t)b * Sk + j) * K + kh) * Dv + e) : 0.0f;
     }
     __syncthreads();
 
@@ -393,8 +410,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_kernel(
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
       if (d < D)
-        dq[(((size_t)b * Sq + i) * H + h) * D + d] =
-            __fmul_rn(dq_acc[r][c], scale);
+        st(dq + (((size_t)b * Sq + i) * H + h) * D + d,
+           __fmul_rn(dq_acc[r][c], scale));
     }
   }
 }
@@ -407,74 +424,93 @@ int opt_in(Kernel kernel, size_t smem) {
 }
 
 // RK keys a thread in dkdv_kernel (16 RK a block), RQ rows in dq_kernel
-template <int RK, int RQ, int NC>
-int launch(const float* q, const float* k, const float* v, const float* o,
-           const float* dout, const float* lse, float* delta, float* dq,
-           float* dk, float* dv, int B, int Sq, int Sk, int H, int K, int D,
-           int Dv, float scale, int causal, cudaStream_t stream) {
+template <class T, int RK, int RQ, int NC>
+int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
+           const float* lse, float* delta, T* dq, T* dk, T* dv, int B,
+           int Sq, int Sk, int H, int K, int D, int Dv, float scale,
+           int causal, cudaStream_t stream) {
   const long long rows = (long long)B * Sq * H;
   const long long delta_blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   if (delta_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bwd_delta_kernel<<<(unsigned)delta_blocks, THREADS, 0,
-                                     stream>>>(o, dout, delta, Sq, H, Dv,
-                                               rows);
+  flash_attention_bwd_delta_kernel<T><<<(unsigned)delta_blocks, THREADS, 0,
+                                        stream>>>(o, dout, delta, Sq, H, Dv,
+                                                  rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   const size_t smem_k = sizeof(float) * smem_floats(RK, D, Dv);
-  err = opt_in(flash_attention_bwd_dkdv_kernel<RK, NC>, smem_k);
+  err = opt_in(flash_attention_bwd_dkdv_kernel<T, RK, NC>, smem_k);
   if (err) return err;
   const dim3 kgrid((Sk + 16 * RK - 1) / (16 * RK), K, B);
-  flash_attention_bwd_dkdv_kernel<RK, NC><<<kgrid, THREADS, smem_k,
-                                            stream>>>(
+  flash_attention_bwd_dkdv_kernel<T, RK, NC><<<kgrid, THREADS, smem_k,
+                                               stream>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, K, D, Dv, scale, causal);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   const size_t smem_q = sizeof(float) * smem_floats(RQ, D, Dv);
-  err = opt_in(flash_attention_bwd_dq_kernel<RQ, NC>, smem_q);
+  err = opt_in(flash_attention_bwd_dq_kernel<T, RQ, NC>, smem_q);
   if (err) return err;
   const dim3 qgrid((Sq + 16 * RQ - 1) / (16 * RQ), H, B);
-  flash_attention_bwd_dq_kernel<RQ, NC><<<qgrid, THREADS, smem_q, stream>>>(
+  flash_attention_bwd_dq_kernel<T, RQ, NC><<<qgrid, THREADS, smem_q,
+                                             stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Sk, H, K, D, Dv, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the tiles by head size (kernels/flash_attention.py::bwd_tiles)
+template <class T>
+int launch_by_head(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                   int Sk, int H, int K, int D, int Dv, float scale,
+                   int causal, cudaStream_t s) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* to = static_cast<const T*>(o);
+  const T* td = static_cast<const T*>(dout);
+  T* tdq = static_cast<T*>(dq);
+  T* tdk = static_cast<T*>(dk);
+  T* tdv = static_cast<T*>(dv);
+  const int head = D > Dv ? D : Dv;
+  if (head <= 64)
+    return launch<T, 2, 4, 4>(tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
+                              B, Sq, Sk, H, K, D, Dv, scale, causal, s);
+  if (head <= 128)
+    return launch<T, 2, 4, 8>(tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
+                              B, Sq, Sk, H, K, D, Dv, scale, causal, s);
+  return launch<T, 2, 2, 16>(tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
+                             B, Sq, Sk, H, K, D, Dv, scale, causal, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// fp32 throughout; lse [B, H, Sq] from fog_flash_attention; delta [B, H,
-// Sq] scratch; dq, dk, dv shaped as q, k, v.  causal: 0 or 1.
-int fog_flash_attention_bwd(const void* q, const void* k, const void* v,
-                            const void* o, const void* dout, const void* lse,
-                            void* delta, void* dq, void* dk, void* dv, int B,
-                            int Sq, int Sk, int H, int K, int D, int Dv,
-                            float scale, int causal, void* stream) {
+// dtype 0: fp32, 1: bf16 for q, k, v, o, do, dq, dk, dv; lse [B, H, Sq]
+// from fog_flash_attention and delta [B, H, Sq] scratch, fp32 either way.
+// causal: 0 or 1.
+int fog_flash_attention_bwd(int dtype, const void* q, const void* k,
+                            const void* v, const void* o, const void* dout,
+                            const void* lse, void* delta, void* dq, void* dk,
+                            void* dv, int B, int Sq, int Sk, int H, int K,
+                            int D, int Dv, float scale, int causal,
+                            void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || H % K != 0 || D < 1 ||
-      Dv < 1 || D > MAX_HEAD || Dv > MAX_HEAD || B > 65535 || H > 65535)
+      Dv < 1 || D > MAX_HEAD || Dv > MAX_HEAD || B > 65535 || H > 65535 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fo = static_cast<const float*>(o);
-  const float* fd = static_cast<const float*>(dout);
   const float* fl = static_cast<const float*>(lse);
   float* fdl = static_cast<float*>(delta);
-  float* fdq = static_cast<float*>(dq);
-  float* fdk = static_cast<float*>(dk);
-  float* fdv = static_cast<float*>(dv);
-  const int head = D > Dv ? D : Dv;
-  if (head <= 64)
-    return launch<2, 4, 4>(fq, fk, fv, fo, fd, fl, fdl, fdq, fdk, fdv, B, Sq,
-                           Sk, H, K, D, Dv, scale, causal, s);
-  if (head <= 128)
-    return launch<2, 4, 8>(fq, fk, fv, fo, fd, fl, fdl, fdq, fdk, fdv, B, Sq,
-                           Sk, H, K, D, Dv, scale, causal, s);
-  return launch<2, 2, 16>(fq, fk, fv, fo, fd, fl, fdl, fdq, fdk, fdv, B, Sq,
-                          Sk, H, K, D, Dv, scale, causal, s);
+  if (dtype == 0)
+    return launch_by_head<float>(q, k, v, o, dout, fl, fdl, dq, dk, dv, B,
+                                 Sq, Sk, H, K, D, Dv, scale, causal, s);
+  return launch_by_head<__nv_bfloat16>(q, k, v, o, dout, fl, fdl, dq, dk, dv,
+                                       B, Sq, Sk, H, K, D, Dv, scale, causal,
+                                       s);
 }
 
 }  // extern "C"

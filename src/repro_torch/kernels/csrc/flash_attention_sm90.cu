@@ -22,6 +22,9 @@
 //   m, l      = running max and sum of p = exp(s - m) over the live j, fp32
 //   acc       = sum_j bf16(p[i, j]) v[b, j, h / G]      fp32 sums
 //   out[b, i, h] = bf16(acc / max(l, 1e-30))
+//   lse[b, h, i] = m + log(l) (natural units; -inf for a row that sees no
+//                  key), written only where the caller passes an lse
+//                  pointer (training's backward; serving passes null)
 //
 // Scores are kept as s * scale * log2(e), so p = exp2(s' - m') (one
 // multiply and an exp2f per score); a score that is not live is -inf and
@@ -48,7 +51,8 @@
 //     wgmma m64nDvk16 (A from registers, B = V from shared memory,
 //     MN-major: the transpose bit is set);
 // then releases the stage.  The epilogue divides by max(l, 1e-30) and
-// stores rows i < Sq as bf16.  Q tiles run longest-first, so the short
+// stores rows i < Sq as bf16, and, where lse is not null, each row's
+// log-sum-exp as fp32 (one thread of the row's quad).  Q tiles run longest-first, so the short
 // causal ones fill the tail.
 //
 // BK is 128 keys at D = Dv = 64 and 64 otherwise (keys_per_tile).  Shared
@@ -104,7 +108,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int H, int K, float scale_log2, int causal) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int K, float scale_log2,
+    int causal) {
   using L = Smem<D, DV, BK>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -271,11 +276,16 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // epilogue: rows i < Sq, two bf16 per store
+  // epilogue: rows i < Sq, two bf16 per store; the lse in natural units
+  // from the base-2 running max and sum: ln 2 (m + log2 l)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + row0 + 8 * r;
     if (i >= Sq) continue;
+    if (lse != nullptr && quad == 0)
+      lse[((size_t)b * H + h) * Sq + i] =
+          l[r] > 0.0f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
+                      : -INFINITY;
     const float denom = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* row = out + (((size_t)b * Sq + i) * H + h) * DV;
 #pragma unroll
@@ -366,9 +376,9 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(
 
 
 template <int D, int DV, int BK = keys_per_tile<D, DV>()>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int K, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int K, float scale,
+           int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, q, B, Sq, H, D, BQ);
   if (rc == 0) rc = encode(&tk, k, B, Sk, K, D, BK);
@@ -381,7 +391,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel_sm90<D, DV, BK><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, K,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H, K,
       static_cast<float>(static_cast<double>(scale) * 1.4426950408889634),
       causal);
   return static_cast<int>(cudaGetLastError());
@@ -410,23 +420,27 @@ int launch_probe(const void* a, const void* b1, const void* b2, float* c1,
 extern "C" {
 
 // bf16 q, k, v and out; D, Dv in {64, 128}; causal 0 or 1.  Every pointer
-// 16-byte aligned (the wrapper checks).
+// 16-byte aligned (the wrapper checks).  lse: fp32 [B, H, Sq], or null.
 int fog_flash_attention_sm90(const void* q, const void* k, const void* v,
-                             void* out, int B, int Sq, int Sk, int H, int K,
-                             int D, int Dv, float scale, int causal,
-                             void* stream) {
+                             void* out, void* lse, int B, int Sq, int Sk,
+                             int H, int K, int D, int Dv, float scale,
+                             int causal, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || H % K != 0 ||
       B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 64 && Dv == 64)
-    return launch<64, 64>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, s);
+    return launch<64, 64>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal, s);
   if (D == 128 && Dv == 128)
-    return launch<128, 128>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, s);
+    return launch<128, 128>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
+                            s);
   if (D == 64 && Dv == 128)
-    return launch<64, 128>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, s);
+    return launch<64, 128>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
+                           s);
   if (D == 128 && Dv == 64)
-    return launch<128, 64>(q, k, v, out, B, Sq, Sk, H, K, scale, causal, s);
+    return launch<128, 64>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
+                           s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,5 @@
 // The backward of the Mamba-2 SSD intra-chunk block for NVIDIA Hopper
-// (sm_90a), in fp32 on CUDA cores.
+// (sm_90a), in fp32 on CUDA cores, from fp32 or bf16 inputs.
 //
 //   fog_ssd_chunk_bwd   the gradient of fog_ssd_chunk (ssd_chunk.cu); it
 //                       replaces no TPU kernel: the JAX package takes it
@@ -14,7 +14,11 @@
 //
 // Per chunk bc = (batch, chunk) and head h, with x [BC, Q, H, P], a [BC,
 // H, Q], B/C [BC, Q, N], the gradients dy [BC, Q, H, P] of y_diag and dst
-// [BC, H, P, N] of the states, all fp32:
+// [BC, H, P, N] of the states, all fp32 or all bf16 (the kernels are
+// templated on that type: loads convert to fp32, every sum and the scratch
+// are fp32, dx, da, dB, dC are stored in the inputs' type; a bf16 input is
+// differentiated exactly at its value, not through the tensor-core
+// forward's rounding of W and of the decayed x):
 //
 //   cum = cumsum(a_h),  L[i, j] = exp(cum_i - cum_j) for i >= j (else 0),
 //   S = C B^T,  W_h = S o L,  d_j = exp(cum_{Q-1} - cum_j),
@@ -55,13 +59,25 @@
 // operations bound it.  This first kernel does them as fp32 FMAs from
 // shared-memory tiles (explicit __fmaf_rn: the build passes -fmad=false),
 // about one shared load per two FMAs, so it runs well above the bound
-// (PERF.md row 7b).  Tensor cores (bf16 inputs) are later work.
+// (PERF.md row 7b).  bf16 inputs halve the bytes, not the operations;
+// a tensor-core redesign is later work (ROADMAP).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// an input element as fp32, and an fp32 result stored in the inputs' type
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int MAX_Q = 256;    // the cumsum of one head lives in shared memory
 constexpr int TILE = 64;      // rows i, columns j, columns p of one tile
@@ -74,16 +90,17 @@ constexpr unsigned FULL = 0xffffffffu;
 // cum[bc, h, 0, :] = cumsum(a[bc, h, :]); cum[bc, h, 1, j] = exp(cum_{Q-1}
 // - cum_j).  One warp per (chunk, head): 32 entries at a time with
 // shuffles, the running total carried.
+template <class T>
 __global__ void __launch_bounds__(32) ssd_bwd_cum_kernel(
-    const float* __restrict__ a, float* __restrict__ cum, int Q) {
+    const T* __restrict__ a, float* __restrict__ cum, int Q) {
   const size_t row = blockIdx.x;        // bc * H + h
-  const float* ar = a + row * Q;
+  const T* ar = a + row * Q;
   float* cr = cum + row * 2 * Q;
   const int lane = threadIdx.x;
   float carry = 0.0f;
   for (int base = 0; base < Q; base += 32) {
     const int i = base + lane;
-    float v = i < Q ? ar[i] : 0.0f;
+    float v = i < Q ? ld(ar + i) : 0.0f;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float n = __shfl_up_sync(FULL, v, off);
@@ -102,9 +119,10 @@ __global__ void __launch_bounds__(32) ssd_bwd_cum_kernel(
 // One [i, j] tile (ti >= tj) of chunk blockIdx.y: S into S[bc, 0], dS into
 // S[bc, 1], t's row sums into part[bc, h, 0, tj, i] and column sums into
 // part[bc, h, 1, ti, j] for every head.
+template <class T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_ds_kernel(
-    const float* __restrict__ x, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, const float* __restrict__ dy,
+    const T* __restrict__ x, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, const T* __restrict__ dy,
     const float* __restrict__ cum, float* __restrict__ S,
     float* __restrict__ part, int Q, int H, int P, int N, int nt) {
   int ti = 0, rest = blockIdx.x;
@@ -120,14 +138,14 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_ds_kernel(
 
   // S's tile from C's rows i and B's rows j
   float s_t[4][4] = {};
-  const float* C = Cm + (size_t)bc * Q * N;
-  const float* Bp = Bm + (size_t)bc * Q * N;
+  const T* C = Cm + (size_t)bc * Q * N;
+  const T* Bp = Bm + (size_t)bc * Q * N;
   for (int n0 = 0; n0 < N; n0 += KC) {
     for (int idx = tid; idx < TILE * KC; idx += THREADS) {
       const int r = idx / KC, k = idx % KC, n = n0 + k;
       const int i = i0 + r, j = j0 + r;
-      As[k][r] = (i < Q && n < N) ? C[(size_t)i * N + n] : 0.0f;
-      Bs[k][r] = (j < Q && n < N) ? Bp[(size_t)j * N + n] : 0.0f;
+      As[k][r] = (i < Q && n < N) ? ld(C + (size_t)i * N + n) : 0.0f;
+      Bs[k][r] = (j < Q && n < N) ? ld(Bp + (size_t)j * N + n) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -168,10 +186,12 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_ds_kernel(
       for (int idx = tid; idx < TILE * KC; idx += THREADS) {
         const int r = idx / KC, k = idx % KC, p = p0 + k;
         const int i = i0 + r, j = j0 + r;
-        As[k][r] = (i < Q && p < P) ? dy[(((size_t)bc * Q + i) * H + h) * P + p]
-                                    : 0.0f;
-        Bs[k][r] = (j < Q && p < P) ? x[(((size_t)bc * Q + j) * H + h) * P + p]
-                                    : 0.0f;
+        As[k][r] = (i < Q && p < P)
+                       ? ld(dy + (((size_t)bc * Q + i) * H + h) * P + p)
+                       : 0.0f;
+        Bs[k][r] = (j < Q && p < P)
+                       ? ld(x + (((size_t)bc * Q + j) * H + h) * P + p)
+                       : 0.0f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -232,11 +252,12 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_ds_kernel(
 
 // dx for the 64 rows j of tile blockIdx.x, head blockIdx.y, chunk
 // blockIdx.z, and e[bc, h, j].
+template <class T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
-    const float* __restrict__ x, const float* __restrict__ Bm,
-    const float* __restrict__ dy, const float* __restrict__ dst,
+    const T* __restrict__ x, const T* __restrict__ Bm,
+    const T* __restrict__ dy, const T* __restrict__ dst,
     const float* __restrict__ cum, const float* __restrict__ S,
-    float* __restrict__ e, float* __restrict__ dx, int Q, int H, int P,
+    float* __restrict__ e, T* __restrict__ dx, int Q, int H, int P,
     int N, int nt) {
   const int tj = blockIdx.x, h = blockIdx.y, bc = blockIdx.z;
   const int j0 = tj * TILE;
@@ -258,8 +279,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
   }
   __syncthreads();
   const float* Sc = S + (size_t)bc * 2 * Q * Q;
-  const float* B = Bm + (size_t)bc * Q * N;
-  const float* dsth = dst + ((size_t)bc * H + h) * P * N;
+  const T* B = Bm + (size_t)bc * Q * N;
+  const T* dsth = dst + ((size_t)bc * H + h) * P * N;
   float dd[4] = {};
   for (int p0 = 0; p0 < P; p0 += TILE) {
     float acc[4][4] = {};
@@ -274,7 +295,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
         Wt[r][k] = w;
         const int ir = i0 + r, p = p0 + k;
         Ys[r][k] = (ir < Q && p < P)
-                       ? dy[(((size_t)bc * Q + ir) * H + h) * P + p]
+                       ? ld(dy + (((size_t)bc * Q + ir) * H + h) * P + p)
                        : 0.0f;
       }
       __syncthreads();
@@ -299,8 +320,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
       for (int idx = tid; idx < TILE * KC; idx += THREADS) {
         const int r = idx / KC, k = idx % KC, n = n0 + k;
         const int j = j0 + r, p = p0 + r;
-        Bs[k][r] = (j < Q && n < N) ? B[(size_t)j * N + n] : 0.0f;
-        Ds[k][r] = (p < P && n < N) ? dsth[(size_t)p * N + n] : 0.0f;
+        Bs[k][r] = (j < Q && n < N) ? ld(B + (size_t)j * N + n) : 0.0f;
+        Ds[k][r] = (p < P && n < N) ? ld(dsth + (size_t)p * N + n) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -325,8 +346,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
         const int p = p0 + tx + 16 * s;
         if (j < Q && p < P) {
           const size_t at = (((size_t)bc * Q + j) * H + h) * P + p;
-          dx[at] = __fmaf_rn(dj[r], g[r][s], acc[r][s]);
-          dd[r] = __fmaf_rn(x[at], g[r][s], dd[r]);
+          st(dx + at, __fmaf_rn(dj[r], g[r][s], acc[r][s]));
+          dd[r] = __fmaf_rn(ld(x + at), g[r][s], dd[r]);
         }
       }
     }
@@ -348,12 +369,13 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
 
 // Blocks [0, n_tiles): dC and dB for one (32-row, 64-column) tile of a
 // chunk; blocks [n_tiles, n_tiles + BC H): da of one (chunk, head).
+template <class T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
-    const float* __restrict__ x, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, const float* __restrict__ dst,
+    const T* __restrict__ x, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, const T* __restrict__ dst,
     const float* __restrict__ cum, const float* __restrict__ S,
     const float* __restrict__ part, const float* __restrict__ e,
-    float* __restrict__ dB, float* __restrict__ dC, float* __restrict__ da,
+    T* __restrict__ dB, T* __restrict__ dC, T* __restrict__ da,
     int Q, int H, int P, int N, int nt, int n_rt, int n_ct, int n_tiles) {
   const int tid = threadIdx.x;
   __shared__ float As[ROWS][ROWS + 1];
@@ -377,10 +399,10 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
       for (int j = 0; j < Q; ++j) esum = __fadd_rn(esum, er[j]);
       dcum[Q - 1] = __fadd_rn(dcum[Q - 1], esum);
       float run = 0.0f;
-      float* dr = da + row * Q;
+      T* dr = da + row * Q;
       for (int k = Q - 1; k >= 0; --k) {
         run = __fadd_rn(run, dcum[k]);
-        dr[k] = run;
+        st(dr + k, run);
       }
     }
     return;
@@ -390,8 +412,8 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
   const int r0 = rt * ROWS, n0 = ct * COLS;
   const int ty = tid / 16, tx = tid % 16;   // rows ty * 2 + r, cols tx + 16 s
   const float* dS = S + ((size_t)bc * 2 + 1) * Q * Q;
-  const float* B = Bm + (size_t)bc * Q * N;
-  const float* C = Cm + (size_t)bc * Q * N;
+  const T* B = Bm + (size_t)bc * Q * N;
+  const T* C = Cm + (size_t)bc * Q * N;
   float acc_c[2][4] = {}, acc_b[2][4] = {};
 
   // dC[i, n] = sum_{j <= i} dS[i, j] B[j, n] for rows i of the tile
@@ -403,7 +425,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
     }
     for (int idx = tid; idx < ROWS * COLS; idx += THREADS) {
       const int k = idx / COLS, c = idx % COLS, j = k0 + k, n = n0 + c;
-      Vs[k][c] = (j < Q && n < N) ? B[(size_t)j * N + n] : 0.0f;
+      Vs[k][c] = (j < Q && n < N) ? ld(B + (size_t)j * N + n) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -429,7 +451,7 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
     }
     for (int idx = tid; idx < ROWS * COLS; idx += THREADS) {
       const int k = idx / COLS, c = idx % COLS, i = k0 + k, n = n0 + c;
-      Vs[k][c] = (i < Q && n < N) ? C[(size_t)i * N + n] : 0.0f;
+      Vs[k][c] = (i < Q && n < N) ? ld(C + (size_t)i * N + n) : 0.0f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -450,17 +472,17 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
   // + sum_h d_h[j] (x_h dst_h)[j, n], the heads in order
   for (int h = 0; h < H; ++h) {
     float xs[2][4] = {};
-    const float* dsth = dst + ((size_t)bc * H + h) * P * N;
+    const T* dsth = dst + ((size_t)bc * H + h) * P * N;
     for (int k0 = 0; k0 < P; k0 += ROWS) {
       for (int idx = tid; idx < ROWS * ROWS; idx += THREADS) {
         const int r = idx / ROWS, k = idx % ROWS, j = r0 + r, p = k0 + k;
         As[r][k] = (j < Q && p < P)
-                       ? x[(((size_t)bc * Q + j) * H + h) * P + p]
+                       ? ld(x + (((size_t)bc * Q + j) * H + h) * P + p)
                        : 0.0f;
       }
       for (int idx = tid; idx < ROWS * COLS; idx += THREADS) {
         const int k = idx / COLS, c = idx % COLS, p = k0 + k, n = n0 + c;
-        Vs[k][c] = (p < P && n < N) ? dsth[(size_t)p * N + n] : 0.0f;
+        Vs[k][c] = (p < P && n < N) ? ld(dsth + (size_t)p * N + n) : 0.0f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -495,60 +517,73 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
       const int n = n0 + tx + 16 * s;
       if (n < N) {
         const size_t at = ((size_t)bc * Q + i) * N + n;
-        dC[at] = acc_c[r][s];
-        dB[at] = acc_b[r][s];
+        st(dC + at, acc_c[r][s]);
+        st(dB + at, acc_b[r][s]);
       }
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// fp32 throughout.  Scratch from the wrapper: cum [BC, H, 2, Q], S [BC, 2,
-// Q, Q], part [BC, H, 2, nt, Q] (nt = ceil(Q / 64)), e [BC, H, Q].
-int fog_ssd_chunk_bwd(const void* x, const void* a, const void* Bm,
-                      const void* Cm, const void* dy, const void* dst,
-                      void* cum, void* S, void* part, void* e, void* dx,
-                      void* da, void* dB, void* dC, int BC, int Q, int H,
-                      int P, int N, void* stream) {
-  if (Q < 1 || Q > MAX_Q || BC < 1 || H < 1 || P < 1 || N < 1 ||
-      BC > 65535 || H > 65535 || (long long)BC * H > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fx = static_cast<const float*>(x);
-  const float* fa = static_cast<const float*>(a);
-  const float* fB = static_cast<const float*>(Bm);
-  const float* fC = static_cast<const float*>(Cm);
-  const float* fdy = static_cast<const float*>(dy);
-  const float* fdst = static_cast<const float*>(dst);
-  float* fcum = static_cast<float*>(cum);
-  float* fS = static_cast<float*>(S);
-  float* fpart = static_cast<float*>(part);
-  float* fe = static_cast<float*>(e);
+template <class T>
+int launch(const void* x, const void* a, const void* Bm, const void* Cm,
+           const void* dy, const void* dst, float* cum, float* S,
+           float* part, float* e, void* dx, void* da, void* dB, void* dC,
+           int BC, int Q, int H, int P, int N, cudaStream_t s) {
+  const T* tx = static_cast<const T*>(x);
+  const T* tB = static_cast<const T*>(Bm);
+  const T* tC = static_cast<const T*>(Cm);
+  const T* tdst = static_cast<const T*>(dst);
   const int nt = (Q + TILE - 1) / TILE;
-  ssd_bwd_cum_kernel<<<(unsigned)(BC * H), 32, 0, s>>>(fa, fcum, Q);
+  ssd_bwd_cum_kernel<T><<<(unsigned)(BC * H), 32, 0, s>>>(
+      static_cast<const T*>(a), cum, Q);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  ssd_bwd_ds_kernel<<<dim3(nt * (nt + 1) / 2, BC), THREADS, 0, s>>>(
-      fx, fB, fC, fdy, fcum, fS, fpart, Q, H, P, N, nt);
+  ssd_bwd_ds_kernel<T><<<dim3(nt * (nt + 1) / 2, BC), THREADS, 0, s>>>(
+      tx, tB, tC, static_cast<const T*>(dy), cum, S, part, Q, H, P, N, nt);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  ssd_bwd_dx_kernel<<<dim3(nt, H, BC), THREADS, 0, s>>>(
-      fx, fB, fdy, fdst, fcum, fS, fe, static_cast<float*>(dx), Q, H, P, N,
-      nt);
+  ssd_bwd_dx_kernel<T><<<dim3(nt, H, BC), THREADS, 0, s>>>(
+      tx, tB, static_cast<const T*>(dy), tdst, cum, S, e,
+      static_cast<T*>(dx), Q, H, P, N, nt);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   const int n_rt = (Q + ROWS - 1) / ROWS, n_ct = (N + COLS - 1) / COLS;
   const long long n_tiles = (long long)BC * n_rt * n_ct;
   const long long blocks = n_tiles + (long long)BC * H;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  ssd_bwd_dbdc_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
-      fx, fB, fC, fdst, fcum, fS, fpart, fe, static_cast<float*>(dB),
-      static_cast<float*>(dC), static_cast<float*>(da), Q, H, P, N, nt, n_rt,
-      n_ct, (int)n_tiles);
+  ssd_bwd_dbdc_kernel<T><<<(unsigned)blocks, THREADS, 0, s>>>(
+      tx, tB, tC, tdst, cum, S, part, e, static_cast<T*>(dB),
+      static_cast<T*>(dC), static_cast<T*>(da), Q, H, P, N, nt, n_rt, n_ct,
+      (int)n_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype 0: fp32, 1: bf16 for x, a, Bm, Cm, dy, dst and the outputs dx,
+// da, dB, dC.  fp32 scratch from the wrapper: cum [BC, H, 2, Q], S [BC, 2,
+// Q, Q], part [BC, H, 2, nt, Q] (nt = ceil(Q / 64)), e [BC, H, Q].
+int fog_ssd_chunk_bwd(int dtype, const void* x, const void* a,
+                      const void* Bm, const void* Cm, const void* dy,
+                      const void* dst, void* cum, void* S, void* part,
+                      void* e, void* dx, void* da, void* dB, void* dC, int BC,
+                      int Q, int H, int P, int N, void* stream) {
+  if (Q < 1 || Q > MAX_Q || BC < 1 || H < 1 || P < 1 || N < 1 ||
+      BC > 65535 || H > 65535 || (long long)BC * H > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* fcum = static_cast<float*>(cum);
+  float* fS = static_cast<float*>(S);
+  float* fpart = static_cast<float*>(part);
+  float* fe = static_cast<float*>(e);
+  if (dtype == 0)
+    return launch<float>(x, a, Bm, Cm, dy, dst, fcum, fS, fpart, fe, dx, da,
+                         dB, dC, BC, Q, H, P, N, s);
+  return launch<__nv_bfloat16>(x, a, Bm, Cm, dy, dst, fcum, fS, fpart, fe,
+                               dx, da, dB, dC, BC, Q, H, P, N, s);
 }
 
 }  // extern "C"

@@ -35,14 +35,27 @@ top-left), as the TPU kernel and the JAX reference do; FlashAttention-2
 and SDPA align the diagonal bottom-right instead, which differs when
 ``Sq != Sk``.
 
-The backward (training, fp32 only) is a hand-written kernel too:
-``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_cuda`), which
-recomputes ``p = exp(s - lse)`` from q, k and the SIMT forward's
-per-row log-sum-exp (``flash_attention_cuda(..., with_lse=True)``) and
-writes dq, dk and dv once each without atomics (deterministic); its tile
-sizes follow the head size (:func:`bwd_tiles`).  Its plain version is
-:func:`flash_attention_bwd_ref`.  The tensor-core forward writes no
-``lse``: a bf16 backward is later work (ROADMAP A5c).
+The backward (training) is hand-written too, on the forward's route
+(:func:`flash_attention_bwd_cuda`): both kernels recompute ``p = exp(s -
+lse)`` from q, k and the forward's per-row log-sum-exp
+(``flash_attention_cuda(..., with_lse=True)``, which both forwards
+write) and write dq, dk and dv once each without atomics
+(deterministic).
+
+* ``"sm90"``: ``csrc/flash_attention_bwd_sm90.cu``, bf16 on the tensor
+  cores: a dK/dV pass per (64-key tile, KV head, batch) over the q tiles
+  and the G query heads, and a dQ pass per (64-row q tile, head, batch),
+  each one warpgroup with ``wgmma`` products and a two-stage TMA ring;
+  p and ds are rounded to bf16 only as the A operands of the last
+  products (``dv += p^T do``, ``dk += ds^T q``, ``dq += ds k``).
+* ``"simt"``: ``csrc/flash_attention_bwd.cu``, fp32 arithmetic on CUDA
+  cores from fp32 or bf16 inputs (loads and stores in the inputs' dtype),
+  its tile sizes by head size (:func:`bwd_tiles`).
+
+Both are counted separately (``launches["flash_attention_bwd_sm90"]``,
+``launches["flash_attention_bwd"]``).  The plain version is
+:func:`flash_attention_bwd_ref`.  The plain versions compute in fp32
+(float64 stays float64, as an oracle's).
 """
 from __future__ import annotations
 
@@ -51,9 +64,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["MAX_HEAD", "SM90_HEADS", "bwd_smem_bytes", "bwd_tiles",
-           "check_shapes", "flash_attention_bwd_cuda",
-           "flash_attention_bwd_ref", "flash_attention_cuda",
+__all__ = ["MAX_HEAD", "SM90_HEADS", "bwd_smem_bytes",
+           "bwd_smem_bytes_sm90", "bwd_tiles", "check_shapes",
+           "flash_attention_bwd_cuda", "flash_attention_bwd_ref",
+           "flash_attention_cuda",
            "flash_attention_ref", "flash_attention_ref_lse", "route",
            "sm90_keys", "smem_bytes", "smem_bytes_sm90", "softmax_scale"]
 
@@ -76,12 +90,14 @@ def softmax_scale(D: int, scale: float | None = None) -> float:
 
 def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
             scale: float | None) -> torch.Tensor:
-    """fp32 scores ``[B, K, G, Sq, Sk]`` scaled, -inf where masked."""
+    """fp32 (float64 for float64) scores ``[B, K, G, Sq, Sk]`` scaled,
+    -inf where masked."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
+    work = _work_dtype(q)
     qg = q.reshape(B, Sq, K, H // K, D)
-    s = torch.einsum("bqkgd,bpkd->bkgqp", qg.to(torch.float32),
-                     k.to(torch.float32)) * softmax_scale(D, scale)
+    s = torch.einsum("bqkgd,bpkd->bkgqp", qg.to(work),
+                     k.to(work)) * softmax_scale(D, scale)
     if causal:
         mask = (torch.arange(Sq, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
@@ -89,11 +105,15 @@ def _scores(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
     return s
 
 
+def _work_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def _attend(s: torch.Tensor, q: torch.Tensor,
             v: torch.Tensor) -> torch.Tensor:
     B, Sq, H, _ = q.shape
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqp,bpkd->bkgqd", p, v.to(torch.float32))
+    out = torch.einsum("bkgqp,bpkd->bkgqd", p, v.to(s.dtype))
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, v.shape[3]).to(
         q.dtype)
 
@@ -126,16 +146,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             causal: bool = True, scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """The backward in plain PyTorch, fp32, from the formulas the kernel
-    computes: ``p = exp(s - lse)`` (0 where masked or where the row's lse
-    is -inf), ``delta = rowsum(do * o)``, ``dv = p^T do``, ``dp = do v^T``,
-    ``ds = p (dp - delta)``, ``dq = ds k * scale``, ``dk = ds^T q * scale``;
-    dk and dv summed over each KV head's G query heads.  Returns (dq, dk,
-    dv) in q's, k's and v's dtypes."""
+    """The backward in plain PyTorch, in fp32 (float64 for float64
+    inputs), from the formulas the kernels compute: ``p = exp(s - lse)``
+    (0 where masked or where the row's lse is -inf), ``delta = rowsum(do *
+    o)``, ``dv = p^T do``, ``dp = do v^T``, ``ds = p (dp - delta)``, ``dq =
+    ds k * scale``, ``dk = ds^T q * scale``; dk and dv summed over each KV
+    head's G query heads.  Returns (dq, dk, dv) in q's, k's and v's
+    dtypes."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    f32 = torch.float32
+    f32 = _work_dtype(q)
     sc = softmax_scale(D, scale)
     s = _scores(q, k, causal=causal, scale=scale)
     lse_g = lse.to(f32).reshape(B, K, G, Sq)[..., None]
@@ -206,8 +227,9 @@ def smem_bytes_sm90(D: int, Dv: int) -> int:
 
 
 def route(dtype: torch.dtype, D: int, Dv: int) -> str:
-    """The kernel a CUDA call takes: ``"sm90"`` (tensor cores) for bf16
-    with D and Dv in ``SM90_HEADS``, else ``"simt"``."""
+    """The kernel a CUDA call takes, forward and backward alike:
+    ``"sm90"`` (tensor cores) for bf16 with D and Dv in ``SM90_HEADS``,
+    else ``"simt"``."""
     if dtype == torch.bfloat16 and D in SM90_HEADS and Dv in SM90_HEADS:
         return "sm90"
     return "simt"
@@ -217,18 +239,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, scale: float | None = None,
                          with_lse: bool = False):
     """The kernel :func:`route` names, on contiguous CUDA tensors, all fp32
-    or all bf16 (one counted launch).  ``with_lse`` (the SIMT route only)
-    also returns each row's log-sum-exp, fp32 ``[B, H, Sq]``, for the
-    backward: ``(out, lse)``."""
+    or all bf16 (one counted launch).  ``with_lse`` also returns each row's
+    log-sum-exp, fp32 ``[B, H, Sq]``, for the backward: ``(out, lse)``."""
     B, Sq, Sk, H, K, D, Dv = check_shapes(q, k, v)
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes fp32 or bf16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_cuda(name, t, q.dtype, 4)
     sm90 = route(q.dtype, D, Dv) == "sm90"
-    if sm90 and with_lse:
-        raise ValueError("the tensor-core flash_attention writes no lse: a "
-                         "bf16 backward is not ported yet (ROADMAP A5c)")
     if sm90:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _build.check_tma(name, t)
@@ -242,7 +260,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if with_lse else None)
     if sm90:
         _build.launch("flash_attention", q.device, q.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      None if lse is None else lse.data_ptr(), B, Sq, Sk,
                       H, K, D, Dv, softmax_scale(D, scale), int(causal),
                       entry="flash_attention_sm90")
     else:
@@ -278,35 +297,60 @@ def bwd_smem_bytes(D: int, Dv: int) -> int:
                for own in bwd_tiles(D, Dv)[:2])
 
 
+def bwd_smem_bytes_sm90(D: int, Dv: int) -> int:
+    """Dynamic shared memory of a block of either tensor-core backward
+    kernel: its own two bf16 tiles (64 x D, 64 x Dv), ``SM90_STAGES`` pairs
+    of loop tiles, the loop tile's lse and delta, the mbarriers, and 1024 B
+    to align the base for the 128-byte swizzle
+    (``csrc/flash_attention_bwd_sm90.cu::Smem``)."""
+    return (2 * 64 * (D + Dv) * (1 + SM90_STAGES) + 2 * 4 * 64
+            + 8 * (1 + SM90_STAGES) + 1024)
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, scale: float | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """(dq, dk, dv) by ``csrc/flash_attention_bwd.cu`` on contiguous fp32
-    CUDA tensors: o and do ``[B, Sq, H, Dv]``, lse ``[B, H, Sq]`` from
-    :func:`flash_attention_cuda` with ``with_lse`` (one counted launch of
-    its three kernels)."""
+    """(dq, dk, dv) in the inputs' dtype by the backward of the route
+    :func:`route` names, on contiguous CUDA tensors, q, k, v, o and do all
+    fp32 or all bf16: o and do ``[B, Sq, H, Dv]``, lse fp32 ``[B, H, Sq]``
+    from :func:`flash_attention_cuda` with ``with_lse`` (one counted launch
+    of three kernels: ``flash_attention_bwd_sm90`` on the tensor cores,
+    ``flash_attention_bwd`` on CUDA cores).  Refuses by shape and dtype
+    what the kernels do not take; never falls back to the plain
+    version."""
     B, Sq, Sk, H, K, D, Dv = check_shapes(q, k, v)
-    f32 = torch.float32
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention's backward takes fp32 or bf16, "
+                        f"got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        _build.check_cuda(name, t, f32, 4)
-    _build.check_cuda("lse", lse, f32, 3)
+        _build.check_cuda(name, t, q.dtype, 4)
+    _build.check_cuda("lse", lse, torch.float32, 3)
     for name, t in (("o", o), ("do", do)):
         if tuple(t.shape) != (B, Sq, H, Dv):
             raise ValueError(f"{name} must be {(B, Sq, H, Dv)}, got "
                              f"{tuple(t.shape)}")
     if tuple(lse.shape) != (B, H, Sq):
         raise ValueError(f"lse must be {(B, H, Sq)}, got {tuple(lse.shape)}")
-    smem = bwd_smem_bytes(D, Dv)
+    sm90 = route(q.dtype, D, Dv) == "sm90"
+    if sm90:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o),
+                        ("do", do)):
+            _build.check_tma(name, t)
+    smem = bwd_smem_bytes_sm90(D, Dv) if sm90 else bwd_smem_bytes(D, Dv)
     if smem > _build.smem_optin(q.device):
         raise ValueError(f"flash_attention's backward at D={D}, Dv={Dv} "
                          f"needs {smem} B of shared memory per block, the "
                          f"card allows {_build.smem_optin(q.device)}")
-    delta = torch.empty((B, H, Sq), dtype=f32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _build.launch("flash_attention_bwd", q.device, *(
-        t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
-        B, Sq, Sk, H, K, D, Dv, softmax_scale(D, scale), int(causal))
+    ptrs = (t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv))
+    shape = (B, Sq, Sk, H, K, D, Dv, softmax_scale(D, scale), int(causal))
+    if sm90:
+        _build.launch("flash_attention_bwd_sm90", q.device, *ptrs, *shape)
+    else:
+        _build.launch("flash_attention_bwd", q.device, _DTYPES[q.dtype],
+                      *ptrs, *shape)
     return dq, dk, dv

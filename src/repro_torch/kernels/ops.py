@@ -8,11 +8,11 @@ A kernel's output is a fresh tensor with no autograd history, so a CUDA
 dispatch never lets a gradient fall silently out of the graph: with grad
 mode on and a floating input that requires grad, ``flash_attention`` and
 ``ssd_chunk`` go through :class:`FlashAttention` and :class:`SsdChunk`
-(their backwards hand-written kernels too, fp32 only: a bf16 input that
-needs a gradient raises, naming ROADMAP A5c) and every other kernel
-raises (``_build.refuse_grad``).  On the CPU the two Functions run their
-kernels' plain forward and backward; the other kernels' plain versions
-are differentiated by autograd.
+(their backwards hand-written kernels too, for fp32 and bf16; any other
+dtype that needs a gradient, fp16 among them, raises) and every other
+kernel raises (``_build.refuse_grad``).  On the CPU the two Functions
+run their kernels' plain forward and backward; the other kernels' plain
+versions are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -38,6 +38,20 @@ from repro_torch.kernels.tree_traverse import tree_traverse_cuda
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+# the dtypes whose gradient the backward kernels take; the plain versions
+# on the CPU take float64 too (an oracle's)
+GRAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _refuse_dtype(kernel: str, t: torch.Tensor) -> None:
+    if t.dtype in GRAD_DTYPES or (t.dtype == torch.float64 and _on_cpu(t)):
+        return
+    raise TypeError(
+        f"{kernel}'s backward kernels take fp32 or bf16, got {t.dtype}; an "
+        f"input requires grad, and its output would carry no gradient. "
+        f"Train in fp32 or bf16, or run it under torch.no_grad()")
 
 
 def tree_traverse(feature, threshold, leaf, x, thr_scale=None,
@@ -105,8 +119,9 @@ def _ssd_forward(xbar, a, Bm, Cm):
 class SsdChunk(torch.autograd.Function):
     """``ssd_chunk`` with a gradient: the forward (the kernel on CUDA, the
     plain version on the CPU) saves xbar, a, Bm and Cm; the backward is
-    ``ssd_chunk_bwd_cuda`` on CUDA, ``ssd_chunk_bwd_ref`` on the CPU.  An
-    unused output's gradient arrives as zeros."""
+    ``ssd_chunk_bwd_cuda`` on CUDA (fp32 or bf16, whichever route the
+    forward took), ``ssd_chunk_bwd_ref`` on the CPU.  An unused output's
+    gradient arrives as zeros."""
 
     @staticmethod
     def forward(ctx, xbar, a, Bm, Cm):
@@ -125,15 +140,10 @@ def ssd_chunk(xbar, a, Bm, Cm):
     """Mamba-2 SSD intra-chunk block: xbar [B, nc, Q, H, P], a [B, nc, H, Q],
     Bm/Cm [B, nc, Q, N] -> (y_diag [B, nc, Q, H, P], states
     [B, nc, H, P, N]) in xbar's dtype (plain: ref.ssd_chunk_ref).  Where a
-    gradient is wanted it goes through :class:`SsdChunk`; on the card a
-    bf16 input that needs one raises (the backward kernel is fp32)."""
+    gradient is wanted it goes through :class:`SsdChunk` (fp32 or bf16;
+    another dtype raises)."""
     if needs_grad(xbar, a, Bm, Cm):
-        if not _on_cpu(xbar) and xbar.dtype != torch.float32:
-            raise RuntimeError(
-                f"ssd_chunk's CUDA kernel has no backward for {xbar.dtype} "
-                f"(fp32 only; a bf16 backward is ROADMAP A5c); an input "
-                f"requires grad, and its output would carry no gradient. "
-                f"Train in fp32, or run it under torch.no_grad()")
+        _refuse_dtype("ssd_chunk", xbar)
         return SsdChunk.apply(xbar, a, Bm, Cm)
     return _ssd_forward(xbar, a, Bm, Cm)
 
@@ -156,11 +166,12 @@ def _flash_backward(q, k, v, o, do, lse, causal, scale):
 
 
 class FlashAttention(torch.autograd.Function):
-    """``flash_attention`` with a gradient: the forward (the SIMT kernel
-    with its per-row lse on CUDA, the plain version on the CPU) saves q,
-    k, v, the output and lse; the backward is
-    ``flash_attention_bwd_cuda`` on CUDA, ``flash_attention_bwd_ref`` on
-    the CPU.  fp32 only: a bf16 input that needs a gradient raises."""
+    """``flash_attention`` with a gradient: the forward (the kernel of
+    ``flash_attention.route`` with its per-row lse on CUDA, the plain
+    version on the CPU) saves q, k, v, the output and lse; the backward
+    is ``flash_attention_bwd_cuda`` on CUDA (the same route: the
+    tensor-core backward for bf16 at D, Dv in {64, 128}, the SIMT one
+    otherwise), ``flash_attention_bwd_ref`` on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale):
@@ -182,13 +193,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """GQA/MQA attention q [B, Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv]
     -> [B, Sq, H, Dv] in q's dtype, causal with both positions counted from
     0 (plain: ref.flash_attention_ref).  Where a gradient is wanted it goes
-    through :class:`FlashAttention` (fp32 only)."""
+    through :class:`FlashAttention` (fp32 or bf16; another dtype
+    raises)."""
     if needs_grad(q, k, v):
-        if not all(t.dtype == torch.float32 for t in (q, k, v)):
-            raise TypeError(
-                f"flash_attention's backward takes fp32 only, got "
-                f"{q.dtype}: bf16 training waits for a tensor-core backward "
-                f"(ROADMAP A5c)")
+        _refuse_dtype("flash_attention", q)
         return FlashAttention.apply(q, k, v, causal, scale)
     return _flash_forward(q, k, v, causal, scale, False)
 

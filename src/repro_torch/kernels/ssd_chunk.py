@@ -27,9 +27,13 @@ plain version is :func:`ssd_chunk_ref`, which ``kernels.ref`` re-exports.
 
 The backward (the gradient the JAX package takes with ``jax.grad`` of the
 einsum branch of ``models/mamba2.py::ssd_chunked``) is
-``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_bwd_cuda`), fp32 on CUDA
-cores, four launches in one counted call; its plain version is
-:func:`ssd_chunk_bwd_ref`, written from the formulas and not by autograd.
+``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_bwd_cuda`), fp32 arithmetic
+on CUDA cores from fp32 or bf16 inputs (the gradients stored in the
+inputs' dtype), four launches in one counted call, whichever route the
+forward took: it is the exact gradient of the chunk function at the
+inputs, not of the tensor-core route's bf16 rounding of W and of the
+decayed x̄.  Its plain version is :func:`ssd_chunk_bwd_ref`, written from
+the formulas and not by autograd.
 """
 from __future__ import annotations
 
@@ -148,7 +152,7 @@ def ssd_chunk_bwd_ref(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
 
     Shapes as :func:`ssd_chunk_ref`, ``dy`` as y_diag and ``dstates`` as
     the states; returns ``(dxbar, da, dBm, dCm)`` in the inputs' dtypes,
-    computed in fp32 (float64 stays float64)."""
+    computed in fp32 (bf16 inputs upcast, float64 stays float64)."""
     B, nc, Q, H, P, N = check_shapes(xbar, a, Bm, Cm)
     work = _work_dtype(xbar)
     x, a32, Bf, Cf, dyf, dst = (t.to(work) for t in (xbar, a, Bm, Cm, dy,
@@ -270,12 +274,16 @@ BWD_TILE = 64
 def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
                        Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
                        dstates: torch.Tensor):
-    """``(dxbar, da, dBm, dCm)`` by ``csrc/ssd_chunk_bwd.cu`` on contiguous
-    fp32 CUDA tensors shaped as :func:`ssd_chunk_bwd_ref`'s (one counted
-    launch of its four kernels).  Refuses by shape and dtype what the
-    kernel does not take; never falls back to the plain version."""
+    """``(dxbar, da, dBm, dCm)`` in the inputs' dtype by
+    ``csrc/ssd_chunk_bwd.cu`` on contiguous CUDA tensors, all fp32 or all
+    bf16, shaped as :func:`ssd_chunk_bwd_ref`'s (one counted launch of its
+    four kernels).  Refuses by shape and dtype what the kernel does not
+    take; never falls back to the plain version."""
     B, nc, Q, H, P, N = check_shapes(xbar, a, Bm, Cm)
     f32 = torch.float32
+    if xbar.dtype not in _DTYPES:
+        raise TypeError(f"ssd_chunk's backward takes fp32 or bf16, got "
+                        f"{xbar.dtype}")
     if not 1 <= Q <= MAX_Q:
         raise ValueError(
             f"ssd_chunk's backward takes a chunk of 1 <= Q <= {MAX_Q} "
@@ -294,12 +302,7 @@ def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
     for name, t, nd in (("xbar", xbar, 5), ("a", a, 4), ("Bm", Bm, 4),
                         ("Cm", Cm, 4), ("dy", dy, 5), ("dstates", dstates,
                                                         5)):
-        if t.dtype != f32:
-            raise TypeError(
-                f"ssd_chunk's backward takes fp32 only, got {name} "
-                f"{t.dtype}: bf16 training waits for a bf16 backward "
-                f"(ROADMAP A5c)")
-        _build.check_cuda(name, t, f32, nd)
+        _build.check_cuda(name, t, xbar.dtype, nd)
     nt = -(-Q // BWD_TILE)
     dev = xbar.device
     # scratch: cumsums and end decays, S and dS, the per-head row and
@@ -312,7 +315,7 @@ def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
     da = torch.empty_like(a)
     dB = torch.empty_like(Bm)
     dC = torch.empty_like(Cm)
-    _build.launch("ssd_chunk_bwd", dev, *(
+    _build.launch("ssd_chunk_bwd", dev, _DTYPES[xbar.dtype], *(
         t.data_ptr() for t in (xbar, a, Bm, Cm, dy, dstates, cum, S, part,
                                e, dx, da, dB, dC)), BC, Q, H, P, N)
     return dx, da, dB, dC

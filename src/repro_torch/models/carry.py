@@ -11,7 +11,10 @@ port's optimizer state keys its moments by the model's parameter names
 (``dict(lm.named_parameters())``: ``"stack.3.pos0.attn.wq"``), which
 :func:`tree_to_named` and :func:`named_to_tree` map to and from JAX's
 layout.  Training checkpoints (``train/checkpoint.py``) are written in
-JAX's layout, so that either package restores what the other wrote.
+JAX's layout, so that either package restores what the other wrote; they
+hold a bf16 leaf as 2-byte void elements of the same bits (:func:`to_host`),
+as numpy stores JAX's, so that neither writing nor reading one needs
+``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -25,10 +28,16 @@ from repro_torch.models.transformer import FFN, LM, Attn, Layer, layer_plan
 from repro_torch.optim import OptState
 
 
+# how a checkpoint holds a bf16 leaf: 2-byte void elements of its bits
+BF16_BITS = np.dtype("V2")
+
+
 def to_tensor(a, device) -> torch.Tensor:
-    """A numpy array (bf16 included) as a tensor on ``device``."""
+    """A numpy array as a tensor on ``device``; numpy's ``bfloat16`` and
+    2-byte void elements (:data:`BF16_BITS`, a checkpoint's bf16 leaf)
+    become bf16 bit for bit."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
         bits = torch.from_numpy(np.array(a.view(np.uint16)))
         return bits.view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
@@ -137,15 +146,26 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return np.array(t.view(torch.int16).numpy()).view(bf16)
 
 
-def named_to_tree(named: dict) -> dict:
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor as a numpy array on the host, a bf16 tensor as
+    :data:`BF16_BITS` elements holding its bits (no ``ml_dtypes``
+    needed): how checkpoints hold it."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return np.array(t.numpy())
+    return np.array(t.view(torch.int16).numpy()).view(BF16_BITS)
+
+
+def named_to_tree(named: dict, host=to_numpy) -> dict:
     """JAX's layout from tensors or arrays keyed by the port's parameter
     names: ``prefix.{i}.…`` into the list ``prefix``, ``stack.{r}.pos{j}.…``
     stacked on a leading ``[n_repeat]`` axis under ``stack/pos{j}``, the
-    rest nested by the dots."""
+    rest nested by the dots.  Tensors go to numpy by ``host``
+    (:func:`to_numpy`, or :func:`to_host` for a checkpoint)."""
     tree: dict = {}
     stacked: dict = {}
     for name, value in named.items():
-        a = to_numpy(value) if isinstance(value, torch.Tensor) else value
+        a = host(value) if isinstance(value, torch.Tensor) else value
         parts = name.split(".")
         if parts[0] == "stack":
             stacked.setdefault((parts[2], *parts[3:]), {})[int(parts[1])] = a
@@ -180,24 +200,25 @@ def tree_to_named(tree: dict, device, dtypes: dict | None = None) -> dict:
             for k, v in named.items()}
 
 
-def params_to_jax(lm: LM, cfg: ArchConfig | None = None) -> dict:
-    """JAX's ``init_params`` tree (numpy leaves) from the port's model:
-    the inverse of :func:`params_from_jax`, ``stack`` stacked on a leading
-    ``[n_repeat]`` axis."""
+def params_to_jax(lm: LM, cfg: ArchConfig | None = None, *,
+                  host=to_numpy) -> dict:
+    """JAX's ``init_params`` tree (numpy leaves, by ``host``) from the
+    port's model: the inverse of :func:`params_from_jax`, ``stack``
+    stacked on a leading ``[n_repeat]`` axis."""
     if cfg is not None:
         _, period, n_rep = layer_plan(cfg)
         if (len(lm.stack), len(lm.stack[0]) if len(lm.stack) else 0) != (
                 n_rep, len(period) if n_rep else 0):
             raise ValueError(f"the model's stack is not {cfg.name}'s")
-    return named_to_tree(dict(lm.named_parameters()))
+    return named_to_tree(dict(lm.named_parameters()), host)
 
 
-def opt_state_to_jax(state: OptState) -> dict:
+def opt_state_to_jax(state: OptState, *, host=to_numpy) -> dict:
     """JAX's ``OptState`` fields as a dict (``step``, ``mu``, ``nu`` in
-    JAX's layout, numpy leaves) from the port's, whose moments are keyed
-    by parameter name."""
-    return {"step": to_numpy(state.step), "mu": named_to_tree(state.mu),
-            "nu": named_to_tree(state.nu)}
+    JAX's layout, numpy leaves by ``host``) from the port's, whose
+    moments are keyed by parameter name."""
+    return {"step": host(state.step), "mu": named_to_tree(state.mu, host),
+            "nu": named_to_tree(state.nu, host)}
 
 
 def opt_state_from_jax(tree, device=None) -> OptState:

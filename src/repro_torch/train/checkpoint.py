@@ -18,6 +18,11 @@ checkpoint the other wrote, as with the ``ForestPack`` ``.npz``.
   * async: ``save(..., async_write=True)`` copies the tree to host memory
     at once and writes it on a thread.
   * ``keep``: only the newest ``keep`` committed steps stay.
+  * bf16 leaves are stored as JAX's ``np.savez`` stores them: 2-byte void
+    elements of the same bits (``'<V2'`` in the ``.npy`` header) and
+    ``"bfloat16"`` in ``meta.json``'s ``dtypes``, so the port's file
+    equals JAX's leaf by leaf; ``restore`` reads the dtype from
+    ``meta.json``.  Neither needs ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -25,32 +30,56 @@ import json
 import shutil
 import threading
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.models.carry import (lm_from_tree, opt_state_to_jax,
-                                      params_to_jax, to_numpy, to_tensor,
-                                      tree_to_named)
+from repro_torch.models.carry import (BF16_BITS, lm_from_tree,
+                                      opt_state_to_jax, params_to_jax,
+                                      to_host, to_tensor, tree_to_named)
 from repro_torch.models.transformer import LM
 from repro_torch.optim import OptState
 
 
 def _jax_tree(tree):
     """``tree`` with every model and optimizer state in JAX's layout and
-    every tensor a host numpy array."""
+    every tensor a host numpy array (bf16 as :data:`BF16_BITS`)."""
     if isinstance(tree, LM):
-        return params_to_jax(tree)
+        return params_to_jax(tree, host=to_host)
     if isinstance(tree, OptState):
-        return opt_state_to_jax(tree)
+        return opt_state_to_jax(tree, host=to_host)
     if isinstance(tree, dict):
         return {k: _jax_tree(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return [_jax_tree(v) for v in tree]
     if isinstance(tree, torch.Tensor):
-        return to_numpy(tree)
+        return to_host(tree)
     return np.asarray(tree)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    """A leaf's dtype as JAX's ``meta.json`` names it."""
+    return "bfloat16" if a.dtype == BF16_BITS else str(a.dtype)
+
+
+def _savez(path: Path, host: dict[str, np.ndarray]) -> None:
+    """``np.savez(path, **host)``, byte for byte, but a bf16 leaf's header
+    names ``'<V2'``, as numpy writes JAX's bf16 leaves (a plain void array
+    would give ``'|V2'``)."""
+    fmt = np.lib.format
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in host.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if a.dtype != BF16_BITS:
+                    fmt.write_array(f, a, allow_pickle=False)
+                    continue
+                header = fmt.header_data_from_array_1_0(a)
+                header["descr"] = "<V2"
+                fmt.write_array_header_1_0(f, header)
+                f.write(np.ascontiguousarray(a).tobytes())
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -83,10 +112,10 @@ def save(step: int, tree, directory, *, async_write: bool = False,
         if tmp_dir.exists():
             shutil.rmtree(tmp_dir)
         tmp_dir.mkdir(parents=True)
-        np.savez(tmp_dir / "shard_0.npz", **host)
+        _savez(tmp_dir / "shard_0.npz", host)
         meta = {"step": step, "keys": sorted(host),
                 "shapes": {k: list(v.shape) for k, v in host.items()},
-                "dtypes": {k: str(v.dtype) for k, v in host.items()},
+                "dtypes": {k: _dtype_name(v) for k, v in host.items()},
                 "time": time.time()}
         (tmp_dir / "meta.json").write_text(json.dumps(meta))
         if step_dir.exists():
@@ -119,12 +148,12 @@ def latest_step(directory) -> int | None:
     return max(steps) if steps else None
 
 
-def _nested(data, prefix: str) -> dict:
+def _nested(data: dict, prefix: str) -> dict:
     """The JAX-layout subtree under key path ``prefix`` of the file's
     leaves (``prefix`` is a list of layers, the rest dicts)."""
     tree: dict = {}
     head = f"{prefix}/" if prefix else ""
-    for key in data.files:
+    for key in data:
         if not key.startswith(head):
             continue
         node = tree
@@ -199,5 +228,19 @@ def restore(tree_like, directory, step: int | None = None):
         step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint under {directory}")
-    with np.load(directory / f"step_{step:08d}" / "shard_0.npz") as data:
-        return _rebuild(tree_like, data, ""), step
+    step_dir = directory / f"step_{step:08d}"
+    dtypes = json.loads((step_dir / "meta.json").read_text())["dtypes"]
+    with np.load(step_dir / "shard_0.npz") as f:
+        data = {k: _file_leaf(f[k], dtypes.get(k)) for k in f.files}
+    return _rebuild(tree_like, data, ""), step
+
+
+def _file_leaf(a: np.ndarray, dtype: str | None) -> np.ndarray:
+    """A leaf as the file holds it, a ``"bfloat16"`` one (2-byte void
+    elements, or numpy's bfloat16 where ``ml_dtypes`` is loaded) as
+    :data:`BF16_BITS` (which ``to_tensor`` takes as bf16 bits)."""
+    if dtype != "bfloat16":
+        return a
+    if a.dtype.itemsize != 2:
+        raise ValueError(f"a bfloat16 leaf of {a.dtype} in the checkpoint")
+    return a.view(BF16_BITS)

@@ -10,6 +10,15 @@ JAX leaf, so over a period position's stacked repeats), then AdamW
 -- all from the port's ``optim``.  Products run in full float32 (TF32
 off), so that fp32 is fp32 on the card.
 
+A bf16 model trains as JAX's bf16 step does (``make_train_step`` is
+given a model whose parameters are bf16; nothing else changes): the
+gradients come out bf16, ``clip_leaf`` multiplies each by the fp32 clip
+factor and so promotes it to fp32, the moments are fp32
+(``adamw(moment_dtype=torch.float32)``), and each update is taken in
+fp32 and rounded to bf16 once, where JAX's ``adamw`` rounds it
+(``repro/optim/optim.py``: ``(p - lr_t * delta.astype(p.dtype))
+.astype(p.dtype)`` with a scheduled, so fp32, rate).
+
 ``params`` is the port's model (``transformer.LM``); the step turns
 gradients on for its parameters and replaces each one's tensor with the
 updated one (tensors taken from the model before the step keep their
@@ -24,15 +33,19 @@ arithmetic of the port's ``optim.adamw`` ``update``) run leaf by leaf,
 and each leaf's gradient, old parameter tensor and old moments are
 released before the next leaf is done.  So the step holds the
 parameters, their gradients and two moments (16 bytes a parameter in
-fp32) and one leaf's temporaries, never a second tree of any of them.
+fp32, 12 in bf16: 2 + 2 + 4 + 4) and one leaf's temporaries (fp32),
+never a second tree of any of them.
 The optimizer state passed in is consumed: its moment dicts are updated
 in place and returned.  The numbers are those of the whole-tree update
 bit for bit (compression takes its int8 scale per JAX leaf, so a period
 position's stacked repeats are done together).
 
-Mamba layers train through ``ops.SsdChunk`` (``csrc/ssd_chunk_bwd.cu`` on
-the card).  Every backward kernel is fp32: a 16-bit model is refused
-(:func:`check_trainable`, ROADMAP A5c).
+Attention trains through ``ops.FlashAttention`` (on the card the
+tensor-core backward ``csrc/flash_attention_bwd_sm90.cu`` for bf16 at
+head sizes 64 and 128, ``csrc/flash_attention_bwd.cu`` otherwise), Mamba
+layers through ``ops.SsdChunk`` (``csrc/ssd_chunk_bwd.cu``).  The
+backward kernels take fp32 and bf16: an fp16 model is refused
+(:func:`check_trainable`).
 
 JAX's mesh and shardings have no counterpart on one card; ``SHAPES``,
 ``input_specs``, ``shape_supported`` and ``make_train_step_lowerable``
@@ -53,18 +66,18 @@ from repro_torch.optim import (OptState, adamw, clip_leaf, clip_scale,
 
 def check_trainable(cfg: ArchConfig, dtype: torch.dtype = torch.float32
                     ) -> None:
-    """Raise for what the port cannot train: parameters in a 16-bit dtype
-    (bf16, fp16), since every config's mixers run ``flash_attention`` or
-    ``ssd_chunk``, whose backward kernels are fp32 only.  (float64 runs
-    on the CPU's plain versions.)"""
-    if dtype.itemsize >= 4:
+    """Raise for what the port cannot train: parameters in a dtype the
+    backward kernels do not take (fp16), since every config's mixers run
+    ``flash_attention`` or ``ssd_chunk``, whose backward kernels take fp32
+    and bf16.  (float64 runs on the CPU's plain versions.)"""
+    if dtype in (torch.float32, torch.bfloat16, torch.float64):
         return
     prefix, period, _ = T.layer_plan(cfg)
     mixers = sorted({s.mixer for s in prefix + period})
     raise NotImplementedError(
         f"{cfg.name} in {dtype}: its {'/'.join(mixers)} layers' backward "
-        f"kernels (flash_attention, ssd_chunk) take fp32 only; {dtype} "
-        f"training waits for them (ROADMAP A5c)")
+        f"kernels (flash_attention, ssd_chunk) take fp32 or bf16, not "
+        f"{dtype}")
 
 
 def trainable(params: T.LM) -> dict[str, torch.nn.Parameter]:

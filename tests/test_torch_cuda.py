@@ -1642,19 +1642,24 @@ def test_ssd_backward_kernel_matches_plain(cuda, label, shape):
 
 
 def test_ssd_backward_refuses_by_shape_and_dtype(cuda):
-    """bf16 and a chunk over 256 are refused before any launch; a bf16
-    forward that needs a gradient is refused naming ROADMAP A5c."""
+    """fp16, mixed dtypes and a chunk over 256 are refused before any
+    launch, and an fp16 forward that needs a gradient (the backward takes
+    fp32 and bf16; bf16 was refused too before its backward was
+    written)."""
     from repro_torch.kernels import ssd_chunk as sc
     rng = np.random.default_rng(0)
     args = chip_smoke.ssd_bwd_inputs(rng, (1, 2, 16, 2, 8, 8), cuda)
     long = chip_smoke.ssd_bwd_inputs(rng, (1, 1, 257, 1, 4, 4), cuda)
     before = dict(ops.launches)
-    with pytest.raises(TypeError, match="fp32 only.*A5c"):
-        sc.ssd_chunk_bwd_cuda(*(t.bfloat16() for t in args))
+    with pytest.raises(TypeError, match="takes fp32 or bf16, got "
+                       "torch.float16"):
+        sc.ssd_chunk_bwd_cuda(*(t.half() for t in args))
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        sc.ssd_chunk_bwd_cuda(args[0], args[1].bfloat16(), *args[2:])
     with pytest.raises(ValueError, match="Q <= 256"):
         sc.ssd_chunk_bwd_cuda(*long)
-    with pytest.raises(RuntimeError, match="A5c"):
-        ops.ssd_chunk(*(t.bfloat16().requires_grad_() for t in args[:4]))
+    with pytest.raises(TypeError, match="take fp32 or bf16"):
+        ops.ssd_chunk(*(t.half().requires_grad_() for t in args[:4]))
     assert ops.launches == before
 
 
@@ -1722,3 +1727,86 @@ def test_mamba_card_training_equals_the_cpu_port_and_resumes(cuda,
     (p1, o1), step = ckpt.restore(copy.deepcopy(one), tmp_path)
     assert step == 1
     chip_smoke.same_training_state("resumed", run(p1, cuda, 2, 1, o1), card)
+
+
+@pytest.mark.parametrize("label,shape,causal", chip_smoke.BWD_BF16_CASES,
+                         ids=[c[0] for c in chip_smoke.BWD_BF16_CASES])
+def test_bf16_flash_backward_kernels_match_plain(cuda, label, shape,
+                                                 causal):
+    """The bf16 backward of the route ``flash_attention.route`` names (the
+    tensor cores at D, Dv in {64, 128}, the SIMT kernel otherwise) against
+    ``flash_attention_bwd_ref`` on the same bf16 inputs within
+    ``BWD_BF16_BAR`` of each gradient's scale, the same bits on a second
+    run, counted on its route's key."""
+    from repro_torch.kernels import flash_attention as fa
+    args = chip_smoke.bwd_inputs(np.random.default_rng(sum(shape)), shape,
+                                 causal, cuda, torch.bfloat16)
+    key = ("flash_attention_bwd_sm90" if fa.route(
+        torch.bfloat16, shape[5], shape[6]) == "sm90"
+        else "flash_attention_bwd")
+    before = dict(ops.launches)
+    chip_smoke.bwd_bf16_check(label, args, causal)
+    assert {k: ops.launches[k] - before[k] for k in before
+            if ops.launches[k] != before[k]} == {key: 2}
+
+
+@pytest.mark.parametrize("label,shape", chip_smoke.SSD_BWD_CASES[1:],
+                         ids=[c[0] for c in chip_smoke.SSD_BWD_CASES[1:]])
+def test_bf16_ssd_backward_kernel_matches_plain(cuda, label, shape):
+    """The SSD backward on bf16 inputs: bf16 gradients, each within twice
+    the plain version's distance from float64 plus half a bf16 ulp of its
+    scale, the same bits on a second run."""
+    args = chip_smoke.ssd_bwd_inputs(np.random.default_rng(sum(shape)),
+                                     shape, cuda, torch.bfloat16)
+    chip_smoke.ssd_bwd_check(f"bf16 {label}", args)
+    from repro_torch.kernels import ssd_chunk as sc
+    assert all(g.dtype == torch.bfloat16
+               for g in sc.ssd_chunk_bwd_cuda(*args))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_forward_writes_lse(cuda, causal):
+    """The tensor-core forward's lse against the plain version's (-inf
+    where a row sees no key), and its output the same bits with and
+    without the lse."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = chip_smoke.flash_inputs(np.random.default_rng(4),
+                                      (2, 150, 130, 8, 2, 64, 128),
+                                      torch.bfloat16, cuda)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    _, want = fa.flash_attention_ref_lse(q, k, v, causal=causal)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal))
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], rtol=0, atol=1e-4)
+
+
+def test_bf16_train_step_on_the_tensor_cores(cuda):
+    """One bf16 step at tinyllama's smoke config widened to head size 64:
+    2 tensor-core forwards (and remat) and 1 tensor-core backward a layer,
+    nothing else; bf16 gradients whose distance from an fp32 run of the
+    same params is no more than twice the plain versions' plus half a
+    bf16 ulp (relative L2, each leaf)."""
+    import copy
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import loss_and_grads
+    cfg = smoke_config("tinyllama-1.1b").scaled(head_dim=64)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           torch.bfloat16, device=cuda)
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, 256, 2), 0, cuda)
+    chip_smoke.zero_counts()
+    _, gk = loss_and_grads(params, cfg, batch)
+    n = cfg.n_layers
+    assert chip_smoke.read_counts() == (
+        {"flash_attention": 2 * n, "flash_attention_bwd_sm90": n},
+        {"flash_attention_sm90": 2 * n})
+    with chip_smoke.plain_training():
+        _, gp = loss_and_grads(params, cfg, batch)
+    _, go = loss_and_grads(copy.deepcopy(params).float(), cfg, batch)
+    for k, g in go.items():
+        assert gk[k].dtype == params.get_parameter(k).dtype
+        assert (chip_smoke.rel_l2(gk[k], g)
+                <= 2 * chip_smoke.rel_l2(gp[k], g) + chip_smoke.BF16_FLOOR), k

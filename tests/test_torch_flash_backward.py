@@ -194,12 +194,21 @@ def test_cuda_path_keeps_the_graph(routed_as_cuda):
 
 
 def test_bf16_that_needs_a_gradient_is_refused():
-    q, k, v, _ = (torch.tensor(a).bfloat16()
-                  for a in inputs((1, 8, 8, 2, 1, 4, 4, True)))
-    with pytest.raises(TypeError, match="fp32 only.*A5c"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+    """The backward kernels take fp32 and bf16: an fp16 input that needs
+    a gradient is refused, naming the dtypes; a bf16 one (once refused
+    too) goes through the Function and gets bf16 gradients."""
+    q, k, v, _ = (torch.tensor(a) for a in inputs((1, 8, 8, 2, 1, 4, 4,
+                                                   True)))
+    with pytest.raises(TypeError, match="take fp32 or bf16, got "
+                       "torch.float16"):
+        ops.flash_attention(q.half().requires_grad_(), k.half(), v.half())
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     with torch.no_grad():      # serving's bf16 forward is unchanged
-        assert ops.flash_attention(q, k, v).dtype == torch.bfloat16
+        assert ops.flash_attention(qb, kb, vb).dtype == torch.bfloat16
+    out = ops.flash_attention(qb.requires_grad_(), kb, vb)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    (dq,) = torch.autograd.grad(out.float().sum(), qb)
+    assert dq.dtype == torch.bfloat16 and torch.isfinite(dq.float()).all()
 
 
 def _meta(*shape, dtype=torch.float32, grad=False):
@@ -222,16 +231,16 @@ def test_kernels_without_a_backward_refuse_inputs_that_need_one(
         monkeypatch, kernel):
     """Where a kernel without a backward would get an input that requires
     grad, the dispatch raises naming the kernel (and for ssd_chunk, whose
-    backward kernel is fp32 only, a bf16 input and the ROADMAP item of its
-    bf16 backward) before any launch; under no_grad, or with no input
-    requiring grad, it launches."""
+    backward kernel takes fp32 and bf16, an fp16 input, naming the dtypes)
+    before any launch; under no_grad, or with no input requiring grad, it
+    launches."""
     g = dict(grad=True)
-    bf16 = torch.bfloat16
+    f16 = torch.float16
     cases = {
         "ssd_chunk": (ops, "ssd_chunk_cuda", lambda gr: ops.ssd_chunk(
-            _meta(1, 1, 4, 2, 4, dtype=bf16, **gr),
-            _meta(1, 1, 2, 4, dtype=bf16), _meta(1, 1, 4, 4, dtype=bf16),
-            _meta(1, 1, 4, 4, dtype=bf16))),
+            _meta(1, 1, 4, 2, 4, dtype=f16, **gr),
+            _meta(1, 1, 2, 4, dtype=f16), _meta(1, 1, 4, 4, dtype=f16),
+            _meta(1, 1, 4, 4, dtype=f16))),
         "top2_confidence": (ops, "top2_confidence_cuda",
                             lambda gr: ops.top2_confidence(_meta(4, 5, **gr))),
         "grove_aggregate": (ops, "grove_aggregate_cuda",
@@ -260,9 +269,14 @@ def test_kernels_without_a_backward_refuse_inputs_that_need_one(
     launched = _launched(monkeypatch, module, name)
     if kernel == "grove_aggregate":
         monkeypatch.setattr(ops, "check_contrib", lambda c: None)
-    with pytest.raises(RuntimeError, match=f"{kernel}'s CUDA kernel has no "
-                       "backward" + (r".*A5c" if kernel == "ssd_chunk"
-                                     else "")):
+    if kernel == "ssd_chunk":
+        raises = pytest.raises(TypeError, match="ssd_chunk's backward "
+                               "kernels take fp32 or bf16, got "
+                               "torch.float16")
+    else:
+        raises = pytest.raises(RuntimeError, match=f"{kernel}'s CUDA "
+                               "kernel has no backward")
+    with raises:
         call(g)
     assert launched == []
     with torch.no_grad():

@@ -195,4 +195,5 @@ def test_ops_cpu_path_launches_no_kernel():
                                  "top2_confidence", "histogram",
                                  "tree_traverse", "ssd_chunk",
                                  "flash_attention", "flash_attention_bwd",
+                                 "flash_attention_bwd_sm90",
                                  "ssd_chunk_bwd"}

@@ -169,3 +169,59 @@ def test_ssd_backward_work_at_the_training_shape():
     assert work["bytes"] == 152_305_664
     ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"])
     assert by == "operations" and abs(ms - 0.163590) < 1e-6
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [(37, 53, True), (53, 37, True),
+                                          (37, 53, False)])
+def test_tensor_core_backward_work_counts_every_tensor_and_product(
+        Sq, Sk, causal):
+    """bwd_work_sm90 against the bf16 tensors the backward reads and writes
+    (q, k, v, o, do; dq, dk, dv), the fp32 lse it reads, the five products
+    over the live pairs and the seven its two passes run (s and dp twice:
+    2 (4 D + 3 Dv) FLOP a pair)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, K, D, Dv = 2, 6, 3, 64, 128
+    q, k, v = (torch.zeros(sh, dtype=torch.bfloat16) for sh in
+               ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, Dv)))
+    o, lse = fa.flash_attention_ref_lse(q, k, v, causal=causal)
+    grads = fa.flash_attention_bwd_ref(q, k, v, o, o, lse, causal=causal)
+    assert lse.dtype == torch.float32 and grads[0].dtype == torch.bfloat16
+    pairs = sum(1 for i in range(Sq) for j in range(Sk)
+                if not causal or j <= i)
+    work = chip_smoke.bwd_work_sm90(B, Sq, Sk, H, K, D, Dv, causal)
+    assert work["pairs"] == pairs
+    assert work["ops"] == chip_smoke.bwd_work(B, Sq, Sk, H, K, D, Dv,
+                                              causal)["ops"]
+    assert work["design_ops"] == B * H * pairs * (8 * D + 6 * Dv)
+    assert work["bytes"] == sum(t.numel() * t.element_size() for t in (
+        q, k, v, o, o, lse, *grads))
+
+
+@pytest.mark.parametrize("shape,ops,n_bytes,bound,by", [
+    ((2, 4096, 4096, 32, 4, 64, 64), 343_681_269_760, 152_043_520,
+     0.347504, "operations"),
+    ((8, 256, 256, 32, 4, 64, 64), 5_389_680_640, 38_010_880, 0.011346,
+     "bytes")])
+def test_tensor_core_backward_work_at_the_training_shapes(shape, ops,
+                                                          n_bytes, bound,
+                                                          by):
+    """tinyllama's bf16 step at S = 4096 (3.44e11 FLOP: 0.347 ms at 989
+    TFLOP/s, above 152 MB at 3.35 TB/s) and fp32 training's 8 x 256 shape
+    in bf16 (38 MB: bytes bound it)."""
+    work = chip_smoke.bwd_work_sm90(*shape)
+    assert (work["ops"], work["bytes"]) == (ops, n_bytes)
+    ms, got_by = chip_smoke.bound_ms(work["bytes"], work["ops"],
+                                     chip_smoke.BF16_OPS_PER_S)
+    assert got_by == by and abs(ms - bound) < 1e-6
+
+
+def test_ssd_backward_work_in_bf16_at_mamba2_s_training_shape():
+    """mamba2-2.7b's bf16 step at 2 x 4096 (xbar [2, 16, 256, 80, 64], N =
+    128): 43.8 GFLOP and 305 MB, so bytes bound it at the bf16 rate
+    (0.091 ms; the operations 0.044 ms)."""
+    work = chip_smoke.ssd_bwd_work(2, 16, 256, 80, 64, 128, itemsize=2)
+    assert work["ops"] == 43_842_011_136
+    assert work["bytes"] == 304_611_328
+    ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"],
+                                 chip_smoke.BF16_OPS_PER_S)
+    assert by == "bytes" and abs(ms - 0.090929) < 1e-6

@@ -163,8 +163,9 @@ def routed_as_cuda(monkeypatch):
 def test_cuda_path_keeps_the_graph(routed_as_cuda):
     """On the CUDA branch a forward that needs a gradient goes through the
     Function, whose backward launches the backward kernel once; under
-    no_grad the forward alone.  A bf16 input that needs a gradient is
-    refused before any launch, naming ROADMAP A5c."""
+    no_grad the forward alone.  bf16 takes the same path (the backward
+    kernel takes it); an fp16 input that needs a gradient is refused
+    before any launch, naming the dtypes."""
     case = chunk_case(1, 2, 8, 2, 4, 4, seed=5)
     x, a, Bm, Cm, dy, dst = map(torch.as_tensor, case)
     with torch.no_grad():
@@ -176,21 +177,30 @@ def test_cuda_path_keeps_the_graph(routed_as_cuda):
     want = sc.ssd_chunk_bwd_ref(x, a, Bm, Cm, dy, dst)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     bf = [t.bfloat16().requires_grad_() for t in (x, a, Bm, Cm)]
-    with pytest.raises(RuntimeError, match="no backward for torch.bfloat16"
-                       ".*A5c"):
-        ops.ssd_chunk(*bf)
-    assert len(routed_as_cuda) == 3
+    got = torch.autograd.grad(ops.ssd_chunk(*bf), bf,
+                              (dy.bfloat16(), dst.bfloat16()))
+    assert routed_as_cuda[3:] == ["forward", "backward"]
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    half = [t.half().requires_grad_() for t in (x, a, Bm, Cm)]
+    with pytest.raises(TypeError, match="take fp32 or bf16, got "
+                       "torch.float16"):
+        ops.ssd_chunk(*half)
+    assert len(routed_as_cuda) == 5
 
 
 def test_backward_wrapper_refuses_before_any_launch():
-    """The kernel's wrapper takes contiguous fp32 CUDA tensors and Q <= 256;
-    it refuses the rest by shape and dtype, never by a failed launch."""
+    """The kernel's wrapper takes contiguous fp32 or bf16 CUDA tensors and
+    Q <= 256; it refuses the rest by shape and dtype, never by a failed
+    launch."""
     case = [torch.as_tensor(t) for t in chunk_case(1, 2, 8, 2, 4, 4)]
     before = dict(ops.launches)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         sc.ssd_chunk_bwd_cuda(*case)
-    with pytest.raises(TypeError, match="fp32 only.*A5c"):
-        sc.ssd_chunk_bwd_cuda(case[0].bfloat16(), *case[1:])
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        sc.ssd_chunk_bwd_cuda(*(t.bfloat16() for t in case))
+    with pytest.raises(TypeError, match="takes fp32 or bf16, got "
+                       "torch.float16"):
+        sc.ssd_chunk_bwd_cuda(*(t.half() for t in case))
     long = [torch.as_tensor(t) for t in chunk_case(1, 1, 257, 1, 2, 2)]
     with pytest.raises(ValueError, match="Q <= 256"):
         sc.ssd_chunk_bwd_cuda(*long)

@@ -3,8 +3,8 @@
 jax 0.9, ROADMAP §C) on the port, bit-exact resume after a crash, the
 train CLI (``--smoke --device cpu`` in-process, Mamba configs included)
 and ``examples.train_lm``, Mamba resume, the update that frees as it
-goes, and the refusal of bf16 training (the backward kernels are fp32
-only) on every device.  The comparison with
+goes, and the refusal of fp16 training (the backward kernels take fp32
+and bf16) on every device.  The comparison with
 JAX's loss, gradients and steps is ``tests/test_torch_train.py``'s.
 """
 import pytest
@@ -140,22 +140,33 @@ def test_step_turns_gradients_on_and_replaces_tensors():
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b",
                                   "tinyllama-1.1b"])
 def test_bf16_training_is_refused(name):
-    """The backward kernels (ssd_chunk's, flash_attention's) are fp32 only:
-    a bf16 model is refused before any step, on every device, naming the
-    ROADMAP item of the bf16 backwards; fp32 and float64 pass."""
+    """The backward kernels (ssd_chunk's, flash_attention's) take fp32 and
+    bf16: an fp16 model is refused before any step, on every device,
+    naming the dtypes they take; fp32, float64 and bf16 pass (bf16 was
+    refused too before its backwards were written), and a bf16 step keeps
+    each parameter's dtype (bf16; an MoE router fp32, as JAX's) and the
+    moments fp32."""
     cfg = tconfigs.smoke_config(name)
-    for dtype in (torch.bfloat16, torch.float16):
-        with pytest.raises(NotImplementedError, match="fp32 only.*A5c"):
-            check_trainable(cfg, dtype)
-    check_trainable(cfg)
-    check_trainable(cfg, torch.float64)
+    with pytest.raises(NotImplementedError, match="take fp32 or bf16, not "
+                       "torch.float16"):
+        check_trainable(cfg, torch.float16)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        check_trainable(cfg, dtype)
     step_fn, init_opt = make_train_step(cfg, device="cpu")
+    b = {k: torch.as_tensor(v) for k, v in batch_at_step(
+        DataConfig(cfg.vocab_size, 16, 2), 0).items()}
+    half = T.init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float16, device="cpu")
+    with pytest.raises(NotImplementedError, match="float16"):
+        step_fn(half, init_opt(half), b)
     params = T.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.bfloat16, device="cpu")
-    b = batch_at_step(DataConfig(cfg.vocab_size, 16, 2), 0)
-    with pytest.raises(NotImplementedError, match="A5c"):
-        step_fn(params, init_opt(params),
-                {k: torch.as_tensor(v) for k, v in b.items()})
+    dtypes = {k: p.dtype for k, p in params.named_parameters()}
+    assert torch.bfloat16 in dtypes.values()
+    params, opt, m = step_fn(params, init_opt(params), b)
+    assert np.isfinite(float(m["loss"])) and int(m["step"]) == 1
+    assert {k: p.dtype for k, p in params.named_parameters()} == dtypes
+    assert all(t.dtype == torch.float32 for t in opt.mu.values())
 
 
 def mamba_steps(steps, *, params=None, opt_state=None, start=0):
