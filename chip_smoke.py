@@ -26,12 +26,14 @@ and:
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
    counts the tensor-core (``HGMMA``) instructions of every instance of
-   ``flash_attention_kernel_sm90`` and ``ssd_chunk_kernel_sm90`` in the
-   library's SASS (``cuobjdump``; each must have some) and checks that
-   ptxas reported no spills in ``ssd_chunk_kernel_sm90``,
-   ``fused_fog_group_kernel``, ``tree_traverse_spread_kernel`` and
-   ``grove_aggregate_tile_kernel`` (every instance; their registers
-   printed);
+   ``flash_attention_kernel_sm90``, the backward's
+   ``flash_attention_bwd_sm90_dkdv`` / ``_dkdv_split`` / ``_dq`` and
+   ``ssd_chunk_kernel_sm90`` in the library's SASS (``cuobjdump``; each
+   must have some) and checks that ptxas reported no spills in
+   ``ssd_chunk_kernel_sm90``, the tensor-core attention kernels
+   (forward and backward), ``fused_fog_group_kernel``,
+   ``tree_traverse_spread_kernel`` and ``grove_aggregate_tile_kernel``
+   (every instance; their registers printed);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
@@ -204,16 +206,21 @@ and:
    serves ``MORE_LM`` at full width in bf16, depth cut to fit the card
    (minicpm3-4b at 62 layers, grok-1-314b at 4, deepseek-v3-671b at 5:
    its 3 dense layers and 2 MoE layers; jamba-1.5-large-398b at its smoke
-   config): with the counts zeroed just before and read just after, a
-   prefill of 4 x 2048 (one ``flash_attention`` an attention or MLA
-   layer, one ``ssd_chunk`` a Mamba layer, each on its rule's route), 32
-   greedy decode steps and 32 FoG steps at per-lane thresholds; the gate
-   held to its plain version and the hops to its margins; the prefill's
-   logits with the kernels held to those with their plain versions
-   (drop-free capacity for MoE); at the MLA shapes ``flash_attention``
-   held to its plain version (layer 0's bf16 inputs, causal bf16 and
-   fp32 at S = 2048, ragged S = 200); fp32 decode after prefill == the
-   forward at a small depth;
+   config; gemma-2b at 18 layers): with the counts zeroed just before and
+   read just after, a prefill of 4 x 2048 (one ``flash_attention`` an
+   attention or MLA layer, one ``ssd_chunk`` a Mamba layer, each on its
+   rule's route; minicpm3's 62, deepseek's 5 and gemma's 18 all on the
+   tensor cores, ``SM90_PREFILL``), 32 greedy decode steps and 32 FoG
+   steps at per-lane thresholds; the gate held to its plain version and
+   the hops to its margins; the prefill's logits with the kernels held to
+   those with their plain versions (drop-free capacity for MoE); at the
+   head pairs of minicpm3, deepseek and gemma ``flash_attention`` held to
+   its plain version (layer 0's bf16 inputs and ``MLA_FLASH_CASES``:
+   causal bf16 and fp32 at S = 2048, ragged S = 200, non-causal, Sq != Sk
+   both ways, MQA; bf16 bit-equal run to run, its lse within
+   ``LSE_BAR``), the prefill's call timed beside the SIMT kernel those
+   pairs took before; fp32 decode after prefill == the forward at a small
+   depth;
 17. (run before 16, while the card's memory is free) trains
    ``tinyllama-1.1b`` at full width in fp32 (22 layers, d_model 2048,
    32 / 4 heads of 64, d_ff 5632, vocab 32,000; weights from the port's
@@ -265,13 +272,19 @@ and:
    else), ``mamba2-2.7b`` at full width and depth for 4 steps (128
    ``ssd_chunk`` on the tensor-core route and 64 bf16 ``ssd_chunk_bwd`` a
    step), ``minicpm3-4b`` at full width cut to 8 layers for 2 steps (16
-   ``flash_attention`` and 8 bf16 SIMT ``flash_attention_bwd`` at D = 96 /
-   Dv = 64 a step), the counts zeroed just before and read just after
-   each step, and one step of jamba's smoke config; prints each run's
-   peak memory, step ms and tokens/s; holds tinyllama's next step with
-   the kernels and with the plain versions to an fp32 oracle of the same
-   bf16 params (the kernels' distance of each gradient no more than twice
-   the plain versions' plus half a bf16 ulp); holds each bf16 backward
+   ``flash_attention`` on the tensor-core route and 8
+   ``flash_attention_bwd_sm90`` at D = 96 / Dv = 64 a step), the counts
+   zeroed just before and read just after each step, and one step of
+   jamba's smoke config; prints each run's peak memory, step ms and
+   tokens/s; holds tinyllama's and minicpm3's next step with the kernels
+   and with the plain versions to an fp32 oracle of the same bf16 params
+   (the kernels' distance of each gradient no more than twice the plain
+   versions' plus half a bf16 ulp); at each pair of ``PAIR_SHAPES``
+   (96 / 64, 192 / 128, 256 / 256) holds the tensor-core forward, its lse
+   and backward to their plain versions and times them beside the SIMT
+   kernels those pairs took before, the plain versions and SDPA (its
+   fused backends; v padded where none takes Dv != D); holds each bf16
+   backward
    kernel against its plain version on layer 0's captured inputs and on
    ``BWD_BF16_CASES`` / ``SSD_BWD_CASES``, each run twice bit-equal, and
    the tensor-core forward's lse against the plain version's; resumes a
@@ -1579,13 +1592,23 @@ def top2_checks(dev: torch.device) -> dict:
 SM90_KERNELS = {
     "flash_attention_kernel_sm90": r"flash_attention_kernel_sm90ILi(\d+)ELi"
                                    r"(\d+)ELi(\d+)E",
+    "flash_attention_bwd_sm90_dkdv": r"flash_attention_bwd_sm90_dkdvILi(\d+)"
+                                     r"ELi(\d+)E",
+    "flash_attention_bwd_sm90_dkdv_split": r"flash_attention_bwd_sm90_dkdv_"
+                                           r"splitILi(\d+)ELi(\d+)E",
+    "flash_attention_bwd_sm90_dq": r"flash_attention_bwd_sm90_dqILi(\d+)ELi"
+                                   r"(\d+)E",
     "ssd_chunk_kernel_sm90": r"ssd_chunk_kernel_sm90ILi(\d+)E"}
+# the tensor-core attention kernels whose every instance must build
+# without spills: the forward and the backward's passes
+FLASH_SM90 = ("flash_attention_kernel_sm90", "flash_attention_bwd_sm90")
 
 
 def hgmma_per_kernel(lib_path: Path) -> dict:
     """HGMMA (wgmma) instructions in the library's SASS per instance of
     each tensor-core kernel: flash_attention_kernel_sm90 by its (D, Dv,
-    keys per tile), ssd_chunk_kernel_sm90 by its N."""
+    keys per tile), the backward's passes by (D, Dv),
+    ssd_chunk_kernel_sm90 by its N."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
@@ -1646,6 +1669,18 @@ def instance(mangled: str) -> str:
     if m.group(2):
         parts += ["smem" if m.group(2) == "1" else "l1", m.group(3)]
     return "<" + ", ".join(parts) + ">"
+
+
+def flash_instance(mangled: str) -> str:
+    """A readable name for an instance of a tensor-core attention kernel:
+    ``<name><D, Dv[, keys]>`` (``delta`` for the backward's delta
+    kernel)."""
+    m = re.search(r"flash_attention_(?:kernel_sm90|bwd_sm90_(dkdv_split|dkdv"
+                  r"|dq))ILi(\d+)ELi(\d+)E(?:Li(\d+)E)?", mangled)
+    if not m:
+        return "delta" if "delta" in mangled else mangled
+    return (m.group(1) or "fwd") + "<" + ", ".join(
+        g for g in m.groups()[1:] if g) + ">"
 
 
 # the kernels this slice redesigned: each instance must build without
@@ -3682,16 +3717,32 @@ MORE_LM = (
     ("jamba-1.5-large-398b", "smoke",
      "its smoke config (16 layers, d_model 128, 8 experts of 256): one "
      "period at full width holds 4 MoE layers of ~19.3 GB and 7 Mamba "
-     "layers, ~90 GB, over the card's 80 GB"))
+     "layers, ~90 GB, over the card's 80 GB"),
+    ("gemma-2b", {}, "none: 18 layers, full depth (~5 GB of weights)"))
+# the configs whose every prefill launch of flash_attention must take the
+# tensor-core route at a pair it gained for them: launches a prefill
+SM90_PREFILL = {"minicpm3-4b": 62, "deepseek-v3-671b": 5, "gemma-2b": 18}
 MORE_CONSIST = (2, 128)
 # FoG steps whose first-gate margins set the calibrated lane's threshold
 MORE_CALIBRATION = 8
 # tokens a prompt of the drop-free kernels-vs-plain prefill (default LM_S)
 PLAIN_S = {"deepseek-v3-671b": 128}
-MLA_FLASH_CASES = (("causal bf16", 1, 2048, torch.bfloat16),
-                   ("causal fp32", 1, 2048, torch.float32),
-                   ("ragged S = 200 bf16", 2, 200, torch.bfloat16),
-                   ("ragged S = 200 fp32", 2, 200, torch.float32))
+# flash_attention against its plain version at the head pair of each
+# config in SM90_PREFILL (minicpm3's 96 / 64, deepseek's 192 / 128,
+# gemma's 256 / 256): (label, B, Sq, Sk, KV heads (None: the config's),
+# causal, dtype); bf16 on the tensor cores, fp32 on the SIMT kernel
+MLA_FLASH_CASES = (
+    ("causal bf16", 1, 2048, 2048, None, True, torch.bfloat16),
+    ("causal fp32", 1, 2048, 2048, None, True, torch.float32),
+    ("ragged S = 200 bf16", 2, 200, 200, None, True, torch.bfloat16),
+    ("ragged S = 200 fp32", 2, 200, 200, None, True, torch.float32),
+    ("non-causal bf16", 1, 256, 192, None, False, torch.bfloat16),
+    ("Sq < Sk bf16", 1, 100, 300, None, True, torch.bfloat16),
+    ("Sq > Sk bf16", 1, 300, 100, None, True, torch.bfloat16),
+    ("MQA (K = 1) bf16", 2, 256, 256, 1, True, torch.bfloat16))
+# the tensor-core forward's lse against the plain version's, of its
+# magnitude (at least 1): an fp32 ulp or two of a log-sum-exp near 8
+LSE_BAR = 2e-6
 
 
 def more_config(name: str, over) -> "ArchConfig":
@@ -3705,6 +3756,36 @@ def plain_flash(q, k, v, **kw):
     return torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
                                           v[i:i + 1], **kw)
                       for i in range(q.shape[0])])
+
+
+def plain_flash_lse(q, k, v, **kw):
+    """``flash_attention_ref_lse`` one batch row at a time: (out, lse)."""
+    rows = [fa.flash_attention_ref_lse(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       **kw) for i in range(q.shape[0])]
+    return (torch.cat([o for o, _ in rows]),
+            torch.cat([lse for _, lse in rows]))
+
+
+def plain_bwd(q, k, v, o, do, lse, **kw):
+    """``flash_attention_bwd_ref`` one batch row at a time."""
+    rows = [fa.flash_attention_bwd_ref(*(t[i:i + 1] for t in (
+        q, k, v, o, do, lse)), **kw) for i in range(q.shape[0])]
+    return tuple(torch.cat(g) for g in zip(*rows))
+
+
+def lse_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless the kernel's lse is -inf where the plain version's is
+    and within ``LSE_BAR`` of its magnitude (at least 1) elsewhere; the
+    largest error as a share of that."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise AssertionError(f"{what}: lse -inf at other rows")
+    err = ((got[fin] - want[fin]).abs()
+           / want[fin].abs().clamp_min(1.0)).max()
+    if float(err) > LSE_BAR:
+        raise AssertionError(f"{what}: lse off by {float(err)} of its "
+                             f"magnitude (bar {LSE_BAR})")
+    return float(err)
 
 
 @contextlib.contextmanager
@@ -3753,19 +3834,29 @@ def expected_prefill(cfg) -> tuple[dict, dict]:
     return launches, routes
 
 
+def head_pair(cfg) -> tuple[int, int]:
+    """The config's attention head pair (D, Dv): MLA's D = dn + dr."""
+    if cfg.mla:
+        return cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def mla_flash_checks(dev, cfg, captured) -> dict:
-    """flash_attention_cuda against its plain version at the config's MLA
-    shape: the prefill's layer-0 bf16 q/k/v, random causal bf16 and fp32
-    at S = 2048 and ragged S = 200."""
+    """flash_attention_cuda against its plain version at the config's head
+    pair: the prefill's layer-0 bf16 q/k/v and ``MLA_FLASH_CASES``, each
+    on the route ``route`` names; bf16 also run twice (the same bits) and
+    with its lse (the same output; the lse within ``LSE_BAR``)."""
     H = cfg.n_heads
-    D = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    Dv = cfg.v_head_dim
+    D, Dv = head_pair(cfg)
+    K0 = H if cfg.mla else cfg.n_kv_heads
     rng = np.random.default_rng(SEED)
     cases = [("layer 0 of the prefill, bf16", captured[0], captured[1])]
-    for label, b, S, dtype in MLA_FLASH_CASES:
-        cases.append((f"{label} [{b}, {S}, {H}, {D}/{Dv}]",
-                      flash_inputs(rng, (b, S, S, H, H, D, Dv), dtype, dev),
-                      {"causal": True, "scale": 1.0 / np.sqrt(D)}))
+    for label, b, Sq, Sk, K, causal, dtype in MLA_FLASH_CASES:
+        K = K or K0
+        cases.append((f"{label} [{b}, {Sq}/{Sk}, {H}/{K}, {D}/{Dv}]",
+                      flash_inputs(rng, (b, Sq, Sk, H, K, D, Dv), dtype,
+                                   dev),
+                      {"causal": causal, "scale": 1.0 / np.sqrt(D)}))
     errs = {}
     for label, args, kw in cases:
         before = dict(_build.routes)
@@ -3776,10 +3867,18 @@ def mla_flash_checks(dev, cfg, captured) -> dict:
             args[0].dtype, D, Dv) == "sm90" else "flash_attention")
         if ran != {want_route: 1}:
             raise AssertionError(f"flash_attention {label}: routes {ran}")
-        errs[f"{label} ({want_route})"] = flash_close(
-            f"flash_attention {cfg.name} {label}", got,
-            plain_flash(*args, **kw))
-        del got
+        what = f"flash_attention {cfg.name} {label}"
+        want, want_lse = plain_flash_lse(*args, **kw)
+        case = {"out": flash_close(what, got, want)}
+        if got.dtype == torch.bfloat16:
+            again, lse = fa.flash_attention_cuda(*args, with_lse=True, **kw)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: another run (with lse) gave "
+                                     f"other bits")
+            case["lse"] = lse_close(what, lse, want_lse)
+            del again, lse
+        errs[f"{label} ({want_route})"] = case
+        del got, want, want_lse
     return errs
 
 
@@ -3879,6 +3978,13 @@ def lm_more_run(dev: torch.device, name: str, over, cut: str,
         raise AssertionError(
             f"{cfg.name} prefill: launches {pre_launches} by route "
             f"{pre_routes}, want {want_l} by route {want_r}")
+    if name in SM90_PREFILL and {k: v for k, v in pre_routes.items()
+                                 if v} != {"flash_attention_sm90":
+                                           SM90_PREFILL[name]}:
+        raise AssertionError(
+            f"{cfg.name} prefill: routes {pre_routes}, want all "
+            f"{SM90_PREFILL[name]} flash_attention launches on the tensor "
+            f"cores at {head_pair(cfg)}")
     if launches.get("top2_confidence") != n_decode * (G - 1):
         raise AssertionError(f"{cfg.name}: {launches} in the path, want "
                              f"{n_decode * (G - 1)} top2_confidence")
@@ -3970,10 +4076,12 @@ def lm_more_run(dev: torch.device, name: str, over, cut: str,
           + f" (max abs err {prefill_err:.3g} at logit scale {scale:.3g}; "
           f"bar {CONSIST_TOL} of the scale); at the configured capacity "
           f"and S={S}: {as_configured:.3g}")
-    if cfg.mla:
+    if cfg.mla or name in SM90_PREFILL:
         res["flash_attention_max_abs_err"] = mla_flash_checks(
             dev, cfg, captured[0])
-        print(f"[lm+] {cfg.name}: flash_attention == plain at the MLA shape: "
+        print(f"[lm+] {cfg.name}: flash_attention == plain at "
+              f"{head_pair(cfg)} (max abs err of the output; bf16 "
+              f"bit-equal run to run, the lse's error of its magnitude): "
               f"{res['flash_attention_max_abs_err']}")
 
     # event timings
@@ -3992,6 +4100,11 @@ def lm_more_run(dev: torch.device, name: str, over, cut: str,
             lambda: ops.flash_attention(q, k, v, **kw), reps=5, warm=1)
         t["flash_attention_plain_ms"] = cuda_ms(
             lambda: plain_flash(q, k, v, **kw), reps=3, warm=1)
+        if name in SM90_PREFILL:
+            # the SIMT kernel these pairs took before, on the same inputs
+            t["flash_attention_simt_ms"] = cuda_ms(
+                lambda: simt(fa, ops.flash_attention, q, k, v, **kw),
+                reps=2, warm=1)
         work = flash_work(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
                           k.shape[2], q.shape[3], v.shape[3],
                           q.element_size())
@@ -4009,7 +4122,10 @@ def lm_more_run(dev: torch.device, name: str, over, cut: str,
               f"{t['flash_attention_ms']:.3f} ms per call (bound "
               f"{t['flash_attention_bound_ms']:.4f} ms by "
               f"{t['flash_attention_bound_by']}), plain "
-              f"{t['flash_attention_plain_ms']:.2f} ms"))
+              f"{t['flash_attention_plain_ms']:.2f} ms" + (
+                  "" if "flash_attention_simt_ms" not in t else
+                  f", the SIMT kernel on the same inputs "
+                  f"{t['flash_attention_simt_ms']:.3f} ms")))
     del params, cache, logits, plain, fog_logits, captured
     torch.cuda.empty_cache()
 
@@ -4272,14 +4388,17 @@ def bwd_work_sm90(B, Sq, Sk, H, K, D, Dv, causal=True) -> dict:
     k, v, o, do read and dq, dk, dv written once, and the fp32 lse read
     once; ``ops`` the five products over the live pairs (as
     :func:`bwd_work`); ``design_ops`` the seven the two-pass design runs
-    (s and dp in both passes), 2 (4 D + 3 Dv) FLOP a pair."""
+    (s and dp in both passes), 2 (2 D + 2 Dp + 3 Dv) FLOP a pair, where
+    dk and dq's products run over D padded to whole 64-column chunks, Dp
+    (96 -> 128)."""
     fwd = flash_work(B, Sq, Sk, H, K, D, Dv, 2, causal)
     n_bytes = (2 * B * (2 * Sq * H * (D + Dv) + 2 * Sk * K * (D + Dv))
                + 4 * B * H * Sq)
     n_pairs = B * H * fwd["pairs"]
     return {"bytes": n_bytes, "pairs": fwd["pairs"],
             "ops": n_pairs * 2 * (3 * D + 2 * Dv),
-            "design_ops": n_pairs * 2 * (4 * D + 3 * Dv)}
+            "design_ops": n_pairs * 2 * (2 * D + 2 * fa.sm90_padded(D)
+                                         + 3 * Dv)}
 
 
 def bwd_inputs(rng, shape, causal, dev, dtype=torch.float32) -> tuple:
@@ -5063,8 +5182,9 @@ def mamba_train_profile(train: dict, dev: torch.device) -> None:
 # bf16 training at train_4k's sequence length (S = 4096; its batch cut
 # from 256 to 2 sequences): tinyllama-1.1b and mamba2-2.7b at full width
 # and depth, minicpm3-4b at full width cut to BF16_MLA_LAYERS layers (its
-# MLA attention, D = 96 / Dv = 64, on the SIMT backward), jamba's smoke
-# config; weights from the port's generator, in bf16
+# MLA attention, D = 96 / Dv = 64, on the tensor-core forward and
+# backward), jamba's smoke config; weights from the port's generator, in
+# bf16
 BF16_B, BF16_S, BF16_STEPS = 2, 4096, 4
 BF16_ATTN_ARCH, BF16_MAMBA_ARCH, BF16_MLA_ARCH = (
     "tinyllama-1.1b", "mamba2-2.7b", "minicpm3-4b")
@@ -5083,9 +5203,22 @@ BWD_BF16_CASES = (
     ("D = Dv = 128", (1, 256, 256, 4, 4, 128, 128), True),
     ("D = 64, Dv = 128", (1, 130, 130, 4, 2, 64, 128), True),
     ("D = 128, Dv = 64 non-causal", (1, 130, 130, 4, 2, 128, 64), False),
-    ("SIMT: D = 192, Dv = 128", (1, 256, 256, 16, 16, 192, 128), True),
-    ("SIMT: D = Dv = 256", (1, 130, 130, 4, 2, 256, 256), True),
-    ("SIMT: D = Dv = 32 (jamba smoke)", (2, 64, 64, 4, 4, 32, 32), True))
+    ("D = 96, Dv = 64 (minicpm3's MLA)", (2, 200, 200, 8, 8, 96, 64), True),
+    ("D = 192, Dv = 128 (deepseek's MLA)", (1, 256, 256, 16, 16, 192, 128),
+     True),
+    ("D = Dv = 256 (gemma's)", (1, 130, 130, 4, 2, 256, 256), True),
+    ("SIMT: D = Dv = 32 (jamba smoke)", (2, 64, 64, 4, 4, 32, 32), True),
+    ("SIMT: D = 48, Dv = 32 (MLA at smoke width)", (2, 64, 64, 4, 4, 48, 32),
+     True))
+# the tensor-core pairs gained for MLA and gemma, timed forward and
+# backward beside the SIMT kernels they replace, their plain versions and
+# SDPA: (D, Dv) -> (B, S, H, K, whose shape): minicpm3 at train_4k's 2 x
+# 4096 (layer 0 of phase 19's step), one row of deepseek's 4 x 2048
+# prefill, gemma at 2 x 4096
+PAIR_SHAPES = {(96, 64): (2, 4096, 40, 40, "minicpm3-4b at 2 x 4096"),
+               (192, 128): (1, 2048, 128, 128,
+                            "deepseek-v3-671b, one row of the prefill"),
+               (256, 256): (2, 4096, 8, 1, "gemma-2b at 2 x 4096")}
 
 
 def bwd_bf16_check(what: str, args: tuple, causal: bool, scale=None
@@ -5179,10 +5312,174 @@ def bf16_run(cfg, dev, n, want) -> tuple:
     return params, opt, run
 
 
+def oracle_step(cfg, params, batch, layer0: dict) -> dict:
+    """One step's loss and gradients with the kernels (layer 0's attention
+    inputs and output gradient captured into ``layer0``) and with their
+    plain versions, each held to an fp32 oracle of the same bf16 params:
+    the kernels' relative error of the loss and relative L2 of each
+    gradient no more than twice the plain versions' plus ``BF16_FLOOR``."""
+    with capture_first_flash(layer0):
+        loss_k, grads_k = loss_and_grads(params, cfg, batch)
+    with plain_training():
+        loss_p, grads_p = loss_and_grads(params, cfg, batch)
+    oracle_model = copy.deepcopy(params).float()
+    loss_o, grads_o = loss_and_grads(oracle_model, cfg, batch)
+    del oracle_model
+    lo = float(loss_o)
+    kern = {"loss": abs(float(loss_k) - lo) / abs(lo)}
+    plain = {"loss": abs(float(loss_p) - lo) / abs(lo)}
+    if kern["loss"] > 2 * plain["loss"] + BF16_FLOOR:
+        raise AssertionError(f"{cfg.name} bf16 loss kernels "
+                             f"{float(loss_k)}, plain {float(loss_p)}, fp32 "
+                             f"oracle {lo}")
+    worst = (0.0, "")
+    for k, go in grads_o.items():
+        dk, dp = rel_l2(grads_k[k], go), rel_l2(grads_p[k], go)
+        if dk > 2 * dp + BF16_FLOOR:
+            raise AssertionError(f"{cfg.name} bf16 gradient {k}: kernels "
+                                 f"{dk:.3e} from the fp32 oracle, plain "
+                                 f"{dp:.3e}")
+        kern[k], plain[k] = dk, dp
+        worst = max(worst, (dk / (2 * dp + BF16_FLOOR), k))
+    del grads_k, grads_p, grads_o
+    torch.cuda.empty_cache()
+    return {"loss": {"kernels": float(loss_k), "plain": float(loss_p),
+                     "fp32": lo},
+            "kernels_max_dist": max(v for k, v in kern.items()
+                                    if k != "loss"),
+            "plain_max_dist": max(v for k, v in plain.items()
+                                  if k != "loss"),
+            "worst_ratio": worst[0], "worst_leaf": worst[1]}
+
+
+def oracle_line(what: str, o: dict) -> str:
+    return (f"[train-bf16] {what} one step against an fp32 oracle of the "
+            f"same bf16 params: loss kernels {o['loss']['kernels']:.6f}, "
+            f"plain {o['loss']['plain']:.6f}, fp32 {o['loss']['fp32']:.6f}; "
+            f"gradients (relative L2 of each leaf): kernels at most "
+            f"{o['kernels_max_dist']:.3e}, plain at most "
+            f"{o['plain_max_dist']:.3e}; the closest to the bar (kernels <= "
+            f"2 x plain + {BF16_FLOOR}) {o['worst_leaf']} at "
+            f"{o['worst_ratio']:.2f} of it")
+
+
+def sdpa_fns(q, k, v, do) -> tuple:
+    """SDPA's forward and backward (causal; GQA where K < H) on q, k, v
+    in [B, S, heads, D], a yardstick the port never calls, on its fused
+    backends alone (flash, memory-efficient, cuDNN); where none takes Dv
+    != D, v padded with zeros to D (and do with it).  Returns (forward,
+    backward, padded)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    gqa = k.shape[2] != q.shape[2]
+    D, Dv = q.shape[3], v.shape[3]
+    for pad in (False, True):
+        if pad and Dv == D:
+            break
+        qt, kt, vt, dt = (a.transpose(1, 2).contiguous()
+                          for a in (q, k, v, do))
+        if pad:
+            vt, dt = F.pad(vt, (0, D - Dv)), F.pad(dt, (0, D - Dv))
+        qt, kt, vt = (a.requires_grad_() for a in (qt, kt, vt))
+
+        def fwd(qt=qt, kt=kt, vt=vt):
+            with sdpa_kernel(fused):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=gqa)
+
+        try:
+            with torch.no_grad():
+                fwd()
+            out = fwd()
+        except RuntimeError:
+            continue
+
+        def bwd(out=out, qt=qt, kt=kt, vt=vt, dt=dt):
+            return torch.autograd.grad(out, (qt, kt, vt), dt,
+                                       retain_graph=True)
+
+        bwd()
+        return torch.no_grad()(fwd), bwd, pad
+    raise AssertionError(f"no fused SDPA backend takes D={D}, Dv={Dv} "
+                         f"(even with v padded)")
+
+
+def pair_timing(dev: torch.device) -> dict:
+    """At each pair of ``PAIR_SHAPES`` (causal bf16, random inputs from a
+    seeded generator on the card: numpy's normals for these ~10^8 values
+    took seconds of the script's time): the tensor-core forward and
+    backward held to their plain versions (2 bf16 ulps of the output's
+    scale; ``BWD_BF16_BAR`` of each gradient's, bit-equal run to run) and
+    timed (CUDA events) beside the SIMT kernels these pairs took before,
+    on the same inputs, the plain versions and SDPA; the bounds of each.
+    The profiler's device ms come in 14."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res: dict = {"prof_fns": {}}
+    for (D, Dv), (B, S, H, K, whose) in PAIR_SHAPES.items():
+        q, k, v, do = (torch.randn(sh, generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+                       for sh in ((B, S, H, D), (B, S, K, D), (B, S, K, Dv),
+                                  (B, S, H, Dv)))
+        o, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        args = (q, k, v, o, do, lse)
+        key = f"{D}/{Dv}"
+        r = {"shape": f"q [{B}, {S}, {H}, {D}], k [{B}, {S}, {K}, {D}], v "
+                      f"[.., {Dv}], causal, bf16 ({whose})"}
+        want, want_lse = plain_flash_lse(q, k, v)
+        r["fwd_max_abs_err"] = flash_close(f"flash_attention {key}", o, want)
+        r["lse_err"] = lse_close(f"flash_attention {key}", lse, want_lse)
+        del want, want_lse
+        r["bwd_err"] = bwd_bf16_check(key, args, True)
+        fwork = flash_work(B, S, S, H, K, D, Dv, 2)
+        bwork = bwd_work_sm90(B, S, S, H, K, D, Dv)
+        r["fwd_bound_ms"], r["fwd_bound_by"] = bound_ms(
+            fwork["bytes"], fwork["ops"], BF16_OPS_PER_S)
+        r["bwd_bound_ms"], r["bwd_bound_by"] = bound_ms(
+            bwork["bytes"], bwork["ops"], BF16_OPS_PER_S)
+        r["bwd_design_bound_ms"] = bwork["design_ops"] / BF16_OPS_PER_S * 1e3
+        # bound to this pair's tensors, which stay alive for phase 14
+        fwd = (lambda q=q, k=k, v=v: fa.flash_attention_cuda(q, k, v))
+        bwd = (lambda a=args: fa.flash_attention_bwd_cuda(*a))
+        r["fwd_ms"] = cuda_ms(fwd, reps=10)
+        r["bwd_ms"] = cuda_ms(bwd, reps=5)
+        r["fwd_simt_ms"] = cuda_ms(lambda: simt(fa, fwd), reps=2, warm=1)
+        r["bwd_simt_ms"] = cuda_ms(lambda: simt(fa, bwd), reps=2, warm=1)
+        r["fwd_plain_ms"] = cuda_ms(lambda: plain_flash(*args[:3]), reps=2,
+                                    warm=1)
+        r["bwd_plain_ms"] = cuda_ms(lambda: plain_bwd(*args), reps=2,
+                                    warm=1)
+        sfwd, sbwd, pad = sdpa_fns(q, k, v, do)
+        r["library_padded_v"] = pad
+        r["fwd_library_ms"] = cuda_ms(sfwd, reps=10)
+        r["bwd_library_ms"] = cuda_ms(sbwd, reps=5)
+        res[key] = r
+        res["prof_fns"].update({f"pair {key} fwd": fwd,
+                                f"pair {key} bwd": bwd,
+                                f"pair {key} sdpa fwd": sfwd,
+                                f"pair {key} sdpa bwd": sbwd})
+        print(f"[time] train-bf16 pair {key} at {r['shape']}: forward "
+              f"{r['fwd_ms']:.4f} ms (bound {r['fwd_bound_ms']:.4f} by "
+              f"{r['fwd_bound_by']}; the SIMT kernel {r['fwd_simt_ms']:.3f}, "
+              f"plain {r['fwd_plain_ms']:.3f}, SDPA {r['fwd_library_ms']:.4f}"
+              f"), backward {r['bwd_ms']:.4f} ms (bound "
+              f"{r['bwd_bound_ms']:.4f} by {r['bwd_bound_by']}, the design's "
+              f"seven products {r['bwd_design_bound_ms']:.4f}; the SIMT "
+              f"kernel {r['bwd_simt_ms']:.3f}, plain {r['bwd_plain_ms']:.3f}, "
+              f"SDPA {r['bwd_library_ms']:.4f}" + (
+                  ", v padded to D for SDPA" if pad else "") +
+              f"); == plain: output {r['fwd_max_abs_err']:.3g}, lse "
+              f"{r['lse_err']:.2e} of its magnitude, gradients "
+              f"{r['bwd_err']:.2e} of their scale, bit-equal", flush=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 def bf16_train_phase(dev: torch.device) -> dict:
     """Phase 19: bf16 training on the card (see the module docstring)."""
     out: dict = {}
     t_phase = time.perf_counter()
+    laps: dict = {}     # seconds into the phase at the end of each part
     rng = np.random.default_rng(SEED)
 
     # 1. tinyllama-1.1b, 22 layers, 2 x 4096: the tensor-core forward
@@ -5195,6 +5492,7 @@ def bf16_train_phase(dev: torch.device) -> dict:
     out["tinyllama"] = run
     print(bf16_run_line(BF16_ATTN_ARCH, cfg, run), flush=True)
 
+    laps["tinyllama steps"] = time.perf_counter() - t_phase
     # 2. the next step with the kernels and with the plain versions, each
     # held to an fp32 oracle of the same bf16 params
     del opt
@@ -5202,44 +5500,12 @@ def bf16_train_phase(dev: torch.device) -> dict:
     batch = step_batch(cfg, DataConfig(cfg.vocab_size, BF16_S, BF16_B,
                                        seed=SEED), BF16_STEPS, dev)
     layer0: dict = {}
-    with capture_first_flash(layer0):
-        loss_k, grads_k = loss_and_grads(params, cfg, batch)
-    with plain_training():
-        loss_p, grads_p = loss_and_grads(params, cfg, batch)
-    oracle_model = copy.deepcopy(params).float()
-    loss_o, grads_o = loss_and_grads(oracle_model, cfg, batch)
-    del oracle_model
-    lo = float(loss_o)
-    kern = {"loss": abs(float(loss_k) - lo) / abs(lo)}
-    plain = {"loss": abs(float(loss_p) - lo) / abs(lo)}
-    if kern["loss"] > 2 * plain["loss"] + BF16_FLOOR:
-        raise AssertionError(f"bf16 loss kernels {float(loss_k)}, plain "
-                             f"{float(loss_p)}, fp32 oracle {lo}")
-    worst = (0.0, "")
-    for k, go in grads_o.items():
-        dk, dp = rel_l2(grads_k[k], go), rel_l2(grads_p[k], go)
-        if dk > 2 * dp + BF16_FLOOR:
-            raise AssertionError(f"bf16 gradient {k}: kernels {dk:.3e} from "
-                                 f"the fp32 oracle, plain {dp:.3e}")
-        kern[k], plain[k] = dk, dp
-        worst = max(worst, (dk / (2 * dp + BF16_FLOOR), k))
-    out["oracle"] = {"loss": {"kernels": float(loss_k),
-                              "plain": float(loss_p), "fp32": lo},
-                     "kernels_max_dist": max(v for k, v in kern.items()
-                                             if k != "loss"),
-                     "plain_max_dist": max(v for k, v in plain.items()
-                                           if k != "loss"),
-                     "worst_ratio": worst[0], "worst_leaf": worst[1]}
-    del grads_k, grads_p, grads_o, batch
+    out["oracle"] = oracle_step(cfg, params, batch, layer0)
+    del batch
     torch.cuda.empty_cache()
-    print(f"[train-bf16] {BF16_ATTN_ARCH} one step against an fp32 oracle "
-          f"of the same bf16 params: loss kernels {float(loss_k):.6f}, plain "
-          f"{float(loss_p):.6f}, fp32 {lo:.6f}; gradients (relative L2 of "
-          f"each leaf): kernels at most {out['oracle']['kernels_max_dist']:.3e}"
-          f", plain at most {out['oracle']['plain_max_dist']:.3e}; the "
-          f"closest to the bar (kernels <= 2 x plain + {BF16_FLOOR}) "
-          f"{worst[1]} at {worst[0]:.2f} of it", flush=True)
+    print(oracle_line(BF16_ATTN_ARCH, out["oracle"]), flush=True)
 
+    laps["tinyllama oracle"] = time.perf_counter() - t_phase
     # 3. the tensor-core backward against its plain version on layer 0's
     # inputs and the cases, twice each
     if "do" not in layer0:
@@ -5276,6 +5542,7 @@ def bf16_train_phase(dev: torch.device) -> dict:
           f"; the tensor-core forward's lse within "
           f"{out['lse_max_abs_err']:.2e} of the plain version's", flush=True)
 
+    laps["tensor-core backward checks"] = time.perf_counter() - t_phase
     # 4. times of the tensor-core backward at layer 0's shape
     B, Sq, H, D = q0.shape
     Sk, K, Dv = k0.shape[1], k0.shape[2], v0.shape[3]
@@ -5314,6 +5581,7 @@ def bf16_train_phase(dev: torch.device) -> dict:
           f"with lse {t['fwd_lse_ms']:.4f} ms, without {t['fwd_ms']:.4f}",
           flush=True)
 
+    laps["backward times"] = time.perf_counter() - t_phase
     # 5. a bf16 resume through a checkpoint, at examples/train_lm.py's
     # config (head size 64: the tensor-core routes)
     small = train_lm.config()
@@ -5341,6 +5609,7 @@ def bf16_train_phase(dev: torch.device) -> dict:
           f"save, restore, 2 steps, bit for bit (bf16 params, fp32 "
           f"moments)", flush=True)
 
+    laps["bf16 resume"] = time.perf_counter() - t_phase
     # 6. mamba2-2.7b, 64 layers, 2 x 4096 (16 chunks a row): the
     # tensor-core forward and the bf16 backward
     cfg = get_arch(BF16_MAMBA_ARCH)
@@ -5395,22 +5664,26 @@ def bf16_train_phase(dev: torch.device) -> dict:
           f"runs at), plain {ts['plain_ms']:.3f} ms, no library call",
           flush=True)
 
-    # 7. minicpm3-4b at full width, BF16_MLA_LAYERS layers: the SIMT
-    # backward in bf16 at D = 96 / Dv = 64; then jamba's smoke config
+    laps["mamba2 steps and checks"] = time.perf_counter() - t_phase
+    # 7. minicpm3-4b at full width, BF16_MLA_LAYERS layers: the
+    # tensor-core forward and backward at D = 96 / Dv = 64, the next step
+    # held to an fp32 oracle as tinyllama's; then jamba's smoke config
     cfg = get_arch(BF16_MLA_ARCH).scaled(n_layers=BF16_MLA_LAYERS)
     n = cfg.n_layers
     params, opt, run = bf16_run(cfg, dev, BF16_MLA_STEPS, (
-        {"flash_attention": 2 * n, "flash_attention_bwd": n},
-        {"flash_attention": 2 * n}))
+        {"flash_attention": 2 * n, "flash_attention_bwd_sm90": n},
+        {"flash_attention_sm90": 2 * n}))
     out["minicpm3"] = run
     print(bf16_run_line(f"{BF16_MLA_ARCH} cut to {n} layers", cfg, run),
           flush=True)
     del opt
+    torch.cuda.empty_cache()
     batch = step_batch(cfg, DataConfig(cfg.vocab_size, BF16_S, BF16_B,
                                        seed=SEED), BF16_MLA_STEPS, dev)
     layer0 = {}
-    with capture_first_flash(layer0):
-        loss_and_grads(params, cfg, batch)
+    out["minicpm3_oracle"] = oracle_step(cfg, params, batch, layer0)
+    print(oracle_line(f"{BF16_MLA_ARCH} cut to {n} layers",
+                      out["minicpm3_oracle"]), flush=True)
     del params, batch
     torch.cuda.empty_cache()
     q0, k0, v0 = layer0["q"], layer0["k"], layer0["v"]
@@ -5420,29 +5693,11 @@ def bf16_train_phase(dev: torch.device) -> dict:
     out["mla_bwd_err"] = bwd_bf16_check(
         f"{BF16_MLA_ARCH} layer 0", margs, kw0.get("causal", True),
         kw0.get("scale"))
-    B, Sq, H, D = q0.shape
-    Sk, K, Dv = k0.shape[1], k0.shape[2], v0.shape[3]
-    work = bwd_work_sm90(B, Sq, Sk, H, K, D, Dv)
-    tm = {"shape": f"q [{B}, {Sq}, {H}, {D}], k [{B}, {Sk}, {K}, {D}], v "
-                   f"[..., {Dv}], causal, bf16 (SIMT)", "work": work}
-    tm["bound_ms"], tm["bound_by"] = bound_ms(work["bytes"], work["ops"],
-                                              BF16_OPS_PER_S)
-    tm["fp32_core_ops_bound_ms"] = work["ops"] / FP32_OPS_PER_S * 1e3
-    kwm = {"causal": kw0.get("causal", True), "scale": kw0.get("scale")}
-    tm["ms"] = cuda_ms(lambda: fa.flash_attention_bwd_cuda(*margs, **kwm),
-                       reps=3, warm=1)
-    tm["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_ref(
-        *margs, **kwm), reps=2, warm=1)
-    out["mla_timing"] = tm
     del layer0, margs, q0, k0, v0, o0, lse0
     torch.cuda.empty_cache()
-    print(f"[train-bf16] {BF16_MLA_ARCH} layer 0's bf16 SIMT backward == its "
-          f"plain version within {out['mla_bwd_err']:.2e} of each "
-          f"gradient's scale (bar {BWD_BF16_BAR}), bit-equal; at "
-          f"{tm['shape']}: {tm['ms']:.3f} ms a call (bound "
-          f"{tm['bound_ms']:.4f} ms by {tm['bound_by']}; the operations at "
-          f"the fp32 CUDA-core rate {tm['fp32_core_ops_bound_ms']:.4f}), "
-          f"plain {tm['plain_ms']:.3f} ms", flush=True)
+    print(f"[train-bf16] {BF16_MLA_ARCH} layer 0's tensor-core backward == "
+          f"its plain version within {out['mla_bwd_err']:.2e} of each "
+          f"gradient's scale (bar {BWD_BF16_BAR}), bit-equal", flush=True)
     jamba = smoke_config("jamba-1.5-large-398b")
     jm, ja = mamba_layers(jamba)
     p = bf16_model(jamba, dev)
@@ -5470,8 +5725,17 @@ def bf16_train_phase(dev: torch.device) -> dict:
           f"{float(lp):.5f}), gradients at most "
           f"{out['jamba_smoke']['grad_max_dist_vs_plain']:.3e} from the "
           f"plain versions' (relative L2)", flush=True)
+
+    laps["minicpm3 and jamba"] = time.perf_counter() - t_phase
+    # 8. the pairs gained for MLA and gemma, forward and backward
+    out["pairs"] = pair_timing(dev)
+    out["prof_fns"].update(out["pairs"].pop("prof_fns"))
+    laps["pairs"] = time.perf_counter() - t_phase
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"[train-bf16] phase 19 in {out['phase_s']:.1f} s", flush=True)
+    out["laps_s"] = laps
+    print(f"[train-bf16] phase 19 in {out['phase_s']:.1f} s (parts end at "
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + " s)",
+          flush=True)
     return out
 
 
@@ -5494,6 +5758,28 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
     ts["device_ms_by_kernel"] = {k: v for k, v in per.items()
                                  if "ssd_bwd" in k}
     ts["device_ms"] = sum(ts["device_ms_by_kernel"].values())
+    for key, r in train["pairs"].items():
+        for part, name in (("fwd", "flash_attention_kernel_sm90"),
+                           ("bwd", "flash_attention_bwd_sm90")):
+            busy = recorded_profile(fns[f"pair {key} {part}"], name)[-1][0]
+            r[f"{part}_device_ms_by_kernel"] = {
+                k: v for k, v in busy.items() if name in k}
+            r[f"{part}_device_ms"] = sum(
+                r[f"{part}_device_ms_by_kernel"].values())
+            busy = recorded_profile(fns[f"pair {key} sdpa {part}"],
+                                    "")[-1][0]
+            r[f"{part}_library_device_ms"] = sum(busy.values())
+            r[f"{part}_library_backend"] = sdpa_backend(max(busy,
+                                                            key=busy.get))
+        print(f"[time] train-bf16 pair {key} on the device: forward "
+              f"{r['fwd_device_ms']:.4f} ms, backward "
+              f"{r['bwd_device_ms']:.4f} ms (" + ", ".join(
+                  f"{flash_instance(k)} {v:.4f}" for k, v in
+                  r["bwd_device_ms_by_kernel"].items()) +
+              f"); SDPA forward {r['fwd_library_device_ms']:.4f} "
+              f"({r['fwd_library_backend']}), backward "
+              f"{r['bwd_library_device_ms']:.4f} "
+              f"({r['bwd_library_backend']})", flush=True)
     del fns
     for key, arch in (("tinyllama", BF16_ATTN_ARCH),
                       ("mamba2", BF16_MAMBA_ARCH)):
@@ -5613,7 +5899,8 @@ def main() -> int:
     out["build_s"] = build_s
     hgmma = hgmma_per_kernel(lib_path)
     print(f"[build] SASS: HGMMA (wgmma) instructions per instance of "
-          f"flash_attention_kernel_sm90<D, Dv, keys> and "
+          f"flash_attention_kernel_sm90<D, Dv, keys>, the backward's "
+          f"flash_attention_bwd_sm90_dkdv / _dkdv_split / _dq<D, Dv> and "
           f"ssd_chunk_kernel_sm90<N>: {hgmma}")
     for kernel, counts in hgmma.items():
         if not counts or not all(counts.values()):
@@ -5629,11 +5916,12 @@ def main() -> int:
                              f"(or no report): {spills}")
     out["ssd_chunk_sm90_spill_bytes"] = spills
     out["ptxas"] = {}
-    for k, kernel in NEW_KERNELS.items():
-        log = _build.build_info.get("log", "")
-        spills = {instance(n): v for n, v in ptxas_spills(log, kernel).items()}
-        regs = {instance(n): v for n, v in ptxas_registers(log,
-                                                           kernel).items()}
+    log = _build.build_info.get("log", "")
+    for kernel, name_of in ([(k, flash_instance) for k in FLASH_SM90]
+                            + [(k, instance) for k in NEW_KERNELS.values()]):
+        spills = {name_of(n): v for n, v in ptxas_spills(log, kernel).items()}
+        regs = {name_of(n): v for n, v in ptxas_registers(log,
+                                                          kernel).items()}
         print(f"[build] ptxas per {kernel} instance: registers {regs}, "
               f"spill bytes {spills}")
         if log and (not spills or any(spills.values())):
@@ -5940,7 +6228,9 @@ def main() -> int:
     train_bf16 = bf16_train_phase(dev)
     main_launches["flash_attention_bwd_sm90"] = (
         train_bf16["tinyllama"]["launches_per_step"][
-            "flash_attention_bwd_sm90"] * BF16_STEPS)
+            "flash_attention_bwd_sm90"] * BF16_STEPS
+        + train_bf16["minicpm3"]["launches_per_step"][
+            "flash_attention_bwd_sm90"] * BF16_MLA_STEPS)
 
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
@@ -6334,10 +6624,10 @@ def main() -> int:
                 r["arch"]: r["flash_attention_max_abs_err"]
                 for r in more_lm.values()
                 if "flash_attention_max_abs_err" in r}
-            k["mla_ms"] = {r["arch"]: {f: r["timing"][f] for f in (
+            k["mla_ms"] = {r["arch"]: {f: r["timing"].get(f) for f in (
                 "flash_attention_shape", "flash_attention_ms",
                 "flash_attention_plain_ms", "flash_attention_bound_ms",
-                "flash_attention_bound_by")}
+                "flash_attention_bound_by", "flash_attention_simt_ms")}
                 for r in more_lm.values()
                 if "flash_attention_max_abs_err" in r}
     tl, tt = train_lm_out, train_lm_out["timing"]
@@ -6391,12 +6681,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces": REPLACES["flash_attention"],
         "replaces_note": "the gradient of that kernel on the tensor cores "
-                         "(bf16, D, Dv in {64, 128}); the JAX package takes "
-                         "it with jax.grad of its blocked attention "
+                         "(bf16 at the seven pairs of "
+                         "flash_attention.SM90_PAIRS); the JAX package "
+                         "takes it with jax.grad of its blocked attention "
                          "(src/repro/models/layers.py:40)",
         "launches": main_launches["flash_attention_bwd_sm90"],
         "launches_per_step": tb["tinyllama"]["launches_per_step"][
             "flash_attention_bwd_sm90"],
+        "launches_per_step_by_arch": {
+            r["arch"]: r["launches_per_step"]["flash_attention_bwd_sm90"]
+            for r in (tb["tinyllama"], tb["minicpm3"])},
+        "minicpm3_layer0_max_abs_err": tb["mla_bwd_err"],
+        "pairs": {key: {f: v for f, v in r.items()
+                        if not f.startswith("fwd")}
+                  for key, r in tb["pairs"].items()},
         "max_abs_err": max(v for k, v in tb["bwd_err"].items()
                            if not k.startswith("SIMT")),
         "max_err_is": "the largest error of dq, dk, dv as a share of its "
@@ -6441,15 +6739,15 @@ def main() -> int:
     for k in kernels:
         if k["name"] == "flash_attention_bwd":
             k["bf16"] = {
-                "arch": f"{BF16_MLA_ARCH} cut to {BF16_MLA_LAYERS} layers",
-                "launches_per_step": tb["minicpm3"]["launches_per_step"][
-                    "flash_attention_bwd"],
-                "max_abs_err": max([tb["mla_bwd_err"]] + [
-                    v for c, v in tb["bwd_err"].items()
-                    if c.startswith("SIMT")]),
-                **{f: tb["mla_timing"][f] for f in (
-                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "fp32_core_ops_bound_ms")}}
+                "jamba_smoke_launches": tb["jamba_smoke"]["launches"].get(
+                    "flash_attention_bwd", 0),
+                "max_abs_err": max(v for c, v in tb["bwd_err"].items()
+                                   if c.startswith("SIMT")),
+                "cases": {c: v for c, v in tb["bwd_err"].items()
+                          if c.startswith("SIMT")},
+                "was_minicpm3": "PR 25 ran minicpm3-4b's bf16 backward "
+                                "(D = 96 / Dv = 64) here; it now takes "
+                                "flash_attention_bwd_sm90"}
         if k["name"] == "flash_attention":
             k["train_bf16_launches_per_step"] = tb["tinyllama"][
                 "launches_per_step"]["flash_attention"]
@@ -6458,6 +6756,9 @@ def main() -> int:
             k["sm90_forward_with_lse_ms"] = tbt["fwd_lse_ms"]
             k["sm90_forward_ms"] = tbt["fwd_ms"]
             k["sm90_lse_max_abs_err"] = tb["lse_max_abs_err"]
+            k["pairs"] = {key: {f: v for f, v in r.items()
+                                if not f.startswith("bwd")}
+                          for key, r in tb["pairs"].items()}
         if k["name"] == "ssd_chunk":
             k["train_bf16_launches_per_step"] = tb["mamba2"][
                 "launches_per_step"]["ssd_chunk"]

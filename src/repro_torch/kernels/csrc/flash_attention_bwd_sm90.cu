@@ -1,6 +1,8 @@
 // The backward of causal or non-causal GQA/MQA attention for NVIDIA Hopper
-// (sm_90a) on the tensor cores: bf16 q, k, v, o, do with head sizes D, Dv
-// in {64, 128}; fp32 lse and delta.
+// (sm_90a) on the tensor cores: bf16 q, k, v, o, do at the forward's head
+// pairs (D, Dv): (64, 64), (128, 128), (64, 128), (128, 64), (96, 64)
+// (minicpm3), (192, 128) (deepseek) and (256, 256) (gemma); fp32 lse and
+// delta.
 //
 //   fog_flash_attention_bwd_sm90   the gradient of fog_flash_attention_sm90
 //                                  (flash_attention_sm90.cu); replaces no
@@ -12,8 +14,8 @@
 // caller's stream and returns cudaGetLastError() (loaded with ctypes by
 // repro_torch/kernels/_build.py).  The wrapper
 // (kernels/flash_attention.py::flash_attention_bwd_cuda) routes bf16 at
-// these head sizes here, allocates delta and the three outputs and checks
-// the pointers' 16-byte alignment; the kernels allocate nothing.
+// these pairs here, allocates delta and the three outputs and checks the
+// pointers' 16-byte alignment; the kernels allocate nothing.
 //
 // What it computes (the function of flash_attention_bwd_ref), with q [B,
 // Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv], the forward's output o and
@@ -36,11 +38,11 @@
 //
 // Design.  The three parts of the SIMT backward (flash_attention_bwd.cu),
 // so that nothing is summed by atomics and every output is written once:
-// the result is the same bit for bit from run to run.  Both passes run
-// one warpgroup (128 threads) a block on 64-row tiles; thread 0 loads
-// tiles by TMA (4-D tensor maps over [B, S, heads, 64-column chunk], the
-// 128-byte swizzle, zeros past the edge) into a two-stage ring, the next
-// tile's load in flight while the current one is computed.
+// the result is the same bit for bit from run to run.  Both passes run on
+// 64-row tiles; thread 0 loads tiles by TMA (4-D tensor maps over [B, S,
+// heads, 64-column chunk], the 128-byte swizzle, zeros past the edge)
+// into a two-stage ring, the next tile's load in flight while the current
+// one is computed.
 //   * dkdv pass, one block per (64-key tile, KV head, batch): K and V once;
 //     then for each q tile from the causal start and each of the G query
 //     heads in turn, q and do's tiles: S^T = K q^T and dP^T = V do^T with
@@ -55,20 +57,47 @@
 // Seven products in all (S and dP twice); each block's lse and delta for
 // the tile's rows go through shared memory.
 //
-// Shared memory: the block's own two tiles (64 x D and 64 x Dv bf16) and
-// per stage two loop tiles, each 64-column chunk 1024-byte aligned: at D =
-// Dv = 64 48 KB, at 128 96 KB (kernels/flash_attention.py::
-// bwd_smem_bytes_sm90 gives the exact figures).
+// The dkdv pass's registers.  One warpgroup holds, a thread, dK (Dp / 2
+// fp32 values), dV (Dv / 2), S^T and dP^T (32 each): 160 at (96, 64), 192
+// at (128, 128), which ptxas holds in 220 registers without spilling; 224
+// at (192, 128) and 320 at (256, 256) do not fit the 255 a thread may
+// have.  So where D + Dv > 256 (split_dkdv) the block runs two warpgroups
+// on the same 64 keys: the first computes S^T and P^T, hands P^T in fp32
+// to the second through shared memory (16 KB, each thread's 32 values at
+// the same layout positions the other warpgroup's thread holds dP^T in)
+// and accumulates dV; the second computes dP^T, then dS^T from the fp32
+// P^T, and accumulates dK.  The products are the same seven: the split
+// moves dV's and dK's accumulators apart, not the work, and the two
+// warpgroups' products overlap.  Named barriers order them: each
+// warpgroup's own rows of lse or delta, P^T written (the first arrives,
+// the second waits), and the stage and P^T free at the end of a tile.
+// The dq pass holds dQ (Dp / 2), S and dP: 192 values at most (D = 256),
+// as the dkdv pass at (128, 128), in one warpgroup.
+//
+// D = 96 (minicpm3) is not a multiple of the 64-column chunk: its q and K
+// tiles take two whole chunks, columns 96 to 127 zeros (TMA's fill past
+// the tensor maps' inner extent D, counted on the barrier with the box's
+// bytes).  The products over D (S^T, S) run over the 6 real k-steps; the
+// products that give D columns (dK += dS^T q, dQ += dS K) run at N = Dp =
+// 128, a third more of those two products' work, and the padded columns
+// of dK and dQ (zeros) are never stored.
+//
+// Shared memory: the block's own two tiles (64 x Dp and 64 x Dv bf16), per
+// stage two loop tiles, each 64-column chunk 1024-byte aligned, and P^T
+// (64 x 64 fp32) where the dkdv pass is split: at D = Dv = 64 48 KB, at 128
+// 96 KB, at 256 208 KB (kernels/flash_attention.py::bwd_smem_bytes_sm90
+// gives the exact figures).
 //
 // What bounds it: at the training shape (q [2, 4096, 32, 64], k/v [2,
 // 4096, 4, 64], causal) the function does five causal products (s
 // recomputed, dp, dv, dk, dq), 3.44e11 FLOP, 0.347 ms at 989 TFLOP/s
 // bf16, against ~153 MB of q, k, v, o, do, lse read and dq, dk, dv
-// written, 0.046 ms at 3.35 TB/s: operations bound it.  This first design
+// written, 0.046 ms at 3.35 TB/s: operations bound it; at minicpm3's
+// (q [2, 4096, 40, 96], v [.., 64]) 0.565 ms by operations.  This design
 // runs seven products, does not overlap a tile's products with its
-// elementwise part or with the other warpgroups' (one warpgroup a block),
-// and has one load in flight, so it runs well above that bound (PERF.md
-// row 6c).
+// elementwise part (the split dkdv pass overlaps its two warpgroups'
+// products only), and has one load in flight, so it runs well above that
+// bound (PERF.md rows 6b, 6c).
 
 #include <math.h>
 
@@ -82,29 +111,50 @@ constexpr int STAGES = 2;       // loop tiles in flight
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// the dkdv pass on two warpgroups, one holding dV and one dK (see the
+// header): where one warpgroup cannot hold both accumulators
+template <int D, int DV>
+__host__ __device__ constexpr bool split_dkdv() {
+  return D + DV > 256;
+}
+
+// named barriers (bar.sync / bar.arrive over `n` threads), for the two
+// warpgroups of the split dkdv pass; 0 is __syncthreads'
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // a block's shared memory: its own two tiles (K and V in the dkdv pass,
 // q and do in the dq pass), per stage the two loop tiles (q and do, or K
-// and V), the loop tile's lse and delta, then the barriers
+// and V), P^T (fp32, the split dkdv pass only), the loop tile's lse and
+// delta, then the barriers; widths padded to whole 64-column chunks
 template <int D, int DV>
 struct Smem {
-  static constexpr int A_BYTES = BT * D * 2;
+  static constexpr int DP = padded<D>();
+  static constexpr int A_BYTES = BT * DP * 2;
   static constexpr int B_BYTES = BT * DV * 2;
   static constexpr int B_OFF = A_BYTES;
   static constexpr int C_OFF = B_OFF + B_BYTES;
   static constexpr int E_OFF = C_OFF + STAGES * A_BYTES;
-  static constexpr int ROW_OFF = E_OFF + STAGES * B_BYTES;
+  static constexpr int P_OFF = E_OFF + STAGES * B_BYTES;
+  static constexpr int P_BYTES = split_dkdv<D, DV>() ? BT * BT * 4 : 0;
+  static constexpr int ROW_OFF = P_OFF + P_BYTES;
   static constexpr int BAR_OFF = ROW_OFF + 2 * BT * 4;
   // + 1024 for aligning the dynamic base
   static constexpr int BYTES = BAR_OFF + 8 * (1 + STAGES) + 1024;
 };
 
-// a [64, W] tile at (head, row0, batch) into 64-column chunks at dst
+// a [64, W] tile at (head, row0, batch) into 64-column chunks at dst (the
+// last chunk's columns past W zeros)
 template <int W>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* m,
                                           uint64_t* bar, int head, int row0,
                                           int b) {
 #pragma unroll
-  for (int c = 0; c < W / CHUNK; ++c)
+  for (int c = 0; c < padded<W>() / CHUNK; ++c)
     tma_load_4d(dst + c * BT * CHUNK_ROW_BYTES, m, bar, c * CHUNK, head,
                 row0, b);
 }
@@ -116,12 +166,13 @@ __device__ __forceinline__ void load_pair(uint8_t* d1, const CUtensorMap* m1,
                                           uint8_t* d2, const CUtensorMap* m2,
                                           uint64_t* bar, int head, int row0,
                                           int b) {
-  mbar_expect_tx(bar, BT * (W1 + W2) * 2);
+  mbar_expect_tx(bar, BT * (padded<W1>() + padded<W2>()) * 2);
   load_tile<W1>(d1, m1, bar, head, row0, b);
   load_tile<W2>(d2, m2, bar, head, row0, b);
 }
 
-// d[64 x 64] = A[64 x W] . B[64 x W]^T, both K-major 64-row tiles
+// d[64 x 64] = A[64 x W] . B[64 x W]^T, both K-major 64-row tiles (the W
+// real columns: W / 16 k-steps)
 template <int W>
 __device__ __forceinline__ void product_nt(float (&d)[32], const uint8_t* a,
                                            const uint8_t* b) {
@@ -134,17 +185,15 @@ __device__ __forceinline__ void product_nt(float (&d)[32], const uint8_t* a,
 }
 
 // d[64 x N] += A[64 x 64] . B[64 x N], A from registers (four k-steps of
-// the accumulator's layout), B an MN-major 64-row tile
+// the accumulator's layout), B an MN-major 64-row tile of N / 64 chunks
 template <int N>
 __device__ __forceinline__ void product_rn(float (&d)[N / 2],
                                            const uint32_t (&a)[4][4],
                                            const uint8_t* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<N>(d, a[kk],
-                mnmajor_desc(b + kk * 16 * CHUNK_ROW_BYTES,
-                             BT * CHUNK_ROW_BYTES),
-                1);
+    wgmma_rs_wide<N>(d, a[kk], b + kk * 16 * CHUNK_ROW_BYTES,
+                     BT * CHUNK_ROW_BYTES, 1);
 }
 
 // x[32] (fp32, the accumulator's layout) as bf16 A fragments
@@ -157,12 +206,14 @@ __device__ __forceinline__ void to_fragments(const float (&x)[32],
       a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
 }
 
-// rows (row0, row0 + 8) of a [64, W] fp32 accumulator, scaled, as bf16
-// into dst's rows [row, :] (row stride `stride` elements)
-template <int W>
-__device__ __forceinline__ void store_rows(const float (&acc)[W / 2],
+// row row0 + 8 r of a [64, 2 N] fp32 accumulator (N values a thread), its
+// first W columns scaled, as bf16 into dst (the columns past W, a padded
+// tile's zeros, are not stored)
+template <int W, int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N],
                                            __nv_bfloat16* dst, int r,
                                            float scale, int quad) {
+  static_assert(W % 8 == 0 && W <= 2 * N, "W columns of the accumulator");
 #pragma unroll
   for (int j = 0; j < W / 8; ++j)
     *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * quad) =
@@ -243,9 +294,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_sm90_dkdv(
   const int warp = __shfl_sync(FULL, tid / 32, 0);
   const int lane = tid % 32, quad = lane % 4;
   const int row0 = warp * 16 + lane / 4;   // this thread's keys row0, +8
-  float dk_acc[D / 2], dv_acc[DV / 2];
+  float dk_acc[L::DP / 2], dv_acc[DV / 2];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) dk_acc[x] = 0.0f;
+  for (int x = 0; x < L::DP / 2; ++x) dk_acc[x] = 0.0f;
 #pragma unroll
   for (int x = 0; x < DV / 2; ++x) dv_acc[x] = 0.0f;
 
@@ -307,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_sm90_dkdv(
     // dV += P^T do, dK += dS^T q
     wgmma_fence();
     product_rn<DV>(dv_acc, pa, dot);
-    product_rn<D>(dk_acc, da, qt);
+    product_rn<L::DP>(dk_acc, da, qt);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dv_acc);
@@ -326,6 +377,188 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_sm90_dkdv(
     const size_t at = ((size_t)b * Sk + j) * K + kh;
     store_rows<D>(dk_acc, dk + at * D, r, scale, quad);
     store_rows<DV>(dv_acc, dv + at * DV, r, 1.0f, quad);
+  }
+}
+
+// dk, dv for the 64 keys of tile blockIdx.x, KV head blockIdx.y, batch
+// blockIdx.z on two warpgroups (split_dkdv): the first computes P^T and
+// holds dV, the second computes dS^T from the first's P^T and holds dK
+template <int D, int DV>
+__global__ void __launch_bounds__(2 * THREADS, 1)
+    flash_attention_bwd_sm90_dkdv_split(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+        __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, int K,
+        float scale, float scale_log2, int causal) {
+  using L = Smem<D, DV>;
+  static_assert(split_dkdv<D, DV>(), "the split pass's pairs");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Ks = smem;
+  uint8_t* Vs = smem + L::B_OFF;
+  uint8_t* Qs = smem + L::C_OFF;
+  uint8_t* dOs = smem + L::E_OFF;
+  // P^T, fp32: value x of thread t of a warpgroup at x * THREADS + t
+  float* p_s = reinterpret_cast<float*>(smem + L::P_OFF);
+  float* lse_s = reinterpret_cast<float*>(smem + L::ROW_OFF);
+  float* dl_s = lse_s + BT;
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = own + 1;
+
+  const int j0 = blockIdx.x * BT, kh = blockIdx.y, b = blockIdx.z;
+  const int G = H / K;
+  const int tid = threadIdx.x;
+  const int i_start = causal ? j0 : 0;
+  const int n_qt = i_start < Sq ? (Sq - i_start + BT - 1) / BT : 0;
+  const int n_items = n_qt * G;   // (q tile, head of the group), heads inner
+
+  if (tid == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_pair<D, DV>(Ks, &tk, Vs, &tv, own, kh, j0, b);
+    for (int n = 0; n < STAGES && n < n_items; ++n)
+      load_pair<D, DV>(Qs + n * L::A_BYTES, &tq, dOs + n * L::B_BYTES, &tdo,
+                       &full[n], kh * G + n % G, i_start + (n / G) * BT, b);
+  }
+
+  // the warpgroup and the warp within it, broadcast so the compiler sees
+  // them warp-uniform
+  const int wg = __shfl_sync(FULL, tid / THREADS, 0);
+  const int warp = __shfl_sync(FULL, (tid / 32) % 4, 0);
+  const int t = tid % THREADS, lane = tid % 32, quad = lane % 4;
+  const int row0 = warp * 16 + lane / 4;   // this thread's keys row0, +8
+  const bool edge = j0 + BT > Sk;
+  mbar_wait(own, 0);
+
+  if (wg == 0) {
+    // ------------------------------------ S^T, P^T; dV += bf16(P^T) do
+    float dv_acc[DV / 2];
+#pragma unroll
+    for (int x = 0; x < DV / 2; ++x) dv_acc[x] = 0.0f;
+    for (int n = 0; n < n_items; ++n) {
+      const int s = n % STAGES;
+      const int i0 = i_start + (n / G) * BT, h = kh * G + n % G;
+      // the tile's lse (base 2); a row past Sq or with no key has lse -inf
+      // and so p = 0
+      if (t < BT) {
+        const int i = i0 + t;
+        lse_s[t] = i < Sq ? lse[((size_t)b * H + h) * Sq + i] * LOG2E
+                          : -INFINITY;
+      }
+      bar_sync(1, THREADS);
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      const uint8_t* qt = Qs + s * L::A_BYTES;
+      const uint8_t* dot = dOs + s * L::B_BYTES;
+
+      float st[32];
+      wgmma_fence();
+      product_nt<D>(st, Ks, qt);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+
+      // st[4 c + 2 r + e] is key j0 + row0 + 8 r, q row i0 + 8 c + 2 quad
+      // + e
+      const bool mask = edge || (causal && i0 < j0 + BT - 1);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * c + 2 * r + e, ii = 8 * c + 2 * quad + e;
+            const float ls = lse_s[ii];
+            bool live = ls > -INFINITY;
+            if (mask) {
+              const int j = j0 + row0 + 8 * r, i = i0 + ii;
+              live = live && j < Sk && (!causal || i >= j);
+            }
+            st[x] = live ? exp2f(__fsub_rn(__fmul_rn(st[x], scale_log2), ls))
+                         : 0.0f;
+            p_s[x * THREADS + t] = st[x];
+          }
+      bar_arrive(2, 2 * THREADS);   // P^T is in shared memory
+      uint32_t pa[4][4];
+      to_fragments(st, pa);
+      wgmma_fence();
+      product_rn<DV>(dv_acc, pa, dot);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      // both warpgroups done with stage s, P^T and the rows
+      bar_sync(3, 2 * THREADS);
+      const int nn = n + STAGES;
+      if (t == 0 && nn < n_items)
+        load_pair<D, DV>(Qs + s * L::A_BYTES, &tq, dOs + s * L::B_BYTES,
+                         &tdo, &full[s], kh * G + nn % G,
+                         i_start + (nn / G) * BT, b);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = j0 + row0 + 8 * r;
+      if (j >= Sk) continue;
+      const size_t at = ((size_t)b * Sk + j) * K + kh;
+      store_rows<DV>(dv_acc, dv + at * DV, r, 1.0f, quad);
+    }
+  } else {
+    // ------------------------- dP^T; dS^T from P^T; dK += bf16(dS^T) q
+    float dk_acc[L::DP / 2];
+#pragma unroll
+    for (int x = 0; x < L::DP / 2; ++x) dk_acc[x] = 0.0f;
+    for (int n = 0; n < n_items; ++n) {
+      const int s = n % STAGES;
+      const int i0 = i_start + (n / G) * BT, h = kh * G + n % G;
+      if (t < BT) {
+        const int i = i0 + t;
+        dl_s[t] = i < Sq ? delta[((size_t)b * H + h) * Sq + i] : 0.0f;
+      }
+      bar_sync(4, THREADS);
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      const uint8_t* qt = Qs + s * L::A_BYTES;
+      const uint8_t* dot = dOs + s * L::B_BYTES;
+
+      float dpt[32];
+      wgmma_fence();
+      product_nt<DV>(dpt, Vs, dot);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dpt);
+
+      bar_sync(2, 2 * THREADS);     // P^T written
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * c + 2 * r + e, ii = 8 * c + 2 * quad + e;
+            dpt[x] = __fmul_rn(p_s[x * THREADS + t],
+                               __fsub_rn(dpt[x], dl_s[ii]));
+          }
+      uint32_t da[4][4];
+      to_fragments(dpt, da);
+      wgmma_fence();
+      product_rn<L::DP>(dk_acc, da, qt);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk_acc);
+      bar_sync(3, 2 * THREADS);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = j0 + row0 + 8 * r;
+      if (j >= Sk) continue;
+      const size_t at = ((size_t)b * Sk + j) * K + kh;
+      store_rows<D>(dk_acc, dk + at * D, r, scale, quad);
+    }
   }
 }
 
@@ -383,9 +616,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_sm90_dq(
     ls[r] = i < Sq ? lse[at] * LOG2E : -INFINITY;
     dl[r] = i < Sq ? delta[at] : 0.0f;
   }
-  float dq_acc[D / 2];
+  float dq_acc[L::DP / 2];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) dq_acc[x] = 0.0f;
+  for (int x = 0; x < L::DP / 2; ++x) dq_acc[x] = 0.0f;
 
   mbar_wait(own, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -428,7 +661,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_bwd_sm90_dq(
 
     // dQ += dS K
     wgmma_fence();
-    product_rn<D>(dq_acc, da, kt);
+    product_rn<L::DP>(dq_acc, da, kt);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dq_acc);
@@ -472,15 +705,27 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int smem = Smem<D, DV>::BYTES;
   const float scale_log2 =
       static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      flash_attention_bwd_sm90_dkdv<D, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  if (err) return err;
-  flash_attention_bwd_sm90_dkdv<D, DV>
-      <<<dim3((Sk + BT - 1) / BT, K, B), THREADS, smem, stream>>>(
-          tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, K, scale, scale_log2,
-          causal);
+  const dim3 kv_grid((Sk + BT - 1) / BT, K, B);
+  __nv_bfloat16* dk_ = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dv_ = static_cast<__nv_bfloat16*>(dv);
+  if constexpr (split_dkdv<D, DV>()) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        flash_attention_bwd_sm90_dkdv_split<D, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err) return err;
+    flash_attention_bwd_sm90_dkdv_split<D, DV>
+        <<<kv_grid, 2 * THREADS, smem, stream>>>(
+            tq, tk, tv, tdo, lse, delta, dk_, dv_, Sq, Sk, H, K, scale,
+            scale_log2, causal);
+  } else {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        flash_attention_bwd_sm90_dkdv<D, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (err) return err;
+    flash_attention_bwd_sm90_dkdv<D, DV><<<kv_grid, THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, dk_, dv_, Sq, Sk, H, K, scale,
+        scale_log2, causal);
+  }
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   err = static_cast<int>(cudaFuncSetAttribute(
@@ -499,9 +744,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" {
 
 // bf16 q, k, v, o, do, dq, dk, dv; fp32 lse [B, H, Sq] from
-// fog_flash_attention_sm90 and delta [B, H, Sq] scratch; D, Dv in {64,
-// 128}; causal 0 or 1.  Every pointer 16-byte aligned (the wrapper
-// checks).
+// fog_flash_attention_sm90 and delta [B, H, Sq] scratch; (D, Dv) one of
+// the seven pairs (kernels/flash_attention.py::SM90_PAIRS); causal 0 or
+// 1.  Every pointer 16-byte aligned (the wrapper checks).
 int fog_flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq,
@@ -526,6 +771,15 @@ int fog_flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
   if (D == 128 && Dv == 64)
     return launch<128, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, H,
                            K, scale, causal, s);
+  if (D == 96 && Dv == 64)
+    return launch<96, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, H,
+                          K, scale, causal, s);
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk,
+                            H, K, scale, causal, s);
+  if (D == 256 && Dv == 256)
+    return launch<256, 256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk,
+                            H, K, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

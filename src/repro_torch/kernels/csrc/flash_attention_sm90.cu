@@ -1,8 +1,11 @@
 // Causal or non-causal GQA/MQA attention for NVIDIA Hopper (sm_90a) on the
-// tensor cores: bf16 q, k, v with head sizes D, Dv in {64, 128}.
+// tensor cores: bf16 q, k, v at the head pairs (D, Dv) of SM90_PAIRS below:
+// (64, 64), (128, 128), (64, 128), (128, 64) (tinyllama, musicgen,
+// chameleon, granite), (96, 64) (minicpm3's MLA), (192, 128) (deepseek's
+// MLA) and (256, 256) (gemma).
 //
 //   fog_flash_attention_sm90   replaces repro/kernels/flash_attention.py::_flash_kernel
-//                              for bf16 at D, Dv in {64, 128}
+//                              for bf16 at those pairs
 //   fog_wgmma_probe            one wgmma tile product of each form the
 //                              kernel issues, for the tests (not counted)
 //
@@ -10,7 +13,7 @@
 // return a CUDA error code (loaded with ctypes by
 // repro_torch/kernels/_build.py, linked into the same library as the other
 // kernels).  The wrapper (kernels/flash_attention.py) routes bf16 at these
-// head sizes here and everything else (fp32, other head sizes) to
+// pairs here and everything else (fp32, other head sizes) to
 // csrc/flash_attention.cu, allocates the output and checks the pointers'
 // 16-byte alignment; the kernel allocates nothing.
 //
@@ -32,14 +35,15 @@
 // acc = 0 (no exp(-inf - -inf)) and would write 0.
 //
 // Design.  One block of 288 threads owns (128-row q tile, query head,
-// batch): two consumer warpgroups of 64 q rows each and one producer warp.
-// The producer's one thread loads the q tile once and then each K and V
-// tile of BK keys by TMA into a ring of STAGES stages in shared memory,
-// under a full and an empty mbarrier per stage.  K/V are read in place at
-// KV head h / G (never repeated), with 4-D tensor maps over [B, S, heads,
-// 64-column chunk] and the 128-byte swizzle (a 64-wide bf16 row is 128 B):
-// out-of-range rows of a ragged tile arrive as zeros and are masked.  Per
-// tile, each consumer warpgroup
+// batch): two consumer warpgroups of 64 q rows each and one producer warp
+// (at Dv = 256 a 64-row tile, the warpgroups on its two column halves:
+// see Registers below).  The producer's one thread loads the q tile once
+// and then each K and V tile of BK keys by TMA into a ring of STAGES
+// stages in shared memory, under a full and an empty mbarrier per stage.
+// K/V are read in place at KV head h / G (never repeated), with 4-D tensor
+// maps over [B, S, heads, 64-column chunk] and the 128-byte swizzle (a
+// 64-wide bf16 row is 128 B): out-of-range rows of a ragged tile arrive
+// as zeros and are masked.  Per tile, each consumer warpgroup
 //   * computes S = Q K^T with wgmma m64nBKk16 (A = Q, B = K, both K-major
 //     in shared memory), the scores in registers;
 //   * masks only tiles that cross its diagonal or the edge Sk, skips tiles
@@ -49,26 +53,55 @@
 //   * converts p to bf16 in the accumulator's own layout, which is the
 //     register layout of wgmma's A operand, and computes O += P V with
 //     wgmma m64nDvk16 (A from registers, B = V from shared memory,
-//     MN-major: the transpose bit is set);
+//     MN-major: the transpose bit is set; at Dv = 256 each warpgroup's
+//     128 columns);
 // then releases the stage.  The epilogue divides by max(l, 1e-30) and
 // stores rows i < Sq as bf16, and, where lse is not null, each row's
-// log-sum-exp as fp32 (one thread of the row's quad).  Q tiles run longest-first, so the short
-// causal ones fill the tail.
+// log-sum-exp as fp32 (one thread of the row's quad).  Q tiles run
+// longest-first, so the short causal ones fill the tail.
 //
-// BK is 128 keys at D = Dv = 64 and 64 otherwise (keys_per_tile).  Shared
-// memory: the q tile 128 D 2 B, and per stage a K tile BK D 2 B and a V
-// tile BK Dv 2 B, each 64-column chunk 1024-byte aligned; at D = Dv = 64:
-// 16 + 2 (16 + 16) KB = 80 KB, at D = Dv = 128: 32 + 2 (16 + 16) KB = 96 KB
-// (the wrapper's smem_bytes_sm90 gives the exact figures).
+// BK is 128 keys where Dv = 64 and D <= 96, and 64 otherwise
+// (keys_per_tile).  Shared memory: the q tile BQ Dp 2 B, and per stage a
+// K tile BK Dp 2 B and a V tile BK Dv 2 B, each 64-column chunk 1024-byte
+// aligned, where Dp is D rounded up to whole 64-column chunks; at D = Dv =
+// 64: 16 + 2 (16 + 16) KB = 80 KB, at D = Dv = 128: 32 + 2 (16 + 16) KB =
+// 96 KB, at D = Dv = 256 (64 rows): 32 + 2 (32 + 32) KB = 160 KB (the
+// wrapper's smem_bytes_sm90 gives the exact figures).
+//
+// D = 96 (minicpm3) is not a multiple of the 64-column chunk that the
+// 128-byte swizzle and the tensor maps use.  The q and K tiles take two
+// whole chunks: the map's inner extent is D = 96, so TMA fills columns 96
+// to 127 of the second chunk with zeros (and still counts the whole box's
+// bytes on the barrier).  S = q K^T then runs over D / 16 = 6 k-steps, the
+// real columns only: the padding costs shared memory (a third more of the
+// q and K tiles) but no product work, and no padded column reaches out,
+// whose width is Dv.
+//
+// Registers at Dv = 256 (gemma): a consumer thread would hold the O
+// accumulator, Dv / 2 = 128 fp32 values, the scores, BK / 2 = 32, and the
+// bf16 P, 16 registers.  A block of 288 threads puts 3 warps on some of
+// the SM's 4 register files (16,384 registers each), so ptxas gives a
+// thread at most 168: that instance spilled 528 bytes, and still 416 with
+// a producer warpgroup that handed its registers to the consumers
+// (setmaxnreg, 232 a consumer thread).  So at Dv = 256 (split_dv) a
+// block owns 64 q rows, not 128, and its two consumer warpgroups split
+// the output's columns instead of the rows: both compute the same S = q
+// K^T and softmax (the same bits), and each accumulates O for its 128
+// columns of V, 64 fp32 values a thread, as at Dv = 128.  S is computed
+// twice: 1.5 times the products of one warpgroup holding all 256
+// columns.
 //
 // What bounds it: at the tinyllama prefill (B=4, S=2048, H=32, K=4, D =
 // Dv = 64, causal) 68.75 GFLOP of products on the bf16 tensor cores,
 // 0.0695 ms at 989 TFLOP/s, against 75.5 MB of q, k, v and out, 0.0225 ms
-// at 3.35 TB/s: operations bound it.  This first tensor-core design does
-// not overlap one warpgroup's softmax with its own next product (each
-// tile's two products and its softmax run in turn within a warpgroup; the
-// two warpgroups and the TMA ring overlap each other), so it runs below
-// that bound (PERF.md gives the measured time).
+// at 3.35 TB/s: operations bound it, as at the other pairs' prefills
+// (minicpm3, q [4, 2048, 40, 96]: 0.109 ms; deepseek, [4, 2048, 128, 192]:
+// 0.695 ms; gemma, [4, 2048, 8, 256] over one KV head: 0.0695 ms).  This
+// first tensor-core design does not overlap one warpgroup's softmax with
+// its own next product (each tile's two products and its softmax run in
+// turn within a warpgroup; the two warpgroups and the TMA ring overlap
+// each other), so it runs below that bound (PERF.md gives the measured
+// time).
 
 #include <math.h>
 
@@ -76,23 +109,38 @@
 
 namespace {
 
-constexpr int BQ = 128;              // q rows of one block
 constexpr int STAGES = 2;            // K/V tiles in flight
 constexpr int CONSUMER_THREADS = 256;
 constexpr int THREADS = CONSUMER_THREADS + 32;
 
-// keys per K/V tile: 128 at D = Dv = 64 (measured faster than 64 there);
-// 64 when a head size is 128 (as fast, and 128 keys there leave too few
-// registers to keep the products in flight)
+// the two consumer warpgroups split the output's columns (Dv = 256), not
+// the block's rows (see Registers in the header)
+template <int DV>
+__host__ __device__ constexpr bool split_dv() { return DV == 256; }
+
+// q rows of one block: 64 where the warpgroups split the columns, else
+// 128 (64 each)
+template <int DV>
+__host__ __device__ constexpr int rows_per_block() {
+  return split_dv<DV>() ? 64 : 128;
+}
+
+// keys per K/V tile: 128 at D = Dv = 64 (measured faster than 64 there)
+// and at minicpm3's (96, 64); 64 when a head size is 128 or more (as fast,
+// and 128 keys there leave too few registers to keep the products in
+// flight)
 template <int D, int DV>
-constexpr int keys_per_tile() { return D == 64 && DV == 64 ? 128 : 64; }
+constexpr int keys_per_tile() { return DV == 64 && D <= 96 ? 128 : 64; }
 
 // the block's shared memory: q tile, then per stage a K and a V tile, each
-// stored as 64-column chunks [rows][64] (1024-byte aligned), then barriers
+// stored as 64-column chunks [rows][64] (1024-byte aligned; q and K padded
+// to whole chunks), then barriers
 template <int D, int DV, int BK>
 struct Smem {
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int K_BYTES = BK * D * 2;
+  static constexpr int DP = padded<D>();
+  static constexpr int BQ = rows_per_block<DV>();
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int K_BYTES = BK * DP * 2;
   static constexpr int V_BYTES = BK * DV * 2;
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
@@ -121,6 +169,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
+  constexpr int BQ = L::BQ;
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / K);
@@ -147,7 +196,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
     if (tid != CONSUMER_THREADS) return;
     mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-    for (int c = 0; c < D / CHUNK; ++c)
+    for (int c = 0; c < L::DP / CHUNK; ++c)
       tma_load_4d(Qs + c * BQ * CHUNK_ROW_BYTES, &tq, q_full, c * CHUNK, h,
                   i0, b);
     for (int t = 0; t < n_tiles; ++t) {
@@ -157,7 +206,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
       uint8_t* kt = Ks + s * L::K_BYTES;
       uint8_t* vt = Vs + s * L::V_BYTES;
 #pragma unroll
-      for (int c = 0; c < D / CHUNK; ++c)
+      for (int c = 0; c < L::DP / CHUNK; ++c)
         tma_load_4d(kt + c * BK * CHUNK_ROW_BYTES, &tk, &full[s], c * CHUNK,
                     kh, t * BK, b);
 #pragma unroll
@@ -172,12 +221,18 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
   const int wg = warp / 4, w = warp % 4, lane = tid % 32;
   const int quad = lane % 4;
   // this thread's two rows of the block's tile, and its warpgroup's
-  const int row0 = wg * 64 + w * 16 + lane / 4;
-  const int wg_first = i0 + wg * 64, wg_last = wg_first + 63;
+  // the warpgroup's rows (its 64 of the block's 128, or all 64 where the
+  // warpgroups split the columns) and its output columns [col0, col0 +
+  // DVW)
+  constexpr int DVW = split_dv<DV>() ? DV / 2 : DV;
+  const int wg_row = split_dv<DV>() ? 0 : wg * 64;
+  const int col0 = split_dv<DV>() ? wg * DVW : 0;
+  const int row0 = wg_row + w * 16 + lane / 4;
+  const int wg_first = i0 + wg_row, wg_last = wg_first + 63;
 
-  float o[DV / 2];
+  float o[DVW / 2];
 #pragma unroll
-  for (int x = 0; x < DV / 2; ++x) o[x] = 0.0f;
+  for (int x = 0; x < DVW / 2; ++x) o[x] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 
   mbar_wait(q_full, 0);
@@ -188,7 +243,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
     if (!(causal && j0 > wg_last)) {
       const uint8_t* kt = Ks + s * L::K_BYTES;
       const uint8_t* vt = Vs + s * L::V_BYTES;
-      // S = Q K^T over D in steps of 16 (32 B within a 128-byte row)
+      // S = Q K^T over D in steps of 16 (32 B within a 128-byte row): the
+      // real columns only, where D = 96 leaves the last chunk half zeros
       float sc[BK / 2];
       wgmma_fence();
 #pragma unroll
@@ -196,7 +252,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
         const int c = kk / 4, off = (kk % 4) * 32;
         wgmma_ss<BK>(sc,
                      kmajor_desc(Qs + c * BQ * CHUNK_ROW_BYTES +
-                                 wg * 64 * CHUNK_ROW_BYTES + off),
+                                 wg_row * CHUNK_ROW_BYTES + off),
                      kmajor_desc(kt + c * BK * CHUNK_ROW_BYTES + off), kk);
       }
       wgmma_commit();
@@ -246,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
         m[r] = m_new;
       }
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
+      for (int j = 0; j < DVW / 8; ++j) {
         o[4 * j + 0] *= corr[0];
         o[4 * j + 1] *= corr[0];
         o[4 * j + 2] *= corr[1];
@@ -265,10 +321,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<DV>(o, pa[kk],
-                     mnmajor_desc(vt + kk * 16 * CHUNK_ROW_BYTES,
-                                  BK * CHUNK_ROW_BYTES),
-                     1);
+        wgmma_rs_wide<DVW>(o, pa[kk],
+                           vt + (col0 / CHUNK) * BK * CHUNK_ROW_BYTES +
+                               kk * 16 * CHUNK_ROW_BYTES,
+                           BK * CHUNK_ROW_BYTES, 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -282,14 +338,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel_sm90(
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + row0 + 8 * r;
     if (i >= Sq) continue;
-    if (lse != nullptr && quad == 0)
+    if (lse != nullptr && quad == 0 && col0 == 0)
       lse[((size_t)b * H + h) * Sq + i] =
           l[r] > 0.0f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
                       : -INFINITY;
     const float denom = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* row = out + (((size_t)b * Sq + i) * H + h) * DV;
+    __nv_bfloat16* row = out + (((size_t)b * Sq + i) * H + h) * DV + col0;
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
+    for (int j = 0; j < DVW / 8; ++j) {
       const __nv_bfloat162 v = __floats2bfloat162_rn(
           __fdiv_rn(o[4 * j + 2 * r], denom),
           __fdiv_rn(o[4 * j + 2 * r + 1], denom));
@@ -380,6 +436,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Sq, int Sk, int H, int K, float scale,
            int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
+  constexpr int BQ = rows_per_block<DV>();
   int rc = encode(&tq, q, B, Sq, H, D, BQ);
   if (rc == 0) rc = encode(&tk, k, B, Sk, K, D, BK);
   if (rc == 0) rc = encode(&tv, v, B, Sk, K, DV, BK);
@@ -419,8 +476,9 @@ int launch_probe(const void* a, const void* b1, const void* b2, float* c1,
 
 extern "C" {
 
-// bf16 q, k, v and out; D, Dv in {64, 128}; causal 0 or 1.  Every pointer
-// 16-byte aligned (the wrapper checks).  lse: fp32 [B, H, Sq], or null.
+// bf16 q, k, v and out; (D, Dv) one of the seven pairs (kernels/
+// flash_attention.py::SM90_PAIRS); causal 0 or 1.  Every pointer 16-byte
+// aligned (the wrapper checks).  lse: fp32 [B, H, Sq], or null.
 int fog_flash_attention_sm90(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int Sq, int Sk,
                              int H, int K, int D, int Dv, float scale,
@@ -441,6 +499,15 @@ int fog_flash_attention_sm90(const void* q, const void* k, const void* v,
   if (D == 128 && Dv == 64)
     return launch<128, 64>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
                            s);
+  if (D == 96 && Dv == 64)
+    return launch<96, 64>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
+                          s);
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
+                            s);
+  if (D == 256 && Dv == 256)
+    return launch<256, 256>(q, k, v, out, l, B, Sq, Sk, H, K, scale, causal,
+                            s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

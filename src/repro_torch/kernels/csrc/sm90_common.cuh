@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_sm90.cu, ssd_chunk_sm90.cu): mbarriers, TMA loads through
-// 4-D tensor maps, shared-memory matrix descriptors with the 128-byte
-// swizzle, the wgmma products the kernels issue, and bf16 packing.  Every
-// function is internal to the including file (an anonymous namespace), so
-// each kernel's translation unit keeps its own copy.
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, ssd_chunk_sm90.cu):
+// mbarriers, TMA loads through 4-D tensor maps, shared-memory matrix
+// descriptors with the 128-byte swizzle, the wgmma products the kernels
+// issue, and bf16 packing.  Every function is internal to the including
+// file (an anonymous namespace), so each kernel's translation unit keeps
+// its own copy.
 //
 // Tiles are stored as 64-column chunks of bf16: a 128-byte row, 8-row groups
-// 1024 bytes apart, each chunk 1024-byte aligned (the swizzle's period).
+// 1024 bytes apart, each chunk 1024-byte aligned (the swizzle's period).  A
+// width that is not a multiple of 64 (D = 96) takes whole chunks, the
+// columns past it zeros (padded<D>).
 #pragma once
 
 #include <cuda.h>
@@ -249,6 +252,38 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          int accumulate) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, accumulate);
   else wgmma_rs_n128(d, a, db, accumulate);
+}
+
+// d[64 x N] (+)= A . B for N in {64, 128, 192, 256}, A [64 x 16] bf16 from
+// registers, B [16 x N] an MN-major tile of 64-column chunks `chunk_bytes`
+// apart: products of 128 columns (two chunks), then one of 64 where N is
+// not a multiple of 128.  The accumulator of each piece is the matching
+// slice of d: in wgmma's layout a thread's values of columns [128 p, 128 p
+// + 128) are d[64 p .. 64 p + 63], so the pieces give d the layout of one
+// m64nN product.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              const uint8_t* b,
+                                              uint32_t chunk_bytes,
+                                              int accumulate) {
+  static_assert(N % 64 == 0 && N <= 256, "N is 64, 128, 192 or 256");
+#pragma unroll
+  for (int p = 0; p < N / 128; ++p)
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64 * p), a,
+                  mnmajor_desc(b + 2 * p * chunk_bytes, chunk_bytes),
+                  accumulate);
+  if constexpr (N % 128 != 0)
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(d + N / 2 - 32), a,
+                 mnmajor_desc(b + (N / 64 - 1) * chunk_bytes, chunk_bytes),
+                 accumulate);
+}
+
+// D rounded up to whole 64-column chunks: a tile of D = 96 is stored as two
+// chunks, its last 32 columns zeros (TMA's fill past the tensor's edge)
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + CHUNK - 1) / CHUNK * CHUNK;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

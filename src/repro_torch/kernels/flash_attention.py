@@ -5,19 +5,25 @@ Replaces ``repro/kernels/flash_attention.py::_flash_kernel`` (Pallas TPU)
 with two CUDA kernels.  :func:`route` picks one by the dtype and the head
 sizes alone, a documented rule, never by a failure:
 
-* ``"sm90"``, bf16 with ``D`` and ``Dv`` in ``{64, 128}`` (tinyllama's and
-  musicgen's 64, chameleon's and granite's 128):
+* ``"sm90"``, bf16 with ``(D, Dv)`` in :data:`SM90_PAIRS`: (64, 64),
+  (128, 128), (64, 128), (128, 64) (tinyllama's and musicgen's 64,
+  chameleon's and granite's 128), (96, 64) (minicpm3's MLA), (192, 128)
+  (deepseek's MLA) and (256, 256) (gemma); each pair is one template
+  instance in each source, so the set is explicit, not a product:
   ``csrc/flash_attention_sm90.cu::flash_attention_kernel_sm90``, on the
   tensor cores.  One block per (128-row q tile, query head, batch): a
   producer warp loads q once and K/V tiles of :func:`sm90_keys` keys by TMA
   into a 2-stage ring in shared memory; two consumer warpgroups compute
   S = q·kᵀ with ``wgmma`` (bf16 products, fp32 sums), the online softmax
   in registers, and O += bf16(p)·v with a second ``wgmma`` (p from
-  registers).  Every pointer must be 16-byte aligned (TMA's rule); the
-  wrapper checks that before the launch.
-* ``"simt"``, every other case (fp32, and the head sizes the tensor-core
-  kernel does not take: MLA's 96 and 192, gemma's 256, any other up to
-  256): ``csrc/flash_attention.cu::flash_attention_kernel``, one block
+  registers); at Dv = 256 a block owns 64 rows and its warpgroups split
+  the output's 256 columns (:func:`sm90_rows`).  Every pointer must be
+  16-byte aligned (TMA's rule); the wrapper checks that before the
+  launch.  D = 96 is stored as two whole 64-column chunks, the last 32
+  columns zeros (TMA's fill), and never reaches the output.
+* ``"simt"``, every other case (fp32, and the bf16 pairs the tensor-core
+  kernel does not take: jamba's 32, MLA at smoke width 48 / 32, any other
+  up to 256): ``csrc/flash_attention.cu::flash_attention_kernel``, one block
   per (64-row q tile, query head, batch) over 64-key tiles staged in
   shared memory as fp32, with fp32 FMAs on CUDA cores, which keeps fp32
   within ~1e-6 of the plain version.
@@ -46,8 +52,11 @@ write) and write dq, dk and dv once each without atomics
   cores: a dK/dV pass per (64-key tile, KV head, batch) over the q tiles
   and the G query heads, and a dQ pass per (64-row q tile, head, batch),
   each one warpgroup with ``wgmma`` products and a two-stage TMA ring;
-  p and ds are rounded to bf16 only as the A operands of the last
-  products (``dv += p^T do``, ``dk += ds^T q``, ``dq += ds k``).
+  where one warpgroup cannot hold dK and dV (``D + Dv > 256``: (192, 128),
+  (256, 256)) the dK/dV pass runs two, one holding dV and one dK, fp32
+  p^T passed between them through shared memory; p and ds are rounded to
+  bf16 only as the A operands of the last products (``dv += p^T do``,
+  ``dk += ds^T q``, ``dq += ds k``).
 * ``"simt"``: ``csrc/flash_attention_bwd.cu``, fp32 arithmetic on CUDA
   cores from fp32 or bf16 inputs (loads and stores in the inputs' dtype),
   its tile sizes by head size (:func:`bwd_tiles`).
@@ -64,23 +73,28 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["MAX_HEAD", "SM90_HEADS", "bwd_smem_bytes",
-           "bwd_smem_bytes_sm90", "bwd_tiles", "check_shapes",
-           "flash_attention_bwd_cuda", "flash_attention_bwd_ref",
-           "flash_attention_cuda",
+__all__ = ["MAX_HEAD", "SM90_PAIRS", "bwd_smem_bytes",
+           "bwd_smem_bytes_sm90", "bwd_split_dkdv", "bwd_tiles",
+           "check_shapes", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_ref", "flash_attention_cuda",
            "flash_attention_ref", "flash_attention_ref_lse", "route",
-           "sm90_keys", "smem_bytes", "smem_bytes_sm90", "softmax_scale"]
+           "sm90_keys", "sm90_padded", "sm90_rows", "smem_bytes",
+           "smem_bytes_sm90", "softmax_scale"]
 
 # the q, k, v and p tiles of one block of the SIMT kernel live in shared
 # memory
 MAX_HEAD = 256
 BQ = BK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core kernel: bf16 at these head sizes; 128 q rows per block,
-# K/V tiles in flight
-SM90_HEADS = (64, 128)
+# the tensor-core kernels: bf16 at these (D, Dv) pairs, each a template
+# instance of the forward and the backward; 128 q rows per forward block
+# (64 at Dv = 256, :func:`sm90_rows`), K/V tiles in flight
+SM90_PAIRS = frozenset({(64, 64), (128, 128), (64, 128), (128, 64),
+                        (96, 64), (192, 128), (256, 256)})
 SM90_BQ = 128
 SM90_STAGES = 2
+# the 64-column chunk of the tensor-core kernels' swizzled tiles
+SM90_CHUNK = 64
 
 
 def softmax_scale(D: int, scale: float | None = None) -> float:
@@ -212,25 +226,42 @@ def smem_bytes(D: int, Dv: int) -> int:
 
 def sm90_keys(D: int, Dv: int) -> int:
     """Keys per K/V tile of the tensor-core kernel
-    (``csrc/flash_attention_sm90.cu::keys_per_tile``)."""
-    return 128 if D == Dv == 64 else 64
+    (``csrc/flash_attention_sm90.cu::keys_per_tile``): 128 where Dv = 64
+    and D <= 96, else 64."""
+    return 128 if Dv == 64 and D <= 96 else 64
+
+
+def sm90_padded(D: int) -> int:
+    """D rounded up to whole 64-column chunks, the width of the
+    tensor-core kernels' q and K tiles (``csrc/sm90_common.cuh::padded``):
+    96 -> 128."""
+    return -(-D // SM90_CHUNK) * SM90_CHUNK
+
+
+def sm90_rows(Dv: int) -> int:
+    """q rows of one block of the tensor-core forward
+    (``csrc/flash_attention_sm90.cu::rows_per_block``): 128, a warpgroup's
+    64 each; 64 at Dv = 256, where the two warpgroups split the output's
+    columns (one holding all 256 spilled)."""
+    return SM90_BQ // 2 if Dv == 256 else SM90_BQ
 
 
 def smem_bytes_sm90(D: int, Dv: int) -> int:
     """Dynamic shared memory of one block of the tensor-core kernel: the
-    bf16 q tile, ``SM90_STAGES`` K and V tiles, the mbarriers, and 1024 B
-    to align the base for the 128-byte swizzle
+    bf16 q tile (:func:`sm90_rows` rows), ``SM90_STAGES`` K and V tiles (q
+    and K padded to whole 64-column chunks), the mbarriers, and 1024 B to
+    align the base for the 128-byte swizzle
     (``csrc/flash_attention_sm90.cu::Smem``)."""
-    bk = sm90_keys(D, Dv)
-    return (2 * SM90_BQ * D + SM90_STAGES * 2 * bk * (D + Dv)
+    bk, dp = sm90_keys(D, Dv), sm90_padded(D)
+    return (2 * sm90_rows(Dv) * dp + SM90_STAGES * 2 * bk * (dp + Dv)
             + 8 * (1 + 2 * SM90_STAGES) + 1024)
 
 
 def route(dtype: torch.dtype, D: int, Dv: int) -> str:
     """The kernel a CUDA call takes, forward and backward alike:
-    ``"sm90"`` (tensor cores) for bf16 with D and Dv in ``SM90_HEADS``,
-    else ``"simt"``."""
-    if dtype == torch.bfloat16 and D in SM90_HEADS and Dv in SM90_HEADS:
+    ``"sm90"`` (tensor cores) for bf16 with ``(D, Dv)`` in
+    :data:`SM90_PAIRS`, else ``"simt"``."""
+    if dtype == torch.bfloat16 and (D, Dv) in SM90_PAIRS:
         return "sm90"
     return "simt"
 
@@ -297,13 +328,22 @@ def bwd_smem_bytes(D: int, Dv: int) -> int:
                for own in bwd_tiles(D, Dv)[:2])
 
 
+def bwd_split_dkdv(D: int, Dv: int) -> bool:
+    """The tensor-core backward's dK/dV pass runs two warpgroups (one
+    holding dV, one dK) where one cannot hold both accumulators
+    (``csrc/flash_attention_bwd_sm90.cu::split_dkdv``)."""
+    return D + Dv > 256
+
+
 def bwd_smem_bytes_sm90(D: int, Dv: int) -> int:
     """Dynamic shared memory of a block of either tensor-core backward
-    kernel: its own two bf16 tiles (64 x D, 64 x Dv), ``SM90_STAGES`` pairs
-    of loop tiles, the loop tile's lse and delta, the mbarriers, and 1024 B
-    to align the base for the 128-byte swizzle
-    (``csrc/flash_attention_bwd_sm90.cu::Smem``)."""
-    return (2 * 64 * (D + Dv) * (1 + SM90_STAGES) + 2 * 4 * 64
+    kernel: its own two bf16 tiles (64 x D padded to whole 64-column
+    chunks, 64 x Dv), ``SM90_STAGES`` pairs of loop tiles, p^T in fp32
+    (64 x 64) where the dK/dV pass is split, the loop tile's lse and
+    delta, the mbarriers, and 1024 B to align the base for the 128-byte
+    swizzle (``csrc/flash_attention_bwd_sm90.cu::Smem``)."""
+    return (2 * 64 * (sm90_padded(D) + Dv) * (1 + SM90_STAGES)
+            + (4 * 64 * 64 if bwd_split_dkdv(D, Dv) else 0) + 2 * 4 * 64
             + 8 * (1 + SM90_STAGES) + 1024)
 
 

@@ -170,8 +170,9 @@ class FlashAttention(torch.autograd.Function):
     ``flash_attention.route`` with its per-row lse on CUDA, the plain
     version on the CPU) saves q, k, v, the output and lse; the backward
     is ``flash_attention_bwd_cuda`` on CUDA (the same route: the
-    tensor-core backward for bf16 at D, Dv in {64, 128}, the SIMT one
-    otherwise), ``flash_attention_bwd_ref`` on the CPU."""
+    tensor-core backward for bf16 at the (D, Dv) pairs of
+    ``flash_attention.SM90_PAIRS``, the SIMT one otherwise),
+    ``flash_attention_bwd_ref`` on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale):

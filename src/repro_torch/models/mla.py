@@ -5,7 +5,8 @@ The full-sequence path expands K and V from the compressed latent and runs
 ``layers.flash_attention`` (the CUDA ``flash_attention`` kernel on the
 card) with query/key heads of ``dn + dr`` and value heads of ``dv``: D =
 96, Dv = 64 for minicpm3-4b and D = 192, Dv = 128 for deepseek-v3, both
-on the kernel's SIMT route.  Decode uses the ABSORBED form: W_UK is folded
+on the kernel's tensor-core route in bf16 (``flash_attention.SM90_PAIRS``)
+and its SIMT route in fp32.  Decode uses the ABSORBED form: W_UK is folded
 into the query and W_UV into the output, so attention runs against the
 cached latent ``c_kv`` (rank r_kv) and the shared ``k_rope``, a cache of
 ``[B, S, r_kv + d_rope]`` in place of ``[B, S, H, dn + dr + dv]``.

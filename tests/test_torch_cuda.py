@@ -954,6 +954,78 @@ def test_flash_attention_sm90_matches_plain(cuda, shape):
                            flash_attention_ref(*args, causal=causal))
 
 
+# the tensor-core route's pairs added for MLA and gemma: (D, Dv), and the
+# cases each is held at: (label, (B, Sq, Sk, H, K), causal)
+SM90_NEW_PAIRS = [(96, 64), (192, 128), (256, 256)]
+SM90_PAIR_CASES = [("ragged", (2, 200, 200, 8, 2), True),
+                   ("non-causal", (1, 256, 192, 8, 2), False),
+                   ("Sq < Sk", (1, 100, 300, 4, 4), True),
+                   ("Sq > Sk", (1, 300, 100, 4, 4), True),
+                   ("MQA (K = 1)", (2, 256, 256, 8, 1), True)]
+
+
+@pytest.mark.parametrize("pair", SM90_NEW_PAIRS, ids=str)
+@pytest.mark.parametrize("label,dims,causal", SM90_PAIR_CASES,
+                         ids=[c[0] for c in SM90_PAIR_CASES])
+def test_flash_attention_sm90_at_mla_and_gemma_pairs(cuda, pair, label, dims,
+                                                      causal):
+    """minicpm3's (96, 64), deepseek's (192, 128) and gemma's (256, 256) on
+    the tensor-core route: one launch there and none on the SIMT one,
+    within 2 bf16 ulps of the output's scale (chip_smoke.flash_close), the
+    same bits on a second run and with the lse, the lse within 2e-6 of the
+    plain version's (relative to its magnitude, at least 1)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    shape = (*dims, *pair)
+    args = chip_smoke.flash_inputs(np.random.default_rng(sum(shape)), shape,
+                                   torch.bfloat16, cuda)
+    assert fa.route(torch.bfloat16, *pair) == "sm90"
+    before = dict(_build.routes)
+    got = ops.flash_attention(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert {k: _build.routes[k] - before[k] for k in before
+            if _build.routes[k] != before[k]} == {"flash_attention_sm90": 1}
+    want, want_lse = fa.flash_attention_ref_lse(*args, causal=causal)
+    chip_smoke.flash_close(f"flash_attention_sm90 {label} {shape}", got, want)
+    again, lse = fa.flash_attention_cuda(*args, causal=causal, with_lse=True)
+    assert torch.equal(got, again)
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(want_lse))
+    fin = torch.isfinite(want_lse)
+    err = (lse[fin] - want_lse[fin]).abs()
+    assert bool((err <= 2e-6 * want_lse[fin].abs().clamp_min(1.0)).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("pair", SM90_NEW_PAIRS, ids=str)
+@pytest.mark.parametrize("label,dims,causal",
+                         SM90_PAIR_CASES + [("a row that sees no key",
+                                             (1, 130, 130, 4, 2), True)],
+                         ids=[c[0] for c in SM90_PAIR_CASES] + ["masked"])
+def test_flash_backward_sm90_at_mla_and_gemma_pairs(cuda, pair, label, dims,
+                                                     causal):
+    """The tensor-core backward at the new pairs (the two-warpgroup dK/dV
+    pass at (192, 128) and (256, 256)) against ``flash_attention_bwd_ref``
+    on the same bf16 inputs within ``BWD_BF16_BAR`` of each gradient's
+    scale, the same bits on a second run, both launches counted on
+    ``flash_attention_bwd_sm90``; a row whose lse is -inf gets no
+    gradient."""
+    from repro_torch.kernels import flash_attention as fa
+    shape = (*dims, *pair)
+    args = chip_smoke.bwd_inputs(np.random.default_rng(sum(shape)), shape,
+                                 causal, cuda, torch.bfloat16)
+    if label == "a row that sees no key":
+        args[5][0, 1, 5] = -float("inf")
+        args[3][0, 5, 1] = 0.0
+    before = dict(ops.launches)
+    chip_smoke.bwd_bf16_check(f"{label} {shape}", args, causal)
+    assert {k: ops.launches[k] - before[k] for k in before
+            if ops.launches[k] != before[k]} == {
+                "flash_attention_bwd_sm90": 2}
+    if label == "a row that sees no key":
+        dq = fa.flash_attention_bwd_cuda(*args, causal=causal)[0]
+        assert not bool(dq[0, 5, 1].any())
+
+
 def test_flash_attention_routes_by_dtype_and_head_size(cuda):
     """fp32 at D = 64 and bf16 at D = 80 take the SIMT kernel."""
     from repro_torch.kernels import _build
@@ -1505,7 +1577,9 @@ def test_tuned_pick_equals_plain_on_a_table1_field(cuda, precision):
                          ids=["minicpm3", "deepseek-v3"])
 def test_flash_attention_at_the_mla_shapes(cuda, shape, dtype, S):
     """D = dn + dr and Dv = dv of minicpm3-4b and deepseek-v3, causal,
-    scale 1/sqrt(D), at S = 2048 and ragged S = 200 (the SIMT route)."""
+    scale 1/sqrt(D), at S = 2048 and ragged S = 200: fp32 on the SIMT
+    route, bf16 on the tensor-core route (both pairs are in
+    ``SM90_PAIRS``)."""
     H, D, Dv = shape
     dt = getattr(torch, dtype)
     q, k, v = chip_smoke.flash_inputs(np.random.default_rng(S + D),
@@ -1514,7 +1588,8 @@ def test_flash_attention_at_the_mla_shapes(cuda, shape, dtype, S):
     got = ops.flash_attention(q, k, v, causal=True, scale=1.0 / np.sqrt(D))
     ran = {n: chip_smoke._build.routes[n] - before[n] for n in before
            if chip_smoke._build.routes[n] != before[n]}
-    assert ran == {"flash_attention": 1}
+    assert ran == {"flash_attention_sm90" if dtype == "bfloat16"
+                   else "flash_attention": 1}
     want = ref.flash_attention_ref(q, k, v, causal=True,
                                    scale=1.0 / np.sqrt(D))
     chip_smoke.flash_close(f"MLA {shape} {dtype} S={S}", got, want)

@@ -191,30 +191,43 @@ def test_shared_memory_fits_a_hopper_block_at_every_head_size():
     (torch.bfloat16, 64, 64, "sm90"), (torch.bfloat16, 128, 128, "sm90"),
     (torch.bfloat16, 64, 128, "sm90"), (torch.bfloat16, 128, 64, "sm90"),
     (torch.float32, 64, 64, "simt"), (torch.float32, 128, 128, "simt"),
-    (torch.bfloat16, 96, 96, "simt"), (torch.bfloat16, 192, 128, "simt"),
-    (torch.bfloat16, 256, 256, "simt"), (torch.bfloat16, 80, 40, "simt"),
-    (torch.bfloat16, 32, 32, "simt"), (torch.float16, 64, 64, "simt")],
+    (torch.bfloat16, 96, 96, "simt"), (torch.bfloat16, 192, 128, "sm90"),
+    (torch.bfloat16, 256, 256, "sm90"), (torch.bfloat16, 80, 40, "simt"),
+    (torch.bfloat16, 32, 32, "simt"), (torch.float16, 64, 64, "simt"),
+    (torch.bfloat16, 96, 64, "sm90"), (torch.bfloat16, 48, 32, "simt"),
+    (torch.bfloat16, 64, 96, "simt"), (torch.float32, 96, 64, "simt"),
+    (torch.float32, 192, 128, "simt"), (torch.float32, 256, 256, "simt")],
     ids=str)
 def test_route_by_dtype_and_head_size(dtype, D, Dv, want):
-    """The documented rule: bf16 with D and Dv in {64, 128} takes the
-    tensor-core kernel, everything else the SIMT kernel (fp16 is then
-    refused by the wrapper's dtype check)."""
+    """The documented rule: bf16 at the seven (D, Dv) pairs of
+    ``SM90_PAIRS`` (64 and 128 in any pairing, minicpm3's 96 / 64,
+    deepseek's 192 / 128, gemma's 256 / 256) takes the tensor-core kernel,
+    everything else the SIMT kernel (fp16 is then refused by the wrapper's
+    dtype check): the pairs, not their product (96 / 96, 64 / 96 stay
+    SIMT)."""
     assert route(dtype, D, Dv) == want
 
 
 @pytest.mark.parametrize("D,Dv,keys,want", [(64, 64, 128, 82_984),
                                             (128, 128, 64, 99_368),
                                             (64, 128, 64, 66_600),
-                                            (128, 64, 64, 82_984)])
+                                            (128, 64, 64, 82_984),
+                                            (96, 64, 128, 132_136),
+                                            (192, 128, 64, 132_136),
+                                            (256, 256, 64, 164_904)])
 def test_tensor_core_kernel_shared_memory_at_each_head_size(D, Dv, keys,
                                                             want):
-    """The bf16 q tile (128 rows), 2 stages of K and V tiles, 5 mbarriers
-    and 1024 B to align the swizzled tiles: at D = Dv = 64 (128 keys a
-    tile) ~80 KB, at D = Dv = 128 (64 keys) ~97 KB, each under the 227 KB
-    (232,448 B) a Hopper block may opt into."""
+    """The bf16 q tile (128 rows; 64 at Dv = 256, where the two
+    warpgroups split the columns), 2 stages of K and V tiles, 5 mbarriers
+    and 1024 B to align the swizzled tiles, q and K padded to whole
+    64-column chunks (D = 96 as 128): at D = Dv = 64 (128 keys a tile) ~80
+    KB, at D = Dv = 128 (64 keys) ~97 KB, at D = Dv = 256 ~161 KB, each
+    under the 227 KB (232,448 B) a Hopper block may opt into."""
     assert sm90_keys(D, Dv) == keys
     assert smem_bytes_sm90(D, Dv) == want <= 232_448
-    assert want == (2 * 128 * D + 2 * 2 * keys * (D + Dv) + 8 * 5 + 1024)
+    dp, rows = -(-D // 64) * 64, 64 if Dv == 256 else 128
+    assert want == (2 * rows * dp + 2 * 2 * keys * (dp + Dv) + 8 * 5
+                    + 1024)
 
 
 def test_cuda_wrapper_routes_before_it_checks_alignment():

@@ -302,6 +302,28 @@ def test_backward_tiles_fit_a_hopper_block_at_every_head_size():
             assert fa.bwd_smem_bytes(D, Dv) <= 232_448
 
 
+@pytest.mark.parametrize("D,Dv,split,want", [
+    (64, 64, False, 50_712), (128, 128, False, 99_864),
+    (64, 128, False, 75_288), (128, 64, False, 75_288),
+    (96, 64, False, 75_288), (192, 128, True, 140_824),
+    (256, 256, True, 214_552)], ids=str)
+def test_tensor_core_backward_shared_memory_at_each_pair(D, Dv, split,
+                                                         want):
+    """The tensor-core backward's block: its own two bf16 tiles (64 rows,
+    D padded to whole 64-column chunks: 96 as 128), 2 stages of loop
+    tiles, p^T in fp32 (16 KB) where the dK/dV pass runs two warpgroups
+    (D + Dv > 256), the loop tile's lse and delta, 3 mbarriers and 1024 B
+    to align the swizzled tiles; each under the 227 KB (232,448 B) a
+    Hopper block may opt into, and every pair on the tensor-core route."""
+    assert (D, Dv) in fa.SM90_PAIRS
+    assert fa.route(torch.bfloat16, D, Dv) == "sm90"
+    assert fa.bwd_split_dkdv(D, Dv) is split
+    assert fa.bwd_smem_bytes_sm90(D, Dv) == want <= 232_448
+    dp = fa.sm90_padded(D)
+    assert want == (2 * 64 * (dp + Dv) * 3 + 4 * 64 * 64 * split + 512
+                    + 24 + 1024)
+
+
 def test_backward_wrapper_refuses_before_any_launch():
     q, k, v, do = map(torch.tensor, inputs((1, 8, 8, 2, 1, 4, 4, True)))
     o, lse = fa.flash_attention_ref_lse(q, k, v)

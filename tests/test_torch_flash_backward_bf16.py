@@ -34,15 +34,18 @@ from repro_torch.kernels import ops  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
-# (B, Sq, Sk, H, K, D, Dv, causal): the tensor cores' head sizes 64 and
-# 128 (and mixed), MLA's 96 / 64 and a small 32 on the SIMT route; G in
-# {1, 4}; Sq != Sk both ways; causal and not
+# (B, Sq, Sk, H, K, D, Dv, causal): the tensor cores' pairs (64 and 128,
+# mixed, minicpm3's 96 / 64, deepseek's 192 / 128, gemma's 256 / 256) and a
+# small 32 on the SIMT route; G in {1, 2, 4}; Sq != Sk both ways; causal
+# and not
 SHAPES = [(1, 70, 70, 4, 1, 64, 64, True), (1, 70, 90, 4, 4, 64, 64, False),
           (1, 90, 70, 4, 1, 128, 128, True),
           (1, 64, 64, 4, 4, 128, 128, False),
           (1, 60, 60, 4, 1, 64, 128, True),
           (1, 80, 80, 4, 1, 96, 64, True), (1, 50, 70, 2, 2, 96, 64, False),
-          (2, 40, 40, 4, 1, 32, 32, True), (1, 40, 60, 4, 4, 32, 32, False)]
+          (2, 40, 40, 4, 1, 32, 32, True), (1, 40, 60, 4, 4, 32, 32, False),
+          (1, 70, 90, 2, 2, 192, 128, True),
+          (1, 66, 50, 4, 2, 256, 256, False)]
 SM90 = [s for s in SHAPES if fa.route(torch.bfloat16, s[5], s[6]) == "sm90"]
 FLOOR = 2.0 ** -9
 NAMES = ("dq", "dk", "dv")
