@@ -27,13 +27,15 @@ and:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
    counts the tensor-core (``HGMMA``) instructions of every instance of
    ``flash_attention_kernel_sm90``, the backward's
-   ``flash_attention_bwd_sm90_dkdv`` / ``_dkdv_split`` / ``_dq`` and
-   ``ssd_chunk_kernel_sm90`` in the library's SASS (``cuobjdump``; each
-   must have some) and checks that ptxas reported no spills in
+   ``flash_attention_bwd_sm90_dkdv`` / ``_dkdv_split`` / ``_dq``,
+   ``ssd_chunk_kernel_sm90`` and the SSD backward's ``ssd_bwd_sm90_ds`` /
+   ``_dx`` / ``_dbdc`` in the library's SASS (``cuobjdump``; each must
+   have some) and checks that ptxas reported no spills in
    ``ssd_chunk_kernel_sm90``, the tensor-core attention kernels
-   (forward and backward), ``fused_fog_group_kernel``,
-   ``tree_traverse_spread_kernel`` and ``grove_aggregate_tile_kernel``
-   (every instance; their registers printed);
+   (forward and backward), the tensor-core SSD backward,
+   ``fused_fog_group_kernel``, ``tree_traverse_spread_kernel`` and
+   ``grove_aggregate_tile_kernel`` (every instance; their registers
+   printed, and the SIMT attention backward's);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
@@ -241,8 +243,9 @@ and:
    bounds, its plain version and SDPA's backward; the profiler's split of
    a step's device time (products, ``flash_attention``, its backward, the
    rest; the CE chunks and the optimizer alone) comes in 14; checks that
-   the 4 losses equal, bit for bit, those of the update that built whole
-   new trees (``TRAIN_LOSSES_WHOLE_TREE``);
+   the 4 losses equal, bit for bit, those of the same 4 steps run in this
+   phase with the update that builds whole new trees
+   (``whole_tree_losses``);
 18. (run after 17) trains ``mamba2-2.7b`` at full width and depth in fp32
    (64 layers, d_model 2560, 80 heads of 64, state 128, vocab 50,280;
    weights from the port's generator) through ``launch.train.main`` for 4
@@ -270,13 +273,14 @@ and:
    width and depth for 4 steps (44 ``flash_attention`` on the tensor-core
    route with lse and 22 ``flash_attention_bwd_sm90`` a step, nothing
    else), ``mamba2-2.7b`` at full width and depth for 4 steps (128
-   ``ssd_chunk`` on the tensor-core route and 64 bf16 ``ssd_chunk_bwd`` a
+   ``ssd_chunk`` on the tensor-core route and 64 ``ssd_chunk_bwd_sm90`` a
    step), ``minicpm3-4b`` at full width cut to 8 layers for 2 steps (16
    ``flash_attention`` on the tensor-core route and 8
    ``flash_attention_bwd_sm90`` at D = 96 / Dv = 64 a step), the counts
    zeroed just before and read just after each step, and one step of
    jamba's smoke config; prints each run's peak memory, step ms and
-   tokens/s; holds tinyllama's and minicpm3's next step with the kernels
+   tokens/s; holds tinyllama's and minicpm3's next step, and a step of
+   mamba2 cut to ``BF16_MAMBA_ORACLE_LAYERS`` layers, with the kernels
    and with the plain versions to an fp32 oracle of the same bf16 params
    (the kernels' distance of each gradient no more than twice the plain
    versions' plus half a bf16 ulp); at each pair of ``PAIR_SHAPES``
@@ -286,10 +290,13 @@ and:
    fused backends; v padded where none takes Dv != D); holds each bf16
    backward
    kernel against its plain version on layer 0's captured inputs and on
-   ``BWD_BF16_CASES`` / ``SSD_BWD_CASES``, each run twice bit-equal, and
-   the tensor-core forward's lse against the plain version's; resumes a
-   bf16 model bit for bit through a checkpoint; times the backwards
-   beside their bounds, their plain versions and SDPA's bf16 backward;
+   ``BWD_BF16_CASES`` / ``SSD_BWD_CASES`` (``ssd_chunk_bwd_sm90``, at P =
+   64 and N = 128, against the replay of its rounding and float64:
+   ``ssd_bwd_check``), each run twice bit-equal, and the tensor-core
+   forward's lse against the plain version's; resumes a bf16 model bit
+   for bit through a checkpoint; times the backwards beside their bounds,
+   their plain versions and SDPA's bf16 backward, and the SIMT SSD
+   backward on the same bf16 inputs (was);
    the profiler's split of each step (products, the attention and SSD
    forwards, their backwards, the optimizer, the elementwise rest) and
    the idle share come in 14;
@@ -370,8 +377,8 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
 from repro_torch.sklearn import FogClassifier  # noqa: E402
 from repro_torch.baselines import ALL_BASELINES  # noqa: E402
 from repro_torch.baselines import train as bl_train  # noqa: E402
-from repro_torch.optim import (adamw, linear_warmup_cosine,  # noqa: E402
-                               tree_leaves)
+from repro_torch.optim import (adamw, clip_by_global_norm,  # noqa: E402
+                               linear_warmup_cosine, tree_leaves)
 from repro_torch.examples import train_lm  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import step_batch  # noqa: E402
@@ -1598,7 +1605,8 @@ SM90_KERNELS = {
                                            r"splitILi(\d+)ELi(\d+)E",
     "flash_attention_bwd_sm90_dq": r"flash_attention_bwd_sm90_dqILi(\d+)ELi"
                                    r"(\d+)E",
-    "ssd_chunk_kernel_sm90": r"ssd_chunk_kernel_sm90ILi(\d+)E"}
+    "ssd_chunk_kernel_sm90": r"ssd_chunk_kernel_sm90ILi(\d+)E",
+    "ssd_bwd_sm90": r"ssd_bwd_sm90_(ds|dx|dbdc)ILi(\d+)E"}
 # the tensor-core attention kernels whose every instance must build
 # without spills: the forward and the backward's passes
 FLASH_SM90 = ("flash_attention_kernel_sm90", "flash_attention_bwd_sm90")
@@ -1669,6 +1677,28 @@ def instance(mangled: str) -> str:
     if m.group(2):
         parts += ["smem" if m.group(2) == "1" else "l1", m.group(3)]
     return "<" + ", ".join(parts) + ">"
+
+
+def ssd_bwd_instance(mangled: str) -> str:
+    """A readable name for a kernel of the tensor-core SSD backward:
+    ``<pass><N>`` (``cum``, ``da`` for its two untemplated kernels)."""
+    m = re.search(r"ssd_bwd_sm90_(ds|dx|dbdc)ILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    m = re.search(r"ssd_bwd_sm90_(\w+?)_kernel", mangled)
+    return m.group(1) if m else mangled
+
+
+def simt_bwd_instance(mangled: str) -> str:
+    """A readable name for a kernel of the SIMT attention backward:
+    ``<name><type, T, NC>``."""
+    m = re.search(r"\dflash_attention_bwd_([a-z]+)_kernelI(f|13__nv_bfloat16)"
+                  r"(?:Li(\d+)ELi(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    dtype = "fp32" if m.group(2) == "f" else "bf16"
+    return m.group(1) + "<" + ", ".join(
+        g for g in (dtype, m.group(3), m.group(4)) if g) + ">"
 
 
 def flash_instance(mangled: str) -> str:
@@ -4289,11 +4319,6 @@ BWD_CASES = (
     ("D = 48, Dv = 32 (MLA at smoke width)", (2, 64, 64, 4, 4, 48, 32),
      True))
 TRAIN_CKPT = ROOT / "build" / "train_resume_ckpt"
-# the 4 losses of step 1 when the update built whole new trees (its last
-# run on an H100 80GB HBM3 at 700 W): the update that frees as it goes must
-# give the same bits
-TRAIN_LOSSES_WHOLE_TREE = (10.923294067382812, 10.866758346557617,
-                           10.610088348388672, 10.171917915344238)
 
 
 class PlainFlash(torch.autograd.Function):
@@ -4432,6 +4457,36 @@ def train_state(params) -> dict:
     return {k: p.detach() for k, p in params.named_parameters()}
 
 
+def whole_tree_losses(cfg, dev, n: int, B: int, S: int, *,
+                      lr: float = 3e-4, seed: int = 0) -> list:
+    """The losses of the train CLI's ``n`` steps (its init, batches and
+    schedule at ``--seed seed``) with the update that builds whole new
+    trees: ``clip_by_global_norm`` over the gradients, then ``adamw``'s
+    tree update, every new tensor made before any old one is let go.  The
+    update that frees as it goes (``train.loop.apply_update``) must give
+    these bits."""
+    init, update = adamw(lr=linear_warmup_cosine(lr, 100, n), b1=0.9,
+                         b2=0.95, weight_decay=0.1)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), torch.float32, device=dev)
+    state = init(train_state(params))
+    dcfg = DataConfig(cfg.vocab_size, S, B, seed=seed)
+    losses = []
+    for step in range(n):
+        loss, grads = loss_and_grads(params, cfg,
+                                     step_batch(cfg, dcfg, step, dev))
+        with torch.no_grad(), bl_train.fp32_products():
+            clipped, _ = clip_by_global_norm(grads, 1.0)
+            new, state = update(clipped, state, train_state(params))
+        for k, p in params.named_parameters():
+            p.data = new[k]
+        losses.append(float(loss))
+        del grads, clipped, new
+    del params, state
+    torch.cuda.empty_cache()
+    return losses
+
+
 def steps_of(cfg, dev, params, opt_state, n, start=0, *, lr=3e-4, total=None,
              B=TRAIN_B, S=TRAIN_S):
     """``n`` train steps from ``start`` on ``batch_at_step``'s batches."""
@@ -4481,11 +4536,12 @@ def lm_train_phase(dev: torch.device) -> dict:
                 f"ssd_chunk or top2_confidence)")
     if not all(np.isfinite(run["losses"])):
         raise AssertionError(f"train losses {run['losses']}")
-    if run["losses"] != list(TRAIN_LOSSES_WHOLE_TREE):
+    whole = whole_tree_losses(cfg, dev, TRAIN_STEPS, TRAIN_B, TRAIN_S)
+    if run["losses"] != whole:
         raise AssertionError(
             f"train losses {run['losses']}: the update that frees as it goes "
-            f"must give the whole-tree update's {TRAIN_LOSSES_WHOLE_TREE} "
-            f"bit for bit")
+            f"must give the whole-tree update's {whole} bit for bit")
+    out["losses_whole_tree"] = whole
     n_params = sum(p.numel() for p in run["params"].parameters())
     out.update(arch=TRAIN_ARCH, params=n_params, losses=run["losses"],
                grad_norms=run["grad_norms"], per_step=per_step,
@@ -4496,8 +4552,8 @@ def lm_train_phase(dev: torch.device) -> dict:
     out["tokens_per_s"] = TRAIN_B * TRAIN_S / out["step_ms"] * 1e3
     print(f"[train-lm] {TRAIN_ARCH} fp32 full width ({n_params:,} "
           f"parameters), B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} steps "
-          f"through launch.train: losses "
-          f"{[round(x, 4) for x in run['losses']]}, grad norms "
+          f"through launch.train: losses {run['losses']} (== the "
+          f"whole-tree update's in this run, bit for bit), grad norms "
           f"{[round(x, 3) for x in run['grad_norms']]}; per step "
           f"{per_step[-1]['launches']} by route {per_step[-1]['routes']}; "
           f"step ms {[round(s['ms'], 1) for s in per_step]} (median of "
@@ -4696,7 +4752,7 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
     def step():
         state["p"], state["o"], _ = step_fn(state["p"], state["o"], batch)
 
-    busy, wall, _ = device_profile(step, reps=1)
+    busy, wall, _ = device_profile(step, reps=1, host=False)
     parts = {"products": 0.0, "flash_attention": 0.0,
              "flash_attention_bwd": 0.0, "other": 0.0}
     for n, v in busy.items():
@@ -4717,11 +4773,11 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
             loss = T.chunked_ce(state["p"], cfg, h, batch["labels"])
             torch.autograd.grad(loss, head)
 
-    busy, _, _ = device_profile(ce, reps=1)
+    busy, _, _ = device_profile(ce, reps=1, host=False)
     prof["ce_chunks_alone_ms"] = sum(busy.values())
     _, grads = loss_and_grads(state["p"], cfg, batch)
     prof["optimizer_alone_ms"] = optimizer_alone(dev, state["p"], state["o"],
-                                                 grads)
+                                                 grads, host=False)
     train["profile"] = prof
     print(f"[time] train-lm step under the profiler: wall {wall:.1f} ms, "
           f"device busy {total:.1f} ms, idle share "
@@ -4759,6 +4815,12 @@ MAMBA_TRAIN_ARCH = "mamba2-2.7b"
 MAMBA_LOSS_RTOL = 1e-5
 MAMBA_GRAD_BAR = 1e-3
 SSD_BWD_FLOOR = 1e-6
+# the tensor-core backward against its rounding replayed in PyTorch, in
+# bf16 ulps of each gradient's scale: the two differ only in the order of
+# fp32 sums and in exp's last bits (so, now and then, in the way an
+# operand's bf16 rounding goes), and both store bf16; the forward's bar
+# (ssd_close)
+SSD_BWD_SM90_ULPS = 2
 MAMBA_CARD_CPU_BAR = 1e-4
 # the backward kernel against its plain version: the training shape, the
 # CPU tests' shapes (tests/test_torch_ssd_backward.py::SHAPES: Q in {1, 7,
@@ -4855,14 +4917,23 @@ def ssd_bwd_work(B, nc, Q, H, P, N, itemsize=4) -> dict:
     ``ops`` the products it needs: per chunk S = C B^T, dC = dS B and dB +=
     dS^T C over the causal pairs (2 N FLOP a pair each), and per (chunk,
     head) dy x^T and W^T dy over the causal pairs (2 P each), and B dst^T
-    and x dst over the whole chunk (2 Q P N each)."""
+    and x dst over the whole chunk (2 Q P N each); ``design_ops`` what the
+    tensor-core backward runs (csrc/ssd_chunk_bwd_sm90.cu) over its 64 x
+    64 tiles on or below the diagonal: per chunk S, dC and dB; per (chunk,
+    head) dW in the ds pass, S^T, dW^T and W^T dy in the dx pass, and G
+    and x dst over the whole chunk."""
     BC = B * nc
     n_bytes = itemsize * BC * (3 * Q * H * P + 2 * H * Q + 4 * Q * N
                                + H * P * N)
     pairs = Q * (Q + 1) // 2
     ops_ = BC * (3 * 2 * pairs * N
                  + H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N))
-    return {"bytes": n_bytes, "pairs": pairs, "ops": ops_}
+    nt = -(-Q // 64)
+    tile = 64 * 64 * 2 * nt * (nt + 1) // 2   # FLOP a unit of depth
+    design = BC * (3 * tile * N + H * (3 * tile * P + tile * N
+                                       + 2 * 2 * 64 * nt * P * N))
+    return {"bytes": n_bytes, "pairs": pairs, "ops": ops_,
+            "design_ops": design}
 
 
 def ssd_bwd_inputs(rng, shape, dev, dtype=torch.float32) -> list:
@@ -4876,18 +4947,27 @@ def ssd_bwd_inputs(rng, shape, dev, dtype=torch.float32) -> list:
 
 
 def ssd_bwd_check(what: str, args: list) -> float:
-    """The backward kernel twice (bit-equal: no atomics) and held to a
-    float64 run of its plain version on the same values: each gradient no
-    farther from it than twice the plain version (fp32 inside, in the
-    inputs' dtype) is, plus ``SSD_BWD_FLOOR`` of its scale for fp32 inputs
-    and ``BF16_FLOOR`` for bf16 (half a bf16 ulp: the bf16 CPU tests' bar,
-    tests/test_torch_ssd_backward_bf16.py).  Returns the largest error of
-    the four gradients against the plain version as a share of each one's
-    scale."""
+    """The backward kernel of the route ``ssd_chunk.route`` names, twice
+    (bit-equal: no atomics).  SIMT: held to a float64 run of its plain
+    version on the same values, each gradient no farther from it than
+    twice the plain version (fp32 inside, in the inputs' dtype) is, plus
+    ``SSD_BWD_FLOOR`` of its scale for fp32 inputs and ``BF16_FLOOR`` for
+    bf16 (half a bf16 ulp: the bf16 CPU tests' bar,
+    tests/test_torch_ssd_backward_bf16.py).  Tensor cores (bf16 at P =
+    64, N in {64, 128}): within ``SSD_BWD_SM90_ULPS`` bf16 ulps of each
+    gradient's scale of ``ssd_chunk_bwd_sm90_replay`` (its rounding of W
+    and dS replayed), and no farther from float64 than twice the replay
+    is, plus ``BF16_FLOOR`` of its scale (the bar the CPU tests hold the
+    replay to against JAX).  Returns the largest error against the plain
+    version (SIMT) or the replay (tensor cores) as a share of each
+    gradient's scale."""
+    B, nc, Q, H, P = args[0].shape
+    sm90 = ssd_mod.route(args[0].dtype, Q, P, args[2].shape[-1]) == "sm90"
     floor = SSD_BWD_FLOOR if args[0].dtype == torch.float32 else BF16_FLOOR
     got = ssd_mod.ssd_chunk_bwd_cuda(*args)
     again = ssd_mod.ssd_chunk_bwd_cuda(*args)
-    want = ssd_mod.ssd_chunk_bwd_ref(*args)
+    want = (ssd_mod.ssd_chunk_bwd_sm90_replay if sm90
+            else ssd_mod.ssd_chunk_bwd_ref)(*args)
     exact = ssd_mod.ssd_chunk_bwd_ref(*(t.double() for t in args))
     worst = 0.0
     for name, g, a, w, e in zip(("dxbar", "da", "dBm", "dCm"), got, again,
@@ -4897,15 +4977,20 @@ def ssd_bwd_check(what: str, args: list) -> float:
                                  f"from run to run")
         scale = float(e.abs().max())
         err = float((g.double() - e).abs().max())
-        plain_err = float((w.double() - e).abs().max())
+        ref_err = float((w.double() - e).abs().max())
         if (not torch.isfinite(g).all()
-                or err > 2 * plain_err + floor * scale):
+                or err > 2 * ref_err + floor * scale):
             raise AssertionError(
                 f"ssd_chunk_bwd {what} {name}: {err} from float64, the "
-                f"plain version {plain_err}, at scale {scale}")
+                f"{'replay' if sm90 else 'plain version'} {ref_err}, at "
+                f"scale {scale}")
+        off = float((g.float() - w.float()).abs().max())
+        if sm90 and off > SSD_BWD_SM90_ULPS * bf16_ulp(scale):
+            raise AssertionError(
+                f"ssd_chunk_bwd_sm90 {what} {name}: {off} from the replay, "
+                f"over {SSD_BWD_SM90_ULPS} bf16 ulps of its scale {scale}")
         if scale:
-            worst = max(worst,
-                        float((g.float() - w.float()).abs().max()) / scale)
+            worst = max(worst, off / scale)
     return worst
 
 
@@ -5150,7 +5235,7 @@ def mamba_train_profile(train: dict, dev: torch.device) -> None:
     def step():
         state["p"], state["o"], _ = step_fn(state["p"], state["o"], batch)
 
-    busy, wall, _ = device_profile(step, reps=1)
+    busy, wall, _ = device_profile(step, reps=1, host=False)
     parts = {"products": 0.0, "ssd_chunk": 0.0, "ssd_chunk_bwd": 0.0,
              "other": 0.0}
     for n, v in busy.items():
@@ -5163,7 +5248,7 @@ def mamba_train_profile(train: dict, dev: torch.device) -> None:
             "device_idle_share": 1.0 - total / wall, "split_ms": parts}
     _, grads = loss_and_grads(state["p"], cfg, batch)
     prof["optimizer_alone_ms"] = optimizer_alone(dev, state["p"], state["o"],
-                                                 grads)
+                                                 grads, host=False)
     prof["elementwise_ms"] = parts["other"] - prof["optimizer_alone_ms"]
     train["profile"] = prof
     print(f"[time] train-mamba step under the profiler: wall {wall:.1f} ms, "
@@ -5189,6 +5274,10 @@ BF16_B, BF16_S, BF16_STEPS = 2, 4096, 4
 BF16_ATTN_ARCH, BF16_MAMBA_ARCH, BF16_MLA_ARCH = (
     "tinyllama-1.1b", "mamba2-2.7b", "minicpm3-4b")
 BF16_MLA_LAYERS, BF16_MLA_STEPS = 8, 2
+# mamba2-2.7b's step held to an fp32 oracle at this depth (of 64 layers):
+# the oracle's fp32 copy, its gradients and the plain versions' step at
+# full depth would add ~20 s to the phase
+BF16_MAMBA_ORACLE_LAYERS = 16
 # half a bf16 ulp: the floor of the bf16 bars (tests/test_torch_*_bf16.py)
 BF16_FLOOR = 2.0 ** -9
 BF16_CKPT = ROOT / "build" / "bf16_resume_ckpt"
@@ -5611,11 +5700,11 @@ def bf16_train_phase(dev: torch.device) -> dict:
 
     laps["bf16 resume"] = time.perf_counter() - t_phase
     # 6. mamba2-2.7b, 64 layers, 2 x 4096 (16 chunks a row): the
-    # tensor-core forward and the bf16 backward
+    # tensor-core forward and the tensor-core backward
     cfg = get_arch(BF16_MAMBA_ARCH)
     nm = mamba_layers(cfg)[0]
     params, opt, run = bf16_run(cfg, dev, BF16_STEPS, (
-        {"ssd_chunk": 2 * nm, "ssd_chunk_bwd": nm},
+        {"ssd_chunk": 2 * nm, "ssd_chunk_bwd_sm90": nm},
         {"ssd_chunk_sm90": 2 * nm}))
     out["mamba2"] = run
     print(bf16_run_line(BF16_MAMBA_ARCH, cfg, run), flush=True)
@@ -5634,9 +5723,32 @@ def bf16_train_phase(dev: torch.device) -> dict:
              layer0.pop("dst").contiguous()]
     serrs = {"layer 0 of the step": ssd_bwd_check("bf16 layer 0", sargs)}
     for label, shape in SSD_BWD_CASES[1:]:
-        serrs[f"{label} {shape}"] = ssd_bwd_check(
-            f"bf16 {label}", ssd_bwd_inputs(rng, shape, dev, torch.bfloat16))
+        args = ssd_bwd_inputs(rng, shape, dev, torch.bfloat16)
+        route = ssd_mod.route(torch.bfloat16, shape[2], shape[4], shape[5])
+        serrs[f"{label} {shape} ({route})"] = ssd_bwd_check(
+            f"bf16 {label}", args)
+        del args
     out["ssd_bwd_err"] = serrs
+    print(f"[train-bf16] ssd_chunk_bwd on bf16, each case on its route: "
+          f"the tensor cores within {SSD_BWD_SM90_ULPS} bf16 ulps of each "
+          f"gradient's scale of the replay of their rounding and within "
+          f"twice the replay's distance from float64 + {BF16_FLOOR} of the "
+          f"scale; SIMT within twice the plain version's; bit-equal run to "
+          f"run (below, the largest error against the replay or the plain "
+          f"version as a share of its scale): " + ", ".join(
+              f"{k}: {v:.2e}" for k, v in serrs.items()), flush=True)
+    # the step at BF16_MAMBA_ORACLE_LAYERS layers held to an fp32 oracle
+    # of the same params, as tinyllama's and minicpm3's are
+    ocfg = cfg.scaled(n_layers=BF16_MAMBA_ORACLE_LAYERS)
+    oparams = bf16_model(ocfg, dev)
+    obatch = step_batch(ocfg, DataConfig(ocfg.vocab_size, BF16_S, BF16_B,
+                                         seed=SEED), 0, dev)
+    zero_counts()
+    out["mamba2_oracle"] = oracle_step(ocfg, oparams, obatch, {})
+    del oparams, obatch
+    torch.cuda.empty_cache()
+    print(oracle_line(f"{BF16_MAMBA_ARCH} cut to {BF16_MAMBA_ORACLE_LAYERS} "
+                      f"layers", out["mamba2_oracle"]), flush=True)
     work = ssd_bwd_work(*sargs[0].shape[:5], sargs[2].shape[-1], itemsize=2)
     ts = {"shape": "xbar [{}, {}, {}, {}, {}], N = {}, bf16".format(
         *sargs[0].shape, sargs[2].shape[-1]), "work": work}
@@ -5644,25 +5756,26 @@ def bf16_train_phase(dev: torch.device) -> dict:
                                               BF16_OPS_PER_S)
     ts["bytes_bound_ms"] = work["bytes"] / HBM_BYTES_PER_S * 1e3
     ts["ops_bound_ms"] = work["ops"] / BF16_OPS_PER_S * 1e3
+    ts["design_ops_bound_ms"] = work["design_ops"] / BF16_OPS_PER_S * 1e3
     ts["fp32_core_ops_bound_ms"] = work["ops"] / FP32_OPS_PER_S * 1e3
-    ts["ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_cuda(*sargs), reps=5)
+    ts["ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_cuda(*sargs), reps=10)
+    # the SIMT kernel (the route bf16 took before) on the same inputs
+    ts["simt_ms"] = cuda_ms(lambda: simt(ssd_mod, ssd_mod.ssd_chunk_bwd_cuda,
+                                         *sargs), reps=3, warm=1)
     ts["plain_ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_ref(*sargs),
                              reps=2, warm=1)
     out["ssd_timing"] = ts
     out["prof_fns"]["ssd_bwd"] = lambda: ssd_mod.ssd_chunk_bwd_cuda(*sargs)
-    print(f"[train-bf16] ssd_chunk_bwd on bf16 == its plain version (each "
-          f"gradient within twice the plain version's distance from float64 "
-          f"+ {BF16_FLOOR} of its scale; below, the largest error against "
-          f"the plain version as a share of its scale), bit-equal run to "
-          f"run: " + ", ".join(f"{k}: {v:.2e}" for k, v in serrs.items()),
-          flush=True)
-    print(f"[time] train-bf16 ssd_chunk_bwd at {ts['shape']}: "
+    out["prof_fns"]["ssd_bwd_simt"] = lambda: simt(
+        ssd_mod, ssd_mod.ssd_chunk_bwd_cuda, *sargs)
+    print(f"[time] train-bf16 ssd_chunk_bwd_sm90 at {ts['shape']}: "
           f"{ts['ms']:.4f} ms a call (bound {ts['bound_ms']:.4f} ms by "
           f"{ts['bound_by']}: bytes {ts['bytes_bound_ms']:.4f}, operations "
-          f"{ts['ops_bound_ms']:.4f} at the bf16 rate, "
-          f"{ts['fp32_core_ops_bound_ms']:.4f} at the fp32 CUDA-core rate it "
-          f"runs at), plain {ts['plain_ms']:.3f} ms, no library call",
-          flush=True)
+          f"{ts['ops_bound_ms']:.4f} at the bf16 rate, the design's "
+          f"{work['design_ops'] / 1e9:.1f} GFLOP "
+          f"{ts['design_ops_bound_ms']:.4f}), was {ts['simt_ms']:.3f} ms "
+          f"(the SIMT kernel on the same inputs), plain "
+          f"{ts['plain_ms']:.3f} ms, no library call", flush=True)
 
     laps["mamba2 steps and checks"] = time.perf_counter() - t_phase
     # 7. minicpm3-4b at full width, BF16_MLA_LAYERS layers: the
@@ -5754,10 +5867,13 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
     per = recorded_profile(fns["sdpa_bwd"], "")[-1][2]
     t["library_device_ms"] = sum(per.values())
     t["library_backend"] = sdpa_backend(max(per, key=per.get))
-    per = recorded_profile(fns["ssd_bwd"], "ssd_bwd")[-1][2]
-    ts["device_ms_by_kernel"] = {k: v for k, v in per.items()
-                                 if "ssd_bwd" in k}
-    ts["device_ms"] = sum(ts["device_ms_by_kernel"].values())
+    for key, fn in (("", fns["ssd_bwd"]), ("simt_", fns["ssd_bwd_simt"])):
+        per = recorded_profile(fn, "ssd_bwd")[-1][2]
+        ts[f"{key}device_ms_by_kernel"] = {
+            re.search(r"ssd_bwd\w*", k).group(0): v for k, v in per.items()
+            if "ssd_bwd" in k}
+        ts[f"{key}device_ms"] = sum(
+            ts[f"{key}device_ms_by_kernel"].values())
     for key, r in train["pairs"].items():
         for part, name in (("fwd", "flash_attention_kernel_sm90"),
                            ("bwd", "flash_attention_bwd_sm90")):
@@ -5828,9 +5944,12 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
     print(f"[time] train-bf16 on the device: flash_attention_bwd_sm90 "
           f"{t['device_ms']:.4f} ms ({t['device_ms_by_kernel']}), SDPA's "
           f"bf16 backward {t['library_device_ms']:.4f} "
-          f"({t['library_backend']}); ssd_chunk_bwd bf16 "
-          f"{ts['device_ms']:.4f} ms ({ts['device_ms_by_kernel']})",
-          flush=True)
+          f"({t['library_backend']}); ssd_chunk_bwd_sm90 "
+          f"{ts['device_ms']:.4f} ms by pass " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ts["device_ms_by_kernel"].items())
+          + f" (was {ts['simt_device_ms']:.4f}, the SIMT kernel: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in
+              ts["simt_device_ms_by_kernel"].items()) + ")", flush=True)
 
 
 def stamp(what: str, t0: float) -> None:
@@ -5900,8 +6019,9 @@ def main() -> int:
     hgmma = hgmma_per_kernel(lib_path)
     print(f"[build] SASS: HGMMA (wgmma) instructions per instance of "
           f"flash_attention_kernel_sm90<D, Dv, keys>, the backward's "
-          f"flash_attention_bwd_sm90_dkdv / _dkdv_split / _dq<D, Dv> and "
-          f"ssd_chunk_kernel_sm90<N>: {hgmma}")
+          f"flash_attention_bwd_sm90_dkdv / _dkdv_split / _dq<D, Dv>, "
+          f"ssd_chunk_kernel_sm90<N> and the SSD backward's "
+          f"ssd_bwd_sm90_ds / _dx / _dbdc<N>: {hgmma}")
     for kernel, counts in hgmma.items():
         if not counts or not all(counts.values()):
             raise AssertionError(f"an instance of {kernel} has no HGMMA "
@@ -5918,6 +6038,7 @@ def main() -> int:
     out["ptxas"] = {}
     log = _build.build_info.get("log", "")
     for kernel, name_of in ([(k, flash_instance) for k in FLASH_SM90]
+                            + [("ssd_bwd_sm90", ssd_bwd_instance)]
                             + [(k, instance) for k in NEW_KERNELS.values()]):
         spills = {name_of(n): v for n, v in ptxas_spills(log, kernel).items()}
         regs = {name_of(n): v for n, v in ptxas_registers(log,
@@ -5928,6 +6049,16 @@ def main() -> int:
             raise AssertionError(f"ptxas reports spills in {kernel} (or no "
                                  f"report): {spills}")
         out["ptxas"][kernel] = {"registers": regs, "spill_bytes": spills}
+    # the SIMT attention backward (CUDA cores, fp32 sums): its registers
+    # and spills, reported
+    spills = {simt_bwd_instance(n): v for n, v in ptxas_spills(
+        log, "flash_attention_bwd_").items() if "sm90" not in n}
+    regs = {simt_bwd_instance(n): v for n, v in ptxas_registers(
+        log, "flash_attention_bwd_").items() if "sm90" not in n}
+    print(f"[build] ptxas per flash_attention_bwd (SIMT) kernel: registers "
+          f"{regs}, spill bytes {spills}")
+    out["ptxas"]["flash_attention_bwd"] = {"registers": regs,
+                                           "spill_bytes": spills}
 
     # 3. train and pack -----------------------------------------------------
     stamp("3. train and pack", t_main)
@@ -6231,6 +6362,9 @@ def main() -> int:
             "flash_attention_bwd_sm90"] * BF16_STEPS
         + train_bf16["minicpm3"]["launches_per_step"][
             "flash_attention_bwd_sm90"] * BF16_MLA_STEPS)
+    main_launches["ssd_chunk_bwd_sm90"] = (
+        train_bf16["mamba2"]["launches_per_step"]["ssd_chunk_bwd_sm90"]
+        * BF16_STEPS)
 
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
@@ -6713,30 +6847,48 @@ def main() -> int:
         "matches_plain": True, "deterministic": True, "shape": tbt["shape"],
         "cases": tb["bwd_err"]})
     kernels.append({
-        "name": "ssd_chunk_bwd_bf16", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        "name": "ssd_chunk_bwd_sm90", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd_sm90.cu",
         "replaces": REPLACES["ssd_chunk"],
-        "replaces_note": "ssd_chunk_bwd on bf16 inputs (the same kernels, "
-                         "templated on the input type, counted under "
-                         "launches['ssd_chunk_bwd'])",
-        "launches": tb["mamba2"]["launches_per_step"]["ssd_chunk_bwd"]
-        * BF16_STEPS,
+        "replaces_note": "the gradient of that kernel on the tensor cores "
+                         "(bf16 at P = 64, N in {64, 128}, the forward's "
+                         "route rule); the JAX package takes it with "
+                         "jax.grad of the einsum branch of "
+                         "src/repro/models/mamba2.py::ssd_chunked",
+        "launches": main_launches["ssd_chunk_bwd_sm90"],
         "launches_per_step": tb["mamba2"]["launches_per_step"][
-            "ssd_chunk_bwd"],
-        "max_abs_err": max(tb["ssd_bwd_err"].values()),
+            "ssd_chunk_bwd_sm90"],
+        "max_abs_err": max(v for c, v in tb["ssd_bwd_err"].items()
+                           if "simt" not in c),
         "max_err_is": "the largest error of dxbar, da, dB, dC as a share of "
-                      "its scale against the plain version on the same "
-                      "bf16 inputs",
+                      "its scale against the replay of its rounding "
+                      "(ssd_chunk_bwd_sm90_replay), over layer 0 and the "
+                      "full-width cases",
         "ms": tbs["ms"], "device_ms": tbs.get("device_ms"),
         "device_ms_by_kernel": tbs.get("device_ms_by_kernel"),
+        "was_ms": tbs["simt_ms"], "was_device_ms": tbs.get("simt_device_ms"),
+        "was": "the SIMT kernel (csrc/ssd_chunk_bwd.cu) on the same bf16 "
+               "inputs",
         "plain_ms": tbs["plain_ms"], "bound_ms": tbs["bound_ms"],
         "bound_by": tbs["bound_by"],
-        "fp32_core_ops_bound_ms": tbs["fp32_core_ops_bound_ms"],
+        "design_ops_bound_ms": tbs["design_ops_bound_ms"],
         "library_ms": None,
-        "called_by": "ops.SsdChunk.backward (bf16 training)",
+        "called_by": "ops.SsdChunk.backward (bf16 training: train/loop.py "
+                     "through models/mamba2.py::ssd_chunked)",
+        "mamba2_oracle": tb["mamba2_oracle"],
         "matches_plain": True, "deterministic": True, "shape": tbs["shape"],
         "cases": tb["ssd_bwd_err"]})
     for k in kernels:
+        if k["name"] == "ssd_chunk_bwd":
+            k["bf16"] = {
+                "jamba_smoke_launches": tb["jamba_smoke"]["launches"].get(
+                    "ssd_chunk_bwd", 0),
+                "max_abs_err": max(v for c, v in tb["ssd_bwd_err"].items()
+                                   if "simt" in c),
+                "cases": {c: v for c, v in tb["ssd_bwd_err"].items()
+                          if "simt" in c},
+                "was_mamba2": "mamba2-2.7b's bf16 backward ran on this "
+                              "kernel before ssd_chunk_bwd_sm90 took it"}
         if k["name"] == "flash_attention_bwd":
             k["bf16"] = {
                 "jamba_smoke_launches": tb["jamba_smoke"]["launches"].get(
@@ -6774,6 +6926,10 @@ def main() -> int:
                 "flash_attention"]
             k["train_routes_per_step"] = tl["routes_per_step"]
             k["train_forward_with_lse_ms"] = tt["fwd_lse_ms"]
+    for k in kernels:
+        if not k["launches"]:
+            raise AssertionError(f"kernel {k['name']} was not launched on "
+                                 f"its main path")
     out["kernels"] = kernels
     (ROOT / "build" / "chip_smoke.json").write_text(
         json.dumps(out, indent=1))

@@ -33,7 +33,8 @@ SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "tree_traverse.cu", CSRC / "ssd_chunk.cu",
            CSRC / "ssd_chunk_sm90.cu", CSRC / "flash_attention.cu",
            CSRC / "flash_attention_sm90.cu", CSRC / "flash_attention_bwd.cu",
-           CSRC / "flash_attention_bwd_sm90.cu", CSRC / "ssd_chunk_bwd.cu")
+           CSRC / "flash_attention_bwd_sm90.cu", CSRC / "ssd_chunk_bwd.cu",
+           CSRC / "ssd_chunk_bwd_sm90.cu")
 HEADERS = (CSRC / "fog_tables.cuh", CSRC / "fog_stage.cuh",
            CSRC / "sm90_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -50,7 +51,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas=-v",
 launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
             "histogram": 0, "tree_traverse": 0, "ssd_chunk": 0,
             "flash_attention": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_sm90": 0, "ssd_chunk_bwd": 0}
+            "flash_attention_bwd_sm90": 0, "ssd_chunk_bwd": 0,
+            "ssd_chunk_bwd_sm90": 0}
 # the same launches by C entry point, where a kernel has several routes
 # ("flash_attention" and "ssd_chunk" on CUDA cores, "flash_attention_sm90"
 # and "ssd_chunk_sm90" on the tensor cores; "fused_fog" and
@@ -79,9 +81,10 @@ _SIGNATURES = {
     "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
     "fog_ssd_chunk_sm90": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "fog_flash_attention": (I, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
-    "fog_flash_attention_bwd": (I, *[P] * 10, *[I] * 7, F, I, P),
+    "fog_flash_attention_bwd": (I, *[P] * 12, *[I] * 7, F, I, P),
     "fog_flash_attention_bwd_sm90": (*[P] * 10, *[I] * 7, F, I, P),
     "fog_ssd_chunk_bwd": (I, *[P] * 14, *[I] * 5, P),
+    "fog_ssd_chunk_bwd_sm90": (*[P] * 15, *[I] * 6, P),
     "fog_flash_attention_sm90": (P, P, P, P, P, I, I, I, I, I, I, I, F, I,
                                  P),
     # a device query, not a kernel

@@ -6,10 +6,11 @@
 //                             kernel: the JAX package differentiates its
 //                             blocked jnp attention with jax.grad
 //
-// behind a plain C entry point that launches three kernels in order on the
+// behind a plain C entry point that launches its kernels in order on the
 // caller's stream and returns cudaGetLastError() (loaded with ctypes by
 // repro_torch/kernels/_build.py).  The wrapper (kernels/flash_attention.py)
-// allocates delta and the three outputs; the kernels allocate nothing.
+// allocates delta, the dK/dV partial sums and the three outputs; the
+// kernels allocate nothing.
 //
 // With q [B, Sq, H, D], k [B, Sk, K, D], v [B, Sk, K, Dv], the forward's
 // output o and its gradient do [B, Sq, H, Dv], and the forward's lse
@@ -31,36 +32,52 @@
 // live(i, j) = j < Sk and (not causal or i >= j), both counted from 0 (the
 // forward's top-left diagonal).
 //
-// No atomics, so every output is written once by one thread and the
-// result is the same bit for bit from run to run.  dkdv_kernel: one block
-// of 256 threads per (tile of 32 keys, KV head, batch) loops over the q
-// tiles that can see its keys (causal: from the diagonal down) and the G
-// query heads of its KV head, keeping dK and dV in registers (2 keys x NC
-// columns a thread) and writing them once.  dq_kernel: one block per
-// (tile of BQT q rows, query head, batch) loops over the key tiles up to
-// the diagonal with dQ in registers.  Each recomputes s and dp for its
-// pairs (five products in all, s and dp twice).  Tiles are staged in
-// shared memory as fp32 with rows padded by one float; the tile sizes
-// follow the head size alone (kernels/flash_attention.py::bwd_tiles):
-// max(D, Dv) <= 64: 32 keys / 64 q rows, NC = 4; <= 128: 32 / 64, NC = 8;
-// <= 256: 32 / 32, NC = 16, so that at D = Dv = 256 a block's K, V, q, do
-// and two score tiles take 214,528 B, under the 227 KB a block may opt
-// into (64 rows there would take over 256 KB).  dK and dV take 32-key
-// tiles at every head size, for twice the blocks of 64-key tiles (256 at
-// the training shape, for 132 SMs): measured, that moved dkdv_kernel only
-// from 0.756 to 0.739 ms (PERF.md row 6b), so the loads from shared memory
-// (about one per FMA), not the grid, bound it.
+// Design.  TF32 stays off, so this route runs on the CUDA cores, and what
+// bounds a CUDA-core product is how many FMAs each load from shared memory
+// feeds.  Every tile is staged in shared memory as fp32 rows of ld floats
+// (the width rounded up to 4, then to an odd number of 16-byte units, so
+// that eight lanes reading eight rows at one column hit eight distinct
+// bank groups); every product reads float4s and keeps a register tile:
+//   * dkdv_kernel, one block of 256 threads per (T-key tile, QUERY head h,
+//     batch), over the q tiles of T rows that see its keys (causal: from
+//     the diagonal down).  Per q tile: s^T = K q^T and dp^T = V do^T, a
+//     thread holding RT keys x RT rows of each (RT = T / 16; per step of 4
+//     columns RT float4s of K or V and RT of q or do feed 4 RT^2 FMAs,
+//     RT = 4: 8 per float4), then p^T and ds^T in fp32 into shared memory
+//     as [row][key]; then dV += p^T do and dK += ds^T q, a thread holding
+//     RT keys x 4 NC columns of each (per row one float4 of p, one of ds,
+//     NC of do and NC of q feed 8 RT NC FMAs).  The G query heads of a KV
+//     head are separate blocks (G times the blocks, each with a G-th of
+//     the causal work), the key tiles on the grid's slowest axis so that
+//     the longest blocks start first; where G > 1 each writes its partial
+//     dK, dV (fp32, [B, Sk, H, D / Dv]) and reduce_kernel sums the G
+//     partials of each KV head in head order, scales dK and stores both
+//     (G = 1: the block stores them itself).
+//   * dq_kernel, one block per (T-row q tile, query head, batch), the
+//     longest causal rows first: s = q K^T and dp = do V^T as above (RT
+//     rows x RT keys a thread), ds^T into shared memory as [key][row], then
+//     dQ += ds K (RT rows x 4 NC columns a thread).
+// Seven products in all (s and dp in both passes).  Tiles follow the head
+// size alone (kernels/flash_attention.py::bwd_tiles): max(D, Dv) <= 128:
+// T = 64 (RT = 4); <= 256: T = 32 (RT = 2), so that at D = Dv = 256 a
+// dkdv block's K, V, q, do, p^T and ds^T take 142,592 B, under the 227 KB
+// a block may opt into; NC = 1, 2, 4 up to 64, 128, 256 columns.  At D =
+// Dv = 64 a dkdv block takes 104,960 B, a dq block 87,040 B: two blocks
+// an SM each (their launch bounds hold a thread to 128 registers there).
+//
+// No atomics: every output and partial is written once by one thread and
+// every sum runs in a fixed order, so the result is the same bit for bit
+// from run to run.
 //
 // What bounds it: at the training shape (q [8, 256, 32, 64], k/v [8, 256,
 // 4, 64], causal) the function moves ~76 MB (q, k, v, o, do read, dq, dk,
 // dv written; 0.023 ms at 3.35 TB/s) and does 5.4 GFLOP over the causal
-// pairs (0.080 ms at 67 TFLOP/s fp32), so operations bound it.  This design
-// does 7 products (s and dp twice) as fp32 FMAs from shared memory, about
-// one shared load per FMA, on 256 dkdv blocks at that shape (one per key
-// tile, KV head and batch), so it runs well above the bound (PERF.md row
-// 6b).  bf16 at the head sizes the tensor cores take (D, Dv in {64, 128})
-// runs flash_attention_bwd_sm90.cu instead; this kernel takes bf16 at the
-// others (MLA's 96 / 64 and 192 / 128, gemma's 256, small test widths).
+// pairs (0.080 ms at 67 TFLOP/s fp32), so operations bound it; this design
+// runs 7.5 GFLOP (0.112 ms) and writes and reads 34 MB of dK/dV partials
+// (PERF.md row 6b gives the measured time).  bf16 at the tensor cores'
+// pairs (flash_attention.SM90_PAIRS) runs flash_attention_bwd_sm90.cu
+// instead; this kernel takes bf16 at the others (jamba's 32, MLA at smoke
+// width 48 / 32, small test widths).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,15 +98,142 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
 
 constexpr int THREADS = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
 constexpr int MAX_HEAD = 256;
-constexpr int TILE = 64;       // the loop tile: q rows (dkdv), keys (dq)
 constexpr unsigned FULL = 0xffffffffu;
 
-// floats of shared memory of one block of either kernel with R rows a
-// thread (16 R rows of its own tile) against the 64-row loop tile
-size_t smem_floats(int R, int D, int Dv) {
-  const size_t own = 16 * R, loop = TILE;
-  return own * (D + 1) + own * (Dv + 1) + loop * (D + 1) + loop * (Dv + 1) +
-         2 * own * (TILE + 1) + 2 * loop;
+// floats of a staged row of `w` columns: w rounded up to 4, then to an odd
+// number of float4s (conflict-free float4 reads of eight rows at a column)
+__host__ __device__ constexpr int row_ld(int w) {
+  return 4 * (((w + 3) / 4) | 1);
+}
+
+// floats of shared memory of a dkdv block (the larger of the two kernels)
+// at T rows: K, V, q, do tiles, p^T and ds^T, the rows' lse and delta
+__host__ __device__ constexpr int smem_floats(int T, int D, int Dv) {
+  return 2 * T * (row_ld(D) + row_ld(Dv)) + 2 * T * row_ld(T) + 2 * T;
+}
+// a dq block's: q, do, K, V tiles and ds^T
+__host__ __device__ constexpr int smem_floats_dq(int T, int D, int Dv) {
+  return 2 * T * (row_ld(D) + row_ld(Dv)) + T * row_ld(T);
+}
+
+// four input elements at p (16-byte aligned fp32, 8-byte aligned bf16) as
+// fp32
+__device__ __forceinline__ float4 ld_vec4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld_vec4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// whether a tile of width w, rows `stride` elements apart from src, can be
+// read four elements at a time
+template <class T_>
+__device__ __forceinline__ bool vec_rows(const T_* src, size_t stride,
+                                         int w) {
+  return w % 4 == 0 && stride % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T_)) == 0;
+}
+
+// a [T, w] tile (rows row0.., `stride` elements apart from `src`, rows at
+// or past `rows` zeros, columns w..ld zeros) into shared memory as fp32:
+// 16 lanes a row, four columns a lane (one vector load where vec)
+template <class T_, int T>
+__device__ __forceinline__ void stage(float* dst, const T_* src,
+                                      size_t stride, int row0, int rows,
+                                      int w, bool vec) {
+  const int q4 = (w + 3) / 4, ldw = row_ld(w);
+  for (int r = threadIdx.x / 16; r < T; r += THREADS / 16) {
+    const int row = row0 + r;
+    const T_* s = src + (size_t)row * stride;
+    for (int c4 = threadIdx.x % 16; c4 < q4; c4 += 16) {
+      const int c = 4 * c4;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < rows) {
+        if (vec) {
+          v = ld_vec4(s + c);
+        } else {
+          v.x = ld(s + c);
+          if (c + 1 < w) v.y = ld(s + c + 1);
+          if (c + 2 < w) v.z = ld(s + c + 2);
+          if (c + 3 < w) v.w = ld(s + c + 3);
+        }
+      }
+      *reinterpret_cast<float4*>(dst + r * ldw + c) = v;
+    }
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[a][b] += sum over the columns of A's rows ra[a] and B's rows rb[b]
+// (both [rows][ld] tiles of width w, ld floats a row), 4 columns a step
+template <int RA, int RB>
+__device__ __forceinline__ void product_nt(float (&acc)[RA][RB],
+                                           const float* A, const int* ra,
+                                           const float* B, const int* rb,
+                                           int w, int ldw) {
+#pragma unroll 4
+  for (int c = 0; c < w; c += 4) {
+    float4 a[RA], b[RB];
+#pragma unroll
+    for (int x = 0; x < RA; ++x) a[x] = ld4(A + ra[x] * ldw + c);
+#pragma unroll
+    for (int y = 0; y < RB; ++y) b[y] = ld4(B + rb[y] * ldw + c);
+#pragma unroll
+    for (int x = 0; x < RA; ++x)
+#pragma unroll
+      for (int y = 0; y < RB; ++y) {
+        float s = acc[x][y];
+        s = __fmaf_rn(a[x].x, b[y].x, s);
+        s = __fmaf_rn(a[x].y, b[y].y, s);
+        s = __fmaf_rn(a[x].z, b[y].z, s);
+        s = __fmaf_rn(a[x].w, b[y].w, s);
+        acc[x][y] = s;
+      }
+  }
+}
+
+// acc[x][m][q] += sum over the rows i < n of coef[i][col0 + x] *
+// M[i][4 tx + 64 m + q], for the columns below w; coef a [rows][ldc]
+// tile (col0 a multiple of R), M a [rows][ldm] tile
+template <int R, int NC>
+__device__ __forceinline__ void product_tn(float (&acc)[R][NC][4],
+                                           const float* coef, int ldc,
+                                           int col0, const float* M, int ldm,
+                                           int w, int n, int tx) {
+  static_assert(R == 2 || R == 4, "a register tile of 2 or 4 rows");
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    float cf[R];
+    if constexpr (R == 4) {
+      const float4 c4 = ld4(coef + i * ldc + col0);
+      cf[0] = c4.x, cf[1] = c4.y, cf[2] = c4.z, cf[3] = c4.w;
+    } else {
+      const float2 c2 = *reinterpret_cast<const float2*>(coef + i * ldc +
+                                                         col0);
+      cf[0] = c2.x, cf[1] = c2.y;
+    }
+#pragma unroll
+    for (int m = 0; m < NC; ++m) {
+      const int col = 4 * tx + 64 * m;
+      if (col < w) {
+        const float4 v = ld4(M + i * ldm + col);
+#pragma unroll
+        for (int x = 0; x < R; ++x) {
+          acc[x][m][0] = __fmaf_rn(cf[x], v.x, acc[x][m][0]);
+          acc[x][m][1] = __fmaf_rn(cf[x], v.y, acc[x][m][1]);
+          acc[x][m][2] = __fmaf_rn(cf[x], v.z, acc[x][m][2]);
+          acc[x][m][3] = __fmaf_rn(cf[x], v.w, acc[x][m][3]);
+        }
+      }
+    }
+  }
 }
 
 // delta[b, h, i] = sum_e do[b, i, h, e] o[b, i, h, e]: one warp per row
@@ -116,303 +260,266 @@ __global__ void __launch_bounds__(THREADS) flash_attention_bwd_delta_kernel(
   }
 }
 
-// dk, dv for the 16 RK keys of tile blockIdx.x, KV head blockIdx.y, batch
-// blockIdx.z.  NC * 16 >= max(D, Dv).
-template <class T, int RK, int NC>
-__global__ void __launch_bounds__(THREADS) flash_attention_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
-    int K, int D, int Dv, float scale, int causal) {
-  constexpr int BKT = 16 * RK;
-  extern __shared__ float smem[];
-  const int ldd = D + 1, ldv = Dv + 1, ldp = TILE + 1;
-  float* Ks = smem;                 // [BKT][D + 1]
-  float* Vs = Ks + BKT * ldd;       // [BKT][Dv + 1]
-  float* Qs = Vs + BKT * ldv;       // [TILE][D + 1]
-  float* dOs = Qs + TILE * ldd;     // [TILE][Dv + 1]
-  float* Ps = dOs + TILE * ldv;     // [BKT][TILE + 1]  p
-  float* dSs = Ps + BKT * ldp;      // [BKT][TILE + 1]  ds
-  float* lse_s = dSs + BKT * ldp;   // [TILE]
-  float* dl_s = lse_s + TILE;       // [TILE]
+// dk, dv of query head blockIdx.x (its share of its KV head's) for the T
+// keys of tile blockIdx.z, batch blockIdx.y (the key tiles slowest, so the
+// blocks with the most causal q tiles start first).  G = 1: stored in the
+// inputs' type (dk scaled); else fp32 partials into dk_part, dv_part
+// [B, Sk, H, D / Dv], summed by reduce_kernel
+template <class T_, int T, int NC>
+__global__ void __launch_bounds__(THREADS, NC == 1 ? 2 : 1)
+    flash_attention_bwd_dkdv_kernel(
+        const T_* __restrict__ q, const T_* __restrict__ k,
+        const T_* __restrict__ v, const T_* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        T_* __restrict__ dk, T_* __restrict__ dv,
+        float* __restrict__ dk_part, float* __restrict__ dv_part, int Sq,
+        int Sk, int H, int K, int D, int Dv, float scale, int causal) {
+  constexpr int RT = T / 16;
+  extern __shared__ __align__(16) float smem[];
+  const int ldd = row_ld(D), ldv = row_ld(Dv), ldp = row_ld(T);
+  float* Ks = smem;                 // [T][ldd]
+  float* Vs = Ks + T * ldd;         // [T][ldv]
+  float* Qs = Vs + T * ldv;         // [T][ldd]
+  float* dOs = Qs + T * ldd;        // [T][ldv]
+  float* Ps = dOs + T * ldv;        // [T rows][ldp keys]  p^T
+  float* dSs = Ps + T * ldp;        // [T rows][ldp keys]  ds^T
+  float* lse_s = dSs + T * ldp;     // [T]
+  float* dl_s = lse_s + T;          // [T]
 
-  const int j0 = blockIdx.x * BKT, kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / K;
+  const int j0 = blockIdx.z * T, h = blockIdx.x, b = blockIdx.y;
+  const int G = H / K, kh = h / G;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int D4 = (D + 3) & ~3, Dv4 = (Dv + 3) & ~3;
 
-  for (int idx = tid; idx < BKT * D; idx += THREADS) {
-    const int jj = idx / D, d = idx % D, j = j0 + jj;
-    Ks[jj * ldd + d] =
-        j < Sk ? ld(k + (((size_t)b * Sk + j) * K + kh) * D + d) : 0.0f;
+  const T_* kb = k + (size_t)b * Sk * K * D + (size_t)kh * D;
+  const T_* vb = v + (size_t)b * Sk * K * Dv + (size_t)kh * Dv;
+  const T_* qb = q + (size_t)b * Sq * H * D + (size_t)h * D;
+  const T_* db = dout + (size_t)b * Sq * H * Dv + (size_t)h * Dv;
+  const bool vq = vec_rows(qb, (size_t)H * D, D);
+  const bool vd = vec_rows(db, (size_t)H * Dv, Dv);
+  stage<T_, T>(Ks, kb, (size_t)K * D, j0, Sk, D,
+               vec_rows(kb, (size_t)K * D, D));
+  stage<T_, T>(Vs, vb, (size_t)K * Dv, j0, Sk, Dv,
+               vec_rows(vb, (size_t)K * Dv, Dv));
+
+  // this thread's keys (rows of K, V; columns of p^T's rows) and q rows
+  int rk[RT], rq[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    rk[r] = ty * RT + r;
+    rq[r] = tx + 16 * r;
   }
-  for (int idx = tid; idx < BKT * Dv; idx += THREADS) {
-    const int jj = idx / Dv, e = idx % Dv, j = j0 + jj;
-    Vs[jj * ldv + e] =
-        j < Sk ? ld(v + (((size_t)b * Sk + j) * K + kh) * Dv + e) : 0.0f;
-  }
+  float dk_acc[RT][NC][4], dv_acc[RT][NC][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dk_acc[r][m][x] = dv_acc[r][m][x] = 0.0f;
 
-  float dk_acc[RK][NC], dv_acc[RK][NC];
-#pragma unroll
-  for (int r = 0; r < RK; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.0f;
-
-  // causal: row i sees key j only for i >= j, so the q tiles start at the
-  // one holding row j0
-  const int i_start = causal ? (j0 / TILE) * TILE : 0;
-  for (int i0 = i_start; i0 < Sq; i0 += TILE) {
-    for (int g = 0; g < G; ++g) {
-      const int h = kh * G + g;
-      __syncthreads();   // Ks, Vs written; the last tile's reads done
-      for (int idx = tid; idx < TILE * D; idx += THREADS) {
-        const int ii = idx / D, d = idx % D, i = i0 + ii;
-        Qs[ii * ldd + d] =
-            i < Sq ? ld(q + (((size_t)b * Sq + i) * H + h) * D + d) : 0.0f;
-      }
-      for (int idx = tid; idx < TILE * Dv; idx += THREADS) {
-        const int ii = idx / Dv, e = idx % Dv, i = i0 + ii;
-        dOs[ii * ldv + e] =
-            i < Sq ? ld(dout + (((size_t)b * Sq + i) * H + h) * Dv + e) : 0.0f;
-      }
-      for (int ii = tid; ii < TILE; ii += THREADS) {
-        const int i = i0 + ii;
-        const size_t at = ((size_t)b * H + h) * Sq + i;
-        lse_s[ii] = i < Sq ? lse[at] : -INFINITY;
-        dl_s[ii] = i < Sq ? delta[at] : 0.0f;
-      }
-      __syncthreads();
-
-      // s and dp for keys ty * RK + r, rows tx + 16 c
-      float s[RK][4], dp[RK][4];
-#pragma unroll
-      for (int r = 0; r < RK; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float a[RK], bq[4];
-#pragma unroll
-        for (int r = 0; r < RK; ++r) a[r] = Ks[(ty * RK + r) * ldd + d];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bq[c] = Qs[(tx + 16 * c) * ldd + d];
-#pragma unroll
-        for (int r = 0; r < RK; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = __fmaf_rn(a[r], bq[c], s[r][c]);
-      }
-#pragma unroll 4
-      for (int e = 0; e < Dv; ++e) {
-        float a[RK], bo[4];
-#pragma unroll
-        for (int r = 0; r < RK; ++r) a[r] = Vs[(ty * RK + r) * ldv + e];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bo[c] = dOs[(tx + 16 * c) * ldv + e];
-#pragma unroll
-        for (int r = 0; r < RK; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            dp[r][c] = __fmaf_rn(a[r], bo[c], dp[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < RK; ++r) {
-        const int jj = ty * RK + r, j = j0 + jj;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int ii = tx + 16 * c, i = i0 + ii;
-          const float ls = lse_s[ii];
-          const bool live = j < Sk && i < Sq && (!causal || i >= j) &&
-                            ls > -INFINITY;
-          const float p =
-              live ? expf(__fsub_rn(__fmul_rn(s[r][c], scale), ls)) : 0.0f;
-          Ps[jj * ldp + ii] = p;
-          dSs[jj * ldp + ii] = __fmul_rn(p, __fsub_rn(dp[r][c], dl_s[ii]));
-        }
-      }
-      __syncthreads();
-
-      // dv += p^T do, dk += ds^T q (scaled at the end) over the tile's rows
-      const int in = min(TILE, Sq - i0);
-      for (int ii = 0; ii < in; ++ii) {
-        float p[RK], ds[RK];
-#pragma unroll
-        for (int r = 0; r < RK; ++r) {
-          p[r] = Ps[(ty * RK + r) * ldp + ii];
-          ds[r] = dSs[(ty * RK + r) * ldp + ii];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int e = tx + 16 * c;
-          const float o = e < Dv ? dOs[ii * ldv + e] : 0.0f;
-          const float qq = e < D ? Qs[ii * ldd + e] : 0.0f;
-#pragma unroll
-          for (int r = 0; r < RK; ++r) {
-            dv_acc[r][c] = __fmaf_rn(p[r], o, dv_acc[r][c]);
-            dk_acc[r][c] = __fmaf_rn(ds[r], qq, dk_acc[r][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RK; ++r) {
-    const int j = j0 + ty * RK + r;
-    if (j >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int e = tx + 16 * c;
-      if (e < D)
-        st(dk + (((size_t)b * Sk + j) * K + kh) * D + e,
-           __fmul_rn(dk_acc[r][c], scale));
-      if (e < Dv)
-        st(dv + (((size_t)b * Sk + j) * K + kh) * Dv + e, dv_acc[r][c]);
-    }
-  }
-}
-
-// dq for the 16 RQ rows of q tile blockIdx.x, query head blockIdx.y, batch
-// blockIdx.z.  NC * 16 >= max(D, Dv).
-template <class T, int RQ, int NC>
-__global__ void __launch_bounds__(THREADS) flash_attention_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int Sq, int Sk, int H, int K, int D, int Dv,
-    float scale, int causal) {
-  constexpr int BQT = 16 * RQ;
-  extern __shared__ float smem[];
-  const int ldd = D + 1, ldv = Dv + 1, lds = TILE + 1;
-  float* Qs = smem;                 // [BQT][D + 1]
-  float* dOs = Qs + BQT * ldd;      // [BQT][Dv + 1]
-  float* Ks = dOs + BQT * ldv;      // [TILE][D + 1]
-  float* Vs = Ks + TILE * ldd;      // [TILE][Dv + 1]
-  float* dSs = Vs + TILE * ldv;     // [BQT][TILE + 1]
-  float* lse_s = dSs + 2 * BQT * lds;   // [BQT] (past a second score tile,
-  float* dl_s = lse_s + TILE;           // the layout smem_floats counts)
-
-  // the longest causal rows first, so the short ones fill the tail
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQT;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / K);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  for (int idx = tid; idx < BQT * D; idx += THREADS) {
-    const int ii = idx / D, d = idx % D, i = i0 + ii;
-    Qs[ii * ldd + d] =
-        i < Sq ? ld(q + (((size_t)b * Sq + i) * H + h) * D + d) : 0.0f;
-  }
-  for (int idx = tid; idx < BQT * Dv; idx += THREADS) {
-    const int ii = idx / Dv, e = idx % Dv, i = i0 + ii;
-    dOs[ii * ldv + e] =
-        i < Sq ? ld(dout + (((size_t)b * Sq + i) * H + h) * Dv + e) : 0.0f;
-  }
-  for (int ii = tid; ii < BQT; ii += THREADS) {
-    const int i = i0 + ii;
-    const size_t at = ((size_t)b * H + h) * Sq + i;
-    lse_s[ii] = i < Sq ? lse[at] : -INFINITY;
-    dl_s[ii] = i < Sq ? delta[at] : 0.0f;
-  }
-  const int i_last = min(i0 + BQT, Sq) - 1;
-  const int kv_end = causal ? min(Sk, i_last + 1) : Sk;
-
-  float dq_acc[RQ][NC];
-#pragma unroll
-  for (int r = 0; r < RQ; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq_acc[r][c] = 0.0f;
-
-  for (int j0 = 0; j0 < kv_end; j0 += TILE) {
-    __syncthreads();   // Qs, dOs written; the last tile's reads done
-    for (int idx = tid; idx < TILE * D; idx += THREADS) {
-      const int jj = idx / D, d = idx % D, j = j0 + jj;
-      Ks[jj * ldd + d] =
-          j < Sk ? ld(k + (((size_t)b * Sk + j) * K + kh) * D + d) : 0.0f;
-    }
-    for (int idx = tid; idx < TILE * Dv; idx += THREADS) {
-      const int jj = idx / Dv, e = idx % Dv, j = j0 + jj;
-      Vs[jj * ldv + e] =
-          j < Sk ? ld(v + (((size_t)b * Sk + j) * K + kh) * Dv + e) : 0.0f;
+  // causal: row i sees key j only for i >= j, so the q tiles start at j0
+  const int i_start = causal ? j0 : 0;
+  for (int i0 = i_start; i0 < Sq; i0 += T) {
+    __syncthreads();   // K, V staged; the last tile's reads done
+    stage<T_, T>(Qs, qb, (size_t)H * D, i0, Sq, D, vq);
+    stage<T_, T>(dOs, db, (size_t)H * Dv, i0, Sq, Dv, vd);
+    for (int ii = tid; ii < T; ii += THREADS) {
+      const int i = i0 + ii;
+      const size_t at = ((size_t)b * H + h) * Sq + i;
+      lse_s[ii] = i < Sq ? lse[at] : -INFINITY;
+      dl_s[ii] = i < Sq ? delta[at] : 0.0f;
     }
     __syncthreads();
 
-    // s and dp for rows ty * RQ + r, keys tx + 16 c
-    float s[RQ][4], dp[RQ][4];
+    // s^T and dp^T: keys rk[r], rows rq[c]
+    float s[RT][RT], dp[RT][RT];
 #pragma unroll
-    for (int r = 0; r < RQ; ++r)
+    for (int r = 0; r < RT; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[RQ], bk[4];
+      for (int c = 0; c < RT; ++c) s[r][c] = dp[r][c] = 0.0f;
+    product_nt<RT, RT>(s, Ks, rk, Qs, rq, D4, ldd);
+    product_nt<RT, RT>(dp, Vs, rk, dOs, rq, Dv4, ldv);
 #pragma unroll
-      for (int r = 0; r < RQ; ++r) a[r] = Qs[(ty * RQ + r) * ldd + d];
+    for (int c = 0; c < RT; ++c) {
+      const int ii = rq[c], i = i0 + ii;
+      const float ls = lse_s[ii], dl = dl_s[ii];
+      float pv[RT], dsv[RT];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) bk[c] = Ks[(tx + 16 * c) * ldd + d];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = __fmaf_rn(a[r], bk[c], s[r][c]);
-    }
-#pragma unroll 4
-    for (int e = 0; e < Dv; ++e) {
-      float a[RQ], bv[4];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) a[r] = dOs[(ty * RQ + r) * ldv + e];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = Vs[(tx + 16 * c) * ldv + e];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          dp[r][c] = __fmaf_rn(a[r], bv[c], dp[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int ii = ty * RQ + r, i = i0 + ii;
-      const float ls = lse_s[ii];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int jj = tx + 16 * c, j = j0 + jj;
+      for (int r = 0; r < RT; ++r) {
+        const int j = j0 + rk[r];
         const bool live = j < Sk && i < Sq && (!causal || i >= j) &&
                           ls > -INFINITY;
+        pv[r] = live ? expf(__fsub_rn(__fmul_rn(s[r][c], scale), ls)) : 0.0f;
+        dsv[r] = __fmul_rn(pv[r], __fsub_rn(dp[r][c], dl));
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        Ps[ii * ldp + rk[r]] = pv[r];
+        dSs[ii * ldp + rk[r]] = dsv[r];
+      }
+    }
+    __syncthreads();
+
+    // dv += p^T do, dk += ds^T q (scaled at the end) over the tile's rows
+    const int in = min(T, Sq - i0);
+    product_tn<RT, NC>(dv_acc, Ps, ldp, ty * RT, dOs, ldv, Dv4, in, tx);
+    product_tn<RT, NC>(dk_acc, dSs, ldp, ty * RT, Qs, ldd, D4, in, tx);
+  }
+
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int j = j0 + rk[r];
+    if (j >= Sk) continue;
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int e = 4 * tx + 64 * m + x;
+        if (G == 1) {
+          const size_t at = ((size_t)b * Sk + j) * K + kh;
+          if (e < D) st(dk + at * D + e, __fmul_rn(dk_acc[r][m][x], scale));
+          if (e < Dv) st(dv + at * Dv + e, dv_acc[r][m][x]);
+        } else {
+          const size_t at = ((size_t)b * Sk + j) * H + h;
+          if (e < D) dk_part[at * D + e] = dk_acc[r][m][x];
+          if (e < Dv) dv_part[at * Dv + e] = dv_acc[r][m][x];
+        }
+      }
+  }
+}
+
+// dk[b, j, kh, :] = scale * sum_g dk_part[b, j, kh G + g, :] and dv
+// likewise (the G heads of a KV head in order): one thread per element
+template <class T_>
+__global__ void __launch_bounds__(THREADS) flash_attention_bwd_reduce_kernel(
+    const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+    T_* __restrict__ dk, T_* __restrict__ dv, long long n_k, int G, int D,
+    int Dv, float scale) {
+  const long long rows = n_k;   // B Sk K
+  const long long n = rows * (D + Dv);
+  for (long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+       idx < n; idx += (long long)gridDim.x * THREADS) {
+    const bool is_k = idx < rows * D;
+    const int w = is_k ? D : Dv;
+    const long long at = is_k ? idx : idx - rows * D;
+    const long long row = at / w;   // (b Sk + j) K + kh
+    const int e = (int)(at % w);
+    const float* part = (is_k ? dk_part : dv_part) + row * G * w + e;
+    float sum = 0.0f;
+    for (int g = 0; g < G; ++g) sum = __fadd_rn(sum, part[(size_t)g * w]);
+    if (is_k)
+      st(dk + at, __fmul_rn(sum, scale));
+    else
+      st(dv + at, sum);
+  }
+}
+
+// dq for the T rows of q tile (gridDim.z - 1 - blockIdx.z), query head
+// blockIdx.x, batch blockIdx.y (the q tiles slowest, the longest causal
+// rows first, so the short ones fill the tail)
+template <class T_, int T, int NC>
+__global__ void __launch_bounds__(THREADS, NC == 1 ? 2 : 1)
+    flash_attention_bwd_dq_kernel(
+        const T_* __restrict__ q, const T_* __restrict__ k,
+        const T_* __restrict__ v, const T_* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        T_* __restrict__ dq, int Sq, int Sk, int H, int K, int D, int Dv,
+        float scale, int causal) {
+  constexpr int RT = T / 16;
+  extern __shared__ __align__(16) float smem[];
+  const int ldd = row_ld(D), ldv = row_ld(Dv), ldp = row_ld(T);
+  float* Qs = smem;                 // [T][ldd]
+  float* dOs = Qs + T * ldd;        // [T][ldv]
+  float* Ks = dOs + T * ldv;        // [T][ldd]
+  float* Vs = Ks + T * ldd;         // [T][ldv]
+  float* dSs = Vs + T * ldv;        // [T keys][ldp rows]  ds^T
+
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * T;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kh = h / (H / K);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int D4 = (D + 3) & ~3, Dv4 = (Dv + 3) & ~3;
+
+  const T_* kb = k + (size_t)b * Sk * K * D + (size_t)kh * D;
+  const T_* vb = v + (size_t)b * Sk * K * Dv + (size_t)kh * Dv;
+  const T_* qb = q + (size_t)b * Sq * H * D + (size_t)h * D;
+  const T_* db = dout + (size_t)b * Sq * H * Dv + (size_t)h * Dv;
+  const bool vk = vec_rows(kb, (size_t)K * D, D);
+  const bool vv = vec_rows(vb, (size_t)K * Dv, Dv);
+  stage<T_, T>(Qs, qb, (size_t)H * D, i0, Sq, D,
+               vec_rows(qb, (size_t)H * D, D));
+  stage<T_, T>(dOs, db, (size_t)H * Dv, i0, Sq, Dv,
+               vec_rows(db, (size_t)H * Dv, Dv));
+  // this thread's q rows and keys
+  int rr[RT], rk[RT];
+  float ls[RT], dl[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    rr[r] = ty * RT + r;
+    rk[r] = tx + 16 * r;
+    const int i = i0 + rr[r];
+    const size_t at = ((size_t)b * H + h) * Sq + i;
+    ls[r] = i < Sq ? lse[at] : -INFINITY;
+    dl[r] = i < Sq ? delta[at] : 0.0f;
+  }
+  const int i_last = min(i0 + T, Sq) - 1;
+  const int kv_end = causal ? min(Sk, i_last + 1) : Sk;
+
+  float dq_acc[RT][NC][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dq_acc[r][m][x] = 0.0f;
+
+  for (int j0 = 0; j0 < kv_end; j0 += T) {
+    __syncthreads();   // q, do staged; the last tile's reads done
+    stage<T_, T>(Ks, kb, (size_t)K * D, j0, Sk, D, vk);
+    stage<T_, T>(Vs, vb, (size_t)K * Dv, j0, Sk, Dv, vv);
+    __syncthreads();
+
+    // s and dp: rows rr[r], keys rk[c]
+    float s[RT][RT], dp[RT][RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int c = 0; c < RT; ++c) s[r][c] = dp[r][c] = 0.0f;
+    product_nt<RT, RT>(s, Qs, rr, Ks, rk, D4, ldd);
+    product_nt<RT, RT>(dp, dOs, rr, Vs, rk, Dv4, ldv);
+#pragma unroll
+    for (int c = 0; c < RT; ++c) {
+      const int j = j0 + rk[c];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const int i = i0 + rr[r];
+        const bool live = j < Sk && i < Sq && (!causal || i >= j) &&
+                          ls[r] > -INFINITY;
         const float p =
-            live ? expf(__fsub_rn(__fmul_rn(s[r][c], scale), ls)) : 0.0f;
-        dSs[ii * lds + jj] = __fmul_rn(p, __fsub_rn(dp[r][c], dl_s[ii]));
+            live ? expf(__fsub_rn(__fmul_rn(s[r][c], scale), ls[r])) : 0.0f;
+        dSs[rk[c] * ldp + rr[r]] = __fmul_rn(p, __fsub_rn(dp[r][c], dl[r]));
       }
     }
     __syncthreads();
 
     // dq += ds k (scaled at the end) over this tile's keys below kv_end
-    const int jn = min(TILE, kv_end - j0);
-    for (int jj = 0; jj < jn; ++jj) {
-      float ds[RQ], kk[NC];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) ds[r] = dSs[(ty * RQ + r) * lds + jj];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        kk[c] = d < D ? Ks[jj * ldd + d] : 0.0f;
-      }
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          dq_acc[r][c] = __fmaf_rn(ds[r], kk[c], dq_acc[r][c]);
-    }
+    product_tn<RT, NC>(dq_acc, dSs, ldp, ty * RT, Ks, ldd, D4,
+                       min(T, kv_end - j0), tx);
   }
 
 #pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int i = i0 + ty * RQ + r;
+  for (int r = 0; r < RT; ++r) {
+    const int i = i0 + rr[r];
     if (i >= Sq) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D)
-        st(dq + (((size_t)b * Sq + i) * H + h) * D + d,
-           __fmul_rn(dq_acc[r][c], scale));
-    }
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int d = 4 * tx + 64 * m + x;
+        if (d < D)
+          st(dq + (((size_t)b * Sq + i) * H + h) * D + d,
+             __fmul_rn(dq_acc[r][m][x], scale));
+      }
   }
 }
 
@@ -423,66 +530,89 @@ int opt_in(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
 }
 
-// RK keys a thread in dkdv_kernel (16 RK a block), RQ rows in dq_kernel
-template <class T, int RK, int RQ, int NC>
-int launch(const T* q, const T* k, const T* v, const T* o, const T* dout,
-           const float* lse, float* delta, T* dq, T* dk, T* dv, int B,
-           int Sq, int Sk, int H, int K, int D, int Dv, float scale,
-           int causal, cudaStream_t stream) {
+// T rows a tile, NC groups of 64 output columns a thread
+template <class T_, int T, int NC>
+int launch(const T_* q, const T_* k, const T_* v, const T_* o,
+           const T_* dout, const float* lse, float* delta, T_* dq, T_* dk,
+           T_* dv, float* dk_part, float* dv_part, int B, int Sq, int Sk,
+           int H, int K, int D, int Dv, float scale, int causal,
+           cudaStream_t stream) {
   const long long rows = (long long)B * Sq * H;
   const long long delta_blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   if (delta_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_bwd_delta_kernel<T><<<(unsigned)delta_blocks, THREADS, 0,
-                                        stream>>>(o, dout, delta, Sq, H, Dv,
-                                                  rows);
+  flash_attention_bwd_delta_kernel<T_><<<(unsigned)delta_blocks, THREADS, 0,
+                                         stream>>>(o, dout, delta, Sq, H, Dv,
+                                                   rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
-  const size_t smem_k = sizeof(float) * smem_floats(RK, D, Dv);
-  err = opt_in(flash_attention_bwd_dkdv_kernel<T, RK, NC>, smem_k);
+  const int G = H / K;
+  if ((G > 1 && (dk_part == nullptr || dv_part == nullptr)) ||
+      (Sk + T - 1) / T > 65535 || (Sq + T - 1) / T > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem_k = sizeof(float) * smem_floats(T, D, Dv);
+  err = opt_in(flash_attention_bwd_dkdv_kernel<T_, T, NC>, smem_k);
   if (err) return err;
-  const dim3 kgrid((Sk + 16 * RK - 1) / (16 * RK), K, B);
-  flash_attention_bwd_dkdv_kernel<T, RK, NC><<<kgrid, THREADS, smem_k,
+  const dim3 kgrid(H, B, (Sk + T - 1) / T);
+  flash_attention_bwd_dkdv_kernel<T_, T, NC><<<kgrid, THREADS, smem_k,
                                                stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, K, D, Dv, scale, causal);
+      q, k, v, dout, lse, delta, dk, dv, dk_part, dv_part, Sq, Sk, H, K, D,
+      Dv, scale, causal);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
+  if (G > 1) {
+    const long long n_k = (long long)B * Sk * K;
+    const long long n = n_k * (D + Dv);
+    const long long blocks = (n + THREADS - 1) / THREADS;
+    flash_attention_bwd_reduce_kernel<T_>
+        <<<(unsigned)(blocks < 65535 * 16 ? blocks : 65535 * 16), THREADS, 0,
+           stream>>>(dk_part, dv_part, dk, dv, n_k, G, D, Dv, scale);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
 
-  const size_t smem_q = sizeof(float) * smem_floats(RQ, D, Dv);
-  err = opt_in(flash_attention_bwd_dq_kernel<T, RQ, NC>, smem_q);
+  const size_t smem_q = sizeof(float) * smem_floats_dq(T, D, Dv);
+  err = opt_in(flash_attention_bwd_dq_kernel<T_, T, NC>, smem_q);
   if (err) return err;
-  const dim3 qgrid((Sq + 16 * RQ - 1) / (16 * RQ), H, B);
-  flash_attention_bwd_dq_kernel<T, RQ, NC><<<qgrid, THREADS, smem_q,
+  const dim3 qgrid(H, B, (Sq + T - 1) / T);
+  flash_attention_bwd_dq_kernel<T_, T, NC><<<qgrid, THREADS, smem_q,
                                              stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Sk, H, K, D, Dv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the tiles by head size (kernels/flash_attention.py::bwd_tiles)
-template <class T>
+template <class T_>
 int launch_by_head(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int B, int Sq,
-                   int Sk, int H, int K, int D, int Dv, float scale,
-                   int causal, cudaStream_t s) {
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* to = static_cast<const T*>(o);
-  const T* td = static_cast<const T*>(dout);
-  T* tdq = static_cast<T*>(dq);
-  T* tdk = static_cast<T*>(dk);
-  T* tdv = static_cast<T*>(dv);
+                   float* delta, void* dq, void* dk, void* dv,
+                   float* dk_part, float* dv_part, int B, int Sq, int Sk,
+                   int H, int K, int D, int Dv, float scale, int causal,
+                   cudaStream_t s) {
+  const T_* tq = static_cast<const T_*>(q);
+  const T_* tk = static_cast<const T_*>(k);
+  const T_* tv = static_cast<const T_*>(v);
+  const T_* to = static_cast<const T_*>(o);
+  const T_* td = static_cast<const T_*>(dout);
+  T_* tdq = static_cast<T_*>(dq);
+  T_* tdk = static_cast<T_*>(dk);
+  T_* tdv = static_cast<T_*>(dv);
   const int head = D > Dv ? D : Dv;
   if (head <= 64)
-    return launch<T, 2, 4, 4>(tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
-                              B, Sq, Sk, H, K, D, Dv, scale, causal, s);
+    return launch<T_, 64, 1>(
+        tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
+                             dk_part, dv_part, B, Sq, Sk, H, K, D, Dv, scale,
+                             causal, s);
   if (head <= 128)
-    return launch<T, 2, 4, 8>(tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
-                              B, Sq, Sk, H, K, D, Dv, scale, causal, s);
-  return launch<T, 2, 2, 16>(tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
-                             B, Sq, Sk, H, K, D, Dv, scale, causal, s);
+    return launch<T_, 64, 2>(
+        tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
+                             dk_part, dv_part, B, Sq, Sk, H, K, D, Dv, scale,
+                             causal, s);
+  return launch<T_, 32, 4>(
+      tq, tk, tv, to, td, lse, delta, tdq, tdk, tdv,
+                           dk_part, dv_part, B, Sq, Sk, H, K, D, Dv, scale,
+                           causal, s);
 }
 
 }  // namespace
@@ -490,14 +620,15 @@ int launch_by_head(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype 0: fp32, 1: bf16 for q, k, v, o, do, dq, dk, dv; lse [B, H, Sq]
-// from fog_flash_attention and delta [B, H, Sq] scratch, fp32 either way.
-// causal: 0 or 1.
+// from fog_flash_attention and delta [B, H, Sq] scratch, fp32 either way;
+// dk_part [B, Sk, H, D] and dv_part [B, Sk, H, Dv] fp32 scratch where H >
+// K (may be null where H == K).  causal: 0 or 1.
 int fog_flash_attention_bwd(int dtype, const void* q, const void* k,
                             const void* v, const void* o, const void* dout,
                             const void* lse, void* delta, void* dq, void* dk,
-                            void* dv, int B, int Sq, int Sk, int H, int K,
-                            int D, int Dv, float scale, int causal,
-                            void* stream) {
+                            void* dv, void* dk_part, void* dv_part, int B,
+                            int Sq, int Sk, int H, int K, int D, int Dv,
+                            float scale, int causal, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || K < 1 || H % K != 0 || D < 1 ||
       Dv < 1 || D > MAX_HEAD || Dv > MAX_HEAD || B > 65535 || H > 65535 ||
       (dtype != 0 && dtype != 1))
@@ -505,12 +636,15 @@ int fog_flash_attention_bwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fl = static_cast<const float*>(lse);
   float* fdl = static_cast<float*>(delta);
+  float* pk = static_cast<float*>(dk_part);
+  float* pv = static_cast<float*>(dv_part);
   if (dtype == 0)
-    return launch_by_head<float>(q, k, v, o, dout, fl, fdl, dq, dk, dv, B,
-                                 Sq, Sk, H, K, D, Dv, scale, causal, s);
+    return launch_by_head<float>(q, k, v, o, dout, fl, fdl, dq, dk, dv, pk,
+                                 pv, B, Sq, Sk, H, K, D, Dv, scale, causal,
+                                 s);
   return launch_by_head<__nv_bfloat16>(q, k, v, o, dout, fl, fdl, dq, dk, dv,
-                                       B, Sq, Sk, H, K, D, Dv, scale, causal,
-                                       s);
+                                       pk, pv, B, Sq, Sk, H, K, D, Dv, scale,
+                                       causal, s);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, ssd_chunk_sm90.cu):
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, ssd_chunk_sm90.cu,
+// ssd_chunk_bwd_sm90.cu):
 // mbarriers, TMA loads through 4-D tensor maps, shared-memory matrix
 // descriptors with the 128-byte swizzle, the wgmma products the kernels
 // issue, and bf16 packing.  Every function is internal to the including

@@ -59,8 +59,11 @@
 // operations bound it.  This first kernel does them as fp32 FMAs from
 // shared-memory tiles (explicit __fmaf_rn: the build passes -fmad=false),
 // about one shared load per two FMAs, so it runs well above the bound
-// (PERF.md row 7b).  bf16 inputs halve the bytes, not the operations;
-// a tensor-core redesign is later work (ROADMAP).
+// (PERF.md row 7b).  bf16 inputs halve the bytes, not the operations.
+// bf16 at the forward's tensor-core shapes (P = 64, N in {64, 128}: the
+// mamba2 and jamba training path) runs ssd_chunk_bwd_sm90.cu instead
+// (kernels/ssd_chunk.py::route); this kernel takes fp32 and bf16 at
+// every other shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

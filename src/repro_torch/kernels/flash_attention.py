@@ -58,8 +58,11 @@ write) and write dq, dk and dv once each without atomics
   bf16 only as the A operands of the last products (``dv += p^T do``,
   ``dk += ds^T q``, ``dq += ds k``).
 * ``"simt"``: ``csrc/flash_attention_bwd.cu``, fp32 arithmetic on CUDA
-  cores from fp32 or bf16 inputs (loads and stores in the inputs' dtype),
-  its tile sizes by head size (:func:`bwd_tiles`).
+  cores from fp32 or bf16 inputs (loads and stores in the inputs' dtype):
+  register tiles fed by float4 reads of fp32 tiles in shared memory, a
+  dK/dV block per (key tile, query head, batch) whose G partials a
+  reduce step sums in head order (fp32 scratch), and a dQ block per (q
+  tile, head, batch); its tile sizes by head size (:func:`bwd_tiles`).
 
 Both are counted separately (``launches["flash_attention_bwd_sm90"]``,
 ``launches["flash_attention_bwd"]``).  The plain version is
@@ -305,27 +308,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def bwd_tiles(D: int, Dv: int) -> tuple[int, int, int]:
-    """The backward's tiles by head size (``csrc/flash_attention_bwd.cu``):
-    (keys a dkdv block, q rows a dq block, output columns a thread / 16).
-    Up to 64 columns: 32, 64, 4; up to 128: 32, 64, 8; up to 256: 32, 32,
-    16 (64 rows at D = Dv = 256 would need over 256 KB of shared
-    memory)."""
+    """The SIMT backward's tiles by head size (``csrc/
+    flash_attention_bwd.cu``): (keys a dK/dV block, q rows a dQ block,
+    64-column groups of a thread's output columns, the kernel's template
+    instance).  Up to 64 columns: 64, 64, 1 (a thread's register tile 4 x
+    4); up to 128: 64, 64, 2; up to 256: 32, 32 (2 x 2), 4, so that a
+    block's tiles fit the 227 KB a Hopper block may opt into."""
     head = max(D, Dv)
     if head <= 64:
-        return 32, 64, 4
+        return 64, 64, 1
     if head <= 128:
-        return 32, 64, 8
-    return 32, 32, 16
+        return 64, 64, 2
+    return 32, 32, 4
+
+
+def _row_ld(w: int) -> int:
+    """Floats of a staged fp32 row of ``w`` columns: ``w`` rounded up to
+    4, then to an odd number of float4s (``csrc/flash_attention_bwd.cu::
+    row_ld``)."""
+    return 4 * (-(-w // 4) | 1)
 
 
 def bwd_smem_bytes(D: int, Dv: int) -> int:
-    """Dynamic shared memory of a block of the larger of the two backward
-    kernels: its own K, V (or q, do) tile, the 64-row loop tile of q, do
-    (or K, V), two score tiles and the loop tile's lse and delta, fp32,
-    rows padded by one."""
-    return max(4 * (own * (D + 1) + own * (Dv + 1) + BK * (D + 1)
-                    + BK * (Dv + 1) + 2 * own * (BK + 1) + 2 * BK)
-               for own in bwd_tiles(D, Dv)[:2])
+    """Dynamic shared memory of a dK/dV block of the SIMT backward (the
+    larger of its two kernels): its K and V tiles, the loop tile of q and
+    do, pᵀ and dsᵀ, fp32 rows of ``_row_ld`` floats, and the loop tile's
+    lse and delta (``csrc/flash_attention_bwd.cu::smem_floats``)."""
+    T = bwd_tiles(D, Dv)[0]
+    return 4 * (2 * T * (_row_ld(D) + _row_ld(Dv)) + 2 * T * _row_ld(T)
+                + 2 * T)
 
 
 def bwd_split_dkdv(D: int, Dv: int) -> bool:
@@ -386,11 +397,19 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"card allows {_build.smem_optin(q.device)}")
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    ptrs = (t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv))
     shape = (B, Sq, Sk, H, K, D, Dv, softmax_scale(D, scale), int(causal))
     if sm90:
-        _build.launch("flash_attention_bwd_sm90", q.device, *ptrs, *shape)
-    else:
-        _build.launch("flash_attention_bwd", q.device, _DTYPES[q.dtype],
-                      *ptrs, *shape)
+        _build.launch("flash_attention_bwd_sm90", q.device, *(
+            t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            *shape)
+        return dq, dk, dv
+    # each query head's share of dk and dv, summed over a KV head's G
+    # heads in order by the kernel's reduce step (none where G = 1)
+    parts = ((torch.empty((B, Sk, H, D), dtype=torch.float32,
+                          device=q.device),
+              torch.empty((B, Sk, H, Dv), dtype=torch.float32,
+                          device=q.device)) if H > K else (None, None))
+    _build.launch("flash_attention_bwd", q.device, _DTYPES[q.dtype], *(
+        t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+        *(None if t is None else t.data_ptr() for t in parts), *shape)
     return dq, dk, dv

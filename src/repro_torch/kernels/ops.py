@@ -119,9 +119,13 @@ def _ssd_forward(xbar, a, Bm, Cm):
 class SsdChunk(torch.autograd.Function):
     """``ssd_chunk`` with a gradient: the forward (the kernel on CUDA, the
     plain version on the CPU) saves xbar, a, Bm and Cm; the backward is
-    ``ssd_chunk_bwd_cuda`` on CUDA (fp32 or bf16, whichever route the
-    forward took), ``ssd_chunk_bwd_ref`` on the CPU.  An unused output's
-    gradient arrives as zeros."""
+    ``ssd_chunk_bwd_cuda`` on CUDA, on the forward's route rule
+    (``ssd_chunk.route``): bf16 at P = 64, N in {64, 128} on the tensor
+    cores (``csrc/ssd_chunk_bwd_sm90.cu``, which rounds W_h and dS to bf16
+    as its products' operands, replayed by
+    ``ssd_chunk.ssd_chunk_bwd_sm90_replay``), fp32 and every other shape
+    on CUDA cores (``csrc/ssd_chunk_bwd.cu``); ``ssd_chunk_bwd_ref`` on the
+    CPU.  An unused output's gradient arrives as zeros."""
 
     @staticmethod
     def forward(ctx, xbar, a, Bm, Cm):

@@ -26,14 +26,30 @@ counts as one launch.  The sources' headers say what bounds each.  The
 plain version is :func:`ssd_chunk_ref`, which ``kernels.ref`` re-exports.
 
 The backward (the gradient the JAX package takes with ``jax.grad`` of the
-einsum branch of ``models/mamba2.py::ssd_chunked``) is
-``csrc/ssd_chunk_bwd.cu`` (:func:`ssd_chunk_bwd_cuda`), fp32 arithmetic
-on CUDA cores from fp32 or bf16 inputs (the gradients stored in the
-inputs' dtype), four launches in one counted call, whichever route the
-forward took: it is the exact gradient of the chunk function at the
-inputs, not of the tensor-core route's bf16 rounding of W and of the
-decayed x̄.  Its plain version is :func:`ssd_chunk_bwd_ref`, written from
-the formulas and not by autograd.
+einsum branch of ``models/mamba2.py::ssd_chunked``) takes the forward's
+rule, :func:`route`, on the same dtype and shapes, and is one counted
+call either way (:func:`ssd_chunk_bwd_cuda`):
+
+* ``"sm90"`` (bf16, P = 64, N in {64, 128}, Q <= 256):
+  ``csrc/ssd_chunk_bwd_sm90.cu``, counted as ``ssd_chunk_bwd_sm90``, on
+  the tensor cores in five launches: the cumsums; dS per (chunk, 64 x 64
+  [i, j] tile) over the heads in order; dx, e and the t sums per (chunk,
+  group of :func:`sm90_heads_per_block` heads), two warpgroups over TMA
+  tiles; dC and dB per (chunk, 64-row tile, 64 columns of N); da.  It
+  rounds two operands to bf16 where the SIMT kernel keeps fp32: ``W_h =
+  S ∘ L_h`` (the A operand of ``dx = W_hᵀ dy_h``) and ``dS`` (the A
+  operand of ``dC = dS B`` and ``dB = dSᵀ C``); :func:`
+  ssd_chunk_bwd_sm90_replay` replays that rounding on the CPU.  Every
+  TMA operand (x, B, C, dy, dstates) must start on a 16-byte boundary.
+* ``"simt"`` (fp32, and bf16 at any other shape): ``csrc/ssd_chunk_bwd.cu``,
+  counted as ``ssd_chunk_bwd``, fp32 arithmetic on CUDA cores (four
+  launches), the gradients stored in the inputs' dtype.
+
+Both are the gradient of the chunk function at the inputs (not of the
+tensor-core forward's bf16 rounding of W and of the decayed x̄), take no
+atomics and are bit-equal run to run.  The plain version is
+:func:`ssd_chunk_bwd_ref`, written from the formulas and not by
+autograd.
 """
 from __future__ import annotations
 
@@ -41,10 +57,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["MAX_Q", "SM90_N", "SM90_P", "check_shapes", "route",
-           "segsum", "sm90_heads_per_block", "smem_bytes_sm90",
-           "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_ref", "ssd_chunk_cuda",
-           "ssd_chunk_ref", "ssd_chunk_sm90_replay", "ssd_intra_chunk"]
+__all__ = ["MAX_Q", "SM90_N", "SM90_P", "bwd_smem_bytes_sm90",
+           "check_shapes", "route", "segsum", "sm90_heads_per_block",
+           "smem_bytes_sm90", "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_ref",
+           "ssd_chunk_bwd_sm90_replay", "ssd_chunk_cuda", "ssd_chunk_ref",
+           "ssd_chunk_sm90_replay", "ssd_intra_chunk"]
 
 # the kernels keep one head's cumsum of `a` in shared memory (and the
 # tensor-core kernel loads a chunk as one TMA box of 256 rows); 256 is the
@@ -58,9 +75,9 @@ SM90_STAGES = 2
 
 
 def route(dtype: torch.dtype, Q: int, P: int, N: int) -> str:
-    """The kernel a CUDA call takes: ``"sm90"`` (tensor cores) for bf16
-    with ``P == SM90_P``, ``N`` in ``SM90_N`` and ``1 <= Q <= MAX_Q``, else
-    ``"simt"``."""
+    """The kernel a CUDA call takes, forward and backward alike:
+    ``"sm90"`` (tensor cores) for bf16 with ``P == SM90_P``, ``N`` in
+    ``SM90_N`` and ``1 <= Q <= MAX_Q``, else ``"simt"``."""
     if (dtype == torch.bfloat16 and P == SM90_P and N in SM90_N
             and 1 <= Q <= MAX_Q):
         return "sm90"
@@ -85,6 +102,20 @@ def smem_bytes_sm90(N: int) -> int:
     return (2 * 2 * MAX_Q * N + SM90_STAGES * 2 * MAX_Q * SM90_P
             + SM90_STAGES * 2 * 4 * MAX_Q + 8 * (1 + 2 * SM90_STAGES) + 1024)
 
+
+# the tensor-core backward's dx pass: dy and dst tiles in flight
+SM90_BWD_STAGES = 2
+
+
+def bwd_smem_bytes_sm90(N: int) -> int:
+    """Dynamic shared memory of a block of the tensor-core backward's
+    largest pass (the dx pass, ``csrc/ssd_chunk_bwd_sm90.cu::DxSmem``): C
+    and B ``[256, N]`` bf16, ``SM90_BWD_STAGES`` stages of dy_h ``[256,
+    64]`` and dst_h ``[64, N]``, the mbarriers, and 1024 B to align the
+    base for the 128-byte swizzle: 230,424 B at N = 128."""
+    return (2 * 2 * MAX_Q * N
+            + SM90_BWD_STAGES * 2 * (MAX_Q * SM90_P + SM90_P * N)
+            + 8 * (1 + SM90_BWD_STAGES) + 1024)
 
 
 def segsum(a: torch.Tensor) -> torch.Tensor:
@@ -153,8 +184,28 @@ def ssd_chunk_bwd_ref(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     Shapes as :func:`ssd_chunk_ref`, ``dy`` as y_diag and ``dstates`` as
     the states; returns ``(dxbar, da, dBm, dCm)`` in the inputs' dtypes,
     computed in fp32 (bf16 inputs upcast, float64 stays float64)."""
+    return _chunk_bwd(xbar, a, Bm, Cm, dy, dstates, sm90=False)
+
+
+def ssd_chunk_bwd_sm90_replay(xbar: torch.Tensor, a: torch.Tensor,
+                              Bm: torch.Tensor, Cm: torch.Tensor,
+                              dy: torch.Tensor, dstates: torch.Tensor):
+    """The tensor-core backward's rounding (``csrc/ssd_chunk_bwd_sm90.cu``),
+    replayed in PyTorch on bf16 inputs: :func:`ssd_chunk_bwd_ref`'s
+    formulas in fp32 with two operands rounded to bf16 as the kernel's
+    products take them, ``dx_h = bf16(S ∘ L_h)ᵀ dy_h + d ∘ G_h``, ``dC =
+    bf16(dS) B`` and ``dB = bf16(dS)ᵀ C + Σ_h d ∘ (x_h dst_h)`` (dS summed
+    over the heads in fp32 first); the t sums, e and da as the plain
+    version.  It differs from the kernel only in the order of fp32 sums
+    and in ``exp``'s last bits (and so, now and then, in which way an
+    operand's rounding goes); the CPU tests hold it to a float64 oracle,
+    chip_smoke.py holds the kernel to it.  Returns bf16 gradients."""
+    return _chunk_bwd(xbar, a, Bm, Cm, dy, dstates, sm90=True)
+
+
+def _chunk_bwd(xbar, a, Bm, Cm, dy, dstates, *, sm90: bool):
     B, nc, Q, H, P, N = check_shapes(xbar, a, Bm, Cm)
-    work = _work_dtype(xbar)
+    work = torch.float32 if sm90 else _work_dtype(xbar)
     x, a32, Bf, Cf, dyf, dst = (t.to(work) for t in (xbar, a, Bm, Cm, dy,
                                                      dstates))
     cum = torch.cumsum(a32, dim=-1)                           # [B,nc,H,Q]
@@ -165,9 +216,15 @@ def ssd_chunk_bwd_ref(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     d = torch.exp(cum[..., -1:] - cum)                        # [B,nc,H,Q]
     G = torch.einsum("bcjn,bchpn->bchjp", Bf, dst)            # [B,nc,H,Q,P]
     dW = torch.einsum("bcihp,bcjhp->bchij", dyf, x) * live    # [B,nc,H,Q,Q]
-    dx = (torch.einsum("bcij,bchij,bcihp->bcjhp", S, L, dyf)
-          + (d[..., None] * G).permute(0, 1, 3, 2, 4))
+    if sm90:
+        W = _bf16(S[:, :, None] * L)
+        dx = torch.einsum("bchij,bcihp->bcjhp", W, dyf)
+    else:
+        dx = torch.einsum("bcij,bchij,bcihp->bcjhp", S, L, dyf)
+    dx = dx + (d[..., None] * G).permute(0, 1, 3, 2, 4)
     dS = (dW * L).sum(dim=2)                                  # [B,nc,Q,Q]
+    if sm90:
+        dS = _bf16(dS)
     dC = torch.einsum("bcij,bcjn->bcin", dS, Bf)
     dB = (torch.einsum("bcij,bcin->bcjn", dS, Cf)
           + torch.einsum("bchj,bcjhp,bchpn->bcjn", d, x, dst))
@@ -178,6 +235,12 @@ def ssd_chunk_bwd_ref(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), dim=-1), (-1,))
     return (dx.to(xbar.dtype), da.to(a.dtype), dB.to(Bm.dtype),
             dC.to(Cm.dtype))
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 once, back in fp32: a product's bf16
+    operand."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def ssd_chunk_sm90_replay(xbar: torch.Tensor, a: torch.Tensor,
@@ -266,19 +329,21 @@ def ssd_chunk_cuda(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     return y, states
 
 
-# the backward kernel's [i, j] tiles (csrc/ssd_chunk_bwd.cu), which size
-# its scratch of per-tile row and column sums
+# the backward kernels' [i, j] tiles (csrc/ssd_chunk_bwd.cu,
+# csrc/ssd_chunk_bwd_sm90.cu), which size their scratch of per-tile row
+# and column sums
 BWD_TILE = 64
 
 
 def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
                        Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
                        dstates: torch.Tensor):
-    """``(dxbar, da, dBm, dCm)`` in the inputs' dtype by
-    ``csrc/ssd_chunk_bwd.cu`` on contiguous CUDA tensors, all fp32 or all
-    bf16, shaped as :func:`ssd_chunk_bwd_ref`'s (one counted launch of its
-    four kernels).  Refuses by shape and dtype what the kernel does not
-    take; never falls back to the plain version."""
+    """``(dxbar, da, dBm, dCm)`` in the inputs' dtype by the backward of
+    the route :func:`route` names, on contiguous CUDA tensors, all fp32 or
+    all bf16, shaped as :func:`ssd_chunk_bwd_ref`'s (one counted launch:
+    ``ssd_chunk_bwd_sm90`` on the tensor cores, ``ssd_chunk_bwd`` on CUDA
+    cores).  Refuses by shape and dtype what the kernels do not take;
+    never falls back to the other route or to the plain version."""
     B, nc, Q, H, P, N = check_shapes(xbar, a, Bm, Cm)
     f32 = torch.float32
     if xbar.dtype not in _DTYPES:
@@ -305,16 +370,37 @@ def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
         _build.check_cuda(name, t, xbar.dtype, nd)
     nt = -(-Q // BWD_TILE)
     dev = xbar.device
-    # scratch: cumsums and end decays, S and dS, the per-head row and
-    # column sums of t per tile, and e
-    cum = torch.empty((BC, H, 2, Q), dtype=f32, device=dev)
-    S = torch.empty((BC, 2, Q, Q), dtype=f32, device=dev)
-    part = torch.empty((BC, H, 2, nt, Q), dtype=f32, device=dev)
-    e = torch.empty((BC, H, Q), dtype=f32, device=dev)
     dx = torch.empty_like(xbar)
     da = torch.empty_like(a)
     dB = torch.empty_like(Bm)
     dC = torch.empty_like(Cm)
+    # scratch: cumsums and end decays, the per-head row and column sums of
+    # t, and e
+    cum = torch.empty((BC, H, 2, Q), dtype=f32, device=dev)
+    e = torch.empty((BC, H, Q), dtype=f32, device=dev)
+    if route(xbar.dtype, Q, P, N) == "sm90":
+        for name, t in (("xbar", xbar), ("Bm", Bm), ("Cm", Cm), ("dy", dy),
+                        ("dstates", dstates)):
+            _build.check_tma(name, t)
+        smem = bwd_smem_bytes_sm90(N)
+        if smem > _build.smem_optin(dev):
+            raise ValueError(f"ssd_chunk's backward at N={N} needs {smem} B "
+                             f"of shared memory per block, the card allows "
+                             f"{_build.smem_optin(dev)}")
+        # dS rounded to bf16 and its transpose, each [BC, QP, QP]
+        qp = nt * BWD_TILE
+        dS = torch.empty((2, BC, qp, qp), dtype=torch.bfloat16, device=dev)
+        rowpart = torch.empty((BC, H, nt, Q), dtype=f32, device=dev)
+        colsum = torch.empty((BC, H, Q), dtype=f32, device=dev)
+        hpb = sm90_heads_per_block(BC, H, _build.sm_count(dev))
+        _build.launch("ssd_chunk_bwd_sm90", dev, *(
+            t.data_ptr() for t in (xbar, a, Bm, Cm, dy, dstates, cum, dS,
+                                   rowpart, colsum, e, dx, da, dB, dC)),
+            BC, Q, H, P, N, hpb)
+        return dx, da, dB, dC
+    # S and dS, the per-head row and column sums of t per tile
+    S = torch.empty((BC, 2, Q, Q), dtype=f32, device=dev)
+    part = torch.empty((BC, H, 2, nt, Q), dtype=f32, device=dev)
     _build.launch("ssd_chunk_bwd", dev, _DTYPES[xbar.dtype], *(
         t.data_ptr() for t in (xbar, a, Bm, Cm, dy, dstates, cum, S, part,
                                e, dx, da, dB, dC)), BC, Q, H, P, N)

@@ -1839,6 +1839,83 @@ def test_bf16_ssd_backward_kernel_matches_plain(cuda, label, shape):
                for g in sc.ssd_chunk_bwd_cuda(*args))
 
 
+# the tensor-core SSD backward's cases: mamba2-2.7b's bf16 training shape
+# (2 x 4096 tokens, 16 chunks a row), SSD_BWD_CASES' full-width ragged
+# chunk, and N = 64
+SSD_SM90_BWD_CASES = (
+    ("the bf16 training shape", (2, 16, 256, 80, 64, 128)),
+    ("ragged Q = 200 at full width", (2, 2, 200, 80, 64, 128)),
+    ("N = 64, Q = 100", (1, 2, 100, 8, 64, 64)))
+
+
+@pytest.mark.parametrize("label,shape", SSD_SM90_BWD_CASES,
+                         ids=[c[0] for c in SSD_SM90_BWD_CASES])
+def test_ssd_backward_sm90_matches_replay_and_float64(cuda, label, shape):
+    """``ssd_chunk_bwd_sm90`` (bf16 at P = 64, N in {64, 128}) within
+    ``SSD_BWD_SM90_ULPS`` bf16 ulps of each gradient's scale of the replay
+    of its rounding, no farther from float64 than twice the replay plus
+    half a bf16 ulp of the scale, bf16 gradients, the same bits on a
+    second run; counted on its own key, one launch a call."""
+    from repro_torch.kernels import ssd_chunk as sc
+    assert sc.route(torch.bfloat16, shape[2], shape[4], shape[5]) == "sm90"
+    args = chip_smoke.ssd_bwd_inputs(np.random.default_rng(sum(shape)),
+                                     shape, cuda, torch.bfloat16)
+    before = dict(ops.launches)
+    chip_smoke.ssd_bwd_check(label, args)
+    assert {k: ops.launches[k] - before[k] for k in before
+            if ops.launches[k] != before[k]} == {"ssd_chunk_bwd_sm90": 2}
+    assert all(g.dtype == torch.bfloat16
+               for g in sc.ssd_chunk_bwd_cuda(*args))
+
+
+def test_ssd_backward_sm90_refuses_a_misaligned_pointer(cuda):
+    """TMA needs 16-byte aligned bases: dy as a view one element in is
+    refused before any launch (``_build.check_tma``)."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = chip_smoke.ssd_bwd_inputs(np.random.default_rng(0),
+                                     (1, 1, 64, 2, 64, 128), cuda,
+                                     torch.bfloat16)
+    dy = args[4]
+    buf = torch.zeros(dy.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(dy.shape)
+    before = dict(ops.launches)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        sc.ssd_chunk_bwd_cuda(*args[:4], shifted, args[5])
+    assert ops.launches == before
+
+
+# the redesigned SIMT attention backward: fp32 at tinyllama's training
+# shape (BWD_CASES[0]; the rest of BWD_CASES in
+# test_flash_backward_kernel_matches_plain), and bf16 at the pairs the
+# tensor cores do not take (jamba's 32, MLA at smoke width 48 / 32)
+SIMT_BWD_CASES = (
+    ("the fp32 training shape", (8, 256, 256, 32, 4, 64, 64),
+     torch.float32),
+    ("bf16 D = Dv = 32", (2, 64, 64, 4, 4, 32, 32), torch.bfloat16),
+    ("bf16 D = 48, Dv = 32", (2, 64, 64, 4, 4, 48, 32), torch.bfloat16))
+
+
+@pytest.mark.parametrize("label,shape,dtype", SIMT_BWD_CASES,
+                         ids=[c[0] for c in SIMT_BWD_CASES])
+def test_simt_flash_backward_redesign(cuda, label, shape, dtype):
+    """The SIMT backward (register tiles over fp32 tiles in shared memory,
+    dK/dV per query head summed in head order) against
+    ``flash_attention_bwd_ref``: fp32 within ``BWD_BAR`` of each
+    gradient's scale, bf16 within ``BWD_BF16_BAR``; the same bits on a
+    second run, counted on ``flash_attention_bwd``."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.route(dtype, shape[5], shape[6]) == "simt"
+    args = chip_smoke.bwd_inputs(np.random.default_rng(sum(shape)), shape,
+                                 True, cuda, dtype)
+    before = dict(ops.launches)
+    if dtype == torch.float32:
+        chip_smoke.bwd_check(label, args, True)
+    else:
+        chip_smoke.bwd_bf16_check(label, args, True)
+    assert {k: ops.launches[k] - before[k] for k in before
+            if ops.launches[k] != before[k]} == {"flash_attention_bwd": 2}
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_forward_writes_lse(cuda, causal):
     """The tensor-core forward's lse against the plain version's (-inf

@@ -286,20 +286,40 @@ def test_kernels_without_a_backward_refuse_inputs_that_need_one(
 
 
 def test_backward_tiles_fit_a_hopper_block_at_every_head_size():
-    """The backward's tiles by head size, and its shared memory under the
-    227 KB (232,448 B) a Hopper block may opt into at every head size up
-    to 256 (214,528 B at D = Dv = 256 with 32-row tiles; 64 rows there
-    would need over 256 KB)."""
-    assert fa.bwd_tiles(64, 64) == (32, 64, 4)
-    assert fa.bwd_tiles(96, 64) == (32, 64, 8)
-    assert fa.bwd_tiles(192, 128) == (32, 32, 16)
-    assert fa.bwd_smem_bytes(256, 256) == 214_528
-    assert fa.bwd_smem_bytes(64, 64) == 100_352
+    """The SIMT backward's tiles by head size (64 rows up to 128 columns,
+    32 above), and its shared memory under the 227 KB (232,448 B) a
+    Hopper block may opt into at every head size up to 256 (142,592 B at
+    D = Dv = 256 with 32-row tiles; 64 rows there would need 285,184)."""
+    assert fa.bwd_tiles(64, 64) == (64, 64, 1)
+    assert fa.bwd_tiles(96, 64) == (64, 64, 2)
+    assert fa.bwd_tiles(192, 128) == (32, 32, 4)
+    assert fa.bwd_smem_bytes(256, 256) == 142_592
+    assert fa.bwd_smem_bytes(64, 64) == 104_960
     for D in range(1, fa.MAX_HEAD + 1):
         for Dv in (1, D, fa.MAX_HEAD):
             keys, rows, nc = fa.bwd_tiles(D, Dv)
-            assert 16 * nc >= max(D, Dv) and keys == 32 and rows in (32, 64)
+            assert 64 * nc >= max(D, Dv) and nc in (1, 2, 4)
+            assert keys == rows in (32, 64)
             assert fa.bwd_smem_bytes(D, Dv) <= 232_448
+
+
+@pytest.mark.parametrize("D,Dv,rows,nc,want", [
+    (32, 32, 64, 1, 72_192), (64, 64, 64, 1, 104_960),
+    (128, 128, 64, 2, 170_496), (256, 256, 32, 4, 142_592),
+    (48, 32, 64, 1, 80_384)], ids=str)
+def test_simt_backward_tiles_at_the_widths_it_takes(D, Dv, rows, nc, want):
+    """The SIMT backward's tiling at jamba's 32, tinyllama's fp32 64, 128,
+    the largest 256 and MLA's smoke 48 / 32: T-row tiles (a thread's
+    register tile T / 16 square, 4 columns in each of ``nc`` 64-column
+    groups), fp32 rows of an odd number of float4s (D = 64 -> 68 floats,
+    48 -> 52, 32 -> 36), a dK/dV block's K, V, q, do, pᵀ and dsᵀ and the
+    rows' lse and delta under the 227 KB a block may opt into."""
+    assert fa.bwd_tiles(D, Dv) == (rows, rows, nc)
+    ld = {w: 4 * (-(-w // 4) | 1) for w in (D, Dv, rows)}
+    assert ld[D] % 8 == 4 and ld[Dv] % 8 == 4
+    assert fa.bwd_smem_bytes(D, Dv) == want == 4 * (
+        2 * rows * (ld[D] + ld[Dv]) + 2 * rows * ld[rows] + 2 * rows
+    ) <= 232_448
 
 
 @pytest.mark.parametrize("D,Dv,split,want", [

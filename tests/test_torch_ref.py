@@ -196,4 +196,4 @@ def test_ops_cpu_path_launches_no_kernel():
                                  "tree_traverse", "ssd_chunk",
                                  "flash_attention", "flash_attention_bwd",
                                  "flash_attention_bwd_sm90",
-                                 "ssd_chunk_bwd"}
+                                 "ssd_chunk_bwd", "ssd_chunk_bwd_sm90"}

@@ -112,3 +112,74 @@ def test_bf16_gradient_flows_through_the_function():
     got = torch.autograd.grad((y, st), ins, tuple(case[4:]))
     want = sc.ssd_chunk_bwd_ref(*case)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# the tensor-core backward's shapes: P = 64 with N = 128 (mamba2-2.7b's and
+# jamba's SSM layers), a ragged chunk, and N = 64
+SM90_SHAPES = [(1, 2, 256, 2, 64, 128), (1, 2, 200, 3, 64, 128),
+               (2, 2, 96, 2, 64, 64)]
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES, ids=str)
+def test_sm90_replay_within_twice_jax_distance(shape):
+    """``ssd_chunk_bwd_sm90_replay`` (the tensor-core backward's rounding:
+    W_h and dS rounded to bf16 as its products' A operands) held to the
+    float64 oracle within twice JAX's bf16 distance plus ``FLOOR``, the
+    bar the plain bf16 backward meets; its da (no rounded operand) is the
+    plain version's bit for bit, and its other gradients part from the
+    plain version's only by those roundings."""
+    case = bf16_case(*shape)
+    got = sc.ssd_chunk_bwd_sm90_replay(*case)
+    hold(f"ssd_chunk_bwd_sm90_replay {shape}", got, case)
+    plain = sc.ssd_chunk_bwd_ref(*case)
+    assert torch.equal(got[1], plain[1])
+    for name, g, p in zip(NAMES, got, plain):
+        scale = float(p.float().abs().max())
+        assert float((g.float() - p.float()).abs().max()) <= 2 ** -6 * scale, \
+            name
+
+
+def test_sm90_replay_with_decays_whose_cumsum_reaches_minus_64():
+    """The replay at P = 64, N = 128 with every decay -0.25: L spans
+    exp(-64) to 1 and W's bf16 rounding keeps its relative error."""
+    case = bf16_case(1, 2, 256, 2, 64, 128, seed=4)
+    case[1] = torch.full_like(case[1], -0.25)
+    hold("sm90 replay cum -64", sc.ssd_chunk_bwd_sm90_replay(*case), case)
+
+
+@pytest.mark.parametrize("dtype,Q,P,N,want", [
+    (torch.bfloat16, 1, 64, 128, "sm90"), (torch.bfloat16, 200, 64, 128,
+                                          "sm90"),
+    (torch.bfloat16, 256, 64, 128, "sm90"), (torch.bfloat16, 1, 64, 64,
+                                             "sm90"),
+    (torch.bfloat16, 200, 64, 64, "sm90"), (torch.bfloat16, 256, 64, 64,
+                                            "sm90"),
+    (torch.float32, 256, 64, 128, "simt"), (torch.bfloat16, 256, 17, 9,
+                                            "simt"),
+    (torch.bfloat16, 256, 64, 32, "simt"), (torch.float16, 256, 64, 128,
+                                            "simt")], ids=str)
+def test_backward_route_rule(dtype, Q, P, N, want):
+    """The backward takes the forward's rule (``ssd_chunk.route``): bf16
+    at P = 64, N in {64, 128}, 1 <= Q <= 256 on the tensor cores, the
+    rest (fp32, other P or N) on the SIMT kernel; fp16 names no kernel's
+    input: the wrapper refuses it before any launch."""
+    assert sc.route(dtype, Q, P, N) == want
+    if dtype == torch.float16:
+        case = [t.half() for t in bf16_case(1, 1, 8, 2, P, N)]
+        before = dict(ops.launches)
+        with pytest.raises(TypeError, match="takes fp32 or bf16, got "
+                           "torch.float16"):
+            sc.ssd_chunk_bwd_cuda(*case)
+        assert ops.launches == before
+
+
+def test_sm90_backward_block_fits_the_card():
+    """The tensor-core backward's largest block (the dx pass: C and B
+    [256, N], two stages of dy_h [256, 64] and dst_h [64, N], 3 mbarriers
+    and 1024 B to align the swizzled tiles) under the 227 KB (232,448 B)
+    a Hopper block may opt into at both state sizes."""
+    assert sc.bwd_smem_bytes_sm90(128) == 230_424 <= 232_448
+    assert sc.bwd_smem_bytes_sm90(64) == 148_504
+    for N in sc.SM90_N:
+        assert sc.bwd_smem_bytes_sm90(N) == (
+            2 * 2 * 256 * N + 2 * (2 * 256 * 64 + 2 * 64 * N) + 24 + 1024)
