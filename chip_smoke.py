@@ -35,7 +35,8 @@ and:
    (forward and backward), the tensor-core SSD backward,
    ``fused_fog_group_kernel``, ``tree_traverse_spread_kernel`` and
    ``grove_aggregate_tile_kernel`` (every instance; their registers
-   printed, and the SIMT attention backward's);
+   printed, and the SIMT attention backward's and the SIMT SSD forward's
+   and backward's);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
@@ -110,7 +111,8 @@ and:
    against its plain version, each case on the route it must take and
    under that route's bar: layer 0's captured bf16 inputs and random bf16
    at full width and a ragged chunk on the tensor cores, random fp32 at
-   full width and ragged on the SIMT kernel; checks at fp32 with all 64
+   full width, ragged and at the fp32 training shape on the SIMT kernel
+   (each SIMT case twice, bit-equal); checks at fp32 with all 64
    layers that decode after prefill equals the forward at every position;
    times prefill, decode, FoG decode, ``ssd_chunk``, the SIMT kernel on
    the same bf16 inputs and the gate's ``top2_confidence`` and works out
@@ -240,7 +242,9 @@ and:
    on the card against the CPU port at the tiny config and one step of
    ``deepseek-v3-671b``'s smoke config (MLA, MoE, MTP) against the plain
    versions; times the step (tokens/s), the backward kernel beside its
-   bounds, its plain version and SDPA's backward; the profiler's split of
+   bounds, its plain version and SDPA's backward, and the fp32 forward
+   with lse beside its bound and SDPA's fp32 forward (call ms here, device
+   ms and SDPA's backend in 14); the profiler's split of
    a step's device time (products, ``flash_attention``, its backward, the
    rest; the CE chunks and the optimizer alone) comes in 14; checks that
    the 4 losses equal, bit for bit, those of the same 4 steps run in this
@@ -262,8 +266,10 @@ and:
    mamba2 (4 layers, d_model 256); holds 5 steps of mamba2's smoke config
    on the card against the CPU port, and one step of jamba's smoke config
    (Mamba, attention, MoE: 2 forward and 1 backward launch of each kernel
-   a layer) against the plain versions; times the backward kernel beside
-   its bounds and its plain version, and the SIMT forward; the profiler's
+   a layer) against the plain versions; times the backward kernel and
+   the SIMT forward beside their bounds and plain versions, a call and on
+   the device kernel by kernel (the forward's prep and main kernels, the
+   backward's five passes); the profiler's
    split of a step's device time (products, ``ssd_chunk``, its backward,
    the optimizer alone, the elementwise rest) and the idle share come in
    14;
@@ -461,6 +467,9 @@ CONSIST_B, CONSIST_S, CONSIST_TOL = 2, 512, 2e-2
 FOG_TOL = 1e-5
 # a ragged chunk at full width for the kernel check
 SSD_RAGGED = (2, 3, 200, 80, 64, 128)
+# mamba2-2.7b's fp32 training shape (8 x 256 tokens, one chunk a row): the
+# SIMT kernels' main path
+SSD_FP32_TRAIN = (8, 1, 256, 80, 64, 128)
 # where each kernel is launched on the main path
 CALLED_BY = {
     "fused_fog": "FogEngine.eval, backend 'fused' (one launch per eval)",
@@ -676,6 +685,19 @@ def recorded_profile(fn, kernel: str, tries: int = 5
             return taken
     raise AssertionError(f"{tries} profiles recorded no device kernel "
                          f"named like {kernel!r}")
+
+
+def retried_profile(fn, kernel: str, tries: int = 5
+                    ) -> tuple[dict, float, dict]:
+    """``device_profile`` of ``fn`` repeated until one recorded a device
+    kernel whose name holds ``kernel``, at most ``tries`` times (CUPTI may
+    drop the records of a short profile); the last profile taken, which
+    holds no such kernel only if every try lost it."""
+    for _ in range(tries):
+        got = device_profile(fn)
+        if any(kernel in k for k in got[2]):
+            break
+    return got
 
 
 def fmt(ms: float | None) -> str:
@@ -1459,7 +1481,10 @@ def ssd_work(B, nc, Q, H, P, N, itemsize) -> dict:
     ``ops_full`` the full [Q, Q] products, as the TPU kernel counts them;
     ``ops_sm90`` what the tensor-core kernel runs: per head the 64 x 64
     tiles on or below the diagonal of C.B^T (recomputed per head) and of
-    W.x, and the states product."""
+    W.x, and the states product; ``ops_simt`` what the SIMT kernel
+    (csrc/ssd_chunk.cu) runs over its 64-wide tiles (Q, P and N rounded
+    up to 64): C.B^T's tiles on or below the diagonal once per chunk, and
+    per head W.x over those tiles and the states over the whole chunk."""
     BC = B * nc
     n_bytes = itemsize * BC * (2 * Q * H * P + H * Q + 2 * Q * N + H * P * N)
     pairs = Q * (Q + 1) // 2
@@ -1468,8 +1493,11 @@ def ssd_work(B, nc, Q, H, P, N, itemsize) -> dict:
     nt = -(-Q // 64)
     tiles = nt * (nt + 1) // 2
     sm90 = BC * H * (tiles * 64 * 64 * 2 * (N + P) + 2 * P * N * 256)
+    Qp, Pp, Np = (64 * -(-w // 64) for w in (Q, P, N))
+    simt = BC * (tiles * 64 * 64 * 2 * Np
+                 + H * (tiles * 64 * 64 * 2 * Pp + 2 * Qp * Pp * Np))
     return {"bytes": n_bytes, "ops": ops_, "ops_full": full,
-            "ops_sm90": sm90}
+            "ops_sm90": sm90, "ops_simt": simt}
 
 
 def flash_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1701,6 +1729,17 @@ def simt_bwd_instance(mangled: str) -> str:
         g for g in (dtype, m.group(3), m.group(4)) if g) + ">"
 
 
+def simt_ssd_instance(mangled: str) -> str | None:
+    """A readable name for a kernel of the SIMT SSD forward or backward,
+    ``<name><fp32|bf16>`` (``ssd_chunk_fwd<fp32>``, ``ssd_bwd_ds<bf16>``),
+    or None for any other kernel."""
+    m = re.search(r"\d(ssd_(?:chunk|bwd)_[a-z]+)_kernelI(f|13__nv_bfloat16)E",
+                  mangled)
+    if not m:
+        return None
+    return f"{m.group(1)}<{'fp32' if m.group(2) == 'f' else 'bf16'}>"
+
+
 def flash_instance(mangled: str) -> str:
     """A readable name for an instance of a tensor-core attention kernel:
     ``<name><D, Dv[, keys]>`` (``delta`` for the backward's delta
@@ -1741,8 +1780,9 @@ def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
     """ssd_chunk against its plain version, each case on the route
     ``route`` names for it under that route's bar: layer 0's captured bf16
     inputs, random bf16 at full width and a ragged chunk on the tensor
-    cores, random fp32 at full width and ragged on the SIMT kernel.  For a
-    bf16 case also the distance from the route's rounding replayed in
+    cores, random fp32 at full width, ragged and at the fp32 training
+    shape on the SIMT kernel, each SIMT case run twice and bit-equal.  For
+    a bf16 case also the distance from the route's rounding replayed in
     PyTorch, in bf16 ulps of the output's scale (reported, and held to 1
     ulp by tests/test_torch_cuda.py)."""
     args = captured[0][0]
@@ -1757,7 +1797,9 @@ def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
              (f"random fp32 {full}",
               ssd_inputs(rng, full, torch.float32, dev)),
              (f"random fp32 ragged {SSD_RAGGED}",
-              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev))]
+              ssd_inputs(rng, SSD_RAGGED, torch.float32, dev)),
+             (f"random fp32 {SSD_FP32_TRAIN}, the fp32 training shape",
+              ssd_inputs(rng, SSD_FP32_TRAIN, torch.float32, dev))]
     errs = {}
     for label, a in cases:
         entry = ssd_route(a)
@@ -1769,6 +1811,11 @@ def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
                                  f"launch of {entry}")
         want = ssd_chunk_ref(*a)
         route = "sm90" if entry == "ssd_chunk_sm90" else "simt"
+        if route == "simt":
+            for n, g, g2 in zip(("y", "states"), got, ops.ssd_chunk(*a)):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"ssd_chunk {label}: {n} differs "
+                                         f"from run to run")
         case = {n: ssd_close(f"ssd_chunk {label} {n} ({entry})", g, w, route)
                 for n, g, w in zip(("y", "states"), got, want)}
         if route == "sm90":
@@ -1780,7 +1827,8 @@ def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
         errs[f"{label} ({entry})"] = case
         del got, want
     return errs, ("tensor cores (bf16): within 2 bf16 ulps of the output's "
-                  "scale; SIMT fp32 within 1e-4 of the output's magnitude")
+                  "scale; SIMT fp32 within 1e-4 of the output's magnitude, "
+                  "bit-equal run to run")
 
 
 def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
@@ -2281,11 +2329,11 @@ def matmul_kernel(name: str) -> bool:
 
 def lm_profile(lm: dict) -> None:
     """Device times of an LM phase from torch.profiler: its prefill
-    kernel's (ssd_chunk's three kernels, or flash_attention's one) and the
+    kernel's (ssd_chunk's kernels, or flash_attention's one) and the
     gate's top-2, and each step's busy and idle shares with the products'
     and the prefill kernel's parts of the busy time."""
     fns, t, kernel = lm.pop("prof_fns"), lm["timing"], lm["kernel"]
-    busy, _, per_launch = device_profile(fns[kernel])
+    busy, _, per_launch = retried_profile(fns[kernel], kernel)
     own = {k: v for k, v in per_launch.items() if kernel in k}
     t[f"{kernel}_device_ms"] = sum(own.values()) if own else None
     t[f"{kernel}_device_ms_by_kernel"] = own
@@ -2301,8 +2349,8 @@ def lm_profile(lm: dict) -> None:
         t["flash_attention_library_device_ms"] = sum(per_launch.values())
         t["flash_attention_library_kernels"] = per_launch
         t["flash_attention_library_backend"] = sdpa_backend(main)
-    # the SIMT kernel on the same bf16 inputs (ssd_chunk's three launches)
-    per_launch = device_profile(fns[f"{kernel}_simt"])[2]
+    # the SIMT kernel on the same bf16 inputs (ssd_chunk's two launches)
+    per_launch = retried_profile(fns[f"{kernel}_simt"], kernel)[2]
     t[f"{kernel}_simt_device_ms"] = sum(
         v for k, v in per_launch.items() if kernel in k) or None
     for k, reps in (("prefill", 1), ("decode", 2), ("fog", 2),
@@ -4707,17 +4755,33 @@ def lm_train_phase(dev: torch.device) -> dict:
     dos = do.transpose(1, 2).contiguous()
     t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         sdpa_out, (qs, ks, vs), dos, retain_graph=True))
+
+    # the fp32 forward (the SIMT route: TF32 stays off) beside SDPA's fp32
+    # forward on the same inputs, a yardstick the port never calls
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+
+    fwork = flash_work(B, Sq, Sk, H, K, D, Dv, 4)
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound_ms(fwork["bytes"],
+                                                    fwork["ops"])
+    t["fwd_library_ms"] = cuda_ms(sdpa_fwd)
     out["timing"] = t
     out["prof_fns"] = {
         "bwd": lambda: fa.flash_attention_bwd_cuda(*args),
         "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dos,
-                                                retain_graph=True)}
+                                                retain_graph=True),
+        "fwd": lambda: fa.flash_attention_cuda(q, k, v, with_lse=True),
+        "sdpa_fwd": sdpa_fwd}
     print(f"[time] train-lm flash_attention_bwd at {t['shape']}: "
           f"{t['ms']:.4f} ms a call (bound {t['bound_ms']:.4f} ms by "
           f"{t['bound_by']}: bytes {t['bytes_bound_ms']:.4f}, operations "
           f"{t['ops_bound_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA's "
           f"backward {t['library_ms']:.4f} ms; the forward with lse "
-          f"{t['fwd_lse_ms']:.4f} ms", flush=True)
+          f"{t['fwd_lse_ms']:.4f} ms a call (bound {t['fwd_bound_ms']:.4f} "
+          f"ms by {t['fwd_bound_by']}), SDPA's fp32 forward "
+          f"{t['fwd_library_ms']:.4f}", flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[train-lm] phase 17 in {out['phase_s']:.1f} s", flush=True)
     return out
@@ -4740,6 +4804,18 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
     per = recorded_profile(fns["sdpa_bwd"], "")[-1][2]
     t["library_device_ms"] = sum(per.values())
     t["library_backend"] = sdpa_backend(max(per, key=per.get))
+    per = recorded_profile(fns["fwd"], "flash_attention")[-1][2]
+    t["fwd_lse_device_ms"] = sum(v for k, v in per.items()
+                                 if "flash_attention" in k)
+    per = recorded_profile(fns["sdpa_fwd"], "")[-1][2]
+    t["fwd_library_device_ms"] = sum(per.values())
+    t["fwd_library_backend"] = sdpa_backend(max(per, key=per.get))
+    print(f"[time] train-lm flash_attention's fp32 forward with lse at "
+          f"{t['shape']}: {t['fwd_lse_device_ms']:.4f} ms on the device "
+          f"({t['fwd_lse_device_ms'] / t['fwd_bound_ms']:.1f}x its "
+          f"{t['fwd_bound_ms']:.4f} ms bound); SDPA's fp32 forward "
+          f"{t['fwd_library_device_ms']:.4f} "
+          f"({t['fwd_library_backend']}: {per})", flush=True)
     del fns
     cfg = get_arch(TRAIN_ARCH)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
@@ -4921,6 +4997,10 @@ def ssd_bwd_work(B, nc, Q, H, P, N, itemsize=4) -> dict:
     tensor-core backward runs (csrc/ssd_chunk_bwd_sm90.cu) over its 64 x
     64 tiles on or below the diagonal: per chunk S, dC and dB; per (chunk,
     head) dW in the ds pass, S^T, dW^T and W^T dy in the dx pass, and G
+    and x dst over the whole chunk; ``simt_ops`` what the SIMT backward
+    (csrc/ssd_chunk_bwd.cu) runs over its 64-wide tiles (Q, P and N
+    rounded up to 64): per chunk S, dC and dB over the tiles on or below
+    the diagonal; per (chunk, head) dW and W^T dy over those tiles, and G
     and x dst over the whole chunk."""
     BC = B * nc
     n_bytes = itemsize * BC * (3 * Q * H * P + 2 * H * Q + 4 * Q * N
@@ -4932,8 +5012,10 @@ def ssd_bwd_work(B, nc, Q, H, P, N, itemsize=4) -> dict:
     tile = 64 * 64 * 2 * nt * (nt + 1) // 2   # FLOP a unit of depth
     design = BC * (3 * tile * N + H * (3 * tile * P + tile * N
                                        + 2 * 2 * 64 * nt * P * N))
+    Qp, Pp, Np = (64 * -(-w // 64) for w in (Q, P, N))
+    simt = BC * (3 * tile * Np + H * (2 * tile * Pp + 2 * 2 * Qp * Pp * Np))
     return {"bytes": n_bytes, "pairs": pairs, "ops": ops_,
-            "design_ops": design}
+            "design_ops": design, "simt_ops": simt}
 
 
 def ssd_bwd_inputs(rng, shape, dev, dtype=torch.float32) -> list:
@@ -5185,13 +5267,37 @@ def mamba_train_phase(dev: torch.device) -> dict:
     t["ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_cuda(*args))
     t["plain_ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_bwd_ref(*args), reps=5)
     t["fwd_ms"] = cuda_ms(lambda: ssd_mod.ssd_chunk_cuda(*args[:4]))
+    t["fwd_plain_ms"] = cuda_ms(lambda: ssd_chunk_ref(*args[:4]), reps=5)
+    fwork = ssd_work(*shape, 4)
+    t["fwd_bound_ms"], t["fwd_bound_by"] = bound_ms(fwork["bytes"],
+                                                    fwork["ops"])
+    t["fwd_design_ops"], t["design_ops"] = (fwork["ops_simt"],
+                                            work["simt_ops"])
+    # each kernel's device ms a call (the SIMT routes' launches: the
+    # forward's prep and main kernels, the backward's five passes)
+    for key, fn, name in (
+            ("fwd_", lambda: ssd_mod.ssd_chunk_cuda(*args[:4]), "ssd_chunk"),
+            ("", lambda: ssd_mod.ssd_chunk_bwd_cuda(*args), "ssd_bwd")):
+        per = recorded_profile(fn, name)[-1][2]
+        split = {re.search(r"(ssd_\w+?)_kernel", k).group(1): v
+                 for k, v in per.items() if name in k}
+        t[f"{key}device_ms_by_kernel"] = split
+        t[f"{key}device_ms"] = sum(split.values())
     out["timing"] = t
-    out["prof_fns"] = {"bwd": lambda: ssd_mod.ssd_chunk_bwd_cuda(*args)}
     print(f"[time] train-mamba ssd_chunk_bwd at {t['shape']}: {t['ms']:.4f} "
-          f"ms a call (bound {t['bound_ms']:.4f} ms by {t['bound_by']}: "
-          f"bytes {t['bytes_bound_ms']:.4f}, operations "
-          f"{t['ops_bound_ms']:.4f}), plain {t['plain_ms']:.3f} ms, no "
-          f"library call; the SIMT forward {t['fwd_ms']:.4f} ms", flush=True)
+          f"ms a call, {t['device_ms']:.4f} on the device (bound "
+          f"{t['bound_ms']:.4f} ms by {t['bound_by']}: bytes "
+          f"{t['bytes_bound_ms']:.4f}, operations {t['ops_bound_ms']:.4f}; "
+          f"{t['device_ms'] / t['bound_ms']:.1f}x), plain "
+          f"{t['plain_ms']:.3f} ms, no library call; by kernel " + ", ".join(
+              f"{k} {v:.4f}" for k, v in t["device_ms_by_kernel"].items())
+          + f"; the SIMT forward {t['fwd_ms']:.4f} ms a call, "
+          f"{t['fwd_device_ms']:.4f} on the device (bound "
+          f"{t['fwd_bound_ms']:.4f} ms by {t['fwd_bound_by']}; "
+          f"{t['fwd_device_ms'] / t['fwd_bound_ms']:.1f}x), plain "
+          f"{t['fwd_plain_ms']:.3f} ms; by kernel " + ", ".join(
+              f"{k} {v:.4f}" for k, v in t["fwd_device_ms_by_kernel"].items()),
+          flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[train-mamba] phase 18 in {out['phase_s']:.1f} s", flush=True)
     return out
@@ -5215,15 +5321,9 @@ def optimizer_alone(dev: torch.device, params, opt_state, grads,
 def mamba_train_profile(train: dict, dev: torch.device) -> None:
     """Phase 18's step under torch.profiler, its weights drawn again: wall
     and device-busy ms, the idle share and the device time by part
-    (products, ssd_chunk's forward, its backward, the rest), the
-    optimizer alone, and the backward kernel's device ms."""
-    fns = train.pop("prof_fns")
+    (products, ssd_chunk's forward, its backward, the rest) and the
+    optimizer alone (the kernels' own device ms come from phase 18)."""
     t = train["timing"]
-    per = recorded_profile(fns["bwd"], "ssd_bwd")[-1][2]
-    t["device_ms_by_kernel"] = {k: v for k, v in per.items()
-                                if "ssd_bwd" in k}
-    t["device_ms"] = sum(t["device_ms_by_kernel"].values())
-    del fns
     cfg = get_arch(MAMBA_TRAIN_ARCH)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
         SEED), torch.float32, device=dev)
@@ -6059,6 +6159,14 @@ def main() -> int:
           f"{regs}, spill bytes {spills}")
     out["ptxas"]["flash_attention_bwd"] = {"registers": regs,
                                            "spill_bytes": spills}
+    # the SIMT SSD kernels, forward and backward: the same, reported
+    spills = {simt_ssd_instance(n): v for n, v in ptxas_spills(
+        log, "ssd_").items() if simt_ssd_instance(n)}
+    regs = {simt_ssd_instance(n): v for n, v in ptxas_registers(
+        log, "ssd_").items() if simt_ssd_instance(n)}
+    print(f"[build] ptxas per SIMT ssd_chunk / ssd_chunk_bwd kernel: "
+          f"registers {regs}, spill bytes {spills}")
+    out["ptxas"]["ssd_simt"] = {"registers": regs, "spill_bytes": spills}
 
     # 3. train and pack -----------------------------------------------------
     stamp("3. train and pack", t_main)
@@ -6921,11 +7029,32 @@ def main() -> int:
                 "ssd_chunk"]
             k["train_routes_per_step"] = tm["routes_per_step"]
             k["train_forward_ms"] = tmt["fwd_ms"]
+            k["train_forward"] = {
+                "shape": tmt["shape"], "route": "simt",
+                "source": SIMT_SOURCE["ssd_chunk"], "ms": tmt["fwd_ms"],
+                "device_ms": tmt["fwd_device_ms"],
+                "device_ms_by_kernel": tmt["fwd_device_ms_by_kernel"],
+                "plain_ms": tmt["fwd_plain_ms"],
+                "bound_ms": tmt["fwd_bound_ms"],
+                "bound_by": tmt["fwd_bound_by"],
+                "design_ops": tmt["fwd_design_ops"], "library_ms": None}
+        if k["name"] == "ssd_chunk_bwd":
+            k["design_ops"] = tmt["design_ops"]
         if k["name"] == "flash_attention":
             k["train_launches_per_step"] = tl["launches_per_step"][
                 "flash_attention"]
             k["train_routes_per_step"] = tl["routes_per_step"]
             k["train_forward_with_lse_ms"] = tt["fwd_lse_ms"]
+            k["train_forward"] = {
+                "shape": tt["shape"], "route": "simt",
+                "source": SIMT_SOURCE["flash_attention"],
+                "ms": tt["fwd_lse_ms"],
+                "device_ms": tt.get("fwd_lse_device_ms"),
+                "bound_ms": tt["fwd_bound_ms"],
+                "bound_by": tt["fwd_bound_by"],
+                "library_ms": tt["fwd_library_ms"],
+                "library_device_ms": tt.get("fwd_library_device_ms"),
+                "library_backend": tt.get("fwd_library_backend")}
     for k in kernels:
         if not k["launches"]:
             raise AssertionError(f"kernel {k['name']} was not launched on "

@@ -36,7 +36,7 @@ SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "flash_attention_bwd_sm90.cu", CSRC / "ssd_chunk_bwd.cu",
            CSRC / "ssd_chunk_bwd_sm90.cu")
 HEADERS = (CSRC / "fog_tables.cuh", CSRC / "fog_stage.cuh",
-           CSRC / "sm90_common.cuh")
+           CSRC / "sm90_common.cuh", CSRC / "ssd_simt.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
@@ -78,12 +78,12 @@ _SIGNATURES = {
     "fog_tree_traverse": (I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                           P),
     "fog_tree_traverse_spread": (I, *[P] * 7, *[I] * 10, P),
-    "fog_ssd_chunk": (I, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "fog_ssd_chunk": (I, *[P] * 8, *[I] * 5, P),
     "fog_ssd_chunk_sm90": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "fog_flash_attention": (I, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
     "fog_flash_attention_bwd": (I, *[P] * 12, *[I] * 7, F, I, P),
     "fog_flash_attention_bwd_sm90": (*[P] * 10, *[I] * 7, F, I, P),
-    "fog_ssd_chunk_bwd": (I, *[P] * 14, *[I] * 5, P),
+    "fog_ssd_chunk_bwd": (I, *[P] * 16, *[I] * 6, P),
     "fog_ssd_chunk_bwd_sm90": (*[P] * 15, *[I] * 6, P),
     "fog_flash_attention_sm90": (P, P, P, P, P, I, I, I, I, I, I, I, F, I,
                                  P),

@@ -1,12 +1,13 @@
-// The Mamba-2 SSD intra-chunk block for NVIDIA Hopper (sm_90a).
+// The Mamba-2 SSD intra-chunk block for NVIDIA Hopper (sm_90a), in fp32 on
+// CUDA cores, from fp32 or bf16 inputs.
 //
 //   fog_ssd_chunk   replaces repro/kernels/ssd_chunk.py::_ssd_chunk_kernel
 //
 // behind a plain C entry point that launches on the caller's stream and
 // returns cudaGetLastError() (loaded with ctypes by
 // repro_torch/kernels/_build.py, linked into the same library as the other
-// kernels).  The wrapper (kernels/ssd_chunk.py) allocates the outputs and
-// the fp32 scores scratch; the kernels allocate nothing.
+// kernels).  The wrapper (kernels/ssd_chunk.py::ssd_chunk_cuda) allocates
+// the outputs and the fp32 scratch; the kernels allocate nothing.
 //
 // What it computes, per chunk bc = (batch, chunk) and head h, with
 // x [BC, Q, H, P], a [BC, H, Q], B/C [BC, Q, N] in, all fp32 or all bf16:
@@ -16,277 +17,228 @@
 //   y[i, h, p]   = sum_{j <= i} scores[i, j] exp(cum_i - cum_j) x[j, h, p]
 //   st[h, p, n]  = sum_j B[j, n] exp(cum_{Q-1} - cum_j) x[j, h, p]
 //
-// fp32 inside, y [BC, Q, H, P] and st [BC, H, P, N] written in x's dtype.
+// fp32 inside (loads convert, every sum is fp32, explicit _rn intrinsics:
+// the build passes -fmad=false), y [BC, Q, H, P] and st [BC, H, P, N]
+// written in x's dtype.  bf16 at the tensor cores' shapes (P = 64, N in
+// {64, 128}) runs ssd_chunk_sm90.cu instead (kernels/ssd_chunk.py::route);
+// this kernel takes fp32 at every shape and bf16 at the others.
 //
-// The TPU kernel holds one whole (batch, chunk) in VMEM (x alone is 5.2 MB
-// at Q=256, H=80, P=64) and unrolls every head over full [Q, Q] tiles.  A
-// Hopper block has 227 KB, and the [Q, Q] fp32 tile alone is 256 KB at
-// Q=256, so the work is split three ways, one launch each:
+// Design (the building blocks are ssd_simt.cuh's: 64 x 64 fp32 tiles with
+// rows of 17 float4s, groups of 128 threads, 4 x 8 outputs a thread fed by
+// float4 reads).  Two launches, the grids at the training shape (x [8, 1,
+// 256, 80, 64], N = 128):
+//   1. ssd_chunk_prep_kernel: C Bᵀ once per chunk, its tiles on or below
+//      the diagonal transposed into an fp32 scratch [BC, tiles, 64, 64]
+//      (recomputing it per head would cost H times its work), and every
+//      (chunk, head)'s cumsum and end decays exp(cum_{Q-1} - cum_j) once,
+//      a warp a row, into [BC, H, 2, Q]: 80 tile blocks and 160 blocks of
+//      4 rows, 128 threads each.
+//   2. ssd_chunk_fwd_kernel, one block of two 128-thread groups per (head,
+//      chunk) (640): the block stages x's [Q, 64] column slice once and
+//      both groups use it for both outputs, so x is read once.  Each group
+//      walks its own list of tile products, the next one's loads in flight
+//      during the current one's product: y's row tiles split between the
+//      groups by their count of column tiles (at nt = 4: rows 3 and 0, 2
+//      and 1, five products each), each over the tiles of j up to the
+//      diagonal, the weight tile Wᵀ[j][i] = S[i, j] exp(cum_i - cum_j)
+//      built in the group's shared tile from the scratch (0 above the
+//      diagonal by a branch, never by a 0/1 multiply: there cum_i - cum_j
+//      > 0 can overflow exp, and inf * 0 = NaN) and multiplied into the x
+//      slice (mma_tn); then the states' 64-column tiles of N, alternately
+//      (4 products each), B's rows scaled by the end decay multiplied with
+//      the x slice (mma_tn).  P past 64 loops over 64-wide slices.
+// A main block takes the x slice's nt tiles, one tile per group, the
+// cumsum and the decays in shared memory: 106,496 B at Q = 256 (two blocks,
+// 16 warps an SM); a prep block 34,816 B.
 //
-//   1. ssd_chunk_scores_kernel: C B^T once per chunk into an fp32 scratch
-//      [BC, Q, Q] (8 MB at the serving shape B=4, nc=8), only the 64 x 64
-//      tiles on or below the diagonal.  Recomputing it in every head's
-//      block would cost 80x its 2 Q^2 N operations (+21 GFLOP on CUDA
-//      cores at the serving shape); the scratch stays in the 50 MB L2 and
-//      each (head, row tile) block reads its rows of it.
-//   2. ssd_chunk_y_kernel: one block per (64-row tile of i, head, chunk);
-//      it loops over the 64-column tiles of j up to the diagonal, builds
-//      the weight tile scores * exp(cum_i - cum_j) in shared memory and
-//      multiplies it into the x tile.  Above the diagonal cum_i - cum_j > 0
-//      can overflow exp, so those entries are 0 by a branch, never by a
-//      0/1 multiply (inf * 0 = NaN).
-//   3. ssd_chunk_state_kernel: one block per (64 x 128 tile of [P, N],
-//      head, chunk), summing over j in steps of 32.
+// Any 1 <= Q <= 256 (the cumsum of one head lives in shared memory; the
+// wrapper refuses more) and any P and N: every tile masks its ragged edge.
+// No atomics: every output and scratch entry is written once by one
+// thread and every sum runs in a fixed order, so the result is the same
+// bit for bit from run to run.
 //
-// Each block first scans its head's a into an fp32 cumsum in shared memory
-// (so Q <= 256, the ssm_chunk of every config; the wrapper refuses more).
-// Any 1 <= Q <= 256 works: every tile masks its ragged edge.
-//
-// What bounds it: at the serving shape it must move ~215 MB (x, y, states,
-// a, B, C once each), 0.064 ms at 3.35 TB/s, and do ~32.7 GFLOP, 0.033 ms
-// on the bf16 tensor cores or 0.49 ms at 67 TFLOP/s fp32 on CUDA cores.
-// This first kernel does plain fp32 FMAs on CUDA cores (explicit
-// __fmaf_rn: the build passes -fmad=false), 4 x 4 or 4 x 8 outputs per
-// thread from shared-memory tiles, so it is bound by those operations
-// and their shared-memory loads, not by bytes: ~1.6 ms on the device at
-// the serving shape on an H100 80GB HBM3 at 700 W, 25x the bytes bound
-// (PERF.md).  wgmma on bf16 tiles fed by TMA is later work.
+// What bounds it: at the training shape it moves 107.6 MB (x, a, B, C read
+// once, y and the states written once; 0.032 ms at 3.35 TB/s) and needs
+// 5.45 GFLOP (C Bᵀ and the weighted sum over the causal pairs, the states
+// over the whole chunk; 0.081 ms at 67 TFLOP/s fp32), so operations bound
+// it; this design runs 6.12 GFLOP (the diagonal tiles whole:
+// chip_smoke.ssd_work's ops_simt).  PERF.md row 7 gives the measured time.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "ssd_simt.cuh"
 
 namespace {
 
-constexpr int MAX_Q = 256;    // the cumsum of one head lives in shared memory
-constexpr int TILE = 64;      // rows i, columns j and p of one tile
-constexpr int KC = 32;        // reduction step over n (scores) and j (states)
-constexpr int NT = 128;       // columns n of one state tile
-constexpr int THREADS = 256;  // 16 x 16: rows ty*4 + r, columns tx + 16*s
+// a main block: two groups of THREADS, each with its own tile buffer
+constexpr int FWD_THREADS = 2 * THREADS;
 
-__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
+// dynamic shared memory of a main block: the x slice (nt tiles), a tile
+// for each group's Wᵀ or decayed B rows, the cumsum and the end decays
+__host__ __device__ constexpr size_t fwd_smem(int nt) {
+  return ((size_t)(nt + 2) * TILE_FLOATS + 2 * MAX_Q) * sizeof(float);
 }
 
-// Inclusive fp32 prefix sum of a[0:Q] into cum[0:Q]: warp 0 scans 32
-// entries at a time with shuffles and carries the running total.
 template <class T>
-__device__ void chunk_cumsum(const T* __restrict__ a, int Q, float* cum) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float carry = 0.0f;
-    for (int base = 0; base < Q; base += 32) {
-      const int i = base + lane;
-      float v = i < Q ? ld(a, i) : 0.0f;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float n = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v = __fadd_rn(v, n);
-      }
-      v = __fadd_rn(v, carry);
-      if (i < Q) cum[i] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
+__global__ void __launch_bounds__(THREADS) ssd_chunk_prep_kernel(
+    const T* __restrict__ a, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, float* __restrict__ St,
+    float* __restrict__ cum, int BC, int Q, int H, int N, int nt) {
+  extern __shared__ __align__(16) float smem[];
+  prep<T, true>(a, Bm, Cm, St, cum, BC, Q, H, N, nt, smem);
+}
+
+// One tile product of a group's list: y's (row tile a, column tile b) or
+// the states' (64 columns a of N, row tile b of j); kind -1 ends the list.
+struct Item {
+  int kind, a, b;
+};
+
+// The group that computes y's row tile ti: the row tiles taken from the
+// longest down (ti + 1 tile products each), each to the group with fewer
+// products so far.
+__device__ __forceinline__ int y_group(int ti, int nt) {
+  int load0 = 0, load1 = 0, owner = 0;
+  for (int t = nt - 1; t >= ti; --t) {
+    owner = load1 < load0 ? 1 : 0;
+    (owner ? load1 : load0) += t + 1;
   }
-  __syncthreads();
+  return owner;
 }
 
-// scores[bc, i, j] = C[bc, i, :] . B[bc, j, :] for the tiles with tj <= ti.
+// group g's first item at or after y's row tile ti (descending), or its
+// first states item
+__device__ __forceinline__ Item y_from(int ti, int g, int nt, int n_nc) {
+  for (; ti >= 0; --ti)
+    if (y_group(ti, nt) == g) return {0, ti, 0};
+  return g < n_nc ? Item{1, g, 0} : Item{-1, 0, 0};
+}
+
+// the item after it in group g's list: y's row tiles (each over its
+// column tiles 0..ti), then the states' column tiles g, g + 2, ... (each
+// over the row tiles of j)
+__device__ __forceinline__ Item next_item(Item it, int g, int nt, int n_nc) {
+  if (it.kind == 0)
+    return it.b < it.a ? Item{0, it.a, it.b + 1}
+                       : y_from(it.a - 1, g, nt, n_nc);
+  if (it.b + 1 < nt) return {1, it.a, it.b + 1};
+  return it.a + 2 < n_nc ? Item{1, it.a + 2, 0} : Item{-1, 0, 0};
+}
+
+// y and the states of head blockIdx.x, chunk blockIdx.y; the block's two
+// groups share the x slice and split the tile products
 template <class T>
-__global__ void __launch_bounds__(THREADS) ssd_chunk_scores_kernel(
-    const T* __restrict__ Bm, const T* __restrict__ Cm,
-    float* __restrict__ scores, int Q, int N, int n_tiles) {
-  const int ti = blockIdx.x / n_tiles, tj = blockIdx.x % n_tiles;
-  if (tj > ti) return;
-  const int bc = blockIdx.y;
-  const int i0 = ti * TILE, j0 = tj * TILE;
-  __shared__ float Cs[KC][TILE + 1];
-  __shared__ float Bs[KC][TILE + 1];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* C = Cm + (size_t)bc * Q * N;
+__global__ void __launch_bounds__(FWD_THREADS) ssd_chunk_fwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ Bm,
+    const float* __restrict__ St, const float* __restrict__ cum,
+    T* __restrict__ y, T* __restrict__ states, int Q, int H, int P, int N,
+    int nt) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = blockIdx.x, bc = blockIdx.y;
+  const int g = threadIdx.x / THREADS;     // this thread's group
+  float* Xs = smem;                        // [nt 64][LDT] x[:, h, p0:p0+64]
+  float* Ws = Xs + (nt + g) * TILE_FLOATS; // [64][LDT] Wᵀ, or d o B rows
+  float* cs = Xs + (nt + 2) * TILE_FLOATS; // [MAX_Q] cumsum
+  float* ds = cs + MAX_Q;                  // [MAX_Q] end decays
+  const int ty = gtid() / 8, tx = gtid() % 8;
+  const float* cr = cum + ((size_t)bc * H + h) * 2 * Q;
+  for (int i = threadIdx.x; i < Q; i += FWD_THREADS) {
+    cs[i] = cr[i];
+    ds[i] = cr[Q + i];
+  }
+  const size_t xrow = (size_t)H * P;       // elements between rows of x
+  const T* xh = x + (size_t)bc * Q * xrow + (size_t)h * P;
+  T* yh = y + (size_t)bc * Q * xrow + (size_t)h * P;
+  T* sth = states + ((size_t)bc * H + h) * P * N;
   const T* B = Bm + (size_t)bc * Q * N;
-  float acc[4][4] = {};
-  for (int n0 = 0; n0 < N; n0 += KC) {
-    for (int idx = tid; idx < TILE * KC; idx += THREADS) {
-      const int r = idx / KC, k = idx % KC, n = n0 + k;
-      const int i = i0 + r, j = j0 + r;
-      Cs[k][r] = (i < Q && n < N) ? ld(C, (size_t)i * N + n) : 0.0f;
-      Bs[k][r] = (j < Q && n < N) ? ld(B, (size_t)j * N + n) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float c[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) c[r] = Cs[k][ty * 4 + r];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) b[s] = Bs[k][tx + 16 * s];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] = __fmaf_rn(c[r], b[s], acc[r][s]);
-    }
-    __syncthreads();
-  }
-  float* S = scores + (size_t)bc * Q * Q;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (i < Q && j <= i) S[(size_t)i * Q + j] = acc[r][s];
-    }
-  }
-}
-
-// y[bc, i, h, :] for the 64 rows i of blockIdx.x, head blockIdx.y.
-template <class T>
-__global__ void __launch_bounds__(THREADS) ssd_chunk_y_kernel(
-    const T* __restrict__ x, const T* __restrict__ a,
-    const float* __restrict__ scores, T* __restrict__ y, int Q, int H,
-    int P) {
-  const int i0 = blockIdx.x * TILE, h = blockIdx.y, bc = blockIdx.z;
-  __shared__ float cum[MAX_Q];
-  __shared__ float Ws[TILE][TILE + 1];   // [i][j] weights
-  __shared__ float Xs[TILE][TILE + 1];   // [j][p]
-  chunk_cumsum(a + ((size_t)bc * H + h) * Q, Q, cum);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const float* S = scores + (size_t)bc * Q * Q;
-  const int i_end = min(i0 + TILE, Q);
+  const float* Sc = St + (size_t)bc * n_tiles(nt) * TILE * TILE;
+  const int n_nc = (N + TILE - 1) / TILE;
+  float4 v[FRAG];        // the next item's loads, in flight during a product
+  float sc[FRAG];        // the end decays of a states item's rows
   for (int p0 = 0; p0 < P; p0 += TILE) {
-    float acc[4][4] = {};
-    for (int j0 = 0; j0 < i_end; j0 += TILE) {
-      for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
-        const int r = idx / TILE, k = idx % TILE;
-        const int i = i0 + r, j = j0 + k;
-        float w = 0.0f;
-        if (i < Q && j <= i)
-          w = __fmul_rn(S[(size_t)i * Q + j], expf(__fsub_rn(cum[i], cum[j])));
-        Ws[r][k] = w;
-        const int jr = j0 + r, p = p0 + k;
-        Xs[r][k] = (jr < Q && p < P)
-                       ? ld(x, (((size_t)bc * Q + jr) * H + h) * P + p)
-                       : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < TILE; ++k) {
-        float w[4], xv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) w[r] = Ws[ty * 4 + r][k];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) xv[s] = Xs[k][tx + 16 * s];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s)
-            acc[r][s] = __fmaf_rn(w[r], xv[s], acc[r][s]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int p = p0 + tx + 16 * s;
-        if (i < Q && p < P)
-          st(y, (((size_t)bc * Q + i) * H + h) * P + p, acc[r][s]);
-      }
-    }
-  }
-}
-
-// states[bc, h, p, n] for one 64 x 128 tile of [P, N] (blockIdx.x), head
-// blockIdx.y.
-template <class T>
-__global__ void __launch_bounds__(THREADS) ssd_chunk_state_kernel(
-    const T* __restrict__ x, const T* __restrict__ a,
-    const T* __restrict__ Bm, T* __restrict__ states, int Q, int H, int P,
-    int N, int n_ntiles) {
-  const int p0 = (blockIdx.x / n_ntiles) * TILE;
-  const int n0 = (blockIdx.x % n_ntiles) * NT;
-  const int h = blockIdx.y, bc = blockIdx.z;
-  __shared__ float cum[MAX_Q];
-  __shared__ float Xs[KC][TILE + 1];     // [j][p]
-  __shared__ float Bs[KC][NT + 1];       // [j][n] B * exp(cum_{Q-1} - cum_j)
-  chunk_cumsum(a + ((size_t)bc * H + h) * Q, Q, cum);
-  const float last = cum[Q - 1];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* B = Bm + (size_t)bc * Q * N;
-  float acc[4][8] = {};
-  for (int j0 = 0; j0 < Q; j0 += KC) {
-    for (int idx = tid; idx < KC * TILE; idx += THREADS) {
-      const int r = idx / TILE, k = idx % TILE;
-      const int j = j0 + r, p = p0 + k;
-      Xs[r][k] = (j < Q && p < P)
-                     ? ld(x, (((size_t)bc * Q + j) * H + h) * P + p)
-                     : 0.0f;
-    }
-    for (int idx = tid; idx < KC * NT; idx += THREADS) {
-      const int r = idx / NT, k = idx % NT;
-      const int j = j0 + r, n = n0 + k;
-      Bs[r][k] = (j < Q && n < N)
-                     ? __fmul_rn(ld(B, (size_t)j * N + n),
-                                 expf(__fsub_rn(last, cum[j])))
-                     : 0.0f;
-    }
+    __syncthreads();   // cs, ds written; the last slice's reads done
+    for (int t = g; t < nt; t += 2)
+      stage(Xs + t * TILE_FLOATS, xh, xrow, t * TILE, Q, p0, P);
     __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float xv[4], bv[8];
+    // y[i, p] = sum_j W[i, j] x[j, p] over the tiles (ti, tj <= ti) of
+    // this group's row tiles, then states[p, n] = sum_j x[j, p] d_j B[j,
+    // n] over its 64-column tiles of n; the next item's S tile or B rows
+    // loaded during a product
+    Item it = y_from(nt - 1, g, nt, n_nc);
+    if (it.kind == 0)
+      fetch(v, Sc + (size_t)tile_index(it.a, 0) * TILE * TILE, TILE, 0,
+            TILE, 0, TILE);
+    else if (it.kind == 1)
+      fetch(v, B, N, 0, Q, it.a * TILE, N);
+    float acc[4][8] = {};
+    while (it.kind >= 0) {
+      sync_group(g);   // the last item's reads of Ws done
+      if (it.kind == 0)
+        put_w<true>(Ws, v, cs, it.a * TILE, it.b * TILE, Q);
+      else {
+        fetch_rows(sc, ds + it.b * TILE, Q - it.b * TILE);
+        put_scaled(Ws, v, sc);
+      }
+      const Item nx = next_item(it, g, nt, n_nc);
+      if (nx.kind == 0)
+        fetch(v, Sc + (size_t)tile_index(nx.a, nx.b) * TILE * TILE, TILE,
+              0, TILE, 0, TILE);
+      else if (nx.kind == 1)
+        fetch(v, B, N, nx.b * TILE, Q, nx.a * TILE, N);
+      sync_group(g);
+      if (it.kind == 0) {
+        mma_tn(acc, Ws, Xs + it.b * TILE_FLOATS);
+        if (it.b == it.a) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) xv[r] = Xs[k][ty * 4 + r];
+          for (int xx = 0; xx < 4; ++xx) {
+            const int i = it.a * TILE + 4 * ty + xx;
 #pragma unroll
-      for (int s = 0; s < 8; ++s) bv[s] = Bs[k][tx + 16 * s];
+            for (int c = 0; c < 8; ++c) {
+              const int p = p0 + 4 * tx + 32 * (c / 4) + c % 4;
+              if (i < Q && p < P) st(yh + (size_t)i * xrow + p, acc[xx][c]);
+              acc[xx][c] = 0.0f;
+            }
+          }
+        }
+      } else {
+        mma_tn(acc, Xs + it.b * TILE_FLOATS, Ws);
+        if (it.b == nt - 1) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+          for (int xx = 0; xx < 4; ++xx) {
+            const int p = p0 + 4 * ty + xx;
 #pragma unroll
-        for (int s = 0; s < 8; ++s)
-          acc[r][s] = __fmaf_rn(bv[s], xv[r], acc[r][s]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = p0 + ty * 4 + r;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int n = n0 + tx + 16 * s;
-      if (p < P && n < N)
-        st(states, (((size_t)bc * H + h) * P + p) * N + n, acc[r][s]);
+            for (int c = 0; c < 8; ++c) {
+              const int n = it.a * TILE + 4 * tx + 32 * (c / 4) + c % 4;
+              if (p < P && n < N) st(sth + (size_t)p * N + n, acc[xx][c]);
+              acc[xx][c] = 0.0f;
+            }
+          }
+        }
+      }
+      it = nx;
     }
   }
 }
 
 template <class T>
 int launch_all(const void* x, const void* a, const void* Bm, const void* Cm,
-               void* y, void* states, float* scores, int BC, int Q, int H,
-               int P, int N, cudaStream_t stream) {
-  const int n_tiles = (Q + TILE - 1) / TILE;
-  const int n_ntiles = (N + NT - 1) / NT;
-  const T* xt = static_cast<const T*>(x);
-  const T* at = static_cast<const T*>(a);
-  ssd_chunk_scores_kernel<T><<<dim3(n_tiles * n_tiles, BC), THREADS, 0,
-                               stream>>>(static_cast<const T*>(Bm),
-                                         static_cast<const T*>(Cm), scores, Q,
-                                         N, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_y_kernel<T><<<dim3(n_tiles, H, BC), THREADS, 0, stream>>>(
-      xt, at, scores, static_cast<T*>(y), Q, H, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_state_kernel<T>
-      <<<dim3(((P + TILE - 1) / TILE) * n_ntiles, H, BC), THREADS, 0,
-         stream>>>(xt, at, static_cast<const T*>(Bm), static_cast<T*>(states),
-                   Q, H, P, N, n_ntiles);
+               void* y, void* states, float* St, float* cum, int BC, int Q,
+               int H, int P, int N, cudaStream_t stream) {
+  const int nt = (Q + TILE - 1) / TILE;
+  const long long prep_blocks = (long long)BC * n_tiles(nt) +
+                                ((long long)BC * H + 3) / 4;
+  if (prep_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ssd_chunk_prep_kernel<T><<<(unsigned)prep_blocks, THREADS, PREP_SMEM,
+                             stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), St, cum, BC, Q, H, N, nt);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const size_t smem = fwd_smem(nt);
+  err = opt_in(ssd_chunk_fwd_kernel<T>, smem);
+  if (err) return err;
+  ssd_chunk_fwd_kernel<T><<<dim3(H, BC), FWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(Bm), St, cum,
+      static_cast<T*>(y), static_cast<T*>(states), Q, H, P, N, nt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -294,21 +246,23 @@ int launch_all(const void* x, const void* a, const void* Bm, const void* Cm,
 
 extern "C" {
 
-// dtype 0: every tensor fp32; 1: every tensor bf16 (scores is always fp32).
+// dtype 0: every tensor fp32; 1: every tensor bf16 for x, a, Bm, Cm, y,
+// states.  fp32 scratch from the wrapper: St [BC, tiles, 64, 64] (tiles =
+// nt (nt + 1) / 2, nt = ceil(Q / 64)) and cum [BC, H, 2, Q].
 int fog_ssd_chunk(int dtype, const void* x, const void* a, const void* Bm,
-                  const void* Cm, void* y, void* states, float* scores,
+                  const void* Cm, void* y, void* states, void* St, void* cum,
                   int BC, int Q, int H, int P, int N, void* stream) {
   if (Q < 1 || Q > MAX_Q || BC < 1 || H < 1 || P < 1 || N < 1 ||
-      BC > 65535 || H > 65535)
+      BC > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* fS = static_cast<float*>(St);
+  float* fc = static_cast<float*>(cum);
   if (dtype == 0)
-    return launch_all<float>(x, a, Bm, Cm, y, states, scores, BC, Q, H, P, N,
-                             s);
-  if (dtype == 1)
-    return launch_all<__nv_bfloat16>(x, a, Bm, Cm, y, states, scores, BC, Q,
-                                     H, P, N, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_all<float>(x, a, Bm, Cm, y, states, fS, fc, BC, Q, H, P,
+                             N, s);
+  return launch_all<__nv_bfloat16>(x, a, Bm, Cm, y, states, fS, fc, BC, Q,
+                                   H, P, N, s);
 }
 
 }  // extern "C"

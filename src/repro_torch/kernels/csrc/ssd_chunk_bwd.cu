@@ -6,7 +6,7 @@
 //                       with jax.grad of the einsum branch of
 //                       repro/models/mamba2.py::ssd_chunked
 //
-// behind a plain C entry point that launches four kernels in order on the
+// behind a plain C entry point that launches five kernels in order on the
 // caller's stream and returns cudaGetLastError() (loaded with ctypes by
 // repro_torch/kernels/_build.py).  The wrapper (kernels/ssd_chunk.py::
 // ssd_chunk_bwd_cuda) allocates the scratch and the four outputs; the
@@ -25,539 +25,576 @@
 //   G_h[j, p] = sum_n B[j, n] dst[h, p, n]
 //   dx_h = W_h^T dy_h + d o G_h                                  dx_kernel
 //   dS   = sum_h (dy_h x_h^T) o L_h   (lower triangle)           ds_kernel
-//   dC   = dS B,  dB = dS^T C + sum_h d o (x_h dst_h)          dbdc_kernel
+//   dC   = dS B,  dB = dS^T C + sum_h d o (x_h dst_h)    xdst, dbdc_kernel
 //   t_h  = (dy_h x_h^T) o W_h:  dcum_i += sum_j t_ij,  dcum_j -= sum_i t_ij
 //   e_j  = d_j sum_p x_jp G_jp:  dcum_{Q-1} += sum_j e_j,  dcum_j -= e_j
 //   da_h = reverse cumsum of dcum_h                            dbdc_kernel
 //
-// The four launches:
-//   1. cum_kernel, one warp per (chunk, head): cum and d into scratch.
-//   2. ds_kernel, one block per (chunk, 64 x 64 [i, j] tile on or below
-//      the diagonal): S's tile (written to scratch for pass 3), then over
-//      the heads in order the tile of dy_h x_h^T, summed into dS with L_h,
-//      and t_h's row and column sums over the tile written per head.
-//   3. dx_kernel, one block per (64-row tile of j, head, chunk): dx from
-//      the W tiles below the diagonal (S from scratch, L from the cumsum)
-//      and G_h, and e_j for the tile's rows.
-//   4. dbdc_kernel: one block per (32-row tile, 64-column tile of n,
-//      chunk) for dC and dB (the heads summed in order), and one per
-//      (chunk, head) for da: dcum from the tile sums and e, then a serial
-//      reverse scan.
+// Design (the building blocks are ssd_simt.cuh's: 64 x 64 fp32 tiles with
+// rows of 17 float4s, 128 threads a block, 4 x 8 outputs a thread fed by
+// float4 reads).  The heads are cut into groups of hpg
+// (kernels/ssd_chunk.py::simt_bwd_heads_per_group: enough groups that the
+// dS pass has about four blocks an SM at Q = 256; at the training shape
+// x [8, 1, 256, 80, 64], N = 128: 12 heads, 7 groups).  Each pass walks
+// its tile products in a fixed order and loads the next one's tiles into
+// registers during the current one's product.  Five launches, the grids
+// at the training shape:
+//   1. prep_kernel: S's tiles on or below the diagonal into a scratch [BC,
+//      tiles, 64, 64] (80 blocks) and each (chunk, head)'s cumsum and end
+//      decays, a warp a row (160 blocks of 4 rows).
+//   2. ds_kernel, one block per (tile, group, chunk) (10 x 7 x 8 = 560):
+//      per head of the group the tile of dW = dy_h x_h^T (mma_nt over P),
+//      summed into the group's dS with L_h in registers, and t_h's row and
+//      column sums over the tile by shuffles (the columns' four warps
+//      summed in order), written per head; the group's partial dS tile is
+//      written once to [BC, groups, tiles, 64, 64].
+//   3. dx_kernel, one block per (64-row tile of j, head, chunk) (4 x 80 x
+//      8 = 2560): G_h's tile (mma_nt over N) into shared memory, then dx =
+//      W^T dy over the tiles of i from the diagonal down (the W tile built
+//      from S's scratch and the cumsum, mma_tn), dx + d o G stored and e_j
+//      summed by shuffles.
+//   4. xdst_kernel, one block per (64-row tile of j, 64 columns of n,
+//      group, chunk) (4 x 2 x 7 x 8 = 448): the split-K product sum_h d_h o
+//      (x_h dst_h), [Q, H P] x [H P, N] over the group's heads (mma_nn),
+//      into a partial [BC, groups, Q, N].
+//   5. dbdc_kernel: per (chunk, 64-row tile, 64 columns of n) one block
+//      for dC = dS B (mma_nn) and one for dB = dS^T C (mma_tn) plus the
+//      x dst partials (2 x 8 x 4 x 2 = 128 blocks), each dS tile staged as
+//      the sum of its group partials in group order; then 4 (chunk, head)
+//      rows a block for da (160): dcum from the tile sums and e, then a
+//      reverse warp scan.
+// Shared memory a block: ds 53,760 B (dy, x and S tiles, the cumsum, the
+// column sums), dx 53,248 B (its launch bounds ask for three blocks an SM:
+// at most 168 registers a thread), xdst and dbdc 34,816 B, prep 34,816 B.  The
+// fp32 scratch at the training shape: S 1.3 MB, cumsums 1.3 MB, partial dS
+// 9.2 MB, tile sums 5.2 MB, e 0.7 MB, x dst partials 7.3 MB (25.0 MB).
 //
 // No atomics: every output and every scratch entry is written once by one
-// thread, each sum taken in a fixed order, so the result is the same bit
-// for bit from run to run.  Any 1 <= Q <= 256 (the cumsum of one head
-// lives in shared memory) and any P and N: every tile masks its ragged
-// edge.  Above the diagonal cum_i - cum_j > 0 can overflow exp, so those
-// entries are 0 by a branch, never by a 0/1 multiply (inf * 0 = NaN).
+// thread, each sum taken in a fixed order (the group partials in group
+// order), so the result is the same bit for bit from run to run.  Any 1 <=
+// Q <= 256 (the cumsum of one head lives in shared memory) and any P and
+// N: every tile masks its ragged edge; H need not be a multiple of hpg.
+// Above the diagonal cum_i - cum_j > 0 can overflow exp, so those entries
+// are 0 by a branch, never by a 0/1 multiply (inf * 0 = NaN).
 //
-// What bounds it: at the training shape (x [8, 1, 256, 80, 64], N = 128)
-// it moves ~151 MB (x, dy, dx, dst, a, da, B, C, dB, dC once each; 0.045
-// ms at 3.35 TB/s) and does ~11 GFLOP (the four Q x Q x P or Q x P x N
-// products per (chunk, head) over the causal half or the whole chunk,
-// and S and its two products per chunk; ~0.16 ms at 67 TFLOP/s fp32), so
-// operations bound it.  This first kernel does them as fp32 FMAs from
-// shared-memory tiles (explicit __fmaf_rn: the build passes -fmad=false),
-// about one shared load per two FMAs, so it runs well above the bound
-// (PERF.md row 7b).  bf16 inputs halve the bytes, not the operations.
+// What bounds it: at the training shape it moves ~151 MB (x, dy, dx, dst,
+// a, da, B, C, dB, dC once each; 0.045 ms at 3.35 TB/s) and needs 10.96
+// GFLOP (the four Q x Q x P or Q x P x N products per (chunk, head) over
+// the causal half or the whole chunk, and S and its two products per
+// chunk; 0.164 ms at 67 TFLOP/s fp32), so operations bound it.  This
+// design runs 12.33 GFLOP (the diagonal tiles whole: chip_smoke.
+// ssd_bwd_work's simt_ops); PERF.md row 7b gives the measured time.  bf16 inputs halve the bytes, not the operations.
 // bf16 at the forward's tensor-core shapes (P = 64, N in {64, 128}: the
 // mamba2 and jamba training path) runs ssd_chunk_bwd_sm90.cu instead
-// (kernels/ssd_chunk.py::route); this kernel takes fp32 and bf16 at
-// every other shape.
+// (kernels/ssd_chunk.py::route); this kernel takes fp32 and bf16 at every
+// other shape.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ssd_simt.cuh"
 
 namespace {
 
-// an input element as fp32, and an fp32 result stored in the inputs' type
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+// dynamic shared memory of each pass
+constexpr size_t DS_SMEM =
+    (3 * TILE_FLOATS + 2 * TILE + 4 * TILE) * sizeof(float);
+constexpr size_t DX_SMEM = (3 * TILE_FLOATS + MAX_Q) * sizeof(float);
+constexpr size_t TWO_TILES_SMEM = 2 * TILE_FLOATS * sizeof(float);
 
-constexpr int MAX_Q = 256;    // the cumsum of one head lives in shared memory
-constexpr int TILE = 64;      // rows i, columns j, columns p of one tile
-constexpr int KC = 32;        // reduction step over p or n
-constexpr int ROWS = 32;      // rows of one dbdc tile
-constexpr int COLS = 64;      // state columns n of one dbdc tile
-constexpr int THREADS = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr unsigned FULL = 0xffffffffu;
-
-// cum[bc, h, 0, :] = cumsum(a[bc, h, :]); cum[bc, h, 1, j] = exp(cum_{Q-1}
-// - cum_j).  One warp per (chunk, head): 32 entries at a time with
-// shuffles, the running total carried.
 template <class T>
-__global__ void __launch_bounds__(32) ssd_bwd_cum_kernel(
-    const T* __restrict__ a, float* __restrict__ cum, int Q) {
-  const size_t row = blockIdx.x;        // bc * H + h
-  const T* ar = a + row * Q;
-  float* cr = cum + row * 2 * Q;
-  const int lane = threadIdx.x;
-  float carry = 0.0f;
-  for (int base = 0; base < Q; base += 32) {
-    const int i = base + lane;
-    float v = i < Q ? ld(ar + i) : 0.0f;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float n = __shfl_up_sync(FULL, v, off);
-      if (lane >= off) v = __fadd_rn(v, n);
-    }
-    v = __fadd_rn(v, carry);
-    if (i < Q) cr[i] = v;
-    carry = __shfl_sync(FULL, v, 31);
-  }
-  __syncwarp();
-  const float last = cr[Q - 1];
-  for (int j = lane; j < Q; j += 32)
-    cr[Q + j] = expf(__fsub_rn(last, cr[j]));
+__global__ void __launch_bounds__(THREADS) ssd_bwd_prep_kernel(
+    const T* __restrict__ a, const T* __restrict__ Bm,
+    const T* __restrict__ Cm, float* __restrict__ S,
+    float* __restrict__ cum, int BC, int Q, int H, int N, int nt) {
+  extern __shared__ __align__(16) float smem[];
+  prep<T, false>(a, Bm, Cm, S, cum, BC, Q, H, N, nt, smem);
 }
 
-// One [i, j] tile (ti >= tj) of chunk blockIdx.y: S into S[bc, 0], dS into
-// S[bc, 1], t's row sums into part[bc, h, 0, tj, i] and column sums into
-// part[bc, h, 1, ti, j] for every head.
+// Tile blockIdx.x = (ti, tj) of chunk blockIdx.z over the heads of group
+// blockIdx.y: the group's partial dS tile into dSp[bc, g, tile], t's row
+// sums into part[bc, h, 0, tj, i] and column sums into part[bc, h, 1, ti,
+// j] for each head.
 template <class T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_ds_kernel(
-    const T* __restrict__ x, const T* __restrict__ Bm,
-    const T* __restrict__ Cm, const T* __restrict__ dy,
-    const float* __restrict__ cum, float* __restrict__ S,
-    float* __restrict__ part, int Q, int H, int P, int N, int nt) {
-  int ti = 0, rest = blockIdx.x;
-  while (rest > ti) rest -= ++ti;
-  const int tj = rest;
-  const int bc = blockIdx.y;
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ S, const float* __restrict__ cum,
+    float* __restrict__ dSp, float* __restrict__ part, int Q, int H, int P,
+    int nt, int hpg) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ys = smem;                     // dy rows i
+  float* Xs = Ys + TILE_FLOATS;         // x rows j
+  float* Ss = Xs + TILE_FLOATS;         // S's tile [i][j]
+  float* ci = Ss + TILE_FLOATS;         // [64] cum at the rows i
+  float* cj = ci + TILE;                // [64] cum at the columns j
+  float* red = cj + TILE;               // [4 warps][64] column sums
+  const int t = blockIdx.x, g = blockIdx.y, bc = blockIdx.z;
+  const int tiles = n_tiles(nt);
+  int ti, tj;
+  tile_of(t, ti, tj);
   const int i0 = ti * TILE, j0 = tj * TILE;
-  __shared__ float As[KC][TILE + 1];     // [k][i]: C, then dy
-  __shared__ float Bs[KC][TILE + 1];     // [k][j]: B, then x
-  __shared__ float Ts[TILE][TILE + 1];   // t_h's tile
-  __shared__ float ci[TILE], cj[TILE];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-
-  // S's tile from C's rows i and B's rows j
-  float s_t[4][4] = {};
-  const T* C = Cm + (size_t)bc * Q * N;
-  const T* Bp = Bm + (size_t)bc * Q * N;
-  for (int n0 = 0; n0 < N; n0 += KC) {
-    for (int idx = tid; idx < TILE * KC; idx += THREADS) {
-      const int r = idx / KC, k = idx % KC, n = n0 + k;
-      const int i = i0 + r, j = j0 + r;
-      As[k][r] = (i < Q && n < N) ? ld(C + (size_t)i * N + n) : 0.0f;
-      Bs[k][r] = (j < Q && n < N) ? ld(Bp + (size_t)j * N + n) : 0.0f;
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const int warp = tid / 32, lane = tid % 32;
+  const float* Sg = S + ((size_t)bc * tiles + t) * TILE * TILE;
+  for (int idx = tid; idx < TILE * TILE / 4; idx += THREADS) {
+    const int r = idx / (TILE / 4), c = 4 * (idx % (TILE / 4));
+    *reinterpret_cast<float4*>(Ss + r * LDT + c) =
+        *reinterpret_cast<const float4*>(Sg + r * TILE + c);
+  }
+  const size_t xrow = (size_t)H * P;
+  float dsacc[4][8] = {};
+  const int h_end = min(H, (g + 1) * hpg);
+  // items (head h, 64 columns p0 of P), the heads in order; the next
+  // item's dy and x tiles, and at a head's first item the cumsum at this
+  // thread's row (tid < 64) or column, loaded during a product
+  const int c_at = tid < TILE ? i0 + tid : j0 + tid - TILE;
+  float4 va[FRAG], vb[FRAG];
+  float cv = 0.0f;
+  int h = g * hpg, p0 = 0;
+  if (h < h_end) {
+    const size_t at = (size_t)bc * Q * xrow + (size_t)h * P;
+    fetch(va, dy + at, xrow, i0, Q, 0, P);
+    fetch(vb, x + at, xrow, j0, Q, 0, P);
+    cv = c_at < Q ? cum[((size_t)bc * H + h) * 2 * Q + c_at] : 0.0f;
+  }
+  float dw[4][8] = {};
+  while (h < h_end) {
+    __syncthreads();   // the last item's reads of Ys, Xs, ci, cj, red done
+    put(Ys, va);
+    put(Xs, vb);
+    if (p0 == 0) (tid < TILE ? ci[tid] : cj[tid - TILE]) = cv;
+    const bool last = p0 + TILE >= P;
+    const int nh = last ? h + 1 : h, np = last ? 0 : p0 + TILE;
+    if (nh < h_end) {
+      const size_t at = (size_t)bc * Q * xrow + (size_t)nh * P;
+      fetch(va, dy + at, xrow, i0, Q, np, P);
+      fetch(vb, x + at, xrow, j0, Q, np, P);
+      if (np == 0)
+        cv = c_at < Q ? cum[((size_t)bc * H + nh) * 2 * Q + c_at] : 0.0f;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      float c[4], b[4];
+    mma_nt(dw, Ys, Xs);
+    if (last) {
+      // rows i = i0 + ty + 16 x, columns j = j0 + tx + 8 y
+      float rs[4] = {}, cs[8] = {};
 #pragma unroll
-      for (int r = 0; r < 4; ++r) c[r] = As[k][ty * 4 + r];
+      for (int xx = 0; xx < 4; ++xx) {
+        const int ii = ty + 16 * xx, i = i0 + ii;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) b[s] = Bs[k][tx + 16 * s];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) s_t[r][s] = __fmaf_rn(c[r], b[s], s_t[r][s]);
-    }
-    __syncthreads();
-  }
-  float* Sc = S + (size_t)bc * 2 * Q * Q;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (i < Q && j <= i) Sc[(size_t)i * Q + j] = s_t[r][s];
-    }
-  }
-
-  float ds[4][4] = {};
-  for (int h = 0; h < H; ++h) {
-    const float* ch = cum + ((size_t)bc * H + h) * 2 * Q;
-    for (int r = tid; r < TILE; r += THREADS) {
-      ci[r] = i0 + r < Q ? ch[i0 + r] : 0.0f;
-      cj[r] = j0 + r < Q ? ch[j0 + r] : 0.0f;
-    }
-    // dW = dy_h x_h^T over the tile
-    float dw[4][4] = {};
-    for (int p0 = 0; p0 < P; p0 += KC) {
-      for (int idx = tid; idx < TILE * KC; idx += THREADS) {
-        const int r = idx / KC, k = idx % KC, p = p0 + k;
-        const int i = i0 + r, j = j0 + r;
-        As[k][r] = (i < Q && p < P)
-                       ? ld(dy + (((size_t)bc * Q + i) * H + h) * P + p)
-                       : 0.0f;
-        Bs[k][r] = (j < Q && p < P)
-                       ? ld(x + (((size_t)bc * Q + j) * H + h) * P + p)
-                       : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        float u[4], v[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = As[k][ty * 4 + r];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) v[s] = Bs[k][tx + 16 * s];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) dw[r][s] = __fmaf_rn(u[r], v[s], dw[r][s]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int ii = ty * 4 + r, i = i0 + ii;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int jj = tx + 16 * s, j = j0 + jj;
-        float t = 0.0f;
-        if (i < Q && j <= i) {
-          const float L = expf(__fsub_rn(ci[ii], cj[jj]));
-          ds[r][s] = __fmaf_rn(dw[r][s], L, ds[r][s]);
-          t = __fmul_rn(__fmul_rn(dw[r][s], s_t[r][s]), L);
+        for (int yy = 0; yy < 8; ++yy) {
+          const int jj = tx + 8 * yy, j = j0 + jj;
+          if (i < Q && j <= i) {
+            const float L = expf(__fsub_rn(ci[ii], cj[jj]));
+            dsacc[xx][yy] = __fmaf_rn(dw[xx][yy], L, dsacc[xx][yy]);
+            const float tv =
+                __fmul_rn(__fmul_rn(dw[xx][yy], Ss[ii * LDT + jj]), L);
+            rs[xx] = __fadd_rn(rs[xx], tv);
+            cs[yy] = __fadd_rn(cs[yy], tv);
+          }
+          dw[xx][yy] = 0.0f;
         }
-        Ts[ii][jj] = t;
+      }
+      float* ph = part + ((size_t)bc * H + h) * 2 * nt * Q;
+      // a row's 8 threads are 8 consecutive lanes
+#pragma unroll
+      for (int xx = 0; xx < 4; ++xx)
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          rs[xx] = __fadd_rn(rs[xx], __shfl_xor_sync(FULL, rs[xx], off));
+      if (tx == 0) {
+#pragma unroll
+        for (int xx = 0; xx < 4; ++xx) {
+          const int i = i0 + ty + 16 * xx;
+          if (i < Q) ph[(size_t)tj * Q + i] = rs[xx];
+        }
+      }
+      // a column's 16 threads: 4 in each warp, lanes 8 apart; then the
+      // warps in order
+#pragma unroll
+      for (int yy = 0; yy < 8; ++yy) {
+        cs[yy] = __fadd_rn(cs[yy], __shfl_xor_sync(FULL, cs[yy], 8));
+        cs[yy] = __fadd_rn(cs[yy], __shfl_xor_sync(FULL, cs[yy], 16));
+      }
+      if (lane < 8) {
+#pragma unroll
+        for (int yy = 0; yy < 8; ++yy)
+          red[warp * TILE + tx + 8 * yy] = cs[yy];
+      }
+      __syncthreads();
+      if (tid < TILE) {
+        const int j = j0 + tid;
+        float v = __fadd_rn(red[tid], red[TILE + tid]);
+        v = __fadd_rn(v, red[2 * TILE + tid]);
+        v = __fadd_rn(v, red[3 * TILE + tid]);
+        if (j < Q) ph[(size_t)(nt + ti) * Q + j] = v;
       }
     }
-    __syncthreads();
-    float* ph = part + ((size_t)bc * H + h) * 2 * nt * Q;
-    if (tid < TILE) {
-      const int i = i0 + tid;
-      float sum = 0.0f;
-      for (int jj = 0; jj < TILE; ++jj) sum = __fadd_rn(sum, Ts[tid][jj]);
-      if (i < Q) ph[(size_t)tj * Q + i] = sum;
-    } else if (tid < 2 * TILE) {
-      const int c = tid - TILE, j = j0 + c;
-      float sum = 0.0f;
-      for (int ii = 0; ii < TILE; ++ii) sum = __fadd_rn(sum, Ts[ii][c]);
-      if (j < Q) ph[(size_t)(nt + ti) * Q + j] = sum;
-    }
-    __syncthreads();
+    h = nh;
+    p0 = np;
   }
-  float* dSc = Sc + (size_t)Q * Q;
+  float* out = dSp + (((size_t)bc * gridDim.y + g) * tiles + t) * TILE * TILE;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
+  for (int xx = 0; xx < 4; ++xx)
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (i < Q && j <= i) dSc[(size_t)i * Q + j] = ds[r][s];
-    }
-  }
+    for (int yy = 0; yy < 8; ++yy)
+      out[(ty + 16 * xx) * TILE + tx + 8 * yy] = dsacc[xx][yy];
 }
 
 // dx for the 64 rows j of tile blockIdx.x, head blockIdx.y, chunk
 // blockIdx.z, and e[bc, h, j].
 template <class T>
-__global__ void __launch_bounds__(THREADS) ssd_bwd_dx_kernel(
+__global__ void __launch_bounds__(THREADS, 3) ssd_bwd_dx_kernel(
     const T* __restrict__ x, const T* __restrict__ Bm,
     const T* __restrict__ dy, const T* __restrict__ dst,
-    const float* __restrict__ cum, const float* __restrict__ S,
-    float* __restrict__ e, T* __restrict__ dx, int Q, int H, int P,
-    int N, int nt) {
+    const float* __restrict__ S, const float* __restrict__ cum,
+    float* __restrict__ e, T* __restrict__ dx, int Q, int H, int P, int N,
+    int nt) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ws = smem;                     // W tile [i][j]; B rows j for G
+  float* Ys = Ws + TILE_FLOATS;         // dy rows i; dst rows p for G
+  float* Gs = Ys + TILE_FLOATS;         // G [j][p]
+  float* ch = Gs + TILE_FLOATS;         // [MAX_Q] cumsum
   const int tj = blockIdx.x, h = blockIdx.y, bc = blockIdx.z;
   const int j0 = tj * TILE;
-  __shared__ float ch[MAX_Q];
-  __shared__ float buf[2 * TILE * (TILE + 1)];
-  float (*Wt)[TILE + 1] = reinterpret_cast<float (*)[TILE + 1]>(buf);
-  float (*Ys)[TILE + 1] =
-      reinterpret_cast<float (*)[TILE + 1]>(buf + TILE * (TILE + 1));
-  float (*Bs)[TILE + 1] = Wt;   // [k][j], the G pass (KC rows)
-  float (*Ds)[TILE + 1] = Ys;   // [k][p]
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tiles = n_tiles(nt);
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
   const float* cr = cum + ((size_t)bc * H + h) * 2 * Q;
   for (int i = tid; i < Q; i += THREADS) ch[i] = cr[i];
+  // this thread's rows j = j0 + 4 ty + x (mma_tn's) and their end decays
   float dj[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + ty * 4 + r;
-    dj[r] = j < Q ? cr[Q + j] : 0.0f;
+  for (int xx = 0; xx < 4; ++xx) {
+    const int j = j0 + 4 * ty + xx;
+    dj[xx] = j < Q ? cr[Q + j] : 0.0f;
   }
-  __syncthreads();
-  const float* Sc = S + (size_t)bc * 2 * Q * Q;
+  const size_t xrow = (size_t)H * P;
   const T* B = Bm + (size_t)bc * Q * N;
   const T* dsth = dst + ((size_t)bc * H + h) * P * N;
-  float dd[4] = {};
+  const T* dyh = dy + (size_t)bc * Q * xrow + (size_t)h * P;
+  const T* xh = x + (size_t)bc * Q * xrow + (size_t)h * P;
+  T* dxh = dx + (size_t)bc * Q * xrow + (size_t)h * P;
+  const float* Sc = S + (size_t)bc * tiles * TILE * TILE;
+  float ee[4] = {};
+  const int n_nc = (N + TILE - 1) / TILE;
+  float4 va[FRAG], vb[FRAG];   // the next step's tiles, loaded during a product
   for (int p0 = 0; p0 < P; p0 += TILE) {
-    float acc[4][4] = {};
+    // G[j, p] = sum_n B[j, n] dst[p, n] over N's 64-column steps, held as
+    // mma_nt's rows and columns
+    fetch(va, B, N, j0, Q, 0, N);
+    fetch(vb, dsth, N, p0, P, 0, N);
+    float g[4][8] = {};
+    for (int k = 0; k < n_nc; ++k) {
+      __syncthreads();   // ch written; the last tiles' reads done
+      put(Ws, va);
+      put(Ys, vb);
+      if (k + 1 < n_nc) {
+        fetch(va, B, N, j0, Q, (k + 1) * TILE, N);
+        fetch(vb, dsth, N, p0, P, (k + 1) * TILE, N);
+      } else {   // dx's first tiles
+        fetch(va, Sc + (size_t)tile_index(tj, tj) * TILE * TILE, TILE, 0,
+              TILE, 0, TILE);
+        fetch(vb, dyh, xrow, tj * TILE, Q, p0, P);
+      }
+      __syncthreads();
+      mma_nt(g, Ws, Ys);
+    }
+#pragma unroll
+    for (int xx = 0; xx < 4; ++xx)
+#pragma unroll
+      for (int yy = 0; yy < 8; ++yy)
+        Gs[(ty + 16 * xx) * LDT + tx + 8 * yy] = g[xx][yy];
+    // dx[j, p] = sum_{i >= j} W[i, j] dy[i, p], the tiles of i from the
+    // diagonal down (at least one: tj < nt)
+    float acc[4][8] = {};
     for (int ti = tj; ti < nt; ++ti) {
-      const int i0 = ti * TILE;
-      for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
-        const int r = idx / TILE, k = idx % TILE;
-        const int j = j0 + r, i = i0 + k;
-        float w = 0.0f;
-        if (i < Q && j <= i)
-          w = __fmul_rn(Sc[(size_t)i * Q + j], expf(__fsub_rn(ch[i], ch[j])));
-        Wt[r][k] = w;
-        const int ir = i0 + r, p = p0 + k;
-        Ys[r][k] = (ir < Q && p < P)
-                       ? ld(dy + (((size_t)bc * Q + ir) * H + h) * P + p)
-                       : 0.0f;
+      __syncthreads();   // Gs written; the last tiles' reads done
+      put_w<false>(Ws, va, ch, ti * TILE, j0, Q);
+      put(Ys, vb);
+      if (ti + 1 < nt) {
+        fetch(va, Sc + (size_t)tile_index(ti + 1, tj) * TILE * TILE, TILE,
+              0, TILE, 0, TILE);
+        fetch(vb, dyh, xrow, (ti + 1) * TILE, Q, p0, P);
       }
       __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < TILE; ++k) {
-        float w[4], yv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) w[r] = Wt[ty * 4 + r][k];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) yv[s] = Ys[k][tx + 16 * s];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s)
-            acc[r][s] = __fmaf_rn(w[r], yv[s], acc[r][s]);
-      }
-      __syncthreads();
-    }
-    // G[j, p] = sum_n B[j, n] dst[h, p, n]
-    float g[4][4] = {};
-    for (int n0 = 0; n0 < N; n0 += KC) {
-      for (int idx = tid; idx < TILE * KC; idx += THREADS) {
-        const int r = idx / KC, k = idx % KC, n = n0 + k;
-        const int j = j0 + r, p = p0 + r;
-        Bs[k][r] = (j < Q && n < N) ? ld(B + (size_t)j * N + n) : 0.0f;
-        Ds[k][r] = (p < P && n < N) ? ld(dsth + (size_t)p * N + n) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        float bv[4], dv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) bv[r] = Bs[k][ty * 4 + r];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) dv[s] = Ds[k][tx + 16 * s];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) g[r][s] = __fmaf_rn(bv[r], dv[s], g[r][s]);
-      }
-      __syncthreads();
+      mma_tn(acc, Ws, Ys);
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + ty * 4 + r;
+    for (int xx = 0; xx < 4; ++xx) {
+      const int jl = 4 * ty + xx, j = j0 + jl;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const int p = p0 + tx + 16 * s;
-        if (j < Q && p < P) {
-          const size_t at = (((size_t)bc * Q + j) * H + h) * P + p;
-          st(dx + at, __fmaf_rn(dj[r], g[r][s], acc[r][s]));
-          dd[r] = __fmaf_rn(ld(x + at), g[r][s], dd[r]);
+      for (int q = 0; q < 2; ++q) {
+        const float4 gv = lds4(Gs + jl * LDT + 4 * tx + 32 * q);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int p = p0 + 4 * tx + 32 * q + s;
+          if (j < Q && p < P) {
+            const size_t at = (size_t)j * xrow + p;
+            const float gs = comp(gv, s);
+            st(dxh + at, __fmaf_rn(dj[xx], gs, acc[xx][4 * q + s]));
+            ee[xx] = __fmaf_rn(ld(xh + at), gs, ee[xx]);
+          }
         }
       }
     }
   }
-  // dd over the 16 threads of a row (tx), which share a warp
+  // a row's 8 threads are 8 consecutive lanes
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int xx = 0; xx < 4; ++xx)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      dd[r] = __fadd_rn(dd[r], __shfl_xor_sync(FULL, dd[r], off));
+    for (int off = 4; off > 0; off >>= 1)
+      ee[xx] = __fadd_rn(ee[xx], __shfl_xor_sync(FULL, ee[xx], off));
   if (tx == 0) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + ty * 4 + r;
-      if (j < Q) e[((size_t)bc * H + h) * Q + j] = __fmul_rn(dd[r], dj[r]);
+    for (int xx = 0; xx < 4; ++xx) {
+      const int j = j0 + 4 * ty + xx;
+      if (j < Q) e[((size_t)bc * H + h) * Q + j] = __fmul_rn(ee[xx], dj[xx]);
     }
   }
 }
 
-// Blocks [0, n_tiles): dC and dB for one (32-row, 64-column) tile of a
-// chunk; blocks [n_tiles, n_tiles + BC H): da of one (chunk, head).
+// One group's share of sum_h d_h o (x_h dst_h) for the 64 rows j of tile
+// blockIdx.x / n_nc and 64 columns n of tile blockIdx.x % n_nc, group
+// blockIdx.y, chunk blockIdx.z, into xdp[bc, g, j, n].
+template <class T>
+__global__ void __launch_bounds__(THREADS) ssd_bwd_xdst_kernel(
+    const T* __restrict__ x, const T* __restrict__ dst,
+    const float* __restrict__ cum, float* __restrict__ xdp, int Q, int H,
+    int P, int N, int hpg, int n_nc) {
+  extern __shared__ __align__(16) float smem[];
+  float* Xd = smem;                     // d_h o x_h rows j
+  float* Ds = Xd + TILE_FLOATS;         // dst_h rows p
+  const int rt = blockIdx.x / n_nc, nc = blockIdx.x % n_nc;
+  const int g = blockIdx.y, bc = blockIdx.z;
+  const int j0 = rt * TILE, n0 = nc * TILE;
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const size_t xrow = (size_t)H * P;
+  float acc[4][8] = {};
+  const int h_end = min(H, (g + 1) * hpg);
+  // items (head h, 64 columns p0 of P), the heads in order; the next
+  // item's x rows, their end decays d_h[j] and dst rows loaded during a
+  // product
+  float4 va[FRAG], vb[FRAG];
+  float sc[FRAG];
+  int h = g * hpg, p0 = 0;
+  if (h < h_end) {
+    fetch(va, x + (size_t)bc * Q * xrow + (size_t)h * P, xrow, j0, Q, 0, P);
+    fetch_rows(sc, cum + ((size_t)bc * H + h) * 2 * Q + Q + j0, Q - j0);
+    fetch(vb, dst + ((size_t)bc * H + h) * P * N, N, 0, P, n0, N);
+  }
+  while (h < h_end) {
+    __syncthreads();   // the last item's reads done
+    put_scaled(Xd, va, sc);
+    put(Ds, vb);
+    const bool last = p0 + TILE >= P;
+    const int nh = last ? h + 1 : h, np = last ? 0 : p0 + TILE;
+    if (nh < h_end) {
+      fetch(va, x + (size_t)bc * Q * xrow + (size_t)nh * P, xrow, j0, Q, np,
+            P);
+      fetch_rows(sc, cum + ((size_t)bc * H + nh) * 2 * Q + Q + j0, Q - j0);
+      fetch(vb, dst + ((size_t)bc * H + nh) * P * N, N, np, P, n0, N);
+    }
+    __syncthreads();
+    mma_nn(acc, Xd, Ds);
+    h = nh;
+    p0 = np;
+  }
+  float* out = xdp + ((size_t)bc * gridDim.y + g) * Q * N;
+#pragma unroll
+  for (int xx = 0; xx < 4; ++xx) {
+    const int j = j0 + ty + 16 * xx;
+    if (j >= Q) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int n = n0 + 4 * tx + 32 * (c / 4) + c % 4;
+      if (n < N) out[(size_t)j * N + n] = acc[xx][c];
+    }
+  }
+}
+
+// dS's tile t of chunk bc, the sum of its G group partials in group order,
+// into dst (rows LDT floats apart)
+__device__ __forceinline__ void stage_ds(float* dst, const float* dSp,
+                                         int bc, int G, int tiles, int t) {
+  const float* src = dSp + ((size_t)bc * G * tiles + t) * TILE * TILE;
+  const size_t group = (size_t)tiles * TILE * TILE;
+  float4 v[FRAG], u[FRAG];
+  fetch(v, src, TILE, 0, TILE, 0, TILE);
+  for (int gg = 1; gg < G; ++gg) {
+    fetch(u, src + gg * group, TILE, 0, TILE, 0, TILE);
+#pragma unroll
+    for (int m = 0; m < FRAG; ++m)
+      v[m] = make_float4(__fadd_rn(v[m].x, u[m].x), __fadd_rn(v[m].y, u[m].y),
+                         __fadd_rn(v[m].z, u[m].z), __fadd_rn(v[m].w, u[m].w));
+  }
+  put(dst, v);
+}
+
+// Blocks [0, 2 BC nt n_nc): block 2 k is dC, 2 k + 1 dB, for (chunk, 64-row
+// tile, 64 columns of n) k; then four (chunk, head) rows a block for da, a
+// warp a row.
 template <class T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_dbdc_kernel(
-    const T* __restrict__ x, const T* __restrict__ Bm,
-    const T* __restrict__ Cm, const T* __restrict__ dst,
-    const float* __restrict__ cum, const float* __restrict__ S,
+    const T* __restrict__ Bm, const T* __restrict__ Cm,
+    const float* __restrict__ dSp, const float* __restrict__ xdp,
     const float* __restrict__ part, const float* __restrict__ e,
-    T* __restrict__ dB, T* __restrict__ dC, T* __restrict__ da,
-    int Q, int H, int P, int N, int nt, int n_rt, int n_ct, int n_tiles) {
-  const int tid = threadIdx.x;
-  __shared__ float As[ROWS][ROWS + 1];
-  __shared__ float Vs[ROWS][COLS + 1];
-  __shared__ float dcum[MAX_Q];
-  if ((int)blockIdx.x >= n_tiles) {
-    const size_t row = blockIdx.x - n_tiles;     // bc * H + h
+    T* __restrict__ dB, T* __restrict__ dC, T* __restrict__ da, int BC,
+    int Q, int H, int N, int nt, int G, int n_nc) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const long long n_tile_blocks = 2LL * BC * nt * n_nc;
+  if ((long long)blockIdx.x >= n_tile_blocks) {
+    const long long row = ((long long)blockIdx.x - n_tile_blocks) *
+                              (THREADS / 32) + tid / 32;   // bc * H + h
+    if (row >= (long long)BC * H) return;
+    const int lane = tid % 32;
+    float* dcum = smem + (tid / 32) * MAX_Q;
     const float* ph = part + row * 2 * nt * Q;
     const float* er = e + row * Q;
-    for (int k = tid; k < Q; k += THREADS) {
+    float esum = 0.0f;
+    for (int k = lane; k < Q; k += 32) {
       const int t = k / TILE;
       float v = 0.0f;
       for (int u = 0; u <= t; ++u) v = __fadd_rn(v, ph[(size_t)u * Q + k]);
       for (int u = t; u < nt; ++u)
         v = __fsub_rn(v, ph[(size_t)(nt + u) * Q + k]);
       dcum[k] = __fsub_rn(v, er[k]);
+      esum = __fadd_rn(esum, er[k]);
     }
-    __syncthreads();
-    if (tid == 0) {
-      float esum = 0.0f;
-      for (int j = 0; j < Q; ++j) esum = __fadd_rn(esum, er[j]);
-      dcum[Q - 1] = __fadd_rn(dcum[Q - 1], esum);
-      float run = 0.0f;
-      T* dr = da + row * Q;
-      for (int k = Q - 1; k >= 0; --k) {
-        run = __fadd_rn(run, dcum[k]);
-        st(dr + k, run);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      esum = __fadd_rn(esum, __shfl_xor_sync(FULL, esum, off));
+    __syncwarp();
+    if (lane == 0) dcum[Q - 1] = __fadd_rn(dcum[Q - 1], esum);
+    __syncwarp();
+    // da[k] = sum_{k' >= k} dcum[k'], 32 entries a step from the end
+    T* dr = da + row * Q;
+    float carry = 0.0f;
+    for (int base = 0; base < Q; base += 32) {
+      const int k = Q - 1 - base - lane;
+      float v = k >= 0 ? dcum[k] : 0.0f;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float n = __shfl_up_sync(FULL, v, off);
+        if (lane >= off) v = __fadd_rn(v, n);
+      }
+      v = __fadd_rn(v, carry);
+      if (k >= 0) st(dr + k, v);
+      carry = __shfl_sync(FULL, v, 31);
+    }
+    return;
+  }
+  const int which = blockIdx.x % 2;                 // 0: dC, 1: dB
+  const int k = blockIdx.x / 2;
+  const int bc = k / (nt * n_nc), r = (k / n_nc) % nt, nc = k % n_nc;
+  const int r0 = r * TILE, n0 = nc * TILE;
+  const int tiles = n_tiles(nt);
+  float* Ds = smem;                     // dS's tile [i][j]
+  float* Vs = Ds + TILE_FLOATS;         // B's or C's rows
+  float acc[4][8] = {};
+  if (which == 0) {
+    // dC[i, n] = sum_{j <= i} dS[i, j] B[j, n], rows i = r0 + ty + 16 x
+    const T* B = Bm + (size_t)bc * Q * N;
+    for (int tj = 0; tj <= r; ++tj) {
+      __syncthreads();
+      stage_ds(Ds, dSp, bc, G, tiles, tile_index(r, tj));
+      stage(Vs, B, N, tj * TILE, Q, n0, N);
+      __syncthreads();
+      mma_nn(acc, Ds, Vs);
+    }
+    T* out = dC + (size_t)bc * Q * N;
+#pragma unroll
+    for (int xx = 0; xx < 4; ++xx) {
+      const int i = r0 + ty + 16 * xx;
+      if (i >= Q) continue;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int n = n0 + 4 * tx + 32 * (c / 4) + c % 4;
+        if (n < N) st(out + (size_t)i * N + n, acc[xx][c]);
       }
     }
     return;
   }
-  const int bc = blockIdx.x / (n_rt * n_ct);
-  const int rt = (blockIdx.x / n_ct) % n_rt, ct = blockIdx.x % n_ct;
-  const int r0 = rt * ROWS, n0 = ct * COLS;
-  const int ty = tid / 16, tx = tid % 16;   // rows ty * 2 + r, cols tx + 16 s
-  const float* dS = S + ((size_t)bc * 2 + 1) * Q * Q;
-  const T* B = Bm + (size_t)bc * Q * N;
+  // dB[j, n] = sum_{i >= j} dS[i, j] C[i, n] + sum_g xdp[g, j, n], rows
+  // j = r0 + 4 ty + x
   const T* C = Cm + (size_t)bc * Q * N;
-  float acc_c[2][4] = {}, acc_b[2][4] = {};
-
-  // dC[i, n] = sum_{j <= i} dS[i, j] B[j, n] for rows i of the tile
-  const int r_end = min(r0 + ROWS, Q);
-  for (int k0 = 0; k0 < r_end; k0 += ROWS) {
-    for (int idx = tid; idx < ROWS * ROWS; idx += THREADS) {
-      const int r = idx / ROWS, k = idx % ROWS, i = r0 + r, j = k0 + k;
-      As[r][k] = (i < Q && j <= i) ? dS[(size_t)i * Q + j] : 0.0f;
-    }
-    for (int idx = tid; idx < ROWS * COLS; idx += THREADS) {
-      const int k = idx / COLS, c = idx % COLS, j = k0 + k, n = n0 + c;
-      Vs[k][c] = (j < Q && n < N) ? ld(B + (size_t)j * N + n) : 0.0f;
-    }
+  for (int ti = r; ti < nt; ++ti) {
     __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < ROWS; ++k) {
-      float u[2], v[4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) u[r] = As[ty * 2 + r][k];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) v[s] = Vs[k][tx + 16 * s];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          acc_c[r][s] = __fmaf_rn(u[r], v[s], acc_c[r][s]);
-    }
+    stage_ds(Ds, dSp, bc, G, tiles, tile_index(ti, r));
+    stage(Vs, C, N, ti * TILE, Q, n0, N);
     __syncthreads();
+    mma_tn(acc, Ds, Vs);
   }
-  // dB[j, n] = sum_{i >= j} dS[i, j] C[i, n] for rows j of the tile
-  for (int k0 = r0; k0 < Q; k0 += ROWS) {
-    for (int idx = tid; idx < ROWS * ROWS; idx += THREADS) {
-      const int r = idx / ROWS, k = idx % ROWS, j = r0 + r, i = k0 + k;
-      As[r][k] = (i < Q && j < Q && j <= i) ? dS[(size_t)i * Q + j] : 0.0f;
-    }
-    for (int idx = tid; idx < ROWS * COLS; idx += THREADS) {
-      const int k = idx / COLS, c = idx % COLS, i = k0 + k, n = n0 + c;
-      Vs[k][c] = (i < Q && n < N) ? ld(C + (size_t)i * N + n) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < ROWS; ++k) {
-      float u[2], v[4];
+  // + the x dst partials, summed in group order (each group's 32 loads
+  // independent)
+  T* out = dB + (size_t)bc * Q * N;
+  const float* xd = xdp + (size_t)bc * G * Q * N;
+  float xs[4][8];
+  for (int gg = 0; gg < G; ++gg) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) u[r] = As[ty * 2 + r][k];
+    for (int xx = 0; xx < 4; ++xx) {
+      const int j = r0 + 4 * ty + xx;
 #pragma unroll
-      for (int s = 0; s < 4; ++s) v[s] = Vs[k][tx + 16 * s];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          acc_b[r][s] = __fmaf_rn(u[r], v[s], acc_b[r][s]);
-    }
-    __syncthreads();
-  }
-  // + sum_h d_h[j] (x_h dst_h)[j, n], the heads in order
-  for (int h = 0; h < H; ++h) {
-    float xs[2][4] = {};
-    const T* dsth = dst + ((size_t)bc * H + h) * P * N;
-    for (int k0 = 0; k0 < P; k0 += ROWS) {
-      for (int idx = tid; idx < ROWS * ROWS; idx += THREADS) {
-        const int r = idx / ROWS, k = idx % ROWS, j = r0 + r, p = k0 + k;
-        As[r][k] = (j < Q && p < P)
-                       ? ld(x + (((size_t)bc * Q + j) * H + h) * P + p)
-                       : 0.0f;
+      for (int c = 0; c < 8; ++c) {
+        const int n = n0 + 4 * tx + 32 * (c / 4) + c % 4;
+        const float u = j < Q && n < N
+                            ? xd[(size_t)gg * Q * N + (size_t)j * N + n]
+                            : 0.0f;
+        xs[xx][c] = gg ? __fadd_rn(xs[xx][c], u) : u;
       }
-      for (int idx = tid; idx < ROWS * COLS; idx += THREADS) {
-        const int k = idx / COLS, c = idx % COLS, p = k0 + k, n = n0 + c;
-        Vs[k][c] = (p < P && n < N) ? ld(dsth + (size_t)p * N + n) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < ROWS; ++k) {
-        float u[2], v[4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) u[r] = As[ty * 2 + r][k];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) v[s] = Vs[k][tx + 16 * s];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) xs[r][s] = __fmaf_rn(u[r], v[s], xs[r][s]);
-      }
-      __syncthreads();
-    }
-    const float* dh = cum + ((size_t)bc * H + h) * 2 * Q + Q;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int j = r0 + ty * 2 + r;
-      const float d = j < Q ? dh[j] : 0.0f;
-#pragma unroll
-      for (int s = 0; s < 4; ++s) acc_b[r][s] = __fmaf_rn(d, xs[r][s], acc_b[r][s]);
     }
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = r0 + ty * 2 + r;
-    if (i >= Q) continue;
+  for (int xx = 0; xx < 4; ++xx) {
+    const int j = r0 + 4 * ty + xx;
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int n = n0 + tx + 16 * s;
-      if (n < N) {
-        const size_t at = ((size_t)bc * Q + i) * N + n;
-        st(dC + at, acc_c[r][s]);
-        st(dB + at, acc_b[r][s]);
-      }
+    for (int c = 0; c < 8; ++c) {
+      const int n = n0 + 4 * tx + 32 * (c / 4) + c % 4;
+      if (j < Q && n < N)
+        st(out + (size_t)j * N + n, __fadd_rn(acc[xx][c], xs[xx][c]));
     }
   }
 }
 
 template <class T>
 int launch(const void* x, const void* a, const void* Bm, const void* Cm,
-           const void* dy, const void* dst, float* cum, float* S,
-           float* part, float* e, void* dx, void* da, void* dB, void* dC,
-           int BC, int Q, int H, int P, int N, cudaStream_t s) {
+           const void* dy, const void* dst, float* S, float* cum, float* dSp,
+           float* part, float* e, float* xdp, void* dx, void* da, void* dB,
+           void* dC, int BC, int Q, int H, int P, int N, int hpg,
+           cudaStream_t s) {
   const T* tx = static_cast<const T*>(x);
   const T* tB = static_cast<const T*>(Bm);
   const T* tC = static_cast<const T*>(Cm);
+  const T* tdy = static_cast<const T*>(dy);
   const T* tdst = static_cast<const T*>(dst);
-  const int nt = (Q + TILE - 1) / TILE;
-  ssd_bwd_cum_kernel<T><<<(unsigned)(BC * H), 32, 0, s>>>(
-      static_cast<const T*>(a), cum, Q);
-  int err = static_cast<int>(cudaGetLastError());
+  const int nt = (Q + TILE - 1) / TILE, tiles = n_tiles(nt);
+  const int G = (H + hpg - 1) / hpg, n_nc = (N + TILE - 1) / TILE;
+  const long long rows4 = ((long long)BC * H + 3) / 4;
+  const long long prep_blocks = (long long)BC * tiles + rows4;
+  const long long dbdc_blocks = 2LL * BC * nt * n_nc + rows4;
+  if (G > 65535 || (long long)nt * n_nc > 0x7fffffffLL ||
+      prep_blocks > 0x7fffffffLL || dbdc_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = opt_in(ssd_bwd_ds_kernel<T>, DS_SMEM);
+  if (!err) err = opt_in(ssd_bwd_dx_kernel<T>, DX_SMEM);
   if (err) return err;
-  ssd_bwd_ds_kernel<T><<<dim3(nt * (nt + 1) / 2, BC), THREADS, 0, s>>>(
-      tx, tB, tC, static_cast<const T*>(dy), cum, S, part, Q, H, P, N, nt);
+  ssd_bwd_prep_kernel<T><<<(unsigned)prep_blocks, THREADS, PREP_SMEM, s>>>(
+      static_cast<const T*>(a), tB, tC, S, cum, BC, Q, H, N, nt);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  ssd_bwd_dx_kernel<T><<<dim3(nt, H, BC), THREADS, 0, s>>>(
-      tx, tB, static_cast<const T*>(dy), tdst, cum, S, e,
-      static_cast<T*>(dx), Q, H, P, N, nt);
+  ssd_bwd_ds_kernel<T><<<dim3(tiles, G, BC), THREADS, DS_SMEM, s>>>(
+      tx, tdy, S, cum, dSp, part, Q, H, P, nt, hpg);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  const int n_rt = (Q + ROWS - 1) / ROWS, n_ct = (N + COLS - 1) / COLS;
-  const long long n_tiles = (long long)BC * n_rt * n_ct;
-  const long long blocks = n_tiles + (long long)BC * H;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  ssd_bwd_dbdc_kernel<T><<<(unsigned)blocks, THREADS, 0, s>>>(
-      tx, tB, tC, tdst, cum, S, part, e, static_cast<T*>(dB),
-      static_cast<T*>(dC), static_cast<T*>(da), Q, H, P, N, nt, n_rt, n_ct,
-      (int)n_tiles);
+  ssd_bwd_dx_kernel<T><<<dim3(nt, H, BC), THREADS, DX_SMEM, s>>>(
+      tx, tB, tdy, tdst, S, cum, e, static_cast<T*>(dx), Q, H, P, N, nt);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  ssd_bwd_xdst_kernel<T><<<dim3(nt * n_nc, G, BC), THREADS, TWO_TILES_SMEM,
+                           s>>>(tx, tdst, cum, xdp, Q, H, P, N, hpg, n_nc);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  ssd_bwd_dbdc_kernel<T><<<(unsigned)dbdc_blocks, THREADS, TWO_TILES_SMEM,
+                           s>>>(tB, tC, dSp, xdp, part, e,
+                                static_cast<T*>(dB), static_cast<T*>(dC),
+                                static_cast<T*>(da), BC, Q, H, N, nt, G,
+                                n_nc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -566,27 +603,29 @@ int launch(const void* x, const void* a, const void* Bm, const void* Cm,
 extern "C" {
 
 // dtype 0: fp32, 1: bf16 for x, a, Bm, Cm, dy, dst and the outputs dx,
-// da, dB, dC.  fp32 scratch from the wrapper: cum [BC, H, 2, Q], S [BC, 2,
-// Q, Q], part [BC, H, 2, nt, Q] (nt = ceil(Q / 64)), e [BC, H, Q].
+// da, dB, dC.  fp32 scratch from the wrapper (nt = ceil(Q / 64), tiles =
+// nt (nt + 1) / 2, G = ceil(H / hpg)): S [BC, tiles, 64, 64], cum [BC, H,
+// 2, Q], dSp [BC, G, tiles, 64, 64], part [BC, H, 2, nt, Q], e [BC, H, Q],
+// xdp [BC, G, Q, N].
 int fog_ssd_chunk_bwd(int dtype, const void* x, const void* a,
                       const void* Bm, const void* Cm, const void* dy,
-                      const void* dst, void* cum, void* S, void* part,
-                      void* e, void* dx, void* da, void* dB, void* dC, int BC,
-                      int Q, int H, int P, int N, void* stream) {
-  if (Q < 1 || Q > MAX_Q || BC < 1 || H < 1 || P < 1 || N < 1 ||
-      BC > 65535 || H > 65535 || (long long)BC * H > 0x7fffffffLL ||
-      (dtype != 0 && dtype != 1))
+                      const void* dst, void* S, void* cum, void* dSp,
+                      void* part, void* e, void* xdp, void* dx, void* da,
+                      void* dB, void* dC, int BC, int Q, int H, int P, int N,
+                      int hpg, void* stream) {
+  if (Q < 1 || Q > MAX_Q || BC < 1 || H < 1 || P < 1 || N < 1 || hpg < 1 ||
+      BC > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* fcum = static_cast<float*>(cum);
-  float* fS = static_cast<float*>(S);
-  float* fpart = static_cast<float*>(part);
-  float* fe = static_cast<float*>(e);
+  float* f[6] = {static_cast<float*>(S), static_cast<float*>(cum),
+                 static_cast<float*>(dSp), static_cast<float*>(part),
+                 static_cast<float*>(e), static_cast<float*>(xdp)};
   if (dtype == 0)
-    return launch<float>(x, a, Bm, Cm, dy, dst, fcum, fS, fpart, fe, dx, da,
-                         dB, dC, BC, Q, H, P, N, s);
-  return launch<__nv_bfloat16>(x, a, Bm, Cm, dy, dst, fcum, fS, fpart, fe,
-                               dx, da, dB, dC, BC, Q, H, P, N, s);
+    return launch<float>(x, a, Bm, Cm, dy, dst, f[0], f[1], f[2], f[3],
+                         f[4], f[5], dx, da, dB, dC, BC, Q, H, P, N, hpg, s);
+  return launch<__nv_bfloat16>(x, a, Bm, Cm, dy, dst, f[0], f[1], f[2],
+                               f[3], f[4], f[5], dx, da, dB, dC, BC, Q, H, P,
+                               N, hpg, s);
 }
 
 }  // extern "C"

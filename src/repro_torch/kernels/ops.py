@@ -124,8 +124,12 @@ class SsdChunk(torch.autograd.Function):
     cores (``csrc/ssd_chunk_bwd_sm90.cu``, which rounds W_h and dS to bf16
     as its products' operands, replayed by
     ``ssd_chunk.ssd_chunk_bwd_sm90_replay``), fp32 and every other shape
-    on CUDA cores (``csrc/ssd_chunk_bwd.cu``); ``ssd_chunk_bwd_ref`` on the
-    CPU.  An unused output's gradient arrives as zeros."""
+    on CUDA cores (``csrc/ssd_chunk_bwd.cu``: fp32 register tiles over
+    shared-memory tiles, dS summed over groups of
+    ``ssd_chunk.simt_bwd_heads_per_group`` heads whose partials the dB/dC
+    pass adds in group order, five launches, no atomics);
+    ``ssd_chunk_bwd_ref`` on the CPU.  An unused output's gradient arrives
+    as zeros."""
 
     @staticmethod
     def forward(ctx, xbar, a, Bm, Cm):

@@ -16,10 +16,12 @@ alone, a documented rule, never by a failure:
   ``bf16(x̄·decay)ᵀ·B``.  Every TMA operand must start on a 16-byte
   boundary; ``_build.check_tma`` checks that before the launch.
 * ``"simt"``, every other case (fp32 included): ``csrc/ssd_chunk.cu``,
-  three launches on CUDA cores (``C·Bᵀ`` once per chunk into an fp32
-  scratch, then ``y`` per (row tile, head, chunk) and the states per
-  (``[P, N]`` tile, head, chunk)), fp32 inside, which keeps fp32 within
-  ~1e-4 of the output's scale.
+  two launches on CUDA cores, fp32 inside, which keeps fp32 within ~1e-4
+  of the output's scale: ``C·Bᵀ``'s tiles on or below the diagonal once
+  per chunk and every (chunk, head)'s cumsum once into an fp32 scratch
+  (:func:`simt_plan`), then one block per (head, chunk) that stages x's
+  column slice once and computes both ``y`` and the states from it, 4 x 8
+  outputs a thread fed by float4 reads of shared-memory tiles.
 
 Both write ``y`` and the states in ``xbar``'s dtype; each C entry point
 counts as one launch.  The sources' headers say what bounds each.  The
@@ -42,8 +44,12 @@ call either way (:func:`ssd_chunk_bwd_cuda`):
   ssd_chunk_bwd_sm90_replay` replays that rounding on the CPU.  Every
   TMA operand (x, B, C, dy, dstates) must start on a 16-byte boundary.
 * ``"simt"`` (fp32, and bf16 at any other shape): ``csrc/ssd_chunk_bwd.cu``,
-  counted as ``ssd_chunk_bwd``, fp32 arithmetic on CUDA cores (four
-  launches), the gradients stored in the inputs' dtype.
+  counted as ``ssd_chunk_bwd``, fp32 arithmetic on CUDA cores, the
+  gradients stored in the inputs' dtype, in five launches: S's tiles and
+  the cumsums; dS per (tile, group of :func:`simt_bwd_heads_per_group`
+  heads, chunk), a partial per group; dx and e per (row tile, head,
+  chunk); ``Σ_h d ∘ (x_h dst_h)`` as one split-K product over the head
+  groups; dC, dB (the partials summed in group order) and da.
 
 Both are the gradient of the chunk function at the inputs (not of the
 tensor-core forward's bf16 rounding of W and of the decayed x̄), take no
@@ -53,13 +59,17 @@ autograd.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from repro_torch.kernels import _build
 
 __all__ = ["MAX_Q", "SM90_N", "SM90_P", "bwd_smem_bytes_sm90",
-           "check_shapes", "route", "segsum", "sm90_heads_per_block",
-           "smem_bytes_sm90", "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_ref",
+           "check_shapes", "route", "segsum", "simt_bwd_heads_per_group",
+           "simt_plan", "sm90_heads_per_block", "smem_bytes_sm90",
+           "ssd_chunk_bwd_cuda", "ssd_chunk_bwd_ref",
            "ssd_chunk_bwd_sm90_replay", "ssd_chunk_cuda", "ssd_chunk_ref",
            "ssd_chunk_sm90_replay", "ssd_intra_chunk"]
 
@@ -92,6 +102,91 @@ def sm90_heads_per_block(n_chunks: int, H: int, n_sm: int) -> int:
     128 blocks."""
     per_chunk = max(1, n_sm // n_chunks)
     return -(-H // per_chunk)
+
+
+# the SIMT kernels' tiles (csrc/ssd_simt.cuh): 64 x 64, staged in shared
+# memory as rows of SIMT_LDT floats
+SIMT_TILE = 64
+SIMT_LDT = 68
+# the SIMT backward's dS pass: blocks an SM its head groups aim for, at the
+# row tiles of a chunk of MAX_Q
+SIMT_BWD_BLOCKS_PER_SM = 4
+_GRID_X, _GRID_YZ = 2**31 - 1, 65535
+
+
+def simt_bwd_heads_per_group(BC: int, H: int, n_sm: int) -> int:
+    """Heads one block of the SIMT backward's dS and ``x dst`` passes
+    walks: enough groups that the dS pass, one block per (tile, group,
+    chunk), has ``SIMT_BWD_BLOCKS_PER_SM`` blocks on each of the card's
+    ``n_sm`` multiprocessors at Q = MAX_Q (10 tiles a chunk), at most one
+    group a head.  At the fp32 training shape (8 chunks, 80 heads, 132
+    SMs): 7 groups of 12 heads (the last 8), 560 dS blocks."""
+    nt = MAX_Q // SIMT_TILE
+    per_group = BC * nt * (nt + 1) // 2
+    groups = min(H, max(1, -(-SIMT_BWD_BLOCKS_PER_SM * n_sm // per_group)))
+    return -(-H // groups)
+
+
+@functools.lru_cache(maxsize=256)
+def simt_plan(BC: int, Q: int, H: int, P: int, N: int, n_sm: int) -> dict:
+    """The SIMT kernels' launches at these shapes, as
+    ``csrc/ssd_chunk.cu`` and ``csrc/ssd_chunk_bwd.cu`` make them: per
+    kernel its grid ``(x, y, z)`` and dynamic shared memory, the backward's
+    head groups (``heads``: each group's heads in order), and each fp32
+    scratch's shape and bytes.  ``ssd_chunk_cuda`` and
+    ``ssd_chunk_bwd_cuda`` allocate the scratch from it and refuse a grid
+    over CUDA's limits before any launch (the result is cached: read it,
+    do not change it)."""
+    T, LDT = SIMT_TILE, SIMT_LDT
+    nt = -(-Q // T)
+    tiles = nt * (nt + 1) // 2
+    n_nc = -(-N // T)
+    hpg = simt_bwd_heads_per_group(BC, H, n_sm)
+    G = -(-H // hpg)
+    rows4 = -(-BC * H // 4)
+    tile_b, two_tiles = 4 * T * LDT, 2 * 4 * T * LDT
+    fwd = {"prep": ((BC * tiles + rows4, 1, 1), two_tiles),
+           "fwd": ((H, BC, 1), 4 * ((nt + 2) * T * LDT + 2 * MAX_Q))}
+    bwd = {"prep": ((BC * tiles + rows4, 1, 1), two_tiles),
+           "ds": ((tiles, G, BC), 3 * tile_b + 4 * 6 * T),
+           "dx": ((nt, H, BC), 3 * tile_b + 4 * MAX_Q),
+           "xdst": ((nt * n_nc, G, BC), two_tiles),
+           "dbdc": ((2 * BC * nt * n_nc + rows4, 1, 1), two_tiles)}
+    scratch = {"fwd": {"S": (BC, tiles, T, T), "cum": (BC, H, 2, Q)},
+               "bwd": {"S": (BC, tiles, T, T), "cum": (BC, H, 2, Q),
+                       "dSp": (BC, G, tiles, T, T),
+                       "part": (BC, H, 2, nt, Q), "e": (BC, H, Q),
+                       "xdp": (BC, G, Q, N)}}
+    nbytes = {k: {n: 4 * math.prod(sh) for n, sh in v.items()}
+              for k, v in scratch.items()}
+    return {"heads_per_group": hpg, "groups": G,
+            "heads": [list(range(g * hpg, min(H, (g + 1) * hpg)))
+                      for g in range(G)],
+            "fwd": fwd, "bwd": bwd, "scratch": scratch,
+            "scratch_bytes": nbytes}
+
+
+def _scratch(shapes: dict, device) -> list:
+    """fp32 tensors of ``shapes``' shapes, views of one allocation, each
+    starting on a 256-byte boundary (the kernels read S's tiles as
+    float4s)."""
+    sizes = [math.prod(sh) for sh in shapes.values()]
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + -(-n // 64) * 64)
+    buf = torch.empty(starts[-1], dtype=torch.float32, device=device)
+    return [buf[a:a + n].view(sh)
+            for a, n, sh in zip(starts, sizes, shapes.values())]
+
+
+def _check_grids(what: str, launches: dict) -> None:
+    """Raise unless every grid of ``launches`` (``simt_plan``'s) is within
+    CUDA's limits: x < 2**31, y and z <= 65535."""
+    for name, ((gx, gy, gz), _) in launches.items():
+        if gx > _GRID_X or gy > _GRID_YZ or gz > _GRID_YZ:
+            raise ValueError(f"{what}'s {name} pass would launch a grid of "
+                             f"({gx}, {gy}, {gz}) blocks, over CUDA's "
+                             f"limits ({_GRID_X}, {_GRID_YZ}, {_GRID_YZ})")
 
 
 def smem_bytes_sm90(N: int) -> int:
@@ -320,12 +415,13 @@ def ssd_chunk_cuda(xbar: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
                       y.data_ptr(), states.data_ptr(), B * nc, Q, H, P, N,
                       hpb, entry="ssd_chunk_sm90")
         return y, states
-    scores = torch.empty((B * nc, Q, Q), dtype=torch.float32,
-                         device=xbar.device)
+    plan = simt_plan(B * nc, Q, H, P, N, _build.sm_count(xbar.device))
+    _check_grids("ssd_chunk", plan["fwd"])
+    S, cum = _scratch(plan["scratch"]["fwd"], xbar.device)
     _build.launch("ssd_chunk", xbar.device, _DTYPES[xbar.dtype],
                   xbar.data_ptr(), a.data_ptr(), Bm.data_ptr(),
                   Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
-                  scores.data_ptr(), B * nc, Q, H, P, N)
+                  S.data_ptr(), cum.data_ptr(), B * nc, Q, H, P, N)
     return y, states
 
 
@@ -374,10 +470,6 @@ def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
     da = torch.empty_like(a)
     dB = torch.empty_like(Bm)
     dC = torch.empty_like(Cm)
-    # scratch: cumsums and end decays, the per-head row and column sums of
-    # t, and e
-    cum = torch.empty((BC, H, 2, Q), dtype=f32, device=dev)
-    e = torch.empty((BC, H, Q), dtype=f32, device=dev)
     if route(xbar.dtype, Q, P, N) == "sm90":
         for name, t in (("xbar", xbar), ("Bm", Bm), ("Cm", Cm), ("dy", dy),
                         ("dstates", dstates)):
@@ -387,7 +479,11 @@ def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
             raise ValueError(f"ssd_chunk's backward at N={N} needs {smem} B "
                              f"of shared memory per block, the card allows "
                              f"{_build.smem_optin(dev)}")
-        # dS rounded to bf16 and its transpose, each [BC, QP, QP]
+        # scratch: cumsums and end decays, dS rounded to bf16 and its
+        # transpose (each [BC, QP, QP]), the per-head row and column sums
+        # of t, and e
+        cum = torch.empty((BC, H, 2, Q), dtype=f32, device=dev)
+        e = torch.empty((BC, H, Q), dtype=f32, device=dev)
         qp = nt * BWD_TILE
         dS = torch.empty((2, BC, qp, qp), dtype=torch.bfloat16, device=dev)
         rowpart = torch.empty((BC, H, nt, Q), dtype=f32, device=dev)
@@ -398,10 +494,13 @@ def ssd_chunk_bwd_cuda(xbar: torch.Tensor, a: torch.Tensor,
                                    rowpart, colsum, e, dx, da, dB, dC)),
             BC, Q, H, P, N, hpb)
         return dx, da, dB, dC
-    # S and dS, the per-head row and column sums of t per tile
-    S = torch.empty((BC, 2, Q, Q), dtype=f32, device=dev)
-    part = torch.empty((BC, H, 2, nt, Q), dtype=f32, device=dev)
+    # S's tiles, the cumsums, the group partials of dS, the per-head row
+    # and column sums of t per tile, e, the group partials of x dst
+    plan = simt_plan(BC, Q, H, P, N, _build.sm_count(dev))
+    _check_grids("ssd_chunk's backward", plan["bwd"])
+    scratch = _scratch(plan["scratch"]["bwd"], dev)
     _build.launch("ssd_chunk_bwd", dev, _DTYPES[xbar.dtype], *(
-        t.data_ptr() for t in (xbar, a, Bm, Cm, dy, dstates, cum, S, part,
-                               e, dx, da, dB, dC)), BC, Q, H, P, N)
+        t.data_ptr() for t in (xbar, a, Bm, Cm, dy, dstates, *scratch, dx,
+                               da, dB, dC)), BC, Q, H, P, N,
+        plan["heads_per_group"])
     return dx, da, dB, dC

@@ -1962,3 +1962,63 @@ def test_bf16_train_step_on_the_tensor_cores(cuda):
         assert gk[k].dtype == params.get_parameter(k).dtype
         assert (chip_smoke.rel_l2(gk[k], g)
                 <= 2 * chip_smoke.rel_l2(gp[k], g) + chip_smoke.BF16_FLOOR), k
+
+
+# the SIMT SSD kernels (csrc/ssd_chunk.cu, csrc/ssd_chunk_bwd.cu): the fp32
+# training shape, the backward's cases, a head count its groups do not
+# divide (13 heads in groups of 2 at 8 chunks) and one chunk at full width
+SIMT_SSD_CASES = (
+    (("the fp32 training shape", chip_smoke.SSD_FP32_TRAIN),)
+    + chip_smoke.SSD_BWD_CASES[1:]
+    + (("H = 13 over groups of 2", (8, 1, 64, 13, 16, 16)),
+       ("BC = 1 at full width", (1, 1, 256, 80, 64, 128))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("label,shape", SIMT_SSD_CASES,
+                         ids=[c[0] for c in SIMT_SSD_CASES])
+def test_simt_ssd_forward_redesign(cuda, label, shape, dtype):
+    """The SIMT forward (one block per (head, chunk) computing y and the
+    states from one staging of x) against ``ssd_chunk_ref`` under
+    ``ssd_close``'s SIMT bar, the same bits on a second run, one launch a
+    call on the ``ssd_chunk`` route (bf16 only where the tensor cores do
+    not take the shape)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import route, ssd_chunk_ref
+    dt = getattr(torch, dtype)
+    if route(dt, shape[2], shape[4], shape[5]) != "simt":
+        assert dt == torch.bfloat16
+        return
+    args = ssd_inputs(np.random.default_rng(sum(shape)), shape, dt, cuda)
+    before = dict(_build.routes)
+    got = ops.ssd_chunk(*args)
+    again = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert _build.routes["ssd_chunk"] == before["ssd_chunk"] + 2
+    assert _build.routes["ssd_chunk_sm90"] == before["ssd_chunk_sm90"]
+    for g, a, w in zip(got, again, ssd_chunk_ref(*args)):
+        assert torch.equal(g, a)
+        assert_ssd_close(g, w)
+
+
+@pytest.mark.parametrize("label,shape", [SIMT_SSD_CASES[0],
+                                         *SIMT_SSD_CASES[-2:]],
+                         ids=[c[0] for c in (SIMT_SSD_CASES[0],
+                                             *SIMT_SSD_CASES[-2:])])
+def test_simt_ssd_backward_redesign(cuda, label, shape):
+    """The SIMT backward (dS over head groups, their partials summed in
+    group order; the split-K x dst product) at the fp32 training shape, a
+    head count its groups do not divide and one chunk: held to a float64
+    run of ``ssd_chunk_bwd_ref`` as ``test_ssd_backward_kernel_matches_
+    plain`` holds the other cases, the same bits on a second run."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_chunk import simt_plan
+    B, nc, Q, H, P, N = shape
+    plan = simt_plan(B * nc, Q, H, P, N, _build.sm_count(cuda))
+    if label.startswith("H = 13"):
+        assert (plan["heads_per_group"], plan["groups"]) == (2, 7)
+    args = chip_smoke.ssd_bwd_inputs(np.random.default_rng(sum(shape)),
+                                     shape, cuda)
+    before = ops.launches["ssd_chunk_bwd"]
+    chip_smoke.ssd_bwd_check(label, args)
+    assert ops.launches["ssd_chunk_bwd"] == before + 2

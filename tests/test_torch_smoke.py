@@ -225,3 +225,47 @@ def test_ssd_backward_work_in_bf16_at_mamba2_s_training_shape():
     ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"],
                                  chip_smoke.BF16_OPS_PER_S)
     assert by == "bytes" and abs(ms - 0.090929) < 1e-6
+
+
+def test_ssd_work_at_the_fp32_training_shape():
+    """ssd_chunk's forward at mamba2-2.7b's fp32 training shape (xbar [8,
+    1, 256, 80, 64], N = 128): 5.45 GFLOP over the causal pairs (0.0813
+    ms at 67 TFLOP/s) above 107.6 MB (0.032 ms at 3.35 TB/s): operations
+    bound it."""
+    work = chip_smoke.ssd_work(8, 1, 256, 80, 64, 128, 4)
+    assert work["ops"] == 5_446_565_888
+    assert work["bytes"] == 107_610_112
+    ms, by = chip_smoke.bound_ms(work["bytes"], work["ops"])
+    assert by == "operations" and abs(ms - 0.081292) < 1e-6
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 256, 80, 64, 128),
+                                   (2, 2, 200, 5, 72, 130),
+                                   (1, 3, 7, 2, 5, 3)], ids=str)
+def test_simt_design_operations_count_their_tiles(shape):
+    """What the SIMT kernels run over their 64 x 64 tiles, Q, P and N
+    rounded up to 64, counted tile by tile: the forward C.B^T once per
+    chunk over the tiles on or below the diagonal, per head W.x over them
+    and the states over the whole chunk; the backward S, dC and dB per
+    chunk over the tiles, per head dW and W^T dy over the tiles, G per
+    (row tile, 64 columns of P) and x dst per (row tile, 64 columns of N)
+    over the whole chunk.  At the training shape 6.12 and 12.33 GFLOP."""
+    B, nc, Q, H, P, N = shape
+    T = 64
+    nt, npp, nn = -(-Q // T), -(-P // T), -(-N // T)
+    tiles = [(ti, tj) for ti in range(nt) for tj in range(ti + 1)]
+    prod = 2 * T * T * T                  # one 64 x 64 x 64 tile product
+    fwd = bwd = 0
+    for _ in range(B * nc):
+        fwd += len(tiles) * nn * prod                       # S
+        bwd += 3 * len(tiles) * nn * prod                   # S, dC, dB
+        for _ in range(H):
+            fwd += len(tiles) * npp * prod                  # W x
+            fwd += npp * nn * nt * prod                     # states
+            bwd += 2 * len(tiles) * npp * prod              # dW, W^T dy
+            bwd += nt * npp * nn * prod                     # G
+            bwd += nt * nn * npp * prod                     # x dst
+    assert chip_smoke.ssd_work(*shape, 4)["ops_simt"] == fwd
+    assert chip_smoke.ssd_bwd_work(*shape)["simt_ops"] == bwd
+    if shape == (8, 1, 256, 80, 64, 128):
+        assert (fwd, bwd) == (6_123_683_840, 12_331_253_760)

@@ -42,7 +42,7 @@ from repro.models import mamba2 as jm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.ssd_chunk import (MAX_Q, check_shapes,  # noqa: E402
-                                           route,
+                                           route, simt_plan,
                                            sm90_heads_per_block,
                                            smem_bytes_sm90, ssd_chunk_cuda,
                                            ssd_chunk_ref,
@@ -228,6 +228,60 @@ def test_sm90_plan_fits_the_card():
         hpb = sm90_heads_per_block(n_chunks, H, n_sm)
         groups = -(-H // hpb)
         assert 1 <= hpb <= H and (groups - 1) * hpb < H <= groups * hpb
+
+
+@pytest.mark.parametrize("H", [1, 3, 80])
+@pytest.mark.parametrize("BC", [1, 8, 32])
+def test_simt_plan_covers_every_head_within_cuda_limits(BC, H):
+    """The SIMT kernels' launches at Q = 256, P = 64, N = 128 on 132 SMs
+    (``simt_plan``, as csrc/ssd_chunk.cu and csrc/ssd_chunk_bwd.cu make
+    them): the backward's head groups hold every head once, in order, all
+    of ``heads_per_group`` heads but the last; the dS pass has at least
+    half of four blocks an SM (or a block per tile and head); every grid
+    is within CUDA's limits and every block's shared memory within the
+    227 KB it may opt into; each fp32 scratch has the bytes of its
+    shape."""
+    plan = simt_plan(BC, 256, H, 64, 128, 132)
+    hpg, G, groups = (plan["heads_per_group"], plan["groups"],
+                      plan["heads"])
+    assert [h for g in groups for h in g] == list(range(H))
+    assert G == len(groups) == -(-H // hpg)
+    assert all(len(g) == hpg for g in groups[:-1])
+    assert 1 <= len(groups[-1]) <= hpg
+    nt, tiles = 4, 10
+    assert plan["bwd"]["ds"][0] == (tiles, G, BC)
+    assert 2 * tiles * G * BC >= min(4 * 132, 2 * tiles * BC * H)
+    for launches in (plan["fwd"], plan["bwd"]):
+        for (gx, gy, gz), smem in launches.values():
+            assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= 65535
+            assert 1 <= gz <= 65535 and smem <= 232_448
+    f = 4
+    assert plan["scratch_bytes"] == {
+        "fwd": {"S": f * BC * tiles * 64 * 64, "cum": f * BC * H * 2 * 256},
+        "bwd": {"S": f * BC * tiles * 64 * 64, "cum": f * BC * H * 2 * 256,
+                "dSp": f * BC * G * tiles * 64 * 64,
+                "part": f * BC * H * 2 * nt * 256, "e": f * BC * H * 256,
+                "xdp": f * BC * G * 256 * 128}}
+    if (BC, H) == (8, 80):
+        # mamba2-2.7b's fp32 training shape: 7 groups of 12 heads, 560
+        # dS blocks; the shared memory the sources' headers state
+        assert (hpg, G) == (12, 7)
+        assert {k: v[1] for k, v in plan["bwd"].items()} == {
+            "prep": 34_816, "ds": 53_760, "dx": 53_248, "xdst": 34_816,
+            "dbdc": 34_816}
+        assert plan["fwd"]["fwd"] == ((80, 8, 1), 106_496)
+        assert sum(plan["scratch_bytes"]["bwd"].values()) == 25_034_752
+
+
+def test_simt_plan_refuses_a_grid_over_cuda_limits():
+    """A chunk count over 65535 does not fit the grids' y / z: refused by
+    the plan's check before any launch."""
+    from repro_torch.kernels.ssd_chunk import _check_grids
+    plan = simt_plan(70_000, 8, 2, 4, 4, 132)
+    with pytest.raises(ValueError, match="over CUDA's limits"):
+        _check_grids("ssd_chunk", plan["fwd"])
+    with pytest.raises(ValueError, match="over CUDA's limits"):
+        _check_grids("ssd_chunk's backward", plan["bwd"])
 
 
 def test_tma_check_refuses_misaligned_and_strided_inputs():
