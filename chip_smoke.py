@@ -35,8 +35,8 @@ and:
    (forward and backward), the tensor-core SSD backward,
    ``fused_fog_group_kernel``, ``tree_traverse_spread_kernel`` and
    ``grove_aggregate_tile_kernel`` (every instance; their registers
-   printed, and the SIMT attention backward's and the SIMT SSD forward's
-   and backward's);
+   printed, and the SIMT attention forward's and backward's and the SIMT
+   SSD forward's and backward's);
 3. trains the forest with the port's numpy CART, packs it at fp32, bf16 and
    int8 on the card, checks that the card's packs equal the CPU's field for
    field, and checks the packed table bytes;
@@ -129,9 +129,11 @@ and:
    width, a ragged Sq = Sk = 200, Sq != Sk causal both ways, non-causal,
    MQA (K = 1) and chameleon's heads (D = Dv = 128, 64 query heads, 8 KV
    heads), and fp32 on the SIMT route at full width, ragged, Sq != Sk,
-   non-causal, D = 192 with Dv = 128 and D = Dv = 256, each case checked
-   for the route it took; checks at fp32 with all 22 layers that decode
-   after prefill equals the forward; times the steps, ``flash_attention``,
+   non-causal, D = 192 with Dv = 128 and D = Dv = 256 (each SIMT case
+   twice with its lse, bit-equal, the lse within ``LSE_BAR``), each case
+   checked for the route it took; checks at fp32 with all 22 layers that
+   decode after prefill equals the forward; times the steps,
+   ``flash_attention``,
    the SIMT kernel at the same bf16 inputs, its plain version and SDPA
    (``enable_gqa``, a yardstick the port never calls: call and device
    time and the backend that ran), and works out its bounds;
@@ -193,8 +195,10 @@ and:
    ``flash_attention``, ``top2_confidence``, ``ssd_chunk`` and the rest;
    and the train steps of 17 and 18 (their weights drawn again) with
    their splits.  Each step, eval and kernel is profiled once (a kernel
-   again only when CUPTI returned no record of it), so the whole run stays
-   within half its 1200 s time limit;
+   again only when CUPTI returned no record of it); even so the whole run
+   takes most of its 1200 s time limit on a slow host (the kernels line
+   printed at 876.4 and 891.3 s in two runs on an H100 whose host-bound
+   phases ran 1.3-1.6x slower than in earlier runs, at 642.1 s before);
 15. tunes the fused launch (``kernels/autotune.py::tune``: every route
    the shapes fit x K x 64-512 threads, and chunks where K stays at
    ``max_hops``, each candidate held bit for bit to the seed's output) at
@@ -221,7 +225,7 @@ and:
    head pairs of minicpm3, deepseek and gemma ``flash_attention`` held to
    its plain version (layer 0's bf16 inputs and ``MLA_FLASH_CASES``:
    causal bf16 and fp32 at S = 2048, ragged S = 200, non-causal, Sq != Sk
-   both ways, MQA; bf16 bit-equal run to run, its lse within
+   both ways, MQA; each case run twice, bit-equal, its lse within
    ``LSE_BAR``), the prefill's call timed beside the SIMT kernel those
    pairs took before; fp32 decode after prefill == the forward at a small
    depth;
@@ -237,14 +241,22 @@ and:
    against its plain version on layer 0's captured q/k/v/dO and
    ``BWD_CASES`` (ragged, Sq != Sk both ways, non-causal, MQA, D = 192 /
    Dv = 128, D = Dv = 256, MLA at smoke width) and a fully masked row,
-   each run twice bit-equal; resumes at ``examples/train_lm.py``'s config
+   each run twice bit-equal; holds the SIMT forward against its plain
+   version on layer 0's captured q/k/v and ``SIMT_FLASH_CASES`` (each tile
+   boundary of ``fwd_tiles``, G odd, Sq != Sk both ways, non-causal, MQA;
+   fp32 and, where the tensor cores do not take the pair, bf16) and a row
+   that sees no finite score (output 0, lse -inf), each twice with its
+   lse, bit-equal, the lse within ``LSE_BAR``; resumes at
+   ``examples/train_lm.py``'s config
    (4 steps straight == 2, save, restore, 2, bit for bit); holds 5 steps
    on the card against the CPU port at the tiny config and one step of
    ``deepseek-v3-671b``'s smoke config (MLA, MoE, MTP) against the plain
    versions; times the step (tokens/s), the backward kernel beside its
    bounds, its plain version and SDPA's backward, and the fp32 forward
-   with lse beside its bound and SDPA's fp32 forward (call ms here, device
-   ms and SDPA's backend in 14); the profiler's split of
+   with lse beside its bounds, its plain version, SDPA's fp32 forward and
+   SDPA forced to its memory-efficient backend (K/V expanded to the query
+   heads outside the timed call; forward and backward) (call ms here,
+   device ms and SDPA's backends in 14); the profiler's split of
    a step's device time (products, ``flash_attention``, its backward, the
    rest; the CE chunks and the optimizer alone) comes in 14; checks that
    the 4 losses equal, bit for bit, those of the same 4 steps run in this
@@ -702,6 +714,21 @@ def retried_profile(fn, kernel: str, tries: int = 5
 
 def fmt(ms: float | None) -> str:
     return "(no profiler record)" if ms is None else f"{ms:.4f}"
+
+
+def library_profile(fn, part: int = 2) -> tuple[float | None, str, dict]:
+    """A library call timed beside a kernel as its yardstick (SDPA) under
+    the profiler: (its device ms, the SDPA backend that ran, its kernels'
+    device ms), from the last of at most five profiles, ``part`` picking
+    ``device_profile``'s ms per call (0) or per launch (2).  Late in a run
+    CUPTI at times returns no record of a library's kernels in any try:
+    then (None, "not recorded", {}), and the call's CUDA-event time stands
+    alone.  The port's own kernels are profiled with
+    :func:`recorded_profile`, which raises instead."""
+    per = retried_profile(fn, "")[part]
+    if not per:
+        return None, "not recorded", {}
+    return sum(per.values()), sdpa_backend(max(per, key=per.get)), per
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -1551,6 +1578,18 @@ def flash_work(B, Sq, Sk, H, K, D, Dv, itemsize, causal=True) -> dict:
             "ops": B * H * pairs * 2 * (D + Dv)}
 
 
+def flash_design_ops(B, Sq, Sk, H, D, Dv, causal=True) -> int:
+    """The FLOP the SIMT forward's design runs: each (q tile, K/V tile)
+    pair it visits whole (``fa.fwd_tiles``), 2 (D + Dv) a (row, key)
+    pair."""
+    bq, bk, _ = fa.fwd_tiles(D, Dv)
+    tiles = 0
+    for t in range(-(-Sq // bq)):
+        end = min(Sk, (t + 1) * bq, Sq) if causal else Sk
+        tiles += -(-end // bk)
+    return B * H * tiles * bq * bk * 2 * (D + Dv)
+
+
 # the flash_attention checks on the card beyond layer 0's inputs:
 # (label, (B, Sq, Sk, H, K, D, Dv), causal, dtype)
 FLASH_CASES = (
@@ -1577,6 +1616,98 @@ FLASH_CASES = (
      True, torch.float32),
     ("D = Dv = 256 (the largest tiles)", (1, 130, 130, 4, 2, 256, 256), True,
      torch.float32))
+
+
+# the SIMT forward (csrc/flash_attention.cu) at each tile boundary of
+# flash_attention.fwd_tiles (max(D, Dv) 64 | 65, 128 | 129), G odd (a
+# block's second unit empty), MQA, Sq != Sk both ways, non-causal:
+# (label, (B, Sq, Sk, H, K, D, Dv), causal, dtypes); bf16 only where the
+# tensor cores do not take the pair
+SIMT_FLASH_CASES = (
+    ("D = Dv = 32", (2, 200, 200, 8, 2, 32, 32), True,
+     (torch.float32, torch.bfloat16)),
+    ("D = Dv = 64", (2, 200, 200, 8, 2, 64, 64), True, (torch.float32,)),
+    ("D = Dv = 65", (1, 130, 130, 6, 3, 65, 65), True,
+     (torch.float32, torch.bfloat16)),
+    ("D = Dv = 128", (1, 200, 200, 4, 2, 128, 128), True, (torch.float32,)),
+    ("D = Dv = 129", (1, 100, 120, 4, 1, 129, 129), True,
+     (torch.float32, torch.bfloat16)),
+    ("D = Dv = 256", (1, 130, 130, 4, 2, 256, 256), True, (torch.float32,)),
+    ("D = 48, Dv = 32 (MLA at smoke width)", (2, 64, 64, 4, 4, 48, 32), True,
+     (torch.float32, torch.bfloat16)),
+    ("G = 3 (an odd count of units)", (1, 150, 150, 6, 2, 64, 64), True,
+     (torch.float32,)),
+    ("Sq < Sk causal", (2, 100, 300, 8, 2, 64, 64), True, (torch.float32,)),
+    ("Sq > Sk causal", (2, 300, 100, 8, 2, 64, 64), True, (torch.float32,)),
+    ("non-causal", (2, 150, 170, 6, 2, 64, 64), False,
+     (torch.float32,)),
+    ("non-causal D = Dv = 32", (2, 150, 170, 6, 2, 32, 32), False,
+     (torch.bfloat16,)),
+    ("MQA (K = 1)", (2, 256, 256, 8, 1, 64, 64), True, (torch.float32,)))
+
+
+def simt_flash_check(what: str, args, kw: dict) -> dict:
+    """The SIMT forward twice with its lse (one launch each on the
+    ``flash_attention`` route) against the plain version: the output
+    within :func:`flash_close`'s bar, the lse within ``LSE_BAR`` of its
+    magnitude (-inf where the plain version's is), the same bits on both
+    runs."""
+    before = dict(_build.routes)
+    got, lse = fa.flash_attention_cuda(*args, with_lse=True, **kw)
+    again, lse2 = fa.flash_attention_cuda(*args, with_lse=True, **kw)
+    ran = {k: _build.routes[k] - before[k] for k in before
+           if _build.routes[k] != before[k]}
+    if ran != {"flash_attention": 2}:
+        raise AssertionError(f"{what}: routes {ran}, want two launches of "
+                             f"the SIMT kernel")
+    if not (torch.equal(got, again) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{what}: another run gave other bits")
+    want, want_lse = plain_flash_lse(*args, **kw)
+    return {"out": flash_close(what, got, want),
+            "lse": lse_close(what, lse, want_lse)}
+
+
+def simt_flash_masked_row(dev: torch.device) -> dict:
+    """The SIMT forward on a row whose every score is -inf (a q row of
+    -inf against positive keys): the kernel's path for a row that sees no
+    key, its output 0 and its lse -inf; the other rows against the plain
+    version's (which gives NaN for that row: a softmax over no finite
+    score)."""
+    q, k, v = flash_inputs(np.random.default_rng(SEED),
+                           (1, 130, 130, 4, 2, 64, 64), torch.float32, dev)
+    k = k.abs()
+    q[0, 5, 1] = -float("inf")
+    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    if out[0, 5, 1].abs().max() != 0 or lse[0, 1, 5] != -float("inf"):
+        raise AssertionError(f"a row that sees no finite score: output "
+                             f"{out[0, 5, 1]}, lse {lse[0, 1, 5]}")
+    want, want_lse = plain_flash_lse(q, k, v)
+    keep = torch.ones(out.shape[:3], dtype=torch.bool, device=dev)
+    keep[0, 5, 1] = False
+    return {"out": flash_close("flash_attention masked row", out[keep],
+                               want[keep]),
+            "lse": lse_close("flash_attention masked row", lse, want_lse)}
+
+
+def simt_flash_checks(dev: torch.device, layer0: dict | None = None
+                      ) -> dict:
+    """The SIMT forward against its plain version (:func:`simt_flash_
+    check`) on layer 0 of a train step (its captured q, k, v) and
+    ``SIMT_FLASH_CASES``, and :func:`simt_flash_masked_row`."""
+    rng = np.random.default_rng(SEED)
+    errs = {}
+    if layer0 is not None:
+        errs["layer 0 of the step"] = simt_flash_check(
+            "flash_attention layer 0", (layer0["q"], layer0["k"],
+                                        layer0["v"]), layer0["kw"])
+    for label, shape, causal, dtypes in SIMT_FLASH_CASES:
+        for dtype in dtypes:
+            name = f"{label} {list(shape)} {str(dtype)[6:]}"
+            errs[name] = simt_flash_check(
+                f"flash_attention {name}", flash_inputs(rng, shape, dtype, dev),
+                {"causal": causal})
+    errs["a row that sees no finite score"] = simt_flash_masked_row(dev)
+    return errs
 
 
 def simt(module, call, *args, **kw):
@@ -1729,6 +1860,18 @@ def simt_bwd_instance(mangled: str) -> str:
         g for g in (dtype, m.group(3), m.group(4)) if g) + ">"
 
 
+def simt_fwd_instance(mangled: str) -> str | None:
+    """A readable name for an instance of the SIMT attention forward,
+    ``fwd<type, RX, RY, NQ>`` (its register tiles), or None for any other
+    kernel."""
+    m = re.search(r"\dflash_attention_kernelI(f|13__nv_bfloat16)NS_5TilesILi"
+                  r"(\d+)ELi(\d+)ELi(\d+)E", mangled)
+    if not m:
+        return None
+    return (f"fwd<{'fp32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, "
+            f"{m.group(3)}, {m.group(4)}>")
+
+
 def simt_ssd_instance(mangled: str) -> str | None:
     """A readable name for a kernel of the SIMT SSD forward or backward,
     ``<name><fp32|bf16>`` (``ssd_chunk_fwd<fp32>``, ``ssd_bwd_ds<bf16>``),
@@ -1833,7 +1976,8 @@ def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
 
 def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
     """flash_attention against its plain version on layer 0's captured
-    inputs and on FLASH_CASES, each on the route ``route`` names for it."""
+    inputs and on FLASH_CASES, each on the route ``route`` names for it
+    (the SIMT cases by :func:`simt_flash_check`)."""
     rng = np.random.default_rng(SEED)
     errs = {}
     cases = [("layer 0 of the prefill, bf16", captured[0][0],
@@ -1843,6 +1987,10 @@ def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
     for label, args, causal in cases:
         entry = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}[
             flash_route(args[0].dtype, args[0].shape[3], args[2].shape[3])]
+        if entry == "flash_attention":
+            errs[f"{label} ({entry})"] = simt_flash_check(
+                f"flash_attention {label}", args, {"causal": causal})
+            continue
         before = dict(_build.routes)
         got = ops.flash_attention(*args, causal=causal)
         ran = {k: _build.routes[k] - before[k] for k in before}
@@ -1854,7 +2002,8 @@ def flash_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
                                                  got, want)
         del got, want
     return errs, ("fp32 within rtol/atol 2e-5; bf16 within 2 bf16 ulps of "
-                  "the output's scale")
+                  "the output's scale; the SIMT cases twice with their lse, "
+                  "bit-equal, the lse within LSE_BAR of its magnitude")
 
 
 def ssd_timing(t: dict, captured, fns: dict) -> str:
@@ -2344,11 +2493,9 @@ def lm_profile(lm: dict) -> None:
     t["top2_confidence_device_ms"] = kernel_ms(
         device_profile(fns["top2_confidence"])[2], "top2_confidence")
     if "sdpa" in fns:
-        per_launch = recorded_profile(fns["sdpa"], "")[-1][2]
-        main = max(per_launch, key=per_launch.get)
-        t["flash_attention_library_device_ms"] = sum(per_launch.values())
-        t["flash_attention_library_kernels"] = per_launch
-        t["flash_attention_library_backend"] = sdpa_backend(main)
+        (t["flash_attention_library_device_ms"],
+         t["flash_attention_library_backend"],
+         t["flash_attention_library_kernels"]) = library_profile(fns["sdpa"])
     # the SIMT kernel on the same bf16 inputs (ssd_chunk's two launches)
     per_launch = retried_profile(fns[f"{kernel}_simt"], kernel)[2]
     t[f"{kernel}_simt_device_ms"] = sum(
@@ -2369,7 +2516,7 @@ def lm_profile(lm: dict) -> None:
                                          key=lambda kv: -kv[1])[:8])}
     if "sdpa" in fns:
         print(f"[time] {lm['arch']}: SDPA on the device "
-              f"{t['flash_attention_library_device_ms']:.4f} ms per call "
+              f"{fmt(t['flash_attention_library_device_ms'])} ms per call "
               f"({t['flash_attention_library_backend']}: "
               f"{t['flash_attention_library_kernels']})")
     print(f"[time] {lm['arch']}: the SIMT {kernel} on the same bf16 inputs "
@@ -3923,7 +4070,8 @@ def mla_flash_checks(dev, cfg, captured) -> dict:
     """flash_attention_cuda against its plain version at the config's head
     pair: the prefill's layer-0 bf16 q/k/v and ``MLA_FLASH_CASES``, each
     on the route ``route`` names; bf16 also run twice (the same bits) and
-    with its lse (the same output; the lse within ``LSE_BAR``)."""
+    with its lse (the same output; the lse within ``LSE_BAR``), fp32 on
+    the SIMT route as well."""
     H = cfg.n_heads
     D, Dv = head_pair(cfg)
     K0 = H if cfg.mla else cfg.n_kv_heads
@@ -3948,13 +4096,12 @@ def mla_flash_checks(dev, cfg, captured) -> dict:
         what = f"flash_attention {cfg.name} {label}"
         want, want_lse = plain_flash_lse(*args, **kw)
         case = {"out": flash_close(what, got, want)}
-        if got.dtype == torch.bfloat16:
-            again, lse = fa.flash_attention_cuda(*args, with_lse=True, **kw)
-            if not torch.equal(got, again):
-                raise AssertionError(f"{what}: another run (with lse) gave "
-                                     f"other bits")
-            case["lse"] = lse_close(what, lse, want_lse)
-            del again, lse
+        again, lse = fa.flash_attention_cuda(*args, with_lse=True, **kw)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: another run (with lse) gave "
+                                 f"other bits")
+        case["lse"] = lse_close(what, lse, want_lse)
+        del again, lse
         errs[f"{label} ({want_route})"] = case
         del got, want, want_lse
     return errs
@@ -4158,7 +4305,7 @@ def lm_more_run(dev: torch.device, name: str, over, cut: str,
         res["flash_attention_max_abs_err"] = mla_flash_checks(
             dev, cfg, captured[0])
         print(f"[lm+] {cfg.name}: flash_attention == plain at "
-              f"{head_pair(cfg)} (max abs err of the output; bf16 "
+              f"{head_pair(cfg)} (max abs err of the output; "
               f"bit-equal run to run, the lse's error of its magnitude): "
               f"{res['flash_attention_max_abs_err']}")
 
@@ -4664,6 +4811,14 @@ def lm_train_phase(dev: torch.device) -> dict:
           f"error of dq, dk, dv as a share of its scale; bar {BWD_BAR}), "
           f"bit-equal run to run: " + ", ".join(
               f"{k}: {v:.2e}" for k, v in errs.items()), flush=True)
+    # the SIMT forward on layer 0's inputs and at its tile boundaries
+    out["fwd_err"] = simt_flash_checks(dev, layer0)
+    print(f"[train-lm] flash_attention's SIMT forward == its plain version "
+          f"(max abs err of the output, fp32 bar rtol/atol 2e-5, bf16 2 "
+          f"ulps of the scale; the lse's error of its magnitude, bar "
+          f"{LSE_BAR}), twice with its lse, bit-equal: " + ", ".join(
+              f"{k}: {v['out']:.2e} / {v['lse']:.1e}"
+              for k, v in out["fwd_err"].items()), flush=True)
 
     # 4. resume on the card at examples/train_lm.py's config
     small = train_lm.config()
@@ -4766,7 +4921,36 @@ def lm_train_phase(dev: torch.device) -> dict:
     fwork = flash_work(B, Sq, Sk, H, K, D, Dv, 4)
     t["fwd_bound_ms"], t["fwd_bound_by"] = bound_ms(fwork["bytes"],
                                                     fwork["ops"])
+    t["fwd_design_ops"] = flash_design_ops(B, Sq, Sk, H, D, Dv)
+    t["fwd_design_ops_ms"] = t["fwd_design_ops"] / FP32_OPS_PER_S * 1e3
     t["fwd_library_ms"] = cuda_ms(sdpa_fwd)
+    t["fwd_plain_ms"] = cuda_ms(lambda: fa.flash_attention_ref_lse(q, k, v),
+                                reps=5)
+
+    # SDPA's memory-efficient backend, forced: it takes fp32 but no
+    # enable_gqa, so K and V are expanded to H heads outside the timed calls
+    # (a yardstick the port never calls)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qe = qs.detach().clone().requires_grad_()
+    ke, ve = (a.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_() for a in (k, v))
+
+    def eff_fwd():
+        with torch.no_grad(), sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        eff_out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+
+    def eff_bwd():
+        return torch.autograd.grad(eff_out, (qe, ke, ve), dos,
+                                   retain_graph=True)
+
+    t["fwd_efficient_max_abs_diff"] = float(
+        (eff_fwd().transpose(1, 2) - fa.flash_attention_cuda(q, k, v))
+        .abs().max())
+    t["fwd_efficient_ms"] = cuda_ms(eff_fwd)
+    t["efficient_ms"] = cuda_ms(eff_bwd)
     out["timing"] = t
     out["prof_fns"] = {
         "bwd": lambda: fa.flash_attention_bwd_cuda(*args),
@@ -4774,17 +4958,45 @@ def lm_train_phase(dev: torch.device) -> dict:
                                                 retain_graph=True),
         "fwd": lambda: fa.flash_attention_cuda(q, k, v, with_lse=True),
         "sdpa_fwd": sdpa_fwd}
+    out["efficient_fns"] = {"fwd": eff_fwd, "bwd": eff_bwd}
     print(f"[time] train-lm flash_attention_bwd at {t['shape']}: "
           f"{t['ms']:.4f} ms a call (bound {t['bound_ms']:.4f} ms by "
           f"{t['bound_by']}: bytes {t['bytes_bound_ms']:.4f}, operations "
           f"{t['ops_bound_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA's "
           f"backward {t['library_ms']:.4f} ms; the forward with lse "
           f"{t['fwd_lse_ms']:.4f} ms a call (bound {t['fwd_bound_ms']:.4f} "
-          f"ms by {t['fwd_bound_by']}), SDPA's fp32 forward "
-          f"{t['fwd_library_ms']:.4f}", flush=True)
+          f"ms by {t['fwd_bound_by']}; the design's "
+          f"{t['fwd_design_ops'] / 1e9:.2f} GFLOP "
+          f"{t['fwd_design_ops_ms']:.4f}), plain {t['fwd_plain_ms']:.3f} "
+          f"ms, SDPA's fp32 forward {t['fwd_library_ms']:.4f}; SDPA's "
+          f"memory-efficient backend (K/V expanded to {H} heads) forward "
+          f"{t['fwd_efficient_ms']:.4f} (max abs diff from the kernel "
+          f"{t['fwd_efficient_max_abs_diff']:.2e}), backward "
+          f"{t['efficient_ms']:.4f}", flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[train-lm] phase 17 in {out['phase_s']:.1f} s", flush=True)
     return out
+
+
+def efficient_sdpa_profile(train: dict) -> None:
+    """Phase 17's SDPA forced to its memory-efficient backend under
+    torch.profiler: the device ms of the forward and of the backward, and
+    the backend that ran (:func:`library_profile`); a yardstick the port
+    never calls, profiled last in phase 14 so that it disturbs no other
+    profile."""
+    fns, t = train.pop("efficient_fns"), train["timing"]
+    for part, key in (("fwd", "fwd_efficient"), ("bwd", "efficient")):
+        (t[f"{key}_device_ms"], t[f"{key}_backend"],
+         t[f"{key}_device_ms_by_kernel"]) = library_profile(fns[part])
+    print(f"[time] train-lm SDPA forced to its memory-efficient backend at "
+          f"{t['shape']} (K/V expanded to the query heads): forward "
+          f"{fmt(t['fwd_efficient_device_ms'])} ms on the device "
+          f"({t['fwd_efficient_backend']}: "
+          f"{t['fwd_efficient_device_ms_by_kernel']}), backward "
+          f"{fmt(t['efficient_device_ms'])} ({t['efficient_backend']}: "
+          f"{t['efficient_device_ms_by_kernel']}); the port's SIMT forward "
+          f"{t['fwd_lse_device_ms']:.4f}, its backward "
+          f"{t['device_ms']:.4f}", flush=True)
 
 
 def lm_train_profile(train: dict, dev: torch.device) -> None:
@@ -4801,20 +5013,18 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
                          if "flash_attention_bwd" in k)
     t["device_ms_by_kernel"] = {k: v for k, v in per.items()
                                 if "flash_attention_bwd" in k}
-    per = recorded_profile(fns["sdpa_bwd"], "")[-1][2]
-    t["library_device_ms"] = sum(per.values())
-    t["library_backend"] = sdpa_backend(max(per, key=per.get))
+    t["library_device_ms"], t["library_backend"], _ = library_profile(
+        fns["sdpa_bwd"])
     per = recorded_profile(fns["fwd"], "flash_attention")[-1][2]
     t["fwd_lse_device_ms"] = sum(v for k, v in per.items()
                                  if "flash_attention" in k)
-    per = recorded_profile(fns["sdpa_fwd"], "")[-1][2]
-    t["fwd_library_device_ms"] = sum(per.values())
-    t["fwd_library_backend"] = sdpa_backend(max(per, key=per.get))
+    t["fwd_library_device_ms"], t["fwd_library_backend"], per = (
+        library_profile(fns["sdpa_fwd"]))
     print(f"[time] train-lm flash_attention's fp32 forward with lse at "
           f"{t['shape']}: {t['fwd_lse_device_ms']:.4f} ms on the device "
           f"({t['fwd_lse_device_ms'] / t['fwd_bound_ms']:.1f}x its "
           f"{t['fwd_bound_ms']:.4f} ms bound); SDPA's fp32 forward "
-          f"{t['fwd_library_device_ms']:.4f} "
+          f"{fmt(t['fwd_library_device_ms'])} "
           f"({t['fwd_library_backend']}: {per})", flush=True)
     del fns
     cfg = get_arch(TRAIN_ARCH)
@@ -4864,7 +5074,7 @@ def lm_train_profile(train: dict, dev: torch.device) -> None:
           f"AdamW leaf by leaf) {prof['optimizer_alone_ms']:.2f} ms; "
           f"flash_attention_bwd {t['device_ms']:.4f} ms on the device "
           f"({t['device_ms_by_kernel']}), SDPA's backward "
-          f"{t['library_device_ms']:.4f} ({t['library_backend']})",
+          f"{fmt(t['library_device_ms'])} ({t['library_backend']})",
           flush=True)
     del state, grads, params, h, named, head
     torch.cuda.empty_cache()
@@ -5964,9 +6174,8 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
     t["device_ms_by_kernel"] = {k: v for k, v in per.items()
                                 if "flash_attention_bwd" in k}
     t["device_ms"] = sum(t["device_ms_by_kernel"].values())
-    per = recorded_profile(fns["sdpa_bwd"], "")[-1][2]
-    t["library_device_ms"] = sum(per.values())
-    t["library_backend"] = sdpa_backend(max(per, key=per.get))
+    t["library_device_ms"], t["library_backend"], _ = library_profile(
+        fns["sdpa_bwd"])
     for key, fn in (("", fns["ssd_bwd"]), ("simt_", fns["ssd_bwd_simt"])):
         per = recorded_profile(fn, "ssd_bwd")[-1][2]
         ts[f"{key}device_ms_by_kernel"] = {
@@ -5982,19 +6191,16 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
                 k: v for k, v in busy.items() if name in k}
             r[f"{part}_device_ms"] = sum(
                 r[f"{part}_device_ms_by_kernel"].values())
-            busy = recorded_profile(fns[f"pair {key} sdpa {part}"],
-                                    "")[-1][0]
-            r[f"{part}_library_device_ms"] = sum(busy.values())
-            r[f"{part}_library_backend"] = sdpa_backend(max(busy,
-                                                            key=busy.get))
+            (r[f"{part}_library_device_ms"], r[f"{part}_library_backend"],
+             _) = library_profile(fns[f"pair {key} sdpa {part}"], part=0)
         print(f"[time] train-bf16 pair {key} on the device: forward "
               f"{r['fwd_device_ms']:.4f} ms, backward "
               f"{r['bwd_device_ms']:.4f} ms (" + ", ".join(
                   f"{flash_instance(k)} {v:.4f}" for k, v in
                   r["bwd_device_ms_by_kernel"].items()) +
-              f"); SDPA forward {r['fwd_library_device_ms']:.4f} "
+              f"); SDPA forward {fmt(r['fwd_library_device_ms'])} "
               f"({r['fwd_library_backend']}), backward "
-              f"{r['bwd_library_device_ms']:.4f} "
+              f"{fmt(r['bwd_library_device_ms'])} "
               f"({r['bwd_library_backend']})", flush=True)
     del fns
     for key, arch in (("tinyllama", BF16_ATTN_ARCH),
@@ -6043,7 +6249,7 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
         torch.cuda.empty_cache()
     print(f"[time] train-bf16 on the device: flash_attention_bwd_sm90 "
           f"{t['device_ms']:.4f} ms ({t['device_ms_by_kernel']}), SDPA's "
-          f"bf16 backward {t['library_device_ms']:.4f} "
+          f"bf16 backward {fmt(t['library_device_ms'])} "
           f"({t['library_backend']}); ssd_chunk_bwd_sm90 "
           f"{ts['device_ms']:.4f} ms by pass " + ", ".join(
               f"{k} {v:.4f}" for k, v in ts["device_ms_by_kernel"].items())
@@ -6159,6 +6365,16 @@ def main() -> int:
           f"{regs}, spill bytes {spills}")
     out["ptxas"]["flash_attention_bwd"] = {"registers": regs,
                                            "spill_bytes": spills}
+    # the SIMT attention forward (CUDA cores, register tiles): the same,
+    # reported
+    spills = {simt_fwd_instance(n): v for n, v in ptxas_spills(
+        log, "flash_attention_kernelI").items() if simt_fwd_instance(n)}
+    regs = {simt_fwd_instance(n): v for n, v in ptxas_registers(
+        log, "flash_attention_kernelI").items() if simt_fwd_instance(n)}
+    print(f"[build] ptxas per flash_attention (SIMT forward) instance "
+          f"<type, RX, RY, NQ>: registers {regs}, spill bytes {spills}")
+    out["ptxas"]["flash_attention_simt"] = {"registers": regs,
+                                            "spill_bytes": spills}
     # the SIMT SSD kernels, forward and backward: the same, reported
     spills = {simt_ssd_instance(n): v for n, v in ptxas_spills(
         log, "ssd_").items() if simt_ssd_instance(n)}
@@ -6689,6 +6905,8 @@ def main() -> int:
         print(f"[route] fused_fog {key}: smem {fmt(row['smem'])} ms, l1 "
               f"{fmt(row['l1'])} ms on the device; the rule picks "
               f"{row['rule']}, the faster (3 % ties) {row['faster']}")
+    stamp("14. profiler: SDPA's memory-efficient backend", t_main)
+    efficient_sdpa_profile(train_lm_out)
 
     # 20. the kernels line -----------------------------------------------------
     stamp("20. kernels line", t_main)
@@ -6890,6 +7108,9 @@ def main() -> int:
         "bound_by": tt["bound_by"], "library_ms": tt["library_ms"],
         "library_device_ms": tt.get("library_device_ms"),
         "library_backend": tt.get("library_backend"),
+        "efficient_library_ms": tt["efficient_ms"],
+        "efficient_library_device_ms": tt.get("efficient_device_ms"),
+        "efficient_library_backend": tt.get("efficient_backend"),
         "called_by": "ops.FlashAttention.backward (training: "
                      "train/loop.py through models/layers.py)",
         "matches_plain": True, "deterministic": True, "shape": tt["shape"],
@@ -7050,11 +7271,21 @@ def main() -> int:
                 "source": SIMT_SOURCE["flash_attention"],
                 "ms": tt["fwd_lse_ms"],
                 "device_ms": tt.get("fwd_lse_device_ms"),
+                "plain_ms": tt["fwd_plain_ms"],
                 "bound_ms": tt["fwd_bound_ms"],
                 "bound_by": tt["fwd_bound_by"],
+                "design_ops": tt["fwd_design_ops"],
                 "library_ms": tt["fwd_library_ms"],
                 "library_device_ms": tt.get("fwd_library_device_ms"),
-                "library_backend": tt.get("fwd_library_backend")}
+                "library_backend": tt.get("fwd_library_backend"),
+                "efficient_library_ms": tt["fwd_efficient_ms"],
+                "efficient_library_device_ms": tt.get(
+                    "fwd_efficient_device_ms"),
+                "efficient_library_backend": tt.get(
+                    "fwd_efficient_backend"),
+                "max_abs_err": max(v["out"]
+                                   for v in tl["fwd_err"].values()),
+                "cases": tl["fwd_err"]}
     for k in kernels:
         if not k["launches"]:
             raise AssertionError(f"kernel {k['name']} was not launched on "

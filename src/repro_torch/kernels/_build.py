@@ -36,7 +36,8 @@ SOURCES = (CSRC / "fog_kernels.cu", CSRC / "histogram.cu",
            CSRC / "flash_attention_bwd_sm90.cu", CSRC / "ssd_chunk_bwd.cu",
            CSRC / "ssd_chunk_bwd_sm90.cu")
 HEADERS = (CSRC / "fog_tables.cuh", CSRC / "fog_stage.cuh",
-           CSRC / "sm90_common.cuh", CSRC / "ssd_simt.cuh")
+           CSRC / "sm90_common.cuh", CSRC / "ssd_simt.cuh",
+           CSRC / "flash_simt.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -fmad=false: no multiply-add contraction, so the kernels round exactly

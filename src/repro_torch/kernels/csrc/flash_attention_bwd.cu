@@ -79,32 +79,13 @@
 // instead; this kernel takes bf16 at the others (jamba's 32, MLA at smoke
 // width 48 / 32, small test widths).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_simt.cuh"
 
 namespace {
 
-// an input element as fp32, and an fp32 result stored in the inputs' type
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 constexpr int THREADS = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int MAX_HEAD = 256;
-constexpr unsigned FULL = 0xffffffffu;
-
-// floats of a staged row of `w` columns: w rounded up to 4, then to an odd
-// number of float4s (conflict-free float4 reads of eight rows at a column)
-__host__ __device__ constexpr int row_ld(int w) {
-  return 4 * (((w + 3) / 4) | 1);
-}
 
 // floats of shared memory of a dkdv block (the larger of the two kernels)
 // at T rows: K, V, q, do tiles, p^T and ds^T, the rows' lse and delta
@@ -114,28 +95,6 @@ __host__ __device__ constexpr int smem_floats(int T, int D, int Dv) {
 // a dq block's: q, do, K, V tiles and ds^T
 __host__ __device__ constexpr int smem_floats_dq(int T, int D, int Dv) {
   return 2 * T * (row_ld(D) + row_ld(Dv)) + T * row_ld(T);
-}
-
-// four input elements at p (16-byte aligned fp32, 8-byte aligned bf16) as
-// fp32
-__device__ __forceinline__ float4 ld_vec4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld_vec4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// whether a tile of width w, rows `stride` elements apart from src, can be
-// read four elements at a time
-template <class T_>
-__device__ __forceinline__ bool vec_rows(const T_* src, size_t stride,
-                                         int w) {
-  return w % 4 == 0 && stride % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T_)) == 0;
 }
 
 // a [T, w] tile (rows row0.., `stride` elements apart from `src`, rows at
@@ -167,10 +126,6 @@ __device__ __forceinline__ void stage(float* dst, const T_* src,
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // acc[a][b] += sum over the columns of A's rows ra[a] and B's rows rb[b]
 // (both [rows][ld] tiles of width w, ld floats a row), 4 columns a step
 template <int RA, int RB>
@@ -182,9 +137,9 @@ __device__ __forceinline__ void product_nt(float (&acc)[RA][RB],
   for (int c = 0; c < w; c += 4) {
     float4 a[RA], b[RB];
 #pragma unroll
-    for (int x = 0; x < RA; ++x) a[x] = ld4(A + ra[x] * ldw + c);
+    for (int x = 0; x < RA; ++x) a[x] = lds4(A + ra[x] * ldw + c);
 #pragma unroll
-    for (int y = 0; y < RB; ++y) b[y] = ld4(B + rb[y] * ldw + c);
+    for (int y = 0; y < RB; ++y) b[y] = lds4(B + rb[y] * ldw + c);
 #pragma unroll
     for (int x = 0; x < RA; ++x)
 #pragma unroll
@@ -212,7 +167,7 @@ __device__ __forceinline__ void product_tn(float (&acc)[R][NC][4],
   for (int i = 0; i < n; ++i) {
     float cf[R];
     if constexpr (R == 4) {
-      const float4 c4 = ld4(coef + i * ldc + col0);
+      const float4 c4 = lds4(coef + i * ldc + col0);
       cf[0] = c4.x, cf[1] = c4.y, cf[2] = c4.z, cf[3] = c4.w;
     } else {
       const float2 c2 = *reinterpret_cast<const float2*>(coef + i * ldc +
@@ -223,7 +178,7 @@ __device__ __forceinline__ void product_tn(float (&acc)[R][NC][4],
     for (int m = 0; m < NC; ++m) {
       const int col = 4 * tx + 64 * m;
       if (col < w) {
-        const float4 v = ld4(M + i * ldm + col);
+        const float4 v = lds4(M + i * ldm + col);
 #pragma unroll
         for (int x = 0; x < R; ++x) {
           acc[x][m][0] = __fmaf_rn(cf[x], v.x, acc[x][m][0]);

@@ -23,10 +23,13 @@ sizes alone, a documented rule, never by a failure:
   columns zeros (TMA's fill), and never reaches the output.
 * ``"simt"``, every other case (fp32, and the bf16 pairs the tensor-core
   kernel does not take: jamba's 32, MLA at smoke width 48 / 32, any other
-  up to 256): ``csrc/flash_attention.cu::flash_attention_kernel``, one block
-  per (64-row q tile, query head, batch) over 64-key tiles staged in
-  shared memory as fp32, with fp32 FMAs on CUDA cores, which keeps fp32
-  within ~1e-6 of the plain version.
+  up to 256): ``csrc/flash_attention.cu::flash_attention_kernel``, fp32
+  FMAs on CUDA cores, which keeps fp32 within ~1e-6 of the plain version.
+  A block's two groups of 128 threads each own a q tile of one query head
+  and share each staged K/V tile (two heads of a KV head, or two q tiles
+  of one); register tiles fed by float4 reads of fp32 tiles whose rows are
+  an odd number of float4s; the next K/V tile's loads in flight during a
+  product; its tile sizes by head size (:func:`fwd_tiles`).
 
 Both reach their KV head as ``h // G`` (K/V are never repeated over the G
 query heads), loop key tiles only up to the diagonal, take any Sq, Sk >= 1
@@ -80,14 +83,13 @@ __all__ = ["MAX_HEAD", "SM90_PAIRS", "bwd_smem_bytes",
            "bwd_smem_bytes_sm90", "bwd_split_dkdv", "bwd_tiles",
            "check_shapes", "flash_attention_bwd_cuda",
            "flash_attention_bwd_ref", "flash_attention_cuda",
-           "flash_attention_ref", "flash_attention_ref_lse", "route",
-           "sm90_keys", "sm90_padded", "sm90_rows", "smem_bytes",
+           "flash_attention_ref", "flash_attention_ref_lse", "fwd_tiles",
+           "route", "sm90_keys", "sm90_padded", "sm90_rows", "smem_bytes",
            "smem_bytes_sm90", "softmax_scale"]
 
-# the q, k, v and p tiles of one block of the SIMT kernel live in shared
+# the q, k, v and p tiles of one block of the SIMT kernels live in shared
 # memory
 MAX_HEAD = 256
-BQ = BK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the tensor-core kernels: bf16 at these (D, Dv) pairs, each a template
 # instance of the forward and the backward; 128 q rows per forward block
@@ -221,10 +223,29 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor,
     return B, Sq, Sk, H, K, D, Dv
 
 
+def fwd_tiles(D: int, Dv: int) -> tuple[int, int, int]:
+    """The SIMT forward's tiles by head size (``csrc/flash_attention.cu``):
+    (q rows of a group's tile, keys of a K/V tile, 32-column groups of a
+    thread's output columns).  Up to 64 columns: 64, 64, 2 (a thread's
+    register tiles 4 x 8 of S, 4 x 8 of the output); up to 128: 64, 64, 4;
+    up to 256: 32, 32, 8 (2 x 4 of S, 2 x 32 of the output), so that a
+    block's tiles fit the 227 KB a Hopper block may opt into."""
+    head = max(D, Dv)
+    if head <= 64:
+        return 64, 64, 2
+    if head <= 128:
+        return 64, 64, 4
+    return 32, 32, 8
+
+
 def smem_bytes(D: int, Dv: int) -> int:
-    """Dynamic shared memory of one block of the SIMT kernel: the fp32 q,
-    k, v and p tiles."""
-    return 4 * (BQ * (D + 1) + BK * (D + 1) + BK * Dv + BQ * (BK + 1))
+    """Dynamic shared memory of one block of the SIMT forward: its two
+    groups' q tiles, the shared K and V tiles and the two groups' p tiles,
+    fp32 rows of ``_row_ld`` floats (``csrc/flash_attention.cu::
+    smem_bytes``)."""
+    bq, bk, _ = fwd_tiles(D, Dv)
+    return 4 * (2 * bq * _row_ld(D) + bk * (_row_ld(D) + _row_ld(Dv))
+                + 2 * bq * _row_ld(bk))
 
 
 def sm90_keys(D: int, Dv: int) -> int:

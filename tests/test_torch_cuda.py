@@ -1916,6 +1916,44 @@ def test_simt_flash_backward_redesign(cuda, label, shape, dtype):
             if ops.launches[k] != before[k]} == {"flash_attention_bwd": 2}
 
 
+# the redesigned SIMT forward (csrc/flash_attention.cu): each case of
+# chip_smoke.SIMT_FLASH_CASES (the tile boundaries of fwd_tiles, G odd,
+# Sq != Sk both ways, non-causal, MQA) in each of its dtypes
+SIMT_FWD_CASES = [(label, shape, causal, dtype)
+                  for label, shape, causal, dtypes in
+                  chip_smoke.SIMT_FLASH_CASES for dtype in dtypes]
+
+
+@pytest.mark.parametrize("label,shape,causal,dtype", SIMT_FWD_CASES,
+                         ids=[f"{c[0]} {str(c[3])[6:]}"
+                              for c in SIMT_FWD_CASES])
+def test_simt_flash_forward_redesign(cuda, label, shape, causal, dtype):
+    """The SIMT forward (two groups a block sharing each K/V tile,
+    register tiles over fp32 tiles in shared memory) twice with its lse
+    against ``flash_attention_ref_lse``: fp32 within rtol/atol 2e-5, bf16
+    within 2 bf16 ulps of the output's scale, the lse within
+    ``LSE_BAR`` of its magnitude; the same bits on both runs, each counted
+    on ``flash_attention``."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.route(dtype, shape[5], shape[6]) == "simt"
+    args = chip_smoke.flash_inputs(np.random.default_rng(sum(shape)), shape,
+                                   dtype, cuda)
+    before = dict(ops.launches)
+    chip_smoke.simt_flash_check(label, args, {"causal": causal})
+    assert {k: ops.launches[k] - before[k] for k in before
+            if ops.launches[k] != before[k]} == {"flash_attention": 2}
+
+
+def test_simt_flash_forward_row_that_sees_no_key(cuda):
+    """A q row of -inf against positive keys sees no finite score: the
+    SIMT forward writes 0 and lse -inf there, and the plain version's
+    figures for the other rows (``chip_smoke.simt_flash_masked_row``)."""
+    before = ops.launches["flash_attention"]
+    err = chip_smoke.simt_flash_masked_row(cuda)
+    assert ops.launches["flash_attention"] == before + 1
+    assert err["out"] <= 2e-5 and err["lse"] <= chip_smoke.LSE_BAR
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_tensor_core_forward_writes_lse(cuda, causal):
     """The tensor-core forward's lse against the plain version's (-inf

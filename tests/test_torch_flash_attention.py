@@ -23,8 +23,9 @@ import repro.kernels.ref as jref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    MAX_HEAD, check_shapes, flash_attention_cuda, flash_attention_ref, route,
-    sm90_keys, smem_bytes, smem_bytes_sm90)
+    MAX_HEAD, check_shapes, flash_attention_cuda, flash_attention_ref,
+    flash_attention_ref_lse, fwd_tiles, route, sm90_keys, smem_bytes,
+    smem_bytes_sm90, softmax_scale)
 from repro_torch.models import layers as TL  # noqa: E402
 
 # (B, Sq, Sk, H, K, D, Dv, causal): JAX's five cases
@@ -180,11 +181,109 @@ def test_cuda_wrapper_refuses_before_any_launch():
 
 
 def test_shared_memory_fits_a_hopper_block_at_every_head_size():
-    """The largest tiles (D = Dv = 256) need 213,760 B, under the 227 KB
-    (232,448 B) a Hopper block may opt into; tinyllama's D = 64 needs
-    66,304 B."""
-    assert smem_bytes(64, 64) == 66_304
-    assert smem_bytes(MAX_HEAD, MAX_HEAD) == 213_760 <= 232_448
+    """The SIMT forward's block (two groups' q and p tiles, one K and one
+    V tile, fp32 rows of an odd number of float4s): tinyllama's D = 64
+    needs 104,448 B (two blocks an SM); the largest block, D = Dv = 128,
+    169,984 B; D = Dv = 256 on 32-row tiles 142,336 B; each under the 227
+    KB (232,448 B) a Hopper block may opt into."""
+    assert smem_bytes(64, 64) == 104_448
+    assert 2 * (smem_bytes(64, 64) + 1024) <= 233_472
+    assert smem_bytes(128, 128) == 169_984 <= 232_448
+    assert smem_bytes(MAX_HEAD, MAX_HEAD) == 142_336 <= 232_448
+    assert max(smem_bytes(D, Dv) for D in range(1, MAX_HEAD + 1)
+               for Dv in range(1, MAX_HEAD + 1)) == 169_984
+
+
+def _row_ld(w):
+    return 4 * (-(-w // 4) | 1)
+
+
+# (D, Dv, the tile class's boundary, (q rows, keys, 32-column groups),
+# shared memory of a block): the tiles follow max(D, Dv) alone
+FWD_TILE_CASES = [
+    (1, 1, "the smallest head", (64, 64, 2), 38_912),
+    (32, 32, "jamba's 32", (64, 64, 2), 71_680),
+    (48, 32, "MLA at smoke width", (64, 64, 2), 83_968),
+    (64, 64, "the last of the 64-column class", (64, 64, 2), 104_448),
+    (64, 65, "Dv past 64", (64, 64, 4), 104_448),
+    (65, 64, "D past 64", (64, 64, 4), 104_448),
+    (65, 65, "the first of the 128-column class", (64, 64, 4), 104_448),
+    (96, 64, "minicpm3's MLA", (64, 64, 4), 129_024),
+    (128, 1, "D at 128, Dv 1", (64, 64, 4), 137_216),
+    (128, 128, "the last of the 128-column class", (64, 64, 4), 169_984),
+    (129, 129, "the first of the 256-column class", (32, 32, 8), 76_800),
+    (1, 129, "Dv past 128", (32, 32, 8), 27_648),
+    (192, 128, "deepseek's MLA", (32, 32, 8), 101_376),
+    (256, 1, "D at 256, Dv 1", (32, 32, 8), 109_568),
+    (256, 256, "the largest head", (32, 32, 8), 142_336)]
+
+
+@pytest.mark.parametrize("D,Dv,boundary,tiles,want", FWD_TILE_CASES,
+                         ids=[c[2] for c in FWD_TILE_CASES])
+def test_forward_tiles_at_each_boundary(D, Dv, boundary, tiles, want):
+    """``fwd_tiles`` picks the SIMT forward's tiles by max(D, Dv): 64-row
+    q tiles and 64-key tiles up to 128 columns (2 or 4 groups of 32 output
+    columns a thread), 32 and 32 above; ``smem_bytes`` is the block's two
+    q tiles, its K and V tiles and two p tiles, rows of an odd number of
+    float4s, under the 232,448 B a Hopper block may opt into."""
+    assert fwd_tiles(D, Dv) == tiles
+    bq, bk, nq = tiles
+    assert 32 * nq >= max(D, Dv)
+    assert smem_bytes(D, Dv) == want == 4 * (
+        2 * bq * _row_ld(D) + bk * (_row_ld(D) + _row_ld(Dv))
+        + 2 * bq * _row_ld(bk)) <= 232_448
+
+
+def test_forward_tiles_follow_the_larger_head_at_every_size():
+    """At every D, Dv <= 256 the tiles depend on max(D, Dv) alone, a
+    thread's output columns cover Dv, and the block fits 232,448 B."""
+    for D in range(1, MAX_HEAD + 1):
+        for Dv in range(1, MAX_HEAD + 1):
+            tiles = fwd_tiles(D, Dv)
+            assert tiles == fwd_tiles(max(D, Dv), max(D, Dv))
+            assert 32 * tiles[2] >= Dv
+            assert smem_bytes(D, Dv) <= 232_448
+
+
+def _masked_row(q, k):
+    """q's row 1 of head 0 set to -inf against keys made positive: every
+    score of that row is -inf, a row that sees no key."""
+    q, k = q.copy(), np.abs(k)
+    q[0, 1, 0] = -np.inf
+    return q, k
+
+
+@pytest.mark.parametrize("masked", [False, True],
+                         ids=["", "a fully masked row"])
+@pytest.mark.parametrize("shape", JAX_SHAPES + MORE_SHAPES, ids=str)
+def test_plain_lse_matches_jax_ref_and_float64(shape, masked):
+    """``flash_attention_ref_lse``: its output is JAX's
+    ``ref.flash_attention_ref``'s (rtol/atol 2e-5; NaN for a row with no
+    finite score in both, a softmax over nothing), and its lse is a
+    float64 logsumexp of the scaled, masked scores within 2e-6 of its
+    magnitude (at least 1; chip_smoke's ``LSE_BAR``: an fp32 ulp or two of
+    a log-sum-exp near 6), -inf where every score is -inf."""
+    q, k, v = inputs(shape, seed=2)
+    B, Sq, Sk, H, K, D, Dv, causal = shape
+    if masked:
+        q, k = _masked_row(q, k)
+    out, lse = flash_attention_ref_lse(*(torch.tensor(a) for a in (q, k, v)),
+                                       causal=causal)
+    np.testing.assert_allclose(out.numpy(), jax_ref(q, k, v, causal), **FP32)
+    with np.errstate(invalid="ignore"):
+        s = np.einsum("bqkgd,bpkd->bkgqp",
+                      q.astype(np.float64).reshape(B, Sq, K, H // K, D),
+                      k.astype(np.float64)) * softmax_scale(D)
+    if causal:
+        s = np.where(np.arange(Sq)[:, None] >= np.arange(Sk)[None, :], s,
+                     -np.inf)
+    want = torch.logsumexp(torch.from_numpy(s), -1).reshape(B, H, Sq).numpy()
+    got = lse.numpy()
+    assert np.array_equal(np.isfinite(got), np.isfinite(want))
+    assert np.isneginf(got[0, 0, 1]) == masked
+    fin = np.isfinite(want)
+    assert (np.abs(got[fin] - want[fin])
+            <= 2e-6 * np.maximum(np.abs(want[fin]), 1.0)).all()
 
 
 @pytest.mark.parametrize("dtype,D,Dv,want", [

@@ -269,3 +269,28 @@ def test_simt_design_operations_count_their_tiles(shape):
     assert chip_smoke.ssd_bwd_work(*shape)["simt_ops"] == bwd
     if shape == (8, 1, 256, 80, 64, 128):
         assert (fwd, bwd) == (6_123_683_840, 12_331_253_760)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((8, 256, 256, 32, 64, 64), True), ((2, 200, 200, 8, 32, 32), True),
+    ((1, 100, 300, 4, 129, 129), True), ((1, 300, 100, 4, 65, 48), True),
+    ((2, 150, 170, 6, 64, 64), False)], ids=str)
+def test_simt_forward_design_operations_count_their_tiles(shape, causal):
+    """What the SIMT attention forward runs: every (q tile, K/V tile) pair
+    it visits whole (64 x 64 tiles up to max(D, Dv) = 128, 32 x 32 above;
+    causal: the K/V tiles up to the q tile's last row), 2 (D + Dv) FLOP a
+    (row, key) pair, counted row by row.  At tinyllama's fp32 training
+    shape 2.68 GFLOP, 1.24x the 2.16 the causal pairs need."""
+    B, Sq, Sk, H, D, Dv = shape
+    T = 64 if max(D, Dv) <= 128 else 32
+    pairs = 0
+    for i0 in range(0, Sq, T):
+        last = min(i0 + T, Sq) - 1
+        seen = min(Sk, last + 1) if causal else Sk
+        pairs += T * T * -(-seen // T)
+    want = B * H * pairs * 2 * (D + Dv)
+    assert chip_smoke.flash_design_ops(B, Sq, Sk, H, D, Dv, causal) == want
+    if shape == (8, 256, 256, 32, 64, 64):
+        assert want == 2_684_354_560
+        need = chip_smoke.flash_work(B, Sq, Sk, H, 4, D, Dv, 4)["ops"]
+        assert need == 2_155_872_256
