@@ -318,7 +318,35 @@ and:
    the profiler's split of each step (products, the attention and SSD
    forwards, their backwards, the optimizer, the elementwise rest) and
    the idle share come in 14;
-20. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+20. (run after 19, while the card's memory is free) trains
+   ``tinyllama-1.1b`` in bf16 at full width and depth at ``train_4k``'s
+   full batch, 256 x 4096 = 1,048,576 tokens, through
+   ``make_train_step(accum_steps=8)`` (microbatches of 32 x 4096): one
+   forward and backward of a microbatch to warm its shapes, then one
+   step with the counts zeroed just before and read just after (8 x (44
+   ``flash_attention`` on the tensor-core route and 22
+   ``flash_attention_bwd_sm90``)); prints its ms, training tokens/s, peak
+   memory, loss and MFU (6ND over the step at the dense bf16 rate); prints
+   ``launch.dryrun``'s peak estimate on meta for that microbatch and for
+   phase 19's 2 x 4096 step beside their measured peaks; holds
+   ``accum_steps=2`` against ``accum_steps=1`` at phase 17's fp32 setup
+   (tinyllama-1.1b, 8 x 256: the loss within 1e-6 relative, each
+   accumulated gradient within 1e-5 of its leaf's scale, each updated
+   parameter within 1e-5 of its leaf's scale plus 1e-7), ``accum_steps=2``
+   bit-equal run to run, and an accumulated step of tinyllama's smoke
+   config on the card against the CPU port (phase 17's 1e-4); runs
+   ``examples/serve_fog_lm.py``'s ``main()`` on the card (8 requests in
+   three QoS tiers) and holds every request's tokens and hops equal to
+   the same parameters served on the CPU; after 14's eval profiles it
+   prints a ``[roofline]`` line for each backend (fused, per-hop
+   ``pallas``, the ring on ``RingMesh(8)``) x precision x B = 1000 and
+   65,536 at the bench field: ``launch.roofline``'s modeled bytes, FLOPs,
+   bound and ideal time, and the achieved share of the eval's call ms and
+   device ms, raising over 100 % (the per-hop eval priced at the card's
+   traffic, the tables once an iteration: the model's per-hop class
+   re-reads each lane's grove slice, a TPU's traffic the card serves
+   from L2);
+21. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -380,6 +408,11 @@ from repro_torch.kernels.ssd_chunk import (  # noqa: E402
     route as ssd_chunk_route, ssd_chunk_ref, ssd_chunk_sm90_replay)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+# the H100's rates and each kernel's work counted from its inputs
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_OPS_PER_S, FP32_OPS_PER_S, H100_SXM_BF16, HBM_BYTES_PER_S,
+    RooflineModel, bound_ms, bwd_work, bwd_work_sm90, flash_design_ops,
+    flash_work, fused_work, ssd_bwd_work, ssd_work)
 from repro_torch.models.fog_exit import (decode_step_fog,  # noqa: E402
                                          fog_flops_per_token,
                                          grove_boundaries)
@@ -397,11 +430,14 @@ from repro_torch.baselines import ALL_BASELINES  # noqa: E402
 from repro_torch.baselines import train as bl_train  # noqa: E402
 from repro_torch.optim import (adamw, clip_by_global_norm,  # noqa: E402
                                linear_warmup_cosine, tree_leaves)
-from repro_torch.examples import train_lm  # noqa: E402
+from repro_torch.examples import serve_fog_lm, train_lm  # noqa: E402
+from repro_torch.launch.cost import analytic_model_flops  # noqa: E402
+from repro_torch.launch.dryrun import dryrun_cell  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import step_batch  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
-from repro_torch.train.loop import (apply_update,  # noqa: E402
+from repro_torch.train.loop import (SHAPES,  # noqa: E402
+                                    accumulated_grads, apply_update,
                                     loss_and_grads, make_train_step,
                                     trainable)
 from repro_torch.paper import ablation_adaptive  # noqa: E402
@@ -418,12 +454,6 @@ THRESH, MAX_HOPS, SEED = 0.3, 8, 0
 BIG_B = 65_536
 # the matching bar (tests/test_engine_conformance.py::_assert_conforms)
 RTOL, ATOL = 1e-6, 1e-7
-# NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
-# cores (the kernels do scalar fp32 and integer work)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# and the bf16 dense tensor-core rate (the rate for bf16 inputs)
-BF16_OPS_PER_S = 989e12
 INFERENCE_KERNELS = ("fused_fog", "grove_aggregate", "top2_confidence")
 SOURCE = {k: "src/repro_torch/kernels/csrc/fog_kernels.cu"
           for k in INFERENCE_KERNELS}
@@ -630,26 +660,45 @@ def device_profile(fn, reps: int = 10, warm: bool = True,
 EVAL_PROFILE_REPS = 3
 
 
-def eval_profile(fn, swap_aggregate: bool = False) -> dict:
+# the kernel each backend's eval launches, which its profile must record
+# ("": the eval runs plain ops alone)
+EVAL_KERNEL = {"fused": "fused_fog", "pallas": "grove_aggregate",
+               "reference": "", "ring": "tree_traverse"}
+
+
+def eval_profile(fn, kernel: str, swap_aggregate: bool = False) -> dict:
     """An eval under the profiler: wall and device-busy ms per call, the
     idle share, the distinct device kernels and the device ms per launch
     of grove_aggregate's tile kernel in it; with ``swap_aggregate`` the
     same again with ``ops.grove_aggregate`` on the first kernel (the lane
-    route): the same path in the same process ("was_")."""
-    busy, wall, per = device_profile(fn, reps=EVAL_PROFILE_REPS)
-    out = {"wall_ms": wall, "device_busy_ms": sum(busy.values()),
-           "device_idle_share": 1.0 - sum(busy.values()) / wall,
-           "device_kernels": len(busy),
+    route): the same path in the same process ("was_").  The profiles
+    record the device alone (an eval's host records, thousands of ops,
+    are the bulk of a profile's post-processing; no figure reads them).
+    A profile is taken again until it records ``kernel``, the kernel the
+    eval launches (``retried_profile``: CUPTI may keep no record of a
+    short kernel, and a fused eval is one of ~0.012 ms); the device
+    figures are None if no profile did."""
+    def profiled(k: str) -> tuple[float | None, float, dict]:
+        busy, wall, per = retried_profile(fn, k, reps=EVAL_PROFILE_REPS,
+                                          host=False)
+        total = sum(busy.values()) if any(k in n for n in per) else None
+        return total, wall, per
+
+    busy_ms, wall, per = profiled(kernel)
+    out = {"wall_ms": wall, "device_busy_ms": busy_ms,
+           "device_idle_share": (None if busy_ms is None
+                                 else 1.0 - busy_ms / wall),
+           "device_kernels": len(per),
            "grove_aggregate_ms": kernel_ms(per, "grove_aggregate_tile")}
     if swap_aggregate:
         real = ops.grove_aggregate
         ops.grove_aggregate = lambda *a, block_b=256: (
             ga.grove_aggregate_on_route(*a, block_b=block_b, route="lane"))
         try:
-            busy, wall, per = device_profile(fn, reps=EVAL_PROFILE_REPS)
+            busy_ms, wall, per = profiled("grove_aggregate")
         finally:
             ops.grove_aggregate = real
-        out.update(was_wall_ms=wall, was_device_busy_ms=sum(busy.values()),
+        out.update(was_wall_ms=wall, was_device_busy_ms=busy_ms,
                    was_grove_aggregate_ms=kernel_ms(per, "grove_aggregate"))
     return out
 
@@ -660,7 +709,7 @@ def was_text(prof: dict) -> str:
         return ""
     return (f"; grove_aggregate {fmt(prof['grove_aggregate_ms'])} ms a "
             f"launch, with the first kernel swapped in device busy "
-            f"{prof['was_device_busy_ms']:.4f} ms and "
+            f"{fmt(prof['was_device_busy_ms'])} ms and "
             f"{fmt(prof['was_grove_aggregate_ms'])} a launch")
 
 
@@ -699,14 +748,15 @@ def recorded_profile(fn, kernel: str, tries: int = 5
                          f"named like {kernel!r}")
 
 
-def retried_profile(fn, kernel: str, tries: int = 5
-                    ) -> tuple[dict, float, dict]:
-    """``device_profile`` of ``fn`` repeated until one recorded a device
-    kernel whose name holds ``kernel``, at most ``tries`` times (CUPTI may
-    drop the records of a short profile); the last profile taken, which
-    holds no such kernel only if every try lost it."""
+def retried_profile(fn, kernel: str, tries: int = 5, reps: int = 10,
+                    host: bool = True) -> tuple[dict, float, dict]:
+    """``device_profile`` of ``fn`` (``reps`` calls; ``host`` as there)
+    repeated until one recorded a device kernel whose name holds
+    ``kernel``, at most ``tries`` times (CUPTI may drop the records of a
+    short profile); the last profile taken, which holds no such kernel
+    only if every try lost it."""
     for _ in range(tries):
-        got = device_profile(fn)
+        got = device_profile(fn, reps=reps, host=host)
         if any(kernel in k for k in got[2]):
             break
     return got
@@ -714,6 +764,10 @@ def retried_profile(fn, kernel: str, tries: int = 5
 
 def fmt(ms: float | None) -> str:
     return "(no profiler record)" if ms is None else f"{ms:.4f}"
+
+
+def fmt_share(x: float | None) -> str:
+    return "(no profiler record)" if x is None else f"{x:.3f}"
 
 
 def library_profile(fn, part: int = 2) -> tuple[float | None, str, dict]:
@@ -729,78 +783,6 @@ def library_profile(fn, part: int = 2) -> tuple[float | None, str, dict]:
     if not per:
         return None, "not recorded", {}
     return sum(per.values()), sdpa_backend(max(per, key=per.get)), per
-
-
-def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
-    """Least time for the work: the larger of bytes over the memory rate
-    and operations over the peak rate for their type (default fp32)."""
-    tb, to = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def fused_work(pack: ForestPack, x: torch.Tensor, start: torch.Tensor,
-               hops: torch.Tensor) -> dict:
-    """The work of one fused evaluation of ``x`` from ``start`` that ran
-    ``hops`` hops per lane, counted from these inputs:
-
-    ``bytes``     each entry the walk reaches read once (the distinct tree
-                  nodes, leaf rows, per-tree scales and ``x`` entries the
-                  plain walk visits), the lane vectors read once and the
-                  outputs written once;
-    ``ops``       the arithmetic of every lane-hop;
-    ``chain``     the dependent loads the function needs in a row: one
-                  tree's walk, ``d`` levels of (node, then ``x[feature]``)
-                  and one leaf row, ``2d + 1`` -- every walk of every hop
-                  can start at once, since a lane's grove sequence does not
-                  depend on the gate (the gate's in-order arithmetic, hop
-                  by hop, is left unpriced);
-    ``serial_chain``  the same loads when the slowest lane walks its hops'
-                  heads and trees one after another, as the first port's
-                  kernel does: ``max hops x O x t x (2d + 1)``;
-    ``gathered``  the bytes the walk gathers counting every repeat.
-    """
-    feat, thr, leaf, ts, ls = pack.layout("fused")
-    thr = ref.dequantize_tables(thr, leaf, ts, ls)[0].reshape(-1)
-    feat = feat.reshape(-1)
-    O, G, t, N = pack.feature.shape
-    d, C, tb = pack.depth, pack.n_classes, pack.threshold.element_size()
-    B, F = x.shape
-    hops = hops.long()
-    trees, nodes, xs, leaves = [], [], [], []
-    for j in range(int(hops.max())):
-        lane = torch.nonzero(hops > j).squeeze(1)      # lanes that walked j
-        g = (start[lane].long() + j) % G
-        for o in range(O):
-            tree = ((o * G + g) * t)[:, None] + torch.arange(
-                t, device=x.device)[None, :]           # [n, t] tree ids
-            idx = torch.zeros_like(tree)
-            for _ in range(d):
-                node = tree * N + idx
-                f = feat[node].long()
-                nodes.append(node.reshape(-1))
-                xs.append((lane[:, None] * F + f).reshape(-1))
-                xv = x.reshape(-1)[lane[:, None] * F + f]
-                idx = 2 * idx + 1 + (xv > thr[node]).long()
-            trees.append(tree.reshape(-1))
-            leaves.append((tree * (N + 1) + idx - N).reshape(-1))
-    n = {k: int(torch.unique(torch.cat(v)).numel())
-         for k, v in (("trees", trees), ("nodes", nodes), ("x", xs),
-                      ("leaves", leaves))}
-    lane_hops = float(hops.sum())
-    n_bytes = (n["nodes"] * (4 + tb) + n["leaves"] * C * tb
-               + n["trees"] * 2 * 4 + n["x"] * 4
-               + 3 * B * 4                       # start, thresh, budget
-               + B * O * C * 4 + B * 4)          # proba, hops
-    # per lane-hop and head: t*d compares, t*C leaf adds (+ t*C dequantize
-    # multiplies at int8), C mean divides, C adds, 2C normalising divides,
-    # 2C max compares
-    per = O * (t * d + t * C * (2 if pack.precision == "int8" else 1)
-               + 6 * C)
-    return {"bytes": n_bytes, "ops": lane_hops * per, "distinct": n,
-            "chain": 2 * d + 1,
-            "serial_chain": int(hops.max()) * O * t * (2 * d + 1),
-            "gathered": lane_hops * O * t * (d * (4 + tb + 4) + C * tb)}
 
 
 def load_latency_ns(dev: torch.device, n_bytes: int) -> float:
@@ -1499,34 +1481,6 @@ def ssd_inputs(rng, shape, dtype, dev) -> list:
             for a in arrays]
 
 
-def ssd_work(B, nc, Q, H, P, N, itemsize) -> dict:
-    """ssd_chunk's work from its shapes: ``bytes`` x, a, B, C read once and
-    y, states written once (the tensor-core kernel reads x once, so its
-    design moves these bytes too; C and B come in once per block, mostly
-    from L2); ``ops`` the products the causal block needs (C.B^T once per
-    chunk and the weighted sum over j <= i, the state sum over all j);
-    ``ops_full`` the full [Q, Q] products, as the TPU kernel counts them;
-    ``ops_sm90`` what the tensor-core kernel runs: per head the 64 x 64
-    tiles on or below the diagonal of C.B^T (recomputed per head) and of
-    W.x, and the states product; ``ops_simt`` what the SIMT kernel
-    (csrc/ssd_chunk.cu) runs over its 64-wide tiles (Q, P and N rounded
-    up to 64): C.B^T's tiles on or below the diagonal once per chunk, and
-    per head W.x over those tiles and the states over the whole chunk."""
-    BC = B * nc
-    n_bytes = itemsize * BC * (2 * Q * H * P + H * Q + 2 * Q * N + H * P * N)
-    pairs = Q * (Q + 1) // 2
-    ops_ = BC * (2 * pairs * N + 2 * pairs * H * P + 2 * Q * N * H * P)
-    full = BC * (2 * Q * Q * N + 2 * Q * Q * H * P + 2 * Q * N * H * P)
-    nt = -(-Q // 64)
-    tiles = nt * (nt + 1) // 2
-    sm90 = BC * H * (tiles * 64 * 64 * 2 * (N + P) + 2 * P * N * 256)
-    Qp, Pp, Np = (64 * -(-w // 64) for w in (Q, P, N))
-    simt = BC * (tiles * 64 * 64 * 2 * Np
-                 + H * (tiles * 64 * 64 * 2 * Pp + 2 * Qp * Pp * Np))
-    return {"bytes": n_bytes, "ops": ops_, "ops_full": full,
-            "ops_sm90": sm90, "ops_simt": simt}
-
-
 def flash_close(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Raise unless the kernel's output meets its bar against the plain
     version's; returns the max abs error.  fp32: rtol/atol 2e-5 (the CPU
@@ -1561,33 +1515,6 @@ def flash_inputs(rng, shape, dtype, dev) -> list:
     return [torch.as_tensor(rng.normal(size=sh).astype(np.float32),
                             device=dev).to(dtype)
             for sh in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, Dv))]
-
-
-def flash_work(B, Sq, Sk, H, K, D, Dv, itemsize, causal=True) -> dict:
-    """flash_attention's work from its shapes: ``bytes`` q, k, v read once
-    and the output written once; ``pairs`` the (query, key) pairs each
-    (batch, head) attends (causal: key j <= query i, both from 0); ``ops``
-    the two products over them, 2 (D + Dv) FLOP a pair."""
-    n_bytes = itemsize * B * (Sq * H * (D + Dv) + Sk * K * (D + Dv))
-    if causal:
-        n = min(Sq, Sk)          # rows i < Sk see i + 1 keys, the rest Sk
-        pairs = n * (n + 1) // 2 + (Sq - n) * Sk
-    else:
-        pairs = Sq * Sk
-    return {"bytes": n_bytes, "pairs": pairs,
-            "ops": B * H * pairs * 2 * (D + Dv)}
-
-
-def flash_design_ops(B, Sq, Sk, H, D, Dv, causal=True) -> int:
-    """The FLOP the SIMT forward's design runs: each (q tile, K/V tile)
-    pair it visits whole (``fa.fwd_tiles``), 2 (D + Dv) a (row, key)
-    pair."""
-    bq, bk, _ = fa.fwd_tiles(D, Dv)
-    tiles = 0
-    for t in range(-(-Sq // bq)):
-        end = min(Sk, (t + 1) * bq, Sq) if causal else Sk
-        tiles += -(-end // bk)
-    return B * H * tiles * bq * bk * 2 * (D + Dv)
 
 
 # the flash_attention checks on the card beyond layer 0's inputs:
@@ -4591,36 +4518,6 @@ def leaf_error(got: dict, want: dict, bar: float, atol: float = 0.0,
     return worst
 
 
-def bwd_work(B, Sq, Sk, H, K, D, Dv, causal=True) -> dict:
-    """flash_attention's backward from its shapes: ``bytes`` q, k, v, o,
-    do and lse read once and dq, dk, dv written once (fp32); ``ops`` the
-    five products over the live pairs (s = q k^T recomputed, dp = do v^T,
-    dv = p^T do, dq = ds k, dk = ds^T q), 2 (3 D + 2 Dv) FLOP a pair."""
-    fwd = flash_work(B, Sq, Sk, H, K, D, Dv, 4, causal)
-    n_bytes = 4 * B * (2 * Sq * H * (D + Dv) + 2 * Sk * K * (D + Dv)
-                       + H * Sq)
-    return {"bytes": n_bytes, "pairs": fwd["pairs"],
-            "ops": B * H * fwd["pairs"] * 2 * (3 * D + 2 * Dv)}
-
-
-def bwd_work_sm90(B, Sq, Sk, H, K, D, Dv, causal=True) -> dict:
-    """The tensor-core backward's work from its shapes: ``bytes`` bf16 q,
-    k, v, o, do read and dq, dk, dv written once, and the fp32 lse read
-    once; ``ops`` the five products over the live pairs (as
-    :func:`bwd_work`); ``design_ops`` the seven the two-pass design runs
-    (s and dp in both passes), 2 (2 D + 2 Dp + 3 Dv) FLOP a pair, where
-    dk and dq's products run over D padded to whole 64-column chunks, Dp
-    (96 -> 128)."""
-    fwd = flash_work(B, Sq, Sk, H, K, D, Dv, 2, causal)
-    n_bytes = (2 * B * (2 * Sq * H * (D + Dv) + 2 * Sk * K * (D + Dv))
-               + 4 * B * H * Sq)
-    n_pairs = B * H * fwd["pairs"]
-    return {"bytes": n_bytes, "pairs": fwd["pairs"],
-            "ops": n_pairs * 2 * (3 * D + 2 * Dv),
-            "design_ops": n_pairs * 2 * (2 * D + 2 * fa.sm90_padded(D)
-                                         + 3 * Dv)}
-
-
 def bwd_inputs(rng, shape, causal, dev, dtype=torch.float32) -> tuple:
     """q, k, v, the forward's output and lse (the kernel's, with_lse) and a
     random do, in ``dtype`` (lse fp32) on the card."""
@@ -5194,38 +5091,6 @@ def capture_first_ssd(store: dict):
         yield
     finally:
         ops.ssd_chunk = real
-
-
-def ssd_bwd_work(B, nc, Q, H, P, N, itemsize=4) -> dict:
-    """ssd_chunk's backward from its shapes: ``bytes`` xbar, a, B, C, dy
-    and dstates read once and dxbar, da, dB, dC written once (``itemsize``
-    bytes each: 4 fp32, 2 bf16);
-    ``ops`` the products it needs: per chunk S = C B^T, dC = dS B and dB +=
-    dS^T C over the causal pairs (2 N FLOP a pair each), and per (chunk,
-    head) dy x^T and W^T dy over the causal pairs (2 P each), and B dst^T
-    and x dst over the whole chunk (2 Q P N each); ``design_ops`` what the
-    tensor-core backward runs (csrc/ssd_chunk_bwd_sm90.cu) over its 64 x
-    64 tiles on or below the diagonal: per chunk S, dC and dB; per (chunk,
-    head) dW in the ds pass, S^T, dW^T and W^T dy in the dx pass, and G
-    and x dst over the whole chunk; ``simt_ops`` what the SIMT backward
-    (csrc/ssd_chunk_bwd.cu) runs over its 64-wide tiles (Q, P and N
-    rounded up to 64): per chunk S, dC and dB over the tiles on or below
-    the diagonal; per (chunk, head) dW and W^T dy over those tiles, and G
-    and x dst over the whole chunk."""
-    BC = B * nc
-    n_bytes = itemsize * BC * (3 * Q * H * P + 2 * H * Q + 4 * Q * N
-                               + H * P * N)
-    pairs = Q * (Q + 1) // 2
-    ops_ = BC * (3 * 2 * pairs * N
-                 + H * (2 * 2 * pairs * P + 2 * 2 * Q * P * N))
-    nt = -(-Q // 64)
-    tile = 64 * 64 * 2 * nt * (nt + 1) // 2   # FLOP a unit of depth
-    design = BC * (3 * tile * N + H * (3 * tile * P + tile * N
-                                       + 2 * 2 * 64 * nt * P * N))
-    Qp, Pp, Np = (64 * -(-w // 64) for w in (Q, P, N))
-    simt = BC * (3 * tile * Np + H * (2 * tile * Pp + 2 * 2 * Qp * Pp * Np))
-    return {"bytes": n_bytes, "pairs": pairs, "ops": ops_,
-            "design_ops": design, "simt_ops": simt}
 
 
 def ssd_bwd_inputs(rng, shape, dev, dtype=torch.float32) -> list:
@@ -6258,6 +6123,272 @@ def bf16_train_profile(train: dict, dev: torch.device) -> None:
               ts["simt_device_ms_by_kernel"].items()) + ")", flush=True)
 
 
+# ---------------------------------------------------------------- 20 ---
+# train_4k at its full batch (256 x 4096 = 1,048,576 tokens a step):
+# tinyllama-1.1b in bf16 at full width and depth through
+# ``make_train_step(accum_steps=FULL_ACCUM)``.  The microbatch is the
+# largest a measured peak leaves room for: at 16 x 4096 one microbatch's
+# forward and backward peaked at 28.10 GB (13.2 GB of bf16 parameters and
+# gradients and fp32 moments, ~0.23 MB of activations a token) and the
+# step at 32.50 GB with the fp32 accumulator, so 32 x 4096 takes ~48 GB
+# and 64 x 4096 ~78 GB
+FULL_ARCH, FULL_SHAPE, FULL_ACCUM = "tinyllama-1.1b", "train_4k", 8
+# accum_steps=2 against 1 at phase 17's fp32 setup, where only the order
+# of the sums differs: the loss (relative), each accumulated gradient (of
+# its leaf's scale) and each updated parameter (of its leaf's scale, plus
+# phase 17's absolute floor: a parameter that starts at 0, a norm weight,
+# has one step's rate, 3e-6, as its scale, and AdamW's first step divides
+# each gradient by its own magnitude, so a near-zero gradient's last
+# digits reach that step whole)
+ACCUM_LOSS_RTOL, ACCUM_GRAD_BAR, ACCUM_PARAM_BAR = 1e-6, 1e-5, 1e-5
+# phase 19's step (2 x 4096) as a microbatch of train_4k's 256
+BF16_AS_ACCUM = 256 // BF16_B
+
+
+def one_fp32_step(cfg, dev, batch, k: int) -> dict:
+    """One fp32 step of ``cfg`` from the port's generator (seed SEED) at
+    ``accum_steps=k``, the counts zeroed just before and read just after:
+    its accumulated gradients (taken before the step), updated
+    parameters, loss and launches."""
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           torch.float32, device=dev)
+    grads = accumulated_grads(params, cfg, batch, k)[1]
+    step_fn, init_opt = make_train_step(cfg, device=dev, accum_steps=k)
+    opt = init_opt(params)
+    zero_counts()
+    params, opt, m = step_fn(params, opt, batch)
+    launched, routes = read_counts()
+    del opt
+    return {"grads": grads, "params": train_state(params),
+            "loss": float(m["loss"]), "launches": launched, "routes": routes}
+
+
+def full_batch_phase(dev: torch.device, bf16_peak_gb: float) -> dict:
+    """Phase 20 (see the module docstring)."""
+    out: dict = {}
+    cfg, sp = get_arch(FULL_ARCH), SHAPES[FULL_SHAPE]
+    n, k = cfg.n_layers, FULL_ACCUM
+    mb = sp.global_batch // k
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = bf16_model(cfg, dev)
+    step_fn, init_opt = make_train_step(cfg, device=dev, accum_steps=k)
+    opt = init_opt(params)
+    batch = step_batch(cfg, DataConfig(cfg.vocab_size, sp.seq_len,
+                                       sp.global_batch, seed=SEED), 0, dev)
+    # warm the microbatch's shapes: one forward and backward of one
+    t0 = time.perf_counter()
+    loss_and_grads(params, cfg, {key: v[:mb] for key, v in batch.items()})
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    out["microbatch_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step_fn(params, opt, batch)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    launched, routes = read_counts()
+    out.update(
+        arch=FULL_ARCH, accum_steps=k, microbatch=[mb, sp.seq_len],
+        loss=loss, step_ms=step_s * 1e3,
+        tokens_per_s=sp.global_batch * sp.seq_len / step_s,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        launches=launched, routes=routes,
+        model_flops=analytic_model_flops(cfg, FULL_SHAPE))
+    out["mfu"] = out["model_flops"] / (step_s * H100_SXM_BF16.peak_flops)
+    check_counts(f"{FULL_ARCH} {FULL_SHAPE} k={k}",
+                 [{"launches": launched, "routes": routes}],
+                 ({"flash_attention": 2 * n * k,
+                   "flash_attention_bwd_sm90": n * k},
+                  {"flash_attention_sm90": 2 * n * k}))
+    if not np.isfinite(loss) or out["peak_gb"] > 80.0:
+        raise AssertionError(f"full-batch step: loss {loss}, peak "
+                             f"{out['peak_gb']:.2f} GB")
+    del params, opt, batch, m
+    torch.cuda.empty_cache()
+    print(f"[train-full] {FULL_ARCH} bf16 at {FULL_SHAPE}'s full batch "
+          f"{sp.global_batch} x {sp.seq_len} ({sp.global_batch * sp.seq_len:,}"
+          f" tokens), accum_steps={k} (microbatches of {mb} x "
+          f"{sp.seq_len}): one step {out['step_ms']:.1f} ms "
+          f"({out['tokens_per_s']:.0f} training tokens/s), loss {loss:.4f}, "
+          f"peak {out['peak_gb']:.2f} GB (one microbatch's forward and "
+          f"backward, warm-up: {out['microbatch_peak_gb']:.2f} GB in "
+          f"{out['warm_s']:.1f} s); launches {launched} by route {routes} "
+          f"= {k} x ({2 * n} + {n}); MFU {out['mfu']:.4f} "
+          f"({out['model_flops']:.4g} model FLOP = 6ND over the step at "
+          f"{H100_SXM_BF16.peak_flops:.3g} FLOP/s, dense bf16)", flush=True)
+
+    # the dry run's peak (the card's path on meta: the attention kernels'
+    # outputs, not the plain score matrices) beside the measured ones
+    full = dryrun_cell(FULL_ARCH, FULL_SHAPE, accum_steps=k, verbose=False)
+    two = dryrun_cell(FULL_ARCH, FULL_SHAPE, accum_steps=BF16_AS_ACCUM,
+                      verbose=False)
+    out["dryrun"] = {"full": full, "phase19": two}
+    two_gb = (two["peak_bytes"] - two["accumulator_bytes"]) / 1e9
+    print(f"[dryrun] {FULL_ARCH} {FULL_SHAPE} on meta (the card's path, "
+          f"attention as its kernels' outputs): microbatch {mb} x "
+          f"{sp.seq_len} with the accumulator "
+          f"{full['peak_bytes'] / 1e9:.2f} GB against {out['peak_gb']:.2f} "
+          f"GB measured (x{full['peak_bytes'] / 1e9 / out['peak_gb']:.3f}; "
+          f"{full['seconds']:.1f} s); {BF16_B} x {BF16_S} without it "
+          f"{two_gb:.2f} GB against phase 19's {bf16_peak_gb:.2f} GB "
+          f"(x{two_gb / bf16_peak_gb:.3f}); counted FLOPs "
+          f"{full['counted_flops']:.4g} against 6ND "
+          f"{full['model_flops']:.4g} (ratio "
+          f"{full['useful_flops_ratio']:.3f})", flush=True)
+
+    # accum_steps=2 against 1 at phase 17's fp32 setup, and twice
+    cfg32 = get_arch(TRAIN_ARCH)
+    batch = step_batch(cfg32, DataConfig(cfg32.vocab_size, TRAIN_S, TRAIN_B,
+                                         seed=SEED), 0, dev)
+    one = one_fp32_step(cfg32, dev, batch, 1)
+    two_a = one_fp32_step(cfg32, dev, batch, 2)
+    two_b = one_fp32_step(cfg32, dev, batch, 2)
+    n32 = cfg32.n_layers
+    for what, run, kk in (("k=1", one, 1), ("k=2", two_a, 2),
+                          ("k=2 again", two_b, 2)):
+        check_counts(f"{TRAIN_ARCH} fp32 {what}", [run], (
+            {"flash_attention": 2 * n32 * kk,
+             "flash_attention_bwd": n32 * kk},
+            {"flash_attention": 2 * n32 * kk}))
+    rel = abs(two_a["loss"] - one["loss"]) / abs(one["loss"])
+    if rel > ACCUM_LOSS_RTOL:
+        raise AssertionError(f"accum_steps=2 loss {two_a['loss']} vs "
+                             f"{one['loss']}: rel {rel}")
+    out["accum2_vs_1"] = {
+        "loss_rel": rel,
+        "grad_err": leaf_error(two_a["grads"], one["grads"], ACCUM_GRAD_BAR,
+                               what="accum_steps=2 vs 1 gradients"),
+        "param_err": leaf_error(two_a["params"], one["params"],
+                                ACCUM_PARAM_BAR, CARD_CPU_ATOL,
+                                what="accum_steps=2 vs 1 params")}
+    if two_a["loss"] != two_b["loss"]:
+        raise AssertionError("accum_steps=2 loss moved run to run")
+    for key, t in two_a["params"].items():
+        check_equal(f"accum_steps=2 run to run {key}", t,
+                    two_b["params"][key])
+    del one, two_a, two_b, batch
+    torch.cuda.empty_cache()
+
+    # a smoke-config accumulated step, card against the CPU port
+    smoke = smoke_config(TRAIN_ARCH)
+    p_cpu = T.init_params(smoke, torch.Generator().manual_seed(SEED),
+                          torch.float32, device="cpu")
+    res = {}
+    for key, d, p in (("cpu", torch.device("cpu"), p_cpu),
+                      ("card", dev, copy.deepcopy(p_cpu).to(dev))):
+        fn, init = make_train_step(smoke, lr=5e-3, device=d, accum_steps=2)
+        b = step_batch(smoke, DataConfig(smoke.vocab_size, 64, 4, seed=SEED),
+                       0, d)
+        p, _, m = fn(p, init(p), b)
+        res[key] = (train_state(p), float(m["loss"]))
+    out["smoke_card_vs_cpu"] = leaf_error(
+        res["card"][0], res["cpu"][0], CARD_CPU_BAR, CARD_CPU_ATOL,
+        "accumulated smoke step, card vs CPU")
+    print(f"[train-full] accum_steps=2 vs 1 ({TRAIN_ARCH} fp32, "
+          f"{TRAIN_B} x {TRAIN_S}): loss rel {rel:.2e} (bar "
+          f"{ACCUM_LOSS_RTOL}), gradients "
+          f"{out['accum2_vs_1']['grad_err']:.2e} of a leaf's scale (bar "
+          f"{ACCUM_GRAD_BAR}), params {out['accum2_vs_1']['param_err']:.2e}"
+          f" (bar {ACCUM_PARAM_BAR} + {CARD_CPU_ATOL}); accum_steps=2 "
+          f"bit-equal run to run; {smoke.name} smoke accumulated step card "
+          f"== CPU within {out['smoke_card_vs_cpu']:.2e} (bar "
+          f"{CARD_CPU_BAR} + {CARD_CPU_ATOL}), losses card "
+          f"{res['card'][1]:.6f}, CPU {res['cpu'][1]:.6f}", flush=True)
+
+    # the LM serving example on the card, held to the CPU port
+    zero_counts()
+    ex = serve_fog_lm.main([])
+    launched = read_counts()[0]
+    cpu_done = serve_fog_lm.serve(copy.deepcopy(ex["params"]).to("cpu"),
+                                  ex["cfg"], "cpu")
+    card = {r.rid: r for r in ex["done"]}
+    cpu = {r.rid: r for r in cpu_done}
+    if sorted(card) != sorted(cpu) or len(card) != serve_fog_lm.N_REQUESTS:
+        raise AssertionError(f"example: requests {sorted(card)} on the "
+                             f"card, {sorted(cpu)} on the CPU")
+    for rid, r in card.items():
+        if (list(map(int, r.generated)) != list(map(int, cpu[rid].generated))
+                or list(map(int, r.hops)) != list(map(int, cpu[rid].hops))):
+            raise AssertionError(
+                f"example request {rid}: card tokens {r.generated} hops "
+                f"{r.hops}, CPU {cpu[rid].generated} {cpu[rid].hops}")
+    out["example"] = {"launches": launched, "hops": {
+        rid: list(map(int, r.hops)) for rid, r in sorted(card.items())}}
+    print(f"[example] serve_fog_lm on the card: {len(card)} requests, "
+          f"tokens and hops == the CPU port's; launches "
+          f"top2_confidence {launched.get('top2_confidence', 0)}, "
+          f"flash_attention {launched.get('flash_attention', 0)} (all "
+          f"{launched})", flush=True)
+    return out
+
+
+def roofline_lines(timing: dict, eval_fns: dict, ring: dict, packs: dict,
+                   F: int) -> dict:
+    """The FoG roofline model (``launch.roofline``, one H100 SXM) of each
+    backend's eval at the bench field beside its measured call ms (CUDA
+    events, phase 6 / 9) and device ms (the profiler, phase 14): fused
+    (tables once, each lane's row and outputs once; FLOPs over its hops),
+    per-hop ``pallas`` and the ring on ``RingMesh(8)``.  The per-hop
+    eval is priced at the card's HBM traffic, the tables once an
+    iteration (the model's fused class at ``chunks = iters``): the
+    model's own per-hop class re-reads each lane's grove slice every
+    iteration, the TPU kernel's traffic, which the card serves from its
+    50 MB L2.  A share over 100 % means a model the measurement beats: it
+    raises.  Each eval's hops are those of one more call of the timed
+    eval."""
+    rows = {}
+    for (nb, p), row in sorted(timing.items()):
+        model = RooflineModel(packs[p], F)
+        rrow = ring["timing"][nb, p]
+        hops = eval_fns[nb, p, "fused"]().hops
+        check_equal(f"roofline B={nb} {p}: per-hop eval hops",
+                    eval_fns[nb, p, "pallas"]().hops, hops)
+        ring_hops = ring["eval_fns"][nb, p, RING_MESHES[0]]().hops
+        evals = {
+            "fused": (model.estimate("fused", nb, iters=int(hops.max()),
+                                     hops_total=float(hops.sum()),
+                                     compact=True),
+                      row["eval_fused_ms"],
+                      row["eval_fused_profile"]["device_busy_ms"]),
+            "pallas": (model.estimate("fused", nb, iters=MAX_HOPS,
+                                      hops_total=float(hops.sum()),
+                                      chunks=MAX_HOPS),
+                       row["eval_pallas_ms"],
+                       row["eval_pallas_profile"]["device_busy_ms"]),
+            "ring": (model.estimate(f"ring-{RING_MESHES[0]}", nb,
+                                    iters=MAX_HOPS,
+                                    hops_total=float(ring_hops.sum())),
+                     rrow[f"eval_ring{RING_MESHES[0]}_ms"],
+                     rrow[f"eval_ring{RING_MESHES[0]}_profile"][
+                         "device_busy_ms"])}
+        for b, (est, call_ms, dev_ms) in evals.items():
+            def pct(ms):
+                """est's achieved share of ``ms`` (None: not recorded)."""
+                return None if ms is None else 100 * est.achieved(ms * 1e-3)
+
+            r = est.to_dict()
+            r.update(call_ms=call_ms, device_ms=dev_ms,
+                     achieved_call_pct=pct(call_ms),
+                     achieved_device_pct=pct(dev_ms))
+            rows[f"B={nb} {p} {b}"] = r
+            print(f"[roofline] B={nb} {p} {b}: {est.bytes_moved:.4g} B, "
+                  f"{est.flops:.4g} FLOP, {est.bound}-bound, ideal "
+                  f"{est.ideal_s * 1e3:.6f} ms on {est.spec.name}; achieved "
+                  f"{fmt_share(r['achieved_call_pct'])} % of the call "
+                  f"({call_ms:.4f} ms), "
+                  f"{fmt_share(r['achieved_device_pct'])} % of the device "
+                  f"ms ({fmt(dev_ms)})", flush=True)
+            over = [g for g in ("achieved_call_pct", "achieved_device_pct")
+                    if r[g] is not None and r[g] > 100.0]
+            if over:
+                raise AssertionError(
+                    f"roofline B={nb} {p} {b}: {over} over 100 % -- the "
+                    f"model claims more work than the card needed: {r}")
+    return rows
+
+
 def stamp(what: str, t0: float) -> None:
     """Print the seconds since ``t0`` at which a phase starts."""
     print(f"[phase] {what} at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6690,6 +6821,12 @@ def main() -> int:
         train_bf16["mamba2"]["launches_per_step"]["ssd_chunk_bwd_sm90"]
         * BF16_STEPS)
 
+    # 20. train_4k at its full batch (its own main path), the dry run, the
+    # accumulation checks and the serving example, while memory is free
+    stamp("20. full-batch train_4k", t_main)
+    full = full_batch_phase(dev, train_bf16["tinyllama"]["peak_gb"])
+    out["full_batch"] = full
+
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
     stamp("16. MLA, MoE, hybrid LMs", t_main)
@@ -6813,7 +6950,8 @@ def main() -> int:
         row.update({f"grove_aggregate_{k}": v for k, v in
                     row["grove_aggregate_shares"]["hop 2"].items()})
     for (nb, p, b), fn in eval_fns.items():
-        timing[nb, p][f"eval_{b}_profile"] = eval_profile(fn, b == "pallas")
+        timing[nb, p][f"eval_{b}_profile"] = eval_profile(
+            fn, EVAL_KERNEL[b], b == "pallas")
     for (nb, p), row in timing.items():
         print(f"[time] B={nb} {p}: fused_fog on {row['fused_fog_route']} "
               f"{row['fused_fog_ms']:.4f} ms per call, "
@@ -6838,8 +6976,8 @@ def main() -> int:
                   f"classifications/s), kernel launches {launched} by route "
                   f"{row[f'{b}_routes_per_eval']}; under the profiler wall "
                   f"{prof['wall_ms']:.3f} ms, device busy "
-                  f"{prof['device_busy_ms']:.4f} ms, idle "
-                  f"{prof['device_idle_share']:.3f}{was_text(prof)}")
+                  f"{fmt(prof['device_busy_ms'])} ms, idle "
+                  f"{fmt_share(prof['device_idle_share'])}{was_text(prof)}")
         if p == "fp32":
             for share, r in row["grove_aggregate_shares"].items():
                 print(f"[time] B={nb} [B,{C}] {share} ({r['live_lanes']} "
@@ -6863,8 +7001,10 @@ def main() -> int:
         ring["timing"][nb, p][f"{k}_device_ms"] = profiled_ms(fn,
                                                               DEVICE_NAME[k])
     for (nb, p, n), fn in ring["eval_fns"].items():
+        # RingMesh(8) launches the kernels; 4 and 1 gather (plain ops)
+        kernels = n == RING_MESHES[0]
         ring["timing"][nb, p][f"eval_ring{n}_profile"] = eval_profile(
-            fn, n == RING_MESHES[0])
+            fn, EVAL_KERNEL["ring"] if kernels else "", kernels)
     for (nb, p), row in ring["timing"].items():
         print(f"[time] B={nb} {p}: tree_traverse [8, {nb // 8}] on "
               f"{row['tree_traverse_route']} {row['tree_traverse_ms']:.4f} ms "
@@ -6883,8 +7023,8 @@ def main() -> int:
             f"RingMesh({n}) {row[f'eval_ring{n}_ms']:.3f} ms (under the "
             f"profiler wall {row[f'eval_ring{n}_profile']['wall_ms']:.3f} ms,"
             f" device busy "
-            f"{row[f'eval_ring{n}_profile']['device_busy_ms']:.4f} ms, idle "
-            f"{row[f'eval_ring{n}_profile']['device_idle_share']:.3f}"
+            f"{fmt(row[f'eval_ring{n}_profile']['device_busy_ms'])} ms, idle "
+            f"{fmt_share(row[f'eval_ring{n}_profile']['device_idle_share'])}"
             f"{was_text(row[f'eval_ring{n}_profile'])})"
             for n in RING_MESHES) + f"; fused {fused:.3f} ms")
         row["eval_fused_ms"] = fused
@@ -6895,6 +7035,8 @@ def main() -> int:
             ring["ring_max_abs_err_vs_reference"],
         "timing": {f"B={nb} {p}": row
                    for (nb, p), row in ring["timing"].items()}}
+    # the FoG roofline model of each backend's eval beside its times
+    out["roofline"] = roofline_lines(timing, eval_fns, ring, packs, F)
 
     # fused_fog's route rule against both routes' device times where its
     # copy-bytes line falls (the sweep's code at BOUNDARY_GRID)
@@ -6908,8 +7050,8 @@ def main() -> int:
     stamp("14. profiler: SDPA's memory-efficient backend", t_main)
     efficient_sdpa_profile(train_lm_out)
 
-    # 20. the kernels line -----------------------------------------------------
-    stamp("20. kernels line", t_main)
+    # 21. the kernels line -----------------------------------------------------
+    stamp("21. kernels line", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -7151,6 +7293,9 @@ def main() -> int:
         "launches": main_launches["flash_attention_bwd_sm90"],
         "launches_per_step": tb["tinyllama"]["launches_per_step"][
             "flash_attention_bwd_sm90"],
+        # phase 20's one step of train_4k at its full batch, its own run
+        "full_batch_launches": out["full_batch"]["launches"][
+            "flash_attention_bwd_sm90"],
         "launches_per_step_by_arch": {
             r["arch"]: r["launches_per_step"]["flash_attention_bwd_sm90"]
             for r in (tb["tinyllama"], tb["minicpm3"])},
@@ -7232,6 +7377,8 @@ def main() -> int:
         if k["name"] == "flash_attention":
             k["train_bf16_launches_per_step"] = tb["tinyllama"][
                 "launches_per_step"]["flash_attention"]
+            k["full_batch_launches"] = out["full_batch"]["launches"][
+                "flash_attention"]
             k["train_bf16_routes_per_step"] = tb["tinyllama"][
                 "routes_per_step"]
             k["sm90_forward_with_lse_ms"] = tbt["fwd_lse_ms"]

@@ -1,8 +1,12 @@
 """Public wrappers for the kernels.
 
-A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
-launches the hand-written CUDA kernel (built at first use) or raises —
+A CPU (or meta) tensor runs the kernel's plain PyTorch version; a CUDA
+tensor launches the hand-written CUDA kernel (built at first use) or raises —
 there is no fallback.  ``launches`` counts kernel launches per kernel.
+On meta (shapes without values, where ``launch.dryrun`` counts a step)
+``flash_attention`` and its backward return their kernels' outputs
+unfilled instead (:func:`_flash_stand_in`): the plain version's full
+score matrix is work and memory the kernels never take.
 
 A kernel's output is a fresh tensor with no autograd history, so a CUDA
 dispatch never lets a gradient fall silently out of the graph: with grad
@@ -36,8 +40,39 @@ from repro_torch.kernels.top2_confidence import top2_confidence_cuda
 from repro_torch.kernels.tree_traverse import tree_traverse_cuda
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
+# the devices whose tensors run a kernel's plain version: the CPU, and
+# ``meta`` (shapes without values: ``launch.dryrun`` counts the work of a
+# step there, and meta runs nothing, so no kernel is passed over)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def _runs_plain(t: torch.Tensor) -> bool:
+    return t.device.type in PLAIN_DEVICES
+
+
+def _stands_in(t: torch.Tensor) -> bool:
+    """Whether the attention kernels' outputs are only allocated (meta)."""
+    return t.device.type == "meta"
+
+
+# where set (a list), each stand-in call appends (kind, q, k and v's
+# shapes, q's itemsize, causal, the bytes of its inputs), for
+# ``launch.dryrun`` to price as the kernel's work
+stand_in_calls: list | None = None
+
+
+def _flash_stand_in(kind: str, inputs: tuple, outputs: tuple,
+                    causal: bool) -> tuple:
+    """The outputs a flash kernel would write, allocated with the shapes
+    and dtypes of ``outputs`` ((shape, dtype) pairs), nothing computed;
+    the call is recorded in ``stand_in_calls``."""
+    q, k, v = inputs[:3]
+    if stand_in_calls is not None:
+        stand_in_calls.append((kind, tuple(q.shape), tuple(k.shape),
+                               tuple(v.shape), q.element_size(), causal,
+                               sum(t.numel() * t.element_size()
+                                   for t in inputs)))
+    return tuple(q.new_empty(sh, dtype=dt) for sh, dt in outputs)
 
 
 # the dtypes whose gradient the backward kernels take; the plain versions
@@ -46,7 +81,8 @@ GRAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _refuse_dtype(kernel: str, t: torch.Tensor) -> None:
-    if t.dtype in GRAD_DTYPES or (t.dtype == torch.float64 and _on_cpu(t)):
+    if t.dtype in GRAD_DTYPES or (t.dtype == torch.float64
+                                  and _runs_plain(t)):
         return
     raise TypeError(
         f"{kernel}'s backward kernels take fp32 or bf16, got {t.dtype}; an "
@@ -59,7 +95,7 @@ def tree_traverse(feature, threshold, leaf, x, thr_scale=None,
     """Grove bundle walk [B, F] -> [B, C] over packed fp32/bf16/int8 tables,
     or over ``S`` stacked ring shards ``[S, b, F] -> [S, b, C]`` (plain:
     ref.tree_traverse_ref).  Omitted scales are ones."""
-    if _on_cpu(x):
+    if _runs_plain(x):
         if thr_scale is None:
             thr_scale = torch.ones(feature.shape[:-1] + (1,))
         if leaf_scale is None:
@@ -73,7 +109,7 @@ def tree_traverse(feature, threshold, leaf, x, thr_scale=None,
 
 def top2_confidence(prob: torch.Tensor, *, block_b: int = 256) -> torch.Tensor:
     """MaxDiff margin [B, C] -> [B] (plain: ref.top2_confidence_ref)."""
-    if _on_cpu(prob):
+    if _runs_plain(prob):
         return ref.top2_confidence_ref(prob)
     refuse_grad("top2_confidence", prob)
     return top2_confidence_cuda(prob, block_b=block_b)
@@ -84,7 +120,7 @@ def grove_aggregate(prob_acc, contrib, live, hops, thresh, *,
     """Fused Algorithm-2 hop update; thresh is a scalar or per-lane [B]
     vector (plain: ref.grove_aggregate_ref)."""
     check_contrib(contrib)
-    if _on_cpu(prob_acc):
+    if _runs_plain(prob_acc):
         return ref.grove_aggregate_ref(prob_acc, contrib, live, hops, thresh)
     refuse_grad("grove_aggregate", prob_acc, contrib, thresh)
     return grove_aggregate_cuda(prob_acc, contrib, live, hops, thresh,
@@ -99,7 +135,7 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
     (proba [B, O, C], hops [B]) (plain: fused_fog.fused_fog_ref).  On the
     card ``route`` and ``hops_per_walk`` name the launch (``None``: the
     rule's); the plain version has neither."""
-    if _on_cpu(x):
+    if _runs_plain(x):
         return fused_fog_ref(feature, threshold, leaf, x, start, thresh,
                              budget, thr_scale, leaf_scale,
                              max_hops=max_hops, block_b=block_b)
@@ -111,7 +147,7 @@ def fused_fog(feature, threshold, leaf, x, start, thresh, budget,
 
 
 def _ssd_forward(xbar, a, Bm, Cm):
-    if _on_cpu(xbar):
+    if _runs_plain(xbar):
         return ref.ssd_chunk_ref(xbar, a, Bm, Cm)
     return ssd_chunk_cuda(xbar, a, Bm, Cm)
 
@@ -140,7 +176,7 @@ class SsdChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstates):
         xbar, a, Bm, Cm = ctx.saved_tensors
-        bwd = ssd_chunk_bwd_ref if _on_cpu(xbar) else ssd_chunk_bwd_cuda
+        bwd = ssd_chunk_bwd_ref if _runs_plain(xbar) else ssd_chunk_bwd_cuda
         return bwd(xbar, a, Bm, Cm, dy.contiguous(), dstates.contiguous())
 
 
@@ -157,7 +193,14 @@ def ssd_chunk(xbar, a, Bm, Cm):
 
 
 def _flash_forward(q, k, v, causal, scale, with_lse):
-    if _on_cpu(q):
+    if _stands_in(q):
+        B, Sq, H, _ = q.shape
+        out, lse = _flash_stand_in(
+            "flash_attention", (q, k, v),
+            (((B, Sq, H, v.shape[-1]), q.dtype), ((B, H, Sq), torch.float32)),
+            causal)
+        return (out, lse) if with_lse else out
+    if _runs_plain(q):
         out, lse = flash_attention_ref_lse(q, k, v, causal=causal,
                                            scale=scale)
         return (out, lse) if with_lse else out
@@ -166,7 +209,11 @@ def _flash_forward(q, k, v, causal, scale, with_lse):
 
 
 def _flash_backward(q, k, v, o, do, lse, causal, scale):
-    if _on_cpu(q):
+    if _stands_in(q):
+        return _flash_stand_in(
+            "flash_attention_bwd", (q, k, v, o, do, lse),
+            tuple((t.shape, t.dtype) for t in (q, k, v)), causal)
+    if _runs_plain(q):
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
                                        scale=scale)
     return flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,

@@ -19,6 +19,22 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import softmax_scale
 
 
+# ----------------------------------------------------------------- draws ---
+class MetaDraws:
+    """What the weight initialisers take in place of a ``torch.Generator``
+    to build a model on the ``meta`` device, which has no generator: each
+    draw is then an allocation without values (``launch.dryrun``)."""
+    device = torch.device("meta")
+
+
+def normal(shape, generator) -> torch.Tensor:
+    """A float32 ``N(0, 1)`` draw of ``shape`` by ``generator`` on its
+    device; on ``meta`` (:class:`MetaDraws`) an allocation."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, device=generator.device)
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Normalise in fp32, cast back to ``x.dtype``, then ``* (1 + w)``."""
     x32 = x.to(torch.float32)

@@ -28,6 +28,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
+from repro_torch.models.layers import normal
 # JAX's mamba2._segsum, under its name
 from repro_torch.kernels.ssd_chunk import segsum as _segsum  # noqa: F401
 
@@ -61,12 +62,10 @@ def init_mamba(generator: torch.Generator, cfg: ArchConfig,
     dev = generator.device
 
     def init(*sh):
-        return (torch.randn(sh, generator=generator, device=dev)
-                / np.sqrt(sh[0])).to(dtype)
+        return (normal(sh, generator) / np.sqrt(sh[0])).to(dtype)
 
     def conv(c):
-        return (torch.randn((K, c), generator=generator, device=dev)
-                * 0.2).to(dtype)
+        return (normal((K, c), generator) * 0.2).to(dtype)
 
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=dev)

@@ -26,8 +26,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (apply_rope, flash_attention, rmsnorm,
-                                       write_cache_rows)
+from repro_torch.models.layers import (apply_rope, flash_attention, normal,
+                                       rmsnorm, write_cache_rows)
 
 PARAM_NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_uk", "w_uv",
                "w_o")
@@ -55,8 +55,7 @@ def init_mla(generator: torch.Generator, cfg: ArchConfig, dtype) -> MLA:
     g = generator.device
 
     def init(*sh):
-        return (torch.randn(sh, generator=generator, device=g)
-                / np.sqrt(sh[0])).to(dtype)
+        return (normal(sh, generator) / np.sqrt(sh[0])).to(dtype)
 
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=g)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import normal
 
 
 class SharedExpert(nn.Module):
@@ -60,8 +61,7 @@ def _normal(generator, shape, dtype) -> torch.Tensor:
     memory: deepseek-v3's 256 experts at once would take 15 GB)."""
     out = torch.empty(shape, dtype=dtype, device=generator.device)
     for i in range(shape[0]):
-        out[i] = torch.randn(shape[1:], generator=generator,
-                             device=generator.device) / np.sqrt(shape[-2])
+        out[i] = normal(shape[1:], generator) / np.sqrt(shape[-2])
     return out
 
 
@@ -69,8 +69,7 @@ def init_moe(generator: torch.Generator, cfg: ArchConfig, dtype) -> MoE:
     """Random weights from JAX's distributions, drawn by ``generator``."""
     d, E = cfg.d_model, cfg.n_experts
     f = cfg.moe_d_ff or cfg.d_ff
-    g = generator.device
-    router = torch.randn((d, E), generator=generator, device=g) * 0.02
+    router = normal((d, E), generator) * 0.02
     shared = None
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts

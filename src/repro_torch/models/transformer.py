@@ -55,8 +55,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (apply_rope, decode_attention,
-                                       flash_attention, gated_ffn, rmsnorm,
-                                       write_cache_rows)
+                                       flash_attention, gated_ffn, normal,
+                                       rmsnorm, write_cache_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +158,8 @@ class LM(nn.Module):
 def _init_attn(generator, cfg: ArchConfig, dtype) -> Attn:
     d, H, K, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                    cfg.resolved_head_dim)
-    g = generator.device
-
     def init(*sh, fan_in=d):
-        return (torch.randn(sh, generator=generator, device=g)
-                / np.sqrt(fan_in)).to(dtype)
+        return (normal(sh, generator) / np.sqrt(fan_in)).to(dtype)
 
     return Attn(init(d, H, hd), init(d, K, hd), init(d, K, hd),
                 init(H, hd, d, fan_in=H * hd))
@@ -170,11 +167,8 @@ def _init_attn(generator, cfg: ArchConfig, dtype) -> Attn:
 
 def _init_ffn(generator, cfg: ArchConfig, dtype) -> FFN:
     d, f = cfg.d_model, cfg.d_ff
-    g = generator.device
-
     def init(a, b):
-        return (torch.randn((a, b), generator=generator, device=g)
-                / np.sqrt(a)).to(dtype)
+        return (normal((a, b), generator) / np.sqrt(a)).to(dtype)
 
     return FFN(init(d, f), init(d, f) if cfg.gated_ffn else None, init(f, d))
 
@@ -202,7 +196,9 @@ def _init_layer(generator, cfg: ArchConfig, s: LayerSpec, dtype) -> Layer:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> LM:
     """Random weights from JAX's distributions, drawn by ``generator``,
-    which must live on ``device`` (default: the card)."""
+    which must live on ``device`` (default: the card).  On ``meta``,
+    ``layers.MetaDraws()`` takes the generator's place: the model's
+    shapes and dtypes without values."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
@@ -210,19 +206,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     prefix, period, n_rep = layer_plan(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     g = generator.device
-    embed = (torch.randn((V, d), generator=generator, device=g)
-             * 0.02).to(dtype)
+    embed = (normal((V, d), generator) * 0.02).to(dtype)
     unembed = None
     if not cfg.tie_embeddings:
-        unembed = (torch.randn((d, V), generator=generator, device=g)
-                   / np.sqrt(d)).to(dtype)
+        unembed = (normal((d, V), generator) / np.sqrt(d)).to(dtype)
     layers = ([_init_layer(generator, cfg, s, dtype) for s in prefix],
               [{f"pos{j}": _init_layer(generator, cfg, s, dtype)
                 for j, s in enumerate(period)} for _ in range(n_rep)])
     mtp = None
     if cfg.mtp:
-        mtp = {"proj": (torch.randn((2 * d, d), generator=generator,
-                                    device=g) / np.sqrt(2 * d)).to(dtype),
+        mtp = {"proj": (normal((2 * d, d), generator)
+                        / np.sqrt(2 * d)).to(dtype),
                "ln": torch.zeros((d,), dtype=dtype, device=g)}
     return LM(embed, torch.zeros((d,), dtype=dtype, device=g), unembed,
               *layers, mtp)

@@ -47,11 +47,23 @@ layers through ``ops.SsdChunk`` (``csrc/ssd_chunk_bwd.cu``).  The
 backward kernels take fp32 and bf16: an fp16 model is refused
 (:func:`check_trainable`).
 
-JAX's mesh and shardings have no counterpart on one card; ``SHAPES``,
-``input_specs``, ``shape_supported`` and ``make_train_step_lowerable``
-(gradient accumulation) are the dry-run tools, not ported (ROADMAP A6).
+Gradient accumulation (``make_train_step(..., accum_steps=k)``) is JAX's
+``make_train_step_lowerable``'s arithmetic on one card: the batch is
+reshaped to ``[k, B / k, ...]`` and the microbatches run in order, their
+losses summed from a float32 zero and their gradients added into one
+float32 tree beside the parameters (a bf16 gradient promoted by the add,
+as JAX's ``grad_acc + g``), each microbatch's gradients freed as they
+are added; both are then multiplied by ``1 / k`` and go through the same
+update.  So the step holds one float32 tree more than without it, and
+one microbatch's activations.  ``k`` must divide the batch.
+
+``SHAPES``, ``input_specs`` and ``shape_supported`` are JAX's cells of
+(arch x shape); ``launch.dryrun`` reads them.  JAX's mesh and shardings
+have no counterpart on one card.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -62,6 +74,56 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import (OptState, adamw, clip_leaf, clip_scale,
                                ef_compress_grads, global_norm,
                                linear_warmup_cosine)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def input_specs(cfg: ArchConfig, shape: str | ShapeSpec,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Every model input of a cell (a ``SHAPES`` name, or a
+    :class:`ShapeSpec`) as ``{name: (shape, dtype)}`` (the convention of
+    ``serve.decode``'s ``inputs``); nothing is allocated.  ``embeds`` take
+    the place of token ids for ``cfg.frontend``; a decode cell's
+    ``length`` is a scalar."""
+    sp = SHAPES[shape] if isinstance(shape, str) else shape
+    B, S = sp.global_batch, sp.seq_len
+    i32 = torch.int32
+    if sp.kind == "train":
+        if cfg.frontend:
+            return {"embeds": ((B, S, cfg.d_model), dtype),
+                    "labels": ((B, S), i32)}
+        return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+    if sp.kind == "prefill":
+        if cfg.frontend:
+            return {"embeds": ((B, S, cfg.d_model), dtype)}
+        return {"tokens": ((B, S), i32)}
+    # decode: one new token against a seq_len cache
+    if cfg.frontend:
+        return {"embeds": ((B, 1, cfg.d_model), dtype), "length": ((), i32)}
+    return {"token": ((B,), i32), "length": ((), i32)}
+
+
+def shape_supported(cfg: ArchConfig, shape: str) -> tuple[bool, str]:
+    """long_500k only for sub-quadratic archs (``cfg.long_context``); the
+    reason is JAX's, word for word."""
+    if shape == "long_500k" and not cfg.long_context:
+        return False, ("full-attention arch: 512k-token decode cell skipped "
+                       "by design (see DESIGN.md §5)")
+    return True, ""
 
 
 def check_trainable(cfg: ArchConfig, dtype: torch.dtype = torch.float32
@@ -106,6 +168,48 @@ def loss_and_grads(params: T.LM, cfg: ArchConfig, batch: dict
     return loss.detach(), {
         k: torch.zeros_like(p) if g is None else g
         for (k, p), g in zip(named.items(), grads)}
+
+
+def microbatches(batch: dict, accum_steps: int) -> dict:
+    """``batch`` reshaped to ``[accum_steps, B / accum_steps, ...]`` (views);
+    raises unless ``accum_steps`` divides the batch."""
+    n = next(iter(batch.values())).shape[0]
+    if accum_steps < 1 or n % accum_steps:
+        raise ValueError(f"accum_steps={accum_steps} does not divide the "
+                         f"batch of {n}")
+    return {k: v.reshape(accum_steps, n // accum_steps, *v.shape[1:])
+            for k, v in batch.items()}
+
+
+def accumulated_grads(params: T.LM, cfg: ArchConfig, batch: dict,
+                      accum_steps: int
+                      ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The loss and gradients of ``batch`` over ``accum_steps``
+    microbatches (the module docstring): ``loss_and_grads`` of each
+    ``[B / k]`` slice in order, the losses summed from a float32 zero and
+    the gradients added into one float32 tree, each microbatch's popped as
+    it is added; both times ``1 / k``.  ``accum_steps=1`` is
+    ``loss_and_grads`` of the whole batch."""
+    micro = microbatches(batch, accum_steps)
+    if accum_steps == 1:
+        return loss_and_grads(params, cfg, batch)
+    named = dict(params.named_parameters())
+    dev = next(iter(named.values())).device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+           for k, p in named.items()}
+    for i in range(accum_steps):
+        l, grads = loss_and_grads(params, cfg,
+                                  {k: v[i] for k, v in micro.items()})
+        loss = loss + l
+        for k in named:
+            acc[k].add_(grads.pop(k))
+        del grads
+    inv = 1.0 / accum_steps
+    with torch.no_grad():
+        for a in acc.values():
+            a.mul_(inv)
+    return loss * inv, acc
 
 
 def jax_leaves(names) -> dict[str, list[str]]:
@@ -154,14 +258,19 @@ def apply_update(named: dict[str, torch.nn.Parameter],
 
 def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, clip_norm: float = 1.0,
-                    compress_pod_grads: bool = False, device=None):
+                    compress_pod_grads: bool = False, device=None,
+                    accum_steps: int = 1):
     """Returns ``(train_step, init_opt)``.
 
     ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with metrics ``{"loss", "grad_norm", "step"}``;
     ``init_opt(params) -> OptState``.  ``device`` (default: the card) is
     where the step runs; the model and the state must live there.  The
-    step consumes ``opt_state`` (see the module docstring)."""
+    step consumes ``opt_state`` (see the module docstring).
+    ``accum_steps`` microbatches make one step (:func:`accumulated_grads`;
+    it must divide the batch)."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     dev = resolve_device(device)
     init, update = adamw(lr=linear_warmup_cosine(lr, warmup, total_steps),
                          b1=0.9, b2=0.95, weight_decay=0.1)
@@ -173,7 +282,7 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
         named = dict(params.named_parameters())
         if next(iter(named.values())).device.type != dev.type:
             raise ValueError(f"the model is not on {dev}")
-        loss, grads = loss_and_grads(params, cfg, batch)
+        loss, grads = accumulated_grads(params, cfg, batch, accum_steps)
         gnorm = apply_update(named, grads, opt_state, update,
                              clip_norm=clip_norm,
                              compress=compress_pod_grads)

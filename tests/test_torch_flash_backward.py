@@ -165,7 +165,7 @@ def routed_as_cuda(monkeypatch):
         calls.append(("backward", None))
         return fa.flash_attention_bwd_ref(*args, **kw)
 
-    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "_runs_plain", lambda t: False)
     monkeypatch.setattr(ops, "flash_attention_cuda", fwd)
     monkeypatch.setattr(ops, "flash_attention_bwd_cuda", bwd)
     return calls
@@ -212,8 +212,9 @@ def test_bf16_that_needs_a_gradient_is_refused():
 
 
 def _meta(*shape, dtype=torch.float32, grad=False):
-    """A tensor on the meta device: not the CPU, so ``ops`` takes the CUDA
-    branch, and no kernel can run on it."""
+    """A tensor on the meta device, which no kernel can run on (``ops``
+    sends meta to the plain versions unless ``ops._runs_plain`` is
+    patched, as below)."""
     return torch.empty(shape, dtype=dtype, device="meta",
                        requires_grad=grad)
 
@@ -266,6 +267,8 @@ def test_kernels_without_a_backward_refuse_inputs_that_need_one(
                           _meta(5, 3, dtype=torch.int32), n_nodes=1,
                           n_bins=4, n_classes=2, matmul_max_r=8))}
     module, name, call = cases[kernel]
+    # the CUDA branch for meta tensors (histogram decides by the CPU alone)
+    monkeypatch.setattr(ops, "_runs_plain", lambda t: False)
     launched = _launched(monkeypatch, module, name)
     if kernel == "grove_aggregate":
         monkeypatch.setattr(ops, "check_contrib", lambda c: None)

@@ -154,7 +154,7 @@ def routed_as_cuda(monkeypatch):
         calls.append("backward")
         return sc.ssd_chunk_bwd_ref(*args)
 
-    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "_runs_plain", lambda t: False)
     monkeypatch.setattr(ops, "ssd_chunk_cuda", fwd)
     monkeypatch.setattr(ops, "ssd_chunk_bwd_cuda", bwd)
     return calls
