@@ -19,9 +19,9 @@ plan -> serve), the grove ring, Mamba-2 and attention (tinyllama) LM
 serving with the FoG layer-grove exit, the serving plane (the registry
 plane, the fused plane and the serve CLI's LM mode), the paper's
 evaluation path (Table 1, Figures 4-5, the ablation), the fused
-autotuner, the MLA, MoE and hybrid LM configs, and LM training
-(tinyllama-1.1b and mamba2-2.7b at full width through the train CLI),
-and:
+autotuner, the MLA, MoE and hybrid LM configs, LM training
+(tinyllama-1.1b and mamba2-2.7b at full width through the train CLI) and
+the sharding plan on a one-rank mesh, and:
 
 1. prints the card (``nvidia-smi`` name and power limit) and versions;
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
@@ -346,7 +346,23 @@ and:
    traffic, the tables once an iteration: the model's per-hop class
    re-reads each lane's grove slice, a TPU's traffic the card serves
    from L2);
-21. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+21. (run after 20, while the card's memory is free) applies the sharding
+   plan (``launch.sharding``): starts a one-rank NCCL group, builds
+   ``launch.mesh.make_host_mesh()`` and a (1, 1, 1) ``("pod", "data",
+   "model")`` ``DeviceMesh``, places ``tinyllama-1.1b`` at full width in
+   bf16 on each by ``param_shardings`` through ``shard_tree`` (each
+   ``to_local()`` and ``full_tensor()`` bit-equal to its leaf); with the
+   counts zeroed just before and read just after, prefills 4 x 2048 with
+   the model rebuilt from the local shards (22 ``flash_attention`` on the
+   tensor-core route), its logits and cache bit-equal to the same prefill
+   on the whole parameters; places the K/V cache by ``cache_shardings``
+   (the batch on ``pod`` and ``data``, the heads on ``model``); saves the
+   model and restores it onto the mesh through ``train.checkpoint.restore(
+   ..., shardings=, mesh=)``, bit-equal; destroys the group; prints each
+   config's per-card parameter and state bytes under the plan at JAX's 16
+   x 16 and 2 x 16 x 16 meshes (counted on meta, not timed) and the
+   phase's seconds;
+22. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
 a CUDA device it exits non-zero and prints no result.  Any failed check
@@ -370,6 +386,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
@@ -432,7 +449,13 @@ from repro_torch.optim import (adamw, clip_by_global_norm,  # noqa: E402
                                linear_warmup_cosine, tree_leaves)
 from repro_torch.examples import serve_fog_lm, train_lm  # noqa: E402
 from repro_torch.launch.cost import analytic_model_flops  # noqa: E402
-from repro_torch.launch.dryrun import dryrun_cell  # noqa: E402
+from repro_torch.launch.dryrun import (MESHES,  # noqa: E402
+                                       dryrun_cell, per_device_state)
+from repro_torch.launch.mesh import MeshShape, make_host_mesh  # noqa: E402
+from repro_torch.launch.sharding import (  # noqa: E402
+    cache_shardings, param_shardings, placements, rebuild, shard_tree)
+from repro_torch.models.layers import MetaDraws  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.train import step_batch  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
@@ -6324,6 +6347,142 @@ def full_batch_phase(dev: torch.device, bf16_peak_gb: float) -> dict:
     return out
 
 
+# phase 21: the sharding plan on one card, at the attention phase's model
+# and prefill; the 3-D mesh names JAX's multi-pod axes
+SHARD_ARCH = ATTN_ARCH
+SHARD_AXES = ("pod", "data", "model")
+
+
+def sharding_phase(dev: torch.device) -> dict:
+    """Phase 21 (see the module docstring): a one-rank NCCL group on the
+    card, the host mesh and a (1, 1, 1) mesh; the model placed by the plan
+    and restored onto the mesh; a prefill through the placed parameters;
+    each config's per-card state under the plan at JAX's meshes."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
+        rank=0, world_size=1,
+        device_id=torch.device("cuda", 0) if dev.type == "cuda" else None)
+    try:
+        host = make_host_mesh()
+        mesh = init_device_mesh(dev.type, (1, 1, 1),
+                                mesh_dim_names=SHARD_AXES)
+        if (MeshShape.of(host) != MeshShape(("data",), (1,))
+                or host.device_type != dev.type):
+            raise AssertionError(f"host mesh {host}")
+        cfg = get_arch(SHARD_ARCH)
+        params = bf16_model(cfg, dev)
+        named = {k: p.detach() for k, p in params.named_parameters()}
+        placed = {}
+        for what, m in (("host", host), ("1x1x1", mesh)):
+            specs = param_shardings(cfg, m, params)
+            placed[what] = shard_tree(params, m, specs)
+            for k, d in placed[what].named_parameters():
+                check_equal(f"sharded {what} {k} local", d.to_local(),
+                            named[k])
+                check_equal(f"sharded {what} {k} full", d.full_tensor(),
+                            named[k])
+        out["leaves"] = len(named)
+
+        # the main path: a prefill of the model rebuilt from the local
+        # shards, counts zeroed just before and read just after
+        tokens = torch.as_tensor(batch_at_step(
+            DataConfig(cfg.vocab_size, LM_S, LM_B, seed=SEED), 0)["tokens"],
+            device=dev)
+        prefill_fn, _ = make_prefill_step(cfg, dev, batch=LM_B,
+                                          seq_len=LM_S)
+        local = rebuild(params, {k: d.to_local() for k, d in
+                                 placed["1x1x1"].named_parameters()})
+        want_logits, want_cache = prefill_fn(params, tokens)
+        zero_counts()
+        t1 = time.perf_counter()
+        logits, cache = prefill_fn(local, tokens)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+        launched, routes = read_counts()
+        n = cfg.n_layers
+        check_counts(f"{SHARD_ARCH} prefill through sharded parameters",
+                     [{"launches": launched, "routes": routes}],
+                     ({"flash_attention": n}, {"flash_attention_sm90": n}))
+        out["launches"], out["routes"] = launched, routes
+        check_equal("prefill logits, sharded vs whole parameters", logits,
+                    want_logits)
+        cspecs = cache_shardings(cfg, mesh, cache)
+        placed_cache = shard_tree(cache, mesh, cspecs)
+        n_cache = 0
+        for layer, want_layer, got_layer, spec_layer in zip(
+                cache["stack"], want_cache["stack"], placed_cache["stack"],
+                cspecs["stack"]):
+            for k in ("k", "v"):
+                t, d = layer["pos0"][k], got_layer["pos0"][k]
+                check_equal(f"prefill cache {k}, sharded vs whole", t,
+                            want_layer["pos0"][k])
+                check_equal(f"cache {k} placed by the plan", d.to_local(), t)
+                if (d.placements != (Shard(0), Shard(0), Shard(2))
+                        or placements(spec_layer["pos0"][k], mesh)
+                        != d.placements):
+                    raise AssertionError(f"cache {k}: {d.placements}, want "
+                                         "the batch on pod and data, the "
+                                         "heads on model")
+                n_cache += 1
+        out["cache_leaves"] = n_cache
+        del logits, cache, want_logits, want_cache, placed_cache, local
+
+        # the model restored onto the mesh by the plan
+        where = ROOT / "build" / "shard_ckpt"
+        shutil.rmtree(where, ignore_errors=True)
+        t1 = time.perf_counter()
+        ckpt.save(0, params, where)
+        specs = param_shardings(cfg, mesh, params)
+        restored, _ = ckpt.restore(params, where, shardings=specs, mesh=mesh)
+        out["save_restore_s"] = time.perf_counter() - t1
+        for k, d in restored.named_parameters():
+            check_equal(f"restored {k} on the mesh", d.to_local(), named[k])
+            if d.device_mesh != mesh:
+                raise AssertionError(f"restored {k} on {d.device_mesh}")
+        shutil.rmtree(where, ignore_errors=True)
+        del placed, restored, params, named
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"[shard] {SHARD_ARCH} bf16 ({out['leaves']} leaves) by the plan "
+          f"on the host mesh (1 NCCL rank, ('data',)) and a (1, 1, 1) "
+          f"{SHARD_AXES} mesh: each to_local() and full_tensor() == its leaf "
+          f"bit for bit; prefill {LM_B} x {LM_S} of the model rebuilt from "
+          f"the local shards {out['prefill_ms']:.1f} ms, launches "
+          f"{out['launches']} by route {out['routes']}, logits and cache == "
+          f"the whole parameters' bit for bit; {out['cache_leaves']} K/V "
+          f"cache leaves placed by the plan (batch on pod and data, heads on "
+          f"model), bit-equal; "
+          f"save + restore onto the mesh {out['save_restore_s']:.1f} s, "
+          f"every leaf bit-equal", flush=True)
+
+    # each config's per-card state under the plan, counted on meta
+    out["per_device"] = {}
+    for arch in sorted(ARCHS):
+        c = get_arch(arch)
+        lm = T.init_params(c, MetaDraws(), torch.bfloat16, device="meta")
+        moments = adamw()[0]({k: p.detach()
+                              for k, p in lm.named_parameters()})
+        for mesh_name in MESHES:
+            pd = per_device_state(c, mesh_name, lm,
+                                  {"moments": (moments.mu, moments.nu)})
+            out["per_device"][f"{arch} {mesh_name}"] = pd
+            print(f"[shard] {arch} on {mesh_name} (FSDP "
+                  f"{'on' if pd['fsdp'] else 'off'}): a card holds params "
+                  f"{pd['param_bytes']:,} B, state (params, bf16 grads, "
+                  f"fp32 moments) {pd['state_bytes']:,} B", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[shard] phase 21 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def roofline_lines(timing: dict, eval_fns: dict, ring: dict, packs: dict,
                    F: int) -> dict:
     """The FoG roofline model (``launch.roofline``, one H100 SXM) of each
@@ -6827,6 +6986,11 @@ def main() -> int:
     full = full_batch_phase(dev, train_bf16["tinyllama"]["peak_gb"])
     out["full_batch"] = full
 
+    # 21. the sharding plan on the card (its own main path), while memory
+    # is free
+    stamp("21. sharding plan", t_main)
+    out["sharding"] = sharding_phase(dev)
+
     # 16. the rest of the LM layers (its own main paths), before the LM
     # phases whose weights stay on the card for the profiler -------------
     stamp("16. MLA, MoE, hybrid LMs", t_main)
@@ -7050,8 +7214,8 @@ def main() -> int:
     stamp("14. profiler: SDPA's memory-efficient backend", t_main)
     efficient_sdpa_profile(train_lm_out)
 
-    # 21. the kernels line -----------------------------------------------------
-    stamp("21. kernels line", t_main)
+    # 22. the kernels line -----------------------------------------------------
+    stamp("22. kernels line", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -7201,6 +7365,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] in serve_launches:
             k["serve_launches"] = serve_launches[k["name"]]
+        if k["name"] == "flash_attention":
+            k["shard_launches"] = out["sharding"]["launches"]
     # phase 15's tuned picks beside the seed, phase 16's launches
     fused.update(tuned={label: {
         "seed": row["seed"], "tuned": row["tuned"],

@@ -30,7 +30,17 @@ beside a float32 accumulator tree.  The record holds the parameter,
 gradient, moment, accumulator and cache bytes, the peak estimate and
 whether it fits in the card's 80 GB.  A cell ``shape_supported`` refuses
 is skipped with its reason; a cell that fails on meta is reported with
-its error.  JAX's ``--multipod`` (a 512-chip mesh) has no counterpart.
+its error.
+
+``--mesh 16x16`` or ``--mesh 2x16x16`` (JAX's production mesh and its
+``--multipod`` one) adds each card's share of the state under the
+sharding plan (``launch.sharding``): each leaf's numel over the product
+of its spec's axis sizes, times its bytes, for the parameters, the
+gradients, the AdamW moments (fp32) and the cache, beside the one-card
+figures (``per_device``).  This is the counterpart of the per-device
+``argument_bytes`` of JAX's dry run at its mesh; the activations and the
+peak stay one card's (``activations_divided: false``), and no mesh is
+built.
 """
 from __future__ import annotations
 
@@ -50,7 +60,10 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.kernels import ops
 from repro_torch.launch.cost import RooflineTerms, analytic_model_flops
+from repro_torch.launch.mesh import production_mesh_shape
 from repro_torch.launch.roofline import bwd_work, flash_work
+from repro_torch.launch.sharding import (cache_shardings, local_bytes,
+                                         param_shardings, use_fsdp)
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import MetaDraws
 from repro_torch.optim import adamw
@@ -63,6 +76,9 @@ META = torch.device("meta")
 # the card's memory, as its name gives it (an H100 80GB holds a little
 # more: the verdict is conservative)
 CARD_BYTES = 80e9
+# ``--mesh``: the shapes of JAX's production meshes
+MESHES = {"16x16": production_mesh_shape(),
+          "2x16x16": production_mesh_shape(multi_pod=True)}
 
 
 def nbytes(t: torch.Tensor) -> int:
@@ -72,6 +88,29 @@ def nbytes(t: torch.Tensor) -> int:
 def tree_bytes(tree) -> int:
     return sum(nbytes(t) for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
+
+
+def per_device_state(cfg, mesh_name: str, params, held: dict) -> dict:
+    """One card's bytes of the state ``held`` beside ``params`` (the
+    ``moments`` and ``cache`` of :func:`count_step`) under the sharding
+    plan on the mesh ``MESHES[mesh_name]``; gradients as the parameters
+    where moments are held (a train cell)."""
+    mesh = MESHES[mesh_name]
+    specs = param_shardings(cfg, mesh, params)
+    train = "moments" in held
+    rec = {"mesh": mesh_name, "fsdp": use_fsdp(cfg),
+           "param_bytes": local_bytes(params, specs, mesh)}
+    rec["grad_bytes"] = rec["param_bytes"] if train else 0
+    rec["moment_bytes"] = (local_bytes(held["moments"], (specs, specs), mesh)
+                           if train else 0)
+    cache = held.get("cache")
+    rec["cache_bytes"] = (local_bytes(cache, cache_shardings(cfg, mesh,
+                                                             cache), mesh)
+                          if cache is not None else 0)
+    rec["state_bytes"] = sum(rec[k] for k in ("param_bytes", "grad_bytes",
+                                              "moment_bytes", "cache_bytes"))
+    rec["activations_divided"] = False
+    return rec
 
 
 class WorkCounter(TorchDispatchMode):
@@ -178,11 +217,13 @@ def stand_in_work(calls: list) -> dict:
 
 
 def count_step(cfg, sp: ShapeSpec, params, *, fog: bool = False,
-               accum_steps: int = 1) -> dict:
+               accum_steps: int = 1, mesh: str | None = None) -> dict:
     """Run the step of ``sp``'s kind on ``params``' device (meta, or the
     CPU for a small check) under the counters: its FLOPs and bytes (times
     the microbatches; ``attention_flops`` those of the attention kernels'
-    stand-ins), the bytes of what it holds and its peak."""
+    stand-ins), the bytes of what it holds and its peak; with ``mesh``
+    (a key of :data:`MESHES`) one card's share of the state under the
+    sharding plan (:func:`per_device_state`)."""
     if sp.kind == "train":
         run, k, held = _train(cfg, sp, params, accum_steps)
     else:
@@ -200,6 +241,8 @@ def count_step(cfg, sp: ShapeSpec, params, *, fog: bool = False,
     del out
     kernels = stand_in_work(calls)
     param_bytes = tree_bytes(params.state_dict())
+    per_device = ({} if mesh is None else
+                  {"per_device": per_device_state(cfg, mesh, params, held)})
     return {
         "counted_flops": float(k * (flops.get_total_flops()
                                     + kernels["flops"])),
@@ -211,12 +254,13 @@ def count_step(cfg, sp: ShapeSpec, params, *, fog: bool = False,
         "accumulator_bytes": tree_bytes(held.get("accumulator", ())),
         "cache_bytes": tree_bytes(held.get("cache", ())),
         "held_bytes": counter.held, "activation_peak_bytes": counter.peak,
-        "peak_bytes": counter.held + counter.peak,
+        "peak_bytes": counter.held + counter.peak, **per_device,
     }
 
 
 def dryrun_cell(arch: str, shape: str, *, fog: bool = False,
-                accum_steps: int = 1, verbose: bool = True) -> dict:
+                accum_steps: int = 1, mesh: str | None = None,
+                verbose: bool = True) -> dict:
     """Count one cell on meta; returns its record (raises on failure)."""
     cfg = get_arch(arch)
     ok, why = shape_supported(cfg, shape)
@@ -225,7 +269,8 @@ def dryrun_cell(arch: str, shape: str, *, fog: bool = False,
     sp = SHAPES[shape]
     t0 = time.perf_counter()
     params = T.init_params(cfg, MetaDraws(), torch.bfloat16, device=META)
-    counts = count_step(cfg, sp, params, fog=fog, accum_steps=accum_steps)
+    counts = count_step(cfg, sp, params, fog=fog, accum_steps=accum_steps,
+                        mesh=mesh)
     terms = RooflineTerms(arch, shape, counts["counted_flops"],
                           counts["counted_bytes"],
                           analytic_model_flops(cfg, shape))
@@ -251,6 +296,16 @@ def dryrun_cell(arch: str, shape: str, *, fog: bool = False,
               f"{terms.step_time_s * 1e3:.1f} ms | peak {peak / 1e9:.2f} GB "
               f"({'fits' if rec['fits_80gb'] else 'does not fit'} in 80 GB)",
               flush=True)
+        if mesh is not None:
+            pd = rec["per_device"]
+            print(f"[dryrun] {arch} x {shape} on {mesh} (FSDP "
+                  f"{'on' if pd['fsdp'] else 'off'}): a card holds params "
+                  f"{pd['param_bytes'] / 1e9:.3f} GB, grads "
+                  f"{pd['grad_bytes'] / 1e9:.3f}, moments "
+                  f"{pd['moment_bytes'] / 1e9:.3f}, cache "
+                  f"{pd['cache_bytes'] / 1e9:.3f}: state "
+                  f"{pd['state_bytes'] / 1e9:.3f} GB (activations not "
+                  f"divided)", flush=True)
     return rec
 
 
@@ -263,6 +318,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fog", action="store_true",
                     help="run the FoG early-exit decode step")
     ap.add_argument("--out", default=None, help="append JSONL records here")
+    ap.add_argument("--mesh", default=None, choices=sorted(MESHES),
+                    help="add one card's share of the state under the "
+                    "sharding plan on this mesh")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -275,7 +333,7 @@ def main(argv=None) -> int:
     failures = []
     for arch, shape in cells:
         try:
-            rec = dryrun_cell(arch, shape, fog=args.fog)
+            rec = dryrun_cell(arch, shape, fog=args.fog, mesh=args.mesh)
         except Exception as e:  # noqa: BLE001 -- reported, never dropped
             traceback.print_exc()
             failures.append((arch, shape, str(e)))

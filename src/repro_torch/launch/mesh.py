@@ -1,9 +1,79 @@
-"""The serving plane's device list (port of ``repro.launch.mesh``'s
-``serve_devices``; the rest of that module builds XLA meshes and has no
-counterpart on one card)."""
+"""Meshes (port of ``repro.launch.mesh``): the serving plane's device
+list, a mesh's names and sizes without devices (:class:`MeshShape`, what
+the sharding rules read), the production shapes and the host mesh over
+the initialised process group.
+
+A FUNCTION builds each mesh, never an import: importing this module
+touches no device and no process group.  A ``DeviceMesh`` of the
+production shapes needs one card per rank (256 or 512) and is not built
+here; :func:`production_mesh_shape` gives its names and sizes, which is
+all the rules of ``launch.sharding`` read.
+"""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, no devices: the interface the
+    sharding rules read, as JAX's ``AbstractMesh`` gives it."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    def __post_init__(self):
+        names, sizes = tuple(self.axis_names), tuple(map(int, self.sizes))
+        if len(names) != len(sizes) or len(set(names)) != len(names):
+            raise ValueError(f"a mesh of axes {names} and sizes {sizes}")
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "sizes", sizes)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, in the mesh's order."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @classmethod
+    def of(cls, mesh) -> "MeshShape":
+        """The names and sizes of a ``MeshShape`` or of a
+        ``torch.distributed.device_mesh.DeviceMesh`` (its
+        ``mesh_dim_names`` and ``shape``)."""
+        if isinstance(mesh, MeshShape):
+            return mesh
+        names = mesh.mesh_dim_names
+        if names is None:
+            raise ValueError("the DeviceMesh has no mesh_dim_names: the "
+                             "sharding rules read axes by name")
+        return cls(tuple(names), tuple(mesh.shape))
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    """16 x 16 = 256 cards per pod over ``("data", "model")``; 2 pods =
+    512 cards over ``("pod", "data", "model")`` (the shapes of JAX's
+    ``make_production_mesh``)."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_host_mesh():
+    """Every rank of the initialised default process group, as a 1-D
+    ``("data",)`` ``DeviceMesh``: on the cards (``nccl``) one rank a
+    card, on the CPU (``gloo``) one rank a process.  Raises when no group
+    is initialised: it never starts one."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_host_mesh: no process group is initialised; call "
+            "torch.distributed.init_process_group first (nccl with one "
+            "rank a card, or gloo for CPU ranks)")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(dist.get_world_size()),
+                      mesh_dim_names=("data",))
 
 
 def serve_devices(n: int | None = None) -> list[torch.device]:
@@ -23,3 +93,15 @@ def serve_devices(n: int | None = None) -> list[torch.device]:
             "device to run several replicas on one card, or pass CPU "
             "devices to run the plain path")
     return [torch.device("cuda", i) for i in range(want)]
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """Axes carrying the batch: ('pod', 'data') multi-pod, ('data',) else
+    (a ``MeshShape`` or a ``DeviceMesh``)."""
+    names = MeshShape.of(mesh).axis_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def model_axis_size(mesh) -> int:
+    """The ``model`` axis's size, 1 where the mesh has none."""
+    return MeshShape.of(mesh).shape.get("model", 1)

@@ -58,8 +58,11 @@ class MoE(nn.Module):
 def _normal(generator, shape, dtype) -> torch.Tensor:
     """``normal(shape) / sqrt(shape[-2])`` in ``dtype``, drawn one slice of
     the leading axis at a time (an expert's fp32 draw is all the working
-    memory: deepseek-v3's 256 experts at once would take 15 GB)."""
+    memory: deepseek-v3's 256 experts at once would take 15 GB); on
+    ``meta`` one allocation."""
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if out.is_meta:
+        return out
     for i in range(shape[0]):
         out[i] = normal(shape[1:], generator) / np.sqrt(shape[-2])
     return out

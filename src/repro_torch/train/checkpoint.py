@@ -18,6 +18,10 @@ checkpoint the other wrote, as with the ``ForestPack`` ``.npz``.
   * async: ``save(..., async_write=True)`` copies the tree to host memory
     at once and writes it on a thread.
   * ``keep``: only the newest ``keep`` committed steps stay.
+  * elastic re-mesh: ``restore(..., shardings=specs, mesh=device_mesh)``
+    places each restored leaf on a ``DeviceMesh`` by its spec
+    (``launch.sharding``), whatever mesh wrote the file, as JAX's
+    ``restore(..., shardings=)`` does.
   * bf16 leaves are stored as JAX's ``np.savez`` stores them: 2-byte void
     elements of the same bits (``'<V2'`` in the ``.npy`` header) and
     ``"bfloat16"`` in ``meta.json``'s ``dtypes``, so the port's file
@@ -36,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.launch.sharding import shard_tree
 from repro_torch.models.carry import (BF16_BITS, lm_from_tree,
                                       opt_state_to_jax, params_to_jax,
                                       to_host, to_tensor, tree_to_named)
@@ -215,11 +220,17 @@ def _rebuild(like, data, prefix: str):
     return _leaf(data, prefix, like)
 
 
-def restore(tree_like, directory, step: int | None = None):
+def restore(tree_like, directory, step: int | None = None, *,
+            shardings=None, mesh=None):
     """Restore into the structure of ``tree_like`` (models, optimizer
     states and tensors that give each leaf's device and dtype).
     Uncommitted step directories are removed first (crash cleanup).
+    With ``shardings`` (a spec tree of ``launch.sharding``, shaped as
+    ``tree_like``), each leaf becomes a ``DTensor`` on the
+    ``DeviceMesh`` ``mesh`` by its spec (``sharding.shard_tree``).
     Returns ``(tree, step)``."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("restore: give shardings and mesh together")
     directory = Path(directory)
     for d in directory.glob("step_*"):
         if not (d / "COMMIT").exists():
@@ -232,7 +243,10 @@ def restore(tree_like, directory, step: int | None = None):
     dtypes = json.loads((step_dir / "meta.json").read_text())["dtypes"]
     with np.load(step_dir / "shard_0.npz") as f:
         data = {k: _file_leaf(f[k], dtypes.get(k)) for k in f.files}
-    return _rebuild(tree_like, data, ""), step
+    tree = _rebuild(tree_like, data, "")
+    if shardings is not None:
+        tree = shard_tree(tree, mesh, shardings)
+    return tree, step
 
 
 def _file_leaf(a: np.ndarray, dtype: str | None) -> np.ndarray:

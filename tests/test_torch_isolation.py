@@ -59,7 +59,9 @@ def test_no_source_names_jax_or_repro():
                                     "repro_torch.train.checkpoint",
                                     "repro_torch.train.fault",
                                     "repro_torch.launch.train",
-                                    "repro_torch.examples.train_lm"])
+                                    "repro_torch.examples.train_lm",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.sharding"])
 def test_new_modules_import_first_and_alone(module):
     """Each module of the last slices imports as the first module of a
     fresh process (no import cycle through kernels, forest and the
