@@ -361,7 +361,15 @@ the sharding plan on a one-rank mesh, and:
    ..., shardings=, mesh=)``, bit-equal; destroys the group; prints each
    config's per-card parameter and state bytes under the plan at JAX's 16
    x 16 and 2 x 16 x 16 meshes (counted on meta, not timed) and the
-   phase's seconds;
+   phase's seconds; then, on both meshes, two steps of the mesh train
+   step (``make_train_step(..., mesh=)``) of ``tinyllama-1.1b`` in bf16
+   at phase 19's 2 x 4096, the counts zeroed just before and read just
+   after each step (44 ``flash_attention`` on the tensor-core route and
+   22 ``flash_attention_bwd_sm90``), every parameter, moment, loss and
+   grad norm bit-equal to two one-card steps from the same state, each
+   step's ms beside the one-card step's; and the smoke config's state
+   after two mesh steps saved from the mesh and restored on the card
+   bit-equal;
 22. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
@@ -451,7 +459,8 @@ from repro_torch.examples import serve_fog_lm, train_lm  # noqa: E402
 from repro_torch.launch.cost import analytic_model_flops  # noqa: E402
 from repro_torch.launch.dryrun import (MESHES,  # noqa: E402
                                        dryrun_cell, per_device_state)
-from repro_torch.launch.mesh import MeshShape, make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import (MeshShape, dp_rank,  # noqa: E402
+                                     make_host_mesh)
 from repro_torch.launch.sharding import (  # noqa: E402
     cache_shardings, param_shardings, placements, rebuild, shard_tree)
 from repro_torch.models.layers import MetaDraws  # noqa: E402
@@ -6351,13 +6360,147 @@ def full_batch_phase(dev: torch.device, bf16_peak_gb: float) -> dict:
 # and prefill; the 3-D mesh names JAX's multi-pod axes
 SHARD_ARCH = ATTN_ARCH
 SHARD_AXES = ("pod", "data", "model")
+# the mesh train step: two steps on each mesh at phase 19's shape
+MESH_STEPS = 2
+
+
+def mesh_train_check(dev: torch.device, cfg, meshes: dict, *, B: int,
+                     S: int, steps: int = MESH_STEPS,
+                     dtype=torch.bfloat16, want=None) -> dict:
+    """``steps`` steps of ``make_train_step(..., mesh=)`` on each of
+    ``meshes`` (name -> ``DeviceMesh`` of one rank, its model placed by
+    the plan) from the same fresh model as ``steps`` one-device steps of
+    ``make_train_step``; every parameter (``to_local()`` and
+    ``full_tensor()``), moment, loss, grad norm and the step count
+    bit-equal.  With ``want`` (launches, routes) each step's counts are
+    zeroed just before it and checked just after (the one-device steps'
+    too).  Returns each run's losses, step ms and counts."""
+    counted = want is not None
+
+    def fresh():
+        return T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dtype, device=dev)
+
+    def run(step_fn, params, opt, what):
+        dcfg = DataConfig(cfg.vocab_size, S, B, seed=SEED)
+        rec = {"losses": [], "norms": [], "ms": [], "per_step": []}
+        for i in range(steps):
+            batch = step_batch(cfg, dcfg, i, dev)
+            if counted:
+                zero_counts()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(m["loss"].clone())
+            rec["norms"].append(m["grad_norm"].clone())
+            if counted:
+                launched, routes = read_counts()
+                rec["per_step"].append({"launches": launched,
+                                        "routes": routes})
+        if counted:
+            check_counts(what, rec["per_step"], want)
+        return params, opt, rec
+
+    step1, init1 = make_train_step(cfg, total_steps=steps, device=dev)
+    p = fresh()
+    p1, o1, one = run(step1, p, init1(p), f"{cfg.name} one-device step")
+    whole = {"params": {k: t.detach() for k, t in p1.named_parameters()},
+             "mu": o1.mu, "nu": o1.nu}
+    out = {"one_device": {"losses": [float(x) for x in one["losses"]],
+                          "ms": one["ms"]}}
+    for name, mesh in meshes.items():
+        if dp_rank(mesh) != (0, 1):
+            raise AssertionError(f"{name}: dp rank {dp_rank(mesh)}")
+        p = fresh()
+        placed = shard_tree(p, mesh, param_shardings(cfg, mesh, p))
+        del p
+        stepm, initm = make_train_step(cfg, total_steps=steps, device=dev,
+                                       mesh=mesh)
+        pm, om, rec = run(stepm, placed, initm(placed),
+                          f"{cfg.name} mesh step on {name}")
+        for what in ("losses", "norms"):
+            for a, b in zip(rec[what], one[what]):
+                check_equal(f"mesh step on {name}: {what}", a, b)
+        n = 0
+        for what, tree in (("params", dict(pm.named_parameters())),
+                           ("mu", om.mu), ("nu", om.nu)):
+            for k, d in tree.items():
+                if d.device_mesh != mesh:
+                    raise AssertionError(f"{name} {what} {k} off the mesh")
+                # compared on the device; check_equal (a host copy) only
+                # to name a difference
+                for part, t in (("local", d.to_local()),
+                                ("whole", d.full_tensor())):
+                    if not torch.equal(t, whole[what][k]):
+                        check_equal(f"mesh step on {name}: {what} {k} "
+                                    f"{part}", t, whole[what][k])
+                n += 1
+        if int(om.step.full_tensor()) != int(o1.step):
+            raise AssertionError(f"mesh step on {name}: step count")
+        out[name] = {"losses": [float(x) for x in rec["losses"]],
+                     "ms": rec["ms"], "leaves": n,
+                     "launches": rec["per_step"][-1]["launches"]
+                     if counted else None,
+                     "routes": rec["per_step"][-1]["routes"]
+                     if counted else None}
+        del pm, om, placed
+    del p1, o1, whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_save_check(dev: torch.device, cfg, mesh, where: Path, *, B: int,
+                    S: int, steps: int = MESH_STEPS,
+                    dtype=torch.bfloat16) -> dict:
+    """``steps`` mesh steps of ``cfg`` on ``mesh``, the state saved from
+    the mesh (``train.checkpoint.save`` of ``DTensor``s) and restored on
+    the device without a mesh: every leaf bit-equal to the mesh state's
+    ``full_tensor()``.  Returns the leaves and the save and restore
+    seconds."""
+    p = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                      dtype, device=dev)
+    placed = shard_tree(p, mesh, param_shardings(cfg, mesh, p))
+    step_fn, init_opt = make_train_step(cfg, total_steps=steps, device=dev,
+                                        mesh=mesh)
+    opt = init_opt(placed)
+    dcfg = DataConfig(cfg.vocab_size, S, B, seed=SEED)
+    for i in range(steps):
+        placed, opt, _ = step_fn(placed, opt, step_batch(cfg, dcfg, i, dev))
+    shutil.rmtree(where, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(steps, (placed, opt), where)
+    t1 = time.perf_counter()
+    like = (p, make_train_step(cfg, device=dev)[1](p))
+    (rp, ro), step = ckpt.restore(like, where)
+    t2 = time.perf_counter()
+    shutil.rmtree(where, ignore_errors=True)
+    if step != steps or int(ro.step) != int(opt.step.full_tensor()):
+        raise AssertionError(f"restored step {step}, {int(ro.step)}")
+    n = 0
+    for what, got, tree in (
+            ("params", dict(rp.named_parameters()),
+             dict(placed.named_parameters())),
+            ("mu", ro.mu, opt.mu), ("nu", ro.nu, opt.nu)):
+        for k, d in tree.items():
+            if got[k].device.type != dev.type or got[k].dtype != d.dtype:
+                raise AssertionError(f"restored {what} {k} on "
+                                     f"{got[k].device} in {got[k].dtype}")
+            check_equal(f"restored {what} {k}", got[k].detach(),
+                        d.full_tensor())
+            n += 1
+    return {"leaves": n, "save_s": t1 - t0, "restore_s": t2 - t1}
 
 
 def sharding_phase(dev: torch.device) -> dict:
     """Phase 21 (see the module docstring): a one-rank NCCL group on the
     card, the host mesh and a (1, 1, 1) mesh; the model placed by the plan
     and restored onto the mesh; a prefill through the placed parameters;
-    each config's per-card state under the plan at JAX's meshes."""
+    each config's per-card state under the plan at JAX's meshes; the mesh
+    train step on both meshes (``mesh_train_check``) and a state saved
+    from the mesh (``mesh_save_check``)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Shard
 
@@ -6449,6 +6592,22 @@ def sharding_phase(dev: torch.device) -> dict:
         shutil.rmtree(where, ignore_errors=True)
         del placed, restored, params, named
         torch.cuda.empty_cache()
+
+        # the mesh train step: two steps on each mesh at phase 19's shape,
+        # held to two one-card steps from the same state; the counts of
+        # each step zeroed just before it and read just after
+        t1 = time.perf_counter()
+        n = cfg.n_layers
+        out["mesh_step"] = mesh_train_check(
+            dev, cfg, {"host": host, "1x1x1": mesh}, B=BF16_B, S=BF16_S,
+            want=({"flash_attention": 2 * n, "flash_attention_bwd_sm90": n},
+                  {"flash_attention_sm90": 2 * n}))
+        out["mesh_step"]["seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["mesh_save"] = mesh_save_check(
+            dev, smoke_config(SHARD_ARCH), mesh,
+            ROOT / "build" / "shard_train_ckpt", B=BF16_B, S=256)
+        out["mesh_save"]["seconds"] = time.perf_counter() - t1
     finally:
         dist.destroy_process_group()
     print(f"[shard] {SHARD_ARCH} bf16 ({out['leaves']} leaves) by the plan "
@@ -6462,6 +6621,24 @@ def sharding_phase(dev: torch.device) -> dict:
           f"model), bit-equal; "
           f"save + restore onto the mesh {out['save_restore_s']:.1f} s, "
           f"every leaf bit-equal", flush=True)
+    ms = out["mesh_step"]
+    print(f"[shard] the mesh train step, {SHARD_ARCH} bf16 at {BF16_B} x "
+          f"{BF16_S}, {MESH_STEPS} steps on the host mesh and on the "
+          f"(1, 1, 1) mesh: every parameter, moment ({ms['host']['leaves']} "
+          f"leaves), loss and grad norm == {MESH_STEPS} one-card steps from "
+          f"the same state bit for bit; per step {ms['1x1x1']['launches']} "
+          f"by route {ms['1x1x1']['routes']}; step ms host mesh "
+          f"{[round(x, 1) for x in ms['host']['ms']]}, (1, 1, 1) "
+          f"{[round(x, 1) for x in ms['1x1x1']['ms']]}, one card "
+          f"{[round(x, 1) for x in ms['one_device']['ms']]}; losses "
+          f"{[round(x, 4) for x in ms['one_device']['losses']]}; "
+          f"{ms['seconds']:.1f} s", flush=True)
+    sv = out["mesh_save"]
+    print(f"[shard] {SHARD_ARCH}'s smoke config trained {MESH_STEPS} mesh "
+          f"steps on the (1, 1, 1) mesh, saved from the mesh "
+          f"{sv['save_s']:.2f} s and restored on the card "
+          f"{sv['restore_s']:.2f} s: {sv['leaves']} leaves bit-equal "
+          f"({sv['seconds']:.1f} s with the steps)", flush=True)
 
     # each config's per-card state under the plan, counted on meta
     out["per_device"] = {}
@@ -7367,6 +7544,10 @@ def main() -> int:
             k["serve_launches"] = serve_launches[k["name"]]
         if k["name"] == "flash_attention":
             k["shard_launches"] = out["sharding"]["launches"]
+            k["shard_train_launches"] = {
+                m: {"launches": out["sharding"]["mesh_step"][m]["launches"],
+                    "routes": out["sharding"]["mesh_step"][m]["routes"]}
+                for m in ("host", "1x1x1")}
     # phase 15's tuned picks beside the seed, phase 16's launches
     fused.update(tuned={label: {
         "seed": row["seed"], "tuned": row["tuned"],

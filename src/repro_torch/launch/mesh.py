@@ -1,7 +1,8 @@
 """Meshes (port of ``repro.launch.mesh``): the serving plane's device
 list, a mesh's names and sizes without devices (:class:`MeshShape`, what
-the sharding rules read), the production shapes and the host mesh over
-the initialised process group.
+the sharding rules read), the production shapes, the host mesh over
+the initialised process group and a rank's place along the batch axes
+(:func:`dp_rank`, what the mesh train step slices by).
 
 A FUNCTION builds each mesh, never an import: importing this module
 touches no device and no process group.  A ``DeviceMesh`` of the
@@ -100,6 +101,22 @@ def dp_axes(mesh) -> tuple[str, ...]:
     (a ``MeshShape`` or a ``DeviceMesh``)."""
     names = MeshShape.of(mesh).axis_names
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def dp_rank(device_mesh) -> tuple[int, int]:
+    """``(r, n)``: this rank's coordinate along the dp axes of a
+    ``DeviceMesh`` (``pod`` the major factor, as ``sharding.batch_spec``
+    splits the batch) and the product ``n`` of their sizes.  Ranks that
+    differ only along ``model`` share ``r``."""
+    coord = device_mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    at = dict(zip(device_mesh.mesh_dim_names, coord))
+    size = MeshShape.of(device_mesh).shape
+    r, n = 0, 1
+    for a in dp_axes(device_mesh):
+        r, n = r * size[a] + at[a], n * size[a]
+    return r, n
 
 
 def model_axis_size(mesh) -> int:

@@ -277,6 +277,35 @@ def cache_shardings(cfg: ArchConfig, mesh, cache):
     return walk(cache, "")
 
 
+def local_block(full: torch.Tensor, like) -> torch.Tensor:
+    """The block of ``full`` (a whole leaf, the same on every rank) that
+    this rank holds of the ``DTensor`` ``like`` of the same shape, as a
+    view: each mesh dimension's ``Shard(d)`` cuts dimension ``d`` into
+    equal chunks, in the mesh's order (the first the major factor), as
+    DTensor splits it."""
+    mesh = like.device_mesh
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(like.placements):
+        if p.is_shard():
+            full = full.chunk(mesh.size(i), dim=p.dim)[coord[i]]
+        elif not p.is_replicate():
+            raise ValueError(f"a block of a {p} placement")
+    if full.shape != like.to_local().shape:
+        raise ValueError(f"a block of {tuple(full.shape)} for a local "
+                         f"{tuple(like.to_local().shape)} of {like.placements}")
+    return full
+
+
+def placed_like(local: torch.Tensor, like):
+    """``local`` (this rank's block) as a ``DTensor`` placed as ``like``
+    is, no communication."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
 def rebuild(params: LM, tensors: dict) -> LM:
     """A new model of ``params``' structure holding ``tensors`` (its
     parameter names -> tensors or DTensors); ``params`` is not changed and

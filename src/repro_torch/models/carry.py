@@ -129,6 +129,15 @@ def params_from_jax(tree: dict, cfg: ArchConfig, device=None) -> LM:
     return lm_from_tree(tree, dev)
 
 
+def is_dtensor(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``torch.distributed`` ``DTensor``."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A copy of a tensor as a numpy array on the host (never sharing the
     tensor's memory), bf16 as numpy's ``bfloat16`` extension dtype bit for
@@ -149,8 +158,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A copy of a tensor as a numpy array on the host, a bf16 tensor as
     :data:`BF16_BITS` elements holding its bits (no ``ml_dtypes``
-    needed): how checkpoints hold it."""
-    t = t.detach().cpu()
+    needed): how checkpoints hold it.  A ``DTensor`` is gathered whole
+    first (``full_tensor()``, a collective: every rank of its mesh
+    calls it)."""
+    t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
+    t = t.cpu()
     if t.dtype != torch.bfloat16:
         return np.array(t.numpy())
     return np.array(t.view(torch.int16).numpy()).view(BF16_BITS)

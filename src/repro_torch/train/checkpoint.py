@@ -17,6 +17,13 @@ checkpoint the other wrote, as with the ``ForestPack`` ``.npz``.
     writer died mid-write); restore picks the newest committed step.
   * async: ``save(..., async_write=True)`` copies the tree to host memory
     at once and writes it on a thread.
+  * from a mesh: a tree holding ``DTensor``s (the state of the mesh
+    train step, or of ``restore(..., shardings=, mesh=)``) is saved by
+    every rank of the process group: each leaf is gathered whole
+    (``full_tensor()``) on every rank, rank 0 alone writes, and every
+    rank returns after the commit marker (a barrier), so the file is
+    leaf for leaf the one that one process writes for the same state.
+    Such a save is synchronous.
   * ``keep``: only the newest ``keep`` committed steps stay.
   * elastic re-mesh: ``restore(..., shardings=specs, mesh=device_mesh)``
     places each restored leaf on a ``DeviceMesh`` by its spec
@@ -39,9 +46,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch.sharding import shard_tree
-from repro_torch.models.carry import (BF16_BITS, lm_from_tree,
+from repro_torch.models.carry import (BF16_BITS, is_dtensor, lm_from_tree,
                                       opt_state_to_jax, params_to_jax,
                                       to_host, to_tensor, tree_to_named)
 from repro_torch.models.transformer import LM
@@ -62,6 +70,25 @@ def _jax_tree(tree):
     if isinstance(tree, torch.Tensor):
         return to_host(tree)
     return np.asarray(tree)
+
+
+def _tensors(tree):
+    """Every tensor of ``tree`` (models, optimizer states, tensors, in
+    dicts, tuples and lists)."""
+    if isinstance(tree, LM):
+        yield from tree.parameters()
+    elif isinstance(tree, OptState):
+        yield tree.step
+        yield from tree.mu.values()
+        yield from tree.nu.values()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 def _dtype_name(a: np.ndarray) -> str:
@@ -105,12 +132,18 @@ def save(step: int, tree, directory, *, async_write: bool = False,
          keep: int = 3) -> threading.Thread | None:
     """Write a committed checkpoint of ``tree`` (models, optimizer states,
     tensors, in dicts, tuples and lists) for ``step``.  Returns the writer
-    thread if async."""
+    thread if async.  A tree holding ``DTensor``s is saved from its mesh
+    (the module docstring): every rank calls ``save``, and
+    ``async_write`` is refused."""
     directory = Path(directory)
     step_dir = directory / f"step_{step:08d}"
     tmp_dir = directory / f".tmp_step_{step:08d}"
+    on_mesh = any(is_dtensor(t) for t in _tensors(tree))
+    if on_mesh and async_write:
+        raise ValueError("a tree on a mesh is saved synchronously: every "
+                         "rank meets the others after the commit marker")
     # snapshot to host memory NOW (the caller may update in place), write
-    # later
+    # later; on a mesh every rank gathers each leaf
     host = _flatten(_jax_tree(tree))
 
     def write():
@@ -133,7 +166,14 @@ def save(step: int, tree, directory, *, async_write: bool = False,
         t = threading.Thread(target=write, daemon=True)
         t.start()
         return t
-    write()
+    if not on_mesh:
+        write()
+        return None
+    try:
+        if dist.get_rank() == 0:
+            write()
+    finally:
+        dist.barrier()
     return None
 
 

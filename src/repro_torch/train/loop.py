@@ -57,20 +57,52 @@ are added; both are then multiplied by ``1 / k`` and go through the same
 update.  So the step holds one float32 tree more than without it, and
 one microbatch's activations.  ``k`` must divide the batch.
 
+On a mesh (``make_train_step(..., mesh=device_mesh)``, a
+``torch.distributed`` ``DeviceMesh`` over ``pod`` / ``data`` / ``model``
+axes) the step is JAX's ``make_train_step(cfg, mesh)``: the state at
+rest follows the sharding plan (the model holds ``DTensor`` parameters
+placed by ``launch.sharding.param_shardings``, the moments are placed as
+their parameters, the step count is replicated); every rank is given
+the same global batch and takes its dp slice, rows ``[r B / n, (r + 1) B
+/ n)`` for its coordinate ``r`` along the dp axes (``pod`` the major
+factor; ``launch.mesh.dp_rank``), which is ``microbatches(batch, n)[r]``;
+it gathers the whole parameters (``full_tensor()``) into a plain model
+and runs :func:`accumulated_grads` on its slice through the same
+kernels (which take plain tensors); the losses and gradients of the dp
+ranks are gathered and summed in dp-rank order into a float32 zero and
+multiplied by ``1 / n``, the arithmetic of ``accumulated_grads`` (an
+``all_reduce`` would add in the backend's order); the global norm, clip
+and compression run on the whole mean gradient, and AdamW on the rank's
+blocks of the parameters, moments and clipped gradient only, which are
+put back in the ``DTensor``s' places.  AdamW is elementwise, so each
+block is the same block of the one-process update: at ``accum_steps=1``
+the mesh step equals the one-process step with ``accum_steps=n`` bit
+for bit.  Ranks that differ only along ``model`` take the same slice and
+compute the same gradient: the products are not split over ``model``
+(tensor-parallel compute is not ported).  So only the state at rest is
+divided, as ``launch.dryrun --mesh`` counts it: each rank also holds
+the gathered parameters, one slice's activations, the whole gradient
+(float32 where more than one rank adds in) and, while a leaf is reduced,
+its ``n`` gathered copies.
+
 ``SHAPES``, ``input_specs`` and ``shape_supported`` are JAX's cells of
-(arch x shape); ``launch.dryrun`` reads them.  JAX's mesh and shardings
-have no counterpart on one card.
+(arch x shape); ``launch.dryrun`` reads them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from repro_torch._device import resolve_device
 from repro_torch.baselines.train import fp32_products
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import dp_axes, dp_rank
+from repro_torch.launch.sharding import local_block, placed_like, rebuild
 from repro_torch.models import transformer as T
+from repro_torch.models.carry import is_dtensor
 from repro_torch.optim import (OptState, adamw, clip_leaf, clip_scale,
                                ef_compress_grads, global_norm,
                                linear_warmup_cosine)
@@ -212,6 +244,75 @@ def accumulated_grads(params: T.LM, cfg: ArchConfig, batch: dict,
     return loss * inv, acc
 
 
+def dp_gather(t: torch.Tensor, device_mesh) -> list[torch.Tensor]:
+    """Every dp rank's ``t`` in dp-rank order (``pod`` the major factor),
+    on every rank: an ``all_gather`` along each dp axis of the mesh, the
+    minor one first."""
+    parts = [t]
+    for axis in reversed(dp_axes(device_mesh)):
+        size = device_mesh.size(device_mesh.mesh_dim_names.index(axis))
+        if size == 1:
+            continue
+        stacked = torch.stack(parts)
+        out = [torch.empty_like(stacked) for _ in range(size)]
+        dist.all_gather(out, stacked, group=device_mesh.get_group(axis))
+        parts = [p for o in out for p in o.unbind()]
+    return parts
+
+
+def mesh_grads(params: T.LM, cfg: ArchConfig, batch: dict,
+               accum_steps: int, device_mesh
+               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The loss and whole gradients of the global ``batch`` on a mesh
+    (the module docstring): :func:`accumulated_grads` of this rank's dp
+    slice on a plain model of the gathered parameters, then every dp
+    rank's loss and gradients, leaf by leaf, summed in dp-rank order
+    into a float32 zero and times ``1 / n``.  One dp rank is
+    ``accumulated_grads`` of the whole batch."""
+    r, n = dp_rank(device_mesh)
+    with torch.no_grad():
+        plain = rebuild(params, {k: p.full_tensor()
+                                 for k, p in params.named_parameters()})
+    loss, grads = accumulated_grads(
+        plain, cfg, {k: v[r] for k, v in microbatches(batch, n).items()},
+        accum_steps)
+    del plain
+    if n == 1:
+        return loss, grads
+    inv = 1.0 / n
+    with torch.no_grad():
+        total = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for part in dp_gather(loss, device_mesh):
+            total = total + part
+        for k in list(grads):
+            acc = torch.zeros(grads[k].shape, dtype=torch.float32,
+                              device=loss.device)
+            for part in dp_gather(grads.pop(k), device_mesh):
+                acc.add_(part)
+            grads[k] = acc.mul_(inv)
+    return total * inv, grads
+
+
+def check_on_mesh(params: T.LM, device_mesh) -> None:
+    """Raise unless every parameter is a ``DTensor`` on ``device_mesh``."""
+    for k, p in params.named_parameters():
+        if not is_dtensor(p) or p.device_mesh != device_mesh:
+            raise ValueError(
+                f"{k} is not a DTensor on the step's mesh: place the model "
+                f"first, sharding.shard_tree(params, mesh, "
+                f"param_shardings(cfg, mesh, params))")
+
+
+def _set_parameter(model: nn.Module, name: str, value) -> nn.Parameter:
+    """Put ``value`` in the place of the parameter ``name``."""
+    path, _, attr = name.rpartition(".")
+    owner = model.get_submodule(path)
+    new = nn.Parameter(value, requires_grad=getattr(owner, attr)
+                       .requires_grad)
+    setattr(owner, attr, new)
+    return new
+
+
 def jax_leaves(names) -> dict[str, list[str]]:
     """Parameter names grouped by JAX leaf: each period position's
     parameters stacked over the repeats (``stack.{r}.pos{j}.…``) are one
@@ -228,18 +329,28 @@ def jax_leaves(names) -> dict[str, list[str]]:
 def apply_update(named: dict[str, torch.nn.Parameter],
                  grads: dict[str, torch.Tensor], opt_state: OptState,
                  update, *, clip_norm: float = 1.0,
-                 compress: bool = False) -> torch.Tensor:
+                 compress: bool = False,
+                 model: T.LM | None = None) -> torch.Tensor:
     """The step's update, freeing as it goes (the module docstring): the
     global norm over ``grads``, the step's scalars once, then leaf by leaf
     (or JAX leaf by JAX leaf, with ``compress``) clip, compression and
     ``update.leaf`` (an ``optim.adamw`` update's per-leaf arithmetic),
     each new tensor put in its parameter's and moments' place and each
     gradient popped from ``grads``.  Advances ``opt_state.step`` and
-    returns the global norm."""
+    returns the global norm.
+
+    On a mesh, ``model`` is the model whose parameters ``named`` are
+    ``DTensor``s (the moments and the step are too) and ``grads`` are
+    whole: ``update.leaf`` takes this rank's blocks of the parameter,
+    its moments and its clipped gradient, and the new blocks become
+    ``DTensor``s placed as the old ones (the parameter replaced in
+    ``model``)."""
+    on_mesh = model is not None
     with torch.no_grad(), fp32_products():
         gnorm = global_norm(grads)
         scale = clip_scale(gnorm, clip_norm)
-        sc = update.scalars(opt_state.step)
+        step = opt_state.step
+        sc = update.scalars(step.to_local() if on_mesh else step)
         mu, nu = opt_state.mu, opt_state.nu
         for names in (jax_leaves(named).values() if compress
                       else ([k] for k in named)):
@@ -249,17 +360,25 @@ def apply_update(named: dict[str, torch.nn.Parameter],
                 # JAX leaf, as JAX's stacked leaf has
                 g = ef_compress_grads(torch.stack(g), None)[0].unbind()
             for k, gk in zip(names, g):
-                named[k].data, mu[k], nu[k] = update.leaf(
-                    gk, mu[k], nu[k], named[k].detach(), sc)
+                if not on_mesh:
+                    named[k].data, mu[k], nu[k] = update.leaf(
+                        gk, mu[k], nu[k], named[k].detach(), sc)
+                    continue
+                p, m, v = update.leaf(local_block(gk, named[k]),
+                                      mu[k].to_local(), nu[k].to_local(),
+                                      named[k].to_local(), sc)
+                named[k] = _set_parameter(model, k,
+                                          placed_like(p, named[k]))
+                mu[k], nu[k] = placed_like(m, mu[k]), placed_like(v, nu[k])
             del g, gk
-        opt_state.step = sc[0]
+        opt_state.step = placed_like(sc[0], step) if on_mesh else sc[0]
     return gnorm
 
 
 def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10000, clip_norm: float = 1.0,
                     compress_pod_grads: bool = False, device=None,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh=None):
     """Returns ``(train_step, init_opt)``.
 
     ``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -268,7 +387,15 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
     where the step runs; the model and the state must live there.  The
     step consumes ``opt_state`` (see the module docstring).
     ``accum_steps`` microbatches make one step (:func:`accumulated_grads`;
-    it must divide the batch)."""
+    it must divide the batch, or each rank's slice on a mesh).
+
+    With ``mesh`` (a ``DeviceMesh``), the step runs on it (the module
+    docstring): ``params`` must hold ``DTensor``s on it, as
+    ``sharding.shard_tree(params, mesh, param_shardings(cfg, mesh,
+    params, fsdp))`` places them (the plan's FSDP choice or either
+    forced: the step reads each parameter's placements), and
+    ``init_opt`` places the moments as their parameters and replicates
+    the step count."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     dev = resolve_device(device)
@@ -276,17 +403,34 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, warmup: int = 100,
                          b1=0.9, b2=0.95, weight_decay=0.1)
 
     def init_opt(params: T.LM) -> OptState:
-        return init({k: p.detach() for k, p in params.named_parameters()})
+        named = {k: p.detach() for k, p in params.named_parameters()}
+        if mesh is None:
+            return init(named)
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        state = init({k: p.to_local() for k, p in named.items()})
+        return OptState(
+            step=distribute_tensor(state.step, mesh,
+                                   [Replicate()] * mesh.ndim),
+            mu={k: placed_like(m, named[k]) for k, m in state.mu.items()},
+            nu={k: placed_like(v, named[k]) for k, v in state.nu.items()})
 
     def train_step(params: T.LM, opt_state: OptState, batch: dict):
         named = dict(params.named_parameters())
         if next(iter(named.values())).device.type != dev.type:
             raise ValueError(f"the model is not on {dev}")
-        loss, grads = accumulated_grads(params, cfg, batch, accum_steps)
+        if mesh is None:
+            loss, grads = accumulated_grads(params, cfg, batch, accum_steps)
+        else:
+            check_on_mesh(params, mesh)
+            loss, grads = mesh_grads(params, cfg, batch, accum_steps, mesh)
         gnorm = apply_update(named, grads, opt_state, update,
                              clip_norm=clip_norm,
-                             compress=compress_pod_grads)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
-                                   "step": opt_state.step}
+                             compress=compress_pod_grads,
+                             model=None if mesh is None else params)
+        step = opt_state.step
+        return params, opt_state, {
+            "loss": loss, "grad_norm": gnorm,
+            "step": step if mesh is None else step.to_local()}
 
     return train_step, init_opt

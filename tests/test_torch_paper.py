@@ -8,7 +8,11 @@ JAX's ``FogEngine.eval(x, jax.random.key(0))`` draws) and JAX's baseline
 init.  The JAX side is built from ``repro``'s functions as the JAX
 package's benchmark harness builds it.  Bars: accuracies and hop means
 equal, energies within rtol 1e-6, the CSV rows equal; the baselines'
-accuracy within 0.01 of JAX's.
+accuracy within 0.01 of JAX's.  JAX's baselines are trained once
+(``jax_baselines``), for Table 1's columns and for the trained-model
+checks of ``tests/test_torch_baselines.py``'s bars (each baseline trained
+by both packages from JAX's init: accuracy within 0.01 and above 0.8,
+its predictions giving its accuracy, SVM_RBF's energy equal).
 """
 import functools
 
@@ -29,7 +33,8 @@ import repro.forest as jforest  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro.core.engine import sample_starts  # noqa: E402
 from repro.data import make_dataset as jdataset  # noqa: E402
-from repro_torch.baselines import params_from_jax  # noqa: E402
+from repro_torch.baselines import (ALL_BASELINES,  # noqa: E402
+                                   params_from_jax)
 from repro_torch.forest import TensorForest  # noqa: E402
 from repro_torch.paper import (ablation_adaptive, common,  # noqa: E402
                                fig4_topology, fig5_threshold, run,
@@ -38,6 +43,18 @@ from repro_torch.paper import (ablation_adaptive, common,  # noqa: E402
 NAME = "segmentation"
 RTOL = 1e-6
 BASELINES = ["svm_lr", "svm_rbf", "mlp", "cnn"]
+ACC_BAR = 0.01
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the port's small training steps: the suite
+    runs test files in parallel workers, where each op's threads only
+    contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,10 +88,45 @@ def jax_init(name, F, C):
 
 
 @pytest.fixture(scope="module")
-def jax_columns(jds, jrf):
+def jax_baselines(jds):
+    """JAX's four baselines trained on segmentation (seed 0): the one
+    training of them in the suite."""
+    return {name: getattr(jtrain, f"train_{name}")(jds) for name in BASELINES}
+
+
+@pytest.fixture(scope="module")
+def trained_segmentation(jds, jax_baselines):
+    """Each baseline trained by both packages on segmentation from JAX's
+    init (seed 0): {name: (JAX's TrainedModel, the port's)}."""
+    tds = common.dataset(NAME)
+    return {name: (jax_baselines[name], ALL_BASELINES[name](
+        tds, params=params_from_jax(name, jax.tree.map(
+            np.asarray, jax_init(name, jds.n_features, jds.n_classes)),
+            device="cpu"), device="cpu")) for name in BASELINES}
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_trained_accuracy_matches_jax_on_segmentation(trained_segmentation,
+                                                      name):
+    jm, tm = trained_segmentation[name]
+    assert tm.name == jm.name == name
+    assert abs(tm.accuracy - jm.accuracy) <= ACC_BAR, (tm.accuracy,
+                                                       jm.accuracy)
+    assert tm.accuracy > 0.8
+    x = torch.as_tensor(common.dataset(NAME).x_test)
+    assert np.mean(tm.predict(tm.params, x).numpy()
+                   == common.dataset(NAME).y_test) == tm.accuracy
+
+
+def test_trained_svm_rbf_energy_matches_jax(trained_segmentation):
+    jm, tm = trained_segmentation["svm_rbf"]
+    assert tm.energy_nj == jm.energy_nj
+
+
+@pytest.fixture(scope="module")
+def jax_columns(jds, jrf, jax_baselines):
     """The seven columns as the JAX package's harness computes them."""
-    out = {name: getattr(jtrain, f"train_{name}")(jds) for name in BASELINES}
-    out = {k: (m.accuracy, m.energy_nj) for k, m in out.items()}
+    out = {k: (m.accuracy, m.energy_nj) for k, m in jax_baselines.items()}
     x = jnp.asarray(jds.x_test)
     out["rf"] = (float(np.mean(np.asarray(jforest.rf_predict(jrf, x))
                                == jds.y_test)),

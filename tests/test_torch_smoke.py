@@ -294,3 +294,46 @@ def test_simt_forward_design_operations_count_their_tiles(shape, causal):
         assert want == 2_684_354_560
         need = chip_smoke.flash_work(B, Sq, Sk, H, 4, D, Dv, 4)["ops"]
         assert need == 2_155_872_256
+
+
+def test_phase_21_mesh_step_check_on_a_one_rank_gloo_group(tmp_path):
+    """Phase 21's mesh train step check at smoke width on the CPU, on a
+    one-rank gloo group as ``sharding_phase`` starts one there: two mesh
+    steps on the host mesh and on the (1, 1, 1) mesh bit-equal to two
+    one-device steps from the same state (fp32 and bf16), and the state
+    saved from the mesh restored bit-equal."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cpu = torch.device("cpu")
+    cfg = smoke_config(chip_smoke.SHARD_ARCH)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        meshes = {"host": make_host_mesh(),
+                  "1x1x1": init_device_mesh("cpu", (1, 1, 1),
+                                            mesh_dim_names=chip_smoke
+                                            .SHARD_AXES)}
+        runs = {dt: chip_smoke.mesh_train_check(cpu, cfg, meshes, B=2,
+                                                S=64, dtype=dt)
+                for dt in (torch.float32, torch.bfloat16)}
+        saved = chip_smoke.mesh_save_check(cpu, cfg, meshes["1x1x1"],
+                                           tmp_path / "ckpt", B=2, S=64)
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(n)
+    n_params = len(list(chip_smoke.T.init_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32,
+        device="cpu").parameters()))
+    for out in runs.values():
+        for m in meshes:
+            assert out[m]["leaves"] == 3 * n_params
+            assert out[m]["losses"] == out["one_device"]["losses"]
+            assert len(out[m]["ms"]) == chip_smoke.MESH_STEPS
+    assert saved["leaves"] == 3 * n_params
+    assert not (tmp_path / "ckpt").exists()
