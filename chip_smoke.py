@@ -355,7 +355,17 @@ the sharding plan on a one-rank mesh, and:
    counts zeroed just before and read just after, prefills 4 x 2048 with
    the model rebuilt from the local shards (22 ``flash_attention`` on the
    tensor-core route), its logits and cache bit-equal to the same prefill
-   on the whole parameters; places the K/V cache by ``cache_shardings``
+   on the whole parameters; on both meshes, the mesh serving steps
+   (``make_prefill_step`` / ``make_serve_step(..., mesh=)``,
+   ``mesh_serve_check``): that prefill with a cache of 2056 positions, 4
+   greedy decode steps and 4 FoG steps (``"pallas"`` margin) at per-lane
+   thresholds and a budget, each step's counts zeroed just before and
+   read just after (22 ``flash_attention`` on the tensor cores a
+   prefill, 3 ``top2_confidence`` a FoG step), the logits, hops and every
+   cache leaf bit-equal to the one-card steps', each step's ms beside
+   theirs, and the tensor-core forward on the heads of rank 1 of 2 along
+   ``model`` (q heads 16-31, KV heads 2-3 of layer 0) bit-equal to that
+   slice of the whole call; places the K/V cache by ``cache_shardings``
    (the batch on ``pod`` and ``data``, the heads on ``model``); saves the
    model and restores it onto the mesh through ``train.checkpoint.restore(
    ..., shardings=, mesh=)``, bit-equal; destroys the group; prints each
@@ -3717,10 +3727,14 @@ def paper_phase(dev: torch.device) -> dict:
 
 def paper_profile(paper: dict) -> None:
     """fused_fog's device ms at each field, precision and threshold, after
-    every event timing."""
+    every event timing; None (printed "(no profiler record)") where no
+    profile of ``retried_profile``'s recorded the kernel, as
+    ``eval_profile``'s figures: CUPTI may keep no record of a short kernel
+    late in a run, and these are timings, not checks (phase 13 holds
+    every eval to the reference)."""
     for (name, p, thr), (fn, route) in paper.pop("kernel_fns").items():
         kernel = "fused_fog" if route == "fused_fog" else "fused_fog_group"
-        per_launch = recorded_profile(fn, kernel)[-1][2]
+        per_launch = retried_profile(fn, kernel)[2]
         row = paper["fields"][f"{name} {p} {thr}"]
         row["device_ms"] = kernel_ms(per_launch, kernel)
         print(f"[time] paper fused_fog {name} {p} thresh {thr} on "
@@ -6362,6 +6376,11 @@ SHARD_ARCH = ATTN_ARCH
 SHARD_AXES = ("pod", "data", "model")
 # the mesh train step: two steps on each mesh at phase 19's shape
 MESH_STEPS = 2
+# the mesh serving steps: the attention phase's prefill, then this many
+# greedy decode and as many FoG steps, on each mesh
+MESH_DECODE = 4
+# the head slice held on the tensor cores: rank 1 of 2 along model
+HEAD_SLICE = (1, 2)
 
 
 def mesh_train_check(dev: torch.device, cfg, meshes: dict, *, B: int,
@@ -6494,11 +6513,173 @@ def mesh_save_check(dev: torch.device, cfg, mesh, where: Path, *, B: int,
     return {"leaves": n, "save_s": t1 - t0, "restore_s": t2 - t1}
 
 
+def card_name(dev: torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of the card, for a line of
+    device numbers (a CPU rehearsal names the CPU)."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def mesh_serve_check(dev: torch.device, cfg, params, meshes: dict,
+                     tokens: torch.Tensor, *,
+                     n_decode: int = MESH_DECODE) -> dict:
+    """``make_prefill_step`` / ``make_serve_step(..., mesh=)`` on each of
+    ``meshes`` (name -> (``DeviceMesh`` of one rank, ``params`` placed on
+    it by the plan)) held to the one-card steps from ``params``: a prefill
+    of ``tokens [B, S]`` with a cache of ``S + 2 n_decode`` positions,
+    ``n_decode`` greedy decode steps and ``n_decode`` FoG steps (the
+    ``"pallas"`` margin) at per-lane thresholds ``LM_THRESH`` (lane
+    ``LM_GATE_LANE``'s from a first FoG step's margins) with the last
+    lane's budget ``LM_BUDGET``, so that the lanes exit at different
+    groves.  Each step's logits, hops and every cache leaf
+    (``to_local()`` and ``full_tensor()``) == the one-card step's bit for
+    bit; the counts of each step zeroed just before it and read just
+    after: ``n_layers`` ``flash_attention`` on the tensor cores a prefill,
+    none a decode step, ``G - 1`` ``top2_confidence`` a FoG step, on the
+    one card and on each mesh.  Then the tensor-core forward on
+    ``HEAD_SLICE``'s heads of layer 0's q, k and v == that slice of the
+    whole call bit for bit.  Returns each run's step ms and counts."""
+    B, S = tokens.shape
+    M = S + 2 * n_decode
+    G = len(grove_boundaries(cfg))
+    n = cfg.n_layers
+    fog_policy = FogPolicy(backend="pallas")
+
+    def factories(mesh=None):
+        return (make_prefill_step(cfg, dev, batch=B, seq_len=S, max_seq=M,
+                                  mesh=mesh)[0],
+                make_serve_step(cfg, dev, batch=B, max_seq=M,
+                                mesh=mesh)[0],
+                make_serve_step(cfg, dev, batch=B, max_seq=M, fog=True,
+                                policy=fog_policy, mesh=mesh)[0])
+
+    one = factories()
+    # lane LM_GATE_LANE's threshold from a first FoG step's margins, and
+    # layer 0's q, k and v (both before any count is zeroed)
+    captured, real = [], ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), kw))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    try:
+        logits, cache = one[0](params, tokens)
+    finally:
+        ops.flash_attention = real
+    with GateSpy() as cal:
+        one[2](params, cache, logits.argmax(-1).to(torch.int32), S,
+               torch.full((B,), 2.0, dtype=torch.float32, device=dev),
+               torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev))
+    del logits, cache
+    lanes = [lm_gate_threshold(torch.stack(
+        [m for _, m in cal.calls])[:, LM_GATE_LANE].cpu()) if t is None
+        else t for t in LM_THRESH[:B]]
+    thresh = torch.tensor(lanes, dtype=torch.float32, device=dev)
+    budget = torch.full((B,), NO_BUDGET, dtype=torch.int32, device=dev)
+    budget[-1] = LM_BUDGET
+
+    def run(fns, p, whole):
+        """Each step's (what, logits, cache, hops, ms, counts)."""
+        pre, dec, fog = fns
+        steps = [("prefill", lambda c, t, i: pre(p, tokens))]
+        steps += [("decode", lambda c, t, i: dec(p, c, t, S + i))] * n_decode
+        steps += [("fog", lambda c, t, i: fog(p, c, t, S + i, thresh,
+                                              budget))] * n_decode
+        rec, cache, token = [], None, None
+        for i, (what, fn) in enumerate(steps):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = fn(cache, token, i - 1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched, routes = read_counts()
+            logits, cache = res[0], res[1]
+            rec.append((what, logits, cache, res[2] if len(res) > 2
+                        else None, ms, {"launches": launched,
+                                        "routes": routes}))
+            token = whole(logits).argmax(-1).to(torch.int32)
+        return rec
+
+    want = {"prefill": ({"flash_attention": n},
+                        {"flash_attention_sm90": n}),
+            "decode": ({}, {}),
+            "fog": ({"top2_confidence": G - 1}, {})}
+
+    def counted(name, rec):
+        for what, *_, counts in rec:
+            check_counts(f"{cfg.name} {what} on {name}", [counts],
+                         want[what])
+        return {"ms": {what: [r[4] for r in rec if r[0] == what]
+                       for what in want},
+                "counts": {what: next(r[5] for r in rec if r[0] == what)
+                           for what in want}}
+
+    ref = run(one, params, lambda t: t)
+    out = {"one_card": counted("one card", ref), "thresh": lanes,
+           "budget": budget.tolist(),
+           "hops": [r[3].tolist() for r in ref if r[3] is not None]}
+    for name, (mesh, placed) in meshes.items():
+        got = run(factories(mesh), placed, lambda t: t.full_tensor())
+        n_leaves = 0
+        for (what, lg, cg, hg, _, _), (_, lw, cw, hw, _, _) in zip(
+                got, ref, strict=True):
+            pairs = [("logits", lg, lw)] + ([("hops", hg, hw)]
+                                            if hw is not None else [])
+            pairs += [(f"cache {i}", d, t) for i, (d, t) in enumerate(zip(
+                tree_leaves(cg), tree_leaves(cw), strict=True))]
+            for leaf, d, t in pairs:
+                if d.device_mesh != mesh:
+                    raise AssertionError(f"{name} {what} {leaf} off the "
+                                         "mesh")
+                # compared on the device; check_equal (a host copy) only
+                # to name a difference
+                for part, x in (("local", d.to_local()),
+                                ("whole", d.full_tensor())):
+                    if not torch.equal(x, t):
+                        check_equal(f"mesh {what} on {name}: {leaf} {part}",
+                                    x, t)
+            n_leaves += len(pairs)
+        out[name] = counted(name, got)
+        out[name]["outputs"] = n_leaves
+        del got
+    del ref
+
+    # the head slice of one rank of HEAD_SLICE[1] on the tensor cores
+    q, k, v, kw = captured[0]
+    m, parts = HEAD_SLICE
+    H, K = q.shape[2], k.shape[2]
+    hq = slice(m * H // parts, (m + 1) * H // parts)
+    hk = slice(m * K // parts, (m + 1) * K // parts)
+    zero_counts()
+    whole = ops.flash_attention(q, k, v, **kw)
+    part = ops.flash_attention(q[:, :, hq].contiguous(),
+                               k[:, :, hk].contiguous(),
+                               v[:, :, hk].contiguous(), **kw)
+    _, routes = read_counts()
+    if routes != {"flash_attention_sm90": 2}:
+        raise AssertionError(f"head slice: routes {routes}")
+    check_equal("flash_attention_sm90 on a head slice vs that slice of the "
+                "whole call", part, whole[:, :, hq])
+    out["head_slice"] = {"q_heads": [hq.start, hq.stop - 1],
+                         "kv_heads": [hk.start, hk.stop - 1],
+                         "shape": list(q.shape)}
+    del captured, whole, part
+    return out
+
+
 def sharding_phase(dev: torch.device) -> dict:
     """Phase 21 (see the module docstring): a one-rank NCCL group on the
     card, the host mesh and a (1, 1, 1) mesh; the model placed by the plan
     and restored onto the mesh; a prefill through the placed parameters;
-    each config's per-card state under the plan at JAX's meshes; the mesh
+    the mesh serving steps on both meshes (``mesh_serve_check``); each
+    config's per-card state under the plan at JAX's meshes; the mesh
     train step on both meshes (``mesh_train_check``) and a state saved
     from the mesh (``mesh_save_check``)."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -6556,6 +6737,12 @@ def sharding_phase(dev: torch.device) -> dict:
         out["launches"], out["routes"] = launched, routes
         check_equal("prefill logits, sharded vs whole parameters", logits,
                     want_logits)
+        # the mesh serving steps on both meshes, held to the one-card steps
+        t1 = time.perf_counter()
+        out["mesh_serve"] = mesh_serve_check(
+            dev, cfg, params, {k: (m, placed[k]) for k, m in
+                               (("host", host), ("1x1x1", mesh))}, tokens)
+        out["mesh_serve"]["seconds"] = time.perf_counter() - t1
         cspecs = cache_shardings(cfg, mesh, cache)
         placed_cache = shard_tree(cache, mesh, cspecs)
         n_cache = 0
@@ -6633,6 +6820,34 @@ def sharding_phase(dev: torch.device) -> dict:
           f"{[round(x, 1) for x in ms['one_device']['ms']]}; losses "
           f"{[round(x, 4) for x in ms['one_device']['losses']]}; "
           f"{ms['seconds']:.1f} s", flush=True)
+    sv_ = out["mesh_serve"]
+
+    def ms_of(run, what):
+        return [round(x, 2) for x in sv_[run]["ms"][what]]
+
+    print(f"[shard] the mesh serving steps, {SHARD_ARCH} bf16: "
+          f"make_prefill_step(mesh=) of {LM_B} x {LM_S} (a cache of "
+          f"{LM_S + 2 * MESH_DECODE} positions), {MESH_DECODE} greedy "
+          f"make_serve_step(mesh=) steps and {MESH_DECODE} FoG steps "
+          f"('pallas' margin) at per-lane thresholds "
+          f"{[round(x, 6) for x in sv_['thresh']]} and budgets "
+          f"{sv_['budget']} (hops {sv_['hops']}), on the host mesh and on "
+          f"the (1, 1, 1) mesh: logits, hops and every cache leaf "
+          f"({sv_['1x1x1']['outputs']} outputs, to_local() and "
+          f"full_tensor()) == the one-card steps bit for bit; launches a "
+          f"step {sv_['1x1x1']['counts']}; {card_name(dev)}: prefill ms "
+          f"host {ms_of('host', 'prefill')}, (1, 1, 1) "
+          f"{ms_of('1x1x1', 'prefill')}, one card "
+          f"{ms_of('one_card', 'prefill')}; decode ms host "
+          f"{ms_of('host', 'decode')}, (1, 1, 1) {ms_of('1x1x1', 'decode')}, "
+          f"one card {ms_of('one_card', 'decode')}; FoG ms host "
+          f"{ms_of('host', 'fog')}, (1, 1, 1) {ms_of('1x1x1', 'fog')}, one "
+          f"card {ms_of('one_card', 'fog')}; flash_attention_sm90 on q heads "
+          f"{sv_['head_slice']['q_heads']} and KV heads "
+          f"{sv_['head_slice']['kv_heads']} (rank {HEAD_SLICE[0]} of "
+          f"{HEAD_SLICE[1]} along model) of layer 0's "
+          f"{sv_['head_slice']['shape']} q == that slice of the whole call "
+          f"bit for bit; {sv_['seconds']:.1f} s", flush=True)
     sv = out["mesh_save"]
     print(f"[shard] {SHARD_ARCH}'s smoke config trained {MESH_STEPS} mesh "
           f"steps on the (1, 1, 1) mesh, saved from the mesh "
@@ -6656,7 +6871,8 @@ def sharding_phase(dev: torch.device) -> dict:
                   f"{pd['param_bytes']:,} B, state (params, bf16 grads, "
                   f"fp32 moments) {pd['state_bytes']:,} B", flush=True)
     out["seconds"] = time.perf_counter() - t0
-    print(f"[shard] phase 21 in {out['seconds']:.1f} s", flush=True)
+    print(f"[shard] phase 21 in {out['seconds']:.1f} s on "
+          f"{card_name(dev)}", flush=True)
     return out
 
 

@@ -2,7 +2,8 @@
 list, a mesh's names and sizes without devices (:class:`MeshShape`, what
 the sharding rules read), the production shapes, the host mesh over
 the initialised process group and a rank's place along the batch axes
-(:func:`dp_rank`, what the mesh train step slices by).
+(:func:`dp_rank`, what the mesh steps slice the batch by) and along
+``model`` (:func:`model_rank`, the KV heads a mesh serving step attends).
 
 A FUNCTION builds each mesh, never an import: importing this module
 touches no device and no process group.  A ``DeviceMesh`` of the
@@ -122,3 +123,15 @@ def dp_rank(device_mesh) -> tuple[int, int]:
 def model_axis_size(mesh) -> int:
     """The ``model`` axis's size, 1 where the mesh has none."""
     return MeshShape.of(mesh).shape.get("model", 1)
+
+
+def model_rank(device_mesh) -> tuple[int, int]:
+    """``(m, M)``: this rank's coordinate along the ``model`` axis of a
+    ``DeviceMesh`` and the axis's size; ``(0, 1)`` where the mesh has no
+    ``model`` axis.  Ranks that differ only along the dp axes share
+    ``m``."""
+    coord = device_mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    at = dict(zip(device_mesh.mesh_dim_names, coord))
+    return at.get("model", 0), model_axis_size(device_mesh)

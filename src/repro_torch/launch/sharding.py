@@ -247,16 +247,19 @@ def cache_shardings(cfg: ArchConfig, mesh, cache):
     the dp axes where their product divides it; K/V heads on ``model``
     when they divide, else the sequence (SP: MQA / MLA long context).
     As in JAX, a leaf's name is its dict key, "" under a list or tuple:
-    each of Mamba's conv tails ``(tx, tB, tC)`` takes the last rule."""
+    each of Mamba's conv tails ``(tx, tB, tC)`` takes the last rule.  On
+    a mesh without a ``model`` axis (the host mesh) no leaf names it,
+    where JAX's rule would name an axis the mesh lacks."""
     msize = model_axis_size(mesh)
     dp = dp_axes(mesh)
     dp_size = math.prod(MeshShape.of(mesh).shape[a] for a in dp)
+    heads = "model" if "model" in MeshShape.of(mesh).axis_names else None
 
     def leaf(name: str, shape) -> Spec:
         batch_first = dp if shape[0] % dp_size == 0 else None
         if name in ("k", "v"):             # [B, S, K, hd]
             if shape[2] % msize == 0:
-                return Spec(batch_first, None, "model", None)
+                return Spec(batch_first, None, heads, None)
             return Spec(batch_first, _maybe("model", shape[1], msize), None,
                         None)
         if name in ("c_kv", "k_rope"):     # [B, S, r]: SP over seq
@@ -275,6 +278,19 @@ def cache_shardings(cfg: ArchConfig, mesh, cache):
         return leaf(name, tuple(tree.shape))
 
     return walk(cache, "")
+
+
+def map_leaves(fn, tree, *others):
+    """``fn`` of each leaf of ``tree`` and the leaves at the same place in
+    ``others`` (trees of its structure: dicts, lists and tuples; a
+    :class:`Spec` is a leaf), as a tree of ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
+        return type(tree)(map_leaves(fn, *parts) for parts in zip(
+            tree, *others, strict=True))
+    return fn(tree, *others)
 
 
 def local_block(full: torch.Tensor, like) -> torch.Tensor:

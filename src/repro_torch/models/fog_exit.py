@@ -18,6 +18,13 @@ state (K/V projections for attention, the latent and rope key for MLA,
 the full ``mamba_decode`` for a Mamba layer), and the mask then keeps
 every lane's old cache, since no lane is live, so that fill is discarded
 as in JAX (ROADMAP §C).
+
+On a mesh (``share``, ``serve.decode``) a rank holds only its lanes, and
+the skip is JAX's ``lax.cond`` on the whole batch: the rank's
+``live.any()`` is reduced over the dp ranks
+(``serve.decode.MeshShare.any_live``), so every rank takes the same
+branch and the gathers of the heads' outputs stay matched.  The masks on the cache, the hidden state, the logits and
+the hops stay per lane, on the rank's lanes.
 """
 from __future__ import annotations
 
@@ -59,9 +66,20 @@ def _mask_cache(new, old, live: torch.Tensor):
 
 
 def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
-                    length):
+                    length, share=None):
     """Fill a skipped layer's cache from the propagated hidden state
-    (projections only: K/V, or the MLA latent and rope key)."""
+    (projections only: K/V, or the MLA latent and rope key).  ``share``
+    as in ``transformer._apply_layer_decode``: the rank's heads' rows
+    written into its block, or the leaves gathered whole and cut."""
+    if share is not None and share.heads is None:
+        return share.block(_kv_fill(p, cfg, s, h, share.whole(cache),
+                                    length))
+    return _kv_fill(p, cfg, s, h, cache, length,
+                    None if share is None else share.heads)
+
+
+def _kv_fill(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache, length,
+             heads=None):
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         # the recurrent state advance is the cheap part of a Mamba layer:
@@ -74,11 +92,14 @@ def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
         return mla.mla_kv_update(p.attn, cfg, x, cache, length)
     pos = torch.full((x.shape[0], 1), length, device=x.device)
     k, v = T._kv(p.attn, cfg, x, pos)
+    if heads is not None:
+        k, v = heads.take(k), heads.take(v)
     return write_cache_rows(cache, length, {"k": k, "v": v})
 
 
 def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
-                    thresh, embeds=None, *, backend: str = "reference"):
+                    thresh, embeds=None, *, backend: str = "reference",
+                    share=None):
     """FoG decode step from token [B] (or None with embeds [B, 1, d]).
     Returns (logits [B,V], new_cache, hops [B] int32).
 
@@ -86,9 +107,11 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
     budgets serve mixed-QoS batches) or a bare scalar / ``[B]`` threshold.
     A lane whose hop budget is spent exits even while unconfident.
     ``backend`` picks the margin ("reference" or the "pallas" top-2
-    kernel); a policy's ``backend`` knob overrides it.
+    kernel); a policy's ``backend`` knob overrides it.  ``share``: a mesh
+    rank's share of the step (``serve.decode``; the module docstring).
     """
     prefix, period, _ = T.layer_plan(cfg)
+    pre_share, stack_share = T.layer_shares(share, cfg)
     sizes = grove_boundaries(cfg)
     B = token.shape[0] if token is not None else embeds.shape[0]
     policy = thresh if isinstance(thresh, FogPolicy) else FogPolicy(
@@ -103,8 +126,9 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
                        None if token is None else token[:, None], embeds)
 
     new_prefix = []
-    for p, s, c in zip(params.prefix, prefix, cache["prefix"]):
-        h, c = T._apply_layer_decode(p, cfg, s, h, c, length)
+    for p, s, c, sh in zip(params.prefix, prefix, cache["prefix"],
+                           pre_share):
+        h, c = T._apply_layer_decode(p, cfg, s, h, c, length, sh)
         new_prefix.append(c)
 
     live = torch.ones((B,), dtype=torch.bool, device=dev)
@@ -114,19 +138,20 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
     start = 0
     for g, size in enumerate(sizes):
         blocks = zip(params.stack[start:start + size],
-                     cache["stack"][start:start + size])
-        run = bool(live.any())
+                     cache["stack"][start:start + size],
+                     stack_share[start:start + size])
+        run = bool(live.any() if share is None else share.any_live(live))
         h_new, grove_cache = h, []
-        for bp, bc in blocks:
+        for bp, bc, bs in blocks:
             nc = {}
             for j, s in enumerate(period):
                 key = f"pos{j}"
                 if run:
                     h_new, nc[key] = T._apply_layer_decode(
-                        bp[key], cfg, s, h_new, bc[key], length)
+                        bp[key], cfg, s, h_new, bc[key], length, bs[key])
                 else:
                     nc[key] = _kv_only_update(bp[key], cfg, s, h, bc[key],
-                                              length)
+                                              length, bs[key])
             grove_cache.append(_mask_cache(nc, bc, live))
         new_stack.extend(grove_cache)
         # masked select per lane: exited lanes keep their old hidden state

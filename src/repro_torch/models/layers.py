@@ -142,19 +142,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     fp32, which is JAX's fp32 accumulation of the stored values
     (``preferred_element_type``).  The softmax runs in fp32 and ``p`` is
     rounded to the cache's dtype before ``p·v``.
+
+    Both products are batched over (lane, KV head), with each head's keys
+    and values laid out ``[S, D]``: every batch entry is the same matrix
+    product whatever the lanes and heads beside it, so the attention of a
+    slice of the lanes or of the KV heads (with their query heads) is the
+    same slice of the whole call, bit for bit.  A mesh rank attends its
+    own heads so (``serve.decode``); an ``einsum`` here batched the heads
+    otherwise and moved a bit when a slice held one KV head.
     """
     B, _, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
-    G = H // K
     f32 = torch.float32
-    qg = q.reshape(B, K, G, D)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.to(f32),
-                     k_cache.to(f32)) * softmax_scale(D, scale)
+
+    def by_head(c):
+        """[B, S, K, D] -> [B * K, S, D] in fp32."""
+        return c.permute(0, 2, 1, 3).reshape(B * K, S, D).to(f32)
+
+    qg = q.reshape(B * K, H // K, D).to(f32)
+    s = torch.bmm(qg, by_head(k_cache).transpose(1, 2)) * softmax_scale(
+        D, scale)
     pos = torch.arange(S, device=q.device)
     s = torch.where(pos < length, s, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(f32),
-                       v_cache.to(f32))
+    out = torch.bmm(p.to(v_cache.dtype).to(f32), by_head(v_cache))
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 

@@ -255,10 +255,18 @@ def embed_inputs(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None,
 
 
 def unembed(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 from the product in the working dtype."""
+    """Logits in fp32 from the product in the working dtype.  Tied
+    embeddings take it as ``embed @ h^T``, transposed back: the CPU's
+    product of ``h`` by a transposed ``embed`` rounds a row by the number
+    of rows beside it, which would part a mesh rank's lanes from the same
+    lanes of the whole batch (``serve.decode``)."""
     h = rmsnorm(h, params.out_norm)
-    w = params.embed.T if cfg.tie_embeddings else params.unembed
-    return (h @ w).to(torch.float32)
+    if not cfg.tie_embeddings:
+        return (h @ params.unembed).to(torch.float32)
+    flat = h.reshape(-1, h.shape[-1])
+    out = (params.embed @ flat.T).T
+    return out.to(torch.float32, memory_format=torch.contiguous_format).view(
+        *h.shape[:-1], -1)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -277,14 +285,24 @@ def _attn_out(p: Attn, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:2], -1) @ p.wo.reshape(-1, p.wo.shape[-1])
 
 
-def _attn_train(p: Attn, cfg: ArchConfig, x: torch.Tensor):
+def _attn_train(p: Attn, cfg: ArchConfig, x: torch.Tensor, heads=None):
     """Causal self-attention over x [B, S, d]: (output [B, S, d], the keys
-    after RoPE and the values, for the cache)."""
+    after RoPE and the values, for the cache).
+
+    With ``heads`` (a mesh rank's share of the heads, ``serve.decode``)
+    q, k and v are computed whole, attention runs on the rank's KV heads
+    and their query heads only, the heads' outputs are gathered in rank
+    order before ``wo``, and the keys and values returned are the rank's
+    heads: its block of the cache."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
     q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
     k, v = _kv(p, cfg, x, pos)
-    return _attn_out(p, flash_attention(q, k, v, causal=True)), k, v
+    if heads is None:
+        return _attn_out(p, flash_attention(q, k, v, causal=True)), k, v
+    q, k, v = heads.take(q), heads.take(k), heads.take(v)
+    out = heads.gather(flash_attention(q, k, v, causal=True))
+    return _attn_out(p, out), k, v
 
 
 def _ffn(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
@@ -300,10 +318,12 @@ def _ffn(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
     return h + gated_ffn(x, f.w_gate, f.w_up, f.w_down, cfg.act), None
 
 
-def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
+def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor,
+               heads=None):
     """One layer over a whole sequence: (h after it, its cache: the keys
     after RoPE and the values, the MLA latent and rope key, or the Mamba
-    state and conv tails; the MoE loss or None)."""
+    state and conv tails; the MoE loss or None).  ``heads``: an attention
+    layer's share of the heads on a mesh (:func:`_attn_train`)."""
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg, x)
@@ -312,7 +332,7 @@ def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
         mixed, c_kv, k_rope = mla.mla_forward(p.attn, cfg, x)
         cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
-        mixed, k, v = _attn_train(p.attn, cfg, x)
+        mixed, k, v = _attn_train(p.attn, cfg, x, heads)
         cache = {"k": k, "v": v}
     h, aux = _ffn(p, cfg, s, h + mixed)
     return h, cache, aux
@@ -434,18 +454,37 @@ def cache_init(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _attn_decode(p: Attn, cfg: ArchConfig, x: torch.Tensor, cache: dict,
-                 length: int):
+                 length: int, heads=None):
+    """One position's attention against the cache.  With ``heads`` (a mesh
+    rank's share, :func:`_attn_train`) ``cache`` is the rank's block of
+    KV heads: the new rows of its heads are written there and attention
+    reads only that block; the heads' outputs are gathered before
+    ``wo``."""
     B = x.shape[0]
     pos = torch.full((B, 1), length, device=x.device)
     q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
     k, v = _kv(p, cfg, x, pos)
+    if heads is not None:
+        q, k, v = heads.take(q), heads.take(k), heads.take(v)
     cache = write_cache_rows(cache, length, {"k": k, "v": v})
     out = decode_attention(q, cache["k"], cache["v"], length + 1)
+    if heads is not None:
+        out = heads.gather(out)
     return _attn_out(p, out), cache
 
 
 def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
-                        length):
+                        length, share=None):
+    """One layer's decode step: (h after it, its new cache).  ``share``
+    (a mesh rank's share of the layer, ``serve.decode``) holds ``cache``
+    as the rank's blocks: an attention layer whose KV heads the plan puts
+    on ``model`` attends its own heads in its block; any other layer's
+    leaves are gathered whole, the layer runs as on one device and the
+    rank keeps its block of each new leaf."""
+    if share is not None and share.heads is None:
+        h, cache = _apply_layer_decode(p, cfg, s, h, share.whole(cache),
+                                       length)
+        return h, share.block(cache)
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         mixed, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x,
@@ -455,35 +494,53 @@ def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
         mixed, cache = mla.mla_attention_decode(p.attn, cfg, x, cache,
                                                 int(length))
     else:
-        mixed, cache = _attn_decode(p.attn, cfg, x, cache, int(length))
+        mixed, cache = _attn_decode(p.attn, cfg, x, cache, int(length),
+                                    None if share is None else share.heads)
     return _ffn(p, cfg, s, h + mixed)[0], cache
 
 
+def layer_shares(share, cfg: ArchConfig):
+    """``share``'s per-layer shares as ``(prefix list, stack list of
+    {"pos{j}": share})``, the cache's structure; Nones without a share."""
+    if share is not None:
+        return share.prefix, share.stack
+    prefix, period, n_rep = layer_plan(cfg)
+    return ([None] * len(prefix),
+            [{f"pos{j}": None for j in range(len(period))}] * n_rep)
+
+
 def decode_step(params: LM, cfg: ArchConfig, token, cache, length,
-                embeds=None):
+                embeds=None, share=None):
     """One decode step at position ``length`` (an int, the same for every
     lane).  token [B] int (or None with embeds [B, 1, d]); returns
-    (logits [B,V] fp32, new_cache)."""
+    (logits [B,V] fp32, new_cache).  ``share``: a mesh rank's share of
+    the step (``serve.decode``), which holds ``cache`` as its blocks."""
     prefix, period, _ = layer_plan(cfg)
+    pre_share, stack_share = layer_shares(share, cfg)
     h = embed_inputs(params, cfg, None if token is None else token[:, None],
                      embeds)
     new_prefix = []
-    for p, s, c in zip(params.prefix, prefix, cache["prefix"]):
-        h, c = _apply_layer_decode(p, cfg, s, h, c, length)
+    for p, s, c, sh in zip(params.prefix, prefix, cache["prefix"],
+                           pre_share):
+        h, c = _apply_layer_decode(p, cfg, s, h, c, length, sh)
         new_prefix.append(c)
     new_stack = []
-    for blk, blk_cache in zip(params.stack, cache["stack"]):
+    for blk, blk_cache, blk_share in zip(params.stack, cache["stack"],
+                                         stack_share):
         nc = {}
         for j, s in enumerate(period):
-            h, nc[f"pos{j}"] = _apply_layer_decode(
-                blk[f"pos{j}"], cfg, s, h, blk_cache[f"pos{j}"], length)
+            key = f"pos{j}"
+            h, nc[key] = _apply_layer_decode(blk[key], cfg, s, h,
+                                             blk_cache[key], length,
+                                             blk_share[key])
         new_stack.append(nc)
     return unembed(params, cfg, h[:, 0]), {"prefix": new_prefix,
                                            "stack": new_stack}
 
 
 def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
-            embeds: torch.Tensor | None = None, max_seq: int | None = None):
+            embeds: torch.Tensor | None = None, max_seq: int | None = None,
+            share=None):
     """Prefill of tokens [B, S] or embeds [B, S, d]: full forward, caches
     populated for positions [0, S).
 
@@ -491,32 +548,40 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     length=S.  Attention and MLA caches are padded with zeros to
     ``max_seq`` positions (default S, which leaves decode no room);
     ``max_seq`` must be at least S.  A Mamba cache holds no per-position
-    entries.
+    entries.  With ``share`` (a mesh rank's share, ``serve.decode``) the
+    cache returned is the rank's blocks: an attention layer whose KV heads
+    the plan puts on ``model`` attends its own heads
+    (:func:`_attn_train`), every other leaf is computed whole and cut.
     """
     prefix, period, _ = layer_plan(cfg)
+    pre_share, stack_share = layer_shares(share, cfg)
     h = embed_inputs(params, cfg, tokens, embeds)
     B, S = h.shape[:2]
     max_seq = S if max_seq is None else max_seq
     if max_seq < S:
         raise ValueError(f"max_seq {max_seq} < prompt length {S}")
 
-    def mix_with_cache(p: Layer, s: LayerSpec, h):
-        h, cache, _ = _layer_seq(p, cfg, s, h)
+    def mix_with_cache(p: Layer, s: LayerSpec, h, sh):
+        heads = None if sh is None else sh.heads
+        h, cache, _ = _layer_seq(p, cfg, s, h, heads)
         if s.mixer != "mamba":    # padded to max_seq positions
             cache = {k: torch.cat([a, a.new_zeros((B, max_seq - S)
                                                   + a.shape[2:])], dim=1)
                      for k, a in cache.items()}
+        if sh is not None and heads is None:
+            cache = sh.block(cache)
         return h, cache
 
     new_prefix = []
-    for p, s in zip(params.prefix, prefix):
-        h, c = mix_with_cache(p, s, h)
+    for p, s, sh in zip(params.prefix, prefix, pre_share):
+        h, c = mix_with_cache(p, s, h, sh)
         new_prefix.append(c)
     new_stack = []
-    for blk in params.stack:
+    for blk, blk_share in zip(params.stack, stack_share):
         caches = {}
         for j, s in enumerate(period):
-            h, caches[f"pos{j}"] = mix_with_cache(blk[f"pos{j}"], s, h)
+            key = f"pos{j}"
+            h, caches[key] = mix_with_cache(blk[key], s, h, blk_share[key])
         new_stack.append(caches)
     return unembed(params, cfg, h[:, -1]), {"prefix": new_prefix,
                                             "stack": new_stack}

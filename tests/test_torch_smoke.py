@@ -337,3 +337,73 @@ def test_phase_21_mesh_step_check_on_a_one_rank_gloo_group(tmp_path):
             assert len(out[m]["ms"]) == chip_smoke.MESH_STEPS
     assert saved["leaves"] == 3 * n_params
     assert not (tmp_path / "ckpt").exists()
+
+
+def test_phase_21_mesh_serve_check_on_a_one_rank_gloo_group(monkeypatch):
+    """Phase 21's mesh serving check at smoke width on the CPU, on a
+    one-rank gloo group: the prefill, 4 decode and 4 FoG steps on the host
+    mesh and on the (1, 1, 1) mesh bit-equal to the one-device steps, with
+    each step's counts (the kernels' wrappers stand in: they count a
+    launch and the tensor-core route, as the card's do) and the head-slice
+    check."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ops = chip_smoke.ops
+    flash, top2 = ops.flash_attention, ops.top2_confidence
+
+    def counted_flash(*a, **kw):
+        ops.launches["flash_attention"] += 1
+        _build.routes["flash_attention_sm90"] += 1
+        return flash(*a, **kw)
+
+    def counted_top2(*a, **kw):
+        ops.launches["top2_confidence"] += 1
+        return top2(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(ops, "flash_attention", counted_flash)
+    monkeypatch.setattr(ops, "top2_confidence", counted_top2)
+    cpu = torch.device("cpu")
+    cfg = smoke_config(chip_smoke.SHARD_ARCH).scaled(fog_groups=4)
+    params = chip_smoke.bf16_model(cfg, cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        meshes = {"host": make_host_mesh(),
+                  "1x1x1": init_device_mesh("cpu", (1, 1, 1),
+                                            mesh_dim_names=chip_smoke
+                                            .SHARD_AXES)}
+        out = chip_smoke.mesh_serve_check(
+            cpu, cfg, params,
+            {k: (m, chip_smoke.shard_tree(params, m, chip_smoke
+                                          .param_shardings(cfg, m, params)))
+             for k, m in meshes.items()}, tokens)
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(n)
+    steps = 1 + 2 * chip_smoke.MESH_DECODE
+    for name in ("host", "1x1x1", "one_card"):
+        assert out[name]["counts"] == {
+            "prefill": {"launches": {"flash_attention": cfg.n_layers},
+                        "routes": {"flash_attention_sm90": cfg.n_layers}},
+            "decode": {"launches": {}, "routes": {}},
+            "fog": {"launches": {"top2_confidence": 3}, "routes": {}}}
+        assert sum(len(v) for v in out[name]["ms"].values()) == steps
+    for name in ("host", "1x1x1"):
+        # logits and every cache leaf each step, hops each FoG step
+        assert out[name]["outputs"] == (
+            steps * (1 + 2 * cfg.n_layers) + chip_smoke.MESH_DECODE)
+    assert out["head_slice"] == {"q_heads": [2, 3], "kv_heads": [1, 1],
+                                 "shape": [4, 32, 4, 32]}
+    hops = torch.tensor(out["hops"])
+    assert (hops[:, 0] == 1).all() and (hops[:, 1] == 4).all()
+    assert (hops[:, 3] == chip_smoke.LM_BUDGET).all()
