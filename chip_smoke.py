@@ -379,7 +379,27 @@ the sharding plan on a one-rank mesh, and:
    grad norm bit-equal to two one-card steps from the same state, each
    step's ms beside the one-card step's; and the smoke config's state
    after two mesh steps saved from the mesh and restored on the card
-   bit-equal;
+   bit-equal.  Then, with the one-rank group destroyed, the serving
+   steps tensor-parallel over ``model`` (``top2_block_checks``,
+   ``tp_serve_check``): ``top2_confidence``'s partials and merge entries
+   bit-equal to their plain versions on blocks of rows ([4, 16000],
+   [4, 32000] and [1, 50280] in two blocks, [1000, 10]; maxima repeated
+   across the blocks give 0) and to one call on the whole rows, a [4,
+   16000] block's pair timed beside the whole [4, 32000] call; then two
+   processes share the card over a ``gloo`` group (``file://``
+   rendezvous; NCCL refuses two ranks on one device), each with a (1, 2)
+   ``("data", "model")`` mesh, ``tinyllama-1.1b`` bf16 placed by the
+   plan: each rank's step parameters the sum of its blocks (half the
+   model), none redistributed; the prefill, 4 decode and 4 FoG steps
+   run tensor-parallel (a rank's heads, ``d_ff`` columns and vocabulary
+   block), each step's counts zeroed just before and read just after (22
+   ``flash_attention_sm90`` a rank a prefill, 3 top-2 partials and 3
+   merges a FoG step); every output (logits and cache leaves) within the
+   bf16 bar of the one-card steps (relative L2 from an fp32 one-card run
+   at most twice the bf16 one-card run's, plus 2^-9), greedy tokens and
+   hops equal to the one card's but for lanes within the bar (printed);
+   the residuals, margins and hops identical on the two ranks; each
+   rank's peak memory and step ms beside the one card's;
 22. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
@@ -472,7 +492,8 @@ from repro_torch.launch.dryrun import (MESHES,  # noqa: E402
 from repro_torch.launch.mesh import (MeshShape, dp_rank,  # noqa: E402
                                      make_host_mesh)
 from repro_torch.launch.sharding import (  # noqa: E402
-    cache_shardings, param_shardings, placements, rebuild, shard_tree)
+    cache_shardings, local_block, param_shardings, placements, rebuild,
+    shard_tree)
 from repro_torch.models.layers import MetaDraws  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
@@ -6670,8 +6691,490 @@ def mesh_serve_check(dev: torch.device, cfg, params, meshes: dict,
     out["head_slice"] = {"q_heads": [hq.start, hq.stop - 1],
                          "kv_heads": [hk.start, hk.stop - 1],
                          "shape": list(q.shape)}
+    if dev.type == "cuda":
+        # the kernel at a tensor-parallel rank's heads (phase 21's (1, 2)
+        # mesh) beside the whole call, its plain version, SDPA and bound
+        qs, ks, vs = (a[:, :, h].contiguous() for a, h in ((q, hq), (k, hk),
+                                                           (v, hk)))
+        ts = [a.transpose(1, 2).contiguous() for a in (qs, ks, vs)]
+        work = flash_work(q.shape[0], q.shape[1], k.shape[1], qs.shape[2],
+                          ks.shape[2], q.shape[3], v.shape[3],
+                          q.element_size(), kw["causal"])
+        out["head_slice"].update(
+            ms=cuda_ms(lambda: ops.flash_attention(qs, ks, vs, **kw)),
+            whole_ms=cuda_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+            plain_ms=cuda_ms(lambda: flash_attention_ref(qs, ks, vs, **kw),
+                             reps=5, warm=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                *ts, is_causal=True, enable_gqa=True)),
+            bound=bound_ms(work["bytes"], work["ops"], BF16_OPS_PER_S))
+        del qs, ks, vs, ts
     del captured, whole, part
     return out
+
+
+# the tensor-parallel part of phase 21: two processes on the card over a
+# gloo group, a (1, 2) ("data", "model") mesh
+TP_MESH = ((1, 2), ("data", "model"))
+# seconds the two ranks may take, the build and their imports included
+TP_TIMEOUT_S = 600
+# (B, C, ranks): the gate's blocks the top-2 partials and merge are held
+# to their plain versions at, the rank's [4, 16000] block of tinyllama's
+# 32,000-entry rows first
+TOP2_BLOCK_CASES = ((4, 16000, 1), (4, 32000, 2), (1, 50280, 2),
+                    (1000, 10, 1))
+
+
+def top2_block_checks(dev: torch.device) -> dict:
+    """The top-2 kernel's partials and merge entries (a mesh rank's block
+    of each row) on ``TOP2_BLOCK_CASES``: the rows cut into ``ranks``
+    blocks, the maximum repeated in two blocks in every fourth row (in one
+    block twice where there is one) and the last row all equal; each
+    block's partials (the index offset by its first column) == the plain
+    version's bit for bit, the merge of the blocks' partials in block
+    order == its plain version's == ``top2_confidence`` of the whole rows
+    bit for bit, 0 on the repeated maxima.  Then the partials and merge of
+    a rank's [4, 16000] block timed beside the whole [4, 32000] call, its
+    plain version, ``torch.topk`` on the block and the bound."""
+    rng = np.random.default_rng(SEED + 1)
+    out = {"cases": {}}
+    for B, C, ranks in TOP2_BLOCK_CASES:
+        p = torch.softmax(torch.as_tensor(
+            rng.random((B, C), dtype=np.float32) * 8, device=dev), dim=-1)
+        n = C // ranks
+        top = float(p.max()) + 1.0
+        p[::4, 1] = top
+        p[::4, C - n + 2 if ranks > 1 else C // 2] = top
+        if B > 1:
+            p[-1] = 1.0 / C
+        parts, plain = [], []
+        for m in range(ranks):
+            block = p[:, m * n:(m + 1) * n].contiguous()
+            parts.append(ops.top2_partials(block, m * n))
+            plain.append(ref.top2_partials_ref(block.cpu(), m * n,
+                                               parts[-1].shape[2]))
+            check_equal(f"top2 partials [{B}, {n}] block {m} of {ranks}",
+                        parts[-1].cpu(), plain[-1])
+        got = ops.top2_merge(torch.cat(parts, dim=-1))
+        check_equal(f"top2 merge [{B}, {C}] of {ranks} blocks", got.cpu(),
+                    ref.top2_merge_ref(torch.cat(plain, dim=-1)))
+        check_equal(f"top2 merge [{B}, {C}] vs one call", got,
+                    ops.top2_confidence(p))
+        if (got[::4] != 0).any():
+            raise AssertionError(f"top2 merge [{B}, {C}]: a maximum repeated "
+                                 "across the blocks gave a margin above 0")
+        out["cases"][f"[{B}, {C}] in {ranks}"] = {
+            "runs_a_block": int(parts[0].shape[2])}
+    if dev.type == "cuda":
+        whole = torch.softmax(torch.as_tensor(
+            rng.random((4, 32000), dtype=np.float32) * 8, device=dev), -1)
+        block = whole[:, 16000:].contiguous()
+        runs = ops.top2_partials(block, 16000).shape[2]
+        two = torch.cat([ops.top2_partials(whole[:, :16000].contiguous()),
+                         ops.top2_partials(block, 16000)], dim=-1)
+        out["block_ms"] = cuda_ms(
+            lambda: ops.top2_merge(ops.top2_partials(block, 16000)))
+        out["partials_ms"] = cuda_ms(lambda: ops.top2_partials(block, 16000))
+        out["merge_ms"] = cuda_ms(lambda: ops.top2_merge(two))
+        out["whole_ms"] = cuda_ms(lambda: ops.top2_confidence(whole))
+        out["plain_ms"] = cuda_ms(lambda: ref.top2_merge_ref(
+            ref.top2_partials_ref(block, 16000, runs)))
+        out["library_ms"] = cuda_ms(lambda: torch.topk(block, 2, dim=-1))
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            4 * 16000 * 4 + 3 * 4 * 4 * runs * 3 + 4 * 4, 4 * 3 * 16000)
+    return out
+
+
+def rehearsal_stand_ins() -> None:
+    """On the CPU (a rehearsal of the tensor-parallel ranks, which are
+    spawned and so cannot be patched from outside) the kernels' wrappers
+    run their plain versions and count nothing: wrap them to count a
+    launch and its route as the card's wrappers do; and there is no card
+    to synchronise."""
+    torch.cuda.synchronize = lambda *a: None
+    def counted(fn, kernel, route=None):
+        def wrapper(*a, **kw):
+            ops.launches[kernel] += 1
+            if route is not None:
+                _build.routes[route] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    ops.flash_attention = counted(ops.flash_attention, "flash_attention",
+                                  "flash_attention_sm90")
+    ops.top2_partials = counted(ops.top2_partials, "top2_confidence",
+                                "top2_partials")
+    ops.top2_merge = counted(ops.top2_merge, "top2_confidence", "top2_merge")
+    ops.top2_confidence = counted(ops.top2_confidence, "top2_confidence")
+
+
+def tp_steps(cfg, dev, params, tokens, thresh, budget, n_decode, *,
+             dtype=torch.bfloat16, mesh=None, feed=None, watch=None):
+    """``make_prefill_step`` then ``n_decode`` greedy decode and
+    ``n_decode`` FoG steps (the ``"pallas"`` margin, per-lane ``thresh``
+    and ``budget``) on the card or on ``mesh``, each step's counts zeroed
+    just before it and read just after; each step's token the last step's
+    argmax, or ``feed[i]``.  ``watch`` (a list) collects each gate's
+    margins.  Returns the steps' (logits, cache, hops), the tokens fed,
+    each step's argmax, ms and counts."""
+    from repro_torch.models import fog_exit
+
+    B, S = tokens.shape
+    L = S + 2 * n_decode
+    kw = dict(param_dtype=dtype, mesh=mesh)
+    pre = make_prefill_step(cfg, dev, batch=B, seq_len=S, max_seq=L, **kw)[0]
+    dec = make_serve_step(cfg, dev, batch=B, max_seq=L, **kw)[0]
+    fog = make_serve_step(cfg, dev, batch=B, max_seq=L, fog=True,
+                          policy=FogPolicy(backend="pallas"), **kw)[0]
+    steps = [lambda c, t, i: pre(params, tokens)]
+    steps += [lambda c, t, i: dec(params, c, t, S + i)] * n_decode
+    steps += [lambda c, t, i: fog(params, c, t, S + i, thresh,
+                                  budget)] * n_decode
+    rec = {"outputs": [], "fed": [], "argmax": [], "ms": [], "counts": []}
+    gate = fog_exit._gate_margin
+    if watch is not None:
+        def spy(*a, **k):
+            m = gate(*a, **k)
+            watch.append(m.clone())
+            return m
+        fog_exit._gate_margin = spy
+    try:
+        cache, token = None, None
+        for i, fn in enumerate(steps):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = fn(cache, token, i - 1)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            launched, routes = read_counts()
+            rec["counts"].append({"launches": launched, "routes": routes})
+            logits, cache = res[0], res[1]
+            rec["outputs"].append((logits, cache,
+                                   res[2] if len(res) > 2 else None))
+            local = logits if mesh is None else logits.to_local()
+            own = local.argmax(-1)
+            if mesh is not None and logits.placements[-1].is_shard():
+                # the argmax of the whole rows from the ranks' blocks
+                vals = local.gather(1, own[:, None])[:, 0]
+                g = mesh.get_group("model")
+                M = mesh.size(1)
+                allv = [torch.empty_like(vals) for _ in range(M)]
+                alli = [torch.empty_like(own) for _ in range(M)]
+                dist.all_gather(allv, vals, group=g)
+                dist.all_gather(alli, own, group=g)
+                best = torch.stack(allv).argmax(0)
+                own = (torch.stack(alli).gather(0, best[None])[0]
+                       + best * local.shape[1])
+            rec["argmax"].append(own.to(torch.int32))
+            token = (own.to(torch.int32) if feed is None
+                     else feed[i]).contiguous()
+            rec["fed"].append(token)
+    finally:
+        fog_exit._gate_margin = gate
+    return rec
+
+
+def block_sums(got, one, oracle) -> torch.Tensor:
+    """[3] float64: the squared L2 distances of the rank's block ``got``
+    and of the same block of ``one`` from that block of ``oracle``, and
+    the block's squared norm of ``oracle``."""
+    g = got.to_local().double()
+    o = local_block(one, got).double()
+    c = local_block(oracle, got).double()
+    return torch.stack([(g - c).square().sum(), (o - c).square().sum(),
+                        c.square().sum()])
+
+
+def tp_rank_check(dev: torch.device, args: dict) -> dict:
+    """One rank of the tensor-parallel serving check (``tp_serve_check``):
+    on the (1, 2) mesh, the model placed by the plan, the steps run
+    tensor-parallel once to warm up (a prefill, a decode and a FoG step:
+    the rank's first cuBLAS calls and kernel loads), once timed (its own
+    greedy tokens; the rank's peak memory), then the one-card references
+    (bf16 from the whole model, and fp32 from it cast up, fed the bf16
+    tokens), then once more fed the bf16 tokens and held to them."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve.decode import step_params
+
+    cfg, n_decode = args["cfg"], args["n_decode"]
+    tokens = args["tokens"].to(dev)
+    thresh = torch.tensor(args["thresh"], dtype=torch.float32, device=dev)
+    budget = torch.tensor(args["budget"], dtype=torch.int32, device=dev)
+    mesh = init_device_mesh(dev.type, TP_MESH[0],
+                            mesh_dim_names=TP_MESH[1])
+    group = mesh.get_group("model")
+    M = mesh.size(1)
+    out = {"rank": dist.get_rank()}
+    moves = []
+    redistribute = DTensor.redistribute
+
+    def recorded(d, *a, **kw):
+        moves.append((tuple(d.shape), tuple(d.placements)))
+        return redistribute(d, *a, **kw)
+
+    params = bf16_model(cfg, dev)
+    specs = param_shardings(cfg, mesh, params)
+    placed = shard_tree(params, mesh, specs)
+    del params
+    torch.cuda.empty_cache()
+    DTensor.redistribute = recorded
+    try:
+        step = step_params(cfg, mesh, placed)
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in step.parameters())
+        out["param_bytes_want"] = sum(
+            p.numel() * p.element_size() // (M if "model" in specs[k] else 1)
+            for k, p in placed.named_parameters())
+        out["whole_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in placed.parameters())
+        del step
+        warm = tp_steps(cfg, dev, placed, tokens, thresh, budget, 1,
+                        mesh=mesh)
+        out["warm_ms"] = warm["ms"]
+        del warm
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        timed = tp_steps(cfg, dev, placed, tokens, thresh, budget, n_decode,
+                         mesh=mesh)
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                             if dev.type == "cuda" else 0)
+        out["resident_bytes"] = base
+        out["ms"], out["counts"] = timed["ms"], timed["counts"]
+        out["own_tokens"] = [t.cpu() for t in timed["argmax"]]
+        del timed
+    finally:
+        DTensor.redistribute = redistribute
+
+    # the one-card references
+    params = bf16_model(cfg, dev)
+    with GateSpy() as spy:
+        one = tp_steps(cfg, dev, params, tokens, thresh, budget, n_decode)
+    one_m = [m for _, m in spy.calls]
+    with GateSpy() as spy:
+        orc = tp_steps(cfg, dev, cast_model(params, torch.float32), tokens,
+                       thresh, budget, n_decode, dtype=torch.float32,
+                       feed=one["fed"])
+    orc_m = [m for _, m in spy.calls]
+    del params
+    torch.cuda.empty_cache()
+
+    # the checked run: fed the bf16 one-card tokens, the residual after
+    # each layer compared across the model ranks as it is made
+    mismatched = [0, 0]
+    layer, seq = TT._apply_layer_decode, TT._layer_seq
+
+    def same_on_ranks(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(M)]
+        dist.all_gather(parts, t, group=group)
+        mismatched[0] += 1
+        mismatched[1] += not all(torch.equal(x, parts[0]) for x in parts)
+
+    def on_layer(*a, **kw):
+        res = layer(*a, **kw)
+        same_on_ranks(res[0])
+        return res
+
+    def on_seq(*a, **kw):
+        res = seq(*a, **kw)
+        same_on_ranks(res[0])
+        return res
+
+    mesh_m = []
+    TT._apply_layer_decode, TT._layer_seq = on_layer, on_seq
+    DTensor.redistribute = recorded
+    try:
+        got = tp_steps(cfg, dev, placed, tokens, thresh, budget, n_decode,
+                       mesh=mesh, feed=one["fed"], watch=mesh_m)
+    finally:
+        TT._apply_layer_decode, TT._layer_seq = layer, seq
+        DTensor.redistribute = redistribute
+    for m in mesh_m:
+        same_on_ranks(m)
+    hops_m = [o[2].to_local() for o in got["outputs"] if o[2] is not None]
+    for h in hops_m:
+        same_on_ranks(h)
+    out["identical"] = mismatched
+    out["moves"] = len(moves)
+    out["checked_counts"] = got["counts"]
+
+    # each output's relative L2 distances from the fp32 oracle, summed
+    # over the ranks' blocks
+    rows = []
+    for i, ((lg, cg, _), (lo, co, _), (lc, cc, _)) in enumerate(zip(
+            got["outputs"], one["outputs"], orc["outputs"], strict=True)):
+        rows.append((f"step {i} logits", block_sums(lg, lo, lc)))
+        for j, (d, t, c) in enumerate(zip(tree_leaves(cg), tree_leaves(co),
+                                          tree_leaves(cc), strict=True)):
+            rows.append((f"step {i} cache {j}", block_sums(d, t, c)))
+    sums = torch.stack([r for _, r in rows])
+    parts = [torch.empty_like(sums) for _ in range(M)]
+    dist.all_gather(parts, sums.contiguous(), group=group)
+    total = sum(p.cpu() for p in parts)
+    bar = []
+    for (what, _), (dg, do, cn) in zip(rows, total.tolist()):
+        mesh_d, one_d = (dg / max(cn, 1e-300)) ** 0.5, (
+            do / max(cn, 1e-300)) ** 0.5
+        bar.append((what, mesh_d, one_d, mesh_d / (2 * one_d + 2 ** -9)))
+    out["bar"] = bar
+    # tokens and hops against the one card, each difference with its gap
+    # or its margin's distance from the threshold and the bar
+    flips = []
+    for i, (mine, theirs) in enumerate(zip(out["own_tokens"], one["argmax"])):
+        lo = one["outputs"][i][0]
+        lc = orc["outputs"][i][0]
+        step_bar = 3 * rel_l2(lo, lc) + 2 ** -9
+        for lane in (mine != theirs.cpu()).nonzero()[:, 0].tolist():
+            top = lo[lane].topk(2).values
+            flips.append((i, lane, float(top[0] - top[1])
+                          / float(lo[lane].abs().max()), step_bar))
+    out["flips"] = flips
+    G = len(grove_boundaries(cfg))
+    n_gates = G - 1
+    hop_rows = []
+    one_hops = [o[2].cpu() for o in one["outputs"] if o[2] is not None]
+    for k, (hm, hw) in enumerate(zip(hops_m, one_hops, strict=True)):
+        for lane in (hm.cpu() != hw).nonzero()[:, 0].tolist():
+            gates = range(k * n_gates, (k + 1) * n_gates)
+            dist_bar = [(abs(float(one_m[g][lane]) - float(thresh[lane])),
+                         3 * abs(float(one_m[g][lane]) - float(orc_m[g][lane]))
+                         + 2 ** -9 * abs(float(orc_m[g][lane])))
+                        for g in gates]
+            hop_rows.append((n_decode + 1 + k, lane, int(hw[lane]),
+                             int(hm[lane]), *min(dist_bar)))
+    out["hop_rows"] = hop_rows
+    out["hops"] = [h.cpu().tolist() for h in hops_m]
+    out["one_hops"] = [h.tolist() for h in one_hops]
+    return out
+
+
+def cast_model(params, dtype):
+    """``params`` in ``dtype`` (a new model), an MoE router kept as it
+    is."""
+    return rebuild(params, {k: p.detach() if k.endswith("router")
+                            else p.detach().to(dtype)
+                            for k, p in params.named_parameters()})
+
+
+def _tp_rank(rank: int, world: int, init: str, args: dict,
+             out_dir: str) -> None:
+    """A spawned rank of ``tp_serve_check``."""
+    from datetime import timedelta
+
+    dev = torch.device(args["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+        rehearsal_stand_ins()
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        res = tp_rank_check(dev, args)
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_serve_check(dev: torch.device, cfg, tokens: torch.Tensor,
+                   thresh: list, budget: list, *,
+                   n_decode: int = MESH_DECODE) -> dict:
+    """The mesh serving steps tensor-parallel over ``model``: two
+    processes share the card (NCCL refuses two ranks on one device) over a
+    ``gloo`` group (``file://`` rendezvous), each with a (1, 2) ``("data",
+    "model")`` ``DeviceMesh`` on the card, ``cfg`` at full width in bf16
+    placed by the plan (``tp_rank_check``).  Held: the counts of each step
+    (``n_layers`` ``flash_attention`` on the tensor cores a rank a
+    prefill; ``G - 1`` top-2 partials and as many merges a FoG step); each
+    rank's step parameters the sum of its blocks along ``model``, no
+    parameter redistributed; the logits and every cache leaf of every step
+    within the bf16 bar of the one-card steps (relative L2 from the fp32
+    one-card steps at most twice the bf16 one-card steps' plus 2^-9);
+    greedy tokens and hops equal to the one card's but where the one-card
+    top two (or a lane's margin and its threshold) lie within the step's
+    bar (each such lane printed); the residual after each layer, the
+    margins and the hops identical on the two ranks.  No fallback: a
+    rank's failure fails the check."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    (ROOT / "build").mkdir(parents=True, exist_ok=True)
+    where = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    args = {"device": str(dev), "cfg": cfg, "tokens": tokens.cpu(),
+            "thresh": list(thresh), "budget": list(budget),
+            "n_decode": n_decode}
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _tp_rank, args=(2, str(where / "init"), args, str(where)), nprocs=2,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the two tensor-parallel ranks did not "
+                                     f"finish in {TP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(5)
+    ranks = [torch.load(where / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    shutil.rmtree(where, ignore_errors=True)
+    n, G = cfg.n_layers, len(grove_boundaries(cfg))
+    want = ([({"flash_attention": n}, {"flash_attention_sm90": n})]
+            + [({}, {})] * n_decode
+            + [({"top2_confidence": 2 * (G - 1)},
+                {"top2_partials": G - 1, "top2_merge": G - 1})] * n_decode)
+    for r in ranks:
+        for what, counts in (("timed", r["counts"]),
+                             ("checked", r["checked_counts"])):
+            for i, (c, w) in enumerate(zip(counts, want, strict=True)):
+                if (c["launches"], c["routes"]) != w:
+                    raise AssertionError(
+                        f"rank {r['rank']} {what} step {i}: launches "
+                        f"{c['launches']} by route {c['routes']}, want {w}")
+        if r["param_bytes"] != r["param_bytes_want"]:
+            raise AssertionError(f"rank {r['rank']}: step parameters "
+                                 f"{r['param_bytes']} B, its blocks "
+                                 f"{r['param_bytes_want']} B")
+        if r["moves"]:
+            raise AssertionError(f"rank {r['rank']}: {r['moves']} parameter "
+                                 "redistributions in the steps")
+        checked, bad = r["identical"]
+        if bad or not checked:
+            raise AssertionError(f"rank {r['rank']}: {bad} of {checked} "
+                                 "residuals, margins and hops differ across "
+                                 "the model ranks")
+        over = [b for b in r["bar"] if b[3] > 1.0]
+        if over:
+            raise AssertionError(f"rank {r['rank']}: outside the bf16 bar "
+                                 f"(what, mesh, one card, ratio): {over[:5]}")
+        far = [f for f in r["flips"] if f[2] > f[3]]
+        far += [h for h in r["hop_rows"] if h[4] > h[5]]
+        if far:
+            raise AssertionError(f"rank {r['rank']}: a token or hop differs "
+                                 f"from the one card's outside the bar: "
+                                 f"{far}")
+    if ranks[0]["bar"] != ranks[1]["bar"] or ranks[0]["hops"] != ranks[1][
+            "hops"]:
+        raise AssertionError("the two ranks' comparisons differ")
+    r0 = ranks[0]
+    return {"ranks": [{k: r[k] for k in (
+        "ms", "warm_ms", "peak_bytes", "resident_bytes", "param_bytes",
+        "whole_bytes", "counts")} for r in ranks],
+        "bar": max(b[3] for b in r0["bar"]), "outputs": len(r0["bar"]),
+        "worst": max(r0["bar"], key=lambda b: b[3]),
+        "flips": r0["flips"], "hop_rows": r0["hop_rows"],
+        "hops": r0["hops"], "one_hops": r0["one_hops"],
+        "identical": r0["identical"][0], "seconds": time.perf_counter() - t0}
 
 
 def sharding_phase(dev: torch.device) -> dict:
@@ -6797,6 +7300,12 @@ def sharding_phase(dev: torch.device) -> dict:
         out["mesh_save"]["seconds"] = time.perf_counter() - t1
     finally:
         dist.destroy_process_group()
+    # the tensor-parallel part, once the one-rank group is gone: the top-2
+    # kernel's partials and merge, then two processes on the card
+    torch.cuda.empty_cache()
+    out["top2_blocks"] = top2_block_checks(dev)
+    out["tp"] = tp_serve_check(dev, cfg, tokens, out["mesh_serve"]["thresh"],
+                               out["mesh_serve"]["budget"])
     print(f"[shard] {SHARD_ARCH} bf16 ({out['leaves']} leaves) by the plan "
           f"on the host mesh (1 NCCL rank, ('data',)) and a (1, 1, 1) "
           f"{SHARD_AXES} mesh: each to_local() and full_tensor() == its leaf "
@@ -6847,7 +7356,62 @@ def sharding_phase(dev: torch.device) -> dict:
           f"{sv_['head_slice']['kv_heads']} (rank {HEAD_SLICE[0]} of "
           f"{HEAD_SLICE[1]} along model) of layer 0's "
           f"{sv_['head_slice']['shape']} q == that slice of the whole call "
-          f"bit for bit; {sv_['seconds']:.1f} s", flush=True)
+          f"bit for bit" + (
+              f" ({sv_['head_slice']['ms']:.4f} ms a call on the rank's "
+              f"heads, the whole call {sv_['head_slice']['whole_ms']:.4f}, "
+              f"plain {sv_['head_slice']['plain_ms']:.3f}, SDPA "
+              f"{sv_['head_slice']['library_ms']:.4f}, bound "
+              f"{sv_['head_slice']['bound'][0]:.4f} ms by "
+              f"{sv_['head_slice']['bound'][1]})"
+              if "ms" in sv_["head_slice"] else "")
+          + f"; {sv_['seconds']:.1f} s", flush=True)
+    tb, tp = out["top2_blocks"], out["tp"]
+    print(f"[shard] top2_confidence's partials and merge entries (a mesh "
+          f"rank's block of each row): partials of each block and the merge "
+          f"== their plain versions == one top2_confidence call on the whole "
+          f"rows bit for bit, 0 where a maximum repeats across the blocks, "
+          f"at {list(tb['cases'])}" + (
+              f"; {card_name(dev)}: partials + merge of a rank's [4, 16000] "
+              f"block {tb['block_ms']:.4f} ms (partials {tb['partials_ms']:.4f}"
+              f", merge of 2 ranks' {tb['merge_ms']:.4f}), the one call on "
+              f"the whole [4, 32000] {tb['whole_ms']:.4f}, plain "
+              f"{tb['plain_ms']:.4f}, torch.topk on the block "
+              f"{tb['library_ms']:.4f}, bound {tb['bound_ms']:.5f} ms by "
+              f"{tb['bound_by']}" if "block_ms" in tb else ""), flush=True)
+
+    def per_rank(what):
+        return [[round(x, 2) for x in r["ms"][sl[what]]] for r in tp["ranks"]]
+
+    sl = {"prefill": slice(0, 1), "decode": slice(1, 1 + MESH_DECODE),
+          "fog": slice(1 + MESH_DECODE, None)}
+    print(f"[shard] tensor-parallel serving over model: 2 processes on one "
+          f"card over gloo, a {TP_MESH[0]} {TP_MESH[1]} mesh each, "
+          f"{SHARD_ARCH} bf16 placed by the plan; per rank the step's "
+          f"parameters {[r['param_bytes'] for r in tp['ranks']]} B (the sum "
+          f"of its blocks; whole {tp['ranks'][0]['whole_bytes']} B), no "
+          f"parameter redistributed; launches a step per rank "
+          f"{tp['ranks'][0]['counts'][0]}, {tp['ranks'][0]['counts'][1]}, "
+          f"{tp['ranks'][0]['counts'][-1]} (prefill, decode, FoG); "
+          f"{tp['outputs']} outputs (logits and every cache leaf of each "
+          f"step) within the bf16 bar of the one card (worst at "
+          f"{tp['worst'][3]:.3f} of it: {tp['worst'][0]}, relative L2 "
+          f"{tp['worst'][1]:.3e} vs the one card's {tp['worst'][2]:.3e}); "
+          f"greedy tokens unlike the one card's (step, lane, top-2 gap / "
+          f"scale, bar): {tp['flips']}; hops {tp['hops']} (one card "
+          f"{tp['one_hops']}), lanes unlike it (step, lane, one card, mesh, "
+          f"margin's distance from the threshold, bar): {tp['hop_rows']}; "
+          f"{tp['identical']} residuals, margins and hops identical on both "
+          f"ranks; {card_name(dev)}: per rank peak "
+          f"{[round(r['peak_bytes'] / 1e9, 2) for r in tp['ranks']]} GB "
+          f"(resident before the steps "
+          f"{[round(r['resident_bytes'] / 1e9, 2) for r in tp['ranks']]} "
+          f"GB); first steps (warm-up) ms per rank "
+          f"{[[round(x, 1) for x in r['warm_ms']] for r in tp['ranks']]}; "
+          f"prefill ms per rank {per_rank('prefill')}, one card "
+          f"{ms_of('one_card', 'prefill')}; decode ms {per_rank('decode')}, "
+          f"one card {ms_of('one_card', 'decode')}; FoG ms "
+          f"{per_rank('fog')}, one card {ms_of('one_card', 'fog')}; "
+          f"{tp['seconds']:.1f} s", flush=True)
     sv = out["mesh_save"]
     print(f"[shard] {SHARD_ARCH}'s smoke config trained {MESH_STEPS} mesh "
           f"steps on the (1, 1, 1) mesh, saved from the mesh "
@@ -7070,6 +7634,7 @@ def main() -> int:
     # 3. train and pack -----------------------------------------------------
     stamp("3. train and pack", t_main)
     t0 = time.perf_counter()
+    phase3_s = t0 - t_main
     ds, gc, packs = bench_field(dev)
     for p, pack in packs.items():
         cpu_pack = ForestPack.from_groves(gc, p)
@@ -7608,7 +8173,7 @@ def main() -> int:
     efficient_sdpa_profile(train_lm_out)
 
     # 22. the kernels line -----------------------------------------------------
-    stamp("22. kernels line", t_main)
+    stamp(f"22. kernels line (phase 3 at {phase3_s:.1f} s)", t_main)
     row = timing[B, "fp32"]
     kernels = []
     for k in INFERENCE_KERNELS:
@@ -7759,6 +8324,9 @@ def main() -> int:
         if k["name"] in serve_launches:
             k["serve_launches"] = serve_launches[k["name"]]
         if k["name"] == "flash_attention":
+            k["tp_launches"] = {"per rank, prefill": out["sharding"]["tp"][
+                "ranks"][0]["counts"][0]}
+            k["tp_head_slice"] = out["sharding"]["mesh_serve"]["head_slice"]
             k["shard_launches"] = out["sharding"]["launches"]
             k["shard_train_launches"] = {
                 m: {"launches": out["sharding"]["mesh_step"][m]["launches"],
@@ -7771,6 +8339,9 @@ def main() -> int:
                                "tuned_device_ms", "bound_ms", "bound_by")}}
         for label, row in tuned["keys"].items()},
         tuned_paper_evals=tuned["paper_evals"])
+    top2["tp_launches"] = {"per rank, FoG step": out["sharding"]["tp"][
+        "ranks"][0]["counts"][-1]}
+    top2["tp_block"] = out["sharding"]["top2_blocks"]
     top2["lm_more_gates"] = [{
         "arch": r["arch"], "launches": r["launches"]["top2_confidence"],
         "shape": f"[{LM_B}, {more_config(n, o).vocab_size}] fp32",

@@ -157,6 +157,29 @@ def confidence_margin(probs: torch.Tensor, *, backend: str = "reference",
     return maxdiff(probs)
 
 
+def confidence_partials(probs: torch.Tensor, offset: int = 0, *,
+                        backend: str = "reference") -> torch.Tensor:
+    """The top-2 partials int32 [3, B, n] of a [B, C] block of each row
+    whose first column is ``offset`` (a mesh rank's vocabulary block):
+    "pallas" routes the top-2 kernel's partials pass, "reference" its
+    plain version (one run a row)."""
+    _check_step_backend(backend)
+    if backend == "pallas":
+        return ops.top2_partials(probs, offset)
+    return ref.top2_partials_ref(probs, offset)
+
+
+def merged_margin(parts: torch.Tensor, *,
+                  backend: str = "reference") -> torch.Tensor:
+    """MaxDiff margins [B] from the partials [3, B, n] of every block of
+    each row (:func:`confidence_partials`' joined along the last axis):
+    "pallas" routes the top-2 kernel's merge pass."""
+    _check_step_backend(backend)
+    if backend == "pallas":
+        return ops.top2_merge(parts)
+    return ref.top2_merge_ref(parts)
+
+
 def _check_step_backend(backend: str) -> None:
     if backend not in ("reference", "pallas"):
         raise ValueError(f"unknown step backend {backend!r}; "

@@ -60,15 +60,20 @@ launches = {"fused_fog": 0, "grove_aggregate": 0, "top2_confidence": 0,
 # "tree_traverse" one thread per lane, "fused_fog_smem" and "fused_fog_l1"
 # the group kernel with the field in shared memory or read through L1,
 # "tree_traverse_spread" the spread kernel; "grove_aggregate" one thread
-# per lane, "grove_aggregate_tile" the warp-tile kernel)
+# per lane, "grove_aggregate_tile" the warp-tile kernel; "top2_partials"
+# and "top2_merge" the two passes of "top2_confidence" on a mesh rank's
+# block of each row)
 routes = {"flash_attention": 0, "flash_attention_sm90": 0, "ssd_chunk": 0,
           "ssd_chunk_sm90": 0, "fused_fog": 0, "fused_fog_smem": 0,
           "fused_fog_l1": 0, "tree_traverse": 0, "tree_traverse_spread": 0,
-          "grove_aggregate": 0, "grove_aggregate_tile": 0}
+          "grove_aggregate": 0, "grove_aggregate_tile": 0,
+          "top2_partials": 0, "top2_merge": 0}
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fog_top2_confidence": (P, P, P, I, I, I, I, P),
+    "fog_top2_partials": (P, P, I, I, I, I, P),
+    "fog_top2_merge": (P, P, I, I, P),
     "fog_grove_aggregate": (P, P, P, P, P, P, P, P, P, I, I, I, P),
     "fog_grove_aggregate_tile": (*[P] * 9, I, I, I, I, I, P),
     "fog_fused_fog": (I, P, P, P, P, P, P, P, P, P, P, P, P,

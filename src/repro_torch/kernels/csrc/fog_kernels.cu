@@ -8,6 +8,10 @@
 //   fog_top2_confidence   replaces repro/kernels/top2_confidence.py::_top2_kernel
 //                         (one thread per short row, or blocks that share
 //                         a long row and a merge pass)
+//   fog_top2_partials     the same kernel's two passes apart, for a mesh
+//   fog_top2_merge        rank's block of each row: the partials of the
+//                         block, then the merge of every rank's partials
+//                         gathered in rank order
 //   fog_grove_aggregate_tile  replace repro/kernels/grove_aggregate.py::_aggregate_kernel
 //   fog_grove_aggregate   (the tile kernel: warp tiles read and written
 //                         coalesced, rows walked in shared memory; the
@@ -143,11 +147,13 @@ __device__ __forceinline__ Top2 top2_warp(Top2 t) {
 }
 
 // row blockIdx.x, columns [blockIdx.y * cols, (blockIdx.y + 1) * cols);
-// with one block per row it writes the margin, else its partial
+// given `out` and one block per row it writes the margin, else its
+// partial, the index of its maximum offset by `offset` (the block's first
+// column in the whole row) where it saw one
 __global__ void __launch_bounds__(TOP2_THREADS) top2_confidence_kernel_rows(
     const float* __restrict__ prob, float* __restrict__ out,
     float* __restrict__ part_m1, float* __restrict__ part_m2,
-    int* __restrict__ part_i1, int C, int cols) {
+    int* __restrict__ part_i1, int C, int cols, int offset) {
   __shared__ Top2 warps[TOP2_THREADS / 32];
   const int b = blockIdx.x, blk = blockIdx.y, nblk = gridDim.y;
   const int c0 = blk * cols, c1 = min(C, c0 + cols);
@@ -168,13 +174,13 @@ __global__ void __launch_bounds__(TOP2_THREADS) top2_confidence_kernel_rows(
   __syncthreads();
   if (threadIdx.x != 0) return;
   for (int w = 1; w < TOP2_THREADS / 32; ++w) t = top2_merge(t, warps[w]);
-  if (nblk == 1) {
+  if (out != nullptr && nblk == 1) {
     out[b] = fabsf(__fsub_rn(t.m1, t.m2));
   } else {
     const size_t k = (size_t)b * nblk + blk;
     part_m1[k] = t.m1;
     part_m2[k] = t.m2;
-    part_i1[k] = t.i1;
+    part_i1[k] = t.i1 == INT_MAX ? INT_MAX : t.i1 + offset;
   }
 }
 
@@ -747,10 +753,42 @@ int fog_top2_confidence(const float* prob, float* out, float* scratch, int B,
   int* i1 = reinterpret_cast<int*>(scratch + 2 * n);
   const int cols = (C + nblk - 1) / nblk;
   top2_confidence_kernel_rows<<<dim3(B, nblk), TOP2_THREADS, 0, s>>>(
-      prob, out, m1, m2, i1, C, cols);
+      prob, out, m1, m2, i1, C, cols, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nblk == 1) return static_cast<int>(err);
   top2_confidence_kernel_merge<<<B, 32, 0, s>>>(m1, m2, i1, out, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A mesh rank's [B, C] block of each row, whose first column is `offset`
+// in the row: the partials of nblk runs of ceil(C / nblk) columns a row
+// (nblk >= 1), into parts [3, B, nblk] words: m1 and m2 as floats, then
+// the row index of the first maximum (INT_MAX where a run saw none)
+int fog_top2_partials(const float* prob, int* parts, int B, int C,
+                      int offset, int nblk, void* stream) {
+  if (B < 1 || C < 1 || offset < 0 || nblk < 1 || nblk > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = (size_t)B * nblk;
+  float* m1 = reinterpret_cast<float*>(parts);
+  const int cols = (C + nblk - 1) / nblk;
+  top2_confidence_kernel_rows<<<dim3(B, nblk), TOP2_THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      prob, nullptr, m1, m1 + n, parts + 2 * n, C, cols, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The margins [B] of rows whose columns lie in the partials [3, B, n]
+// (every rank's fog_top2_partials joined along the last axis, one warp a
+// row); nothing but the difference is rounded, so with one rank it is
+// fog_top2_confidence's margin bit for bit
+int fog_top2_merge(const int* parts, float* out, int B, int n,
+                   void* stream) {
+  if (B < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t k = (size_t)B * n;
+  const float* m1 = reinterpret_cast<const float*>(parts);
+  top2_confidence_kernel_merge<<<B, 32, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      m1, m1 + k, parts + 2 * k, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,10 @@ from repro_torch.kernels.histogram import (histogram_level,
                                            onehot_rows)
 from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_cuda,
                                            ssd_chunk_bwd_ref, ssd_chunk_cuda)
-from repro_torch.kernels.top2_confidence import top2_confidence_cuda
+from repro_torch.kernels.top2_confidence import (partial_runs,
+                                                 top2_confidence_cuda,
+                                                 top2_merge_cuda,
+                                                 top2_partials_cuda)
 from repro_torch.kernels.tree_traverse import tree_traverse_cuda
 
 
@@ -113,6 +116,25 @@ def top2_confidence(prob: torch.Tensor, *, block_b: int = 256) -> torch.Tensor:
         return ref.top2_confidence_ref(prob)
     refuse_grad("top2_confidence", prob)
     return top2_confidence_cuda(prob, block_b=block_b)
+
+
+def top2_partials(prob: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """The top-2 partials [3, B, n] of a [B, C] block of each row whose
+    first column is ``offset`` (plain: ref.top2_partials_ref, at the
+    kernel's runs a row)."""
+    if _runs_plain(prob):
+        return ref.top2_partials_ref(prob, offset,
+                                     partial_runs(*prob.shape))
+    refuse_grad("top2_confidence", prob)
+    return top2_partials_cuda(prob, offset)
+
+
+def top2_merge(parts: torch.Tensor) -> torch.Tensor:
+    """MaxDiff margins [B] from partials [3, B, n] covering each row
+    (plain: ref.top2_merge_ref)."""
+    if _runs_plain(parts):
+        return ref.top2_merge_ref(parts)
+    return top2_merge_cuda(parts)
 
 
 def grove_aggregate(prob_acc, contrib, live, hops, thresh, *,
@@ -257,7 +279,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _flash_forward(q, k, v, causal, scale, False)
 
 
-__all__ = ["tree_traverse", "top2_confidence", "grove_aggregate", "fused_fog",
+__all__ = ["tree_traverse", "top2_confidence", "top2_partials", "top2_merge", "grove_aggregate", "fused_fog",
            "histogram_level", "histogram_level_scatter", "onehot_rows",
            "ssd_chunk", "SsdChunk", "flash_attention", "FlashAttention",
            "launches",

@@ -74,6 +74,53 @@ def top2_confidence_ref(prob: torch.Tensor) -> torch.Tensor:
     return (m1 - m2).abs()
 
 
+# the first index of a partial whose columns hold no value above -inf
+NO_INDEX = 2**31 - 1
+
+
+def top2_partials_ref(prob: torch.Tensor, offset: int = 0,
+                      nblk: int = 1) -> torch.Tensor:
+    """The top-2 partials of a ``[B, C]`` block whose first column is
+    column ``offset`` of its rows, cut into ``nblk`` runs of ``ceil(C /
+    nblk)`` columns: int32 ``[3, B, nblk]`` holding each run's maximum and
+    largest other entry (only the first maximal entry masked) as float32
+    bits, and the row index of the first maximum (``NO_INDEX`` where no
+    entry is above -inf: then both values are -inf)."""
+    B, C = prob.shape
+    cols = -(-C // nblk)
+    x = torch.cat([prob, prob.new_full((B, nblk * cols - C),
+                                       float("-inf"))], 1).view(B, nblk, cols)
+    m1 = x.amax(dim=-1)
+    is_max = x == m1[..., None]
+    first = is_max & (torch.cumsum(is_max.to(torch.int32), dim=-1) == 1)
+    m2 = torch.where(first, float("-inf"), x).amax(dim=-1)
+    start = torch.arange(nblk, dtype=torch.int32, device=prob.device) * cols
+    i1 = first.to(torch.int32).argmax(dim=-1).to(torch.int32) + start + offset
+    none = m1 == float("-inf")
+    i1 = torch.where(none, NO_INDEX, i1)
+    m2 = torch.where(none, float("-inf"), m2)
+    return torch.stack([m1.view(torch.int32), m2.view(torch.int32), i1])
+
+
+def top2_merge_ref(parts: torch.Tensor) -> torch.Tensor:
+    """The MaxDiff margin ``[B]`` of rows whose every column lies in one
+    of the partials ``[3, B, n]`` (:func:`top2_partials_ref`'s, joined
+    along the last axis): the largest maximum, the lowest index among
+    equal ones, against the larger of the winner's other entry and every
+    other partial's maximum.  Nothing is rounded but the difference, so
+    it equals :func:`top2_confidence_ref` of the whole rows bit for
+    bit."""
+    m1, m2 = parts[0].view(torch.float32), parts[1].view(torch.float32)
+    i1 = parts[2]
+    top = m1.amax(dim=-1, keepdim=True)
+    first = torch.where(m1 == top, i1, NO_INDEX).amin(dim=-1, keepdim=True)
+    win = (m1 == top) & (i1 == first)
+    second = torch.maximum(
+        torch.where(win, m2, float("-inf")).amax(dim=-1),
+        torch.where(win, float("-inf"), m1).amax(dim=-1))
+    return (top[:, 0] - second).abs()
+
+
 def grove_aggregate_ref(prob_acc: torch.Tensor, contrib: torch.Tensor,
                         live: torch.Tensor, hops: torch.Tensor, thresh):
     """Algorithm 2 lines 7-11 fused: accumulate, normalize, gate.

@@ -26,6 +26,12 @@ is a list of blocks, not a leading ``[n_repeat]`` axis, so a stack
 leaf's spec is JAX's without its leading None, the same for every
 repeat.  Parameters are keyed by ``LM.named_parameters()`` names
 (``"stack.3.pos0.attn.wq"``), the keys of the port's ``OptState``.
+
+What a rank computes in a tensor-parallel step follows from each
+parameter's spec: :func:`model_role` says how the leaf's block along
+``model`` enters its product (JAX's GSPMD program reads the same from the
+``PartitionSpec``), and :func:`step_block` is the rank's block of a placed
+leaf for the step, gathered along the dp axes only.
 """
 from __future__ import annotations
 
@@ -293,6 +299,64 @@ def map_leaves(fn, tree, *others):
     return fn(tree, *others)
 
 
+def model_dim(spec: Spec) -> int | None:
+    """The dimension ``spec`` puts on ``model`` (alone or in a tuple of
+    axes), or None."""
+    return next((d for d, part in enumerate(spec)
+                 if "model" in _axes(part)), None)
+
+
+# the leading dimensions of a weight that its product contracts with the
+# input (``x @ W``): ``wo``'s heads and head dim, any other weight's first
+_CONTRACTED = {"wo": 2, "w_o": 2}
+
+
+def model_role(name: str, spec: Spec) -> str | None:
+    """How the block along ``model`` of a leaf whose last key is ``name``
+    enters its product, by :func:`model_dim` of its ``spec``:
+
+    * ``"out"``: an output dimension (column-parallel): the rank computes
+      its block of the outputs (``wq``/``wk``/``wv``'s heads, ``d_ff`` of
+      ``w_gate``/``w_up``, the vocabulary of ``unembed``; a vector's
+      features);
+    * ``"in"``: a contracted dimension (row-parallel): the rank multiplies
+      its block of the input features and the partial products are summed
+      over ``model`` (``wo``'s heads, ``w_down``'s ``d_ff``, the
+      ``d_model`` fallbacks of ``wq`` and ``unembed``);
+    * ``"expert"``: an MoE weight's experts (``[E, ., .]``);
+    * None: the spec names no ``model``.
+
+    ``embed [V, d]`` reads as the tied unembedding ``h @ embed^T``: its
+    vocabulary rows ``"out"``, ``d_model`` ``"in"``."""
+    d = model_dim(spec)
+    if d is None:
+        return None
+    if name == "embed":
+        return "out" if d == 0 else "in"
+    if len(spec) == 3 and name in ("w_gate", "w_up", "w_down"):
+        return ("expert", "in", "out")[d]
+    if len(spec) == 1:
+        return "out"
+    return "in" if d < _CONTRACTED.get(name, 1) else "out"
+
+
+def step_block(d) -> torch.Tensor:
+    """The rank's block of a placed ``DTensor`` for a tensor-parallel
+    step: redistributed to ``Replicate()`` on the dp axes (FSDP's
+    ``data`` split gathered on use, as XLA does; ``pod`` is replicated
+    already) and kept as its block along ``model``; no communication where
+    the dp axes hold it whole."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = d.device_mesh
+    dp = dp_axes(mesh)
+    want = tuple(Replicate() if name in dp else p for name, p in zip(
+        mesh.mesh_dim_names, d.placements))
+    if want != tuple(d.placements):
+        d = d.redistribute(mesh, want)
+    return d.to_local()
+
+
 def local_block(full: torch.Tensor, like) -> torch.Tensor:
     """The block of ``full`` (a whole leaf, the same on every rank) that
     this rank holds of the ``DTensor`` ``like`` of the same shape, as a
@@ -324,12 +388,13 @@ def placed_like(local: torch.Tensor, like):
 
 def rebuild(params: LM, tensors: dict) -> LM:
     """A new model of ``params``' structure holding ``tensors`` (its
-    parameter names -> tensors or DTensors); ``params`` is not changed and
-    its weights are not copied."""
-    memo = {id(p): nn.Parameter(torch.empty(p.shape, dtype=p.dtype,
+    parameter names -> tensors or DTensors, of any shape: a rank's blocks
+    too); ``params`` is not changed and its weights are not copied."""
+    memo = {id(p): nn.Parameter(torch.empty(tensors[k].shape,
+                                            dtype=tensors[k].dtype,
                                             device="meta"),
                                 requires_grad=False)
-            for p in params.parameters()}
+            for k, p in params.named_parameters()}
     lm = copy.deepcopy(params, memo)
     lm.load_state_dict(tensors, strict=True, assign=True)
     return lm

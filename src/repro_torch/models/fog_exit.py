@@ -19,12 +19,23 @@ the full ``mamba_decode`` for a Mamba layer), and the mask then keeps
 every lane's old cache, since no lane is live, so that fill is discarded
 as in JAX (ROADMAP §C).
 
-On a mesh (``share``, ``serve.decode``) a rank holds only its lanes, and
-the skip is JAX's ``lax.cond`` on the whole batch: the rank's
+On a mesh (``share``, ``serve.decode``) a rank holds only its lanes and
+runs the layers tensor-parallel over ``model`` (``models.transformer``),
+and the skip is JAX's ``lax.cond`` on the whole batch: the rank's
 ``live.any()`` is reduced over the dp ranks
 (``serve.decode.MeshShare.any_live``), so every rank takes the same
-branch and the gathers of the heads' outputs stay matched.  The masks on the cache, the hidden state, the logits and
-the hops stay per lane, on the rank's lanes.
+branch and the collectives of the layers stay matched.  Where the rank
+holds its block of the vocabulary's logits ``[B_r, V / M]``, no rank
+builds a whole row: the softmax takes the row's max and exp-sum reduced
+over ``model``, and the margin comes from the top-2 partials of the
+rank's block of probabilities (``core.engine.confidence_partials``: the
+``top2_confidence`` kernel's partials entry) gathered over ``model`` in
+rank order and merged (``merged_margin``: its merge entry).  The max is
+exact and the sum and the merge are computed alike on every rank from the
+same gathered values, so ``live`` and ``hops`` are bit-identical across
+the ``model`` ranks, as the collectives of the next grove need.  The
+masks on the cache, the hidden state, the logits and the hops stay per
+lane, on the rank's lanes.
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, param_count
 from repro_torch.core.energy import E_FP32_MAC, E_SRAM_R32, AffineEnergy
-from repro_torch.core.engine import confidence_margin
+from repro_torch.core.engine import (confidence_margin, confidence_partials,
+                                     merged_margin)
 from repro_torch.core.policy import FogPolicy, margin_backend
 from repro_torch.models import mamba2, mla
 from repro_torch.models import transformer as T
@@ -70,16 +82,16 @@ def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
     """Fill a skipped layer's cache from the propagated hidden state
     (projections only: K/V, or the MLA latent and rope key).  ``share``
     as in ``transformer._apply_layer_decode``: the rank's heads' rows
-    written into its block, or the leaves gathered whole and cut."""
-    if share is not None and share.heads is None:
+    (from its ``wk``/``wv`` columns) written into its block, or the
+    leaves gathered whole and cut."""
+    if share is not None and not share.kv_heads:
         return share.block(_kv_fill(p, cfg, s, h, share.whole(cache),
                                     length))
-    return _kv_fill(p, cfg, s, h, cache, length,
-                    None if share is None else share.heads)
+    return _kv_fill(p, cfg, s, h, cache, length)
 
 
-def _kv_fill(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache, length,
-             heads=None):
+def _kv_fill(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
+             length):
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         # the recurrent state advance is the cheap part of a Mamba layer:
@@ -92,9 +104,22 @@ def _kv_fill(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache, length,
         return mla.mla_kv_update(p.attn, cfg, x, cache, length)
     pos = torch.full((x.shape[0], 1), length, device=x.device)
     k, v = T._kv(p.attn, cfg, x, pos)
-    if heads is not None:
-        k, v = heads.take(k), heads.take(v)
     return write_cache_rows(cache, length, {"k": k, "v": v})
+
+
+def _gate_margin(logits: torch.Tensor, backend: str, share=None):
+    """The MaxDiff margin of the softmax of each lane's logits: of the
+    whole row, or on a mesh rank that holds its vocabulary block (the
+    module docstring) from the block's partials merged over ``model``."""
+    if share is None or not share.vocab_block:
+        return confidence_margin(torch.softmax(logits, dim=-1),
+                                 backend=backend)
+    tp = share.tp
+    e = torch.exp(logits - tp.max(logits.amax(-1))[:, None])
+    probs = e / tp.sum(e.sum(-1))[:, None]
+    parts = confidence_partials(probs, tp.m * logits.shape[-1],
+                                backend=backend)
+    return merged_margin(tp.gather(parts, -1), backend=backend)
 
 
 def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
@@ -123,7 +148,8 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
     budget = (policy.lane_budgets(B, device=dev)
               if policy.hop_budget is not None else None)
     h = T.embed_inputs(params, cfg,
-                       None if token is None else token[:, None], embeds)
+                       None if token is None else token[:, None], embeds,
+                       share)
 
     new_prefix = []
     for p, s, c, sh in zip(params.prefix, prefix, cache["prefix"],
@@ -133,7 +159,7 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
 
     live = torch.ones((B,), dtype=torch.bool, device=dev)
     hops = torch.zeros((B,), dtype=torch.int32, device=dev)
-    logits = torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=dev)
+    logits = None
     new_stack = []
     start = 0
     for g, size in enumerate(sizes):
@@ -158,11 +184,12 @@ def decode_step_fog(params: T.LM, cfg: ArchConfig, token, cache, length,
         h = torch.where(live[:, None, None], h_new, h)
         hops = hops + live.to(torch.int32)
 
-        g_logits = T.unembed(params, cfg, h[:, 0])
-        logits = torch.where(live[:, None], g_logits, logits)
+        g_logits = T.unembed(params, cfg, h[:, 0], share)
+        # every lane is live at the first grove
+        logits = (g_logits if logits is None
+                  else torch.where(live[:, None], g_logits, logits))
         if g < len(sizes) - 1:
-            probs = torch.softmax(g_logits, dim=-1)
-            live = live & (confidence_margin(probs, backend=backend) < thresh)
+            live = live & (_gate_margin(g_logits, backend, share) < thresh)
             if budget is not None:   # per-lane energy cap
                 live = live & (hops < budget)
         start += size

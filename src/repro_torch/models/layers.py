@@ -1,5 +1,7 @@
 """Shared transformer layers (port of ``repro.models.layers``): RMSNorm,
-RoPE, GQA/MQA attention for prefill and for decode, the gated FFN.
+RoPE, GQA/MQA attention for prefill and for decode, the gated FFN, and a
+mesh rank's place along ``model`` for a tensor-parallel step
+(:class:`ModelGroup`: the sum of partial products over ``model``).
 
 The model's attention for a whole sequence is :func:`flash_attention`
 with ``use_kernels=True``: ``ops.flash_attention`` (the CUDA kernel on a
@@ -13,6 +15,7 @@ attention is plain PyTorch, as JAX computes it outside any Pallas kernel.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
@@ -186,14 +189,66 @@ def write_cache_rows(cache: dict, length: int, rows: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------- tensor parallelism ---
+class ModelGroup:
+    """A mesh rank's place along ``model`` in a tensor-parallel step: rank
+    ``m`` of ``size`` in ``group`` (``serve.decode``).  Every reduction is
+    an all-gather followed by arithmetic in rank order, never a backend's
+    ``all_reduce``: the ``model`` ranks then hold identical bits whatever
+    the backend, and a step is bit-equal run to run.  With ``size`` 1
+    each is the identity."""
+
+    def __init__(self, m: int, size: int, group):
+        self.m, self.size, self.group = m, size, group
+
+    def parts(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t``, in rank order."""
+        if self.size == 1:
+            return [t]
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(out, t, group=self.group)
+        return out
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` joined along ``dim`` in rank order (the
+        features of a column-parallel product, the top-2 partials)."""
+        return t if self.size == 1 else torch.cat(self.parts(t), dim=dim)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The partial products of a row-parallel product summed over
+        ``model``: added in rank order into an fp32 zero and cast to
+        ``t``'s dtype (``train.loop.mesh_grads``' arithmetic)."""
+        if self.size == 1:
+            return t
+        acc = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        for part in self.parts(t):
+            acc.add_(part)
+        return acc.to(t.dtype)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of every rank's ``t``."""
+        return t if self.size == 1 else torch.stack(self.parts(t)).amax(0)
+
+    def block(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``size`` equal blocks of ``t`` along
+        ``dim`` (the input features of a row-parallel product)."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.m * n, n)
+
+
 # ------------------------------------------------------------- gated FFN ---
 def gated_ffn(x: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor | None, w_down: torch.Tensor,
-              act: str) -> torch.Tensor:
+              act: str, tp: ModelGroup | None = None) -> torch.Tensor:
     """SwiGLU/GeGLU when w_up is present; a plain 2-matrix MLP when None.
-    GELU is the tanh form, as ``jax.nn.gelu`` computes it by default."""
+    GELU is the tanh form, as ``jax.nn.gelu`` computes it by default.
+    With ``tp`` the weights are a rank's ``d_ff`` columns of ``w_gate`` /
+    ``w_up`` and rows of ``w_down``, and the partial outputs are summed
+    over ``model``."""
     g = x @ w_gate
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     if w_up is not None:
         a = a * (x @ w_up)
-    return a @ w_down
+    out = a @ w_down
+    return out if tp is None else tp.sum(out)

@@ -18,6 +18,18 @@ stable descending sort (:func:`top_k`).
 
 JAX's ``_constrain`` (a sharding hint inside a mesh, a no-op outside
 one) has no counterpart on one card.
+
+On a mesh (``share``, ``serve.decode``) the layer is tensor-parallel over
+``model``, by the plan's specs: the router's logits of the rank's experts
+are gathered (``[B, S, E]`` is small, and top-k needs every expert); with
+the experts on ``model`` (expert parallelism) the rank picks and runs its
+``E / M`` experts only, each expert's capacity pick reading only its own
+column of the gates, so it is the one-device pick; with each expert's
+``d_ff`` on ``model`` (TP within the expert: fewer experts than ranks, or
+``moe_tp_within_expert``) the rank runs every expert on its ``d_ff``
+columns.  Either way the rank's partial output is summed over ``model``;
+the shared expert is a tensor-parallel dense FFN.  The load-balance loss
+is computed from every expert's gates, as on one device.
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import gated_ffn, normal
 
 
 class SharedExpert(nn.Module):
@@ -100,21 +112,30 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return v[..., :k], i[..., :k]
 
 
-def moe_ffn(p: MoE, cfg: ArchConfig,
-            x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: MoE, cfg: ArchConfig, x: torch.Tensor,
+            share=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (out [B, S, d] in x's dtype, the Switch load-balance
-    loss, an fp32 scalar)."""
+    loss, an fp32 scalar); ``share``: a mesh layer's share (the module
+    docstring)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     cap = _capacity(S, cfg)
+    roles = {} if share is None else share.roles
+    tp = None if share is None else share.tp
 
-    probs = torch.softmax(x.to(torch.float32) @ p.router, dim=-1)  # [B,S,E]
+    logits = x.to(torch.float32) @ p.router
+    if roles.get("ffn.router") == "out":
+        logits = tp.gather(logits, -1)
+    probs = torch.softmax(logits, dim=-1)                          # [B,S,E]
     topv, topi = top_k(probs, k)
     # renormalise the selected gates (deepseek/mixtral convention)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     # token-choice gate matrix: probs masked to each token's top-k
     sel = torch.zeros((B, S, E), dtype=torch.float32,
                       device=x.device).scatter(-1, topi, topv)
+    split = roles.get("ffn.w_gate")
+    if split == "expert":                  # the rank's experts only
+        sel = tp.block(sel, -1)
 
     # per-(row, expert) capacity selection: the top-cap tokens of the row
     escore, eidx = top_k(sel.transpose(1, 2), cap)                 # [B,E,cap]
@@ -123,20 +144,25 @@ def moe_ffn(p: MoE, cfg: ArchConfig,
     # batched product over E, with no copy of the gathered tokens
     eidx = eidx.transpose(0, 1)
     rows = torch.arange(B, device=x.device)[None, :, None].expand_as(eidx)
-    xe = x[rows, eidx].view(E, B * cap, d)
+    E_r = eidx.shape[0]
+    xe = x[rows, eidx].view(E_r, B * cap, d)
     h = F.silu(torch.bmm(xe, p.w_gate)).mul_(torch.bmm(xe, p.w_up))
     del xe
-    ye = torch.bmm(h, p.w_down).view(E, B, cap, d)
+    ye = torch.bmm(h, p.w_down).view(E_r, B, cap, d)
     del h
     ye.mul_(egate.transpose(0, 1)[..., None].to(ye.dtype))
     # each token's contributions are added in expert order, as JAX's
     # scatter-add over [B, E, cap] adds them
     out = torch.zeros((B, S, d), dtype=ye.dtype, device=x.device)
     out.index_put_((rows, eidx), ye, accumulate=True)
+    if split is not None:
+        out = tp.sum(out)
 
     if p.shared is not None:
         sp = p.shared
-        out = out + (F.silu(x @ sp.w_gate) * (x @ sp.w_up)) @ sp.w_down
+        out = out + gated_ffn(x, sp.w_gate, sp.w_up, sp.w_down, "silu",
+                              tp if roles.get("ffn.shared.w_down") == "in"
+                              else None)
 
     # load-balance auxiliary loss (Switch): E * sum_e f_e * P_e
     me = torch.zeros((B, S, E), dtype=torch.float32,

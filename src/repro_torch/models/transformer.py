@@ -31,6 +31,19 @@ take the place of the token embedding: the audio and VLM configs
 (``cfg.frontend``) are served from their front ends' embeddings.
 ``forward`` returns the MoE layers' load-balance loss summed, as JAX's.
 
+On a mesh (``share``: ``serve.decode``'s ``MeshShare`` for the model and
+a ``LayerShare`` for each layer) the serving functions are
+tensor-parallel over ``model``, as JAX's sharded program: ``params``
+holds the rank's blocks, and each product runs by the role of its
+weight's block (``launch.sharding.model_role``): a column-parallel weight
+gives the rank's block of the outputs, a row-parallel one a partial
+product summed over ``model`` (``layers.ModelGroup.sum``), a weight the
+plan keeps whole the whole product.  Attention runs on the rank's heads;
+the embedding is a masked lookup of the rank's vocabulary rows and the
+unembedding gives the rank's block of the logits (both on ``d_model``
+where the vocabulary does not divide); the MoE and MLA/Mamba layers as
+their modules say.
+
 Training: ``forward(..., remat=True)`` wraps each block of the stack in
 ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of its scan body; the
 prefix layers are not wrapped, as in JAX), which changes no number;
@@ -57,6 +70,12 @@ from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (apply_rope, decode_attention,
                                        flash_attention, gated_ffn, normal,
                                        rmsnorm, write_cache_rows)
+
+
+def role(share, name: str) -> str | None:
+    """The role of leaf ``name``'s block along ``model`` in a mesh step
+    (``share.roles``, ``launch.sharding.model_role``); None off a mesh."""
+    return None if share is None else share.roles.get(name)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,41 +251,66 @@ def _layers(params: LM, cfg: ArchConfig):
             yield blk[f"pos{j}"], s
 
 
-def embed_tokens(params: LM, cfg: ArchConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    # a lookup whose backward sums each row's gradients in a fixed order on
-    # both devices (indexing's backward accumulates in parallel on the CPU,
-    # and training's resume must be bit-exact)
-    h = F.embedding(tokens.long(), params.embed)
+def embed_tokens(params: LM, cfg: ArchConfig, tokens: torch.Tensor,
+                 share=None) -> torch.Tensor:
+    """The tokens' embedding times ``sqrt(d_model)``.  On a mesh the
+    rank's vocabulary rows give a masked lookup (zeros outside the block)
+    summed over ``model``: one term is not zero, so the sum is the whole
+    lookup bit for bit; the rank's ``d_model`` columns give its block of
+    each embedding, gathered."""
+    tokens = tokens.long()
+    where = role(share, "embed")
+    if where == "out":
+        n = params.embed.shape[0]
+        local = tokens - share.tp.m * n
+        inside = ((local >= 0) & (local < n))[..., None]
+        h = F.embedding(local.clamp(0, n - 1), params.embed)
+        h = share.tp.sum(torch.where(inside, h, 0.0))
+    else:
+        # a lookup whose backward sums each row's gradients in a fixed
+        # order on both devices (indexing's backward accumulates in
+        # parallel on the CPU, and training's resume must be bit-exact)
+        h = F.embedding(tokens, params.embed)
+        if where == "in":
+            h = share.tp.gather(h, -1)
     # the scale is cast to the working dtype before the multiply
     return h * torch.tensor(np.sqrt(cfg.d_model), dtype=h.dtype,
                             device=h.device)
 
 
 def embed_inputs(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None,
-                 embeds: torch.Tensor | None) -> torch.Tensor:
+                 embeds: torch.Tensor | None, share=None) -> torch.Tensor:
     """The first hidden state: ``embeds`` when given, else the tokens'
     embedding."""
     if embeds is not None:
         return embeds
     if tokens is None:
         raise ValueError("give tokens or embeds")
-    return embed_tokens(params, cfg, tokens)
+    return embed_tokens(params, cfg, tokens, share)
 
 
-def unembed(params: LM, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def unembed(params: LM, cfg: ArchConfig, h: torch.Tensor,
+            share=None) -> torch.Tensor:
     """Logits in fp32 from the product in the working dtype.  Tied
     embeddings take it as ``embed @ h^T``, transposed back: the CPU's
     product of ``h`` by a transposed ``embed`` rounds a row by the number
     of rows beside it, which would part a mesh rank's lanes from the same
-    lanes of the whole batch (``serve.decode``)."""
+    lanes of the whole batch (``serve.decode``).  On a mesh: the rank's
+    block of the vocabulary's logits, or, where the weight is split on
+    ``d_model``, the partial logits of the rank's features summed over
+    ``model``."""
     h = rmsnorm(h, params.out_norm)
+    where = role(share, "unembed" if not cfg.tie_embeddings else "embed")
+    if where == "in":
+        h = share.tp.block(h, -1)
     if not cfg.tie_embeddings:
-        return (h @ params.unembed).to(torch.float32)
-    flat = h.reshape(-1, h.shape[-1])
-    out = (params.embed @ flat.T).T
-    return out.to(torch.float32, memory_format=torch.contiguous_format).view(
-        *h.shape[:-1], -1)
+        out = h @ params.unembed
+    else:
+        flat = h.reshape(-1, h.shape[-1])
+        out = (params.embed @ flat.T).T.reshape(*h.shape[:-1], -1)
+    if where == "in":
+        out = share.tp.sum(out)
+    return out.to(torch.float32, memory_format=torch.contiguous_format)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -280,50 +324,82 @@ def _kv(p: Attn, cfg: ArchConfig, x: torch.Tensor, pos: torch.Tensor):
     return apply_rope(_proj(x, p.wk), pos, cfg.rope_theta), _proj(x, p.wv)
 
 
-def _attn_out(p: Attn, out: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshe,hed->bsd", out, wo)`` as one matrix product."""
-    return out.reshape(*out.shape[:2], -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+def _q(p: Attn, x: torch.Tensor, share=None) -> torch.Tensor:
+    """The queries before RoPE: every head, or on a mesh the rank's heads
+    (``wq``'s heads on ``model``), or every head summed over the ranks'
+    ``d_model`` blocks (``wq`` on ``d_model`` where the heads do not
+    divide)."""
+    if role(share, "attn.wq") == "in":
+        return share.tp.sum(_proj(share.tp.block(x, -1), p.wq))
+    return _proj(x, p.wq)
 
 
-def _attn_train(p: Attn, cfg: ArchConfig, x: torch.Tensor, heads=None):
+def _kv_for_q(k: torch.Tensor, v: torch.Tensor, H: int, share=None):
+    """The keys and values the query heads read: ``k`` and ``v`` as they
+    are, except on a mesh whose rank holds a block of the H query heads
+    with every KV head (``wk``/``wv`` whole: their heads do not divide):
+    then the KV heads of the rank's query heads, the one they share, or
+    each query head's own."""
+    if (role(share, "attn.wq") != "out"
+            or role(share, "attn.wk") == "out"):
+        return k, v
+    K = k.shape[2]
+    group, n = H // K, H // share.tp.size
+    lo = share.tp.m * n
+    if group % n == 0:
+        return k.narrow(2, lo // group, 1), v.narrow(2, lo // group, 1)
+    idx = torch.div(torch.arange(lo, lo + n, device=k.device), group,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_out(p: Attn, out: torch.Tensor, share=None) -> torch.Tensor:
+    """``einsum("bshe,hed->bsd", out, wo)`` as one matrix product; on a
+    mesh the rank's heads' rows of ``wo`` summed over ``model``, or
+    (``wo`` on ``d_model``) the rank's block of the features, gathered."""
+    y = out.reshape(*out.shape[:2], -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+    where = role(share, "attn.wo")
+    if where == "in":
+        return share.tp.sum(y)
+    return share.tp.gather(y, -1) if where == "out" else y
+
+
+def _attn_train(p: Attn, cfg: ArchConfig, x: torch.Tensor, share=None):
     """Causal self-attention over x [B, S, d]: (output [B, S, d], the keys
-    after RoPE and the values, for the cache).
-
-    With ``heads`` (a mesh rank's share of the heads, ``serve.decode``)
-    q, k and v are computed whole, attention runs on the rank's KV heads
-    and their query heads only, the heads' outputs are gathered in rank
-    order before ``wo``, and the keys and values returned are the rank's
-    heads: its block of the cache."""
+    after RoPE and the values, for the cache).  On a mesh (``share``)
+    tensor-parallel: the rank's query heads against their KV heads, the
+    keys and values returned its KV heads (its block of the cache) where
+    they are on ``model``, else every KV head."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
-    q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
+    q = apply_rope(_q(p, x, share), pos, cfg.rope_theta)
     k, v = _kv(p, cfg, x, pos)
-    if heads is None:
-        return _attn_out(p, flash_attention(q, k, v, causal=True)), k, v
-    q, k, v = heads.take(q), heads.take(k), heads.take(v)
-    out = heads.gather(flash_attention(q, k, v, causal=True))
-    return _attn_out(p, out), k, v
+    out = flash_attention(q, *_kv_for_q(k, v, cfg.n_heads, share),
+                          causal=True)
+    return _attn_out(p, out, share), k, v
 
 
-def _ffn(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor):
+def _ffn(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor,
+         share=None):
     """The residual FFN block, where the layer has one: (h after it, the
-    MoE load-balance loss or None)."""
+    MoE load-balance loss or None); on a mesh tensor-parallel."""
     if p.ffn is None:
         return h, None
     x = rmsnorm(h, p.ln2)
     if s.ffn == "moe":
-        y, aux = moe.moe_ffn(p.ffn, cfg, x)
+        y, aux = moe.moe_ffn(p.ffn, cfg, x, share)
         return h + y, aux
     f = p.ffn
-    return h + gated_ffn(x, f.w_gate, f.w_up, f.w_down, cfg.act), None
+    tp = share.tp if role(share, "ffn.w_down") == "in" else None
+    return h + gated_ffn(x, f.w_gate, f.w_up, f.w_down, cfg.act, tp), None
 
 
 def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor,
-               heads=None):
+               share=None):
     """One layer over a whole sequence: (h after it, its cache: the keys
     after RoPE and the values, the MLA latent and rope key, or the Mamba
-    state and conv tails; the MoE loss or None).  ``heads``: an attention
-    layer's share of the heads on a mesh (:func:`_attn_train`)."""
+    state and conv tails; the MoE loss or None).  ``share``: the layer's
+    share of a mesh step (attention and the FFN tensor-parallel)."""
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg, x)
@@ -332,9 +408,9 @@ def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor,
         mixed, c_kv, k_rope = mla.mla_forward(p.attn, cfg, x)
         cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
-        mixed, k, v = _attn_train(p.attn, cfg, x, heads)
+        mixed, k, v = _attn_train(p.attn, cfg, x, share)
         cache = {"k": k, "v": v}
-    h, aux = _ffn(p, cfg, s, h + mixed)
+    h, aux = _ffn(p, cfg, s, h + mixed, share)
     return h, cache, aux
 
 
@@ -454,23 +530,19 @@ def cache_init(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _attn_decode(p: Attn, cfg: ArchConfig, x: torch.Tensor, cache: dict,
-                 length: int, heads=None):
-    """One position's attention against the cache.  With ``heads`` (a mesh
-    rank's share, :func:`_attn_train`) ``cache`` is the rank's block of
-    KV heads: the new rows of its heads are written there and attention
-    reads only that block; the heads' outputs are gathered before
-    ``wo``."""
+                 length: int, share=None):
+    """One position's attention against the cache.  On a mesh
+    (:func:`_attn_train`) ``cache`` holds the rank's KV heads where they
+    are on ``model`` (the new rows of its heads are written there and
+    attention reads only that block), else every KV head."""
     B = x.shape[0]
     pos = torch.full((B, 1), length, device=x.device)
-    q = apply_rope(_proj(x, p.wq), pos, cfg.rope_theta)
+    q = apply_rope(_q(p, x, share), pos, cfg.rope_theta)
     k, v = _kv(p, cfg, x, pos)
-    if heads is not None:
-        q, k, v = heads.take(q), heads.take(k), heads.take(v)
     cache = write_cache_rows(cache, length, {"k": k, "v": v})
-    out = decode_attention(q, cache["k"], cache["v"], length + 1)
-    if heads is not None:
-        out = heads.gather(out)
-    return _attn_out(p, out), cache
+    out = decode_attention(q, *_kv_for_q(cache["k"], cache["v"],
+                                         cfg.n_heads, share), length + 1)
+    return _attn_out(p, out, share), cache
 
 
 def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
@@ -479,12 +551,12 @@ def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
     (a mesh rank's share of the layer, ``serve.decode``) holds ``cache``
     as the rank's blocks: an attention layer whose KV heads the plan puts
     on ``model`` attends its own heads in its block; any other layer's
-    leaves are gathered whole, the layer runs as on one device and the
-    rank keeps its block of each new leaf."""
-    if share is not None and share.heads is None:
-        h, cache = _apply_layer_decode(p, cfg, s, h, share.whole(cache),
-                                       length)
-        return h, share.block(cache)
+    leaves are gathered whole, the layer runs on them and the rank keeps
+    its block of each new leaf.  Attention and the FFN run
+    tensor-parallel; MLA and Mamba mixers on their whole parameters."""
+    gathered = share is not None and not share.kv_heads
+    if gathered:
+        cache = share.whole(cache)
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         mixed, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x,
@@ -495,8 +567,10 @@ def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
                                                 int(length))
     else:
         mixed, cache = _attn_decode(p.attn, cfg, x, cache, int(length),
-                                    None if share is None else share.heads)
-    return _ffn(p, cfg, s, h + mixed)[0], cache
+                                    share)
+    if gathered:
+        cache = share.block(cache)
+    return _ffn(p, cfg, s, h + mixed, share)[0], cache
 
 
 def layer_shares(share, cfg: ArchConfig):
@@ -518,7 +592,7 @@ def decode_step(params: LM, cfg: ArchConfig, token, cache, length,
     prefix, period, _ = layer_plan(cfg)
     pre_share, stack_share = layer_shares(share, cfg)
     h = embed_inputs(params, cfg, None if token is None else token[:, None],
-                     embeds)
+                     embeds, share)
     new_prefix = []
     for p, s, c, sh in zip(params.prefix, prefix, cache["prefix"],
                            pre_share):
@@ -534,8 +608,8 @@ def decode_step(params: LM, cfg: ArchConfig, token, cache, length,
                                              blk_cache[key], length,
                                              blk_share[key])
         new_stack.append(nc)
-    return unembed(params, cfg, h[:, 0]), {"prefix": new_prefix,
-                                           "stack": new_stack}
+    return unembed(params, cfg, h[:, 0], share), {"prefix": new_prefix,
+                                                  "stack": new_stack}
 
 
 def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
@@ -549,26 +623,26 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     ``max_seq`` positions (default S, which leaves decode no room);
     ``max_seq`` must be at least S.  A Mamba cache holds no per-position
     entries.  With ``share`` (a mesh rank's share, ``serve.decode``) the
-    cache returned is the rank's blocks: an attention layer whose KV heads
-    the plan puts on ``model`` attends its own heads
-    (:func:`_attn_train`), every other leaf is computed whole and cut.
+    step is tensor-parallel and the cache returned is the rank's blocks:
+    an attention layer whose KV heads the plan puts on ``model`` computes
+    its own heads (:func:`_attn_train`), every other leaf is computed
+    whole and cut.
     """
     prefix, period, _ = layer_plan(cfg)
     pre_share, stack_share = layer_shares(share, cfg)
-    h = embed_inputs(params, cfg, tokens, embeds)
+    h = embed_inputs(params, cfg, tokens, embeds, share)
     B, S = h.shape[:2]
     max_seq = S if max_seq is None else max_seq
     if max_seq < S:
         raise ValueError(f"max_seq {max_seq} < prompt length {S}")
 
     def mix_with_cache(p: Layer, s: LayerSpec, h, sh):
-        heads = None if sh is None else sh.heads
-        h, cache, _ = _layer_seq(p, cfg, s, h, heads)
+        h, cache, _ = _layer_seq(p, cfg, s, h, sh)
         if s.mixer != "mamba":    # padded to max_seq positions
             cache = {k: torch.cat([a, a.new_zeros((B, max_seq - S)
                                                   + a.shape[2:])], dim=1)
                      for k, a in cache.items()}
-        if sh is not None and heads is None:
+        if sh is not None and not sh.kv_heads:
             cache = sh.block(cache)
         return h, cache
 
@@ -583,5 +657,5 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
             key = f"pos{j}"
             h, caches[key] = mix_with_cache(blk[key], s, h, blk_share[key])
         new_stack.append(caches)
-    return unembed(params, cfg, h[:, -1]), {"prefix": new_prefix,
-                                            "stack": new_stack}
+    return unembed(params, cfg, h[:, -1], share), {"prefix": new_prefix,
+                                                   "stack": new_stack}

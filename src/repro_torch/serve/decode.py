@@ -28,12 +28,26 @@ decode continues takes the decode steps' ``max_seq``.
 
 On a mesh (``mesh=``: a ``torch.distributed`` ``DeviceMesh`` over
 ``pod`` / ``data`` / ``model`` axes, its device type the step's) the
-steps are JAX's ``in_shardings`` / ``out_shardings`` programs:
+steps are JAX's ``in_shardings`` / ``out_shardings`` programs, which are
+tensor-parallel over ``model``:
 
   * the parameters are ``DTensor``s placed by
     ``launch.sharding.param_shardings`` (``shard_tree``; FSDP automatic
-    or forced), and each step gathers them whole (``full_tensor()``), as
-    the mesh train step does;
+    or forced).  Each step takes the rank's block of each leaf along
+    ``model``, gathered along the dp axes only (:func:`step_params`), and
+    computes on it by the role of the block in its product
+    (``sharding.model_role``; ``models.transformer``): attention on the
+    rank's query heads from its columns of ``wq``/``wk``/``wv`` and its
+    rows of ``wo``, the dense FFN on its ``d_ff`` columns and rows, MoE on
+    its experts or its ``d_ff`` of each expert, the embedding and the
+    unembedding on its vocabulary block (on ``d_model`` where the
+    vocabulary does not divide).  A row-parallel product's partial
+    outputs are summed over ``model`` (``layers.ModelGroup.sum``: gathered
+    and added in rank order in fp32), so every ``model`` rank holds the
+    same residual stream bit for bit.  Where the plan keeps a weight whole
+    (``wk``/``wv`` of one KV head) the rank computes it whole.  MLA and
+    Mamba mixers take their leaves whole (``full_tensor()``) and compute
+    the layer as on one device;
   * every rank is given the global inputs and takes its dp slice, rows
     ``[r B / n, (r + 1) B / n)`` for its coordinate ``r`` along the dp
     axes (``pod`` the major factor; ``launch.mesh.dp_rank``), or the
@@ -42,34 +56,35 @@ steps are JAX's ``in_shardings`` / ``out_shardings`` programs:
   * the cache arrives and returns as ``DTensor``s placed by
     ``launch.sharding.cache_shardings`` (a cache not so placed raises).
     Where the plan puts an attention layer's KV heads on ``model``, rank
-    ``m`` of ``M`` owns KV heads ``[m K / M, (m + 1) K / M)`` and their
-    query heads ``[m H / M, (m + 1) H / M)``: q, k and v are computed
-    whole from the gathered weights, the rank attends its heads
-    (``flash_attention`` in the prefill, ``write_cache_rows`` and
-    ``decode_attention`` on its block in decode), and the heads' outputs
-    are gathered over ``model`` in rank order before ``wo``.  Such a
-    K/V leaf is never gathered.  Every other leaf (K/V with the sequence
-    on ``model``, MLA's latent and rope key, Mamba's state and conv
-    tails) is gathered over ``model`` layer by layer, the layer runs as
-    on one device, and the rank keeps its block of the new leaf;
+    ``m`` of ``M`` owns KV heads ``[m K / M, (m + 1) K / M)``, which its
+    own ``wk``/``wv`` columns compute, and such a K/V leaf is never
+    gathered.  Every other leaf (K/V with the sequence on ``model``,
+    MLA's latent and rope key, Mamba's state and conv tails) is gathered
+    over ``model`` layer by layer, the layer runs on it and the rank
+    keeps its block of the new leaf;
   * FoG's grove skip is decided over the whole batch (the rank's
-    ``live.any()`` reduced over the dp ranks), as JAX's ``lax.cond``;
+    ``live.any()`` reduced over the dp ranks), as JAX's ``lax.cond``, and
+    its gate works on the rank's block of the logits
+    (``models.fog_exit``): no rank holds a whole row of them;
   * the outputs are placed as JAX's ``out_specs``: logits on ``(bdp,
-    "model")`` where ``model`` divides the vocabulary (each rank keeps
+    "model")`` where ``model`` divides the vocabulary (each rank computed
     its block of the logits of its rows), else ``(bdp, None)``; hops on
-    ``(bdp,)``; the cache by the plan.  So ``full_tensor()`` of each
-    output is the one-device step's.
+    ``(bdp,)``; the cache by the plan.
 
-What is divided: the cache at rest and in the step (its head-sharded K/V
-never gathered) and the parameters at rest.  What is not: the parameters
-gathered for a step, the activations of the rank's rows (whole over
-``model``: the products are not split over ``model``, tensor-parallel
-compute is not ported), and the leaves gathered layer by layer.  Attention
-is computed per head and the products per row, so on the CPU a mesh step
-equals the one-device step bit for bit (``decode_attention`` and the tied
-unembedding are laid out for it); a one-row slice does not: the CPU's
-product of one row is a matrix-vector product, which sums in another
-order than the same row of a larger product.
+What is divided: the parameters at rest and in the step (only the MLA
+and Mamba mixers are gathered), the products of attention, the FFNs, the
+embedding and the unembedding, the cache at rest and in the step (its
+head-sharded K/V never gathered), and the logits.  What is not: the
+residual stream and the norms (whole on every ``model`` rank, as in
+JAX's program), the leaves gathered layer by layer, and the MLA and
+Mamba mixers.  With ``model`` of size 1 every product is the one-device
+product, and a mesh step equals the one-device step bit for bit on the
+CPU (``decode_attention`` and the tied unembedding are laid out for it;
+a one-row slice does not: the CPU's product of one row is a
+matrix-vector product, which sums in another order than the same row of
+a larger product).  With ``model`` > 1 the split products round
+differently from one device's, as in JAX's own sharded program; the
+tests hold the outputs to fp32 and bf16 bars.
 """
 from __future__ import annotations
 
@@ -81,10 +96,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import FogPolicy, margin_backend
 from repro_torch.launch.mesh import dp_axes, dp_rank, model_rank
 from repro_torch.launch.sharding import (Spec, cache_shardings, map_leaves,
-                                         placements, rebuild)
+                                         model_dim, model_role,
+                                         param_shardings, placements,
+                                         rebuild, step_block)
 from repro_torch.models import transformer as T
 from repro_torch.models.carry import is_dtensor
 from repro_torch.models.fog_exit import decode_step_fog
+from repro_torch.models.layers import MetaDraws, ModelGroup
 from repro_torch.train.loop import check_on_mesh
 
 
@@ -103,16 +121,6 @@ def _check_input(name: str, t: torch.Tensor, spec: tuple,
                          f"{device}")
 
 
-def _gather(t: torch.Tensor, dim: int, size: int, group) -> torch.Tensor:
-    """Every ``model`` rank's ``t`` joined along ``dim`` in rank order."""
-    if size == 1:
-        return t
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
-
-
 def _cut(t: torch.Tensor, dim: int, m: int, size: int) -> torch.Tensor:
     """Block ``m`` of ``size`` equal blocks of ``t`` along ``dim``, as a
     tensor of its own."""
@@ -120,70 +128,99 @@ def _cut(t: torch.Tensor, dim: int, m: int, size: int) -> torch.Tensor:
     return t.narrow(dim, m * n, n).clone(memory_format=torch.contiguous_format)
 
 
-class HeadShare:
-    """A rank's attention heads along ``model``: :meth:`take` cuts its
-    ``n / M`` of the ``n`` heads of a ``[B, S, n, hd]`` tensor (q's H
-    query heads or k's and v's K KV heads), :meth:`gather` joins the
-    heads' outputs of the ``M`` ranks in rank order."""
-
-    def __init__(self, m: int, size: int, group):
-        self.m, self.size, self.group = m, size, group
-
-    def take(self, t: torch.Tensor) -> torch.Tensor:
-        n = t.shape[2] // self.size
-        return t.narrow(2, self.m * n, n)
-
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
-        return _gather(t, 2, self.size, self.group)
+def whole_leaves(cfg: ArchConfig) -> tuple[str, ...]:
+    """The names' prefixes of the mixers a mesh step computes whole: MLA
+    (``...attn.``) and Mamba (``...mamba.``) layers' mixer parameters,
+    which need more than a column or row split of their products."""
+    prefix, period, n_rep = T.layer_plan(cfg)
+    names = [(f"prefix.{i}", s) for i, s in enumerate(prefix)]
+    names += [(f"stack.{r}.pos{j}", s) for r in range(n_rep)
+              for j, s in enumerate(period)]
+    return tuple(f"{at}.{'mamba' if s.mixer == 'mamba' else 'attn'}."
+                 for at, s in names if s.mixer in ("mla", "mamba"))
 
 
-def _model_dim(spec: Spec) -> int | None:
-    """The dimension a cache leaf's ``spec`` puts on ``model``, or None
-    (``cache_shardings`` names ``model`` alone, never in a tuple)."""
-    return next((d for d, part in enumerate(spec) if part == "model"), None)
+def step_params(cfg: ArchConfig, mesh, params: T.LM) -> T.LM:
+    """The rank's parameters for a tensor-parallel serving step on
+    ``mesh``: each leaf's block along ``model`` gathered along the dp
+    axes (``sharding.step_block``), and only the MLA and Mamba mixers'
+    leaves whole (``full_tensor()``, :func:`whole_leaves`).  Raises unless
+    every leaf is a ``DTensor`` on ``mesh`` placed along ``model`` as the
+    plan places it (``param_shardings``; FSDP's ``data`` either way)."""
+    check_on_mesh(params, mesh)
+    specs = param_shardings(cfg, mesh, params)
+    at = mesh.mesh_dim_names.index("model") if (
+        "model" in mesh.mesh_dim_names) else None
+    whole = whole_leaves(cfg)
+    out = {}
+    for k, p in params.named_parameters():
+        if at is not None and (p.placements[at]
+                               != placements(specs[k], mesh)[at]):
+            raise ValueError(f"{k} is placed {p.placements}, off the plan "
+                             f"along model ({specs[k]})")
+        out[k] = (p.full_tensor() if k.startswith(whole)
+                  else step_block(p))
+    return rebuild(params, out)
 
 
 class LayerShare:
-    """A rank's share of one layer's cache, from the layer's specs:
-    ``heads`` (a :class:`HeadShare`) where the plan puts an attention
-    layer's KV heads on ``model`` (its cache is the rank's block and is
-    never gathered), else None, and then :meth:`whole` gathers each leaf
-    along its dimension on ``model`` and :meth:`block` cuts the rank's
-    block of each."""
+    """A rank's share of one layer of a mesh step, read by
+    ``models.transformer``, ``models.moe`` and ``models.fog_exit``:
 
-    def __init__(self, specs: dict, m: int, size: int, group):
-        self.m, self.size, self.group = m, size, group
-        self.dims = map_leaves(_model_dim, specs)
-        self.heads = (HeadShare(m, size, group)
-                      if "k" in specs and self.dims["k"] == 2 else None)
+    * ``tp``: the rank's :class:`~repro_torch.models.layers.ModelGroup`;
+    * ``roles``: the role of each of the layer's leaves' block along
+      ``model`` (``sharding.model_role``), by its name within the layer
+      (``"attn.wq"``, ``"ffn.w_down"``, ``"ffn.shared.w_down"``); the
+      mixers :func:`whole_leaves` names have none;
+    * from the cache's specs, ``kv_heads``: whether the plan puts the
+      layer's KV heads on ``model`` (the rank's cache is its heads' block
+      and is never gathered); else :meth:`whole` gathers each cache leaf
+      along its dimension on ``model`` and :meth:`block` cuts the rank's
+      block of each."""
+
+    def __init__(self, specs: dict, roles: dict, tp: ModelGroup):
+        self.tp, self.roles = tp, roles
+        self.dims = map_leaves(model_dim, specs)
+        self.kv_heads = "k" in specs and self.dims["k"] == 2
 
     def whole(self, cache):
-        return map_leaves(lambda t, d: t if d is None else _gather(
-            t, d, self.size, self.group), cache, self.dims)
+        return map_leaves(lambda t, d: t if d is None else self.tp.gather(
+            t, d), cache, self.dims)
 
     def block(self, cache):
         return map_leaves(lambda t, d: t if d is None else _cut(
-            t, d, self.m, self.size), cache, self.dims)
+            t, d, self.tp.m, self.tp.size), cache, self.dims)
 
 
 class MeshShare:
-    """A rank's share of a serving step on ``mesh``, from the cache's
-    specs (``cache_shardings``): a :class:`LayerShare` per layer in the
-    cache's structure (``prefix``, ``stack``), read by
-    ``models.transformer`` and ``models.fog_exit``, and the FoG skip's
-    reduction over the dp ranks."""
+    """A rank's share of a serving step on ``mesh``: ``tp`` and the roles
+    of the model's own leaves (``embed``, ``unembed``), ``vocab_block``
+    (the rank computes its block of the vocabulary's logits), a
+    :class:`LayerShare` per layer in the cache's structure (``prefix``,
+    ``stack``), and the FoG skip's reduction over the dp ranks."""
 
-    def __init__(self, mesh, specs: dict):
+    def __init__(self, cfg: ArchConfig, mesh, specs: dict, param_specs: dict):
         self.mesh = mesh
         m, size = model_rank(mesh)
-        group = mesh.get_group("model") if size > 1 else None
+        self.tp = ModelGroup(m, size,
+                             mesh.get_group("model") if size > 1 else None)
+        whole = whole_leaves(cfg)
+        roles = {k: model_role(k.rsplit(".", 1)[-1], spec)
+                 for k, spec in param_specs.items()
+                 if not k.startswith(whole)}
+        self.roles = {k: r for k, r in roles.items() if "." not in k}
+        self.vocab_block = self.roles.get(
+            "embed" if cfg.tie_embeddings else "unembed") == "out"
 
-        def layer(sp):
-            return LayerShare(sp, m, size, group)
+        def layer(at, sp):
+            return LayerShare(sp, {k[len(at):]: r for k, r in roles.items()
+                                   if k.startswith(at)}, self.tp)
 
-        self.prefix = [layer(sp) for sp in specs["prefix"]]
-        self.stack = [{k: layer(sp) for k, sp in blk.items()}
-                      for blk in specs["stack"]]
+        self.prefix = [layer(f"prefix.{i}.", sp)
+                       for i, sp in enumerate(specs["prefix"])]
+        self.stack = [{k: layer(f"stack.{r}.{k}.", sp)
+                       for k, sp in blk.items()}
+                      for r, blk in enumerate(specs["stack"])]
 
     def any_live(self, live: torch.Tensor) -> bool:
         """Whether any lane of the whole batch is live: the rank's
@@ -216,16 +253,17 @@ class _OnMesh:
         self.like = T.cache_init(cfg, batch, max_seq, param_dtype,
                                  device="meta")
         self.specs = cache_shardings(cfg, mesh, self.like)
-        self.share = MeshShare(mesh, self.specs)
-        self.m, size = model_rank(mesh)
-        self.vocab_m = (size if "model" in mesh.mesh_dim_names
-                        and cfg.vocab_size % size == 0 else None)
+        self.share = MeshShare(cfg, mesh, self.specs, param_shardings(
+            cfg, mesh, T.init_params(cfg, MetaDraws(), param_dtype,
+                                     device="meta")))
+        _, size = model_rank(mesh)
+        self.vocab_m = ("model" in mesh.mesh_dim_names
+                        and cfg.vocab_size % size == 0)
 
     def params(self, params: T.LM) -> T.LM:
-        """The whole parameters of a model placed on the mesh."""
-        check_on_mesh(params, self.mesh)
-        return rebuild(params, {k: p.full_tensor()
-                                for k, p in params.named_parameters()})
+        """The rank's parameters of a model placed on the mesh
+        (:func:`step_params`)."""
+        return step_params(self.cfg, self.mesh, params)
 
     def local_cache(self, cache):
         """The rank's blocks of a cache placed by the plan; raises
@@ -254,10 +292,10 @@ class _OnMesh:
 
     def outputs(self, logits, cache, hops=None):
         """The step's outputs as ``DTensor``s placed as JAX's
-        ``out_specs``."""
+        ``out_specs``: the logits are the rank's block of the vocabulary
+        where ``model`` divides it (the unembedding computed that block
+        alone), else whole."""
         B, V = self.batch, self.cfg.vocab_size
-        if self.vocab_m:
-            logits = _cut(logits, 1, self.m, self.vocab_m)
         out = (self._placed(logits, Spec(self.bdp, "model" if self.vocab_m
                                          else None), (B, V)),
                map_leaves(lambda t, spec, like: self._placed(

@@ -7,10 +7,16 @@ gather raises ``ShardingTypeError`` under explicit mesh axes in jax 0.9,
 ROADMAP §C), so the chain is: the one-process steps are held to JAX
 (``tests/test_torch_lm.py``, ``test_torch_attn_lm.py``,
 ``test_torch_lm_configs.py``, ``test_torch_frontend_lm.py``); the mesh
-steps equal them bit for bit (logits, hops, every cache leaf, whole and
-block by block); and each rank's cache block is the block that JAX's
-``repro.launch.sharding.cache_shardings`` ``PartitionSpec`` gives its
-coordinates, computed in the test process.
+steps on ``("data",)`` equal them bit for bit (logits, hops, every cache
+leaf, whole and block by block); on ``(2, 2)`` the steps are
+tensor-parallel over ``model`` (``serve.decode``: the products split as
+in JAX's own sharded program), so their outputs are held to the fp32 bar
+of ``tests/test_torch_serve_tp.py`` (within 1e-5 of each output's scale,
+or twice the one-process step's own distance from a float64 run where
+that is larger) and their hops are equal; and each rank's cache block is
+the block that JAX's ``repro.launch.sharding.cache_shardings``
+``PartitionSpec`` gives its coordinates, in shape and position, computed
+in the test process.
 
 Cases, one spawn per mesh shape:
   * 4 ranks on ``("data",)``: tinyllama's smoke config in fp32 and bf16,
@@ -26,7 +32,8 @@ Cases, one spawn per mesh shape:
     narrowed deepseek (MLA latent, shared expert) and jamba (Mamba state
     and conv tails, attention with one KV head, MoE), FSDP automatic and
     forced.  Each decode step's gathers are recorded: where the heads are
-    on ``model`` none is K/V-sized.
+    on ``model`` none is K/V-sized.  (``tests/test_torch_serve_tp.py``
+    holds the tensor-parallel steps to every bar, JAX's step included.)
 
 The ranks import only the port (spawned children re-import this module);
 the JAX side is computed in the test process.  Each rank gets at least 2
@@ -115,13 +122,14 @@ def leaves(tree, path=()):
         yield path, tree
 
 
-def run_steps(cfg, dtype, batch, mesh=None, params=None, record=None):
+def run_steps(cfg, dtype, batch, mesh=None, params=None, record=None,
+              tokens=None):
     """A prefill, ``N_DECODE`` decode steps and ``N_DECODE + 1`` FoG steps
     (the last at threshold 0 for every lane), each token the last step's
-    argmax, on one process or on ``mesh`` (``params`` placed by the
-    plan); with ``record`` (a :class:`Recorder`'s log) an entry opened
-    before each decode step.  Returns [(what, logits, cache, hops or
-    None)]."""
+    argmax (or ``tokens``' decode inputs where given), on one process or
+    on ``mesh`` (``params`` placed by the plan); with ``record`` (a
+    :class:`Recorder`'s log) an entry opened before each decode step.
+    Returns [(what, logits, cache, hops or None)]."""
     kw = dict(param_dtype=dtype, mesh=mesh)
     pre, _ = make_prefill_step(cfg, "cpu", batch=batch, seq_len=SEQ,
                                max_seq=MAX_SEQ, **kw)
@@ -137,7 +145,8 @@ def run_steps(cfg, dtype, batch, mesh=None, params=None, record=None):
         ("fog", fog, knobs(batch))] * N_DECODE + [
         ("fog all exit", fog, knobs(batch, 0.0))]
     for i, (what, fn, extra) in enumerate(steps):
-        token = next_input(cfg, whole(logits), i, dtype)
+        token = (next_input(cfg, whole(logits), i, dtype) if tokens is None
+                 else next_input(cfg, tokens[i][1], i, dtype))
         if record is not None:
             record.append({"gathers": [], "skipped": 0})
         res = fn(params, cache, token, length, *extra)
@@ -186,6 +195,44 @@ class Recorder:
 
         dist.all_gather, DTensor.full_tensor, fog_exit._kv_only_update = (
             self.saved)
+
+
+FP32_BAR = 1e-5
+
+
+def close_steps(what, mesh_run, one_run, f64_run, block_of) -> int:
+    """Every output of the tensor-parallel mesh run, whole
+    (``full_tensor()``), within ``FP32_BAR`` of its scale of the
+    one-process run's (or twice the one-process run's distance from
+    ``f64_run``, its float64 twin, where that is larger); hops equal; each
+    leaf's ``to_local()`` the block of its whole that DTensor and JAX's
+    spec (``block_of(path, whole)``) give the rank, in shape and position.
+    Returns the leaves checked."""
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max()) / max(
+            float(b.abs().max()), 1e-30)
+
+    n = 0
+    for (step, lm, cm, hm), (_, l1, c1, h1), (_, l64, c64, _) in zip(
+            mesh_run, one_run, f64_run, strict=True):
+        whole = lm.full_tensor()
+        assert err(whole, l1) <= max(FP32_BAR, 2 * err(l1, l64)), (
+            what, step, "logits")
+        assert torch.equal(lm.to_local(), S.local_block(whole, lm)), (
+            what, step, "logits block")
+        if h1 is not None:
+            assert torch.equal(hm.full_tensor(), h1), (what, step, "hops")
+        for (path, d), (_, t), (_, t64) in zip(leaves(cm), leaves(c1),
+                                               leaves(c64), strict=True):
+            whole = d.full_tensor()
+            assert err(whole, t) <= max(FP32_BAR, 2 * err(t, t64)), (
+                what, step, path)
+            assert torch.equal(d.to_local(), S.local_block(whole, d)), (
+                what, step, path)
+            assert torch.equal(d.to_local(), block_of(path, whole)), (
+                what, step, path, "JAX's block")
+            n += 1
+    return n
 
 
 def same_steps(what, mesh_run, one_run, block_of=None) -> int:
@@ -277,9 +324,9 @@ def _data_rank(rank, world, case, out_dir):
 
 
 def _grid_rank(rank, world, case, out_dir):
-    """4 ranks on (2, 2) ("data", "model"): the outputs == one process,
-    each cache block == JAX's, no K/V-sized gather where the heads are on
-    model."""
+    """4 ranks on (2, 2) ("data", "model"): the outputs within the fp32
+    bar of one process, each cache block == JAX's, no K/V-sized gather
+    where the heads are on model."""
     from torch.distributed.device_mesh import init_device_mesh
 
     mesh = init_device_mesh("cpu", GRID[0], mesh_dim_names=GRID[1])
@@ -300,6 +347,11 @@ def _grid_rank(rank, world, case, out_dir):
         cfg = grid_cfg(arch)
         p = fresh(cfg, torch.float32)
         one = run_steps(cfg, torch.float32, GRID_B, params=p)
+        p64 = S.rebuild(p, {k: v.detach() if k.endswith("router")
+                            else v.detach().double()
+                            for k, v in p.named_parameters()})
+        f64 = run_steps(cfg, torch.float64, GRID_B, params=p64,
+                        tokens=one[:-1])
         # the one-process prefill's cache placed by the plan round-trips
         cache = one[0][2]
         placed_cache = S.shard_tree(cache, mesh,
@@ -323,8 +375,8 @@ def _grid_rank(rank, world, case, out_dir):
             finally:
                 record.close()
             key = f"{arch}-{label}"
-            rec["leaves"][key] = same_steps(key, on_mesh, one,
-                                            block_of(arch))
+            rec["leaves"][key] = close_steps(key, on_mesh, one, f64,
+                                             block_of(arch))
             # the decode steps' gathers of K/V-sized tensors (a position
             # axis of the cache's length)
             rec["kv_gathers"][key] = sum(
@@ -443,10 +495,11 @@ def test_a_cache_not_placed_by_the_plan_is_refused(data_ranks):
 @pytest.mark.parametrize("arch", sorted(GRID_ARCHS))
 @pytest.mark.parametrize("fsdp", sorted(TM.FSDP))
 def test_grid_steps_equal_one_process_in_jax_blocks(grid_ranks, arch, fsdp):
-    """(2, 2) ("data", "model"): every output == the one-process steps'
-    bit for bit, and each rank's block of every cache leaf after each
+    """(2, 2) ("data", "model"), tensor-parallel over ``model``: every
+    output within the fp32 bar of the one-process steps' (``close_steps``),
+    the hops equal, and each rank's block of every cache leaf after each
     step is the block JAX's ``cache_shardings`` spec gives its
-    coordinates."""
+    coordinates, in shape and position."""
     assert sorted(r["coord"] for r in grid_ranks) == [(0, 0), (0, 1),
                                                        (1, 0), (1, 1)]
     assert all(r["model"] == (r["coord"][1], 2) for r in grid_ranks)
@@ -470,9 +523,9 @@ def test_grid_cache_placed_by_the_plan_round_trips(grid_ranks, arch):
 def test_head_parallel_decode_never_gathers_kv(grid_ranks, fsdp):
     """tinyllama's 2 KV heads on a model axis of 2: a rank's K/V block is
     its one head, and no decode step gathers a K/V-sized tensor (the
-    heads' outputs are gathered, one a layer); gemma's one KV head puts
-    the sequence on model, and there the steps gather the K/V leaves
-    layer by layer, which the recorder sees."""
+    partial outputs of ``wo`` and the FFN are gathered to be summed);
+    gemma's one KV head puts the sequence on model, and there the steps
+    gather the K/V leaves layer by layer, which the recorder sees."""
     for r in grid_ranks:
         key = f"tinyllama-1.1b-{fsdp}"
         assert r["heads"][key] == ("(Shard(dim=0), Shard(dim=2))",

@@ -407,3 +407,42 @@ def test_phase_21_mesh_serve_check_on_a_one_rank_gloo_group(monkeypatch):
     hops = torch.tensor(out["hops"])
     assert (hops[:, 0] == 1).all() and (hops[:, 1] == 4).all()
     assert (hops[:, 3] == chip_smoke.LM_BUDGET).all()
+
+
+def test_phase_21_tensor_parallel_part_on_two_gloo_ranks():
+    """Phase 21's tensor-parallel part at smoke width on the CPU: the
+    top-2 partials and merge at its block cases, then two spawned gloo
+    ranks on a (1, 2) ("data", "model") mesh (the ranks count launches
+    with stand-ins for the card's wrappers): the prefill, 4 decode and 4
+    FoG steps with each step's counts, the step parameters the sum of the
+    rank's blocks, every output within the bf16 bar of the one-device
+    steps, hops equal, the replicated values identical on both ranks."""
+    from repro_torch.configs import smoke_config
+
+    cpu = torch.device("cpu")
+    blocks = chip_smoke.top2_block_checks(cpu)
+    assert list(blocks["cases"]) == [
+        f"[{b}, {c}] in {r}" for b, c, r in chip_smoke.TOP2_BLOCK_CASES]
+    cfg = smoke_config(chip_smoke.SHARD_ARCH).scaled(fog_groups=4)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    out = chip_smoke.tp_serve_check(cpu, cfg, tokens, [0.0, 2.0, 2.0, 2.0],
+                                    [9, 9, 9, chip_smoke.LM_BUDGET])
+    n = cfg.n_layers
+    for r in out["ranks"]:
+        assert r["counts"][0] == {
+            "launches": {"flash_attention": n},
+            "routes": {"flash_attention_sm90": n}}
+        assert r["counts"][1] == {"launches": {}, "routes": {}}
+        assert r["counts"][-1] == {
+            "launches": {"top2_confidence": 6},
+            "routes": {"top2_partials": 3, "top2_merge": 3}}
+        assert 0.45 * r["whole_bytes"] < r["param_bytes"] < 0.55 * r[
+            "whole_bytes"]
+        assert len(r["ms"]) == 1 + 2 * chip_smoke.MESH_DECODE
+    # logits and 2 K/V leaves a layer, each step
+    assert out["outputs"] == (1 + 2 * chip_smoke.MESH_DECODE) * (1 + 2 * n)
+    assert out["bar"] <= 1.0 and out["hop_rows"] == []
+    assert out["hops"] == out["one_hops"]
+    assert [h[3] for h in out["hops"]] == [chip_smoke.LM_BUDGET] * 4
+    assert out["identical"] > 0
