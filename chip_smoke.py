@@ -399,7 +399,16 @@ the sharding plan on a one-rank mesh, and:
    at most twice the bf16 one-card run's, plus 2^-9), greedy tokens and
    hops equal to the one card's but for lanes within the bar (printed);
    the residuals, margins and hops identical on the two ranks; each
-   rank's peak memory and step ms beside the one card's;
+   rank's peak memory and step ms beside the one card's.  The same two
+   processes then serve ``mamba2-2.7b`` and ``minicpm3-4b`` at full
+   width, ``TP_LAYERS`` layers each (``TP_MORE``), under the same checks
+   (a rank's Mamba mixers on its heads, channels and columns, 4
+   ``ssd_chunk_sm90`` on 40 heads a prefill; MLA on its 20 heads, 4
+   ``flash_attention_sm90`` at 96 / 64 a prefill), each beside its
+   one-card steps timed on the card alone; and a rank's ``ssd_chunk`` on
+   40 of 80 heads and on 25 heads, and ``flash_attention`` at (96, 64) on
+   20 of 40 heads, are held to their plain versions and timed beside the
+   whole calls (``tp_kernel_checks``);
 22. prints a ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Every number is also written to ``build/chip_smoke.json``.  Without
@@ -1907,6 +1916,13 @@ def ssd_route(args) -> str:
     B, nc, Q, H, P = args[0].shape
     return {"sm90": "ssd_chunk_sm90", "simt": "ssd_chunk"}[ssd_chunk_route(
         args[0].dtype, Q, P, args[2].shape[-1])]
+
+
+def flash_entry(args) -> str:
+    """The C entry point ``kernels/flash_attention.py::route`` names for
+    these q, k, v."""
+    return {"sm90": "flash_attention_sm90", "simt": "flash_attention"}[
+        flash_route(args[0].dtype, args[0].shape[3], args[2].shape[3])]
 
 
 def ssd_kernel_checks(dev: torch.device, captured) -> tuple[dict, str]:
@@ -6718,6 +6734,23 @@ def mesh_serve_check(dev: torch.device, cfg, params, meshes: dict,
 TP_MESH = ((1, 2), ("data", "model"))
 # seconds the two ranks may take, the build and their imports included
 TP_TIMEOUT_S = 600
+# the models of the tensor-parallel part beside SHARD_ARCH, each at its full
+# width with its depth cut to TP_LAYERS layers (the part's share of the
+# run's time limit), at per-lane thresholds far from any margin (lane 0
+# exits at the first gate, the others never by margin) and a budget of
+# LM_BUDGET groves on lane 2
+TP_MORE = ("mamba2-2.7b", "minicpm3-4b")
+TP_LAYERS = 4
+TP_THRESH = (0.0, 2.0, 2.0, 2.0)
+TP_BUDGET = (9, 9, LM_BUDGET, 9)
+# a (1, 2) rank's kernel launches at full width, held to their plain
+# versions and timed beside the whole call: ssd_chunk at mamba2-2.7b's
+# prefill (B, nc, Q, H, P, N) on H / 2 heads, and on TP_SSD_RAGGED_H
+# heads (the tensor-core kernel's head groups do not divide them);
+# flash_attention at minicpm3-4b's (B, S, H, D, Dv) on H / 2 heads
+TP_SSD = (4, 8, 256, 80, 64, 128)
+TP_SSD_RAGGED_H = 25
+TP_FLASH = (4, 2048, 40, 96, 64)
 # (B, C, ranks): the gate's blocks the top-2 partials and merge are held
 # to their plain versions at, the rank's [4, 16000] block of tinyllama's
 # 32,000-entry rows first
@@ -6789,19 +6822,21 @@ def rehearsal_stand_ins() -> None:
     """On the CPU (a rehearsal of the tensor-parallel ranks, which are
     spawned and so cannot be patched from outside) the kernels' wrappers
     run their plain versions and count nothing: wrap them to count a
-    launch and its route as the card's wrappers do; and there is no card
-    to synchronise."""
+    launch and the route the route rules name for it, as the card's
+    wrappers do; and there is no card to synchronise."""
     torch.cuda.synchronize = lambda *a: None
     def counted(fn, kernel, route=None):
         def wrapper(*a, **kw):
             ops.launches[kernel] += 1
             if route is not None:
-                _build.routes[route] += 1
+                _build.routes[route if isinstance(route, str)
+                              else route(a)] += 1
             return fn(*a, **kw)
         return wrapper
 
     ops.flash_attention = counted(ops.flash_attention, "flash_attention",
-                                  "flash_attention_sm90")
+                                  flash_entry)
+    ops.ssd_chunk = counted(ops.ssd_chunk, "ssd_chunk", ssd_route)
     ops.top2_partials = counted(ops.top2_partials, "top2_confidence",
                                 "top2_partials")
     ops.top2_merge = counted(ops.top2_merge, "top2_confidence", "top2_merge")
@@ -7024,12 +7059,17 @@ def tp_rank_check(dev: torch.device, args: dict) -> dict:
     out["bar"] = bar
     # tokens and hops against the one card, each difference with its gap
     # or its margin's distance from the threshold and the bar
-    flips = []
+    # (a lane's first differing token only: the timed run feeds it to the
+    # lane's next step, whose inputs then differ from the one card's)
+    flips, parted = [], set()
     for i, (mine, theirs) in enumerate(zip(out["own_tokens"], one["argmax"])):
         lo = one["outputs"][i][0]
         lc = orc["outputs"][i][0]
         step_bar = 3 * rel_l2(lo, lc) + 2 ** -9
         for lane in (mine != theirs.cpu()).nonzero()[:, 0].tolist():
+            if lane in parted:
+                continue
+            parted.add(lane)
             top = lo[lane].topk(2).values
             flips.append((i, lane, float(top[0] - top[1])
                           / float(lo[lane].abs().max()), step_bar))
@@ -7063,7 +7103,8 @@ def cast_model(params, dtype):
 
 def _tp_rank(rank: int, world: int, init: str, args: dict,
              out_dir: str) -> None:
-    """A spawned rank of ``tp_serve_check``."""
+    """A spawned rank of ``tp_serve_check``: ``tp_rank_check`` of each of
+    ``args["models"]`` in turn, in one process group."""
     from datetime import timedelta
 
     dev = torch.device(args["device"])
@@ -7076,7 +7117,10 @@ def _tp_rank(rank: int, world: int, init: str, args: dict,
                             world_size=world,
                             timeout=timedelta(seconds=TP_TIMEOUT_S))
     try:
-        res = tp_rank_check(dev, args)
+        res = []
+        for model in args["models"]:
+            res.append(tp_rank_check(dev, dict(args, **model)))
+            torch.cuda.empty_cache()
         torch.save(res, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -7084,32 +7128,37 @@ def _tp_rank(rank: int, world: int, init: str, args: dict,
 
 def tp_serve_check(dev: torch.device, cfg, tokens: torch.Tensor,
                    thresh: list, budget: list, *,
-                   n_decode: int = MESH_DECODE) -> dict:
+                   n_decode: int = MESH_DECODE, more: tuple = ()) -> dict:
     """The mesh serving steps tensor-parallel over ``model``: two
     processes share the card (NCCL refuses two ranks on one device) over a
     ``gloo`` group (``file://`` rendezvous), each with a (1, 2) ``("data",
-    "model")`` ``DeviceMesh`` on the card, ``cfg`` at full width in bf16
-    placed by the plan (``tp_rank_check``).  Held: the counts of each step
-    (``n_layers`` ``flash_attention`` on the tensor cores a rank a
-    prefill; ``G - 1`` top-2 partials and as many merges a FoG step); each
-    rank's step parameters the sum of its blocks along ``model``, no
-    parameter redistributed; the logits and every cache leaf of every step
-    within the bf16 bar of the one-card steps (relative L2 from the fp32
-    one-card steps at most twice the bf16 one-card steps' plus 2^-9);
-    greedy tokens and hops equal to the one card's but where the one-card
-    top two (or a lane's margin and its threshold) lie within the step's
-    bar (each such lane printed); the residual after each layer, the
-    margins and the hops identical on the two ranks.  No fallback: a
-    rank's failure fails the check."""
+    "model")`` ``DeviceMesh`` on the card, ``cfg`` in bf16 placed by the
+    plan (``tp_rank_check``), then each of ``more`` (``(cfg, tokens,
+    thresh, budget)``) in the same two processes.  Held, per model
+    (:func:`tp_model_result`): the counts of each step (the prefill's
+    ``flash_attention`` and ``ssd_chunk`` launches a rank by the layer
+    plan and the route rules; ``G - 1`` top-2 partials and as many merges
+    a FoG step); each rank's step parameters the sum of its blocks along
+    ``model``, no parameter redistributed; the logits and every cache
+    leaf of every step within the bf16 bar of the one-card steps
+    (relative L2 from the fp32 one-card steps at most twice the bf16
+    one-card steps' plus 2^-9); greedy tokens and hops equal to the one
+    card's but where the one-card top two (or a lane's margin and its
+    threshold) lie within the step's bar (each such lane printed); the
+    residual after each layer, the margins and the hops identical on the
+    two ranks.  Then, the ranks gone, each of ``more``'s one-card steps
+    timed on the card alone.  No fallback: a rank's failure fails the
+    check.  Returns ``cfg``'s result, with ``more``'s under ``"more"``."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     (ROOT / "build").mkdir(parents=True, exist_ok=True)
     where = Path(tempfile.mkdtemp(dir=ROOT / "build"))
-    args = {"device": str(dev), "cfg": cfg, "tokens": tokens.cpu(),
-            "thresh": list(thresh), "budget": list(budget),
-            "n_decode": n_decode}
+    models = [(cfg, tokens, thresh, budget)] + list(more)
+    args = {"device": str(dev), "n_decode": n_decode,
+            "models": [{"cfg": c, "tokens": t.cpu(), "thresh": list(th),
+                        "budget": list(b)} for c, t, th, b in models]}
     t0 = time.perf_counter()
     ctx = mp.start_processes(
         _tp_rank, args=(2, str(where / "init"), args, str(where)), nprocs=2,
@@ -7128,8 +7177,32 @@ def tp_serve_check(dev: torch.device, cfg, tokens: torch.Tensor,
     ranks = [torch.load(where / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
     shutil.rmtree(where, ignore_errors=True)
-    n, G = cfg.n_layers, len(grove_boundaries(cfg))
-    want = ([({"flash_attention": n}, {"flash_attention_sm90": n})]
+    seconds = time.perf_counter() - t0
+    results = [tp_model_result(c, [r[i] for r in ranks], n_decode)
+               for i, (c, *_) in enumerate(models)]
+    for res, (c, t, th, b) in zip(results[1:], models[1:]):
+        # the one card's steps on the same weights, the card to itself
+        params = bf16_model(c, dev)
+        lane = [torch.tensor(x, dtype=dt, device=dev)
+                for x, dt in ((th, torch.float32), (b, torch.int32))]
+        tp_steps(c, dev, params, t.to(dev), *lane, n_decode)
+        res["one_ms"] = tp_steps(c, dev, params, t.to(dev), *lane,
+                                 n_decode)["ms"]
+        del params
+        torch.cuda.empty_cache()
+    out = results[0]
+    out["more"] = results[1:]
+    out["seconds"] = seconds
+    return out
+
+
+def tp_model_result(cfg, ranks: list, n_decode: int) -> dict:
+    """One model's records from the two ranks of ``tp_serve_check``, held
+    to its bars and counts; its summary."""
+    G = len(grove_boundaries(cfg))
+    launches, routes = expected_prefill(cfg)
+    want = ([({k: v for k, v in launches.items() if v},
+              {k: v for k, v in routes.items() if v})]
             + [({}, {})] * n_decode
             + [({"top2_confidence": 2 * (G - 1)},
                 {"top2_partials": G - 1, "top2_merge": G - 1})] * n_decode)
@@ -7139,42 +7212,136 @@ def tp_serve_check(dev: torch.device, cfg, tokens: torch.Tensor,
             for i, (c, w) in enumerate(zip(counts, want, strict=True)):
                 if (c["launches"], c["routes"]) != w:
                     raise AssertionError(
-                        f"rank {r['rank']} {what} step {i}: launches "
-                        f"{c['launches']} by route {c['routes']}, want {w}")
+                        f"{cfg.name} rank {r['rank']} {what} step {i}: "
+                        f"launches {c['launches']} by route {c['routes']}, "
+                        f"want {w}")
         if r["param_bytes"] != r["param_bytes_want"]:
-            raise AssertionError(f"rank {r['rank']}: step parameters "
-                                 f"{r['param_bytes']} B, its blocks "
-                                 f"{r['param_bytes_want']} B")
+            raise AssertionError(f"{cfg.name} rank {r['rank']}: step "
+                                 f"parameters {r['param_bytes']} B, its "
+                                 f"blocks {r['param_bytes_want']} B")
         if r["moves"]:
-            raise AssertionError(f"rank {r['rank']}: {r['moves']} parameter "
-                                 "redistributions in the steps")
+            raise AssertionError(f"{cfg.name} rank {r['rank']}: "
+                                 f"{r['moves']} parameter redistributions "
+                                 "in the steps")
         checked, bad = r["identical"]
         if bad or not checked:
-            raise AssertionError(f"rank {r['rank']}: {bad} of {checked} "
-                                 "residuals, margins and hops differ across "
-                                 "the model ranks")
+            raise AssertionError(f"{cfg.name} rank {r['rank']}: {bad} of "
+                                 f"{checked} residuals, margins and hops "
+                                 "differ across the model ranks")
         over = [b for b in r["bar"] if b[3] > 1.0]
         if over:
-            raise AssertionError(f"rank {r['rank']}: outside the bf16 bar "
-                                 f"(what, mesh, one card, ratio): {over[:5]}")
+            raise AssertionError(f"{cfg.name} rank {r['rank']}: outside the "
+                                 f"bf16 bar (what, mesh, one card, ratio): "
+                                 f"{over[:5]}")
         far = [f for f in r["flips"] if f[2] > f[3]]
         far += [h for h in r["hop_rows"] if h[4] > h[5]]
         if far:
-            raise AssertionError(f"rank {r['rank']}: a token or hop differs "
-                                 f"from the one card's outside the bar: "
-                                 f"{far}")
+            raise AssertionError(f"{cfg.name} rank {r['rank']}: a token or "
+                                 f"hop differs from the one card's outside "
+                                 f"the bar: {far}")
     if ranks[0]["bar"] != ranks[1]["bar"] or ranks[0]["hops"] != ranks[1][
             "hops"]:
-        raise AssertionError("the two ranks' comparisons differ")
+        raise AssertionError(f"{cfg.name}: the two ranks' comparisons "
+                             "differ")
     r0 = ranks[0]
-    return {"ranks": [{k: r[k] for k in (
-        "ms", "warm_ms", "peak_bytes", "resident_bytes", "param_bytes",
-        "whole_bytes", "counts")} for r in ranks],
+    return {"arch": cfg.name, "layers": cfg.n_layers, "ranks": [
+        {k: r[k] for k in ("ms", "warm_ms", "peak_bytes", "resident_bytes",
+                           "param_bytes", "whole_bytes", "counts")}
+        for r in ranks],
         "bar": max(b[3] for b in r0["bar"]), "outputs": len(r0["bar"]),
         "worst": max(r0["bar"], key=lambda b: b[3]),
         "flips": r0["flips"], "hop_rows": r0["hop_rows"],
         "hops": r0["hops"], "one_hops": r0["one_hops"],
-        "identical": r0["identical"][0], "seconds": time.perf_counter() - t0}
+        "identical": r0["identical"][0]}
+
+
+def tp_kernel_checks(dev: torch.device, ssd: tuple = TP_SSD,
+                     ragged_h: int = TP_SSD_RAGGED_H,
+                     flash: tuple = TP_FLASH) -> dict:
+    """A (1, 2) rank's kernel launches in the tensor-parallel steps, each
+    held to its plain version on its route's bar: ``ssd_chunk`` on rank
+    1's half of the heads of random bf16 inputs of ``ssd`` (``(B, nc, Q,
+    H, P, N)``) and on ``ragged_h`` heads, ``flash_attention`` on rank 1's
+    half of the heads of ``flash`` (``(B, S, H, D, Dv)``, causal, bf16,
+    MLA's K = H), each half also compared with that slice of the whole
+    call.  On the card each launch takes the route the rules name
+    (counted), and each half is timed (call ms by CUDA events, device ms
+    by the profiler) beside the whole call, its plain version and the
+    bound from ``launch.roofline``."""
+    rng = np.random.default_rng(SEED + 2)
+    cuda = dev.type == "cuda"
+    out = {}
+    B, nc, Q, H, P, N = ssd
+    hs = slice(H // 2, H)
+    whole = ssd_inputs(rng, ssd, torch.bfloat16, dev)
+    half = [whole[0][:, :, :, hs].contiguous(),
+            whole[1][:, :, hs].contiguous(), whole[2], whole[3]]
+    ragged = ssd_inputs(rng, (B, nc, Q, ragged_h, P, N), torch.bfloat16,
+                        dev)
+    cases = {"ssd_half": ("ssd_chunk", half, {}),
+             "ssd_ragged": ("ssd_chunk", ragged, {})}
+    Bf, S, Hf, D, Dv = flash
+    hf = slice(Hf // 2, Hf)
+    q, k, v = flash_inputs(rng, (Bf, S, S, Hf, Hf, D, Dv), torch.bfloat16,
+                           dev)
+    fhalf = [t[:, :, hf].contiguous() for t in (q, k, v)]
+    cases["flash_half"] = ("flash_attention", fhalf, {"causal": True})
+    plain = {"ssd_chunk": ssd_chunk_ref,
+             "flash_attention": flash_attention_ref}
+    call = {"ssd_chunk": ops.ssd_chunk,
+            "flash_attention": ops.flash_attention}
+    for name, (kernel, args, kw) in cases.items():
+        zero_counts()
+        got = call[kernel](*args, **kw)
+        launched, routes = read_counts()
+        entry = (ssd_route(args) if kernel == "ssd_chunk"
+                 else flash_entry(args))
+        if cuda and (launched, routes) != ({kernel: 1}, {entry: 1}):
+            raise AssertionError(f"{name}: launches {launched} by route "
+                                 f"{routes}, want one of {entry}")
+        want = plain[kernel](*args, **kw)
+        route = "sm90" if entry.endswith("sm90") else "simt"
+        if kernel == "ssd_chunk":
+            err = max(ssd_close(f"ssd_chunk {name} {n} ({entry})", g, w,
+                                route)
+                      for n, g, w in zip(("y", "states"), got, want))
+        else:
+            err = flash_close(f"flash_attention {name} ({entry})", got, want)
+        out[name] = {"shape": list(args[0].shape), "route": entry,
+                     "max_abs_err": err}
+        del want
+    # each half against that slice of the whole call
+    y, st = ops.ssd_chunk(*whole)
+    got = ops.ssd_chunk(*half)
+    out["ssd_half"]["slice_equal"] = bool(
+        torch.equal(got[0], y[:, :, :, hs]) and torch.equal(got[1],
+                                                            st[:, :, hs]))
+    fw = ops.flash_attention(q, k, v, causal=True)
+    out["flash_half"]["slice_equal"] = bool(torch.equal(
+        ops.flash_attention(*fhalf, causal=True), fw[:, :, hf]))
+    del y, st, got, fw
+    if cuda:
+        for name, kernel, args, all_args, kw, work in (
+                ("ssd_half", "ssd_chunk", half, whole, {},
+                 ssd_work(B, nc, Q, H // 2, P, N, 2)),
+                ("flash_half", "flash_attention", fhalf, (q, k, v),
+                 {"causal": True},
+                 flash_work(Bf, S, S, Hf // 2, Hf // 2, D, Dv, 2, True))):
+            def fn(a=args, kw=kw, kernel=kernel):
+                return call[kernel](*a, **kw)
+
+            def fn_whole(a=all_args, kw=kw, kernel=kernel):
+                return call[kernel](*a, **kw)
+            out[name].update(
+                ms=cuda_ms(fn), whole_ms=cuda_ms(fn_whole),
+                device_ms=profiled_ms(fn, kernel),
+                whole_device_ms=profiled_ms(fn_whole, kernel),
+                plain_ms=cuda_ms(lambda a=args, kw=kw, kernel=kernel:
+                                 plain[kernel](*a, **kw), reps=5, warm=1),
+                bound=bound_ms(work["bytes"], work["ops"], BF16_OPS_PER_S))
+    del whole, half, ragged, q, k, v, fhalf
+    torch.cuda.empty_cache()
+    return out
 
 
 def sharding_phase(dev: torch.device) -> dict:
@@ -7304,8 +7471,15 @@ def sharding_phase(dev: torch.device) -> dict:
     # kernel's partials and merge, then two processes on the card
     torch.cuda.empty_cache()
     out["top2_blocks"] = top2_block_checks(dev)
+    out["tp_kernels"] = tp_kernel_checks(dev)
+    more = []
+    for arch in TP_MORE:
+        c = get_arch(arch).scaled(n_layers=TP_LAYERS)
+        more.append((c, torch.as_tensor(batch_at_step(
+            DataConfig(c.vocab_size, LM_S, LM_B, seed=SEED), 0)["tokens"]),
+            list(TP_THRESH), list(TP_BUDGET)))
     out["tp"] = tp_serve_check(dev, cfg, tokens, out["mesh_serve"]["thresh"],
-                               out["mesh_serve"]["budget"])
+                               out["mesh_serve"]["budget"], more=tuple(more))
     print(f"[shard] {SHARD_ARCH} bf16 ({out['leaves']} leaves) by the plan "
           f"on the host mesh (1 NCCL rank, ('data',)) and a (1, 1, 1) "
           f"{SHARD_AXES} mesh: each to_local() and full_tensor() == its leaf "
@@ -7412,6 +7586,60 @@ def sharding_phase(dev: torch.device) -> dict:
           f"one card {ms_of('one_card', 'decode')}; FoG ms "
           f"{per_rank('fog')}, one card {ms_of('one_card', 'fog')}; "
           f"{tp['seconds']:.1f} s", flush=True)
+    for m in tp["more"]:
+        r0 = m["ranks"][0]
+        print(f"[shard] tensor-parallel serving over model, {m['arch']} "
+              f"bf16 at full width, {m['layers']} layers, the same 2 "
+              f"processes: per rank the step's parameters "
+              f"{[r['param_bytes'] for r in m['ranks']]} B (the sum of its "
+              f"blocks; whole {r0['whole_bytes']} B), no parameter "
+              f"redistributed; launches a step per rank {r0['counts'][0]}, "
+              f"{r0['counts'][1]}, {r0['counts'][-1]} (prefill, decode, "
+              f"FoG); {m['outputs']} outputs within the bf16 bar of the one "
+              f"card (worst at {m['worst'][3]:.3f} of it: {m['worst'][0]}, "
+              f"relative L2 {m['worst'][1]:.3e} vs the one card's "
+              f"{m['worst'][2]:.3e}); greedy tokens unlike the one card's "
+              f"(step, lane, top-2 gap / scale, bar): {m['flips']}; hops "
+              f"{m['hops']} (one card {m['one_hops']}), lanes unlike it: "
+              f"{m['hop_rows']}; {m['identical']} residuals, margins and "
+              f"hops identical on both ranks; {card_name(dev)}: per rank "
+              f"peak {[round(r['peak_bytes'] / 1e9, 2) for r in m['ranks']]}"
+              f" GB (resident before the steps "
+              f"{[round(r['resident_bytes'] / 1e9, 2) for r in m['ranks']]}"
+              f" GB); prefill ms per rank "
+              f"{[round(r['ms'][0], 1) for r in m['ranks']]}, one card "
+              f"{round(m['one_ms'][0], 2)}; decode ms "
+              f"{[[round(x, 1) for x in r['ms'][sl['decode']]] for r in m['ranks']]}"
+              f", one card {[round(x, 2) for x in m['one_ms'][sl['decode']]]};"
+              f" FoG ms "
+              f"{[[round(x, 1) for x in r['ms'][sl['fog']]] for r in m['ranks']]}"
+              f", one card {[round(x, 2) for x in m['one_ms'][sl['fog']]]}",
+              flush=True)
+    tk = out["tp_kernels"]
+
+    def timed(c):
+        if "ms" not in c:
+            return ""
+        return (f": {c['ms']:.4f} ms a call, {fmt(c['device_ms'])} on the "
+                f"device, the whole call {c['whole_ms']:.4f} / "
+                f"{fmt(c['whole_device_ms'])}, plain {c['plain_ms']:.3f}, "
+                f"bound {c['bound'][0]:.4f} ms by {c['bound'][1]}")
+
+    print(f"[shard] a (1, 2) rank's kernels held to their plain versions: "
+          f"ssd_chunk on heads {TP_SSD[3] // 2}-{TP_SSD[3] - 1} of "
+          f"{TP_SSD[3]} ({tk['ssd_half']['shape']}, N = {TP_SSD[5]}, bf16, "
+          f"{tk['ssd_half']['route']}, max abs err "
+          f"{tk['ssd_half']['max_abs_err']:.3e}, == that slice of the "
+          f"whole call: {tk['ssd_half']['slice_equal']})"
+          f"{timed(tk['ssd_half'])}; ssd_chunk on {TP_SSD_RAGGED_H} heads "
+          f"({tk['ssd_ragged']['route']}, max abs err "
+          f"{tk['ssd_ragged']['max_abs_err']:.3e}); flash_attention at "
+          f"({TP_FLASH[3]}, {TP_FLASH[4]}) on heads {TP_FLASH[2] // 2}-"
+          f"{TP_FLASH[2] - 1} of {TP_FLASH[2]} ({tk['flash_half']['shape']}"
+          f" q, causal, bf16, {tk['flash_half']['route']}, max abs err "
+          f"{tk['flash_half']['max_abs_err']:.3e}, == that slice of the "
+          f"whole call: {tk['flash_half']['slice_equal']})"
+          f"{timed(tk['flash_half'])}; {card_name(dev)}", flush=True)
     sv = out["mesh_save"]
     print(f"[shard] {SHARD_ARCH}'s smoke config trained {MESH_STEPS} mesh "
           f"steps on the (1, 1, 1) mesh, saved from the mesh "
@@ -8341,6 +8569,19 @@ def main() -> int:
         tuned_paper_evals=tuned["paper_evals"])
     top2["tp_launches"] = {"per rank, FoG step": out["sharding"]["tp"][
         "ranks"][0]["counts"][-1]}
+    # the tensor-parallel part's other models, and a rank's launch held
+    # to its plain version and timed beside the whole call
+    tpk = out["sharding"]["tp_kernels"]
+    for k in kernels:
+        if k["name"] in ("flash_attention", "ssd_chunk"):
+            k["tp_more_launches"] = {
+                m["arch"]: {"per rank, prefill": m["ranks"][0]["counts"][0]}
+                for m in out["sharding"]["tp"]["more"]
+                if m["ranks"][0]["counts"][0]["launches"].get(k["name"])}
+            k["tp_rank_call"] = {
+                n: tpk[n] for n in (("ssd_half", "ssd_ragged")
+                                    if k["name"] == "ssd_chunk"
+                                    else ("flash_half",))}
     top2["tp_block"] = out["sharding"]["top2_blocks"]
     top2["lm_more_gates"] = [{
         "arch": r["arch"], "launches": r["launches"]["top2_confidence"],

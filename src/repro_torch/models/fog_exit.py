@@ -80,24 +80,26 @@ def _mask_cache(new, old, live: torch.Tensor):
 def _kv_only_update(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
                     length, share=None):
     """Fill a skipped layer's cache from the propagated hidden state
-    (projections only: K/V, or the MLA latent and rope key).  ``share``
-    as in ``transformer._apply_layer_decode``: the rank's heads' rows
-    (from its ``wk``/``wv`` columns) written into its block, or the
-    leaves gathered whole and cut."""
-    if share is not None and not share.kv_heads:
+    (projections only: K/V, or the MLA latent and rope key; a Mamba
+    layer's whole decode).  ``share`` as in
+    ``transformer._apply_layer_decode``: the rank's own blocks (its heads'
+    K/V rows from its ``wk``/``wv`` columns, its Mamba state and tails)
+    updated in place of the whole, or the leaves gathered whole and
+    cut."""
+    if share is not None and not share.own:
         return share.block(_kv_fill(p, cfg, s, h, share.whole(cache),
-                                    length))
-    return _kv_fill(p, cfg, s, h, cache, length)
+                                    length, share))
+    return _kv_fill(p, cfg, s, h, cache, length, share)
 
 
 def _kv_fill(p: T.Layer, cfg: ArchConfig, s: T.LayerSpec, h, cache,
-             length):
+             length, share=None):
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         # the recurrent state advance is the cheap part of a Mamba layer:
         # the full decode-state update, its output discarded
         _, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x, cache["state"],
-                                            cache["conv"])
+                                            cache["conv"], share)
         return {"state": st, "conv": tail}
     length = int(length)
     if s.mixer == "mla":

@@ -38,10 +38,14 @@ def normal(shape, generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=generator.device)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Normalise in fp32, cast back to ``x.dtype``, then ``* (1 + w)``."""
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            tp: "ModelGroup | None" = None) -> torch.Tensor:
+    """Normalise in fp32, cast back to ``x.dtype``, then ``* (1 + w)``.
+    With ``tp``, ``x`` and ``w`` are a mesh rank's block of the features,
+    and the variance is over every rank's (:meth:`ModelGroup.mean_square`)."""
     x32 = x.to(torch.float32)
-    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    var = (torch.mean(torch.square(x32), dim=-1, keepdim=True) if tp is None
+           else tp.mean_square(x32))
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w)
 
 
@@ -190,6 +194,12 @@ def write_cache_rows(cache: dict, length: int, rows: dict) -> dict:
 
 
 # ----------------------------------------------------- tensor parallelism ---
+def role(share, name: str) -> str | None:
+    """The role of leaf ``name``'s block along ``model`` in a mesh step
+    (``share.roles``, ``launch.sharding.model_role``); None off a mesh."""
+    return None if share is None else share.roles.get(name)
+
+
 class ModelGroup:
     """A mesh rank's place along ``model`` in a tensor-parallel step: rank
     ``m`` of ``size`` in ``group`` (``serve.decode``).  Every reduction is
@@ -225,6 +235,14 @@ class ModelGroup:
         for part in self.parts(t):
             acc.add_(part)
         return acc.to(t.dtype)
+
+    def mean_square(self, x32: torch.Tensor) -> torch.Tensor:
+        """The mean of the squares of fp32 ``x32`` over its last dimension,
+        which is this rank's block of ``size`` equal blocks: each rank's
+        sum of squares, summed over ``model`` (:meth:`sum`), over the
+        whole width ([..., 1], a norm's variance)."""
+        n = x32.shape[-1] * self.size
+        return self.sum(torch.square(x32).sum(-1, keepdim=True)) / n
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum of every rank's ``t``."""

@@ -16,6 +16,17 @@ the same math in fp32).
 Projections are stored unpacked (``in_z``, ``in_x``, ``in_B``, ``in_C``,
 ``in_dt`` and one depthwise conv each for x, B and C), as the JAX package
 stores them.
+
+On a mesh (``share``, ``serve.decode``) the mixer is tensor-parallel
+over ``model`` on the blocks JAX's plan gives (``launch.sharding``): a
+rank projects its columns of z, x, B, C and dt, convolves its channels,
+gathers B and C along N (the SSD reads them whole), runs the SSD on its
+heads (``ops.ssd_chunk`` at ``H / M`` heads) with its block of the state,
+takes the gated norm's variance from every rank's sums of squares and
+sums ``out_proj``'s row-parallel partials.  Where the heads do not divide
+and ``d_inner`` does, the rank's block of ``d_inner`` cuts a head: it
+gathers x whole and runs every head (the plan keeps the heads and the
+state whole).  The state and the conv tails stay the rank's blocks.
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
-from repro_torch.models.layers import normal
+from repro_torch.models.layers import ModelGroup, normal, rmsnorm, role
 # JAX's mamba2._segsum, under its name
 from repro_torch.kernels.ssd_chunk import segsum as _segsum  # noqa: F401
 
@@ -168,73 +179,139 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
 
 
 def _rmsnorm_gated(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
-    y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    var = torch.mean(torch.square(y.to(torch.float32)), dim=-1, keepdim=True)
-    return ((y.to(torch.float32) * torch.rsqrt(var + eps)).to(y.dtype)
-            * (1.0 + w))
+                   eps: float = 1e-6, tp: ModelGroup | None = None
+                   ) -> torch.Tensor:
+    """``rmsnorm(y * silu(z)) * (1 + w)`` over ``d_inner``; with ``tp``
+    the three are a mesh rank's block of ``d_inner`` and the variance is
+    over every rank's (``layers.rmsnorm``)."""
+    return rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), w, eps, tp)
 
 
 def _project(p: Mamba, cfg: ArchConfig, x: torch.Tensor):
     return (x @ p.in_z, x @ p.in_x, x @ p.in_B, x @ p.in_C, x @ p.in_dt)
 
 
+def _splits(share) -> tuple[bool, bool, bool]:
+    """Which of the mixer's dimensions a mesh rank holds a block of along
+    ``model``, by the roles of ``in_x``, ``in_B`` and ``in_dt``'s blocks:
+    (``d_inner``, the state's N, the heads).  The plan splits each leaf on
+    one of these where ``model`` divides it (``launch.sharding``): the conv
+    weights and tails, ``conv_b_x``, ``norm`` and ``out_proj``'s rows with
+    ``d_inner`` or N, ``dt_bias``, ``A_log``, ``D`` and the state with the
+    heads.  All False off a mesh."""
+    return tuple(role(share, f"mamba.{k}") == "out"
+                 for k in ("in_x", "in_B", "in_dt"))
+
+
+def _conv_biases(p: Mamba, tp: ModelGroup | None):
+    """``conv_b_B`` and ``conv_b_C``, whole in the plan: the rank's block
+    of N where it convolves its block of B and C (``tp``), else whole."""
+    if tp is None:
+        return p.conv_b_B, p.conv_b_C
+    return tp.block(p.conv_b_B, 0), tp.block(p.conv_b_C, 0)
+
+
+def _for_ssd(tp: ModelGroup | None, split, xs_c, Bm_c, Cm_c):
+    """The convolved x, B and C as a mesh rank's SSD takes them: B and C
+    whole (G = 1: every head reads all of N), gathered in one call where
+    the rank holds its block of N; x its heads' channels, gathered whole
+    where its block of ``d_inner`` cuts a head (the heads are then whole
+    in the plan, the state with them)."""
+    on_x, on_n, heads = split
+    if on_n:
+        bc = tp.gather(torch.stack([Bm_c, Cm_c]), -1)
+        Bm_c, Cm_c = bc[0], bc[1]
+    if on_x and not heads:
+        xs_c = tp.gather(xs_c, -1)
+    return xs_c, Bm_c, Cm_c
+
+
+def _out(p: Mamba, share, split, y: torch.Tensor, z: torch.Tensor):
+    """The gated norm and ``out_proj`` of the SSD's output y [..., d]: on
+    a mesh rank's block of ``d_inner`` (cut from y where y is whole), its
+    rows of ``out_proj`` and the partial products summed over ``model``."""
+    tp = None if share is None else share.tp
+    on_x, _, heads = split
+    if on_x and not heads:
+        y = tp.block(y, -1)
+    out = _rmsnorm_gated(y, z, p.norm, tp=tp if on_x else None) @ p.out_proj
+    return tp.sum(out) if on_x else out
+
+
 def mamba_forward(p: Mamba, cfg: ArchConfig, x: torch.Tensor,
-                  initial_state=None, conv_tail=None):
+                  initial_state=None, conv_tail=None, share=None):
     """Full-sequence forward.  x [B,S,d] -> (out [B,S,d], (state, conv_tails)).
 
-    The conv tails handed on are the last K-1 *unconvolved* x/B/C rows."""
+    The conv tails handed on are the last K-1 *unconvolved* x/B/C rows.
+    ``share`` (a mesh rank's share of the layer, ``serve.decode``): the
+    mixer tensor-parallel over ``model`` on the rank's blocks
+    (:func:`_splits`): its columns of every projection, its channels of
+    each conv (each a depthwise conv: a channel's output is the one
+    device's), its heads of the SSD (``ops.ssd_chunk`` on ``H / M``
+    heads) against B and C gathered whole, the gated norm's variance
+    from every rank's sums of squares and ``out_proj``'s partials summed.
+    The state and the tails returned are the rank's blocks, as the plan
+    places the cache (``cache_shardings``): no cache leaf is gathered."""
     Bsz, S, _ = x.shape
-    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    split = _splits(share)
+    tp = None if share is None else share.tp
     z, xs, Bm, Cm, dt = _project(p, cfg, x)
+    b_B, b_C = _conv_biases(p, tp if split[1] else None)
     if conv_tail is not None:
         tx, tB, tC = conv_tail
         xs_c = _causal_conv(torch.cat([tx, xs], 1), p.conv_x,
                             p.conv_b_x)[:, tx.shape[1]:]
         Bm_c = _causal_conv(torch.cat([tB, Bm], 1), p.conv_B,
-                            p.conv_b_B)[:, tB.shape[1]:]
+                            b_B)[:, tB.shape[1]:]
         Cm_c = _causal_conv(torch.cat([tC, Cm], 1), p.conv_C,
-                            p.conv_b_C)[:, tC.shape[1]:]
+                            b_C)[:, tC.shape[1]:]
     else:
         xs_c = _causal_conv(xs, p.conv_x, p.conv_b_x)
-        Bm_c = _causal_conv(Bm, p.conv_B, p.conv_b_B)
-        Cm_c = _causal_conv(Cm, p.conv_C, p.conv_b_C)
+        Bm_c = _causal_conv(Bm, p.conv_B, b_B)
+        Cm_c = _causal_conv(Cm, p.conv_C, b_C)
     tail = cfg.ssm_conv - 1
     new_tail = ((xs[:, S - tail:], Bm[:, S - tail:], Cm[:, S - tail:])
                 if tail else None)
-    xh = xs_c.reshape(Bsz, S, H, P)
+    xs_c, Bm_c, Cm_c = _for_ssd(tp, split, xs_c, Bm_c, Cm_c)
+    xh = xs_c.reshape(Bsz, S, -1, P)
     # softplus and exp in fp32, then the working dtype (mamba2.py:191-192)
     dt = F.softplus(dt.to(torch.float32) + p.dt_bias).to(x.dtype)
     A = (-torch.exp(p.A_log.to(torch.float32))).to(x.dtype)
     y, state = ssd_chunked(xh, dt, A, Bm_c, Cm_c, cfg.ssm_chunk,
                            initial_state, use_kernels=True)
     y = y + xh * p.D[None, None, :, None]
-    y = _rmsnorm_gated(y.reshape(Bsz, S, di), z, p.norm)
-    return y @ p.out_proj, (state, new_tail)
+    return _out(p, share, split, y.reshape(Bsz, S, -1), z), (state, new_tail)
 
 
 def mamba_decode(p: Mamba, cfg: ArchConfig, x: torch.Tensor, state,
-                 conv_tail):
+                 conv_tail, share=None):
     """One-token decode.  x [B,1,d]; state [B,H,P,N];
-    conv_tail (tx [B,K-1,di], tB [B,K-1,N], tC [B,K-1,N])."""
+    conv_tail (tx [B,K-1,di], tB [B,K-1,N], tC [B,K-1,N]).  ``share``: as
+    :func:`mamba_forward`, the state and the tails the rank's blocks in
+    and out."""
     Bsz = x.shape[0]
-    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    P = cfg.ssm_head_dim
+    split = _splits(share)
+    tp = None if share is None else share.tp
     z, xs, Bm, Cm, dt = _project(p, cfg, x)
+    b_B, b_C = _conv_biases(p, tp if split[1] else None)
     tx, tB, tC = conv_tail
     wx = torch.cat([tx, xs], dim=1)
     wB = torch.cat([tB, Bm], dim=1)
     wC = torch.cat([tC, Cm], dim=1)
     xs_c = _conv_step(wx, p.conv_x, p.conv_b_x)
-    Bm_c = _conv_step(wB, p.conv_B, p.conv_b_B)
-    Cm_c = _conv_step(wC, p.conv_C, p.conv_b_C)
+    Bm_c = _conv_step(wB, p.conv_B, b_B)
+    Cm_c = _conv_step(wC, p.conv_C, b_C)
     new_tail = (wx[:, 1:], wB[:, 1:], wC[:, 1:])
-    xh = xs_c.reshape(Bsz, H, P)
+    xs_c, Bm_c, Cm_c = _for_ssd(tp, split, xs_c, Bm_c, Cm_c)
+    xh = xs_c.reshape(Bsz, -1, P)
     dt1 = F.softplus(dt[:, 0].to(torch.float32) + p.dt_bias).to(x.dtype)
     A = (-torch.exp(p.A_log.to(torch.float32))).to(x.dtype)
     y, state = ssd_decode_step(state, xh, dt1, A, Bm_c, Cm_c)
     y = y + xh * p.D[None, :, None]
-    y = _rmsnorm_gated(y.reshape(Bsz, 1, di), z[:, :1], p.norm)
-    return y @ p.out_proj, (state, new_tail)
+    return _out(p, share, split, y.reshape(Bsz, 1, -1), z[:, :1]), (
+        state, new_tail)
 
 
 def mamba_state_init(cfg: ArchConfig, batch: int, dtype: torch.dtype,

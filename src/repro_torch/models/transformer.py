@@ -69,13 +69,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import mamba2, mla, moe
 from repro_torch.models.layers import (apply_rope, decode_attention,
                                        flash_attention, gated_ffn, normal,
-                                       rmsnorm, write_cache_rows)
-
-
-def role(share, name: str) -> str | None:
-    """The role of leaf ``name``'s block along ``model`` in a mesh step
-    (``share.roles``, ``launch.sharding.model_role``); None off a mesh."""
-    return None if share is None else share.roles.get(name)
+                                       rmsnorm, role, write_cache_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,13 +393,16 @@ def _layer_seq(p: Layer, cfg: ArchConfig, s: LayerSpec, h: torch.Tensor,
     """One layer over a whole sequence: (h after it, its cache: the keys
     after RoPE and the values, the MLA latent and rope key, or the Mamba
     state and conv tails; the MoE loss or None).  ``share``: the layer's
-    share of a mesh step (attention and the FFN tensor-parallel)."""
+    share of a mesh step (every mixer and the FFN tensor-parallel; the
+    Mamba state and tails returned as the rank's blocks, the MLA latent
+    and rope key whole)."""
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
-        mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg, x)
+        mixed, (st, tail) = mamba2.mamba_forward(p.mamba, cfg, x,
+                                                 share=share)
         cache = {"state": st, "conv": tail}
     elif s.mixer == "mla":
-        mixed, c_kv, k_rope = mla.mla_forward(p.attn, cfg, x)
+        mixed, c_kv, k_rope = mla.mla_forward(p.attn, cfg, x, share)
         cache = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         mixed, k, v = _attn_train(p.attn, cfg, x, share)
@@ -549,22 +546,25 @@ def _apply_layer_decode(p: Layer, cfg: ArchConfig, s: LayerSpec, h, cache,
                         length, share=None):
     """One layer's decode step: (h after it, its new cache).  ``share``
     (a mesh rank's share of the layer, ``serve.decode``) holds ``cache``
-    as the rank's blocks: an attention layer whose KV heads the plan puts
-    on ``model`` attends its own heads in its block; any other layer's
-    leaves are gathered whole, the layer runs on them and the rank keeps
-    its block of each new leaf.  Attention and the FFN run
-    tensor-parallel; MLA and Mamba mixers on their whole parameters."""
-    gathered = share is not None and not share.kv_heads
+    as the rank's blocks: where they are the blocks its weights compute
+    (``share.own``: an attention layer's KV heads on ``model``, a Mamba
+    layer's state and conv tails) the layer runs on them; any other
+    layer's leaves (K/V with the sequence on ``model``, MLA's latent and
+    rope key) are gathered whole, the layer runs on them and the rank
+    keeps its block of each new leaf.  Every mixer and the FFN run
+    tensor-parallel on the rank's parameter blocks."""
+    gathered = share is not None and not share.own
     if gathered:
         cache = share.whole(cache)
     x = rmsnorm(h, p.ln1)
     if s.mixer == "mamba":
         mixed, (st, tail) = mamba2.mamba_decode(p.mamba, cfg, x,
-                                                cache["state"], cache["conv"])
+                                                cache["state"], cache["conv"],
+                                                share)
         cache = {"state": st, "conv": tail}
     elif s.mixer == "mla":
         mixed, cache = mla.mla_attention_decode(p.attn, cfg, x, cache,
-                                                int(length))
+                                                int(length), share)
     else:
         mixed, cache = _attn_decode(p.attn, cfg, x, cache, int(length),
                                     share)
@@ -625,8 +625,10 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
     entries.  With ``share`` (a mesh rank's share, ``serve.decode``) the
     step is tensor-parallel and the cache returned is the rank's blocks:
     an attention layer whose KV heads the plan puts on ``model`` computes
-    its own heads (:func:`_attn_train`), every other leaf is computed
-    whole and cut.
+    its own heads (:func:`_attn_train`) and a Mamba layer its own state
+    and tails (``mamba2.mamba_forward``); every other leaf (K/V with the
+    sequence on ``model``, MLA's latent and rope key) is computed whole
+    and cut.
     """
     prefix, period, _ = layer_plan(cfg)
     pre_share, stack_share = layer_shares(share, cfg)
@@ -642,7 +644,7 @@ def prefill(params: LM, cfg: ArchConfig, tokens: torch.Tensor | None = None,
             cache = {k: torch.cat([a, a.new_zeros((B, max_seq - S)
                                                   + a.shape[2:])], dim=1)
                      for k, a in cache.items()}
-        if sh is not None and not sh.kv_heads:
+        if sh is not None and not sh.own:
             cache = sh.block(cache)
         return h, cache
 

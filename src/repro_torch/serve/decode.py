@@ -33,21 +33,28 @@ tensor-parallel over ``model``:
 
   * the parameters are ``DTensor``s placed by
     ``launch.sharding.param_shardings`` (``shard_tree``; FSDP automatic
-    or forced).  Each step takes the rank's block of each leaf along
+    or forced).  Each step takes the rank's block of every leaf along
     ``model``, gathered along the dp axes only (:func:`step_params`), and
     computes on it by the role of the block in its product
     (``sharding.model_role``; ``models.transformer``): attention on the
     rank's query heads from its columns of ``wq``/``wk``/``wv`` and its
-    rows of ``wo``, the dense FFN on its ``d_ff`` columns and rows, MoE on
-    its experts or its ``d_ff`` of each expert, the embedding and the
-    unembedding on its vocabulary block (on ``d_model`` where the
-    vocabulary does not divide).  A row-parallel product's partial
-    outputs are summed over ``model`` (``layers.ModelGroup.sum``: gathered
-    and added in rank order in fp32), so every ``model`` rank holds the
-    same residual stream bit for bit.  Where the plan keeps a weight whole
-    (``wk``/``wv`` of one KV head) the rank computes it whole.  MLA and
-    Mamba mixers take their leaves whole (``full_tensor()``) and compute
-    the layer as on one device;
+    rows of ``wo``; MLA on its heads of ``w_uq``/``w_uk``/``w_uv`` and
+    its rows of ``w_o`` (``cq`` from its ``rq`` columns of ``w_dq``,
+    gathered), or, where the heads do not divide, every head from its
+    LoRA-rank rows summed and its ``d_model`` columns of ``w_o``
+    (``models.mla``); Mamba-2 on its columns of the projections, its
+    channels of the convs and its heads of the SSD, with B and C gathered
+    whole and ``out_proj``'s rows summed (``models.mamba2``); the dense
+    FFN on its ``d_ff`` columns and rows, MoE on its experts or its
+    ``d_ff`` of each expert, the embedding and the unembedding on its
+    vocabulary block (on ``d_model`` where the vocabulary does not
+    divide).  A row-parallel product's partial outputs, and a norm's sums
+    of squares over a split feature dimension, are summed over ``model``
+    (``layers.ModelGroup.sum``: gathered and added in rank order in
+    fp32), so every ``model`` rank holds the same residual stream bit for
+    bit.  Where the plan keeps a weight whole (``wk``/``wv`` of one KV
+    head, MLA's ``w_dkv`` and norms) the rank computes it whole; no
+    parameter is gathered along ``model``;
   * every rank is given the global inputs and takes its dp slice, rows
     ``[r B / n, (r + 1) B / n)`` for its coordinate ``r`` along the dp
     axes (``pod`` the major factor; ``launch.mesh.dp_rank``), or the
@@ -58,10 +65,12 @@ tensor-parallel over ``model``:
     Where the plan puts an attention layer's KV heads on ``model``, rank
     ``m`` of ``M`` owns KV heads ``[m K / M, (m + 1) K / M)``, which its
     own ``wk``/``wv`` columns compute, and such a K/V leaf is never
-    gathered.  Every other leaf (K/V with the sequence on ``model``,
-    MLA's latent and rope key, Mamba's state and conv tails) is gathered
-    over ``model`` layer by layer, the layer runs on it and the rank
-    keeps its block of the new leaf;
+    gathered; nor is a Mamba layer's state (the rank's heads) or conv
+    tails (its channels), which its own blocks compute
+    (:class:`LayerShare`'s ``own``).  The other leaves (K/V with the
+    sequence on ``model``, MLA's latent and rope key) are gathered over
+    ``model`` layer by layer, the layer runs on them and the rank keeps
+    its block of each new leaf;
   * FoG's grove skip is decided over the whole batch (the rank's
     ``live.any()`` reduced over the dp ranks), as JAX's ``lax.cond``, and
     its gate works on the rank's block of the logits
@@ -71,13 +80,15 @@ tensor-parallel over ``model``:
     its block of the logits of its rows), else ``(bdp, None)``; hops on
     ``(bdp,)``; the cache by the plan.
 
-What is divided: the parameters at rest and in the step (only the MLA
-and Mamba mixers are gathered), the products of attention, the FFNs, the
-embedding and the unembedding, the cache at rest and in the step (its
-head-sharded K/V never gathered), and the logits.  What is not: the
-residual stream and the norms (whole on every ``model`` rank, as in
-JAX's program), the leaves gathered layer by layer, and the MLA and
-Mamba mixers.  With ``model`` of size 1 every product is the one-device
+What is divided: the parameters at rest and in the step, the products
+of attention, MLA, Mamba-2, the FFNs, the embedding and the unembedding,
+the SSD's heads, the cache at rest and in the step (its head-sharded K/V
+and every Mamba leaf never gathered), and the logits.  What is not: the
+residual stream and the layer norms (whole on every ``model`` rank, as
+in JAX's program), MLA's latent and rope key (computed whole, their
+sequence-sharded cache gathered layer by layer), Mamba's B and C
+(gathered whole: one group), and what the plan keeps whole where a
+dimension does not divide.  With ``model`` of size 1 every product is the one-device
 product, and a mesh step equals the one-device step bit for bit on the
 CPU (``decode_attention`` and the tied unembedding are laid out for it;
 a one-row slice does not: the CPU's product of one row is a
@@ -128,60 +139,48 @@ def _cut(t: torch.Tensor, dim: int, m: int, size: int) -> torch.Tensor:
     return t.narrow(dim, m * n, n).clone(memory_format=torch.contiguous_format)
 
 
-def whole_leaves(cfg: ArchConfig) -> tuple[str, ...]:
-    """The names' prefixes of the mixers a mesh step computes whole: MLA
-    (``...attn.``) and Mamba (``...mamba.``) layers' mixer parameters,
-    which need more than a column or row split of their products."""
-    prefix, period, n_rep = T.layer_plan(cfg)
-    names = [(f"prefix.{i}", s) for i, s in enumerate(prefix)]
-    names += [(f"stack.{r}.pos{j}", s) for r in range(n_rep)
-              for j, s in enumerate(period)]
-    return tuple(f"{at}.{'mamba' if s.mixer == 'mamba' else 'attn'}."
-                 for at, s in names if s.mixer in ("mla", "mamba"))
-
-
 def step_params(cfg: ArchConfig, mesh, params: T.LM) -> T.LM:
     """The rank's parameters for a tensor-parallel serving step on
     ``mesh``: each leaf's block along ``model`` gathered along the dp
-    axes (``sharding.step_block``), and only the MLA and Mamba mixers'
-    leaves whole (``full_tensor()``, :func:`whole_leaves`).  Raises unless
-    every leaf is a ``DTensor`` on ``mesh`` placed along ``model`` as the
-    plan places it (``param_shardings``; FSDP's ``data`` either way)."""
+    axes (``sharding.step_block``).  Raises unless every leaf is a
+    ``DTensor`` on ``mesh`` placed along ``model`` as the plan places it
+    (``param_shardings``; FSDP's ``data`` either way)."""
     check_on_mesh(params, mesh)
     specs = param_shardings(cfg, mesh, params)
     at = mesh.mesh_dim_names.index("model") if (
         "model" in mesh.mesh_dim_names) else None
-    whole = whole_leaves(cfg)
     out = {}
     for k, p in params.named_parameters():
         if at is not None and (p.placements[at]
                                != placements(specs[k], mesh)[at]):
             raise ValueError(f"{k} is placed {p.placements}, off the plan "
                              f"along model ({specs[k]})")
-        out[k] = (p.full_tensor() if k.startswith(whole)
-                  else step_block(p))
+        out[k] = step_block(p)
     return rebuild(params, out)
 
 
 class LayerShare:
     """A rank's share of one layer of a mesh step, read by
-    ``models.transformer``, ``models.moe`` and ``models.fog_exit``:
+    ``models.transformer``, ``models.moe``, ``models.mla``,
+    ``models.mamba2`` and ``models.fog_exit``:
 
     * ``tp``: the rank's :class:`~repro_torch.models.layers.ModelGroup`;
     * ``roles``: the role of each of the layer's leaves' block along
       ``model`` (``sharding.model_role``), by its name within the layer
-      (``"attn.wq"``, ``"ffn.w_down"``, ``"ffn.shared.w_down"``); the
-      mixers :func:`whole_leaves` names have none;
-    * from the cache's specs, ``kv_heads``: whether the plan puts the
-      layer's KV heads on ``model`` (the rank's cache is its heads' block
-      and is never gathered); else :meth:`whole` gathers each cache leaf
-      along its dimension on ``model`` and :meth:`block` cuts the rank's
-      block of each."""
+      (``"attn.wq"``, ``"mamba.in_x"``, ``"ffn.shared.w_down"``);
+    * from the cache's specs, ``own``: whether the rank's blocks of the
+      layer's cache are the ones its own blocks of the weights compute
+      (K/V with the KV heads on ``model``; Mamba's state on the heads and
+      its conv tails on the channels, or whole where the plan keeps them
+      whole), so that no cache leaf is gathered; else (K/V with the
+      sequence on ``model``, MLA's latent and rope key) :meth:`whole`
+      gathers each cache leaf along its dimension on ``model`` and
+      :meth:`block` cuts the rank's block of each."""
 
     def __init__(self, specs: dict, roles: dict, tp: ModelGroup):
         self.tp, self.roles = tp, roles
         self.dims = map_leaves(model_dim, specs)
-        self.kv_heads = "k" in specs and self.dims["k"] == 2
+        self.own = "state" in specs or ("k" in specs and self.dims["k"] == 2)
 
     def whole(self, cache):
         return map_leaves(lambda t, d: t if d is None else self.tp.gather(
@@ -204,10 +203,8 @@ class MeshShare:
         m, size = model_rank(mesh)
         self.tp = ModelGroup(m, size,
                              mesh.get_group("model") if size > 1 else None)
-        whole = whole_leaves(cfg)
         roles = {k: model_role(k.rsplit(".", 1)[-1], spec)
-                 for k, spec in param_specs.items()
-                 if not k.startswith(whole)}
+                 for k, spec in param_specs.items()}
         self.roles = {k: r for k, r in roles.items() if "." not in k}
         self.vocab_block = self.roles.get(
             "embed" if cfg.tie_embeddings else "unembed") == "out"

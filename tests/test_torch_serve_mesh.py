@@ -28,11 +28,14 @@ Cases, one spawn per mesh shape:
     placed by the plan, refused.
   * 4 ranks on ``(2, 2)`` ``("data", "model")``: tinyllama smoke (two KV
     heads: one a rank, head-parallel attention), gemma-2b smoke (one KV
-    head: the sequence on ``model``), and ``test_torch_train_mesh.py``'s
-    narrowed deepseek (MLA latent, shared expert) and jamba (Mamba state
-    and conv tails, attention with one KV head, MoE), FSDP automatic and
-    forced.  Each decode step's gathers are recorded: where the heads are
-    on ``model`` none is K/V-sized.  (``tests/test_torch_serve_tp.py``
+    head: the sequence on ``model``), mamba2-2.7b smoke (the state on its
+    heads, the conv tails on their channels), minicpm3-4b smoke (MLA on
+    its heads, the latent on the sequence), and
+    ``test_torch_train_mesh.py``'s narrowed deepseek (MLA latent, shared
+    expert) and jamba (Mamba state and conv tails, attention with one KV
+    head, MoE), FSDP automatic and forced.  Each decode step's gathers
+    are recorded: where the heads are on ``model`` none is K/V-sized, and
+    none is of a Mamba cache block's shape.  (``tests/test_torch_serve_tp.py``
     holds the tensor-parallel steps to every bar, JAX's step included.)
 
 The ranks import only the port (spawned children re-import this module);
@@ -66,7 +69,8 @@ SEQ, MAX_SEQ, N_DECODE = 16, 24, 3
 DATA_B = 8                # 2 lanes a dp rank on 4 ranks
 GRID_B = 4                # 2 lanes a dp rank on (2, 2)
 GRID = TM.GRID
-GRID_ARCHS = {"tinyllama-1.1b": {}, "gemma-2b": {}, **TM.NARROW}
+GRID_ARCHS = {"tinyllama-1.1b": {}, "gemma-2b": {}, "mamba2-2.7b": {},
+              "minicpm3-4b": {}, **TM.NARROW}
 FRONTEND = "musicgen-large"   # served from embeds
 # per lane: rank 0's lanes (0, 1) exit after the first grove, lanes 2-5
 # never do (lane 5 stops at its budget of one grove), 6 and 7 by margin
@@ -334,7 +338,8 @@ def _grid_rank(rank, world, case, out_dir):
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     rec = {"coord": (coord["data"], coord["model"]),
            "model": model_rank(mesh), "leaves": {}, "kv_gathers": {},
-           "gathers": {}, "heads": {}, "round_trip": {}}
+           "gathers": {}, "heads": {}, "round_trip": {},
+           "mamba_gathers": {}}
 
     def block_of(arch):
         def get(path, whole):
@@ -383,6 +388,13 @@ def _grid_rank(rank, world, case, out_dir):
                 1 for r in record.log for s in r["gathers"]
                 if len(s) == 4 and s[1] in kv_len)
             rec["gathers"][key] = sum(len(r["gathers"]) for r in record.log)
+            # the gathers of a Mamba cache block's shape (its state and
+            # conv tails are the rank's own: none)
+            mamba = {tuple(d.to_local().shape)
+                     for path, d in leaves(on_mesh[-1][2])
+                     if path[-1] == "state" or "conv" in path}
+            rec["mamba_gathers"][key] = (len(mamba), sum(
+                1 for r in record.log for s in r["gathers"] if s in mamba))
             k = on_mesh[-1][2]["stack"][0]["pos0"].get("k")
             rec["heads"][key] = None if k is None else (
                 str(k.placements), tuple(k.to_local().shape))
@@ -536,6 +548,19 @@ def test_head_parallel_decode_never_gathers_kv(grid_ranks, fsdp):
         assert r["heads"][gemma] == ("(Shard(dim=0), Shard(dim=1))",
                                      (2, MAX_SEQ // 2, 1, 32))
         assert r["kv_gathers"][gemma] > 0
+
+
+@pytest.mark.parametrize("fsdp", sorted(TM.FSDP))
+def test_grid_mamba_decode_never_gathers_its_cache(grid_ranks, fsdp):
+    """mamba2's and jamba's Mamba layers on (2, 2): the rank's state is
+    its heads' block and its conv tails its channels' (as JAX's
+    ``cache_shardings``), and no decode step gathers a tensor of their
+    shapes; the configs without Mamba layers hold no such leaf."""
+    for r in grid_ranks:
+        for arch in GRID_ARCHS:
+            n, gathered = r["mamba_gathers"][f"{arch}-{fsdp}"]
+            assert gathered == 0, (arch, fsdp)
+            assert (n > 0) == ("mamba" in arch or "jamba" in arch), arch
 
 
 # ------------------------------------------------ the pieces, one process

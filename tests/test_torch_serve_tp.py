@@ -3,9 +3,9 @@
 spawned gloo ranks on the CPU, and the top-2 gate's partials and merge in
 one process.
 
-Each rank computes attention, the dense FFN, MoE, the embedding and the
-unembedding on its parameter blocks along ``model``, as JAX's GSPMD
-program does (``serve.decode``).  The products are split, so the outputs
+Each rank computes attention, MLA, Mamba-2, the dense FFN, MoE, the
+embedding and the unembedding on its parameter blocks along ``model``, as
+JAX's GSPMD program does (``serve.decode``).  The products are split, so the outputs
 are not bit-equal to one device; the bars:
 
   * fp32: every output (the logits and every cache leaf, ``full_tensor()``)
@@ -30,23 +30,30 @@ are not bit-equal to one device; the bars:
     each other (relative to the logits' scale: the mesh's allowed
     distance plus the one-process step's own, ``3 d + 2^-9``).
 
-Each step's gathers are recorded: no leaf is gathered along ``model``
-but the MLA and Mamba mixers' (``serve.decode.whole_leaves``), and no
-``all_gather`` is handed a parameter's block.  Each rank's parameter bytes
-at rest equal the sum of its blocks by JAX's ``PartitionSpec`` and, in the
-step, the sum of its blocks along ``model`` (the whole mixers whole).
+Each step's gathers are recorded: no parameter is gathered along
+``model``, no ``all_gather`` is handed a parameter's block, and no Mamba
+cache leaf is gathered (the state and the conv tails are the rank's own
+blocks); MLA's latent and rope key, sequence-sharded at rest, still are,
+layer by layer.  Each rank's parameter bytes at rest equal the sum of its
+blocks by JAX's ``PartitionSpec`` and, in the step, the sum of its blocks
+along ``model``; each cache block after each step is the block JAX's
+``cache_shardings`` ``PartitionSpec`` gives the rank.
 
 Spawns (``file://`` rendezvous, as ``tests/test_torch_serve_mesh.py``):
 2 ranks on ``(1, 2)`` and 4 on ``(2, 2)`` ``("data", "model")``.  Configs:
 tinyllama (GQA, heads on ``model``), gemma-2b (one KV head: ``wk``/``wv``
 whole, the cache's sequence on ``model``, tied embeddings), grok with
 ``moe_tp_within_expert`` (the router's experts gathered, each expert's
-``d_ff`` split), and ``tests/test_torch_train_mesh.py``'s narrowed deepseek
-(MLA gathered; 3 experts: TP within the expert; a shared expert; an odd
-vocabulary: the embedding and unembedding on ``d_model``) and jamba
-(Mamba gathered; attention with one KV head; 8 experts: expert
-parallelism).  The ranks import only the port; JAX runs in the test
-process."""
+``d_ff`` split), mamba2-2.7b (pure Mamba: its heads, ``d_inner`` and N on
+``model``), minicpm3-4b (MLA with its heads on ``model``), minicpm3 with 3
+heads (MLA by its LoRA ranks, ``w_o`` on ``d_model``), mamba2 with 3 heads
+of 64 (``d_inner`` on ``model``, the heads whole: a rank's block of
+``d_inner`` cuts a head), and ``tests/test_torch_train_mesh.py``'s narrowed
+deepseek (MLA on the heads; 3 experts: TP within the expert; a shared
+expert; an odd vocabulary: the embedding and unembedding on ``d_model``)
+and jamba (Mamba on the heads; attention with one KV head; 8 experts:
+expert parallelism).  The ranks import only the port; JAX runs in the
+test process."""
 import functools
 import math
 import time
@@ -73,8 +80,16 @@ from repro_torch.models.carry import params_to_jax  # noqa: E402
 from repro_torch.models.layers import MetaDraws  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 
-CONFIGS = {"tinyllama-1.1b": {}, "gemma-2b": {},
-           "grok-1-314b": {"moe_tp_within_expert": True}, **TM.NARROW}
+# case name -> (arch, the smoke config's overrides)
+CONFIGS = {"tinyllama-1.1b": ("tinyllama-1.1b", {}),
+           "gemma-2b": ("gemma-2b", {}),
+           "grok-1-314b": ("grok-1-314b", {"moe_tp_within_expert": True}),
+           "mamba2-2.7b": ("mamba2-2.7b", {}),
+           "minicpm3-4b": ("minicpm3-4b", {}),
+           "minicpm3-4b-3-heads": ("minicpm3-4b", {"n_heads": 3}),
+           "mamba2-2.7b-3-heads": ("mamba2-2.7b", {"d_model": 96,
+                                                   "ssm_head_dim": 64}),
+           **{a: (a, over) for a, over in TM.NARROW.items()}}
 LINE = ((1, 2), ("data", "model"))
 GRID = TM.GRID
 B, SEQ, MAX_SEQ, N_DECODE = 4, 16, 24, 3
@@ -89,11 +104,23 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # the (2, 2) spawn's cases: (config, dtype, FSDP)
 GRID_CASES = (("grok-1-314b", "fp32", "auto"),
               ("grok-1-314b", "fp32", "forced"),
-              ("tinyllama-1.1b", "bf16", "forced"))
+              ("tinyllama-1.1b", "bf16", "forced"),
+              ("mamba2-2.7b", "bf16", "auto"),
+              ("minicpm3-4b", "bf16", "forced"),
+              ("minicpm3-4b-3-heads", "fp32", "auto"),
+              ("mamba2-2.7b-3-heads", "fp32", "forced"))
 
 
-def port_cfg(arch):
-    return smoke_config(arch).scaled(**CONFIGS[arch])
+def port_cfg(name):
+    arch, over = CONFIGS[name]
+    return smoke_config(arch).scaled(**over)
+
+
+def jax_cfg(name):
+    from repro.configs import smoke_config as jsmoke
+
+    arch, over = CONFIGS[name]
+    return jsmoke(arch).scaled(**over)
 
 
 def prompt(cfg):
@@ -128,12 +155,13 @@ def leaves(tree, path=()):
         yield path, tree
 
 
-def run_steps(cfg, dtype, params, mesh=None, tokens=None):
+def run_steps(cfg, dtype, params, mesh=None, tokens=None, blocks=None):
     """A prefill, ``N_DECODE`` greedy decode and ``N_DECODE + 1`` FoG steps
     (the last at threshold 0 for every lane) on one process or on
     ``mesh``; each step's token is the last step's argmax, or ``tokens[i]``
     where given.  Returns ([(logits, cache, hops or None)], tokens fed),
-    the outputs whole (``full_tensor()`` on a mesh)."""
+    the outputs whole (``full_tensor()`` on a mesh); ``blocks`` (a list)
+    collects each step's cache as the rank's blocks (``to_local()``)."""
     kw = dict(param_dtype=dtype, mesh=mesh)
     pre, _ = D.make_prefill_step(cfg, "cpu", batch=B, seq_len=SEQ,
                                  max_seq=MAX_SEQ, **kw)
@@ -145,6 +173,8 @@ def run_steps(cfg, dtype, params, mesh=None, tokens=None):
     last = (torch.zeros(B), knobs[1])
     whole = (lambda t: t) if mesh is None else (lambda t: t.full_tensor())
     logits, cache = pre(params, prompt(cfg))
+    if blocks is not None:
+        blocks.append(S.map_leaves(lambda d: d.to_local(), cache))
     out, used = [(whole(logits), S.map_leaves(whole, cache), None)], []
     steps = [(dec, ())] * N_DECODE + [(fog, knobs)] * N_DECODE + [
         (fog, last)]
@@ -154,6 +184,8 @@ def run_steps(cfg, dtype, params, mesh=None, tokens=None):
         used.append(token)
         res = fn(params, cache, token, SEQ + i, *extra)
         logits, cache = res[0], res[1]
+        if blocks is not None:
+            blocks.append(S.map_leaves(lambda d: d.to_local(), cache))
         out.append((whole(logits), S.map_leaves(whole, cache),
                     whole(res[2]) if len(res) > 2 else None))
     return out, used
@@ -177,17 +209,22 @@ class Watch:
     """While on, records in a mesh step: the residual stream after each
     layer, each gate's margins, the embedding's output, every
     ``DTensor.redistribute`` of a parameter (name, placements before and
-    after) and the storage of every ``dist.all_gather`` input."""
+    after), the storage and shape of every ``dist.all_gather`` input, and
+    the names of the cache leaves each layer gathers along ``model``
+    (``serve.decode.LayerShare.whole``)."""
 
     def __init__(self, names: dict):
         from torch.distributed.tensor import DTensor
 
         self.names, self.h, self.margins, self.embeds = names, [], [], []
-        self.moves, self.gathered = [], set()
+        self.moves, self.gathered, self.shapes = [], set(), set()
+        self.cache_gathers = set()
         self.saved = (T._apply_layer_decode, T._layer_seq,
                       fog_exit._gate_margin, T.embed_tokens,
-                      DTensor.redistribute, dist.all_gather)
-        layer, seq, gate, embed, redistribute, gather = self.saved
+                      DTensor.redistribute, dist.all_gather,
+                      D.LayerShare.whole)
+        (layer, seq, gate, embed, redistribute, gather,
+         whole) = self.saved
 
         def on_layer(*a, **kw):
             out = layer(*a, **kw)
@@ -218,17 +255,26 @@ class Watch:
 
         def on_gather(parts, t, *a, **kw):
             self.gathered.add(t.untyped_storage().data_ptr())
+            self.shapes.add(tuple(t.shape))
             return gather(parts, t, *a, **kw)
 
+        def on_whole(share, cache):
+            self.cache_gathers.update(
+                k for k, dims in share.dims.items()
+                if any(d is not None for _, d in leaves(dims)))
+            return whole(share, cache)
+
         (T._apply_layer_decode, T._layer_seq, fog_exit._gate_margin,
-         T.embed_tokens, DTensor.redistribute, dist.all_gather) = (
-            on_layer, on_seq, on_gate, on_embed, on_redistribute, on_gather)
+         T.embed_tokens, DTensor.redistribute, dist.all_gather,
+         D.LayerShare.whole) = (on_layer, on_seq, on_gate, on_embed,
+                                on_redistribute, on_gather, on_whole)
 
     def close(self):
         from torch.distributed.tensor import DTensor
 
         (T._apply_layer_decode, T._layer_seq, fog_exit._gate_margin,
-         T.embed_tokens, DTensor.redistribute, dist.all_gather) = self.saved
+         T.embed_tokens, DTensor.redistribute, dist.all_gather,
+         D.LayerShare.whole) = self.saved
 
 
 def same_on_model_ranks(ts: list, mesh) -> tuple[int, int]:
@@ -280,11 +326,13 @@ def max_err(a, b) -> float:
         float(b.abs().max()), 1e-30)
 
 
-def mesh_case(mesh, cfg, dtype, fsdp, specs, *, bar: str,
+def mesh_case(mesh, cfg, dtype, fsdp, specs, cache_specs, *, bar: str,
               repeat: bool) -> dict:
     """One config and dtype on ``mesh``: the one-process runs, the mesh
-    run watched, and what the tests hold them to."""
+    run watched, and what the tests hold them to.  ``specs`` and
+    ``cache_specs``: JAX's parameter and cache specs on the mesh."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     w = weights(cfg, dtype)
     one, tokens = run_steps(cfg, dtype, w)
     rec = {}
@@ -295,11 +343,26 @@ def mesh_case(mesh, cfg, dtype, fsdp, specs, *, bar: str,
     placed = S.shard_tree(w, mesh, S.param_shardings(cfg, mesh, w, fsdp))
     names = {id(p): k for k, p in placed.named_parameters()}
     watch = Watch(names)
+    blocks = []
     try:
         got, used = run_steps(cfg, dtype, placed, mesh,
-                              tokens=tokens if bar == "bf16" else None)
+                              tokens=tokens if bar == "bf16" else None,
+                              blocks=blocks)
     finally:
         watch.close()
+    # each cache block == the block JAX's spec gives the rank; no Mamba
+    # leaf's block is handed to a gather
+    rec["cache_blocks"], rec["mamba_block_gathers"] = [0, 0], 0
+    for (_, cache, _), local in zip(got, blocks, strict=True):
+        for (path, t), (_, b) in zip(leaves(cache), leaves(local),
+                                     strict=True):
+            key = path[:1] + path[2:] if path[0] == "stack" else path
+            rec["cache_blocks"][0] += 1
+            rec["cache_blocks"][1] += not torch.equal(
+                b, TM.block(t, cache_specs[key], coord, sizes))
+            if path[-1] == "state" or "conv" in path:
+                rec["mamba_block_gathers"] += tuple(b.shape) in watch.shapes
+    rec["cache_gathers"] = sorted(watch.cache_gathers)
     rec["tokens_equal"] = all(torch.equal(a, b)
                               for a, b in zip(used, tokens, strict=True))
     rec["hops"] = [(g[2].tolist(), o[2].tolist()) for g, o in zip(got, one)
@@ -331,7 +394,6 @@ def mesh_case(mesh, cfg, dtype, fsdp, specs, *, bar: str,
     rec["model_moves"] = sorted({k for k, a, b in watch.moves
                                  if a[-1] != b[-1]})
     rec["dp_moves"] = len(watch.moves)
-    rec["whole"] = D.whole_leaves(cfg)
     locals_ = {p.to_local().untyped_storage().data_ptr()
                for p in placed.parameters()}
     rec["gathered_blocks"] = len(locals_ & watch.gathered)
@@ -341,9 +403,7 @@ def mesh_case(mesh, cfg, dtype, fsdp, specs, *, bar: str,
         spec = TM.jax_spec(specs, k)
         item = p.element_size()
         want_rest += block_bytes(p.shape, spec, item, sizes)
-        want_step += (math.prod(p.shape) * item if k.startswith(rec["whole"])
-                      else block_bytes(p.shape, spec, item, sizes,
-                                       ("model",)))
+        want_step += block_bytes(p.shape, spec, item, sizes, ("model",))
     rest = sum(p.to_local().numel() * p.element_size()
                for p in placed.parameters())
     rec["bytes"] = {"rest": (rest, want_rest),
@@ -370,7 +430,8 @@ def _line_rank(rank, world, case, out_dir):
         for name in DTYPES:
             rec[(arch, name)] = mesh_case(
                 mesh, cfg, DTYPES[name], None,
-                case["specs"][(arch, "line", "auto")], bar=name,
+                case["specs"][(arch, "line", "auto")],
+                case["cache"][(arch, "line")], bar=name,
                 repeat=name == "fp32")
     torch.save(rec, f"{out_dir}/rank{rank}.pt")
 
@@ -383,8 +444,9 @@ def _grid_rank(rank, world, case, out_dir):
     rec = {"model": model_rank(mesh), "dp": dp_rank(mesh)}
     for arch, name, fsdp in GRID_CASES:
         rec[(arch, name, fsdp)] = mesh_case(
-            mesh, port_cfg(arch), DTYPES[name], TM.FSDP[fsdp], case["specs"][(arch, "grid", fsdp)], bar=name,
-            repeat=False)
+            mesh, port_cfg(arch), DTYPES[name], TM.FSDP[fsdp],
+            case["specs"][(arch, "grid", fsdp)],
+            case["cache"][(arch, "grid")], bar=name, repeat=False)
     torch.save(rec, f"{out_dir}/rank{rank}.pt")
 
 
@@ -399,12 +461,11 @@ def jax_logits(arch: str) -> list:
     import jax
     import jax.numpy as jnp
 
-    from repro.configs import smoke_config as jsmoke
     from repro.core import FogPolicy as JPolicy
     from repro.models import fog_exit as jfog
     from repro.models import transformer as JT
 
-    jcfg = jsmoke(arch).scaled(**CONFIGS[arch])
+    jcfg = jax_cfg(arch)
     cfg = port_cfg(arch)
     w = weights(cfg)
     jp = jax.tree.map(jnp.asarray, params_to_jax(w, cfg))
@@ -436,11 +497,10 @@ def jax_specs(arch: str, mesh, fsdp) -> dict:
     import jax.numpy as jnp
     from jax.sharding import AbstractMesh, PartitionSpec as P
 
-    from repro.configs import smoke_config as jsmoke
     from repro.launch import sharding as js
     from repro.models import transformer as JT
 
-    jcfg = jsmoke(arch).scaled(**CONFIGS[arch])
+    jcfg = jax_cfg(arch)
     jp = jax.eval_shape(lambda k: JT.init_params(jcfg, k, jnp.float32),
                         jax.random.key(0))
     flat = jax.tree_util.tree_flatten_with_path(
@@ -450,10 +510,37 @@ def jax_specs(arch: str, mesh, fsdp) -> dict:
                   for k in path): tuple(s) for path, s in flat}
 
 
+def jax_cache_specs(arch: str, mesh) -> dict:
+    """JAX's cache specs of the config on ``mesh`` at ``B`` lanes and
+    ``MAX_SEQ`` positions, by the port's cache path (a stack leaf's less
+    its leading None, keyed without the repeat's index)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AbstractMesh, PartitionSpec as P
+
+    from repro.launch import sharding as js
+    from repro.models import transformer as JT
+
+    jcfg = jax_cfg(arch)
+    shape = jax.eval_shape(lambda: JT.cache_init(jcfg, B, MAX_SEQ,
+                                                 jnp.float32))
+    flat = jax.tree_util.tree_flatten_with_path(
+        js.cache_shardings(jcfg, AbstractMesh(*mesh), shape),
+        is_leaf=lambda x: isinstance(x, P))[0]
+    out = {}
+    for path, spec in flat:
+        key = tuple(getattr(k, "key", getattr(k, "idx", k)) for k in path)
+        out[key] = tuple(spec)[1:] if key[0] == "stack" else tuple(spec)
+    return out
+
+
 def case_for(cases) -> dict:
     return {"specs": {(a, where, fsdp): jax_specs(
                 a, LINE if where == "line" else GRID, TM.FSDP[fsdp])
-                for a, where, fsdp in cases}}
+                for a, where, fsdp in cases},
+            "cache": {(a, where): jax_cache_specs(
+                a, LINE if where == "line" else GRID)
+                for a, where, _ in cases}}
 
 
 # seconds a spawn may take, and a rank may wait in a collective: the
@@ -608,19 +695,13 @@ def test_replicated_values_are_identical_on_the_model_ranks(line_ranks,
 
 def test_no_parameter_block_is_gathered_along_model(line_ranks,
                                                     grid_ranks):
-    """Only the MLA and Mamba mixers' leaves are gathered along
-    ``model`` (their redistribution's last placement, ``model``'s,
-    changes); no ``all_gather`` is handed a parameter's block; attention,
-    the FFNs, MoE, the embedding and the unembedding compute on the
-    rank's blocks."""
+    """No parameter is gathered along ``model`` (no redistribution
+    changes ``model``'s placement) and no ``all_gather`` is handed a
+    parameter's block: attention, MLA, Mamba, the FFNs, MoE, the
+    embedding and the unembedding compute on the rank's blocks."""
     for what, rec in all_cases(line_ranks, grid_ranks):
-        assert all(k.startswith(rec["whole"]) for k in rec["model_moves"]), (
-            what, rec["model_moves"])
+        assert rec["model_moves"] == [], (what, rec["model_moves"])
         assert rec["gathered_blocks"] == 0, what
-        if "deepseek" in what or "jamba" in what:
-            assert rec["model_moves"] and rec["whole"], what
-        else:
-            assert rec["model_moves"] == [] and rec["whole"] == (), what
     # FSDP forced on (2, 2): the data axis is gathered on use
     for r in grid_ranks:
         assert r[("grok-1-314b", "fp32", "forced")]["dp_moves"] > 0
@@ -631,15 +712,46 @@ def test_parameter_bytes_are_the_sum_of_the_jax_blocks(line_ranks,
                                                        grid_ranks):
     """At rest each rank holds the sum of its blocks by JAX's
     ``PartitionSpec``; in the step the sum of its blocks along
-    ``model`` (the MLA and Mamba mixers whole): about half of the whole
-    model on a model axis of 2."""
+    ``model``, every leaf a block: about half of the whole model on a
+    model axis of 2 (a little more: the norms, ``w_dkv`` and the leaves
+    whose dimension does not divide stay whole)."""
     for what, rec in all_cases(line_ranks, grid_ranks):
         got, want = rec["bytes"]["step"]
         assert got == want, (what, got, want)
         got, want = rec["bytes"]["rest"]
         assert got == want, (what, got, want)
-        if "tinyllama" in what or "gemma" in what or "grok" in what:
-            assert rec["bytes"]["step"][0] < 0.6 * rec["bytes"]["whole"]
+        assert rec["bytes"]["step"][0] < 0.6 * rec["bytes"]["whole"], what
+
+
+def test_no_mamba_cache_leaf_is_gathered_along_model(line_ranks,
+                                                     grid_ranks):
+    """A Mamba layer's state and conv tails are the rank's own blocks
+    (its heads and channels, or whole where the plan keeps them whole):
+    no layer gathers them, and no ``all_gather`` takes a tensor of a
+    Mamba cache block's shape.  MLA's latent and rope key, sequence-
+    sharded at rest, are still gathered layer by layer, as the K/V of an
+    attention layer whose one KV head puts the sequence on ``model``."""
+    for what, rec in all_cases(line_ranks, grid_ranks):
+        assert "state" not in rec["cache_gathers"], what
+        assert "conv" not in rec["cache_gathers"], what
+        assert rec["mamba_block_gathers"] == 0, what
+        mla = "deepseek" in what or "minicpm3" in what
+        assert ("c_kv" in rec["cache_gathers"]) == mla, (
+            what, rec["cache_gathers"])
+        kv = "gemma" in what or "jamba" in what
+        assert ("k" in rec["cache_gathers"]) == kv, (
+            what, rec["cache_gathers"])
+
+
+def test_cache_blocks_are_the_jax_blocks(line_ranks, grid_ranks):
+    """Each rank's block of every cache leaf after every step is the
+    block JAX's ``cache_shardings`` ``PartitionSpec`` gives its mesh
+    coordinates, in shape and position: the Mamba state on the heads
+    (whole where they do not divide), the conv tails on their channels,
+    K/V on the KV heads or the sequence, MLA's latent on the sequence."""
+    for what, rec in all_cases(line_ranks, grid_ranks):
+        n, bad = rec["cache_blocks"]
+        assert n > 0 and bad == 0, (what, n, bad)
 
 
 def test_mesh_steps_are_bit_equal_run_to_run(line_ranks):
@@ -741,7 +853,50 @@ ROLE_CASES = [("wq", S.Spec("data", "model", None), "out"),
               ("unembed", S.Spec("data", "model"), "out"),
               ("unembed", S.Spec("model", None), "in"),
               ("norm", S.Spec("model"), "out"),
-              ("w_gate", S.Spec(("pod", "model"), None), "in")]
+              ("w_gate", S.Spec(("pod", "model"), None), "in"),
+              # MLA: w_dq on the q LoRA rank, or whole
+              ("w_dq", S.Spec("data", "model"), "out"),
+              ("w_dq", S.Spec(None, None), None),
+              # w_uq / w_uk / w_uv [r, H, e]: the heads, else the LoRA rank
+              ("w_uq", S.Spec("data", "model", None), "out"),
+              ("w_uq", S.Spec("model", None, None), "in"),
+              ("w_uk", S.Spec(None, "model", None), "out"),
+              ("w_uk", S.Spec("model", None, None), "in"),
+              ("w_uv", S.Spec("data", "model", None), "out"),
+              ("w_uv", S.Spec("model", None, None), "in"),
+              ("w_uq", S.Spec(None, None, None), None),
+              # w_o [H, dv, d]: the heads, else d_model (gathered after)
+              ("w_o", S.Spec("model", None, "data"), "in"),
+              ("w_o", S.Spec(None, None, "model"), "out"),
+              ("w_o", S.Spec(None, None, None), None),
+              # whole in the plan
+              ("w_dkv", S.Spec("data", None), None),
+              ("q_norm", S.Spec(None), None),
+              ("kv_norm", S.Spec(None), None),
+              # Mamba: the projections [d, C] on their output columns
+              ("in_z", S.Spec("data", "model"), "out"),
+              ("in_x", S.Spec(None, "model"), "out"),
+              ("in_B", S.Spec(None, "model"), "out"),
+              ("in_C", S.Spec("data", "model"), "out"),
+              ("in_dt", S.Spec(None, "model"), "out"),
+              ("in_dt", S.Spec("data", None), None),
+              # the convs [K, C]: dim 1 is a channel, not contracted
+              ("conv_x", S.Spec(None, "model"), "out"),
+              ("conv_B", S.Spec(None, "model"), "out"),
+              ("conv_C", S.Spec(None, "model"), "out"),
+              ("conv_B", S.Spec(None, None), None),
+              # the vectors on heads or features, or whole
+              ("A_log", S.Spec("model"), "out"),
+              ("D", S.Spec("model"), "out"),
+              ("dt_bias", S.Spec("model"), "out"),
+              ("conv_b_x", S.Spec("model"), "out"),
+              ("A_log", S.Spec(None), None),
+              ("conv_b_B", S.Spec(None), None),
+              ("conv_b_C", S.Spec(None), None),
+              # out_proj [d_inner, d]: row-parallel
+              ("out_proj", S.Spec("model", "data"), "in"),
+              ("out_proj", S.Spec("model", None), "in"),
+              ("out_proj", S.Spec(None, "data"), None)]
 
 
 @pytest.mark.parametrize("name,spec,role", ROLE_CASES,
@@ -752,18 +907,32 @@ def test_model_role_of_a_leaf(name, spec, role):
 
 
 @pytest.mark.parametrize("arch", sorted(CONFIGS))
-def test_whole_leaves_are_the_mla_and_mamba_mixers(arch):
-    """The parameters a mesh step gathers whole (``whole_leaves``) are
-    exactly those of the model's ``mla.MLA`` and ``mamba2.Mamba``
-    modules."""
+def test_every_mixer_leaf_has_the_role_of_its_jax_spec(arch):
+    """On ``(1, 2)`` the port's spec of every MLA and Mamba leaf ==
+    JAX's, and its role is the one its dimension on ``model`` names:
+    ``"out"`` on an output column, a head, a channel or a vector's
+    feature; ``"in"`` on a contracted dimension (``w_uq``/``w_uk``/
+    ``w_uv``'s LoRA rank, ``w_o``'s heads, ``out_proj``'s ``d_inner``);
+    ``w_o`` on ``d_model`` ``"out"``; None where the plan keeps it
+    whole."""
+    from repro_torch.launch.mesh import MeshShape
     from repro_torch.models import mamba2, mla
 
     cfg = port_cfg(arch)
     lm = T.init_params(cfg, MetaDraws(), device="meta")
-    whole = D.whole_leaves(cfg)
-    mixers = {f"{at}.{k}" for at, mod in lm.named_modules()
+    specs = S.param_shardings(cfg, MeshShape(*LINE[::-1]), lm)
+    want = jax_specs(arch, LINE, None)
+    contracted = {"w_o": (0,), "out_proj": (0,), "w_uq": (0,),
+                  "w_uk": (0,), "w_uv": (0,)}
+    mixers = [(f"{at}.{k}", k) for at, mod in lm.named_modules()
               if isinstance(mod, (mla.MLA, mamba2.Mamba))
-              for k, _ in mod.named_parameters()}
-    assert {k for k, _ in lm.named_parameters()
-            if k.startswith(whole)} == mixers
-    assert bool(mixers) == (arch in TM.NARROW)
+              for k, _ in mod.named_parameters()]
+    assert bool(mixers) == (arch not in ("tinyllama-1.1b", "gemma-2b",
+                                         "grok-1-314b"))
+    for full, name in mixers:
+        spec = specs[full]
+        assert tuple(spec) == TM.jax_spec(want, full), full
+        d = S.model_dim(spec)
+        role = (None if d is None else
+                "in" if d in contracted.get(name, ()) else "out")
+        assert S.model_role(name, spec) == role, (full, spec)

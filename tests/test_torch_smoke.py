@@ -409,30 +409,49 @@ def test_phase_21_mesh_serve_check_on_a_one_rank_gloo_group(monkeypatch):
     assert (hops[:, 3] == chip_smoke.LM_BUDGET).all()
 
 
-def test_phase_21_tensor_parallel_part_on_two_gloo_ranks():
+def test_phase_21_tensor_parallel_part_on_two_gloo_ranks(monkeypatch):
     """Phase 21's tensor-parallel part at smoke width on the CPU: the
-    top-2 partials and merge at its block cases, then two spawned gloo
-    ranks on a (1, 2) ("data", "model") mesh (the ranks count launches
-    with stand-ins for the card's wrappers): the prefill, 4 decode and 4
-    FoG steps with each step's counts, the step parameters the sum of the
-    rank's blocks, every output within the bf16 bar of the one-device
-    steps, hops equal, the replicated values identical on both ranks."""
+    top-2 partials and merge at its block cases, a rank's ``ssd_chunk``
+    and ``flash_attention`` (at MLA's 96 / 64) on half the heads held to
+    their plain versions, then two spawned gloo ranks on a (1, 2)
+    ("data", "model") mesh (the ranks count launches and routes with
+    stand-ins for the card's wrappers): tinyllama, then mamba2 and
+    minicpm3 (``chip_smoke.TP_MORE``) in the same processes, each the
+    prefill, 4 decode and 4 FoG steps with each step's counts, the step
+    parameters the sum of the rank's blocks, every output within the
+    bf16 bar of the one-device steps, hops equal, the replicated values
+    identical on both ranks."""
     from repro_torch.configs import smoke_config
 
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     cpu = torch.device("cpu")
     blocks = chip_smoke.top2_block_checks(cpu)
     assert list(blocks["cases"]) == [
         f"[{b}, {c}] in {r}" for b, c, r in chip_smoke.TOP2_BLOCK_CASES]
+    kern = chip_smoke.tp_kernel_checks(cpu, ssd=(1, 2, 64, 8, 64, 128),
+                                       ragged_h=3, flash=(1, 64, 8, 96, 64))
+    assert {k: (v["shape"], v["route"]) for k, v in kern.items()} == {
+        "ssd_half": ([1, 2, 64, 4, 64], "ssd_chunk_sm90"),
+        "ssd_ragged": ([1, 2, 64, 3, 64], "ssd_chunk_sm90"),
+        "flash_half": ([1, 64, 4, 96], "flash_attention_sm90")}
     cfg = smoke_config(chip_smoke.SHARD_ARCH).scaled(fog_groups=4)
     tokens = torch.randint(0, cfg.vocab_size, (4, 32), dtype=torch.int32,
                            generator=torch.Generator().manual_seed(0))
+    more = tuple((c, torch.randint(0, c.vocab_size, (4, 32),
+                                   dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(1)),
+                  list(chip_smoke.TP_THRESH), list(chip_smoke.TP_BUDGET))
+                 for c in (smoke_config(a) for a in chip_smoke.TP_MORE))
     out = chip_smoke.tp_serve_check(cpu, cfg, tokens, [0.0, 2.0, 2.0, 2.0],
-                                    [9, 9, 9, chip_smoke.LM_BUDGET])
+                                    [9, 9, 9, chip_smoke.LM_BUDGET],
+                                    more=more)
     n = cfg.n_layers
     for r in out["ranks"]:
+        # the stand-ins count the route the rules name: bf16 at (32, 32)
+        # is the SIMT kernel's
         assert r["counts"][0] == {
             "launches": {"flash_attention": n},
-            "routes": {"flash_attention_sm90": n}}
+            "routes": {"flash_attention": n}}
         assert r["counts"][1] == {"launches": {}, "routes": {}}
         assert r["counts"][-1] == {
             "launches": {"top2_confidence": 6},
@@ -446,3 +465,23 @@ def test_phase_21_tensor_parallel_part_on_two_gloo_ranks():
     assert out["hops"] == out["one_hops"]
     assert [h[3] for h in out["hops"]] == [chip_smoke.LM_BUDGET] * 4
     assert out["identical"] > 0
+    # mamba2: one ssd_chunk a layer (SIMT at P = N = 16); minicpm3: one
+    # flash_attention a layer (SIMT at 48 / 32); 2 groves, one gate
+    assert [m["arch"] for m in out["more"]] == [
+        smoke_config(a).name for a in chip_smoke.TP_MORE]
+    for m, arch, kernel in zip(out["more"], chip_smoke.TP_MORE,
+                               ("ssd_chunk", "flash_attention")):
+        c = smoke_config(arch)
+        for r in m["ranks"]:
+            assert r["counts"][0] == {"launches": {kernel: c.n_layers},
+                                      "routes": {kernel: c.n_layers}}
+            assert r["counts"][1] == {"launches": {}, "routes": {}}
+            assert r["counts"][-1] == {
+                "launches": {"top2_confidence": 2},
+                "routes": {"top2_partials": 1, "top2_merge": 1}}
+            assert r["param_bytes"] < 0.6 * r["whole_bytes"]
+        assert m["bar"] <= 1.0 and m["hop_rows"] == []
+        assert all(gap <= bar for *_, gap, bar in m["flips"]), m["flips"]
+        assert m["hops"] == m["one_hops"] == [[1, 2, 2, 2]] * 4
+        assert m["identical"] > 0
+        assert len(m["one_ms"]) == 1 + 2 * chip_smoke.MESH_DECODE
